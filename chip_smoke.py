@@ -1,0 +1,330 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (sassd_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+from the root of a checkout, on a machine with a CUDA card, nvcc and g++.
+Phases, each of which fails the run (nonzero exit, no result line):
+
+1. environment: torch/CUDA versions, the card, its power limit, nvcc;
+2. build: the C++ host library (g++) and the CUDA kernels (nvcc), timed;
+3. kernels: each hand-written kernel against its plain PyTorch version on
+   the card, at the shapes of the car-config path, with stated tolerances,
+   and both timed with CUDA events;
+4. slice: car-config inference (full widths, random weights from a seed)
+   over 4 synthetic scans at batch 1 and once at batch 2, with the launch
+   counters reset just before and read just after; detections must be
+   finite, the batch-2 run must agree with the batch-1 runs, and one scan
+   run on the CPU (plain versions) must agree with the card.
+
+The second-to-last lines are a JSON object of the kernels and the card's
+name and power limit; the last line is the JSON result object.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+SEED = 0
+N_SCANS = 4
+
+# tolerances (see the kernel notes in sassd_tpu_torch/csrc)
+K1_ATOL = 1e-4     # m^2 intersection area; float32 with -fmad=false
+K3_ATOL = 1e-5     # mean of 28 bilinear samples; only the sum order differs
+DET_SCORE_ATOL = 1e-3   # card vs CPU detections: cuDNN vs CPU conv sums
+DET_BOX_ATOL = 1e-2
+
+
+def fail(msg: str):
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def run(cmd):
+    try:
+        return subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=60).stdout.strip()
+    except (OSError, subprocess.TimeoutExpired) as e:
+        return f"<{cmd[0]} unavailable: {e}>"
+
+
+def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean milliseconds per call of fn() on the card (CUDA events)."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def nms_boxes(rng, n: int):
+    """NMS-like candidates: clusters of jittered car boxes over the KITTI
+    range, so that many pairs overlap."""
+    import numpy as np
+    n_obj = n // 20
+    centers = np.stack([rng.uniform(0, 70.4, n_obj),
+                        rng.uniform(-40, 40, n_obj)], 1)
+    which = rng.integers(0, n_obj, n)
+    b = np.zeros((n, 5), np.float32)
+    b[:, :2] = centers[which] + rng.normal(0, 0.6, (n, 2))
+    b[:, 2] = rng.uniform(1.4, 1.9, n)
+    b[:, 3] = rng.uniform(3.2, 4.6, n)
+    b[:, 4] = rng.uniform(-np.pi, np.pi, n)
+    return b
+
+
+DEGENERATE = [
+    [0.0, 0.0, 2.0, 4.0, 0.0], [0.0, 0.0, 2.0, 4.0, 0.0],
+    [2.0, 0.0, 2.0, 4.0, 0.0], [0.0, 0.0, 1.0, 2.0, 0.0],
+    [10.0, 10.0, 2.0, 4.0, 0.0], [0.5, 0.0, 2.0, 4.0, 0.0],
+    [0.0, 0.0, 2.0, 4.0, 1.5707963], [0.0, 0.0, 2.0, 4.0, 3.1415927],
+]
+
+
+def check_kernels(torch, np, device):
+    """Phase 3: each kernel against its plain version at path shapes."""
+    from sassd_tpu_torch.core import riou
+    from sassd_tpu_torch.ops import riou_kernel, warp
+
+    rng = np.random.default_rng(SEED)
+    rows = []
+    # K1: 2000 x 2000 candidates + the degenerate set, raw areas
+    boxes = np.concatenate([nms_boxes(rng, 2000),
+                            np.asarray(DEGENERATE, np.float32)])
+    bt = torch.from_numpy(boxes).to(device)
+    got = riou_kernel.rotate_overlap(bt, bt, 2)
+    ref = riou_kernel.rotate_overlap_plain(bt, bt, 2)
+    err1 = float((got - ref).abs().max())
+    deg = got[-8:, -8:].cpu().numpy()
+    expect = {(0, 1): 8.0, (0, 2): 0.0, (0, 3): 2.0, (0, 4): 0.0,
+              (0, 6): 4.0, (0, 7): 8.0}
+    bad = {k: float(deg[k]) for k, v in expect.items()
+           if abs(deg[k] - v) > 1e-2}
+    print(f"K1 rotate_overlap {tuple(got.shape)}: max|kernel-plain| = "
+          f"{err1:.3g} m^2 (tol {K1_ATOL}); degenerate pairs "
+          f"{'ok' if not bad else bad}")
+    if not err1 <= K1_ATOL or bad:
+        fail("K1 disagrees with its plain version")
+    ms = cuda_ms(lambda: riou_kernel.rotate_overlap(bt, bt, 2))
+    plain_ms = cuda_ms(lambda: riou_kernel.rotate_overlap_plain(bt, bt, 2),
+                       iters=5)
+    rows.append(dict(name="K1 rotate_overlap", route="cuda",
+                     source="sassd_tpu_torch/csrc/riou_overlap.cu",
+                     replaces="sassd_tpu/ops/pallas/riou_kernel.py:137",
+                     max_abs_err=err1, ms=ms, plain_ms=plain_ms))
+
+    # K2: keep flags on the same boxes with random scores
+    scores = torch.from_numpy(rng.uniform(0, 1, 2000).astype(np.float32))
+    order = torch.argsort(-scores, stable=True).to(device)
+    srt = bt[:2000][order].contiguous()
+    iou = riou.rotate_iou_bev(srt, srt)
+    keep0 = torch.from_numpy(rng.uniform(size=2000) < 0.95).to(device)
+    err2 = 0
+    for thr in (0.1, 0.5):
+        k_got = riou.nms_keep(iou, keep0, thr)
+        k_ref = riou.nms_keep_plain(iou, keep0, thr)
+        n_diff = int((k_got != k_ref).sum())
+        err2 = max(err2, n_diff)
+        print(f"K2 nms_keep N=2000 thr={thr}: kept {int(k_got.sum())}, "
+              f"flags differing from plain greedy: {n_diff}")
+    if err2:
+        fail("K2 keep flags differ from the plain greedy")
+    ms = cuda_ms(lambda: riou.nms_keep(iou, keep0, 0.1))
+    plain_ms = cuda_ms(lambda: riou.nms_keep_plain(iou, keep0, 0.1), iters=5)
+    rows.append(dict(name="K2 nms_keep", route="cuda",
+                     source="sassd_tpu_torch/csrc/rotate_nms.cu",
+                     replaces="sassd_tpu/core/riou.py:188",
+                     max_abs_err=float(err2), ms=ms, plain_ms=plain_ms))
+
+    # K3: [2, 28, 200, 176] part map, 2048 boxes per sample, ~10% off-map
+    b, k, h, w, n = 2, 28, 200, 176, 2048
+    part_map = torch.from_numpy(
+        rng.normal(size=(b, k, h, w)).astype(np.float32)).to(device)
+    bx = np.zeros((b, n, 7), np.float32)
+    bx[..., 0] = rng.uniform(0, 70.4, (b, n))
+    bx[..., 1] = rng.uniform(-40, 40, (b, n))
+    off = rng.uniform(size=(b, n)) < 0.1
+    bx[..., 0][off] = rng.choice([-1.5, 71.5], off.sum())
+    bx[..., 2] = -1.0
+    bx[..., 3:6] = [1.6, 3.9, 1.56]
+    bx[..., 6] = rng.uniform(-np.pi, np.pi, (b, n))
+    boxes3 = torch.from_numpy(bx).to(device)
+    valid = torch.from_numpy(rng.uniform(size=(b, n)) < 0.9).to(device)
+    args = ((4, 7), (0.0, 40.0), 1.0 / 0.4)
+    got = warp.pswarp_score(part_map, boxes3, valid, *args)
+    ref = warp.pswarp_score_plain(part_map, boxes3, valid, *args)
+    err3 = float((got - ref).abs().max())
+    print(f"K3 pswarp_score {tuple(part_map.shape)} x {n} boxes: "
+          f"max|kernel-plain| = {err3:.3g} (tol {K3_ATOL})")
+    if not err3 <= K3_ATOL:
+        fail("K3 disagrees with its plain version")
+    ms = cuda_ms(lambda: warp.pswarp_score(part_map, boxes3, valid, *args))
+    plain_ms = cuda_ms(
+        lambda: warp.pswarp_score_plain(part_map, boxes3, valid, *args),
+        iters=5)
+    rows.append(dict(name="K3 pswarp_score", route="cuda",
+                     source="sassd_tpu_torch/csrc/pswarp_score.cu",
+                     replaces="sassd_tpu/ops/warp.py:76",
+                     max_abs_err=err3, ms=ms, plain_ms=plain_ms))
+    for r in rows:
+        print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms")
+    return rows
+
+
+def match_detections(a, b, what: str):
+    """Match two detection sets (dicts of numpy, one sample) within the
+    tolerances; returns the number of detections."""
+    import numpy as np
+    va, vb = a["valid"], b["valid"]
+    if va.sum() != vb.sum():
+        fail(f"{what}: {va.sum()} vs {vb.sum()} detections")
+    ba, sa = a["boxes"][va], a["scores"][va]
+    bb, sb = b["boxes"][vb], b["scores"][vb]
+    used = np.zeros(len(bb), bool)
+    for i in range(len(ba)):
+        d = np.abs(bb - ba[i]).max(1)
+        ok = (d <= DET_BOX_ATOL) & (np.abs(sb - sa[i]) <= DET_SCORE_ATOL)
+        ok &= ~used
+        if not ok.any():
+            fail(f"{what}: detection {i} {ba[i]} score {sa[i]:.5f} "
+                 f"has no match")
+        used[np.argmax(ok)] = True
+    return int(va.sum())
+
+
+def run_slice(torch, np, device):
+    """Phase 4: car-config inference on the card, checked."""
+    from sassd_tpu_torch.config import car_config
+    from sassd_tpu_torch.data import kitti, synthetic
+    from sassd_tpu_torch.inference import make_test_step
+    from sassd_tpu_torch.ops import cuda
+    from sassd_tpu_torch.weights import seeded_detector
+
+    cfg = car_config()
+    anchors, anchors_bv = kitti.build_anchors(cfg)
+    model = seeded_detector(cfg, SEED)                      # CPU copy
+    model_dev = seeded_detector(cfg, SEED, device)
+
+    rng = np.random.default_rng(SEED)
+    t0 = time.perf_counter()
+    scans = [synthetic.make_scene(rng, n_cars=(6, 12), n_ground=18000)[0]
+             for _ in range(N_SCANS)]
+    samples = [kitti.prepare_scan(cfg, p, anchors_bv) for p in scans]
+    host_ms = (time.perf_counter() - t0) * 1e3 / N_SCANS
+    n_vox = [int((s["coords"][:, 0] >= 0).sum()) for s in samples]
+    print(f"host pipeline (scene + voxelize + mask + plans): "
+          f"{host_ms:.1f} ms/scan; active voxels {n_vox}")
+
+    step = make_test_step(cfg, anchors, device)
+    batch1 = [kitti.collate([s]) for s in samples]
+    batch2 = kitti.collate(samples[:2])
+    for b in batch1[:1] + [batch2]:                 # warm-up (cuDNN, build)
+        step(model_dev, b)
+    torch.cuda.synchronize()
+
+    for kern in cuda.KERNELS.values():
+        kern.launches = 0
+    dets1, ms1 = [], []
+    for b in batch1:
+        t = time.perf_counter()
+        d = step(model_dev, b)
+        torch.cuda.synchronize()
+        ms1.append((time.perf_counter() - t) * 1e3)
+        dets1.append({k: v.cpu().numpy() for k, v in d.items()})
+    t = time.perf_counter()
+    d2 = step(model_dev, batch2)
+    torch.cuda.synchronize()
+    ms2 = (time.perf_counter() - t) * 1e3
+    launches = {k: v.launches for k, v in cuda.KERNELS.items()}
+    dets2 = {k: v.cpu().numpy() for k, v in d2.items()}
+
+    print(f"launches during the slice: {launches}")
+    if not all(n > 0 for n in launches.values()):
+        fail(f"a kernel of the path was not launched: {launches}")
+    for i, d in enumerate(dets1 + [dets2]):
+        if not (np.isfinite(d["boxes"]).all()
+                and np.isfinite(d["scores"]).all()):
+            fail(f"non-finite detections in run {i}")
+    counts = [match_detections(dets1[i], {k: v[i] for k, v in dets2.items()},
+                               f"scan {i}: batch 2 vs batch 1")
+              for i in range(2)]
+    print(f"batch 2 agrees with batch 1 ({counts} detections)")
+    print(f"guided candidates truncated by the cap: "
+          f"{[int(d['guided_truncated'][0]) for d in dets1]}")
+
+    t = time.perf_counter()
+    cpu = make_test_step(cfg, anchors, "cpu")(model, batch1[0])
+    cpu_s = time.perf_counter() - t
+    cpu = {k: v.numpy() for k, v in cpu.items()}
+    n = match_detections(dets1[0], cpu, "scan 0: card vs CPU")
+    print(f"card vs CPU (plain versions, {cpu_s:.1f} s): {n} detections "
+          f"match (boxes {DET_BOX_ATOL}, scores {DET_SCORE_ATOL})")
+    return launches, ms1, ms2
+
+
+def main() -> int:
+    if not os.path.isdir(os.path.join(HERE, "sassd_tpu_torch")):
+        fail("sassd_tpu_torch is not next to chip_smoke.py; run it from a "
+             "checkout of the repository")
+    sys.path.insert(0, HERE)
+    import numpy as np
+    import torch
+
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"python {sys.version.split()[0]}")
+    if not torch.cuda.is_available():
+        fail("no CUDA device: this smoke run needs a GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    name = torch.cuda.get_device_name(0)
+    smi = run(["nvidia-smi", "--query-gpu=name,power.limit",
+               "--format=csv,noheader"]).splitlines()
+    card = smi[0] if smi else "<nvidia-smi printed nothing>"
+    print(f"device: {name} ({torch.cuda.device_count()} visible); "
+          f"nvidia-smi: {card}")
+    from sassd_tpu_torch.ops import build, cuda, native
+    print(run([cuda.nvcc(), "--version"]).splitlines()[-1:])
+
+    t = time.perf_counter()
+    native.load()
+    host_s = time.perf_counter() - t
+    t = time.perf_counter()
+    cuda.load()
+    kern_s = time.perf_counter() - t
+    print(f"build: host library {host_s:.1f} s, CUDA kernels {kern_s:.1f} s")
+    for line in build.BUILD_LOG.get("sassd_kernels", "").splitlines():
+        if "registers" in line or "spill" in line:
+            print("  ptxas:", line.strip())
+
+    rows = check_kernels(torch, np, device)
+    launches, ms1, ms2 = run_slice(torch, np, device)
+    print(f"car config on {name} [{card}]: batch 1 "
+          f"{', '.join(f'{m:.2f}' for m in ms1)} ms/scan; batch 2 "
+          f"{ms2:.2f} ms ({ms2 / 2:.2f} ms/scan)")
+    for r in rows:
+        sym = {"K1": "sassd_riou_overlap", "K2": "sassd_nms_keep",
+               "K3": "sassd_pswarp_score"}[r["name"][:2]]
+        r["launches"] = launches[sym]
+    print(json.dumps({"kernels": rows}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,41 @@
+"""Dense BEV trunk: 7 x [3x3 conv + BN + ReLU], then 1x1 conv + BN + ReLU.
+
+Returns the final map (SSD head input) and the pre-1x1 ``conv6`` map
+(PSWarp input). Public layout NHWC; the convs run NCHW on cuDNN.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+from torch import nn
+
+from . import layers as L
+
+N_CONV = 7
+
+
+class BEVNet(nn.Module):
+
+    def __init__(self, gen: torch.Generator, in_features: int,
+                 num_filters: int = 256):
+        super().__init__()
+        cin = in_features
+        for i in range(N_CONV):
+            setattr(self, f"conv{i}", L.Conv2d(gen, 3, cin, num_filters))
+            setattr(self, f"bn{i}", L.BatchNorm(num_filters))
+            cin = num_filters
+        self.conv7 = L.Conv2d(gen, 1, cin, num_filters)
+        self.bn7 = L.BatchNorm(num_filters)
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """[B, H, W, Cin] -> (final [B,H,W,F], conv6 [B,H,W,F]).
+
+        The outputs are NHWC views of NCHW tensors."""
+        x = x.permute(0, 3, 1, 2)
+        for i in range(N_CONV):
+            x = getattr(self, f"conv{i}")(x)
+            x = L.relu(getattr(self, f"bn{i}")(x, dim=1))
+        conv6 = x
+        x = L.relu(self.bn7(self.conv7(x), dim=1))
+        return x.permute(0, 2, 3, 1), conv6.permute(0, 2, 3, 1)

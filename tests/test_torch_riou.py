@@ -1,0 +1,144 @@
+"""Port parity: K1 (rotated overlap) and K2 (rotated NMS) plain versions
+against the JAX package, plus the wrapper's CPU routing.
+
+K1's plain version is held against the JAX device kernel
+``rotate_overlap_green`` itself (on the CPU the JAX package's
+``rotate_overlap_bev`` takes its Sutherland-Hodgman oracle instead), with
+the tolerances of tests/test_pallas_riou.py.
+"""
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+torch = pytest.importorskip("torch")
+import jax.numpy as jnp  # noqa: E402
+
+from sassd_tpu.core import riou as jriou  # noqa: E402
+from sassd_tpu.ops.pallas.riou_kernel import rotate_overlap_green  # noqa: E402
+from sassd_tpu_torch.core import riou  # noqa: E402
+from sassd_tpu_torch.ops import cuda, riou_kernel  # noqa: E402
+
+
+def random_bev(rng, n):
+    b = np.zeros((n, 5), np.float32)
+    b[:, :2] = rng.uniform(-8, 8, (n, 2))
+    b[:, 2:4] = rng.uniform(0.5, 5.0, (n, 2))
+    b[:, 4] = rng.uniform(-np.pi, np.pi, n)
+    return b
+
+
+def both(a, b, criterion):
+    got = riou_kernel.rotate_overlap(torch.from_numpy(a), torch.from_numpy(b),
+                                     criterion).numpy()
+    ref = np.asarray(rotate_overlap_green(jnp.asarray(a), jnp.asarray(b),
+                                          criterion))
+    return got, ref
+
+
+def test_overlap_random_matches_green():
+    rng = np.random.default_rng(0)
+    got, ref = both(random_bev(rng, 37), random_bev(rng, 131), 2)
+    np.testing.assert_allclose(got, ref, atol=1e-4)
+    assert np.count_nonzero(ref) > 50          # the set has real overlaps
+
+
+@pytest.mark.parametrize("criterion", [-1, 0, 1])
+def test_overlap_criteria_match_green(criterion):
+    rng = np.random.default_rng(1)
+    got, ref = both(random_bev(rng, 16), random_bev(rng, 16), criterion)
+    np.testing.assert_allclose(got, ref, atol=1e-4)
+
+
+def test_overlap_zero_padding():
+    rng = np.random.default_rng(2)
+    a = np.concatenate([random_bev(rng, 4), np.zeros((4, 5), np.float32)])
+    got, ref = both(a, random_bev(rng, 8), 2)
+    assert np.all(got[4:] == 0.0)
+    np.testing.assert_allclose(got, ref, atol=1e-4)
+
+
+def test_overlap_degenerate_pairs():
+    boxes = np.array([
+        [0.0, 0.0, 2.0, 4.0, 0.0],        # base
+        [0.0, 0.0, 2.0, 4.0, 0.0],        # identical
+        [2.0, 0.0, 2.0, 4.0, 0.0],        # touching (shares edge x=1)
+        [0.0, 0.0, 1.0, 2.0, 0.0],        # contained
+        [10.0, 10.0, 2.0, 4.0, 0.0],      # disjoint
+        [0.5, 0.0, 2.0, 4.0, 0.0],        # overlap, collinear edges
+        [0.0, 0.0, 2.0, 4.0, np.pi / 2],  # rotated 90 deg
+        [0.0, 0.0, 2.0, 4.0, np.pi],      # rotated 180 = identical shape
+    ], np.float32)
+    got, ref = both(boxes, boxes, 2)
+    np.testing.assert_allclose(got, ref, atol=5e-3)
+    assert abs(got[0, 1] - 8.0) < 1e-2
+    assert abs(got[0, 2]) < 1e-2
+    assert abs(got[0, 3] - 2.0) < 1e-2
+    assert got[0, 4] == 0.0
+    assert abs(got[0, 7] - 8.0) < 1e-2
+    assert abs(got[0, 6] - 4.0) < 1e-2
+
+
+def clustered(rng, n, n_obj):
+    centers = rng.uniform(-30, 30, (n_obj, 2))
+    b = np.zeros((n, 5), np.float32)
+    b[:, :2] = centers[rng.integers(0, n_obj, n)] + rng.normal(0, 0.7, (n, 2))
+    b[:, 2] = rng.uniform(1.4, 1.9, n)
+    b[:, 3] = rng.uniform(3.2, 4.6, n)
+    b[:, 4] = rng.uniform(-np.pi, np.pi, n)
+    return b
+
+
+@pytest.mark.parametrize("n,thr,max_det", [
+    (200, 0.1, None),        # JAX unblocked path
+    (200, 0.5, None),
+    (600, 0.1, 40),          # JAX blocked path (n > block_size, max_det)
+    (600, 0.3, 80),
+])
+def test_rotate_nms_matches_jax(n, thr, max_det):
+    rng = np.random.default_rng(n + int(thr * 10))
+    boxes = clustered(rng, n, n // 10)
+    scores = rng.uniform(0, 1, n).astype(np.float32)
+    valid = rng.uniform(size=n) < 0.9
+    order, keep = riou.rotate_nms(torch.from_numpy(boxes),
+                                  torch.from_numpy(scores), thr,
+                                  valid=torch.from_numpy(valid))
+    jorder, jkeep = jriou.rotate_nms(jnp.asarray(boxes), jnp.asarray(scores),
+                                     thr, valid=jnp.asarray(valid),
+                                     max_det=max_det)
+    np.testing.assert_array_equal(order.numpy(), np.asarray(jorder))
+    kept = order.numpy()[keep.numpy()]
+    jkept = np.asarray(jorder)[np.asarray(jkeep)]
+    m = len(jkept) if max_det is None else max_det
+    assert len(kept) >= min(m, len(jkept)) and len(kept) > 10
+    np.testing.assert_array_equal(kept[:m], jkept[:m])
+    assert not keep.numpy()[~valid[order.numpy()]].any()
+
+
+def test_nms_keep_plain_is_exact_greedy():
+    rng = np.random.default_rng(5)
+    n = 300
+    iou = rng.uniform(0, 0.3, (n, n)).astype(np.float32)
+    keep0 = rng.uniform(size=n) < 0.8
+    got = riou.nms_keep(torch.from_numpy(iou), torch.from_numpy(keep0),
+                        0.2).numpy()
+    ref = np.zeros(n, bool)
+    for i in range(n):                       # the textbook serial loop
+        ref[i] = keep0[i] and not any(ref[j] and iou[i, j] > 0.2
+                                      for j in range(i))
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    """On CPU tensors the wrappers run the plain versions: no kernel build,
+    no launch counted, and the module imports without nvcc or triton."""
+    rng = np.random.default_rng(6)
+    a = torch.from_numpy(random_bev(rng, 12))
+    before = {k: v.launches for k, v in cuda.KERNELS.items()}
+    out = riou_kernel.rotate_overlap(a, a, -1)
+    torch.testing.assert_close(out, riou_kernel.rotate_overlap_plain(a, a, -1),
+                               rtol=0, atol=0)
+    keep0 = torch.ones(12, dtype=torch.bool)
+    torch.testing.assert_close(riou.nms_keep(out, keep0, 0.1),
+                               riou.nms_keep_plain(out, keep0, 0.1))
+    assert {k: v.launches for k, v in cuda.KERNELS.items()} == before
+    assert cuda._lib is None
