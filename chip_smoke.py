@@ -10,12 +10,20 @@ Phases, each of which fails the run (nonzero exit, no result line):
 2. build: the C++ host library (g++) and the CUDA kernels (nvcc), timed;
 3. kernels: each hand-written kernel against its plain PyTorch version on
    the card, at the shapes of the car-config path, with stated tolerances,
-   and both timed with CUDA events;
-4. slice: car-config inference (full widths, random weights from a seed)
-   over 4 synthetic scans at batch 1 and once at batch 2, with the launch
-   counters reset just before and read just after; detections must be
-   finite, the batch-2 run must agree with the batch-1 runs, and one scan
-   run on the CPU (plain versions) must agree with the card.
+   and both timed with CUDA events. K4 (sparse conv) and K5 (dense-tail
+   scatter) run on the host plans of synthetic car scans; K6 (index maps +
+   window plans) and K7 (downsample) build the device rulebook of those
+   scans, which must equal both the plain versions and the C++ host
+   rulebook bit for bit;
+4. host plans: car-config inference (full widths, random weights from a
+   seed) over 4 synthetic scans at batch 1 and once at batch 2, with the
+   launch counters reset just before and read just after; K1-K5 must have
+   launched, detections must be finite, the batch-2 run must agree with
+   the batch-1 runs, and one scan run on the CPU (plain versions) must
+   agree with the card;
+5. device plans (model.host_plans=False): the same scans and checks, the
+   rulebook built on the card; K1-K7 must have launched, and every scan's
+   detections must match the host-plans phase's.
 
 The second-to-last lines are a JSON object of the kernels and the card's
 name and power limit; the last line is the JSON result object.
@@ -35,6 +43,9 @@ N_SCANS = 4
 # tolerances (see the kernel notes in sassd_tpu_torch/csrc)
 K1_ATOL = 1e-4     # m^2 intersection area; float32 with -fmad=false
 K3_ATOL = 1e-5     # mean of 28 bilinear samples; only the sum order differs
+K4_ATOL = 1e-4     # O(1) outputs, float32 sums of up to 27 * 64 products
+K4_RTOL = 1e-4     # in another order than cuBLAS's GEMM
+# K5, K6 and K7 are held bitwise: a scatter of unique keys, and integers
 DET_SCORE_ATOL = 1e-3   # card vs CPU detections: cuDNN vs CPU conv sums
 DET_BOX_ATOL = 1e-2
 
@@ -177,9 +188,145 @@ def check_kernels(torch, np, device):
                      source="sassd_tpu_torch/csrc/pswarp_score.cu",
                      replaces="sassd_tpu/ops/warp.py:76",
                      max_abs_err=err3, ms=ms, plain_ms=plain_ms))
-    for r in rows:
-        print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms")
+    return rows
+
+
+def check_sparse_kernels(torch, np, device, cfg, samples):
+    """Phase 3, K4-K7, on the host plans of the car-config scans."""
+    from sassd_tpu_torch.ops import sparse as sp
+
+    rng = np.random.default_rng(SEED + 1)
+    s0 = {k: torch.from_numpy(v[None]).to(device) for k, v in samples[0].items()}
+    caps = (cfg.voxel.max_voxels,) + tuple(cfg.caps.level_caps[1:])
+    shapes = [cfg.sparse_shape]
+    for _ in range(3):
+        shapes.append(sp.out_shape_stride2(shapes[-1]))
+    rows = []
+
+    # K4 at L0 16->16, the stride conv L1->L2 32->64 and L2 64->64, on the
+    # int16 wire plans of scan 0 (batch 1)
+    k4 = []
+    for plan_key, level_in, cin, cout in (("plan_subm0", 0, 16, 16),
+                                          ("plan_stride2", 1, 32, 64),
+                                          ("plan_subm2", 2, 64, 64)):
+        feats = torch.from_numpy(rng.normal(
+            size=(1, caps[level_in], cin)).astype(np.float32)).to(device)
+        w = torch.from_numpy((rng.normal(size=(27, cin, cout))
+                              / np.sqrt(27 * cin)).astype(np.float32)
+                             ).to(device)
+        plan = s0[plan_key]
+        got = sp.subm_conv_batched(feats, w, plan)
+        ref = sp.subm_conv_batched_plain(feats, w, plan)
+        err = float((got - ref).abs().max())
+        ok = bool(torch.allclose(got, ref, rtol=K4_RTOL, atol=K4_ATOL))
+        ms = cuda_ms(lambda: sp.subm_conv_batched(feats, w, plan))
+        plain_ms = cuda_ms(lambda: sp.subm_conv_batched_plain(feats, w, plan))
+        print(f"K4 sparse_conv {plan_key[5:]} {tuple(plan.shape)} "
+              f"{cin}->{cout}: max|kernel-plain| = {err:.3g} (rtol "
+              f"{K4_RTOL}, atol {K4_ATOL}); kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms")
+        if not ok:
+            fail(f"K4 disagrees with its plain version on {plan_key}")
+        k4.append((f"{plan_key[5:]} {cin}->{cout}", err, ms, plain_ms))
+    rows.append(dict(name="K4 sparse_conv", route="cuda",
+                     source="sassd_tpu_torch/csrc/sparse_conv.cu",
+                     replaces="sassd_tpu/ops/sparse.py:411",
+                     max_abs_err=max(e for _, e, _, _ in k4),
+                     ms=sum(m for _, _, m, _ in k4),
+                     plain_ms=sum(m for _, _, _, m in k4),
+                     at="sum over " + ", ".join(n for n, *_ in k4),
+                     per_shape={n: dict(ms=m, plain_ms=pm)
+                                for n, _, m, pm in k4}))
+
+    # K5: scan 0's level 3 (10240 rows x 64) into [1, 5*64, 200, 176]
+    keys3 = sp.coords_to_keys(s0["plan_coords3"], shapes[3])
+    x3 = torch.from_numpy(rng.normal(size=(1, caps[3], 64)).astype(
+        np.float32)).to(device) * (keys3 != sp.INVALID_KEY)[..., None]
+    canvas, occ = sp.densify_nchw(keys3, x3, shapes[3])
+    ref_canvas, ref_occ = sp.densify_nchw_plain(keys3, x3, shapes[3])
+    same5 = torch.equal(canvas, ref_canvas) and torch.equal(occ, ref_occ)
+    err5 = float(max((canvas - ref_canvas).abs().max(),
+                     (occ - ref_occ).abs().max()))
+    ms = cuda_ms(lambda: sp.densify_nchw(keys3, x3, shapes[3]))
+    plain_ms = cuda_ms(lambda: sp.densify_nchw_plain(keys3, x3, shapes[3]))
+    print(f"K5 densify {tuple(x3.shape)} -> {tuple(canvas.shape)}: "
+          f"{'bitwise equal to' if same5 else 'DIFFERS from'} plain; "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    if not same5:
+        fail("K5 differs from its plain version")
+    rows.append(dict(name="K5 densify", route="cuda",
+                     source="sassd_tpu_torch/csrc/densify.cu",
+                     replaces="sassd_tpu/ops/sparse.py:835",
+                     max_abs_err=err5, ms=ms, plain_ms=plain_ms))
+
+    # K6 + K7: the device rulebook of all scans as one batch, level by
+    # level against the plain versions on the same inputs, then the whole
+    # rulebook against the C++ host rulebook
+    coords0 = torch.from_numpy(np.stack([s["coords"] for s in samples]))
+    keys = sp.coords_to_keys(coords0.to(device), shapes[0])
+    err6 = err7 = 0.0
+    dev_plans = {}
+    for lvl in range(4):
+        if lvl > 0:
+            out = sp.downsample_keys(keys, shapes[lvl - 1], caps[lvl])
+            ref = sp.downsample_keys_plain(keys, shapes[lvl - 1], caps[lvl])
+            err7 = max(err7, float((out - ref).abs().max()))
+            plan = sp.window_plan(out, shapes[lvl], imap, shapes[lvl - 1], 2)
+            ref = sp.window_plan_plain(out, shapes[lvl], imap,
+                                       shapes[lvl - 1], 2)
+            err6 = max(err6, float((plan - ref).abs().max()))
+            dev_plans[f"stride{lvl}"] = plan
+            dev_plans[f"coords{lvl}"] = sp.keys_to_coords(out, shapes[lvl])
+            keys = out
+        if lvl < 3:
+            imap = sp.build_index_map(keys, shapes[lvl])
+            ref = sp.build_index_map_plain(keys, shapes[lvl])
+            err6 = max(err6, float((imap - ref).abs().max()))
+            plan = sp.window_plan(keys, shapes[lvl], imap, shapes[lvl], 1)
+            ref = sp.window_plan_plain(keys, shapes[lvl], imap, shapes[lvl],
+                                       1)
+            err6 = max(err6, float((plan - ref).abs().max()))
+            dev_plans[f"subm{lvl}"] = plan
+    del imap, ref
+    host_diff = {}
+    for k, v in dev_plans.items():
+        host = np.stack([s[f"plan_{k}"] for s in samples]).astype(np.int32)
+        n = int((v.cpu().numpy() != host).sum())
+        if n:
+            host_diff[k] = n
+    print(f"K6 index maps + window plans, K7 downsample, {len(samples)} "
+          f"scans: max|kernel-plain| K6 {err6:g}, K7 {err7:g}; entries "
+          f"differing from the C++ host rulebook (subm0-2, stride1-3, "
+          f"coords1-3): {host_diff or 'none'}")
+    if err6 or err7 or host_diff:
+        fail("the device rulebook differs from its plain version or the "
+             "host rulebook")
+
+    keys0 = sp.coords_to_keys(s0["coords"], shapes[0])
+
+    def k6(fn_map, fn_plan):
+        imap = fn_map(keys0, shapes[0])
+        return fn_plan(keys0, shapes[0], imap, shapes[0], 1)
+    ms = cuda_ms(lambda: k6(sp.build_index_map, sp.window_plan))
+    plain_ms = cuda_ms(lambda: k6(sp.build_index_map_plain,
+                                  sp.window_plan_plain))
+    print(f"  K6 L0 map + subm0 plan (batch 1): kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms")
+    rows.append(dict(name="K6 device_plans", route="cuda",
+                     source="sassd_tpu_torch/csrc/device_plans.cu",
+                     replaces="sassd_tpu/ops/sparse.py:84",
+                     max_abs_err=err6, ms=ms, plain_ms=plain_ms,
+                     at="L0 index map + subm0 plan, batch 1"))
+    ms = cuda_ms(lambda: sp.downsample_keys(keys0, shapes[0], caps[1]))
+    plain_ms = cuda_ms(lambda: sp.downsample_keys_plain(keys0, shapes[0],
+                                                        caps[1]))
+    print(f"  K7 L0->L1 downsample (batch 1, incl. torch.sort): kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
+    rows.append(dict(name="K7 downsample", route="cuda",
+                     source="sassd_tpu_torch/csrc/downsample.cu",
+                     replaces="sassd_tpu/ops/sparse.py:618",
+                     max_abs_err=err7, ms=ms, plain_ms=plain_ms,
+                     at="L0 -> L1, batch 1, torch.sort included"))
     return rows
 
 
@@ -204,28 +351,15 @@ def match_detections(a, b, what: str):
     return int(va.sum())
 
 
-def run_slice(torch, np, device):
-    """Phase 4: car-config inference on the card, checked."""
-    from sassd_tpu_torch.config import car_config
-    from sassd_tpu_torch.data import kitti, synthetic
+def run_phase(torch, np, device, cfg, model_dev, anchors, samples,
+              what: str):
+    """Phases 4 and 5: forward_test on the card over every sample at batch
+    1 and over the first two at batch 2, with the launch counts reset just
+    before and read just after. Returns (dets1, dets2, ms1, ms2,
+    launches)."""
+    from sassd_tpu_torch.data import kitti
     from sassd_tpu_torch.inference import make_test_step
     from sassd_tpu_torch.ops import cuda
-    from sassd_tpu_torch.weights import seeded_detector
-
-    cfg = car_config()
-    anchors, anchors_bv = kitti.build_anchors(cfg)
-    model = seeded_detector(cfg, SEED)                      # CPU copy
-    model_dev = seeded_detector(cfg, SEED, device)
-
-    rng = np.random.default_rng(SEED)
-    t0 = time.perf_counter()
-    scans = [synthetic.make_scene(rng, n_cars=(6, 12), n_ground=18000)[0]
-             for _ in range(N_SCANS)]
-    samples = [kitti.prepare_scan(cfg, p, anchors_bv) for p in scans]
-    host_ms = (time.perf_counter() - t0) * 1e3 / N_SCANS
-    n_vox = [int((s["coords"][:, 0] >= 0).sum()) for s in samples]
-    print(f"host pipeline (scene + voxelize + mask + plans): "
-          f"{host_ms:.1f} ms/scan; active voxels {n_vox}")
 
     step = make_test_step(cfg, anchors, device)
     batch1 = [kitti.collate([s]) for s in samples]
@@ -250,28 +384,32 @@ def run_slice(torch, np, device):
     launches = {k: v.launches for k, v in cuda.KERNELS.items()}
     dets2 = {k: v.cpu().numpy() for k, v in d2.items()}
 
-    print(f"launches during the slice: {launches}")
-    if not all(n > 0 for n in launches.values()):
-        fail(f"a kernel of the path was not launched: {launches}")
+    print(f"{what}: launches {launches}")
     for i, d in enumerate(dets1 + [dets2]):
         if not (np.isfinite(d["boxes"]).all()
                 and np.isfinite(d["scores"]).all()):
-            fail(f"non-finite detections in run {i}")
+            fail(f"{what}: non-finite detections in run {i}")
     counts = [match_detections(dets1[i], {k: v[i] for k, v in dets2.items()},
-                               f"scan {i}: batch 2 vs batch 1")
+                               f"{what}, scan {i}: batch 2 vs batch 1")
               for i in range(2)]
-    print(f"batch 2 agrees with batch 1 ({counts} detections)")
-    print(f"guided candidates truncated by the cap: "
+    print(f"{what}: batch 2 agrees with batch 1 ({counts} detections); "
+          f"guided candidates truncated by the cap: "
           f"{[int(d['guided_truncated'][0]) for d in dets1]}")
+    return dets1, dets2, ms1, ms2, launches
 
+
+def check_cpu(np, cfg, model, anchors, sample, dets, what: str):
+    """One scan through the plain versions on the CPU == the card."""
+    from sassd_tpu_torch.data import kitti
+    from sassd_tpu_torch.inference import make_test_step
     t = time.perf_counter()
-    cpu = make_test_step(cfg, anchors, "cpu")(model, batch1[0])
+    cpu = make_test_step(cfg, anchors, "cpu")(model, kitti.collate([sample]))
     cpu_s = time.perf_counter() - t
     cpu = {k: v.numpy() for k, v in cpu.items()}
-    n = match_detections(dets1[0], cpu, "scan 0: card vs CPU")
-    print(f"card vs CPU (plain versions, {cpu_s:.1f} s): {n} detections "
-          f"match (boxes {DET_BOX_ATOL}, scores {DET_SCORE_ATOL})")
-    return launches, ms1, ms2
+    n = match_detections(dets, cpu, f"{what}, scan 0: card vs CPU")
+    print(f"{what}: card vs CPU (plain versions, {cpu_s:.1f} s): {n} "
+          f"detections match (boxes {DET_BOX_ATOL}, scores "
+          f"{DET_SCORE_ATOL})")
 
 
 def main() -> int:
@@ -279,6 +417,7 @@ def main() -> int:
         fail("sassd_tpu_torch is not next to chip_smoke.py; run it from a "
              "checkout of the repository")
     sys.path.insert(0, HERE)
+    import dataclasses
     import numpy as np
     import torch
 
@@ -295,7 +434,11 @@ def main() -> int:
     card = smi[0] if smi else "<nvidia-smi printed nothing>"
     print(f"device: {name} ({torch.cuda.device_count()} visible); "
           f"nvidia-smi: {card}")
+    from sassd_tpu_torch.config import car_config
+    from sassd_tpu_torch.data import kitti, synthetic
     from sassd_tpu_torch.ops import build, cuda, native
+    from sassd_tpu_torch.ops import sparse as sp
+    from sassd_tpu_torch.weights import seeded_detector
     print(run([cuda.nvcc(), "--version"]).splitlines()[-1:])
 
     t = time.perf_counter()
@@ -304,20 +447,73 @@ def main() -> int:
     t = time.perf_counter()
     cuda.load()
     kern_s = time.perf_counter() - t
-    print(f"build: host library {host_s:.1f} s, CUDA kernels {kern_s:.1f} s")
+    print(f"build: host library {host_s:.1f} s, CUDA kernels {kern_s:.1f} s "
+          f"({len(cuda.SOURCES)} nvcc in parallel + link)")
     for line in build.BUILD_LOG.get("sassd_kernels", "").splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "Compiling" in line:
             print("  ptxas:", line.strip())
 
+    cfg = car_config()
+    cfg_dev = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, host_plans=False))
+    anchors, anchors_bv = kitti.build_anchors(cfg)
+    rng = np.random.default_rng(SEED)
+    scans = [synthetic.make_scene(rng, n_cars=(6, 12), n_ground=18000)[0]
+             for _ in range(N_SCANS)]
+    t = time.perf_counter()
+    samples = [kitti.prepare_scan(cfg, p, anchors_bv) for p in scans]
+    host_ms = (time.perf_counter() - t) * 1e3 / N_SCANS
+    t = time.perf_counter()
+    samples_dev = [kitti.prepare_scan(cfg_dev, p, anchors_bv) for p in scans]
+    host_dev_ms = (time.perf_counter() - t) * 1e3 / N_SCANS
+    if any(k.startswith("plan_") for k in samples_dev[0]):
+        fail("prepare_scan built host plans with host_plans=False")
+    n_vox = [int((s["coords"][:, 0] >= 0).sum()) for s in samples]
+    print(f"host leg ms/scan: {host_ms:.1f} with the C++ rulebook, "
+          f"{host_dev_ms:.1f} without (voxelize + mask); active voxels "
+          f"{n_vox}")
+
     rows = check_kernels(torch, np, device)
-    launches, ms1, ms2 = run_slice(torch, np, device)
-    print(f"car config on {name} [{card}]: batch 1 "
-          f"{', '.join(f'{m:.2f}' for m in ms1)} ms/scan; batch 2 "
-          f"{ms2:.2f} ms ({ms2 / 2:.2f} ms/scan)")
+    rows += check_sparse_kernels(torch, np, device, cfg, samples)
     for r in rows:
-        sym = {"K1": "sassd_riou_overlap", "K2": "sassd_nms_keep",
-               "K3": "sassd_pswarp_score"}[r["name"][:2]]
-        r["launches"] = launches[sym]
+        print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms")
+
+    model = seeded_detector(cfg, SEED)                      # CPU copy
+    model_dev = seeded_detector(cfg, SEED, device)
+    host = run_phase(torch, np, device, cfg, model_dev, anchors, samples,
+                     "host plans")
+    dev = run_phase(torch, np, device, cfg_dev, model_dev, anchors,
+                    samples_dev, "device plans")
+    symbols = {"K1": ("sassd_riou_overlap",), "K2": ("sassd_nms_keep",),
+               "K3": ("sassd_pswarp_score",), **sp.KERNEL_SYMBOLS}
+    for what, launches, ids in (("host plans", host[4], "K1 K2 K3 K4 K5"),
+                                ("device plans", dev[4],
+                                 "K1 K2 K3 K4 K5 K6 K7")):
+        idle = [s for k in ids.split() for s in symbols[k]
+                if launches[s] == 0]
+        if idle:
+            fail(f"{what}: a kernel of the path was not launched: {idle}")
+    for i in range(N_SCANS):
+        match_detections(dev[0][i], host[0][i],
+                         f"scan {i}: device plans vs host plans")
+    print(f"device plans agree with host plans on all {N_SCANS} scans")
+    check_cpu(np, cfg, model, anchors, samples[0], host[0][0], "host plans")
+    check_cpu(np, cfg_dev, model, anchors, samples_dev[0], dev[0][0],
+              "device plans")
+
+    for what, (_, _, ms1, ms2, _) in (("host plans", host),
+                                      ("device plans", dev)):
+        print(f"car config, {what}, on {name} [{card}]: batch 1 "
+              f"{', '.join(f'{m:.2f}' for m in ms1)} ms/scan; batch 2 "
+              f"{ms2:.2f} ms ({ms2 / 2:.2f} ms/scan)")
+    for r in rows:
+        kid = r["name"][:2]
+        by_phase = {what: sum(launches[s] for s in symbols[kid])
+                    for what, launches in (("host plans", host[4]),
+                                           ("device plans", dev[4]))}
+        r["launches"] = sum(by_phase.values())
+        r["launches_by_phase"] = by_phase
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -68,8 +68,11 @@ class ModelConfig:
     num_parts: int = 28
     window_size: Tuple[int, int] = (4, 7)
     compute_dtype: str = "float32"
+    dense_index: bool = True
     host_plans: bool = True
     dense_tail: bool = True
+    sorted_device_levels: bool = True
+    plan_lookup: str = "dense"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,10 +118,17 @@ class SASSDConfig:
 
 
 def check_supported(cfg: SASSDConfig) -> None:
-    """Raise NotImplementedError for options the port does not run."""
+    """Raise NotImplementedError for options the port does not run.
+
+    Without host plans the port builds the rulebook on the device the one
+    way the JAX package does by default: dense index maps, key-sorted
+    levels, windowed plan lookups.
+    """
     m, t = cfg.model, cfg.test
     unsupported = {
-        "model.host_plans=False": not m.host_plans,
+        "model.dense_index=False": not m.dense_index,
+        "model.sorted_device_levels=False": not m.sorted_device_levels,
+        f"model.plan_lookup={m.plan_lookup!r}": m.plan_lookup != "dense",
         "model.dense_tail=False": not m.dense_tail,
         f"model.vfe_type={m.vfe_type!r}": m.vfe_type != "mean",
         f"model.compute_dtype={m.compute_dtype!r}":

@@ -41,11 +41,14 @@ def build_anchors(cfg: SASSDConfig):
 
 def build_host_plans(cfg: SASSDConfig,
                      coords: np.ndarray) -> Dict[str, np.ndarray]:
-    """C++ host rulebook of the sparse backbone, as ``plan_*`` arrays.
+    """C++ host rulebook of the sparse backbone, as ``plan_*`` arrays;
+    none with ``model.host_plans=False`` (the device builds them).
 
     Plans travel as int16 when every row index fits (-1 = missing), which
     halves the host-to-device bytes.
     """
+    if not cfg.model.host_plans:
+        return {}
     caps = (cfg.voxel.max_voxels,) + tuple(cfg.caps.level_caps[1:])
     plans = native.build_plans_cpp(coords, cfg.sparse_shape, caps)
     narrow = max(caps) < np.iinfo(np.int16).max
@@ -63,7 +66,7 @@ def prepare_scan(cfg: SASSDConfig, points: np.ndarray,
                  anchors_bv: np.ndarray) -> Dict[str, np.ndarray]:
     """Raw [N, F] points -> one sample: voxels, the anchors mask (anchors
     whose BEV footprint covers more than anchor_area_threshold voxels) and
-    the host plans."""
+    the host plans, if the config asks for them."""
     voxels, coords, nums = voxelize_np(points, cfg.voxel, pad=True)
     mask = native.anchors_mask_cpp(
         coords, anchors_bv, cfg.voxel.voxel_size,

@@ -1,14 +1,16 @@
-"""Voxel feature encoding + sparse 3D backbone (VxNet) on host plans.
+"""Voxel feature encoding + sparse 3D backbone (VxNet).
 
 The ladder is
 
     double(Cin->16) -> /2 -> double(32) -> /2 -> triple(64) -> /2
     -> triple(64) -> 1x1x1 conv(64)
 
-over fixed-capacity, key-sorted level arrays with the C++ host rulebook's
-gather plans. Levels 0-2 are gather-GEMM sparse convs; level 3 (the dense
-tail) runs as masked dense convs on [B, D*C, H, W] with z-banded weights:
-a conv followed by multiplication with the occupancy mask is exactly the
+over fixed-capacity, key-sorted level arrays with the gather plans of a
+rulebook: the C++ host rulebook's, or the same plans built on the device
+(sparse.device_rulebook). Levels 0-2 are gather-GEMM sparse convs (K4);
+level 3 (the dense tail) is scattered into a dense canvas (K5) and runs as
+masked dense convs on [B, D*C, H, W] with z-banded weights: a conv
+followed by multiplication with the occupancy mask is exactly the
 submanifold conv, and D = 5 folds into the channels.
 """
 from __future__ import annotations
@@ -47,8 +49,9 @@ class SubmBlock(nn.Module):
             setattr(self, f"conv{i}", L.SparseConv3(gen, ci, co))
             setattr(self, f"bn{i}", L.BatchNorm(co))
 
-    def forward(self, x: torch.Tensor, plan: sp.SubmPlan) -> torch.Tensor:
-        """[B, M, Cin] rows on one level -> [B, M, Cout]."""
+    def forward(self, x: torch.Tensor, plan: torch.Tensor) -> torch.Tensor:
+        """[B, M, Cin] rows on one level + its [B, 27, M] plan
+        -> [B, M, Cout]."""
         for i in range(self.n):
             x = sp.subm_conv_batched(x, getattr(self, f"conv{i}").w, plan)
             x = L.relu(getattr(self, f"bn{i}")(x))
@@ -105,37 +108,35 @@ class VxNet(nn.Module):
 
     def _down(self, block: SubmBlock, x: torch.Tensor,
               plans: Dict[str, torch.Tensor], level: int):
-        """Stride-2 conv into level `level`: host coords give the output
-        active set, the stride plan indexes the previous level's rows."""
+        """Stride-2 conv into level `level`: the rulebook's coords give
+        the output active set, the stride plan indexes the previous level's
+        rows."""
         out_keys = sp.coords_to_keys(plans[f"coords{level}"],
                                      self.level_shapes[level])
-        y = sp.subm_conv_batched(x, block.conv0.w,
-                                 sp.host_plan(plans[f"stride{level}"]))
+        y = sp.subm_conv_batched(x, block.conv0.w, plans[f"stride{level}"])
         omask = (out_keys != sp.INVALID_KEY)[..., None]
         return out_keys, L.relu(block.bn0(y)) * omask
 
     def forward(self, feats0: torch.Tensor,
                 plans: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """[B, cap0, F] voxel features + host plans -> [B, D, H, W, 64].
+        """[B, cap0, F] voxel features + rulebook -> [B, D, H, W, 64].
 
         plans: subm0..2 [B,27,capL], stride1..3 [B,27,capL] and coords1..3
-        [B,capL,3] (int16 or int32, -1 = missing/padding).
+        [B,capL,3] (int16 or int32, -1 = missing/padding), from the host
+        (data.kitti.build_host_plans) or the device (sp.device_rulebook).
         """
-        x = self.conv0(feats0, sp.host_plan(plans["subm0"]))
+        x = self.conv0(feats0, plans["subm0"])
         _, x = self._down(self.down0, x, plans, 1)
-        x = self.conv1(x, sp.host_plan(plans["subm1"]))
+        x = self.conv1(x, plans["subm1"])
         _, x = self._down(self.down1, x, plans, 2)
-        x = self.conv2(x, sp.host_plan(plans["subm2"]))
+        x = self.conv2(x, plans["subm2"])
         keys3, x = self._down(self.down2, x, plans, 3)
         return self._dense_tail(keys3, x)
 
     def _dense_tail(self, keys3: torch.Tensor, x: torch.Tensor):
         d, h, w = self.shape3
         b, _, c = x.shape
-        xd = sp.to_dense(keys3, x, self.shape3)                # [B,D,H,W,C]
-        occ = sp.to_dense(keys3, torch.ones_like(x[..., :1]), self.shape3)
-        occ = (occ[..., 0] > 0).to(x.dtype)[:, :, None]         # [B,D,1,H,W]
-        xf = xd.permute(0, 1, 4, 2, 3).reshape(b, d * c, h, w)  # ch = z*C + c
+        xf, occ = sp.densify_nchw(keys3, x, self.shape3)  # ch = z*C + c
         for i in range(self.conv3.n):
             xf = F.conv2d(xf, getattr(self, f"tail_w{i}"), padding=1)
             x5 = xf.reshape(b, d, c, h, w) * occ

@@ -1,16 +1,18 @@
-"""SA-SSD detector, inference path: VFE -> sparse backbone (host plans,
-dense tail) -> BEV trunk -> SSD head -> guided anchors -> PSWarp
-rescoring -> rotated NMS.
+"""SA-SSD detector, inference path: VFE -> sparse backbone (host or
+device rulebook, dense tail) -> BEV trunk -> SSD head -> guided anchors ->
+PSWarp rescoring -> rotated NMS.
 
 Batch layout (per-sample padding, B = batch), tensors on one device:
     voxels       [B, V, T, F]  zero-padded voxel point slots
     num_points   [B, V]        points per voxel (0 = padded voxel)
     coords       [B, V, 3]     zyx, -1 rows = padding
     anchors_mask [B, A]        bool BEV occupancy prefilter
-    plan_*       host rulebook (data.kitti.build_host_plans), batched
+    plan_*       host rulebook (data.kitti.build_host_plans), batched;
+                 absent with model.host_plans=False, and then the
+                 rulebook is built on the device (ops.sparse.device_rulebook)
 
-forward_test marks its stages (vxnet, bevnet, head, pswarp, nms) with
-torch.profiler ranges (see sassd_tpu_torch/profile_slice.py).
+forward_test marks its stages (rulebook, vxnet, bevnet, head, pswarp,
+nms) with torch.profiler ranges (see sassd_tpu_torch/profile_slice.py).
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from torch import nn
 from torch.profiler import record_function
 
 from sassd_tpu_torch.config import SASSDConfig, check_supported
+from sassd_tpu_torch.ops import sparse as sp
 from . import backbone, bev, pswarp, ssd_head
 
 
@@ -51,10 +54,16 @@ class Detector(nn.Module):
         self.requires_grad_(False)             # the port serves, not trains
 
     def forward_spine(self, batch: Dict[str, torch.Tensor]) -> SpineOut:
+        plans = {k[len("plan_"):]: v for k, v in batch.items()
+                 if k.startswith("plan_")}
+        if "subm0" not in plans:           # no host rulebook: build it here
+            with record_function("rulebook"):
+                keys0 = sp.coords_to_keys(batch["coords"],
+                                          self.cfg.sparse_shape)
+                plans = sp.device_rulebook(keys0, self.vxnet.level_shapes,
+                                           self.cfg.caps.level_caps[1:])
         with record_function("vxnet"):
             vfe = backbone.vfe_mean(batch["voxels"], batch["num_points"])
-            plans = {k[len("plan_"):]: v for k, v in batch.items()
-                     if k.startswith("plan_")}
             out_dense = self.vxnet(vfe, plans)                 # [B,D,H,W,C]
         b, d, h, w, c = out_dense.shape
         bev_in = out_dense.permute(0, 2, 3, 1, 4).reshape(b, h, w, d * c)

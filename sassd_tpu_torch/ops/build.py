@@ -12,6 +12,7 @@ from __future__ import annotations
 import hashlib
 import os
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Sequence
 
@@ -28,14 +29,31 @@ class BuildError(RuntimeError):
     pass
 
 
-def build_shared(name: str, sources: Sequence[Path], command: Sequence[str],
-                 timeout: float = 600.0) -> Path:
-    """Compile `sources` with `command + [-o out] + sources` unless built.
+def _run(name: str, cmd: Sequence[str], timeout: float) -> str:
+    """Run one compiler command; its output, or BuildError."""
+    try:
+        res = subprocess.run(list(cmd), capture_output=True, text=True,
+                             timeout=timeout)
+    except FileNotFoundError as e:
+        raise BuildError(f"{name}: compiler not found: {cmd[0]}") from e
+    if res.returncode != 0:
+        raise BuildError(f"{name}: build failed ({' '.join(cmd)}):\n"
+                         f"{res.stdout}\n{res.stderr}")
+    return res.stdout + res.stderr
 
-    Returns the path of the shared library. Raises BuildError with the
-    compiler's output if the build fails.
+
+def build_shared(name: str, sources: Sequence[Path],
+                 compile_cmd: Sequence[str], link_cmd: Sequence[str],
+                 timeout: float = 600.0) -> Path:
+    """Build a shared library from `sources` unless it is built.
+
+    Every source is compiled on its own (``compile_cmd + [-c, -o obj, src]``),
+    all compilers started together, and ``link_cmd + [-o out] + objects``
+    joins the objects. Returns the path of the library. Raises BuildError
+    with the compiler's output on failure.
     """
-    h = hashlib.sha256(" ".join(command).encode())
+    h = hashlib.sha256(" ".join(compile_cmd).encode())
+    h.update(" ".join(link_cmd).encode())
     for src in sources:
         h.update(Path(src).read_bytes())
     out = BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
@@ -43,15 +61,19 @@ def build_shared(name: str, sources: Sequence[Path], command: Sequence[str],
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = list(command) + ["-o", str(tmp)] + [str(s) for s in sources]
-    try:
-        res = subprocess.run(cmd, capture_output=True, text=True,
-                             timeout=timeout)
-    except FileNotFoundError as e:
-        raise BuildError(f"{name}: compiler not found: {cmd[0]}") from e
-    if res.returncode != 0 or not tmp.exists():
-        raise BuildError(f"{name}: build failed ({' '.join(cmd)}):\n"
-                         f"{res.stdout}\n{res.stderr}")
+    objs = [tmp.with_suffix(f".{i}.o") for i in range(len(sources))]
+    cmds = [list(compile_cmd) + ["-c", "-o", str(o), str(s)]
+            for o, s in zip(objs, sources)]
+    with ThreadPoolExecutor(max_workers=len(cmds)) as pool:
+        logs = [f.result() for f in
+                [pool.submit(_run, name, c, timeout) for c in cmds]]
+    log = "".join(logs) + _run(
+        name, list(link_cmd) + ["-o", str(tmp)] + [str(o) for o in objs],
+        timeout)
+    for o in objs:
+        o.unlink()
+    if not tmp.exists():
+        raise BuildError(f"{name}: the build wrote no {tmp.name}:\n{log}")
     os.replace(tmp, out)
-    BUILD_LOG[name] = res.stdout + res.stderr
+    BUILD_LOG[name] = log
     return out

@@ -1,8 +1,9 @@
 """The hand-written CUDA kernels: build, load, launch, count.
 
-All ``csrc/*.cu`` sources are compiled by ``nvcc`` into one shared library
-with a plain C interface at first use (never at import) and bound with
-ctypes. Each C entry point launches on the stream it is given and returns
+All ``csrc/*.cu`` sources are compiled by ``nvcc`` at first use (never at
+import), one compiler per source, all started together, and linked into
+one shared library with a plain C interface, bound with ctypes. Each C
+entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :meth:`Kernel.launch` raises on a nonzero code and
 counts the launch.
 """
@@ -20,10 +21,11 @@ from .build import PKG_DIR, build_shared
 SOURCES = sorted((PKG_DIR / "csrc").glob("*.cu"))
 # No --use_fast_math: the rotated-overlap tie-breaks need IEEE sin/cos and
 # division. -fmad=false keeps every product rounded as in the plain
-# PyTorch versions the kernels are checked against.
+# PyTorch versions the kernels are checked against; a kernel that wants
+# fused multiply-adds (K4) writes __fmaf_rn.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+LINK_FLAGS = ["-shared"]
 _lib: Optional[ctypes.CDLL] = None
 # every Kernel by symbol, so a run can reset and read the launch counts
 KERNELS: dict = {}
@@ -44,7 +46,8 @@ def load() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library."""
     global _lib
     if _lib is None:
-        path = build_shared("sassd_kernels", SOURCES, [nvcc()] + NVCC_FLAGS)
+        path = build_shared("sassd_kernels", SOURCES, [nvcc()] + NVCC_FLAGS,
+                            [nvcc()] + LINK_FLAGS)
         lib = ctypes.CDLL(str(path))
         lib.sassd_cuda_error_string.restype = ctypes.c_char_p
         lib.sassd_cuda_error_string.argtypes = [I]

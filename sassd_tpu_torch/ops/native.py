@@ -15,7 +15,8 @@ import numpy as np
 from .build import REPO_DIR, build_shared
 
 SOURCE = REPO_DIR / "csrc" / "sassd_host.cpp"
-CXX_COMMAND = ["g++", "-O3", "-fPIC", "-std=c++17", "-shared"]
+CXX_COMMAND = ["g++", "-O3", "-fPIC", "-std=c++17"]
+LINK_COMMAND = ["g++", "-shared"]
 _lib: Optional[ctypes.CDLL] = None
 
 
@@ -24,7 +25,8 @@ def load() -> ctypes.CDLL:
     global _lib
     if _lib is not None:
         return _lib
-    lib = ctypes.CDLL(str(build_shared("sassd_host", [SOURCE], CXX_COMMAND)))
+    lib = ctypes.CDLL(str(build_shared("sassd_host", [SOURCE], CXX_COMMAND,
+                                       LINK_COMMAND)))
     i64 = ctypes.c_int64
     f32p = np.ctypeslib.ndpointer(np.float32, flags="C")
     i32p = np.ctypeslib.ndpointer(np.int32, flags="C")

@@ -1,16 +1,19 @@
 """Where the time goes: car-config inference on one GPU under torch.profiler.
 
-    python -m sassd_tpu_torch.profile_slice [--batch 1]
+    python -m sassd_tpu_torch.profile_slice [--batch 1] [--device-plans]
 
 Runs forward_test on synthetic car-config scans (seeded weights, as
-chip_smoke.py), then profiles RUNS steps and prints: the host-clock
-step time, the device time of each forward_test stage (vxnet, bevnet,
-head, pswarp, nms), the CUDA kernels with the most device time, and the
-device busy share of the profiled window. Needs a CUDA device.
+chip_smoke.py), with the C++ host rulebook or, with --device-plans
+(model.host_plans=False), the rulebook built on the card; then profiles
+RUNS steps and prints: the host-clock step time, the device time of each
+forward_test stage (rulebook, vxnet, bevnet, head, pswarp, nms), the CUDA
+kernels with the most device time, and the device busy share of the
+profiled window. Needs a CUDA device.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -23,7 +26,7 @@ from sassd_tpu_torch.data import kitti, synthetic
 from sassd_tpu_torch.inference import make_test_step
 from sassd_tpu_torch.weights import seeded_detector
 
-STAGES = ("vxnet", "bevnet", "head", "pswarp", "nms")
+STAGES = ("rulebook", "vxnet", "bevnet", "head", "pswarp", "nms")
 RUNS = 8
 SEED = 0
 
@@ -68,6 +71,8 @@ def _busy_us(prof) -> float:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=1)
+    ap.add_argument("--device-plans", action="store_true",
+                    help="build the rulebook on the card (host_plans=False)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice needs a CUDA device")
@@ -76,6 +81,8 @@ def main() -> None:
     device = torch.device("cuda", 0)
 
     cfg = car_config()
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, host_plans=not args.device_plans))
     anchors, anchors_bv = kitti.build_anchors(cfg)
     model = seeded_detector(cfg, SEED, device)
     rng = np.random.default_rng(SEED)
@@ -103,7 +110,9 @@ def main() -> None:
         window_us = (time.perf_counter() - t) * 1e6
     events = prof.key_averages()
 
-    print(f"{torch.cuda.get_device_name(0)}, batch {args.batch}: "
+    plans = "device" if args.device_plans else "host"
+    print(f"{torch.cuda.get_device_name(0)}, batch {args.batch}, {plans} "
+          f"plans: "
           f"{step_ms:.2f} ms/step unprofiled (host clock, synced)")
     print("stage ms/step: " + _stage_table(events, RUNS))
     busy_us = _busy_us(prof)

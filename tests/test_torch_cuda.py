@@ -6,7 +6,10 @@ machine (which has no JAX, which tests/conftest.py imports) run them with
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Tolerances: K1 1e-4 m^2 (float32, -fmad=false, same op sequence as the
-plain version), K2 exact flags, K3 1e-5 (sum order of 28 samples).
+plain version), K2 exact flags, K3 1e-5 (sum order of 28 samples), K4
+1e-4 abs + 1e-4 rel (float32 sums of up to 27 * 64 products in another
+order than cuBLAS), K5, K6 and K7 exact (integer results and a scatter of
+unique keys).
 """
 import numpy as np
 import pytest
@@ -126,24 +129,136 @@ def test_wrappers_reject_bad_inputs(dev):
                           torch.ones((1, 4), dtype=torch.bool, device=dev))
 
 
-def test_tiny_forward_card_matches_cpu(dev):
+def tiny_rulebook(seed, batch_size=2):
+    """Voxelized tiny scans: coords, host plans, level shapes."""
+    from sassd_tpu_torch.config import tiny_config
+    from sassd_tpu_torch.data import synthetic
+    from sassd_tpu_torch.ops import sparse as sp
+    cfg = tiny_config()
+    batch = synthetic.make_random_batch(cfg, np.random.default_rng(seed),
+                                        batch_size=batch_size, n_points=900)
+    shapes = [cfg.sparse_shape]
+    for _ in range(3):
+        shapes.append(sp.out_shape_stride2(shapes[-1]))
+    return cfg, batch, shapes
+
+
+@pytest.mark.parametrize("kind,level_in,cin,cout,dtype", [
+    ("subm0", 0, 4, 16, torch.int16), ("subm0", 0, 16, 16, torch.int32),
+    ("stride1", 0, 16, 32, torch.int16), ("subm1", 1, 32, 32, torch.int32),
+    ("stride2", 1, 32, 64, torch.int16), ("subm2", 2, 64, 64, torch.int16),
+    ("stride3", 2, 64, 64, torch.int32)])
+def test_k4_matches_plain(dev, kind, level_in, cin, cout, dtype):
+    from sassd_tpu_torch.ops import sparse as sp
+    cfg, batch, _ = tiny_rulebook(1)
+    plan = torch.from_numpy(batch[f"plan_{kind}"]).to(dtype)
+    caps = (cfg.voxel.max_voxels,) + tuple(cfg.caps.level_caps[1:])
+    rng = np.random.default_rng(cin + cout)
+    feats = torch.from_numpy(
+        rng.normal(size=(2, caps[level_in], cin)).astype(np.float32))
+    w = torch.from_numpy((rng.normal(size=(27, cin, cout))
+                          / np.sqrt(27 * cin)).astype(np.float32))
+    before = sp._K4.launches
+    got = sp.subm_conv_batched(feats.to(dev), w.to(dev), plan.to(dev))
+    torch.cuda.synchronize()
+    assert sp._K4.launches == before + 1
+    ref = sp.subm_conv_batched_plain(feats, w, plan)
+    np.testing.assert_allclose(got.cpu().numpy(), ref.numpy(), rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_k5_matches_plain(dev):
+    from sassd_tpu_torch.ops import sparse as sp
+    _, batch, shapes = tiny_rulebook(2)
+    keys = sp.coords_to_keys(torch.from_numpy(batch["plan_coords3"]),
+                             shapes[3])
+    feats = torch.from_numpy(np.random.default_rng(3).normal(
+        size=tuple(keys.shape) + (64,)).astype(np.float32))
+    feats[keys == sp.INVALID_KEY] = 0.0
+    canvas, occ = sp.densify_nchw(keys.to(dev), feats.to(dev), shapes[3])
+    torch.cuda.synchronize()
+    ref_canvas, ref_occ = sp.densify_nchw_plain(keys, feats, shapes[3])
+    assert torch.equal(canvas.cpu(), ref_canvas)
+    assert torch.equal(occ.cpu(), ref_occ)
+
+
+def test_k6_k7_rulebook_matches_plain_and_host(dev):
+    """K6 maps and plans and K7 levels on the card == their plain versions
+    == the C++ host rulebook, level by level."""
+    from sassd_tpu_torch.ops import sparse as sp
+    cfg, batch, shapes = tiny_rulebook(4)
+    keys0 = sp.coords_to_keys(torch.from_numpy(batch["coords"]), shapes[0])
+    imap = sp.build_index_map(keys0.to(dev), shapes[0])
+    assert torch.equal(imap.cpu(), sp.build_index_map_plain(keys0, shapes[0]))
+    got = sp.device_rulebook(keys0.to(dev), shapes, cfg.caps.level_caps[1:])
+    torch.cuda.synchronize()
+    ref = sp.device_rulebook(keys0, shapes, cfg.caps.level_caps[1:])
+    assert sorted(got) == sorted(ref)
+    for k, v in got.items():
+        assert torch.equal(v.cpu(), ref[k]), k
+        np.testing.assert_array_equal(
+            v.cpu().numpy(), batch[f"plan_{k}"].astype(np.int32), err_msg=k)
+    # a cap that truncates: the lowest keys win
+    out = sp.downsample_keys(keys0.to(dev), shapes[0], 100)
+    assert torch.equal(out.cpu(), sp.downsample_keys_plain(keys0, shapes[0],
+                                                           100))
+
+
+def test_new_wrappers_reject_bad_inputs(dev):
+    from sassd_tpu_torch.ops import sparse as sp
+    f = torch.zeros((1, 8, 16), device=dev)
+    w = torch.zeros((27, 16, 16), device=dev)
+    plan = torch.zeros((1, 27, 8), dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):                       # int64 plan
+        sp.subm_conv_batched(f, w, plan.long())
+    with pytest.raises(ValueError):                      # Cout 24
+        sp.subm_conv_batched(f, torch.zeros((27, 16, 24), device=dev), plan)
+    with pytest.raises(ValueError):                      # Cin 6
+        sp.subm_conv_batched(torch.zeros((1, 8, 6), device=dev),
+                             torch.zeros((27, 6, 16), device=dev), plan)
+    with pytest.raises(ValueError):                      # plan on the host
+        sp.subm_conv_batched(f, w, plan.cpu())
+    with pytest.raises(ValueError):                      # batch mismatch
+        sp.subm_conv_batched(f, w, plan.expand(2, 27, 8).contiguous())
+    keys = torch.zeros((1, 8), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):                      # keys [1, 7]
+        sp.densify_nchw(keys[:, :7], f, (2, 3, 4))
+    with pytest.raises(TypeError):                       # int64 keys
+        sp.build_index_map(keys.long(), (2, 3, 4))
+    with pytest.raises(ValueError):                      # map of another grid
+        sp.window_plan(keys, (2, 3, 4),
+                       torch.zeros((1, 10), dtype=torch.int32, device=dev),
+                       (2, 3, 4), 1)
+    with pytest.raises(TypeError):
+        sp.downsample_keys(keys.float(), (2, 3, 4), 8)
+
+
+@pytest.mark.parametrize("host_plans", [True, False])
+def test_tiny_forward_card_matches_cpu(dev, host_plans):
+    """forward_test on the card == on the CPU, with the host rulebook or
+    the device rulebook, and the card run launches its kernels."""
+    import dataclasses
     from sassd_tpu_torch.config import tiny_config
     from sassd_tpu_torch.data import kitti, synthetic
     from sassd_tpu_torch.inference import make_test_step
-    from sassd_tpu_torch.ops import cuda
+    from sassd_tpu_torch.ops import cuda, sparse as sp
     from sassd_tpu_torch.weights import seeded_detector
     cfg = tiny_config()
-    model = seeded_detector(cfg, 1)
-    anchors = kitti.build_anchors(cfg)[0]
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, host_plans=host_plans))
     batch = synthetic.make_random_batch(cfg, np.random.default_rng(2),
                                         batch_size=2, n_points=900)
+    assert any(k.startswith("plan_") for k in batch) == host_plans
+    anchors = kitti.build_anchors(cfg)[0]
     before = {k: v.launches for k, v in cuda.KERNELS.items()}
     got = make_test_step(cfg, anchors, dev)(seeded_detector(cfg, 1, dev),
                                             batch)
     torch.cuda.synchronize()
-    after = {k: v.launches for k, v in cuda.KERNELS.items()}
-    assert all(after[k] > before[k] for k in after), (before, after)
-    ref = make_test_step(cfg, anchors, "cpu")(model, batch)
+    ran = {k for k, v in cuda.KERNELS.items() if v.launches > before[k]}
+    device_plan_syms = set(sp.KERNEL_SYMBOLS["K6"] + sp.KERNEL_SYMBOLS["K7"])
+    assert ran == (set(cuda.KERNELS) if not host_plans
+                   else set(cuda.KERNELS) - device_plan_syms), ran
+    ref = make_test_step(cfg, anchors, "cpu")(seeded_detector(cfg, 1), batch)
     for i in range(2):
         gv, rv = got["valid"][i].cpu().numpy(), ref["valid"][i].numpy()
         assert gv.sum() == rv.sum() and gv.sum() > 0

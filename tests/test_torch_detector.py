@@ -85,7 +85,9 @@ def test_config_fields_match_jax(name):
 
 
 @pytest.mark.parametrize("section,override", [
-    ("model", dict(host_plans=False)),
+    ("model", dict(dense_index=False)),
+    ("model", dict(plan_lookup="sorted")),
+    ("model", dict(sorted_device_levels=False)),
     ("model", dict(dense_tail=False)),
     ("model", dict(vfe_type="pointnet")),
     ("model", dict(compute_dtype="bfloat16")),

@@ -51,7 +51,7 @@ def test_subm_conv_batched_matches_jax(level):
     cin, cout = 8, 5
     feats = rng.normal(size=(2, m_in, cin)).astype(np.float32)
     w = rng.normal(size=(27, cin, cout)).astype(np.float32)
-    got = sp.subm_conv_batched(t(feats), t(w), sp.host_plan(t(plan)))
+    got = sp.subm_conv_batched(t(feats), t(w), t(plan))
     jplan = jsp.SubmPlan(jnp.maximum(jnp.asarray(plan), 0).astype(jnp.int32),
                          jnp.asarray(plan) >= 0)
     ref = jsp.subm_conv_batched(jnp.asarray(feats), jnp.asarray(w), jplan,
