@@ -23,7 +23,21 @@ Phases, each of which fails the run (nonzero exit, no result line):
    agree with the card;
 5. device plans (model.host_plans=False): the same scans and checks, the
    rulebook built on the card; K1-K7 must have launched, and every scan's
-   detections must match the host-plans phase's.
+   detections must match the host-plans phase's;
+6. serving (test.device_input="points"): a 4-scan synthetic KITTI val
+   split (frustum scans at car range) written to a temporary directory,
+   run_inference over it at batch 1 and batch 2 with the launch counters
+   reset just before and read just after; K1-K9 must have launched. On
+   every scan whose in-range voxel count is under the cap, the detections
+   must match the host-input (device_input="voxels") run's and batch 2's
+   must match batch 1's; one scan served on the CPU (plain versions) must
+   match the card. The result files are written, evaluate's KITTI AP table
+   is printed, and the serving step is timed with the raw-points upload
+   inside the clock.
+
+Phase 3 also holds K8 (device voxelizer) and K9 (anchors mask) against
+their plain versions, bitwise, on the car scans (at the 20,000-voxel cap,
+so the lowest-key truncation runs) and on one frustum scan.
 
 The second-to-last lines are a JSON object of the kernels and the card's
 name and power limit; the last line is the JSON result object.
@@ -34,6 +48,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -45,7 +60,8 @@ K1_ATOL = 1e-4     # m^2 intersection area; float32 with -fmad=false
 K3_ATOL = 1e-5     # mean of 28 bilinear samples; only the sum order differs
 K4_ATOL = 1e-4     # O(1) outputs, float32 sums of up to 27 * 64 products
 K4_RTOL = 1e-4     # in another order than cuBLAS's GEMM
-# K5, K6 and K7 are held bitwise: a scatter of unique keys, and integers
+# K5-K9 are held bitwise: a scatter of unique keys, integers, copies of
+# points, and float32 sums of integer counts below 2^24
 DET_SCORE_ATOL = 1e-3   # card vs CPU detections: cuDNN vs CPU conv sums
 DET_BOX_ATOL = 1e-2
 
@@ -330,6 +346,66 @@ def check_sparse_kernels(torch, np, device, cfg, samples):
     return rows
 
 
+def check_serving_kernels(torch, np, device, cfg, scans, anchors_bv):
+    """Phase 3, K8 and K9: the device voxelizer and the anchors mask of
+    raw car-config scans against their plain versions on the card."""
+    from sassd_tpu_torch import serve
+    from sassd_tpu_torch.ops.voxelize import voxelize, voxelize_plain
+
+    prepared = [serve.prepare_points(p, cfg) for p in scans]
+    pts = torch.from_numpy(np.stack([p for p, _ in prepared])).to(device)
+    n = torch.from_numpy(np.asarray([k for _, k in prepared],
+                                    np.int32)).to(device)
+    got = voxelize(pts, n, cfg.voxel)
+    ref = voxelize_plain(pts, n, cfg.voxel)
+    same8 = all(torch.equal(a, b) for a, b in zip(got, ref))
+    err8 = float(max((a.double() - b.double()).abs().max()
+                     for a, b in zip(got, ref)))
+    n_vox = (got[1][..., 0] >= 0).sum(1).tolist()
+    print(f"K8 voxelize {tuple(pts.shape)}, n_points {n.tolist()}: "
+          f"{'bitwise equal to' if same8 else 'DIFFERS from'} plain; "
+          f"voxels {n_vox} (cap {cfg.voxel.max_voxels})")
+    if not same8:
+        fail("K8 differs from its plain version")
+    corners = torch.from_numpy(serve.anchor_corner_indices(
+        anchors_bv, cfg.voxel.voxel_size, cfg.voxel.point_cloud_range,
+        cfg.voxel.grid_size)).to(device)
+    hw = (int(cfg.voxel.grid_size[1]), int(cfg.voxel.grid_size[0]))
+    thr = cfg.data.anchor_area_threshold
+    mask = serve.anchors_mask(got[1], corners, hw, thr)
+    mask_ref = serve.anchors_mask_plain(got[1], corners, hw, thr)
+    same9 = torch.equal(mask, mask_ref)
+    err9 = float((mask.int() - mask_ref.int()).abs().max())
+    print(f"K9 anchors_mask {tuple(got[1].shape)} -> {tuple(mask.shape)} "
+          f"over a {hw[0]}x{hw[1]} grid: "
+          f"{'bitwise equal to' if same9 else 'DIFFERS from'} plain; "
+          f"anchors kept {mask.sum(1).tolist()}")
+    if not same9:
+        fail("K9 differs from its plain version")
+
+    p1, n1, c1 = pts[:1], n[:1], got[1][:1].contiguous()
+    rows = []
+    ms = cuda_ms(lambda: voxelize(p1, n1, cfg.voxel))
+    plain_ms = cuda_ms(lambda: voxelize_plain(p1, n1, cfg.voxel))
+    print(f"  K8 batch 1 (incl. torch.sort): kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms")
+    rows.append(dict(name="K8 voxelize", route="cuda",
+                     source="sassd_tpu_torch/csrc/voxelize.cu",
+                     replaces="sassd_tpu/ops/voxelize.py:142",
+                     max_abs_err=err8, ms=ms, plain_ms=plain_ms,
+                     at="batch 1, 65,536-point cap, torch.sort included"))
+    ms = cuda_ms(lambda: serve.anchors_mask(c1, corners, hw, thr))
+    plain_ms = cuda_ms(lambda: serve.anchors_mask_plain(c1, corners, hw,
+                                                        thr))
+    print(f"  K9 batch 1: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    rows.append(dict(name="K9 anchors_mask", route="cuda",
+                     source="sassd_tpu_torch/csrc/anchors_mask.cu",
+                     replaces="sassd_tpu/serve.py:106",
+                     max_abs_err=err9, ms=ms, plain_ms=plain_ms,
+                     at="batch 1, 20,000 voxels, 70,400 anchors"))
+    return rows
+
+
 def match_detections(a, b, what: str):
     """Match two detection sets (dicts of numpy, one sample) within the
     tolerances; returns the number of detections."""
@@ -362,8 +438,8 @@ def run_phase(torch, np, device, cfg, model_dev, anchors, samples,
     from sassd_tpu_torch.ops import cuda
 
     step = make_test_step(cfg, anchors, device)
-    batch1 = [kitti.collate([s]) for s in samples]
-    batch2 = kitti.collate(samples[:2])
+    batch1 = [kitti.collate([s])[0] for s in samples]
+    batch2 = kitti.collate(samples[:2])[0]
     for b in batch1[:1] + [batch2]:                 # warm-up (cuDNN, build)
         step(model_dev, b)
     torch.cuda.synchronize()
@@ -403,13 +479,138 @@ def check_cpu(np, cfg, model, anchors, sample, dets, what: str):
     from sassd_tpu_torch.data import kitti
     from sassd_tpu_torch.inference import make_test_step
     t = time.perf_counter()
-    cpu = make_test_step(cfg, anchors, "cpu")(model, kitti.collate([sample]))
+    cpu = make_test_step(cfg, anchors, "cpu")(model, kitti.collate([sample])[0])
     cpu_s = time.perf_counter() - t
     cpu = {k: v.numpy() for k, v in cpu.items()}
     n = match_detections(dets, cpu, f"{what}, scan 0: card vs CPU")
     print(f"{what}: card vs CPU (plain versions, {cpu_s:.1f} s): {n} "
           f"detections match (boxes {DET_BOX_ATOL}, scores "
           f"{DET_SCORE_ATOL})")
+
+
+def unique_voxels(np, points, cfg) -> int:
+    """In-range unique voxel count of a raw scan (no cap)."""
+    pcr = np.asarray(cfg.voxel.point_cloud_range[:3], np.float32)
+    vs = np.asarray(cfg.voxel.voxel_size, np.float32)
+    c = np.floor((points[:, :3] - pcr) / vs).astype(np.int64)
+    c = c[np.all((c >= 0) & (c < cfg.voxel.grid_size), axis=1)]
+    return len(np.unique(c, axis=0))
+
+
+def match_annos(np, a, b, what: str) -> int:
+    """Two KITTI annotations of one scan equal as sets: camera-frame
+    location and dimensions within the box tolerance, score within the
+    score tolerance."""
+    if len(a["name"]) != len(b["name"]):
+        fail(f"{what}: {len(a['name'])} vs {len(b['name'])} detections")
+    used = np.zeros(len(b["name"]), bool)
+    for i in range(len(a["name"])):
+        ok = ((np.abs(b["location"] - a["location"][i]).max(1)
+               <= DET_BOX_ATOL)
+              & (np.abs(b["dimensions"] - a["dimensions"][i]).max(1)
+                 <= DET_BOX_ATOL)
+              & (np.abs(b["score"] - a["score"][i]) <= DET_SCORE_ATOL)
+              & ~used)
+        if not ok.any():
+            fail(f"{what}: detection {i} at {a['location'][i]} score "
+                 f"{a['score'][i]:.5f} has no match")
+        used[np.argmax(ok)] = True
+    return len(a["name"])
+
+
+def run_serving(torch, np, device, cfg, model_dev, model_cpu, root: str):
+    """Phase 6: device-resident serving through run_inference and the KITTI
+    evaluator. Returns (launches, ms1, ms2, host_ms)."""
+    import dataclasses
+    from sassd_tpu_torch import inference, serve
+    from sassd_tpu_torch.data import kitti, synthetic
+    from sassd_tpu_torch.eval import results
+    from sassd_tpu_torch.ops import cuda
+
+    cfg_pts = dataclasses.replace(cfg, test=dataclasses.replace(
+        cfg.test, device_input="points"))
+    synthetic.write_synthetic_kitti(root, n_train=0, n_val=N_SCANS,
+                                    seed=SEED)
+    data_root = os.path.join(root, "training")
+    ds = kitti.KittiDataset(cfg, data_root,
+                            os.path.join(root, "ImageSets", "val.txt"))
+    view = serve.PointsView(ds, cfg_pts)
+    step = serve.make_serving_step(cfg_pts, ds.anchors, ds.anchors_bv,
+                                   device)
+    batch1 = [kitti.collate([view[i]])[0] for i in range(N_SCANS)]
+    batch2 = [kitti.collate([view[i], view[i + 1]])[0]
+              for i in range(0, N_SCANS, 2)]
+    for b in (batch1[0], batch2[0]):                 # warm-up
+        step(model_dev, b)
+    torch.cuda.synchronize()
+
+    for kern in cuda.KERNELS.values():
+        kern.launches = 0
+    runs = {bs: inference.run_inference(cfg_pts, ds, model_dev, bs, device)
+            for bs in (1, 2)}
+    torch.cuda.synchronize()
+    launches = {k: v.launches for k, v in cuda.KERNELS.items()}
+    print(f"serving: launches {launches}")
+
+    host = inference.run_inference(cfg, ds, model_dev, 1, device)
+    n_unique = [unique_voxels(np, ds.load_points(i)[0], cfg)
+                for i in range(N_SCANS)]
+    print(f"serving: in-range voxels per scan {n_unique} (cap "
+          f"{cfg.voxel.max_voxels})")
+    counts = []
+    for i in range(N_SCANS):
+        if n_unique[i] >= cfg.voxel.max_voxels:
+            print(f"serving, scan {i}: over the voxel cap, the host and "
+                  f"device voxelizers keep different voxels; not compared")
+            continue
+        counts.append(match_annos(np, runs[1][0][i], host[0][i],
+                                  f"serving, scan {i}: points vs voxels"))
+        match_annos(np, runs[2][0][i], runs[1][0][i],
+                    f"serving, scan {i}: batch 2 vs batch 1")
+    if not counts:
+        fail("serving: no scan under the voxel cap to compare")
+    print(f"serving: points mode agrees with voxels mode and batch 2 with "
+          f"batch 1 on {len(counts)} scans ({counts} detections in the "
+          f"image)")
+
+    t = time.perf_counter()
+    cpu = serve.make_serving_step(cfg_pts, ds.anchors, ds.anchors_bv,
+                                  "cpu")(model_cpu, batch1[0])
+    cpu_s = time.perf_counter() - t
+    card = step(model_dev, batch1[0])
+    n = match_detections({k: v.cpu().numpy() for k, v in card.items()},
+                         {k: v.numpy() for k, v in cpu.items()},
+                         "serving, scan 0: card vs CPU")
+    print(f"serving: card vs CPU (plain versions, {cpu_s:.1f} s): {n} "
+          f"detections match")
+
+    annos, ids = runs[1]
+    results.write_result_files(annos, ids, os.path.join(root, "results"))
+    _, text = inference.evaluate(cfg_pts, ds, None,
+                                 os.path.join(data_root, "label_2"),
+                                 precomputed=runs[1])
+    if "Car AP@" not in text:
+        fail("serving: evaluate printed no AP table")
+    print(f"serving: wrote {len(ids)} result files; KITTI AP (random "
+          f"weights):\n{text}")
+
+    ms1, ms2 = [], []
+    for b in batch1:
+        t = time.perf_counter()
+        step(model_dev, b)
+        torch.cuda.synchronize()
+        ms1.append((time.perf_counter() - t) * 1e3)
+    for b in batch2:
+        t = time.perf_counter()
+        step(model_dev, b)
+        torch.cuda.synchronize()
+        ms2.append((time.perf_counter() - t) * 1e3 / 2)
+    raw = [ds.load_points(i)[0] for i in range(N_SCANS)]
+    t = time.perf_counter()
+    for p in raw:
+        serve.prepare_points(p, cfg_pts)
+    host_ms = (time.perf_counter() - t) * 1e3 / N_SCANS
+    return launches, ms1, ms2, host_ms
 
 
 def main() -> int:
@@ -436,8 +637,10 @@ def main() -> int:
           f"nvidia-smi: {card}")
     from sassd_tpu_torch.config import car_config
     from sassd_tpu_torch.data import kitti, synthetic
+    from sassd_tpu_torch import serve
     from sassd_tpu_torch.ops import build, cuda, native
     from sassd_tpu_torch.ops import sparse as sp
+    from sassd_tpu_torch.ops import voxelize as vox
     from sassd_tpu_torch.weights import seeded_detector
     print(run([cuda.nvcc(), "--version"]).splitlines()[-1:])
 
@@ -475,6 +678,11 @@ def main() -> int:
 
     rows = check_kernels(torch, np, device)
     rows += check_sparse_kernels(torch, np, device, cfg, samples)
+    frustum = synthetic.make_scene(np.random.default_rng(SEED + 2),
+                                   n_cars=(6, 12), n_ground=18000,
+                                   frustum=True)[0]
+    rows += check_serving_kernels(torch, np, device, cfg, scans + [frustum],
+                                  anchors_bv)
     for r in rows:
         print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms")
@@ -485,11 +693,17 @@ def main() -> int:
                      "host plans")
     dev = run_phase(torch, np, device, cfg_dev, model_dev, anchors,
                     samples_dev, "device plans")
+    with tempfile.TemporaryDirectory() as root:
+        serving = run_serving(torch, np, device, cfg, model_dev, model,
+                              root)
     symbols = {"K1": ("sassd_riou_overlap",), "K2": ("sassd_nms_keep",),
-               "K3": ("sassd_pswarp_score",), **sp.KERNEL_SYMBOLS}
+               "K3": ("sassd_pswarp_score",), **sp.KERNEL_SYMBOLS,
+               **vox.KERNEL_SYMBOLS, **serve.KERNEL_SYMBOLS}
     for what, launches, ids in (("host plans", host[4], "K1 K2 K3 K4 K5"),
                                 ("device plans", dev[4],
-                                 "K1 K2 K3 K4 K5 K6 K7")):
+                                 "K1 K2 K3 K4 K5 K6 K7"),
+                                ("serving", serving[0],
+                                 "K1 K2 K3 K4 K5 K6 K7 K8 K9")):
         idle = [s for k in ids.split() for s in symbols[k]
                 if launches[s] == 0]
         if idle:
@@ -507,11 +721,17 @@ def main() -> int:
         print(f"car config, {what}, on {name} [{card}]: batch 1 "
               f"{', '.join(f'{m:.2f}' for m in ms1)} ms/scan; batch 2 "
               f"{ms2:.2f} ms ({ms2 / 2:.2f} ms/scan)")
+    _, ms1, ms2, serve_host_ms = serving
+    print(f"car config, serving (raw points uploaded in the step), on "
+          f"{name} [{card}]: batch 1 {', '.join(f'{m:.2f}' for m in ms1)} "
+          f"ms/scan; batch 2 {', '.join(f'{m:.2f}' for m in ms2)} ms/scan; "
+          f"host leg (prepare_points) {serve_host_ms:.2f} ms/scan")
     for r in rows:
         kid = r["name"][:2]
         by_phase = {what: sum(launches[s] for s in symbols[kid])
                     for what, launches in (("host plans", host[4]),
-                                           ("device plans", dev[4]))}
+                                           ("device plans", dev[4]),
+                                           ("serving", serving[0]))}
         r["launches"] = sum(by_phase.values())
         r["launches_by_phase"] = by_phase
     print(json.dumps({"kernels": rows}))

@@ -1,11 +1,16 @@
 """sassd_tpu_torch: the PyTorch/CUDA port of sassd_tpu's inference path.
 
-Subpackages mirror sassd_tpu's module names:
-  core      box decoding, anchors, rotated IoU and NMS (kernel K2)
-  ops       host library binding, voxelization, sparse conv, PSWarp
-            sampling (kernel K3), rotated overlap (kernel K1), CUDA build
+Subpackages and modules mirror sassd_tpu's names:
+  core      box decoding, anchors, rotated IoU and NMS (kernel K2), the
+            evaluator's numpy overlaps
+  ops       host library binding, voxelization (kernel K8), sparse conv
+            and the device rulebook (K4-K7), PSWarp sampling (K3), rotated
+            overlap (K1), CUDA build
   models    VxNet / BEVNet / SSD head / PSWarp head / detector
-  data      host input pipeline and synthetic scenes
+  data      KITTI and raw-scan datasets, loader, synthetic scenes
+  eval      KITTI result files and the official AP evaluation
+  serve     device-resident serving from raw points (anchors mask, K9)
+  inference test steps, run_inference, evaluate
 The hand-written CUDA kernels live in csrc/ and are built with nvcc at
 their first launch; on CPU tensors every kernel wrapper runs its plain
 PyTorch version.

@@ -48,7 +48,9 @@ class AnchorConfig:
 
 @dataclasses.dataclass(frozen=True)
 class Caps:
-    """Static capacities: per-level active-voxel caps and candidate budgets."""
+    """Static capacities: raw points per scan (device voxelizer input),
+    per-level active-voxel caps and candidate budgets."""
+    max_points_per_scan: int = 65536
     max_gt: int = 64
     level_caps: Tuple[int, int, int, int] = (20000, 18432, 14336, 10240)
     guided_test: int = 2048
@@ -81,13 +83,26 @@ class TestConfig:
     nms_iou_thr: float = 0.1
     anchor_thr: float = 0.1
     nms_pre: int = 2000
+    serve_persistent_plans: bool = False
+    # "voxels": the loader voxelizes and masks on the host; "points": only
+    # raw padded points are uploaded and the card voxelizes, masks and
+    # builds the rulebook (serve.py)
     device_input: str = "voxels"
 
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
+    class_names: Tuple[str, ...] = ("Car",)
     anchor_area_threshold: float = 1.0
     out_size_factor: int = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class ParallelConfig:
+    """Mesh layout of the JAX package; the port runs "data" on one device
+    (spatial and banded sharding raise in check_supported)."""
+    strategy: str = "data"
+    spatial: int = 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,6 +114,11 @@ class SASSDConfig:
         default_factory=lambda: {"Car": AnchorConfig()})
     test: TestConfig = TestConfig()
     data: DataConfig = DataConfig()
+    parallel: ParallelConfig = ParallelConfig()
+
+    @property
+    def class_names(self) -> Tuple[str, ...]:
+        return tuple(self.anchors.keys())
 
     @property
     def sparse_shape(self) -> Tuple[int, int, int]:
@@ -120,11 +140,12 @@ class SASSDConfig:
 def check_supported(cfg: SASSDConfig) -> None:
     """Raise NotImplementedError for options the port does not run.
 
-    Without host plans the port builds the rulebook on the device the one
-    way the JAX package does by default: dense index maps, key-sorted
-    levels, windowed plan lookups.
+    Without host plans, and always with ``test.device_input="points"``,
+    the port builds the rulebook on the device the one way the JAX package
+    does by default: dense index maps, key-sorted levels, windowed plan
+    lookups.
     """
-    m, t = cfg.model, cfg.test
+    m, t, p = cfg.model, cfg.test, cfg.parallel
     unsupported = {
         "model.dense_index=False": not m.dense_index,
         "model.sorted_device_levels=False": not m.sorted_device_levels,
@@ -133,7 +154,11 @@ def check_supported(cfg: SASSDConfig) -> None:
         f"model.vfe_type={m.vfe_type!r}": m.vfe_type != "mean",
         f"model.compute_dtype={m.compute_dtype!r}":
             m.compute_dtype != "float32",
-        f"test.device_input={t.device_input!r}": t.device_input != "voxels",
+        f"test.device_input={t.device_input!r}":
+            t.device_input not in ("voxels", "points"),
+        "test.serve_persistent_plans=True": t.serve_persistent_plans,
+        f"parallel.strategy={p.strategy!r} with spatial={p.spatial}":
+            p.strategy != "data" and p.spatial > 1,
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:
@@ -154,7 +179,8 @@ def tiny_config(**overrides) -> SASSDConfig:
         voxel=VoxelConfig(voxel_size=(0.1, 0.1, 0.5),
                           point_cloud_range=(0.0, -3.2, -2.5, 6.4, 3.2, 1.5),
                           max_num_points=5, max_voxels=512),
-        caps=Caps(max_gt=8, level_caps=(512, 512, 384, 256),
+        caps=Caps(max_points_per_scan=2048, max_gt=8,
+                  level_caps=(512, 512, 384, 256),
                   guided_test=32, max_det=16),
         anchors={"Car": AnchorConfig(
             sizes=(1.6, 3.9, 1.56), strides=(0.8, 0.8, 1.0),

@@ -32,6 +32,7 @@ def load() -> ctypes.CDLL:
     i32p = np.ctypeslib.ndpointer(np.int32, flags="C")
     i64p = np.ctypeslib.ndpointer(np.int64, flags="C")
     u8p = np.ctypeslib.ndpointer(np.uint8, flags="C")
+    f64p = np.ctypeslib.ndpointer(np.float64, flags="C")
     lib.voxelize.restype = i64
     lib.voxelize.argtypes = [f32p, i64, i64, f32p, f32p, i64p, i64, i64,
                              f32p, i32p, i32p]
@@ -40,6 +41,8 @@ def load() -> ctypes.CDLL:
     lib.anchors_mask.restype = None
     lib.anchors_mask.argtypes = [i32p, i64, f32p, i64, f32p, f32p, i64p,
                                  ctypes.c_float, u8p]
+    lib.rotated_overlap.restype = None
+    lib.rotated_overlap.argtypes = [f64p, i64, f64p, i64, ctypes.c_int, f32p]
     _lib = lib
     return lib
 
@@ -113,3 +116,22 @@ def anchors_mask_cpp(coords, anchors_bv, voxel_size, pc_range, grid,
                      np.ascontiguousarray(grid, np.int64),
                      float(threshold), out)
     return out.astype(bool)
+
+
+def rotated_overlap_cpp(boxes: np.ndarray, qboxes: np.ndarray,
+                        criterion: int = 2) -> np.ndarray:
+    """Pairwise rotated BEV overlap of [N, 5] x [K, 5] (cx, cy, w, l, yaw)
+    boxes in float64, as [N, K] float32: criterion -1 IoU, 0 inter/area1,
+    1 inter/area2, 2 the raw intersection area."""
+    lib = load()
+    boxes = np.ascontiguousarray(boxes, np.float64)
+    qboxes = np.ascontiguousarray(qboxes, np.float64)
+    if boxes.ndim != 2 or boxes.shape[1] != 5 or qboxes.ndim != 2 \
+            or qboxes.shape[1] != 5:
+        raise ValueError(f"boxes must be [N, 5], got {boxes.shape} and "
+                         f"{qboxes.shape}")
+    out = np.zeros((boxes.shape[0], qboxes.shape[0]), np.float32)
+    if boxes.size and qboxes.size:
+        lib.rotated_overlap(boxes, boxes.shape[0], qboxes, qboxes.shape[0],
+                            int(criterion), out)
+    return out

@@ -1,16 +1,38 @@
-"""Host voxelization through the C++ library.
+"""Voxelization: on the host through the C++ library, and on the device.
 
 Voxel layout: voxels [M, T, F] (zero-padded), coords [M, 3] zyx int32
 (padded rows = -1), num_points [M]. Rows are sorted ascending by the
-linear zyx key, padding last; per-voxel contents and the max_voxels cut
-keep first-come semantics.
+linear zyx key, padding last.
+
+- :func:`voxelize_np` (host, the loader's path): per-voxel contents and the
+  max_voxels cut keep first-come semantics.
+- :func:`voxelize` (device serving, K8 ``csrc/voxelize.cu`` on the card,
+  :func:`voxelize_plain` on the CPU): a stable key sort keeps first-come
+  slots inside a voxel, and the max_voxels cut keeps the lowest keys, as
+  the JAX package's ``voxelize_jax``. Below the cap both give the same
+  voxels.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from sassd_tpu_torch.config import VoxelConfig
-from . import native
+from . import cuda, native
+
+INVALID_KEY = torch.iinfo(torch.int32).max
+
+_K8_KEYS = cuda.Kernel("sassd_voxel_keys",
+                       [cuda.P, cuda.P, cuda.I, cuda.I, cuda.I]
+                       + [cuda.F] * 6 + [cuda.I, cuda.I, cuda.I, cuda.P])
+_K8_RUNS = cuda.Kernel("sassd_voxel_runs",
+                       [cuda.P, cuda.I, cuda.I, cuda.I, cuda.P])
+_K8_WRITE = cuda.Kernel("sassd_voxel_write",
+                        [cuda.P, cuda.P, cuda.P, cuda.P] + [cuda.I] * 7
+                        + [cuda.P, cuda.P, cuda.P])
+# the C entry points of the kernel, for launch counts
+KERNEL_SYMBOLS = {"K8": ("sassd_voxel_keys", "sassd_voxel_runs",
+                         "sassd_voxel_write")}
 
 
 def voxelize_np(points: np.ndarray, cfg: VoxelConfig, pad: bool = False):
@@ -36,3 +58,87 @@ def _sort_rows_by_key(voxels, coords, nums, grid_xyz):
     key = np.where(z >= 0, key, np.iinfo(np.int64).max)
     perm = np.argsort(key, kind="stable")
     return voxels[perm], coords[perm], nums[perm]
+
+
+def voxelize_plain(points: torch.Tensor, n_points: torch.Tensor,
+                   cfg: VoxelConfig):
+    """Plain PyTorch version of K8 (see voxelize)."""
+    b, p, f = points.shape
+    dev = points.device
+    gx, gy, gz = (int(g) for g in cfg.grid_size)
+    t_max, vmax = cfg.max_num_points, cfg.max_voxels
+    pcr = torch.tensor(cfg.point_cloud_range[:3], dtype=torch.float32,
+                       device=dev)
+    vs = torch.tensor(cfg.voxel_size, dtype=torch.float32, device=dev)
+    c = torch.floor((points[..., :3] - pcr) / vs).to(torch.int32)
+    grid = torch.tensor([gx, gy, gz], dtype=torch.int32, device=dev)
+    ar = torch.arange(p, device=dev)
+    ok = ((ar[None] < n_points[:, None])
+          & ((c >= 0) & (c < grid)).all(-1))
+    c = torch.where(ok[..., None], c, 0)
+    keys = torch.where(ok, (c[..., 2] * gy + c[..., 1]) * gx + c[..., 0],
+                       INVALID_KEY)
+
+    ks, perm = torch.sort(keys, dim=1, stable=True)
+    real = ks != INVALID_KEY
+    first = real.clone()
+    first[:, 1:] &= ks[:, 1:] != ks[:, :-1]
+    vox_id = torch.cumsum(first.to(torch.int64), 1) - 1
+    run_start = torch.cummax(torch.where(first, ar, 0), 1).values
+    slot = ar - run_start
+    vrow = torch.where(real & (vox_id < vmax), vox_id, vmax)
+    bidx = torch.arange(b, device=dev)[:, None].expand(b, p)
+
+    voxels = points.new_zeros((b, vmax + 1, t_max + 1, f))
+    voxels[bidx, vrow, slot.clamp(max=t_max)] = torch.gather(
+        points, 1, perm[..., None].expand(b, p, f))
+    num_points = torch.zeros((b, vmax + 1), dtype=torch.int32, device=dev)
+    num_points.scatter_reduce_(
+        1, vrow, (slot + 1).clamp(max=t_max).to(torch.int32), "amax")
+    coords = torch.full((b, vmax + 1, 3), -1, dtype=torch.int32, device=dev)
+    cs = torch.gather(c, 1, perm[..., None].expand(b, p, 3))
+    coords[bidx, vrow] = cs.flip(-1)                       # xyz -> zyx
+    return (voxels[:, :vmax, :t_max].contiguous(), coords[:, :vmax],
+            num_points[:, :vmax])
+
+
+def voxelize(points: torch.Tensor, n_points: torch.Tensor, cfg: VoxelConfig):
+    """Raw padded points -> key-sorted voxels, on the points' device.
+
+    points: [B, P, F] float32 (xyz first, rows >= n_points[b] ignored);
+    n_points: [B] int32. Returns voxels [B, max_voxels, T, F] (zero
+    padded), coords [B, max_voxels, 3] int32 zyx (-1 padded) and
+    num_points [B, max_voxels] int32; the max_voxels lowest keys win the
+    cap. K8 around ``torch.sort`` on the card.
+    """
+    if points.device.type == "cpu":
+        return voxelize_plain(points, n_points, cfg)
+    cuda.check_cuda("points", points, torch.float32, 3)
+    cuda.check_cuda("n_points", n_points, torch.int32, 1)
+    b, p, f = points.shape
+    if f < 3 or n_points.shape[0] != b:
+        raise ValueError(f"points {tuple(points.shape)} / n_points "
+                         f"{tuple(n_points.shape)} are not [B, P, F>=3] / "
+                         f"[B]")
+    if n_points.device != points.device:
+        raise ValueError("points and n_points must be on one device")
+    gx, gy, gz = (int(g) for g in cfg.grid_size)
+    t_max, vmax = cfg.max_num_points, cfg.max_voxels
+    dev = points.device
+    with torch.cuda.device(dev):
+        keys = torch.empty((b, p), dtype=torch.int32, device=dev)
+        _K8_KEYS.launch(points.data_ptr(), n_points.data_ptr(), b, p, f,
+                        *cfg.point_cloud_range[:3], *cfg.voxel_size,
+                        gx, gy, gz, keys.data_ptr())
+        ks, perm = torch.sort(keys, dim=1, stable=True)
+        start = torch.empty((b, vmax + 1), dtype=torch.int32, device=dev)
+        _K8_RUNS.launch(ks.data_ptr(), b, p, vmax, start.data_ptr())
+        voxels = torch.empty((b, vmax, t_max, f), dtype=torch.float32,
+                             device=dev)
+        coords = torch.empty((b, vmax, 3), dtype=torch.int32, device=dev)
+        num_points = torch.empty((b, vmax), dtype=torch.int32, device=dev)
+        _K8_WRITE.launch(points.data_ptr(), perm.data_ptr(), ks.data_ptr(),
+                         start.data_ptr(), b, p, f, vmax, t_max, gx, gy,
+                         voxels.data_ptr(), coords.data_ptr(),
+                         num_points.data_ptr())
+    return voxels, coords, num_points

@@ -1,14 +1,16 @@
 """Where the time goes: car-config inference on one GPU under torch.profiler.
 
-    python -m sassd_tpu_torch.profile_slice [--batch 1] [--device-plans]
+    python -m sassd_tpu_torch.profile_slice [--batch 1] [--device-plans | --serve]
 
 Runs forward_test on synthetic car-config scans (seeded weights, as
 chip_smoke.py), with the C++ host rulebook or, with --device-plans
-(model.host_plans=False), the rulebook built on the card; then profiles
-RUNS steps and prints: the host-clock step time, the device time of each
-forward_test stage (rulebook, vxnet, bevnet, head, pswarp, nms), the CUDA
-kernels with the most device time, and the device busy share of the
-profiled window. Needs a CUDA device.
+(model.host_plans=False), the rulebook built on the card, or, with
+--serve, the device-resident serving step (serve.make_serving_step: raw
+points uploaded, voxelized, masked and the rulebook built on the card);
+then profiles RUNS steps and prints: the host-clock step time, the device
+time of each stage (voxelize, anchors_mask, rulebook, vxnet, bevnet, head,
+pswarp, nms), the CUDA kernels with the most device time, and the device
+busy share of the profiled window. Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -21,31 +23,37 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from sassd_tpu_torch import serve
 from sassd_tpu_torch.config import car_config
 from sassd_tpu_torch.data import kitti, synthetic
 from sassd_tpu_torch.inference import make_test_step
 from sassd_tpu_torch.weights import seeded_detector
 
-STAGES = ("rulebook", "vxnet", "bevnet", "head", "pswarp", "nms")
+STAGES = ("voxelize", "anchors_mask", "rulebook", "vxnet", "bevnet", "head",
+          "pswarp", "nms")
 RUNS = 8
 SEED = 0
 
 
-def _stage_table(events, runs: int) -> str:
-    """Per stage: the device time of its kernels and its span on the
-    device timeline (first kernel start to last kernel end), ms/step."""
+def _stage_table(prof, runs: int) -> str:
+    """Per stage: its span on the device timeline (first kernel start to
+    last kernel end) and the device time of the kernels and copies that
+    start inside it, ms/step. Kernels are matched by time, not by the
+    CPU-side range: the hand kernels launch through ctypes, outside any
+    torch op, so the profiler does not attribute them to a range."""
+    gpu = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    work = [(e.time_range.start, e.time_range.end) for e in gpu
+            if e.name not in STAGES]
     out = []
     for stage in STAGES:
-        cols = {}
-        for e in events:
-            if e.key != stage:
-                continue
-            if e.device_type == DeviceType.CUDA:      # the range on the GPU
-                cols["span"] = e.self_device_time_total
-            else:
-                cols["kernels"] = e.device_time_total
-        out.append(f"{stage} " + " / ".join(
-            f"{k} {v / runs / 1e3:.3f}" for k, v in sorted(cols.items())))
+        ranges = [e.time_range for e in gpu if e.name == stage]
+        if not ranges:
+            continue
+        span = sum(r.end - r.start for r in ranges)
+        busy = sum(t - s for s, t in work for r in ranges
+                   if r.start <= s < r.end)
+        out.append(f"{stage} kernels {busy / runs / 1e3:.3f} / span "
+                   f"{span / runs / 1e3:.3f}")
     return "; ".join(out)
 
 
@@ -71,8 +79,12 @@ def _busy_us(prof) -> float:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=1)
-    ap.add_argument("--device-plans", action="store_true",
-                    help="build the rulebook on the card (host_plans=False)")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--device-plans", action="store_true",
+                      help="build the rulebook on the card "
+                           "(host_plans=False)")
+    mode.add_argument("--serve", action="store_true",
+                      help="serve raw points (test.device_input='points')")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice needs a CUDA device")
@@ -88,9 +100,15 @@ def main() -> None:
     rng = np.random.default_rng(SEED)
     scans = [synthetic.make_scene(rng, n_cars=(6, 12), n_ground=18000)[0]
              for _ in range(args.batch)]
-    batch = kitti.collate([kitti.prepare_scan(cfg, p, anchors_bv)
-                           for p in scans])
-    step = make_test_step(cfg, anchors, device)
+    if args.serve:
+        prepared = [serve.prepare_points(p, cfg) for p in scans]
+        batch = dict(points=np.stack([p for p, _ in prepared]),
+                     n_points=np.asarray([n for _, n in prepared], np.int32))
+        step = serve.make_serving_step(cfg, anchors, anchors_bv, device)
+    else:
+        batch = kitti.collate([kitti.prepare_scan(cfg, p, anchors_bv)
+                               for p in scans])[0]
+        step = make_test_step(cfg, anchors, device)
     for _ in range(3):
         step(model, batch)
     torch.cuda.synchronize()
@@ -110,11 +128,11 @@ def main() -> None:
         window_us = (time.perf_counter() - t) * 1e6
     events = prof.key_averages()
 
-    plans = "device" if args.device_plans else "host"
-    print(f"{torch.cuda.get_device_name(0)}, batch {args.batch}, {plans} "
-          f"plans: "
+    what = ("serving from raw points" if args.serve else
+            "device plans" if args.device_plans else "host plans")
+    print(f"{torch.cuda.get_device_name(0)}, batch {args.batch}, {what}: "
           f"{step_ms:.2f} ms/step unprofiled (host clock, synced)")
-    print("stage ms/step: " + _stage_table(events, RUNS))
+    print("stage ms/step: " + _stage_table(prof, RUNS))
     busy_us = _busy_us(prof)
     print(f"device busy {busy_us / RUNS / 1e3:.2f} ms/step of "
           f"{window_us / RUNS / 1e3:.2f} ms/step profiled "

@@ -8,8 +8,8 @@ machine (which has no JAX, which tests/conftest.py imports) run them with
 Tolerances: K1 1e-4 m^2 (float32, -fmad=false, same op sequence as the
 plain version), K2 exact flags, K3 1e-5 (sum order of 28 samples), K4
 1e-4 abs + 1e-4 rel (float32 sums of up to 27 * 64 products in another
-order than cuBLAS), K5, K6 and K7 exact (integer results and a scatter of
-unique keys).
+order than cuBLAS), K5-K9 exact (integer results, a scatter of unique
+keys, copies of points, float32 sums of integer counts).
 """
 import numpy as np
 import pytest
@@ -255,9 +255,11 @@ def test_tiny_forward_card_matches_cpu(dev, host_plans):
                                             batch)
     torch.cuda.synchronize()
     ran = {k for k, v in cuda.KERNELS.items() if v.launches > before[k]}
-    device_plan_syms = set(sp.KERNEL_SYMBOLS["K6"] + sp.KERNEL_SYMBOLS["K7"])
-    assert ran == (set(cuda.KERNELS) if not host_plans
-                   else set(cuda.KERNELS) - device_plan_syms), ran
+    path = {"sassd_riou_overlap", "sassd_nms_keep", "sassd_pswarp_score",
+            *sp.KERNEL_SYMBOLS["K4"], *sp.KERNEL_SYMBOLS["K5"]}
+    if not host_plans:
+        path |= set(sp.KERNEL_SYMBOLS["K6"] + sp.KERNEL_SYMBOLS["K7"])
+    assert ran == path, ran
     ref = make_test_step(cfg, anchors, "cpu")(seeded_detector(cfg, 1), batch)
     for i in range(2):
         gv, rv = got["valid"][i].cpu().numpy(), ref["valid"][i].numpy()
@@ -267,3 +269,139 @@ def test_tiny_forward_card_matches_cpu(dev, host_plans):
         for box in gb:
             assert (np.abs(rb - box).max(1) <= 1e-2).any()
 
+
+
+def tiny_points(seed, batch_size, n_points):
+    """[B, P, 4] padded raw scans over the tiny range with strays out of
+    range and garbage past n_points."""
+    from sassd_tpu_torch.config import tiny_config
+    cfg = tiny_config()
+    rng = np.random.default_rng(seed)
+    pcr = np.asarray(cfg.voxel.point_cloud_range)
+    p = cfg.caps.max_points_per_scan
+    pts = np.zeros((batch_size, p, 4), np.float32)
+    for i in range(3):
+        pts[..., i] = rng.uniform(pcr[i] - 0.3, pcr[i + 3] + 0.3,
+                                  (batch_size, p))
+    pts[..., 3] = rng.uniform(0, 1, (batch_size, p))
+    pts[:, 50:70, :3] = pts[:, 50:51, :3]               # slot overflow
+    return cfg, pts, np.asarray(n_points, np.int32)
+
+
+@pytest.mark.parametrize("n_points", [(300,), (300, 2048), (1500, 0)])
+def test_k8_matches_plain(dev, n_points):
+    """Below the cap, at the cap (2048 points over 512 voxels: the lowest
+    keys win) and an empty scan."""
+    from sassd_tpu_torch.ops import voxelize as vox
+    cfg, pts, n = tiny_points(len(n_points), len(n_points), n_points)
+    before = vox._K8_WRITE.launches
+    got = vox.voxelize(torch.from_numpy(pts).to(dev),
+                       torch.from_numpy(n).to(dev), cfg.voxel)
+    torch.cuda.synchronize()
+    assert vox._K8_WRITE.launches == before + 1
+    ref = vox.voxelize_plain(torch.from_numpy(pts), torch.from_numpy(n),
+                             cfg.voxel)
+    for g, r in zip(got, ref):
+        assert torch.equal(g.cpu(), r)
+    n_vox = (ref[1][..., 0] >= 0).sum(1)
+    assert n_vox.max() == cfg.voxel.max_voxels or len(n_points) == 1
+
+
+@pytest.mark.parametrize("name", ["tiny_config", "car_config"])
+def test_k9_matches_plain(dev, name):
+    from sassd_tpu_torch import config, serve
+    from sassd_tpu_torch.data import kitti
+    cfg = getattr(config, name)()
+    _, anchors_bv = kitti.build_anchors(cfg)
+    corners = torch.from_numpy(serve.anchor_corner_indices(
+        anchors_bv, cfg.voxel.voxel_size, cfg.voxel.point_cloud_range,
+        cfg.voxel.grid_size))
+    d, h, w = cfg.sparse_shape
+    cap = cfg.voxel.max_voxels
+    rng = np.random.default_rng(5)
+    coords = np.full((2, cap, 3), -1, np.int32)
+    for b, n in enumerate((cap // 3, cap)):
+        coords[b, :n] = np.stack([rng.integers(0, d, n),
+                                  rng.integers(0, h // 2, n),
+                                  rng.integers(0, w, n)], 1)
+    c = torch.from_numpy(coords)
+    got = serve.anchors_mask(c.to(dev), corners.to(dev), (h, w), 1.0)
+    torch.cuda.synchronize()
+    ref = serve.anchors_mask_plain(c, corners, (h, w), 1.0)
+    assert torch.equal(got.cpu(), ref)
+    assert ref.any() and not ref.all()
+
+
+def test_serving_wrappers_reject_bad_inputs(dev):
+    from sassd_tpu_torch import serve
+    from sassd_tpu_torch.config import tiny_config
+    from sassd_tpu_torch.ops import voxelize as vox
+    vc = tiny_config().voxel
+    pts = torch.zeros((1, 16, 4), device=dev)
+    n = torch.zeros((1,), dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):                       # float64 points
+        vox.voxelize(pts.double(), n, vc)
+    with pytest.raises(TypeError):                       # int64 n_points
+        vox.voxelize(pts, n.long(), vc)
+    with pytest.raises(ValueError):                      # n_points [2]
+        vox.voxelize(pts, torch.zeros((2,), dtype=torch.int32, device=dev),
+                     vc)
+    with pytest.raises(ValueError):                      # n_points on host
+        vox.voxelize(pts, n.cpu(), vc)
+    coords = torch.zeros((1, 8, 3), dtype=torch.int32, device=dev)
+    corners = torch.zeros((4, 4), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):                      # corners [4, 3]
+        serve.anchors_mask(coords, corners[:, :3].contiguous(), (2, 2), 1.0)
+    with pytest.raises(ValueError):                      # corners on host
+        serve.anchors_mask(coords, corners.cpu(), (2, 2), 1.0)
+    with pytest.raises(TypeError):
+        serve.anchors_mask(coords.long(), corners, (2, 2), 1.0)
+
+
+def test_tiny_serving_card_matches_host_input(dev):
+    """On the card: batch_from_points (K8, K9) == its CPU plain versions
+    bitwise, and the serving step == make_test_step on the host-prepared
+    batch of the same scans (device rulebook), which shares every later
+    kernel; the serving run launches K1-K9. (Tiny-config scores sit
+    within ~1e-4 of 0.5, so card-vs-CPU detections would compare
+    near-ties; the car config's are compared in chip_smoke.py.)"""
+    import dataclasses
+    from sassd_tpu_torch import serve
+    from sassd_tpu_torch.config import tiny_config
+    from sassd_tpu_torch.data import kitti, synthetic
+    from sassd_tpu_torch.inference import make_test_step
+    from sassd_tpu_torch.ops import cuda
+    from sassd_tpu_torch.weights import seeded_detector
+    cfg = tiny_config()
+    cfg_dev = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, host_plans=False))
+    rng = np.random.default_rng(7)
+    scans = [synthetic.make_scene(rng, n_cars=(2, 4), n_ground=800,
+                                  x_range=(1.0, 6.0), y_range=(-3.0, 3.0))[0]
+             for _ in range(2)]
+    prepared = [serve.prepare_points(p, cfg) for p in scans]
+    batch = dict(points=np.stack([p for p, _ in prepared]),
+                 n_points=np.asarray([n for _, n in prepared], np.int32))
+    anchors, anchors_bv = kitti.build_anchors(cfg)
+    corners = torch.from_numpy(serve.anchor_corner_indices(
+        anchors_bv, cfg.voxel.voxel_size, cfg.voxel.point_cloud_range,
+        cfg.voxel.grid_size))
+    pts, n = (torch.from_numpy(batch[k]) for k in ("points", "n_points"))
+    got = serve.batch_from_points(pts.to(dev), n.to(dev), corners.to(dev),
+                                  cfg)
+    ref = serve.batch_from_points(pts, n, corners, cfg)
+    for k in ref:
+        assert torch.equal(got[k].cpu(), ref[k]), k
+
+    model = seeded_detector(cfg, 1, dev)
+    before = {k: v.launches for k, v in cuda.KERNELS.items()}
+    dets = serve.make_serving_step(cfg, anchors, anchors_bv, dev)(model,
+                                                                  batch)
+    torch.cuda.synchronize()
+    assert all(v.launches > before[k] for k, v in cuda.KERNELS.items())
+    host_batch, _ = kitti.collate([kitti.prepare_scan(cfg_dev, p, anchors_bv)
+                                   for p in scans])
+    host = make_test_step(cfg_dev, anchors, dev)(model, host_batch)
+    for k in ("valid", "boxes", "scores", "labels"):
+        assert torch.equal(dets[k], host[k]), k
+    assert int(dets["valid"].sum()) > 0

@@ -71,7 +71,7 @@ def port_dets(model, cfg, batch):
 @pytest.mark.parametrize("name", ["car_config", "tiny_config"])
 def test_config_fields_match_jax(name):
     port, ref = getattr(config, name)(), getattr(jconfig, name)()
-    for section in ("model", "voxel", "caps", "test", "data"):
+    for section in ("model", "voxel", "caps", "test", "data", "parallel"):
         p, r = getattr(port, section), getattr(ref, section)
         for f in dataclasses.fields(p):
             assert getattr(p, f.name) == getattr(r, f.name), (section, f.name)
@@ -91,7 +91,8 @@ def test_config_fields_match_jax(name):
     ("model", dict(dense_tail=False)),
     ("model", dict(vfe_type="pointnet")),
     ("model", dict(compute_dtype="bfloat16")),
-    ("test", dict(device_input="points")),
+    ("test", dict(serve_persistent_plans=True)),
+    ("parallel", dict(strategy="spatial", spatial=2)),
 ])
 def test_unsupported_options_raise(section, override):
     cfg = config.tiny_config()
