@@ -35,9 +35,31 @@ Phases, each of which fails the run (nonzero exit, no result line):
    is printed, and the serving step is timed with the raw-points upload
    inside the clock.
 
+7. training: a 4-scan car-range synthetic KITTI train split; one
+   forward_train + backward at batch 2 on the card against the same on
+   the CPU (plain versions): every loss within 1e-3 relative, equal
+   guided-anchor and PSWarp assignment counts, and the gradients against
+   a float64 CPU step: the global norm within 2e-3, each module within
+   1e-2 relative L2. Then train_model for 3 epochs of 2 steps with the launch
+   counters reset just before and read just after: K1, K3, K3b, K4, K5,
+   K5b, K10, K11 and K12 must have launched, every logged loss must be
+   finite, no update skipped, and the last checkpoint must restore to the
+   trained parameters. The train step is timed (host clock, synchronised,
+   loader excluded) beside the host leg of a batch (voxelize + mask + the
+   C++ train rulebook).
+
 Phase 3 also holds K8 (device voxelizer) and K9 (anchors mask) against
 their plain versions, bitwise, on the car scans (at the 20,000-voxel cap,
-so the lowest-key truncation runs) and on one frustum scan.
+so the lowest-key truncation runs) and on one frustum scan; and the
+training kernels at batch 2 on the train plans of the car scans: K10
+(sparse-conv weight gradient) and K4's input gradients, K11 (ring 3-NN
+interpolation, forward and backward), K12 (aux targets), K3b (PSWarp
+backward) and K5b (densify backward).
+
+Every kernel row carries its bound: the larger of the bytes it must move
+(each input read once, each output written once, at this run's active
+counts) over the H100's 3.35 TB/s and its operations over the 67 TFLOP/s
+of float32 outside the tensor cores.
 
 The second-to-last lines are a JSON object of the kernels and the card's
 name and power limit; the last line is the JSON result object.
@@ -64,6 +86,22 @@ K4_RTOL = 1e-4     # in another order than cuBLAS's GEMM
 # points, and float32 sums of integer counts below 2^24
 DET_SCORE_ATOL = 1e-3   # card vs CPU detections: cuDNN vs CPU conv sums
 DET_BOX_ATOL = 1e-2
+# training kernels, relative to the largest magnitude of the plain result:
+# K10 and K4's input gradients sum thousands of rows in another order; the
+# K11 and K3b backwards add with atomics in an order that changes from run
+# to run. K11's forward, K12 and K5b are held bitwise.
+TRAIN_GRAD_RTOL = 1e-5
+TRAIN_LOSS_RTOL = 1e-3  # card vs CPU train step: cuDNN vs CPU conv sums
+# card train-step gradients against a float64 CPU step: the global norm,
+# and each module's gradients in relative L2 (float32 rounding, amplified
+# by the batch-statistics backward of train-mode BatchNorm)
+TRAIN_GNORM_RTOL = 2e-3
+TRAIN_GRAD_L2 = 1e-2
+N_TRAIN_EPOCHS = 3      # of 2 steps at batch 2 over the 4 train scans
+
+# the card's peaks the bounds are taken against (H100 SXM data sheet)
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
 
 
 def fail(msg: str):
@@ -93,6 +131,40 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take for the work: bytes over the
+    memory rate or operations over the float32 rate, whichever is longer."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_FLOPS * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_bytes=float(nbytes), bound_ops=float(ops))
+
+
+def add_bounds(rows) -> dict:
+    """Sum of the bounds of several calls timed as one row."""
+    nbytes = sum(r["bound_bytes"] for r in rows)
+    ops = sum(r["bound_ops"] for r in rows)
+    out = bound(nbytes, ops)
+    out["bound_ms"] = sum(r["bound_ms"] for r in rows)
+    return out
+
+
+def rel_err(got, ref) -> float:
+    """max |got - ref| over max |ref|."""
+    ref = ref.detach().double()
+    return float((got.detach().double() - ref).abs().max()
+                 / ref.abs().max().clamp(min=1e-30))
+
+
+def grad_ms(out, inputs, cot, iters: int = 20) -> float:
+    """Milliseconds of one autograd backward of `out` (graph retained)."""
+    import torch
+    return cuda_ms(lambda: torch.autograd.grad(out, inputs, cot,
+                                               retain_graph=True),
+                   iters=iters)
 
 
 def nms_boxes(rng, n: int):
@@ -146,10 +218,14 @@ def check_kernels(torch, np, device):
     ms = cuda_ms(lambda: riou_kernel.rotate_overlap(bt, bt, 2))
     plain_ms = cuda_ms(lambda: riou_kernel.rotate_overlap_plain(bt, bt, 2),
                        iters=5)
+    n1 = bt.shape[0]
     rows.append(dict(name="K1 rotate_overlap", route="cuda",
                      source="sassd_tpu_torch/csrc/riou_overlap.cu",
                      replaces="sassd_tpu/ops/pallas/riou_kernel.py:137",
-                     max_abs_err=err1, ms=ms, plain_ms=plain_ms))
+                     max_abs_err=err1, ms=ms, plain_ms=plain_ms,
+                     library_ms=None,
+                     # ~400 operations a pair: corners, 2 x 4 clipped edges
+                     **bound(2 * n1 * 5 * 4 + n1 * n1 * 4, n1 * n1 * 400)))
 
     # K2: keep flags on the same boxes with random scores
     scores = torch.from_numpy(rng.uniform(0, 1, 2000).astype(np.float32))
@@ -172,7 +248,9 @@ def check_kernels(torch, np, device):
     rows.append(dict(name="K2 nms_keep", route="cuda",
                      source="sassd_tpu_torch/csrc/rotate_nms.cu",
                      replaces="sassd_tpu/core/riou.py:188",
-                     max_abs_err=float(err2), ms=ms, plain_ms=plain_ms))
+                     max_abs_err=float(err2), ms=ms, plain_ms=plain_ms,
+                     library_ms=None,
+                     **bound(2000 * 2000 * 4 + 2 * 2000, 2000 * 2000)))
 
     # K3: [2, 28, 200, 176] part map, 2048 boxes per sample, ~10% off-map
     b, k, h, w, n = 2, 28, 200, 176, 2048
@@ -203,7 +281,12 @@ def check_kernels(torch, np, device):
     rows.append(dict(name="K3 pswarp_score", route="cuda",
                      source="sassd_tpu_torch/csrc/pswarp_score.cu",
                      replaces="sassd_tpu/ops/warp.py:76",
-                     max_abs_err=err3, ms=ms, plain_ms=plain_ms))
+                     max_abs_err=err3, ms=ms, plain_ms=plain_ms,
+                     library_ms=None,
+                     # boxes, valid, scores; 4 map taps a part; ~70
+                     # operations a part (lattice, sin/cos, 4 weights)
+                     **bound(b * n * (7 * 4 + 1 + 4) + b * n * k * 4 * 4,
+                             b * n * k * 70)))
     return rows
 
 
@@ -243,16 +326,22 @@ def check_sparse_kernels(torch, np, device, cfg, samples):
               f"{plain_ms:.4f} ms")
         if not ok:
             fail(f"K4 disagrees with its plain version on {plan_key}")
-        k4.append((f"{plan_key[5:]} {cin}->{cout}", err, ms, plain_ms))
+        found = int((plan >= 0).sum())
+        k4.append((f"{plan_key[5:]} {cin}->{cout}", err, ms, plain_ms,
+                   bound(feats.numel() * 4 + plan.numel() * plan.element_size()
+                         + w.numel() * 4 + plan.shape[2] * cout * 4,
+                         2 * found * cin * cout)))
     rows.append(dict(name="K4 sparse_conv", route="cuda",
                      source="sassd_tpu_torch/csrc/sparse_conv.cu",
                      replaces="sassd_tpu/ops/sparse.py:411",
-                     max_abs_err=max(e for _, e, _, _ in k4),
-                     ms=sum(m for _, _, m, _ in k4),
-                     plain_ms=sum(m for _, _, _, m in k4),
+                     max_abs_err=max(e for _, e, _, _, _ in k4),
+                     ms=sum(m for _, _, m, _, _ in k4),
+                     plain_ms=sum(m for _, _, _, m, _ in k4),
+                     library_ms=None,
                      at="sum over " + ", ".join(n for n, *_ in k4),
-                     per_shape={n: dict(ms=m, plain_ms=pm)
-                                for n, _, m, pm in k4}))
+                     per_shape={n: dict(ms=m, plain_ms=pm, **bd)
+                                for n, _, m, pm, bd in k4},
+                     **add_bounds([bd for *_, bd in k4])))
 
     # K5: scan 0's level 3 (10240 rows x 64) into [1, 5*64, 200, 176]
     keys3 = sp.coords_to_keys(s0["plan_coords3"], shapes[3])
@@ -270,10 +359,15 @@ def check_sparse_kernels(torch, np, device, cfg, samples):
           f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
     if not same5:
         fail("K5 differs from its plain version")
+    d3, h3, w3 = shapes[3]
     rows.append(dict(name="K5 densify", route="cuda",
                      source="sassd_tpu_torch/csrc/densify.cu",
                      replaces="sassd_tpu/ops/sparse.py:835",
-                     max_abs_err=err5, ms=ms, plain_ms=plain_ms))
+                     max_abs_err=err5, ms=ms, plain_ms=plain_ms,
+                     library_ms=None,
+                     # keys and rows in; the zeroed canvas and occupancy out
+                     **bound(x3.numel() * 4 + keys3.numel() * 4
+                             + canvas.numel() * 4 + occ.numel() * 4, 0)))
 
     # K6 + K7: the device rulebook of all scans as one batch, level by
     # level against the plain versions on the same inputs, then the whole
@@ -328,21 +422,33 @@ def check_sparse_kernels(torch, np, device, cfg, samples):
                                   sp.window_plan_plain))
     print(f"  K6 L0 map + subm0 plan (batch 1): kernel {ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms")
+    m0 = keys0.shape[1]
+    total0 = shapes[0][0] * shapes[0][1] * shapes[0][2]
     rows.append(dict(name="K6 device_plans", route="cuda",
                      source="sassd_tpu_torch/csrc/device_plans.cu",
                      replaces="sassd_tpu/ops/sparse.py:84",
                      max_abs_err=err6, ms=ms, plain_ms=plain_ms,
-                     at="L0 index map + subm0 plan, batch 1"))
+                     library_ms=None,
+                     at="L0 index map + subm0 plan, batch 1",
+                     # keys in, the whole map written, 27 map reads and
+                     # one plan entry out per row and tap
+                     **bound(m0 * 4 + total0 * 4 + 2 * 27 * m0 * 4, 0)))
     ms = cuda_ms(lambda: sp.downsample_keys(keys0, shapes[0], caps[1]))
     plain_ms = cuda_ms(lambda: sp.downsample_keys_plain(keys0, shapes[0],
                                                         caps[1]))
     print(f"  K7 L0->L1 downsample (batch 1, incl. torch.sort): kernel "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
+    n_cand = 8 * m0
     rows.append(dict(name="K7 downsample", route="cuda",
                      source="sassd_tpu_torch/csrc/downsample.cu",
                      replaces="sassd_tpu/ops/sparse.py:618",
                      max_abs_err=err7, ms=ms, plain_ms=plain_ms,
-                     at="L0 -> L1, batch 1, torch.sort included"))
+                     library_ms=None,
+                     at="L0 -> L1, batch 1, torch.sort included",
+                     # keys in, the capped level out; a comparison sort of
+                     # the 8 candidates a row
+                     **bound(m0 * 4 + caps[1] * 4,
+                             n_cand * int(np.ceil(np.log2(n_cand))))))
     return rows
 
 
@@ -389,20 +495,269 @@ def check_serving_kernels(torch, np, device, cfg, scans, anchors_bv):
     plain_ms = cuda_ms(lambda: voxelize_plain(p1, n1, cfg.voxel))
     print(f"  K8 batch 1 (incl. torch.sort): kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms")
+    n_in = int(n1[0])
+    v_cap = cfg.voxel.max_voxels
     rows.append(dict(name="K8 voxelize", route="cuda",
                      source="sassd_tpu_torch/csrc/voxelize.cu",
                      replaces="sassd_tpu/ops/voxelize.py:142",
                      max_abs_err=err8, ms=ms, plain_ms=plain_ms,
-                     at="batch 1, 65,536-point cap, torch.sort included"))
+                     library_ms=None,
+                     at="batch 1, 65,536-point cap, torch.sort included",
+                     # the valid points in; voxels, coords and counts out;
+                     # a comparison sort of the points' keys
+                     **bound(n_in * 16 + v_cap * (cfg.voxel.max_num_points
+                                                  * 16 + 12 + 4),
+                             n_in * int(np.ceil(np.log2(max(n_in, 2)))))))
     ms = cuda_ms(lambda: serve.anchors_mask(c1, corners, hw, thr))
     plain_ms = cuda_ms(lambda: serve.anchors_mask_plain(c1, corners, hw,
                                                         thr))
     print(f"  K9 batch 1: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    n_anchors = corners.shape[0]
     rows.append(dict(name="K9 anchors_mask", route="cuda",
                      source="sassd_tpu_torch/csrc/anchors_mask.cu",
                      replaces="sassd_tpu/serve.py:106",
                      max_abs_err=err9, ms=ms, plain_ms=plain_ms,
-                     at="batch 1, 20,000 voxels, 70,400 anchors"))
+                     library_ms=None,
+                     at="batch 1, 20,000 voxels, 70,400 anchors",
+                     # coords and corner indices in, the mask out
+                     **bound(c1.shape[1] * 12 + n_anchors * 17,
+                             c1.shape[1] + 4 * n_anchors)))
+    return rows
+
+
+def check_train_kernels(torch, np, device, cfg, samples, gts):
+    """Phase 3, the training kernels at batch 2 on the train plans of the
+    first two car scans: K10 and K4's input gradients, K11, K12, K3b, K5b.
+    gts: [2, max_gt, 7] GT boxes and [2, max_gt] validity (the scenes')."""
+    from sassd_tpu_torch.core import boxes
+    from sassd_tpu_torch.ops import interpolate as itp
+    from sassd_tpu_torch.ops import sparse as sp
+    from sassd_tpu_torch.ops import warp
+
+    rng = np.random.default_rng(SEED + 4)
+    batch = {k: torch.from_numpy(np.stack([s[k] for s in samples[:2]])).to(
+        device) for k in samples[0] if k != "meta"}
+    caps = (cfg.voxel.max_voxels,) + tuple(cfg.caps.level_caps[1:])
+    shapes = [cfg.sparse_shape]
+    for _ in range(3):
+        shapes.append(sp.out_shape_stride2(shapes[-1]))
+
+    def randn(*shape, scale=1.0):
+        return torch.from_numpy((rng.normal(size=shape) * scale).astype(
+            np.float32)).to(device)
+    rows = []
+
+    # K10, and K4 as the input gradient, at L0 16->16, the stride conv
+    # L1->L2 32->64 (K4 on the transpose plan) and L2 64->64
+    k10, dx_err = [], 0.0
+    for kind, level_in, cin, cout in (("subm0", 0, 16, 16),
+                                      ("stride2", 1, 32, 64),
+                                      ("subm2", 2, 64, 64)):
+        plan = batch[f"plan_{kind}"]
+        x = randn(2, caps[level_in], cin)
+        w = randn(27, cin, cout, scale=1 / np.sqrt(27 * cin))
+        cot = randn(2, plan.shape[2], cout)
+        dw = sp.conv_weight_grad(x, plan, cot)
+        dw_ref = sp.conv_weight_grad_plain(x, plan, cot)
+        err = rel_err(dw, dw_ref)
+        if kind.startswith("subm"):
+            args = (plan,)
+            fn = sp.subm_conv_sym
+        else:
+            args = (plan, batch[f"plan_strideT{kind[-1]}"])
+            fn = sp.stride_conv_hostT
+        xk, xp = x.clone().requires_grad_(), x.clone().requires_grad_()
+        fn(xk, w, *args).backward(cot)
+        sp.subm_conv_batched_plain(xp, w, plan).backward(cot)
+        dx_err = max(dx_err, rel_err(xk.grad, xp.grad))
+        ms = cuda_ms(lambda: sp.conv_weight_grad(x, plan, cot))
+        plain_ms = cuda_ms(lambda: sp.conv_weight_grad_plain(x, plan, cot))
+        print(f"K10 conv_weight_grad {kind} {cin}->{cout} {tuple(plan.shape)}"
+              f": rel err {err:.3g}; input gradient (K4) rel err "
+              f"{rel_err(xk.grad, xp.grad):.3g} (tol {TRAIN_GRAD_RTOL}); "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        if not (err <= TRAIN_GRAD_RTOL and dx_err <= TRAIN_GRAD_RTOL):
+            fail(f"K10 or K4's input gradient disagrees on {kind}")
+        found = int((plan >= 0).sum())
+        k10.append((f"{kind} {cin}->{cout}", err, ms, plain_ms,
+                    bound(x.numel() * 4 + cot.numel() * 4
+                          + plan.numel() * plan.element_size()
+                          + dw.numel() * 4, 2 * found * cin * cout)))
+    rows.append(dict(name="K10 conv_weight_grad", route="cuda",
+                     source="sassd_tpu_torch/csrc/sparse_conv_bwd.cu",
+                     replaces="sassd_tpu/ops/sparse.py:541",
+                     max_abs_err=max(e for _, e, *_ in k10),
+                     err_kind="relative to max |plain|",
+                     input_grad_rel_err=dx_err,
+                     ms=sum(m for _, _, m, _, _ in k10),
+                     plain_ms=sum(m for _, _, _, m, _ in k10),
+                     library_ms=None, at="batch 2, sum over " + ", ".join(
+                         n for n, *_ in k10),
+                     per_shape={n: dict(ms=m, plain_ms=pm, **bd)
+                                for n, _, m, pm, bd in k10},
+                     **add_bounds([bd for *_, bd in k10])))
+
+    # K11 at the three levels: forward bitwise with identical selections,
+    # backward within TRAIN_GRAD_RTOL
+    npts = torch.clamp(batch["num_points"], min=1)[..., None].float()
+    query = (batch["voxels"][..., :3].sum(-2) / npts).contiguous()
+    cell0 = batch["coords"]
+    pc = np.asarray(cfg.voxel.point_cloud_range[:3], np.float32).tolist()
+    k11, err11 = [], 0.0
+    for level, c in ((1, 32), (2, 64), (3, 64)):
+        vs = (np.asarray(cfg.voxel.voxel_size, np.float32)
+              * 2 ** level).tolist()
+        plan = batch[f"plan_aux{level}"]
+        feats = randn(2, caps[level], c)
+        out, rsel, wsel = itp.ring_interp_fwd(query, cell0, level, feats,
+                                              plan, vs, pc)
+        ref_rows, ref_w = itp.ring_select_plain(query, cell0, level, plan,
+                                                caps[level], vs, pc)
+        ref = itp.neighborhood_interpolate_cells_plain(
+            query, cell0, level, feats, plan, vs, pc)
+        same = (torch.equal(rsel.long(), ref_rows)
+                and torch.equal(wsel, ref_w) and torch.equal(out, ref))
+        cot = randn(*out.shape)
+        fk = feats.clone().requires_grad_()
+        itp.neighborhood_interpolate_cells(query, cell0, level, fk, plan, vs,
+                                           pc).backward(cot)
+        fp = feats.clone().requires_grad_()
+        out_p = itp.neighborhood_interpolate_cells_plain(query, cell0, level,
+                                                         fp, plan, vs, pc)
+        bwd_err = rel_err(fk.grad, torch.autograd.grad(
+            out_p, fp, cot, retain_graph=True)[0])
+        err11 = max(err11, bwd_err)
+        print(f"K11 ring_interp level {level} {tuple(query.shape)} -> "
+              f"{tuple(out.shape)}: forward, rows and weights "
+              f"{'bitwise equal to' if same else 'DIFFER from'} plain; "
+              f"backward rel err {bwd_err:.3g} (tol {TRAIN_GRAD_RTOL})")
+        if not same or bwd_err > TRAIN_GRAD_RTOL:
+            fail(f"K11 disagrees with its plain version at level {level}")
+        ms = cuda_ms(lambda: itp.ring_interp_bwd(
+            cot, rsel, wsel, feats.shape)) + cuda_ms(
+            lambda: itp.ring_interp_fwd(query, cell0, level, feats, plan, vs,
+                                        pc))
+        plain_ms = grad_ms(out_p, fp, cot) + cuda_ms(
+            lambda: itp.neighborhood_interpolate_cells_plain(
+                query, cell0, level, feats, plan, vs, pc))
+        src = (cot[:, :, None] * wsel.view(2, -1, 3, 1)).reshape(-1, c)
+        flat = torch.zeros((2 * caps[level], c), device=device)
+        lib_ms = cuda_ms(lambda: flat.index_add_(0, rsel.view(-1).long(),
+                                                 src))
+        q = query.shape[0] * query.shape[1]
+        k11.append((level, ms, plain_ms, lib_ms, bound(
+            q * (12 + 12 + 27 * plan.element_size() + 2 * c * 4 + 24)
+            + min(feats.numel(), 3 * q * c) * 4 + feats.numel() * 4,
+            q * (27 * 12 + 3 * c * 2 + 3 * c * 2))))
+    rows.append(dict(name="K11 ring_interp", route="cuda",
+                     source="sassd_tpu_torch/csrc/interpolate.cu",
+                     replaces="sassd_tpu/ops/interpolate.py:115",
+                     max_abs_err=err11, err_kind="backward, relative to max "
+                     "|plain|; the forward is bitwise",
+                     ms=sum(m for _, m, *_ in k11),
+                     plain_ms=sum(m for _, _, m, *_ in k11),
+                     library_ms=None,
+                     library_backward_ms=sum(m for *_, m, _ in k11),
+                     at="batch 2, forward + backward, levels 1-3",
+                     per_level={lv: dict(ms=m, plain_ms=pm, **bd)
+                                for lv, m, pm, _, bd in k11},
+                     **add_bounds([bd for *_, bd in k11])))
+
+    # K12: the voxel centroids of the two scans against their GT boxes
+    pvalid = batch["coords"][..., 0] >= 0
+    gt, gv = (torch.from_numpy(a).to(device) for a in gts)
+    label, off = boxes.aux_targets(query, pvalid, gt, gv)
+    ref_label, ref_off = boxes.aux_targets_plain(query, pvalid, gt, gv)
+    same12 = torch.equal(label, ref_label) and torch.equal(off, ref_off)
+    print(f"K12 aux_targets {tuple(query.shape)} x {tuple(gt.shape)}: "
+          f"{'bitwise equal to' if same12 else 'DIFFERS from'} plain; "
+          f"points in boxes {label.sum(1).tolist()}")
+    if not same12 or not label.any():
+        fail("K12 differs from its plain version (or no point is in a box)")
+    ms = cuda_ms(lambda: boxes.aux_targets(query, pvalid, gt, gv))
+    plain_ms = cuda_ms(lambda: boxes.aux_targets_plain(query, pvalid, gt,
+                                                       gv))
+    n_pts, n_box = int(pvalid.sum()), int(gv.sum(1).max())
+    rows.append(dict(name="K12 aux_targets", route="cuda",
+                     source="sassd_tpu_torch/csrc/points_in_boxes.cu",
+                     replaces="sassd_tpu/core/boxes.py:281",
+                     max_abs_err=float((off - ref_off).abs().max()), ms=ms,
+                     plain_ms=plain_ms, library_ms=None,
+                     at="batch 2, 20,000-voxel cap, 64 GT slots",
+                     # points, validity, boxes in; labels, offsets out;
+                     # ~25 operations a point-box test (sin and cos
+                     # included), every valid box for a point in none
+                     **bound(query.numel() * 4 + pvalid.numel()
+                             + gt.numel() * 4 + gv.numel()
+                             + label.numel() + off.numel() * 4,
+                             n_pts * n_box * 25)))
+
+    # K3b: [2, 28, 200, 176] part map, 640 guided boxes a sample
+    b, k, h, w, n = 2, 28, 200, 176, cfg.caps.guided_train
+    part_map = randn(b, k, h, w)
+    bx = np.zeros((b, n, 7), np.float32)
+    bx[..., 0] = rng.uniform(0, 70.4, (b, n))
+    bx[..., 1] = rng.uniform(-40, 40, (b, n))
+    bx[..., 2] = -1.7
+    bx[..., 3:6] = rng.uniform([1.4, 3.2, 1.4], [1.9, 4.5, 1.8], (b, n, 3))
+    bx[..., 6] = rng.uniform(-np.pi, np.pi, (b, n))
+    boxes3 = torch.from_numpy(bx).to(device)
+    valid = torch.from_numpy(rng.uniform(size=(b, n)) < 0.9).to(device)
+    d_score = randn(b, n)
+    args = (cfg.model.window_size, cfg.model.grid_offsets,
+            1.0 / cfg.model.featmap_stride)
+    d_map, d_boxes = warp.pswarp_score_grad(part_map, boxes3, valid, d_score,
+                                            *args)
+    pm, pb = part_map.clone().requires_grad_(), boxes3.clone(
+        ).requires_grad_()
+    out_p = warp.pswarp_score_plain(pm, pb, valid, *args)
+    ref_map, ref_boxes = torch.autograd.grad(out_p, (pm, pb), d_score,
+                                             retain_graph=True)
+    err3b = max(rel_err(d_map, ref_map), rel_err(d_boxes, ref_boxes))
+    print(f"K3b pswarp_score_grad {tuple(part_map.shape)} x {n} boxes: rel "
+          f"err map {rel_err(d_map, ref_map):.3g}, boxes "
+          f"{rel_err(d_boxes, ref_boxes):.3g} (tol {TRAIN_GRAD_RTOL})")
+    if not err3b <= TRAIN_GRAD_RTOL:
+        fail("K3b disagrees with autograd of the plain version")
+    ms = cuda_ms(lambda: warp.pswarp_score_grad(part_map, boxes3, valid,
+                                                d_score, *args))
+    plain_ms = grad_ms(out_p, (pm, pb), d_score)
+    rows.append(dict(name="K3b pswarp_score_grad", route="cuda",
+                     source="sassd_tpu_torch/csrc/pswarp_score.cu",
+                     replaces="sassd_tpu/ops/warp.py:76",
+                     max_abs_err=err3b, err_kind="relative to max |plain|",
+                     ms=ms, plain_ms=plain_ms, library_ms=None,
+                     at="batch 2, 640 boxes a sample",
+                     # d_score, boxes, valid, 4 map taps a part in; the
+                     # whole zeroed d_map and d_boxes out; ~100 operations
+                     # a part
+                     **bound(b * n * (4 + 28 + 1 + 28) + b * n * k * 16
+                             + part_map.numel() * 4, b * n * k * 100)))
+
+    # K5b: the level-3 rows of both scans from a [2, 320, 200, 176] canvas
+    keys3 = sp.coords_to_keys(batch["plan_coords3"], shapes[3])
+    d3, h3, w3 = shapes[3]
+    d_canvas = randn(2, d3 * 64, h3, w3)
+    got = sp.densify_grad(keys3, d_canvas, shapes[3])
+    ref = sp.densify_grad_plain(keys3, d_canvas, shapes[3])
+    same5b = torch.equal(got, ref)
+    print(f"K5b densify_grad {tuple(d_canvas.shape)} -> {tuple(got.shape)}:"
+          f" {'bitwise equal to' if same5b else 'DIFFERS from'} plain")
+    if not same5b:
+        fail("K5b differs from its plain version")
+    ms = cuda_ms(lambda: sp.densify_grad(keys3, d_canvas, shapes[3]))
+    plain_ms = cuda_ms(lambda: sp.densify_grad_plain(keys3, d_canvas,
+                                                     shapes[3]))
+    n_rows = int((keys3 != sp.INVALID_KEY).sum())
+    rows.append(dict(name="K5b densify_grad", route="cuda",
+                     source="sassd_tpu_torch/csrc/densify.cu",
+                     replaces="sassd_tpu/ops/sparse.py:835",
+                     max_abs_err=float((got - ref).abs().max()), ms=ms,
+                     plain_ms=plain_ms, library_ms=None,
+                     at="batch 2, 10,240-row cap",
+                     # keys and the active rows' canvas values in, rows out
+                     **bound(keys3.numel() * 4 + n_rows * 64 * 4
+                             + got.numel() * 4, 0)))
     return rows
 
 
@@ -520,7 +875,8 @@ def match_annos(np, a, b, what: str) -> int:
 
 def run_serving(torch, np, device, cfg, model_dev, model_cpu, root: str):
     """Phase 6: device-resident serving through run_inference and the KITTI
-    evaluator. Returns (launches, ms1, ms2, host_ms)."""
+    evaluator. Returns (launches, ms1, ms2, host_ms, launches of one
+    batch-1 step)."""
     import dataclasses
     from sassd_tpu_torch import inference, serve
     from sassd_tpu_torch.data import kitti, synthetic
@@ -594,6 +950,12 @@ def run_serving(torch, np, device, cfg, model_dev, model_cpu, root: str):
     print(f"serving: wrote {len(ids)} result files; KITTI AP (random "
           f"weights):\n{text}")
 
+    torch.cuda.synchronize()
+    for kern in cuda.KERNELS.values():
+        kern.launches = 0
+    step(model_dev, batch1[0])
+    torch.cuda.synchronize()
+    per_step = {k: v.launches for k, v in cuda.KERNELS.items()}
     ms1, ms2 = [], []
     for b in batch1:
         t = time.perf_counter()
@@ -610,7 +972,153 @@ def run_serving(torch, np, device, cfg, model_dev, model_cpu, root: str):
     for p in raw:
         serve.prepare_points(p, cfg_pts)
     host_ms = (time.perf_counter() - t) * 1e3 / N_SCANS
-    return launches, ms1, ms2, host_ms
+    return launches, ms1, ms2, host_ms, per_step
+
+
+def run_training(torch, np, device, cfg, root: str):
+    """Phase 7: car-config training on a synthetic KITTI train split.
+    Returns (launches of the run, launches of one step, ms/step list,
+    host leg ms/step, losses of the card step)."""
+    import dataclasses
+    import logging
+    from sassd_tpu_torch import weights
+    from sassd_tpu_torch.data import kitti, synthetic
+    from sassd_tpu_torch.inference import to_device
+    from sassd_tpu_torch.models.detector import Detector, parse_losses
+    from sassd_tpu_torch.ops import cuda
+    from sassd_tpu_torch.train import checkpoint as ckpt, loop
+
+    cfg = dataclasses.replace(
+        cfg, train=dataclasses.replace(cfg.train, log_interval=1,
+                                       checkpoint_interval=2),
+        data=dataclasses.replace(cfg.data, num_workers=2))
+    synthetic.write_synthetic_kitti(root, n_train=N_SCANS, n_val=0,
+                                    seed=SEED + 3)
+    data_root = os.path.join(root, "training")
+    ds = kitti.KittiDataset(cfg, data_root,
+                            os.path.join(root, "ImageSets", "train.txt"),
+                            train=True)
+    t = time.perf_counter()
+    samples = [ds[i] for i in range(2)]
+    host_ms = (time.perf_counter() - t) * 1e3
+    batch = kitti.collate(samples)[0]
+    print(f"training: batch 2 of scans {[m['sample_idx'] for m in kitti.collate(samples)[1]]}"
+          f", GT boxes {batch['gt_valid'].sum(1).tolist()}, active voxels "
+          f"{(batch['coords'][..., 0] >= 0).sum(1).tolist()}")
+    anchors = torch.from_numpy(ds.anchors)
+
+    # one step on the card against the same step on the CPU, in float32
+    # and in float64 (the gradients' reference: backpropagating through
+    # train-mode BatchNorm over 70k-cell maps amplifies float32 rounding)
+    res = {}
+    for name, where, dtype in (("cpu64", "cpu", torch.float64),
+                               ("cpu", "cpu", torch.float32),
+                               ("card", device, torch.float32)):
+        model = weights.seeded_detector(cfg, SEED, where).to(dtype)
+        model.train()
+        b = {k: v.to(dtype) if v.is_floating_point() else v
+             for k, v in to_device(batch, where).items()}
+        t = time.perf_counter()
+        losses = model.forward_train(b, anchors.to(where, dtype))
+        parse_losses(losses).backward()
+        if where != "cpu":
+            torch.cuda.synchronize()
+        res[name] = ({k: float(v.detach()) for k, v in losses.items()},
+                     time.perf_counter() - t,
+                     {k: p.grad.detach().cpu().double()
+                      for k, p in model.named_parameters()})
+    (l64, s64, g64), (cl, cs, cgr), (gl, _, ggr) = (
+        res["cpu64"], res["cpu"], res["card"])
+    for k, v in cl.items():
+        print(f"training, card vs CPU: {k} {gl[k]:.7g} vs {v:.7g} "
+              f"(float64 {l64[k]:.7g})")
+
+    def gnorm(g, keys):
+        return sum(float(torch.sum(g[k] ** 2)) for k in keys) ** 0.5
+
+    def gerr(g, keys):
+        return (sum(float(torch.sum((g[k] - g64[k]) ** 2)) for k in keys)
+                ** 0.5 / max(gnorm(g64, keys), 1e-300))
+    keys = list(g64)
+    norm_err = abs(gnorm(ggr, keys) - gnorm(g64, keys)) / gnorm(g64, keys)
+    print(f"training: grad norm card {gnorm(ggr, keys):.7g}, CPU "
+          f"{gnorm(cgr, keys):.7g}, float64 CPU {gnorm(g64, keys):.7g} "
+          f"(CPU steps {cs:.1f} s, {s64:.1f} s in float64)")
+    mod_err = {}
+    for mod in ("vxnet", "bevnet", "head", "pswarp", "aux"):
+        mk = [k for k in keys if k.startswith(mod + ".")]
+        mod_err[mod] = gerr(ggr, mk)
+        print(f"training: {mod} gradients, rel L2 error against float64: "
+              f"card {mod_err[mod]:.3g}, CPU {gerr(cgr, mk):.3g}")
+    for k in ("guided_valid", "guided_pos"):
+        if gl[k] != cl[k]:
+            fail(f"training: {k} {gl[k]} on the card vs {cl[k]} on the CPU")
+    bad = [k for k, v in cl.items() if "loss" in k
+           and not abs(gl[k] - v) <= TRAIN_LOSS_RTOL * abs(v)]
+    if (bad or norm_err > TRAIN_GNORM_RTOL
+            or max(mod_err.values()) > TRAIN_GRAD_L2):
+        fail(f"training: card and CPU disagree on {bad or 'the gradients'}")
+
+    # the short run through train_model
+    logged = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            logged.append(record.getMessage())
+    logger = logging.getLogger("sassd.chip_smoke")
+    logger.setLevel(logging.INFO)
+    logger.addHandler(Keep())
+    work = os.path.join(root, "work")
+    torch.cuda.synchronize()
+    for kern in cuda.KERNELS.values():
+        kern.launches = 0
+    t = time.perf_counter()
+    model, opt, steps = loop.train_model(cfg, ds, work,
+                                         total_epochs=N_TRAIN_EPOCHS,
+                                         device=device, logger=logger)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t
+    launches = {k: v.launches for k, v in cuda.KERNELS.items()}
+    print(f"training: train_model ran {steps} steps in {run_s:.1f} s; "
+          f"launches {launches}")
+    steps_logged = [m for m in logged if " step " in m]
+    for m in steps_logged:
+        print("  " + m)
+    values = [float(kv.split("=")[1]) for m in steps_logged
+              for kv in m.split() if "=" in kv]
+    if steps != 2 * N_TRAIN_EPOCHS or opt.count != steps:
+        fail(f"training: {steps} steps, {opt.count} updates applied")
+    if len(steps_logged) != steps or not np.isfinite(values).all():
+        fail("training: a logged loss or metric is not finite")
+    if any("nonfinite_skips=0.0000" not in m for m in steps_logged):
+        fail("training: an update was skipped as non-finite")
+    path = ckpt.latest_checkpoint(work)
+    restored = Detector(cfg).to(device)
+    ckpt.restore(path, restored)
+    same = all(torch.equal(a, b) for a, b in zip(model.state_dict().values(),
+                                                 restored.state_dict().values()))
+    print(f"training: checkpoints {[os.path.basename(p) for p in ckpt.list_checkpoints(work)]}; "
+          f"{os.path.basename(path)} restores {'equal' if same else 'DIFFERENT'} "
+          f"parameters and buffers")
+    if not same:
+        fail("training: the checkpoint does not restore the trained model")
+
+    # timing: synchronised steps on one prepared batch, loader excluded
+    step = loop.make_train_step(cfg, ds.anchors, opt, device)
+    step(model, batch)
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(3):
+        t = time.perf_counter()
+        step(model, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+    for kern in cuda.KERNELS.values():
+        kern.launches = 0
+    step(model, batch)
+    torch.cuda.synchronize()
+    per_step = {k: v.launches for k, v in cuda.KERNELS.items()}
+    return launches, per_step, ms, host_ms, gl
 
 
 def main() -> int:
@@ -636,9 +1144,11 @@ def main() -> int:
     print(f"device: {name} ({torch.cuda.device_count()} visible); "
           f"nvidia-smi: {card}")
     from sassd_tpu_torch.config import car_config
+    from sassd_tpu_torch.core import boxes
     from sassd_tpu_torch.data import kitti, synthetic
     from sassd_tpu_torch import serve
-    from sassd_tpu_torch.ops import build, cuda, native
+    from sassd_tpu_torch.ops import build, cuda, native, warp
+    from sassd_tpu_torch.ops import interpolate as itp
     from sassd_tpu_torch.ops import sparse as sp
     from sassd_tpu_torch.ops import voxelize as vox
     from sassd_tpu_torch.weights import seeded_detector
@@ -661,8 +1171,9 @@ def main() -> int:
         cfg.model, host_plans=False))
     anchors, anchors_bv = kitti.build_anchors(cfg)
     rng = np.random.default_rng(SEED)
-    scans = [synthetic.make_scene(rng, n_cars=(6, 12), n_ground=18000)[0]
-             for _ in range(N_SCANS)]
+    scenes = [synthetic.make_scene(rng, n_cars=(6, 12), n_ground=18000)
+              for _ in range(N_SCANS)]
+    scans = [p for p, _, _ in scenes]
     t = time.perf_counter()
     samples = [kitti.prepare_scan(cfg, p, anchors_bv) for p in scans]
     host_ms = (time.perf_counter() - t) * 1e3 / N_SCANS
@@ -676,8 +1187,21 @@ def main() -> int:
           f"{host_dev_ms:.1f} without (voxelize + mask); active voxels "
           f"{n_vox}")
 
+    t = time.perf_counter()
+    train_samples = [kitti.prepare_scan(cfg, p, anchors_bv, train=True)
+                     for p in scans[:2]]
+    train_host_ms = (time.perf_counter() - t) * 1e3 / 2
+    print(f"host leg ms/scan with the C++ train rulebook (strideT, aux): "
+          f"{train_host_ms:.1f}")
+    g = cfg.caps.max_gt
+    gts = (np.zeros((2, g, 7), np.float32), np.zeros((2, g), bool))
+    for i, (_, bx, _) in enumerate(scenes[:2]):
+        gts[0][i, :len(bx)] = bx[:g]
+        gts[1][i, :len(bx)] = True
+
     rows = check_kernels(torch, np, device)
     rows += check_sparse_kernels(torch, np, device, cfg, samples)
+    rows += check_train_kernels(torch, np, device, cfg, train_samples, gts)
     frustum = synthetic.make_scene(np.random.default_rng(SEED + 2),
                                    n_cars=(6, 12), n_ground=18000,
                                    frustum=True)[0]
@@ -687,7 +1211,7 @@ def main() -> int:
         print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms")
 
-    model = seeded_detector(cfg, SEED)                      # CPU copy
+    model = seeded_detector(cfg, SEED, "cpu")               # CPU copy
     model_dev = seeded_detector(cfg, SEED, device)
     host = run_phase(torch, np, device, cfg, model_dev, anchors, samples,
                      "host plans")
@@ -696,14 +1220,19 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as root:
         serving = run_serving(torch, np, device, cfg, model_dev, model,
                               root)
+    with tempfile.TemporaryDirectory() as root:
+        training = run_training(torch, np, device, cfg, root)
     symbols = {"K1": ("sassd_riou_overlap",), "K2": ("sassd_nms_keep",),
-               "K3": ("sassd_pswarp_score",), **sp.KERNEL_SYMBOLS,
-               **vox.KERNEL_SYMBOLS, **serve.KERNEL_SYMBOLS}
+               **warp.KERNEL_SYMBOLS, **sp.KERNEL_SYMBOLS,
+               **vox.KERNEL_SYMBOLS, **serve.KERNEL_SYMBOLS,
+               **itp.KERNEL_SYMBOLS, **boxes.KERNEL_SYMBOLS}
     for what, launches, ids in (("host plans", host[4], "K1 K2 K3 K4 K5"),
                                 ("device plans", dev[4],
                                  "K1 K2 K3 K4 K5 K6 K7"),
                                 ("serving", serving[0],
-                                 "K1 K2 K3 K4 K5 K6 K7 K8 K9")):
+                                 "K1 K2 K3 K4 K5 K6 K7 K8 K9"),
+                                ("training", training[0],
+                                 "K1 K3 K3b K4 K5 K5b K10 K11 K12")):
         idle = [s for k in ids.split() for s in symbols[k]
                 if launches[s] == 0]
         if idle:
@@ -721,19 +1250,29 @@ def main() -> int:
         print(f"car config, {what}, on {name} [{card}]: batch 1 "
               f"{', '.join(f'{m:.2f}' for m in ms1)} ms/scan; batch 2 "
               f"{ms2:.2f} ms ({ms2 / 2:.2f} ms/scan)")
-    _, ms1, ms2, serve_host_ms = serving
+    _, ms1, ms2, serve_host_ms, _ = serving
     print(f"car config, serving (raw points uploaded in the step), on "
           f"{name} [{card}]: batch 1 {', '.join(f'{m:.2f}' for m in ms1)} "
           f"ms/scan; batch 2 {', '.join(f'{m:.2f}' for m in ms2)} ms/scan; "
           f"host leg (prepare_points) {serve_host_ms:.2f} ms/scan")
+    _, _, train_ms, train_leg_ms, _ = training
+    print(f"car config, training at batch 2, on {name} [{card}]: "
+          f"{', '.join(f'{m:.2f}' for m in train_ms)} ms/step (host clock, "
+          f"synchronised, loader excluded); host leg (read + voxelize + "
+          f"mask + C++ train rulebook) {train_leg_ms:.2f} ms/step")
     for r in rows:
-        kid = r["name"][:2]
+        kid = r["name"].split()[0]
         by_phase = {what: sum(launches[s] for s in symbols[kid])
                     for what, launches in (("host plans", host[4]),
                                            ("device plans", dev[4]),
-                                           ("serving", serving[0]))}
+                                           ("serving", serving[0]),
+                                           ("training", training[0]))}
         r["launches"] = sum(by_phase.values())
         r["launches_by_phase"] = by_phase
+        r["launches_per_step"] = {
+            what: sum(launches[s] for s in symbols[kid])
+            for what, launches in (("serving, batch 1", serving[4]),
+                                   ("training, batch 2", training[1]))}
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,11 @@
 """Configuration dataclasses read by the PyTorch port.
 
 The fields and defaults are those of ``sassd_tpu.config`` (and of
-``sassd_tpu.ops.voxelize.VoxelConfig``), restricted to what the inference
-slice reads. Layout knobs of the JAX package that do not change numerics
-(``triple_gather``, ``flat_batch``, ``fold_head``, ``packed_warp``, ...)
-are not carried: the port implements one form of each. Options the port
-does not run yet raise ``NotImplementedError`` in :func:`check_supported`.
+``sassd_tpu.ops.voxelize.VoxelConfig``), restricted to what inference and
+single-device training read. Layout knobs of the JAX package that do not
+change numerics (``triple_gather``, ``flat_batch``, ``fold_head``,
+``packed_warp``, ...) are not carried: the port implements one form of
+each. Options the port does not run yet raise ``NotImplementedError`` in :func:`check_supported`.
 """
 from __future__ import annotations
 
@@ -44,6 +44,9 @@ class AnchorConfig:
     strides: Tuple[float, float, float] = (0.4, 0.4, 1.0)
     offsets: Tuple[float, float, float] = (0.2, -39.8, -1.78)
     rotations: Tuple[float, ...] = (0.0, 1.57)
+    # anchor-GT assigner thresholds (head_loss)
+    matched_threshold: float = 0.6
+    unmatched_threshold: float = 0.45
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,6 +56,7 @@ class Caps:
     max_points_per_scan: int = 65536
     max_gt: int = 64
     level_caps: Tuple[int, int, int, int] = (20000, 18432, 14336, 10240)
+    guided_train: int = 640
     guided_test: int = 2048
     max_det: int = 100
 
@@ -75,6 +79,9 @@ class ModelConfig:
     dense_tail: bool = True
     sorted_device_levels: bool = True
     plan_lookup: str = "dense"
+    # aux-branch 3-NN candidates: "ring" = the 3x3x3 neighbourhood of the
+    # query's parent cell (the host rulebook's aux plans)
+    aux_interp: str = "ring"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,6 +102,34 @@ class DataConfig:
     class_names: Tuple[str, ...] = ("Car",)
     anchor_area_threshold: float = 1.0
     out_size_factor: int = 8
+    # GT-sampling augmentation: runs only with a GT database configured
+    gt_sampling: bool = True
+    db_info_path: str = ""
+    num_workers: int = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    batch_size: int = 2
+    total_epochs: int = 80
+    lr: float = 0.003
+    weight_decay: float = 0.01
+    # "exclude_bn_bias": decay only conv/linear kernels ("w" leaves)
+    weight_decay_mode: str = "exclude_bn_bias"
+    grad_clip_norm: float = 10.0
+    # one-cycle schedule
+    moms: Tuple[float, float] = (0.95, 0.85)
+    div_factor: float = 10.0
+    pct_start: float = 0.4
+    anchor_thr: float = 0.1            # guided-anchor score threshold
+    extra_pos_iou: float = 0.7         # PSWarp assigner (3D IoU)
+    extra_neg_iou: float = 0.7
+    rpn_similarity: str = "NearestIouSimilarity"
+    checkpoint_interval: int = 2       # epochs
+    checkpoint_every_steps: int = 0    # mid-epoch saves every N steps
+    max_ckpt_keep: int = 10
+    log_interval: int = 20
+    seed: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,6 +150,7 @@ class SASSDConfig:
     test: TestConfig = TestConfig()
     data: DataConfig = DataConfig()
     parallel: ParallelConfig = ParallelConfig()
+    train: TrainConfig = TrainConfig()
 
     @property
     def class_names(self) -> Tuple[str, ...]:
@@ -137,15 +173,16 @@ class SASSDConfig:
         return len(self.anchors) * h * w * self.model.num_anchor_per_loc
 
 
-def check_supported(cfg: SASSDConfig) -> None:
+def check_supported(cfg: SASSDConfig, train: bool = False) -> None:
     """Raise NotImplementedError for options the port does not run.
 
     Without host plans, and always with ``test.device_input="points"``,
     the port builds the rulebook on the device the one way the JAX package
     does by default: dense index maps, key-sorted levels, windowed plan
-    lookups.
+    lookups. Training (`train=True`) runs on host plans, with the ring aux
+    interpolation, the one-cycle AdamW and no GT-sampling database.
     """
-    m, t, p = cfg.model, cfg.test, cfg.parallel
+    m, t, p, d = cfg.model, cfg.test, cfg.parallel, cfg.data
     unsupported = {
         "model.dense_index=False": not m.dense_index,
         "model.sorted_device_levels=False": not m.sorted_device_levels,
@@ -160,6 +197,18 @@ def check_supported(cfg: SASSDConfig) -> None:
         f"parallel.strategy={p.strategy!r} with spatial={p.spatial}":
             p.strategy != "data" and p.spatial > 1,
     }
+    if train:
+        unsupported.update({
+            f"model.aux_interp={m.aux_interp!r}": m.aux_interp != "ring",
+            "training with model.host_plans=False": not m.host_plans,
+            "data.gt_sampling with data.db_info_path":
+                d.gt_sampling and bool(d.db_info_path),
+            f"train.weight_decay_mode={cfg.train.weight_decay_mode!r}":
+                cfg.train.weight_decay_mode != "exclude_bn_bias",
+            f"train.rpn_similarity={cfg.train.rpn_similarity!r}":
+                cfg.train.rpn_similarity not in (
+                    "NearestIouSimilarity", "RotateIou3dSimilarity"),
+        })
     bad = [k for k, v in unsupported.items() if v]
     if bad:
         raise NotImplementedError(
@@ -181,7 +230,7 @@ def tiny_config(**overrides) -> SASSDConfig:
                           max_num_points=5, max_voxels=512),
         caps=Caps(max_points_per_scan=2048, max_gt=8,
                   level_caps=(512, 512, 384, 256),
-                  guided_test=32, max_det=16),
+                  guided_train=40, guided_test=32, max_det=16),
         anchors={"Car": AnchorConfig(
             sizes=(1.6, 3.9, 1.56), strides=(0.8, 0.8, 1.0),
             offsets=(0.4, -2.8, -1.0))},

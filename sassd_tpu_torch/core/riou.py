@@ -1,4 +1,4 @@
-"""Rotated BEV IoU and rotated NMS (kernel K2).
+"""Rotated BEV IoU, rotated 3D IoU and rotated NMS (kernel K2).
 
 BEV box layout: [x, y, w, l, yaw] (center format; w = local-x extent).
 """
@@ -23,6 +23,24 @@ def boxes3d_to_bev5(boxes3d: torch.Tensor) -> torch.Tensor:
 def rotate_iou_bev(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
     """Pairwise rotated-BEV IoU. [N,5] x [M,5] -> [N,M]."""
     return rotate_overlap(boxes1, boxes2, criterion=-1)
+
+
+def rotate_iou_3d(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """Pairwise 3D IoU of [N,7] x [M,7] boxes (z = bottom): the rotated BEV
+    overlap (K1, criterion 2) times the height overlap, over the union
+    volume (RotateIou3dSimilarity). Not differentiable."""
+    inter_bev = rotate_overlap(boxes3d_to_bev5(boxes1).contiguous(),
+                               boxes3d_to_bev5(boxes2).contiguous(), 2)
+    amin = boxes1[:, 2][:, None]
+    amax = (boxes1[:, 2] + boxes1[:, 5])[:, None]
+    bmin = boxes2[:, 2][None, :]
+    bmax = (boxes2[:, 2] + boxes2[:, 5])[None, :]
+    inter_h = torch.clamp(torch.minimum(amax, bmax)
+                          - torch.maximum(amin, bmin), min=0.0)
+    inter = inter_bev * inter_h
+    vol1 = (boxes1[:, 3] * boxes1[:, 4] * boxes1[:, 5])[:, None]
+    vol2 = (boxes2[:, 3] * boxes2[:, 4] * boxes2[:, 5])[None, :]
+    return inter / torch.clamp(vol1 + vol2 - inter, min=1e-7)
 
 
 def nms_keep_plain(iou: torch.Tensor, keep0: torch.Tensor,

@@ -1,9 +1,9 @@
-"""Box geometry of the JAX package's ``data/augment.py`` that inference
-needs: BEV corners (result files) and nearest axis-aligned BEV boxes
-(anchors mask). The training augmentations are not carried."""
+"""Box geometry of the JAX package's ``data/augment.py``: BEV corners
+(result files, the GT range filter) and nearest axis-aligned BEV boxes
+(anchors mask). The GT-sampling augmentor is not carried."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -30,3 +30,17 @@ def nearest_bev_np(boxes: np.ndarray) -> np.ndarray:
     dy = np.where(cond, boxes[:, 3], boxes[:, 4])
     return np.stack([boxes[:, 0] - dx / 2, boxes[:, 1] - dy / 2,
                      boxes[:, 0] + dx / 2, boxes[:, 1] + dy / 2], axis=1)
+
+
+def filter_gt_box_outside_range(gt_boxes: np.ndarray,
+                                bv_range: Sequence[float]) -> np.ndarray:
+    """[N] bool: boxes with at least one BEV corner inside [xmin, ymin,
+    xmax, ymax]."""
+    if gt_boxes.shape[0] == 0:
+        return np.zeros((0,), bool)
+    corners = corners_2d(gt_boxes[:, :2], gt_boxes[:, 3:5], gt_boxes[:, 6])
+    inside = ((corners[..., 0] >= bv_range[0])
+              & (corners[..., 0] <= bv_range[2])
+              & (corners[..., 1] >= bv_range[1])
+              & (corners[..., 1] <= bv_range[3]))
+    return np.any(inside, axis=1)

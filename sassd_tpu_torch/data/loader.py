@@ -37,12 +37,15 @@ def epoch_indices(n: int, epoch: int, seed: int, shuffle: bool,
 def iterate_batches(dataset, batch_size: int, *, epoch: int = 0,
                     shuffle: bool = True, seed: int = 0,
                     num_shards: int = 1, shard_id: int = 0,
-                    num_workers: int = 4, prefetch: int = 2) -> Iterator:
+                    num_workers: int = 4, prefetch: int = 2,
+                    start_batch: int = 0) -> Iterator:
     """Yield (batch_dict, metas) with background sample preparation. An
     exception raised while preparing a sample is raised here, in the
-    consumer, and ends the iteration."""
+    consumer, and ends the iteration. start_batch: skip the first N
+    batches of the epoch's order (a resumed mid-epoch checkpoint)."""
     idx = epoch_indices(len(dataset), epoch, seed, shuffle,
                         num_shards, shard_id, batch_size)
+    idx = idx[start_batch * batch_size:]
     n_batches = len(idx) // batch_size
     if num_workers <= 0:
         for b in range(n_batches):

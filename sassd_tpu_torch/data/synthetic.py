@@ -135,7 +135,8 @@ def lidar_box_to_label_line(box, calib, score=None, name="Car") -> str:
 
 def make_random_batch(cfg, rng, batch_size: int = 2, n_points: int = 600,
                       n_gt: int = 3):
-    """A random batch in the detector's input layout (all anchors enabled).
+    """A random batch in the detector's input layout (all anchors enabled,
+    the host plans with the train plans, `n_gt` valid GT boxes of class 1).
 
     Draws the same random stream as the JAX package's make_random_batch,
     GT boxes included, so a seed gives both packages the same voxels.
@@ -153,7 +154,7 @@ def make_random_batch(cfg, rng, batch_size: int = 2, n_points: int = 600,
         voxels.append(v)
         coords.append(c)
         nums.append(np_)
-        for k, arr in build_host_plans(cfg, c).items():
+        for k, arr in build_host_plans(cfg, c, train=True).items():
             plans.setdefault(k, []).append(arr)
         g = np.zeros((cfg.caps.max_gt, 7), np.float32)
         g[:n_gt, 0] = rng.uniform(pcr[0] + 1, pcr[3] * 0.8, n_gt)
@@ -162,12 +163,15 @@ def make_random_batch(cfg, rng, batch_size: int = 2, n_points: int = 600,
         g[:n_gt, 3:6] = [1.6, 3.9, 1.56]
         g[:n_gt, 6] = rng.uniform(-np.pi, np.pi, n_gt)
         gts.append(g)
+    gmask = np.arange(cfg.caps.max_gt) < n_gt
     out = {
         "voxels": np.stack(voxels),
         "num_points": np.stack(nums),
         "coords": np.stack(coords),
         "anchors_mask": np.ones((batch_size, cfg.num_anchors), bool),
         "gt_boxes": np.stack(gts),
+        "gt_classes": gmask[None].repeat(batch_size, 0).astype(np.int32),
+        "gt_valid": gmask[None].repeat(batch_size, 0),
     }
     out.update({k: np.stack(v) for k, v in plans.items()})
     return out

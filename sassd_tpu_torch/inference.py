@@ -30,18 +30,21 @@ def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
 def make_test_step(cfg: SASSDConfig, anchors: np.ndarray, device
                    ) -> Callable[[Detector, Dict[str, np.ndarray]],
                                  Dict[str, torch.Tensor]]:
-    """Returns step(model, batch) -> detections on `device` (not synced)."""
+    """Returns step(model, batch) -> detections on `device` (not synced).
+    The step puts the model in eval mode and runs without autograd."""
     check_supported(cfg)
     anchors_t = torch.from_numpy(np.asarray(anchors, np.float32)).to(device)
 
     def step(model: Detector, batch: Dict[str, np.ndarray]):
-        return model.forward_test(to_device(batch, device), anchors_t)
+        model.eval()
+        with torch.inference_mode():
+            return model.forward_test(to_device(batch, device), anchors_t)
     return step
 
 
 def run_inference(cfg: SASSDConfig, dataset, model: Detector,
                   batch_size: int = 1,
-                  device="cpu") -> Tuple[List[Dict], List[int]]:
+                  device="cuda") -> Tuple[List[Dict], List[int]]:
     """Run the detector over a dataset; returns (annos, sample_ids).
 
     `model` lives on `device`. With ``test.device_input="points"`` the
@@ -84,7 +87,7 @@ def _dedup_by_id(annos: List[Dict], ids: List[int]):
 
 
 def evaluate(cfg: SASSDConfig, dataset, model: Optional[Detector],
-             label_dir, batch_size: int = 1, device="cpu",
+             label_dir, batch_size: int = 1, device="cuda",
              precomputed: Optional[Tuple[List[Dict], List[int]]] = None):
     """Inference + the official KITTI AP over the dataset, in one process.
     Returns (results, text).

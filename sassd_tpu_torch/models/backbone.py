@@ -12,10 +12,17 @@ level 3 (the dense tail) is scattered into a dense canvas (K5) and runs as
 masked dense convs on [B, D*C, H, W] with z-banded weights: a conv
 followed by multiplication with the occupancy mask is exactly the
 submanifold conv, and D = 5 folds into the channels.
+
+In train mode every BatchNorm takes masked batch statistics (the level's
+valid rows, or the occupied cells of the dense tail), the convs are
+differentiable (sparse.subm_conv_sym, sparse.stride_conv_hostT with the
+host rulebook's transpose plans, sparse.densify_nchw), the z-banded
+weights are rebuilt from conv3's weights at every step, and
+:meth:`VxNet.forward_train` also returns the aux branch's middle levels.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -49,12 +56,14 @@ class SubmBlock(nn.Module):
             setattr(self, f"conv{i}", L.SparseConv3(gen, ci, co))
             setattr(self, f"bn{i}", L.BatchNorm(co))
 
-    def forward(self, x: torch.Tensor, plan: torch.Tensor) -> torch.Tensor:
-        """[B, M, Cin] rows on one level + its [B, 27, M] plan
-        -> [B, M, Cout]."""
+    def forward(self, x: torch.Tensor, plan: torch.Tensor,
+                mask: Optional[torch.Tensor]) -> torch.Tensor:
+        """[B, M, Cin] rows on one level + its [B, 27, M] plan and [B, M]
+        valid-row mask (BatchNorm statistics; train mode) -> [B, M, Cout]."""
+        bn_mask = None if mask is None else mask[..., None]
         for i in range(self.n):
-            x = sp.subm_conv_batched(x, getattr(self, f"conv{i}").w, plan)
-            x = L.relu(getattr(self, f"bn{i}")(x))
+            x = sp.subm_conv_sym(x, getattr(self, f"conv{i}").w, plan)
+            x = L.relu(getattr(self, f"bn{i}")(x, mask=bn_mask))
         return x
 
 
@@ -72,6 +81,12 @@ def zbanded_oihw(w27: torch.Tensor, d: int) -> torch.Tensor:
         for zi in range(max(0, zo - 1), min(d, zo + 2)):
             out[zo, :, zi] = w[zi - zo + 1].permute(3, 2, 0, 1)
     return out.reshape(d * cout, d * cin, 3, 3)
+
+
+class Middle(NamedTuple):
+    """Rows of one backbone level for the aux branch."""
+    keys: torch.Tensor      # [B, M] int32 keys (INVALID_KEY padded)
+    feats: torch.Tensor     # [B, M, C]
 
 
 class VxNet(nn.Module):
@@ -100,22 +115,36 @@ class VxNet(nn.Module):
 
     @torch.no_grad()
     def build_tail_weights(self) -> None:
-        """Derive the dense tail's z-banded weights from conv3's weights."""
+        """Derive the dense tail's z-banded weights from conv3's weights
+        (the eval-mode cache; train mode rebuilds them every step)."""
         d = self.shape3[0]
         for i in range(self.conv3.n):
             w = zbanded_oihw(getattr(self.conv3, f"conv{i}").w.detach(), d)
             self.register_buffer(f"tail_w{i}", w, persistent=False)
 
+    def train(self, mode: bool = True):
+        was_training = self.training
+        super().train(mode)
+        if was_training and not mode:  # the weights may have been trained
+            self.build_tail_weights()
+        return self
+
     def _down(self, block: SubmBlock, x: torch.Tensor,
               plans: Dict[str, torch.Tensor], level: int):
         """Stride-2 conv into level `level`: the rulebook's coords give
         the output active set, the stride plan indexes the previous level's
-        rows."""
+        rows (and the transpose plan, where the rulebook has it, serves the
+        backward)."""
         out_keys = sp.coords_to_keys(plans[f"coords{level}"],
                                      self.level_shapes[level])
-        y = sp.subm_conv_batched(x, block.conv0.w, plans[f"stride{level}"])
+        if f"strideT{level}" in plans:
+            y = sp.stride_conv_hostT(x, block.conv0.w, plans[f"stride{level}"],
+                                     plans[f"strideT{level}"])
+        else:
+            y = sp.subm_conv_batched(x, block.conv0.w,
+                                     plans[f"stride{level}"])
         omask = (out_keys != sp.INVALID_KEY)[..., None]
-        return out_keys, L.relu(block.bn0(y)) * omask
+        return out_keys, L.relu(block.bn0(y, mask=omask)) * omask
 
     def forward(self, feats0: torch.Tensor,
                 plans: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -125,27 +154,50 @@ class VxNet(nn.Module):
         [B,capL,3] (int16 or int32, -1 = missing/padding), from the host
         (data.kitti.build_host_plans) or the device (sp.device_rulebook).
         """
-        x = self.conv0(feats0, plans["subm0"])
-        _, x = self._down(self.down0, x, plans, 1)
-        x = self.conv1(x, plans["subm1"])
-        _, x = self._down(self.down1, x, plans, 2)
-        x = self.conv2(x, plans["subm2"])
+        return self._run(feats0, plans)[0]
+
+    def forward_train(self, feats0: torch.Tensor, keys0: torch.Tensor,
+                      plans: Dict[str, torch.Tensor]
+                      ) -> Tuple[torch.Tensor, List[Middle]]:
+        """forward, plus the aux branch's middles: the rows of levels 1
+        and 2 after their subm blocks, and level 3's rows of the conv3
+        block's output (before the 1x1x1 conv)."""
+        return self._run(feats0, plans, keys0)
+
+    def _run(self, feats0, plans, keys0=None):
+        """keys0 (the level-0 keys) gives level 0's BatchNorm mask; train
+        mode needs it, eval mode reads no mask."""
+        mask0 = None if keys0 is None else keys0 != sp.INVALID_KEY
+        x = self.conv0(feats0, plans["subm0"], mask0)
+        keys1, x = self._down(self.down0, x, plans, 1)
+        x = self.conv1(x, plans["subm1"], keys1 != sp.INVALID_KEY)
+        mid0 = Middle(keys1, x)
+        keys2, x = self._down(self.down1, x, plans, 2)
+        x = self.conv2(x, plans["subm2"], keys2 != sp.INVALID_KEY)
+        mid1 = Middle(keys2, x)
         keys3, x = self._down(self.down2, x, plans, 3)
-        return self._dense_tail(keys3, x)
+        out, conv3 = self._dense_tail(keys3, x)
+        if keys0 is None:
+            return out, None
+        return out, [mid0, mid1, Middle(keys3, sp.gather_rows(keys3, conv3))]
 
     def _dense_tail(self, keys3: torch.Tensor, x: torch.Tensor):
+        """-> ([B, D, H, W, C] output, [B, D, C, H, W] conv3-block output)."""
         d, h, w = self.shape3
         b, _, c = x.shape
         xf, occ = sp.densify_nchw(keys3, x, self.shape3)  # ch = z*C + c
         for i in range(self.conv3.n):
-            xf = F.conv2d(xf, getattr(self, f"tail_w{i}"), padding=1)
+            wt = (zbanded_oihw(getattr(self.conv3, f"conv{i}").w, d)
+                  if self.training else getattr(self, f"tail_w{i}"))
+            xf = F.conv2d(xf, wt, padding=1)
             x5 = xf.reshape(b, d, c, h, w) * occ
-            x5 = L.relu(getattr(self.conv3, f"bn{i}")(x5, dim=2)) * occ
+            x5 = L.relu(getattr(self.conv3, f"bn{i}")(
+                x5, dim=2, mask=occ > 0)) * occ
             xf = x5.reshape(b, d * c, h, w)
+        conv3 = x5
         # 1x1x1 conv: one [C, C] matmul per z slice, as a 1x1 conv
         x5 = L.conv2d_nchw(xf.reshape(b * d, c, h, w),
                            self.extra.conv0.w[None, None])
         x5 = x5.reshape(b, d, c, h, w) * occ
-        x5 = L.relu(self.extra.bn0(x5, dim=2)) * occ
-        return x5.permute(0, 1, 3, 4, 2)                        # [B,D,H,W,C]
-
+        x5 = L.relu(self.extra.bn0(x5, dim=2, mask=occ > 0)) * occ
+        return x5.permute(0, 1, 3, 4, 2), conv3                 # [B,D,H,W,C]

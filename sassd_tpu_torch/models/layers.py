@@ -3,19 +3,19 @@
 Parameters keep the JAX package's layouts (conv HWIO, sparse conv
 [27, Cin, Cout], 1x1x1 conv [Cin, Cout]) so weights convert one to one;
 the modules permute to PyTorch's layouts where they call a PyTorch op.
-BatchNorm runs in eval mode with eps 1e-3, the value every BatchNorm of
-the model uses.
+Every BatchNorm of the model uses eps 1e-3 and momentum 0.01.
 """
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 BN_EPS = 1e-3
+BN_MOMENTUM = 0.01
 
 
 def uniform_fan_in(gen: torch.Generator, shape: Tuple[int, ...],
@@ -51,7 +51,15 @@ class SparseConv3(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm over the channel axis `dim`."""
+    """BatchNorm over the channel axis `dim`, with an optional row mask.
+
+    In eval mode it normalises with the running statistics. In train mode
+    it normalises with the batch statistics over the rows where `mask` is
+    set (padded sparse rows and empty dense cells are invisible) and
+    updates the running buffers: (1-m)·running + m·batch, with the
+    unbiased variance. torch's nn.BatchNorm has no mask, so it is not used.
+    A new BatchNorm is in eval mode (the modules serve unless trained).
+    """
 
     def __init__(self, c: int):
         super().__init__()
@@ -59,9 +67,41 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(c))
         self.register_buffer("mean", torch.zeros(c))
         self.register_buffer("var", torch.ones(c))
+        self.train(False)
 
-    def forward(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
-        return batch_norm(x, self.scale, self.bias, self.mean, self.var, dim)
+    def forward(self, x: torch.Tensor, dim: int = -1,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """mask: bool, x's shape with size 1 at `dim` (or broadcastable to
+        it), set on the rows that count; train mode only."""
+        if not self.training:
+            return batch_norm(x, self.scale, self.bias, self.mean, self.var,
+                              dim)
+        mean, var, n = masked_moments(x, dim, mask)
+        with torch.no_grad():
+            unbiased = var * (n / torch.clamp(n - 1.0, min=1.0))
+            self.mean.mul_(1 - BN_MOMENTUM).add_(BN_MOMENTUM * mean)
+            self.var.mul_(1 - BN_MOMENTUM).add_(BN_MOMENTUM * unbiased)
+        return batch_norm(x, self.scale, self.bias, mean, var, dim)
+
+
+def masked_moments(x: torch.Tensor, dim: int,
+                   mask: Optional[torch.Tensor]):
+    """Per-channel mean and biased variance of x over all axes but `dim`,
+    over the rows where `mask` is set; and the row count (>= 1)."""
+    dim = dim % x.dim()
+    red = [i for i in range(x.dim()) if i != dim]
+    shape = [1] * x.dim()
+    shape[dim] = -1
+    if mask is None:
+        n = torch.tensor(float(x.numel() // x.shape[dim]), device=x.device)
+        mean = torch.mean(x, dim=red)
+        diff = x - mean.reshape(shape)
+        return mean, torch.mean(diff * diff, dim=red), n
+    m = mask.to(x.dtype)
+    n = torch.clamp(torch.sum(m), min=1.0)
+    mean = torch.sum(x * m, dim=red) / n
+    diff = (x - mean.reshape(shape)) * m
+    return mean, torch.sum(diff * diff, dim=red) / n, n
 
 
 def conv2d_nchw(x: torch.Tensor, w_hwio: torch.Tensor, b=None) -> torch.Tensor:
@@ -77,8 +117,9 @@ def conv2d(x: torch.Tensor, w_hwio: torch.Tensor, b=None) -> torch.Tensor:
 
 def batch_norm(x: torch.Tensor, scale, bias, mean, var,
                dim: int = -1) -> torch.Tensor:
-    """Eval BatchNorm over channel axis `dim`: (x-mean) * rsqrt(var+eps)
-    * scale + bias, the JAX package's order of operations."""
+    """BatchNorm over channel axis `dim` with the given statistics:
+    (x-mean) * rsqrt(var+eps) * scale + bias, the JAX package's order of
+    operations."""
     shape = [1] * x.dim()
     shape[dim] = -1
     inv = torch.rsqrt(var + BN_EPS)

@@ -3,16 +3,20 @@
 A part-sensitive score map (3x3 conv -> BN -> ReLU -> 1x1 conv, K =
 num_parts channels) is sampled at a rotated per-box lattice, one part per
 lattice point; the mean of the K samples is the rescored confidence
-(kernel K3). The rescored boxes then go through rotated NMS (K1 + K2).
+(kernel K3; K3b its gradient in the map and the boxes). The rescored boxes
+then go through rotated NMS (K1 + K2); in training, the scores' focal loss
+is assigned by rotated 3D IoU (K1).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 from torch import nn
 
+from sassd_tpu_torch.core import losses as loss_ops
 from sassd_tpu_torch.core import riou
+from sassd_tpu_torch.core import targets as target_ops
 from sassd_tpu_torch.ops import warp
 from . import layers as L
 from .ssd_head import top_k_stable
@@ -40,6 +44,34 @@ class PSWarpHead(nn.Module):
         return warp.pswarp_score(x, boxes.float().contiguous(), valid,
                                  window_size, grid_offsets,
                                  1.0 / featmap_stride)
+
+
+def pswarp_labels(boxes: torch.Tensor, valid: torch.Tensor,
+                  gt_boxes: torch.Tensor, gt_valid: torch.Tensor, *,
+                  pos_iou_thr: float = 0.7,
+                  neg_iou_thr: float = 0.7) -> torch.Tensor:
+    """[B, K] assignment of the candidates to the GTs by rotated 3D IoU:
+    -1 ignore, 0 negative, 1 positive."""
+    return torch.stack([target_ops.create_targets(
+        boxes[i], gt_boxes[i], gt_valid[i],
+        target_ops.rotate_iou3d_similarity, pos_iou_thr, neg_iou_thr,
+        anchors_mask=valid[i], encode=False).labels
+        for i in range(boxes.shape[0])])
+
+
+def pswarp_loss(scores: torch.Tensor, labels: torch.Tensor
+                ) -> Dict[str, torch.Tensor]:
+    """Rescoring focal loss over the [B, K] scores given pswarp_labels,
+    normalised by the positives of the whole batch."""
+    b = scores.shape[0]
+    cared = labels >= 0
+    positives = labels > 0
+    cls_weights = (cared & ((labels == 0) | positives)).to(torch.float32)
+    pos_norm = torch.clamp(torch.sum(positives.to(torch.float32)), min=1.0)
+    cls_targets = torch.where(cared, labels, 0).to(torch.float32)
+    loss = loss_ops.sigmoid_focal_loss(scores, cls_targets,
+                                       cls_weights / pos_norm) / b
+    return dict(loss_cls=loss)
 
 
 def rescore_and_nms(boxes: torch.Tensor, scores: torch.Tensor,

@@ -66,17 +66,23 @@ def voxelize_cpp(points: np.ndarray, pc_min, voxel_size, grid,
     return voxels, coords, nums, int(m)
 
 
-def build_plans_cpp(coords0: np.ndarray, sparse_shape, level_caps):
-    """Inference gather plans of the sparse backbone from level-0 coords.
+def build_plans_cpp(coords0: np.ndarray, sparse_shape, level_caps,
+                    train: bool = False):
+    """Gather plans of the sparse backbone from level-0 coords.
 
     Args:
       coords0: [cap0, 3] int32 zyx coords (-1 rows = padding), key-sorted.
       sparse_shape: (D, H, W) of the full-resolution grid.
       level_caps: 4 per-level capacities (cap0 == coords0.shape[0]).
+      train: also build the plans only the backward and the aux branch read.
     Returns:
       dict with subm0..subm3 ([27, capL] int32, -1 = missing),
       stride1..stride3 ([27, capL], rows of the previous level),
-      coords1..coords3 ([capL, 3] int32, -1 padded) and n_active [4].
+      coords1..coords3 ([capL, 3] int32, -1 padded) and n_active [4]; with
+      train also strideT1..3 ([27, cap_{L-1}], the stride convs' transpose
+      plans: rows of level L for each level L-1 row) and aux1..3 ([27,
+      cap0], the level-L rows of the 3x3x3 ring around each level-0 voxel's
+      parent cell).
     """
     lib = load()
     caps = np.asarray(level_caps, np.int64)
@@ -86,17 +92,22 @@ def build_plans_cpp(coords0: np.ndarray, sparse_shape, level_caps):
     dims = np.asarray(sparse_shape, np.int64)
     out = {f"subm{l}": np.empty((27, int(caps[l])), np.int32)
            for l in range(4)}
+    unused = np.empty((1,), np.int32)
     for l in range(1, 4):
         out[f"coords{l}"] = np.empty((int(caps[l]), 3), np.int32)
         out[f"stride{l}"] = np.empty((27, int(caps[l])), np.int32)
-    unused = np.empty((1,), np.int32)     # train-only plans are not built
+        if train:
+            out[f"aux{l}"] = np.empty((27, int(caps[0])), np.int32)
+            out[f"strideT{l}"] = np.empty((27, int(caps[l - 1])), np.int32)
     n_out = np.zeros(4, np.int64)
     rc = lib.build_plans(np.ascontiguousarray(coords0, np.int32), caps, dims,
                          out["subm0"], out["coords1"], out["subm1"],
                          out["stride1"], out["coords2"], out["subm2"],
                          out["stride2"], out["coords3"], out["subm3"],
-                         out["stride3"], unused, unused, unused,
-                         unused, unused, unused, n_out, 0)
+                         out["stride3"],
+                         *[out.get(f"aux{l}", unused) for l in (1, 2, 3)],
+                         *[out.get(f"strideT{l}", unused) for l in (1, 2, 3)],
+                         n_out, int(train))
     if rc != 0:
         raise RuntimeError(f"build_plans failed with code {rc}")
     out["n_active"] = n_out.astype(np.int32)

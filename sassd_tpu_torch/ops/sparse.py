@@ -17,14 +17,22 @@ another sample are never marked found.
 Kernels (``sassd_tpu_torch/csrc``), each beside its plain PyTorch version,
 which a wrapper takes only for CPU tensors:
 
-- K4 ``subm_conv_batched``: the gather-GEMM (``sparse_conv.cu``);
-- K5 ``densify_nchw``: the last level into the dense tail's NCHW canvas
-  (``densify.cu``);
+- K4 ``subm_conv_batched``: the gather-GEMM (``sparse_conv.cu``), which
+  also computes the input gradients of the trained convs;
+- K10 ``conv_weight_grad``: their weight gradients (``sparse_conv_bwd.cu``);
+- K5 ``densify_nchw``: the last level into the dense tail's NCHW canvas,
+  and K5b its backward (``densify.cu``);
 - K6 ``build_index_map`` + ``window_plan``: the device rulebook's dense
   key -> row maps and the plans resolved through them
   (``device_plans.cu``);
 - K7 ``downsample_keys``: the sorted, capped active set of a stride-2
   level (``downsample.cu``).
+
+Training differentiates the convs through :func:`subm_conv_sym` and
+:func:`stride_conv_hostT` (autograd Functions whose forward is K4 and whose
+backward is K4 for the input gradient and K10 for the weight gradient) and
+the dense tail's entry through :func:`densify_nchw` (K5, K5b). On CPU
+tensors each is its plain forward under ordinary autograd.
 """
 from __future__ import annotations
 
@@ -42,6 +50,15 @@ _K4 = cuda.Kernel("sassd_sparse_conv",
 _K5 = cuda.Kernel("sassd_densify",
                   [cuda.P, cuda.P, cuda.I, cuda.I, cuda.I, cuda.I, cuda.I,
                    cuda.I, cuda.P, cuda.P])
+_K5B = cuda.Kernel("sassd_densify_bwd",
+                   [cuda.P, cuda.P, cuda.I, cuda.I, cuda.I, cuda.I, cuda.I,
+                    cuda.I, cuda.P])
+_K10 = cuda.Kernel("sassd_sparse_conv_dw",
+                   [cuda.P, cuda.I, cuda.I, cuda.P, cuda.I, cuda.I, cuda.I,
+                    cuda.P, cuda.I, cuda.I, cuda.P, cuda.P])
+# output rows per K10 block: each block writes one [Cin, Cout] partial per
+# tap, which a second pass sums in chunk order
+K10_CHUNK_ROWS = 512
 _K6_MAP = cuda.Kernel("sassd_index_map",
                       [cuda.P, cuda.I, cuda.I, cuda.L, cuda.P])
 _K6_PLAN = cuda.Kernel("sassd_window_plan",
@@ -56,6 +73,8 @@ _K7_UNIQUE = cuda.Kernel("sassd_unique_sorted",
 KERNEL_SYMBOLS = {
     "K4": ("sassd_sparse_conv",),
     "K5": ("sassd_densify",),
+    "K5b": ("sassd_densify_bwd",),
+    "K10": ("sassd_sparse_conv_dw",),
     "K6": ("sassd_index_map", "sassd_window_plan"),
     "K7": ("sassd_downsample_candidates", "sassd_unique_sorted"),
 }
@@ -170,6 +189,122 @@ def subm_conv_batched(feats: torch.Tensor, weight: torch.Tensor,
     return out
 
 
+def conv_weight_grad_plain(feats: torch.Tensor, plan: torch.Tensor,
+                           d_out: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K10 (see conv_weight_grad)."""
+    b, m_in, cin = feats.shape
+    col = gather_im2col(feats.reshape(b * m_in, cin),
+                        flatten_plan(host_plan(plan), m_in))
+    dw = col.T @ d_out.reshape(-1, d_out.shape[-1])
+    return dw.reshape(27, cin, -1)
+
+
+def conv_weight_grad(feats: torch.Tensor, plan: torch.Tensor,
+                     d_out: torch.Tensor) -> torch.Tensor:
+    """dW = im2col(feats, plan)^T . d_out of a sparse conv (K10 on the
+    card; the im2col is never built there).
+
+    feats: [B, M_in, Cin] float32, the conv's input; plan: its wire-format
+    [B, 27, M_out] plan; d_out: [B, M_out, Cout]. Returns [27, Cin, Cout].
+    """
+    if feats.device.type == "cpu":
+        return conv_weight_grad_plain(feats, plan, d_out)
+    cuda.check_cuda("feats", feats, torch.float32, 3)
+    cuda.check_cuda("d_out", d_out, torch.float32, 3)
+    if plan.dtype not in (torch.int16, torch.int32):
+        raise TypeError(f"plan must be int16 or int32, got {plan.dtype}")
+    cuda.check_cuda("plan", plan, plan.dtype, 3)
+    b, m_in, cin = feats.shape
+    m_out, cout = d_out.shape[1], d_out.shape[2]
+    if plan.shape != (b, 27, m_out) or d_out.shape[0] != b:
+        raise ValueError(f"plan {tuple(plan.shape)} / d_out "
+                         f"{tuple(d_out.shape)} do not fit feats "
+                         f"{tuple(feats.shape)}")
+    if cin % 4 or cout % 4 or cin > 64 or cout > 64:
+        raise ValueError(f"K10 takes Cin and Cout multiples of 4 up to 64, "
+                         f"got {cin} -> {cout}")
+    if feats.data_ptr() % 16 or d_out.data_ptr() % 16:
+        raise ValueError("feats and d_out must be 16-byte aligned")
+    chunks = -(-(b * m_out) // K10_CHUNK_ROWS)
+    with torch.cuda.device(feats.device):
+        partial = torch.empty((max(chunks, 1), 27, cin, cout),
+                              dtype=torch.float32, device=feats.device)
+        dw = torch.empty((27, cin, cout), dtype=torch.float32,
+                         device=feats.device)
+        _K10.launch(feats.data_ptr(), m_in, cin, plan.data_ptr(),
+                    int(plan.dtype == torch.int16), b, m_out,
+                    d_out.data_ptr(), cout, K10_CHUNK_ROWS,
+                    partial.data_ptr(), dw.data_ptr())
+    return dw
+
+
+class _SubmConvFn(torch.autograd.Function):
+    """Submanifold conv on the card: forward K4; backward K4 for d_feats
+    (the same plan, taps reversed, weights transposed: the plan is
+    symmetric) and K10 for d_weight."""
+
+    @staticmethod
+    def forward(ctx, feats, weight, plan):
+        ctx.save_for_backward(feats, weight, plan)
+        return subm_conv_batched(feats, weight, plan)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        feats, weight, plan = ctx.saved_tensors
+        d_out = d_out.contiguous()
+        d_feats = d_w = None
+        if ctx.needs_input_grad[0]:
+            w_rev = weight.flip(0).transpose(1, 2).contiguous()
+            d_feats = subm_conv_batched(d_out, w_rev, plan)
+        if ctx.needs_input_grad[1]:
+            d_w = conv_weight_grad(feats, plan, d_out)
+        return d_feats, d_w, None
+
+
+class _StrideConvTFn(torch.autograd.Function):
+    """Stride-2 conv on the card: forward K4 on the stride plan; backward
+    K4 on the transpose plan with the transposed weights for d_feats, K10
+    on the stride plan for d_weight."""
+
+    @staticmethod
+    def forward(ctx, feats, weight, plan, plan_t):
+        ctx.save_for_backward(feats, weight, plan, plan_t)
+        return subm_conv_batched(feats, weight, plan)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        feats, weight, plan, plan_t = ctx.saved_tensors
+        d_out = d_out.contiguous()
+        d_feats = d_w = None
+        if ctx.needs_input_grad[0]:
+            d_feats = subm_conv_batched(
+                d_out, weight.transpose(1, 2).contiguous(), plan_t)
+        if ctx.needs_input_grad[1]:
+            d_w = conv_weight_grad(feats, plan, d_out)
+        return d_feats, d_w, None, None
+
+
+def subm_conv_sym(feats: torch.Tensor, weight: torch.Tensor,
+                  plan: torch.Tensor) -> torch.Tensor:
+    """Differentiable submanifold conv over a batch: [B, M, Cin] features,
+    [27, Cin, Cout] weight and the level's [B, 27, M] subm plan ->
+    [B, M, Cout]. The plan must be symmetric (input set = output set)."""
+    if feats.device.type == "cpu":
+        return subm_conv_batched_plain(feats, weight, plan)
+    return _SubmConvFn.apply(feats, weight, plan)
+
+
+def stride_conv_hostT(feats: torch.Tensor, weight: torch.Tensor,
+                      plan: torch.Tensor, plan_t: torch.Tensor) -> torch.Tensor:
+    """Differentiable stride-2 conv over a batch: [B, M_in, Cin] features,
+    the [B, 27, M_out] stride plan into the input level and its [B, 27,
+    M_in] transpose plan into the output level (the host rulebook's
+    strideT) -> [B, M_out, Cout]."""
+    if feats.device.type == "cpu":
+        return subm_conv_batched_plain(feats, weight, plan)
+    return _StrideConvTFn.apply(feats, weight, plan, plan_t)
+
+
 def to_dense(keys: torch.Tensor, feats: torch.Tensor,
              shape_zyx: Tuple[int, int, int]) -> torch.Tensor:
     """Scatter active rows into a dense [B, D, H, W, C] canvas.
@@ -200,7 +335,8 @@ def densify_nchw_plain(keys: torch.Tensor, feats: torch.Tensor,
 
 def densify_nchw(keys: torch.Tensor, feats: torch.Tensor,
                  shape_zyx: Tuple[int, int, int]):
-    """Active rows -> the dense tail's canvas and occupancy (K5 on the card).
+    """Active rows -> the dense tail's canvas and occupancy (K5 on the
+    card, K5b for the gradient of the canvas).
 
     keys: [B, M] int32; feats: [B, M, C] float32. Returns the
     [B, D*C, H, W] canvas, channel z*C + c (the d-major order of the JAX
@@ -208,6 +344,11 @@ def densify_nchw(keys: torch.Tensor, feats: torch.Tensor,
     """
     if feats.device.type == "cpu":
         return densify_nchw_plain(keys, feats, shape_zyx)
+    return _DensifyFn.apply(keys, feats, tuple(shape_zyx))
+
+
+def _densify_k5(keys: torch.Tensor, feats: torch.Tensor,
+                shape_zyx: Tuple[int, int, int]):
     cuda.check_cuda("keys", keys, torch.int32, 2)
     cuda.check_cuda("feats", feats, torch.float32, 3)
     b, m, c = feats.shape
@@ -223,6 +364,70 @@ def densify_nchw(keys: torch.Tensor, feats: torch.Tensor,
         _K5.launch(keys.data_ptr(), feats.data_ptr(), b, m, c, d, h, w,
                    canvas.data_ptr(), occ.data_ptr())
     return canvas, occ
+
+
+def densify_grad_plain(keys: torch.Tensor, d_canvas: torch.Tensor,
+                       shape_zyx: Tuple[int, int, int]) -> torch.Tensor:
+    """Plain PyTorch version of K5b (see densify_grad)."""
+    d, h, w = shape_zyx
+    b = keys.shape[0]
+    return gather_rows(keys, d_canvas.reshape(b, d, -1, h, w))
+
+
+def densify_grad(keys: torch.Tensor, d_canvas: torch.Tensor,
+                 shape_zyx: Tuple[int, int, int]) -> torch.Tensor:
+    """Gradient of densify_nchw's canvas with respect to its rows: [B, M]
+    keys and the [B, D*C, H, W] canvas gradient -> [B, M, C], 0 on padding
+    rows (K5b on the card)."""
+    if d_canvas.device.type == "cpu":
+        return densify_grad_plain(keys, d_canvas, shape_zyx)
+    cuda.check_cuda("keys", keys, torch.int32, 2)
+    cuda.check_cuda("d_canvas", d_canvas, torch.float32, 4)
+    d, h, w = shape_zyx
+    b, m = keys.shape
+    if d_canvas.shape[0] != b or d_canvas.shape[1] % d \
+            or d_canvas.shape[2:] != (h, w):
+        raise ValueError(f"d_canvas {tuple(d_canvas.shape)} does not fit "
+                         f"keys {tuple(keys.shape)} on {shape_zyx}")
+    c = d_canvas.shape[1] // d
+    with torch.cuda.device(keys.device):
+        out = torch.empty((b, m, c), dtype=torch.float32, device=keys.device)
+        _K5B.launch(keys.data_ptr(), d_canvas.data_ptr(), b, m, c, d, h, w,
+                    out.data_ptr())
+    return out
+
+
+class _DensifyFn(torch.autograd.Function):
+    """densify_nchw on the card: forward K5, backward K5b."""
+
+    @staticmethod
+    def forward(ctx, keys, feats, shape_zyx):
+        canvas, occ = _densify_k5(keys, feats, shape_zyx)
+        ctx.save_for_backward(keys)
+        ctx.shape_zyx = shape_zyx
+        ctx.mark_non_differentiable(occ)
+        return canvas, occ
+
+    @staticmethod
+    def backward(ctx, d_canvas, _d_occ):
+        (keys,) = ctx.saved_tensors
+        d_feats = None
+        if ctx.needs_input_grad[1]:
+            d_feats = densify_grad(keys, d_canvas.contiguous(),
+                                   ctx.shape_zyx)
+        return None, d_feats, None
+
+
+def gather_rows(keys: torch.Tensor, dense: torch.Tensor) -> torch.Tensor:
+    """Rows of a dense [B, D, C, H, W] level at the [B, M] keys -> [B, M,
+    C], 0 on padding rows: the aux branch's L3 rows (the JAX package's
+    _gather_mid), a differentiable torch gather."""
+    b, d, c, h, w = dense.shape
+    rows = dense.permute(0, 1, 3, 4, 2).reshape(b, d * h * w, c)
+    ok = keys != INVALID_KEY
+    idx = torch.where(ok, keys.to(torch.int64), 0)
+    got = torch.gather(rows, 1, idx[..., None].expand(-1, -1, c))
+    return torch.where(ok[..., None], got, 0.0)
 
 
 def out_shape_stride2(shape_zyx: Tuple[int, int, int]) -> Tuple[int, int, int]:

@@ -1,16 +1,20 @@
-"""Where the time goes: car-config inference on one GPU under torch.profiler.
+"""Where the time goes: car-config inference or training on one GPU under
+torch.profiler.
 
-    python -m sassd_tpu_torch.profile_slice [--batch 1] [--device-plans | --serve]
+    python -m sassd_tpu_torch.profile_slice [--batch 1] [--device-plans | --serve | --train]
 
 Runs forward_test on synthetic car-config scans (seeded weights, as
 chip_smoke.py), with the C++ host rulebook or, with --device-plans
 (model.host_plans=False), the rulebook built on the card, or, with
 --serve, the device-resident serving step (serve.make_serving_step: raw
-points uploaded, voxelized, masked and the rulebook built on the card);
-then profiles RUNS steps and prints: the host-clock step time, the device
-time of each stage (voxelize, anchors_mask, rulebook, vxnet, bevnet, head,
-pswarp, nms), the CUDA kernels with the most device time, and the device
-busy share of the profiled window. Needs a CUDA device.
+points uploaded, voxelized, masked and the rulebook built on the card),
+or, with --train, the train step (train.loop.make_train_step on the
+scans' train plans and their GT boxes: forward_train, backward, one-cycle
+AdamW); then profiles RUNS steps and prints: the host-clock step time, the
+device time of each stage (voxelize, anchors_mask, rulebook, vxnet,
+bevnet, aux, head, targets_losses, pswarp, nms, backward, optimizer), the
+CUDA kernels with the most device time, and the device busy share of the
+profiled window. Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -27,10 +31,11 @@ from sassd_tpu_torch import serve
 from sassd_tpu_torch.config import car_config
 from sassd_tpu_torch.data import kitti, synthetic
 from sassd_tpu_torch.inference import make_test_step
+from sassd_tpu_torch.train import loop, optim
 from sassd_tpu_torch.weights import seeded_detector
 
-STAGES = ("voxelize", "anchors_mask", "rulebook", "vxnet", "bevnet", "head",
-          "pswarp", "nms")
+STAGES = ("voxelize", "anchors_mask", "rulebook", "vxnet", "bevnet", "aux",
+          "head", "targets_losses", "pswarp", "nms", "backward", "optimizer")
 RUNS = 8
 SEED = 0
 
@@ -40,18 +45,27 @@ def _stage_table(prof, runs: int) -> str:
     last kernel end) and the device time of the kernels and copies that
     start inside it, ms/step. Kernels are matched by time, not by the
     CPU-side range: the hand kernels launch through ctypes, outside any
-    torch op, so the profiler does not attribute them to a range."""
+    torch op, so the profiler does not attribute them to a range. The
+    autograd engine runs the backward on its own thread, outside the
+    "backward" range, so that stage is the window from the end of each
+    step's pswarp stage to the start of its optimizer stage."""
     gpu = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     work = [(e.time_range.start, e.time_range.end) for e in gpu
             if e.name not in STAGES]
+    spans = {stage: sorted((e.time_range.start, e.time_range.end)
+                           for e in gpu if e.name == stage)
+             for stage in STAGES}
+    if spans["pswarp"] and len(spans["pswarp"]) == len(spans["optimizer"]):
+        spans["backward"] = [(p[1], o[0]) for p, o in
+                             zip(spans["pswarp"], spans["optimizer"])]
     out = []
     for stage in STAGES:
-        ranges = [e.time_range for e in gpu if e.name == stage]
+        ranges = spans[stage]
         if not ranges:
             continue
-        span = sum(r.end - r.start for r in ranges)
+        span = sum(t - s for s, t in ranges)
         busy = sum(t - s for s, t in work for r in ranges
-                   if r.start <= s < r.end)
+                   if r[0] <= s < r[1])
         out.append(f"{stage} kernels {busy / runs / 1e3:.3f} / span "
                    f"{span / runs / 1e3:.3f}")
     return "; ".join(out)
@@ -85,6 +99,8 @@ def main() -> None:
                            "(host_plans=False)")
     mode.add_argument("--serve", action="store_true",
                       help="serve raw points (test.device_input='points')")
+    mode.add_argument("--train", action="store_true",
+                      help="the train step (forward_train, backward, AdamW)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice needs a CUDA device")
@@ -98,9 +114,24 @@ def main() -> None:
     anchors, anchors_bv = kitti.build_anchors(cfg)
     model = seeded_detector(cfg, SEED, device)
     rng = np.random.default_rng(SEED)
-    scans = [synthetic.make_scene(rng, n_cars=(6, 12), n_ground=18000)[0]
-             for _ in range(args.batch)]
-    if args.serve:
+    scenes = [synthetic.make_scene(rng, n_cars=(6, 12), n_ground=18000)
+              for _ in range(args.batch)]
+    scans = [p for p, _, _ in scenes]
+    if args.train:
+        samples = []
+        for p, bx, _ in scenes:
+            s = kitti.prepare_scan(cfg, p, anchors_bv, train=True)
+            g = cfg.caps.max_gt
+            s["gt_boxes"] = np.zeros((g, 7), np.float32)
+            s["gt_boxes"][:len(bx)] = bx[:g]
+            s["gt_valid"] = np.arange(g) < len(bx)
+            s["gt_classes"] = s["gt_valid"].astype(np.int32)
+            samples.append(s)
+        batch = kitti.collate(samples)[0]
+        step = loop.make_train_step(
+            cfg, anchors, optim.make_optimizer(model, cfg.train, 1000),
+            device)
+    elif args.serve:
         prepared = [serve.prepare_points(p, cfg) for p in scans]
         batch = dict(points=np.stack([p for p, _ in prepared]),
                      n_points=np.asarray([n for _, n in prepared], np.int32))
@@ -129,6 +160,7 @@ def main() -> None:
     events = prof.key_averages()
 
     what = ("serving from raw points" if args.serve else
+            "training" if args.train else
             "device plans" if args.device_plans else "host plans")
     print(f"{torch.cuda.get_device_name(0)}, batch {args.batch}, {what}: "
           f"{step_ms:.2f} ms/step unprofiled (host clock, synced)")

@@ -180,7 +180,8 @@ def make_serving_step(cfg: SASSDConfig, anchors: np.ndarray,
     """Returns step(model, batch) -> detections on `device` (not synced),
     where batch is dict(points [B, P, F] f32, n_points [B] int32) in
     numpy; the upload is inside the step. The corner table and the anchors
-    are uploaded once, here."""
+    are uploaded once, here. The step puts the model in eval mode and runs
+    without autograd."""
     check_supported(cfg)
     corners = torch.from_numpy(anchor_corner_indices(
         anchors_bv, cfg.voxel.voxel_size, cfg.voxel.point_cloud_range,
@@ -188,10 +189,12 @@ def make_serving_step(cfg: SASSDConfig, anchors: np.ndarray,
     anchors_t = torch.from_numpy(np.asarray(anchors, np.float32)).to(device)
 
     def step(model: Detector, batch: Dict[str, np.ndarray]):
-        points, n_points = (torch.from_numpy(np.ascontiguousarray(
-            batch[k])).to(device) for k in ("points", "n_points"))
-        full = batch_from_points(points, n_points, corners, cfg)
-        return model.forward_test(full, anchors_t)
+        model.eval()
+        with torch.inference_mode():
+            points, n_points = (torch.from_numpy(np.ascontiguousarray(
+                batch[k])).to(device) for k in ("points", "n_points"))
+            full = batch_from_points(points, n_points, corners, cfg)
+            return model.forward_test(full, anchors_t)
     return step
 
 

@@ -7,8 +7,9 @@ parameter and buffer by that nesting, so ``params["vxnet"]["conv0"]
 ["bevnet"]["bn0"]["mean"]`` the buffer ``bevnet.bn0.mean``; layouts are
 the same (conv HWIO, sparse conv [27, Cin, Cout]).
 
-Only the inference modules are carried: the training-only ``aux`` point
-branch is dropped.
+The training-only ``aux`` point branch is carried too (``params["aux"]``,
+no state). :func:`grads_to_jax` gives the parameters' gradients in the
+params layout.
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ import torch
 from sassd_tpu_torch.config import SASSDConfig
 from sassd_tpu_torch.models.detector import Detector
 
-MODULES = ("vxnet", "bevnet", "head", "pswarp")
+MODULES = ("vxnet", "bevnet", "head", "pswarp", "aux")
 # He's variance-preserving gain for ReLU nets over the U(+-1/sqrt(fan_in))
 # init, which keeps seeded activations from collapsing (see seeded_detector).
 RELU_GAIN = 6.0 ** 0.5
@@ -59,12 +60,13 @@ def load_jax(model: Detector, params: dict, state: dict) -> Detector:
 
 
 def from_jax(cfg: SASSDConfig, params: dict, state: dict,
-             device="cpu") -> Detector:
+             device="cuda") -> Detector:
     """A Detector holding the given JAX weights, on `device`."""
     return load_jax(Detector(cfg), params, state).to(device)
 
 
-def seeded_detector(cfg: SASSDConfig, seed: int, device="cpu") -> Detector:
+def seeded_detector(cfg: SASSDConfig, seed: int,
+                    device="cuda") -> Detector:
     """Random weights from `seed`, every conv weight scaled by RELU_GAIN.
 
     With the plain U(+-1/sqrt(fan_in)) init each conv shrinks activations
@@ -89,3 +91,12 @@ def to_jax(model: Detector) -> Tuple[dict, dict]:
              for k, v in model.named_buffers()
              if k.rsplit(".", 1)[-1] in ("mean", "var")}
     return _unflatten(params), _unflatten(state)
+
+
+def grads_to_jax(model: Detector) -> dict:
+    """The parameters' .grad (zeros where None) as a JAX-style params
+    numpy tree, for leaf-by-leaf comparison with jax.grad."""
+    return _unflatten({
+        k: (v.grad if v.grad is not None else torch.zeros_like(v))
+        .detach().cpu().numpy()
+        for k, v in model.named_parameters()})

@@ -9,7 +9,11 @@ Tolerances: K1 1e-4 m^2 (float32, -fmad=false, same op sequence as the
 plain version), K2 exact flags, K3 1e-5 (sum order of 28 samples), K4
 1e-4 abs + 1e-4 rel (float32 sums of up to 27 * 64 products in another
 order than cuBLAS), K5-K9 exact (integer results, a scatter of unique
-keys, copies of points, float32 sums of integer counts).
+keys, copies of points, float32 sums of integer counts). The training
+kernels, relative to the largest magnitude of the plain result: K10 and
+K4's input gradients 1e-5 (float32 sums over thousands of rows in another
+order), K11's forward, K12 and K5b exact (the same float32 operations,
+copies), K11's backward and K3b 1e-5 (atomicAdd order).
 """
 import numpy as np
 import pytest
@@ -260,7 +264,8 @@ def test_tiny_forward_card_matches_cpu(dev, host_plans):
     if not host_plans:
         path |= set(sp.KERNEL_SYMBOLS["K6"] + sp.KERNEL_SYMBOLS["K7"])
     assert ran == path, ran
-    ref = make_test_step(cfg, anchors, "cpu")(seeded_detector(cfg, 1), batch)
+    ref = make_test_step(cfg, anchors, "cpu")(seeded_detector(cfg, 1, "cpu"),
+                                             batch)
     for i in range(2):
         gv, rv = got["valid"][i].cpu().numpy(), ref["valid"][i].numpy()
         assert gv.sum() == rv.sum() and gv.sum() > 0
@@ -393,15 +398,214 @@ def test_tiny_serving_card_matches_host_input(dev):
     for k in ref:
         assert torch.equal(got[k].cpu(), ref[k]), k
 
+    from sassd_tpu_torch.ops import sparse as sp, voxelize as vox
     model = seeded_detector(cfg, 1, dev)
     before = {k: v.launches for k, v in cuda.KERNELS.items()}
     dets = serve.make_serving_step(cfg, anchors, anchors_bv, dev)(model,
                                                                   batch)
     torch.cuda.synchronize()
-    assert all(v.launches > before[k] for k, v in cuda.KERNELS.items())
+    path = {"sassd_riou_overlap", "sassd_nms_keep", "sassd_pswarp_score",
+            *vox.KERNEL_SYMBOLS["K8"], *serve.KERNEL_SYMBOLS["K9"],
+            *[s for k in ("K4", "K5", "K6", "K7")
+              for s in sp.KERNEL_SYMBOLS[k]]}
+    assert all(cuda.KERNELS[k].launches > before[k] for k in path)
     host_batch, _ = kitti.collate([kitti.prepare_scan(cfg_dev, p, anchors_bv)
                                    for p in scans])
     host = make_test_step(cfg_dev, anchors, dev)(model, host_batch)
     for k in ("valid", "boxes", "scores", "labels"):
         assert torch.equal(dets[k], host[k]), k
     assert int(dets["valid"].sum()) > 0
+
+
+def rel_err(got, ref) -> float:
+    """max |got - ref| over max |ref|."""
+    ref = ref.detach().cpu().double()
+    return float((got.detach().cpu().double() - ref).abs().max()
+                 / ref.abs().max().clamp(min=1e-30))
+
+
+@pytest.mark.parametrize("kind,level_in,cin,cout", [
+    ("subm0", 0, 4, 16), ("subm0", 0, 16, 16), ("stride1", 0, 16, 32),
+    ("subm1", 1, 32, 32), ("stride2", 1, 32, 64), ("subm2", 2, 64, 64),
+    ("stride3", 2, 64, 64)])
+def test_k10_and_k4_backward_match_plain(dev, kind, level_in, cin, cout):
+    """The conv Functions' gradients on the card (K4 for d_feats, K10 for
+    d_weight) against autograd of the plain forward on the CPU."""
+    from sassd_tpu_torch.ops import sparse as sp
+    cfg, batch, _ = tiny_rulebook(6)
+    caps = (cfg.voxel.max_voxels,) + tuple(cfg.caps.level_caps[1:])
+    plan = torch.from_numpy(batch[f"plan_{kind}"])
+    level = int(kind[-1])
+    rng = np.random.default_rng(cin * cout)
+    x = torch.from_numpy(rng.normal(
+        size=(2, caps[level_in], cin)).astype(np.float32))
+    w = torch.from_numpy((rng.normal(size=(27, cin, cout))
+                          / np.sqrt(27 * cin)).astype(np.float32))
+    cot = torch.from_numpy(rng.normal(
+        size=(2, plan.shape[2], cout)).astype(np.float32))
+    if kind.startswith("subm"):
+        fn = lambda xx, ww, p: sp.subm_conv_sym(xx, ww, p)  # noqa: E731
+        args = [plan]
+    else:
+        fn = sp.stride_conv_hostT
+        args = [plan, torch.from_numpy(batch[f"plan_strideT{level}"])]
+    needs_dx = cin != 4
+    xc, wc = x.clone().requires_grad_(needs_dx), w.clone().requires_grad_()
+    fn(xc, wc, *args).backward(cot)
+    xd = x.to(dev).requires_grad_(needs_dx)
+    wd = w.to(dev).requires_grad_()
+    before = sp._K10.launches
+    fn(xd, wd, *[a.to(dev) for a in args]).backward(cot.to(dev))
+    torch.cuda.synchronize()
+    assert sp._K10.launches == before + 1
+    assert rel_err(wd.grad, wc.grad) <= 1e-5
+    if needs_dx:
+        assert rel_err(xd.grad, xc.grad) <= 1e-5
+    assert rel_err(sp.conv_weight_grad(x.to(dev), plan.to(dev), cot.to(dev)),
+                   sp.conv_weight_grad_plain(x, plan, cot)) <= 1e-5
+
+
+def test_k5b_matches_plain(dev):
+    from sassd_tpu_torch.ops import sparse as sp
+    _, batch, shapes = tiny_rulebook(7)
+    keys = sp.coords_to_keys(torch.from_numpy(batch["plan_coords3"]),
+                             shapes[3])
+    d, h, w = shapes[3]
+    rng = np.random.default_rng(8)
+    d_canvas = torch.from_numpy(rng.normal(
+        size=(2, d * 64, h, w)).astype(np.float32))
+    before = sp._K5B.launches
+    feats = torch.zeros(tuple(keys.shape) + (64,), device=dev,
+                        requires_grad=True)
+    canvas, _ = sp.densify_nchw(keys.to(dev), feats, shapes[3])
+    canvas.backward(d_canvas.to(dev))
+    torch.cuda.synchronize()
+    assert sp._K5B.launches == before + 1
+    assert torch.equal(feats.grad.cpu(),
+                       sp.densify_grad_plain(keys, d_canvas, shapes[3]))
+
+
+@pytest.mark.parametrize("level", [1, 2, 3])
+def test_k11_matches_plain(dev, level):
+    """Forward, selected rows and weights bitwise; feature gradients 1e-5."""
+    from sassd_tpu_torch.ops import interpolate as itp
+    cfg, batch, _ = tiny_rulebook(9)
+    caps = (cfg.voxel.max_voxels,) + tuple(cfg.caps.level_caps[1:])
+    c = 32 if level == 1 else 64
+    rng = np.random.default_rng(level)
+    feats = torch.from_numpy(rng.normal(
+        size=(2, caps[level], c)).astype(np.float32))
+    npts = np.maximum(batch["num_points"], 1)[..., None].astype(np.float32)
+    query = torch.from_numpy(
+        (batch["voxels"][..., :3].sum(-2) / npts).astype(np.float32))
+    cell0 = torch.from_numpy(batch["coords"])
+    plan = torch.from_numpy(batch[f"plan_aux{level}"])
+    vs = (np.asarray(cfg.voxel.voxel_size, np.float32) * 2 ** level).tolist()
+    pc = np.asarray(cfg.voxel.point_cloud_range[:3], np.float32).tolist()
+    out, rows, w = itp.ring_interp_fwd(query.to(dev), cell0.to(dev), level,
+                                       feats.to(dev), plan.to(dev), vs, pc)
+    torch.cuda.synchronize()
+    ref_rows, ref_w = itp.ring_select_plain(query, cell0, level, plan,
+                                            caps[level], vs, pc)
+    assert torch.equal(rows.cpu().long(), ref_rows)
+    assert torch.equal(w.cpu(), ref_w)
+    assert torch.equal(out.cpu(), itp.neighborhood_interpolate_cells_plain(
+        query, cell0, level, feats, plan, vs, pc))
+    cot = torch.from_numpy(rng.normal(size=tuple(out.shape)).astype(
+        np.float32))
+    fc = feats.clone().requires_grad_()
+    itp.neighborhood_interpolate_cells(query, cell0, level, fc, plan, vs,
+                                       pc).backward(cot)
+    fd = feats.to(dev).requires_grad_()
+    itp.neighborhood_interpolate_cells(query.to(dev), cell0.to(dev), level,
+                                       fd, plan.to(dev), vs, pc
+                                       ).backward(cot.to(dev))
+    assert rel_err(fd.grad, fc.grad) <= 1e-5
+
+
+def test_k12_matches_plain(dev):
+    from sassd_tpu_torch.core import boxes
+    rng = np.random.default_rng(10)
+    b, n, g = 2, 3000, 16
+    gt = np.zeros((b, g, 7), np.float32)
+    gt[..., :2] = rng.uniform(-5, 5, (b, g, 2))
+    gt[..., 2] = -1.7
+    gt[..., 3:6] = [1.6, 3.9, 1.56]
+    gt[..., 6] = rng.uniform(-np.pi, np.pi, (b, g))
+    pts = np.concatenate([rng.uniform(-6, 6, (b, n, 2)),
+                          rng.uniform(-2, 0.5, (b, n, 1))], -1)
+    args = [torch.from_numpy(a) for a in (
+        pts.astype(np.float32), rng.uniform(size=(b, n)) < 0.9, gt,
+        rng.uniform(size=(b, g)) < 0.8)]
+    label, off = boxes.aux_targets(*[a.to(dev) for a in args])
+    torch.cuda.synchronize()
+    ref_label, ref_off = boxes.aux_targets_plain(*[a.to(dev) for a in args])
+    assert torch.equal(label, ref_label) and torch.equal(off, ref_off)
+    cpu_label, _ = boxes.aux_targets_plain(*args)
+    assert torch.equal(label.cpu(), cpu_label)
+    assert 0 < int(label.sum()) < b * n
+
+
+def test_k3b_matches_autograd_of_plain(dev):
+    from sassd_tpu_torch.ops import warp
+    rng = np.random.default_rng(11)
+    b, k, h, w, n = 2, 28, 40, 36, 300
+    img = torch.from_numpy(rng.normal(size=(b, k, h, w)).astype(np.float32))
+    bx = np.zeros((b, n, 7), np.float32)
+    bx[..., 0] = rng.uniform(-1.0, 15.4, (b, n))
+    bx[..., 1] = rng.uniform(-9.0, 9.0, (b, n))
+    bx[..., 3:6] = [1.6, 3.9, 1.56]
+    bx[..., 6] = rng.uniform(-np.pi, np.pi, (b, n))
+    boxes = torch.from_numpy(bx)
+    valid = torch.from_numpy(rng.uniform(size=(b, n)) < 0.9)
+    cot = torch.from_numpy(rng.normal(size=(b, n)).astype(np.float32))
+    args = ((4, 7), (0.0, 8.0), 2.5)
+    ic, bc = img.clone().requires_grad_(), boxes.clone().requires_grad_()
+    warp.pswarp_score(ic, bc, valid, *args).backward(cot)
+    idv, bdv = img.to(dev).requires_grad_(), boxes.to(dev).requires_grad_()
+    before = warp._K3B.launches
+    warp.pswarp_score(idv, bdv, valid.to(dev), *args).backward(cot.to(dev))
+    torch.cuda.synchronize()
+    assert warp._K3B.launches == before + 1
+    assert rel_err(idv.grad, ic.grad) <= 1e-5
+    assert rel_err(bdv.grad, bc.grad) <= 1e-5
+
+
+def test_tiny_train_step_card_matches_cpu(dev):
+    """forward_train + backward on the card == on the CPU (losses 1e-4,
+    grad norm 1e-3), launching every training kernel."""
+    from sassd_tpu_torch.config import tiny_config
+    from sassd_tpu_torch.core import boxes
+    from sassd_tpu_torch.data import kitti, synthetic
+    from sassd_tpu_torch.inference import to_device
+    from sassd_tpu_torch.models.detector import parse_losses
+    from sassd_tpu_torch.ops import cuda, interpolate, sparse as sp, warp
+    from sassd_tpu_torch.weights import seeded_detector
+    cfg = tiny_config()
+    batch = synthetic.make_random_batch(cfg, np.random.default_rng(3),
+                                        batch_size=2, n_points=900)
+    anchors = torch.from_numpy(kitti.build_anchors(cfg)[0])
+    out = {}
+    before = {k: v.launches for k, v in cuda.KERNELS.items()}
+    for where in ("cpu", dev):
+        model = seeded_detector(cfg, 2, where)
+        model.train()
+        losses = model.forward_train(to_device(batch, where),
+                                     anchors.to(where))
+        parse_losses(losses).backward()
+        gnorm = torch.sqrt(sum((p.grad.double() ** 2).sum()
+                               for p in model.parameters()))
+        out[str(where)] = ({k: float(v) for k, v in losses.items()},
+                           float(gnorm))
+    torch.cuda.synchronize()
+    ran = {k for k, v in cuda.KERNELS.items() if v.launches > before[k]}
+    path = {"sassd_riou_overlap", "sassd_pswarp_score",
+            *warp.KERNEL_SYMBOLS["K3b"], *interpolate.KERNEL_SYMBOLS["K11"],
+            *boxes.KERNEL_SYMBOLS["K12"],
+            *[s for k in ("K4", "K5", "K5b", "K10")
+              for s in sp.KERNEL_SYMBOLS[k]]}
+    assert ran == path, ran
+    (cl, cg), (gl, gg) = out["cpu"], out[str(dev)]
+    for k, v in cl.items():
+        assert abs(gl[k] - v) <= 1e-4 * max(abs(v), 1e-6), (k, gl[k], v)
+    assert abs(gg - cg) <= 1e-3 * cg

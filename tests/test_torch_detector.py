@@ -123,7 +123,7 @@ def test_import_leaves_jax_out():
 
 def test_weight_round_trip():
     params, state = jax_weights()
-    model = weights.from_jax(config.tiny_config(), params, state)
+    model = weights.from_jax(config.tiny_config(), params, state, "cpu")
     p2, s2 = weights.to_jax(model)
     flat = lambda t: dict(jax.tree_util.tree_leaves_with_path(t))  # noqa: E731
     ref_p = flat({k: params[k] for k in weights.MODULES})
@@ -158,12 +158,12 @@ def test_vxnet_host_plans_dense_tail_matches_jax():
         dense_tail=True, store_im2col=False)
     ref = np.asarray(out[1])                                # [B,D,H,W,C]
 
-    model = weights.from_jax(cfg, params, state)
+    model = weights.from_jax(cfg, params, state, "cpu")
     feats = vfe_mean(torch.from_numpy(batch["voxels"]),
                      torch.from_numpy(batch["num_points"]))
     np.testing.assert_allclose(feats.numpy(), vfe, atol=1e-6)
     got = model.vxnet(feats, {k: torch.from_numpy(v)
-                              for k, v in plans.items()}).numpy()
+                              for k, v in plans.items()}).detach().numpy()
     assert got.shape == ref.shape
     assert np.abs(ref).max() > 0.1
     np.testing.assert_allclose(got, ref, atol=1e-4)
@@ -180,7 +180,7 @@ def test_forward_test_matches_live_jax():
     jbatch = {k: jnp.asarray(v) for k, v in jbatch.items()}
     ref = jdetector.forward_test(params, state, jbatch, anchors, jcfg)
     ref = {k: np.asarray(v) for k, v in ref.items()}
-    got = port_dets(weights.from_jax(cfg, params, state), cfg, batch)
+    got = port_dets(weights.from_jax(cfg, params, state, "cpu"), cfg, batch)
     counts = [matched(got, ref, i) for i in range(2)]
     assert min(counts) >= 3
     np.testing.assert_array_equal(got["guided_truncated"],
@@ -194,7 +194,7 @@ def test_forward_test_matches_golden():
     params, state = jax_weights()
     cfg_t = dataclasses.replace(
         cfg, test=dataclasses.replace(cfg.test, score_thr=0.45))
-    model = weights.from_jax(cfg_t, params, state)
+    model = weights.from_jax(cfg_t, params, state, "cpu")
     batch = synthetic.make_random_batch(cfg, np.random.default_rng(7),
                                         batch_size=2)
     got = port_dets(model, cfg_t, batch)
@@ -202,7 +202,8 @@ def test_forward_test_matches_golden():
     np.testing.assert_array_equal(got["valid"], ref["valid"])
     np.testing.assert_allclose(got["scores"], ref["scores"], atol=1e-3)
     np.testing.assert_allclose(got["boxes"], ref["boxes"], atol=1e-2)
-    bev = model.forward_spine(inference.to_device(batch, "cpu")).bev_map
+    with torch.no_grad():
+        bev = model.forward_spine(inference.to_device(batch, "cpu")).bev_map
     np.testing.assert_allclose(bev.mean(dim=(1, 2)).numpy(), ref["bev_mean"],
                                atol=1e-3)
     np.testing.assert_allclose(float(bev.std()), ref["bev_std"], atol=1e-3)
@@ -212,7 +213,7 @@ def test_batch_of_two_equals_two_batches_of_one():
     """Flat-batch plan offsets: sample i of a B=2 run equals its B=1 run."""
     cfg = config.tiny_config()
     params, state = jax_weights(GAIN)
-    model = weights.from_jax(cfg, params, state)
+    model = weights.from_jax(cfg, params, state, "cpu")
     batch = synthetic.make_random_batch(cfg, np.random.default_rng(9),
                                         batch_size=2, n_points=900)
     both = port_dets(model, cfg, batch)

@@ -128,8 +128,11 @@ def test_device_rulebook_matches_host_rulebook():
         shapes.append(sp.out_shape_stride2(shapes[-1]))
     keys0 = sp.coords_to_keys(torch.from_numpy(batch["coords"]), shapes[0])
     got = sp.device_rulebook(keys0, shapes, cfg.caps.level_caps[1:])
-    assert sorted(got) == sorted(k[5:] for k in batch
-                                 if k.startswith("plan_") and k != "plan_subm3")
+    # the device builds the inference rulebook: no train plans (aux,
+    # strideT) and no level-3 subm plan
+    assert sorted(got) == sorted(
+        k[5:] for k in batch if k.startswith("plan_") and k != "plan_subm3"
+        and not k.startswith(("plan_aux", "plan_strideT")))
     for k, v in got.items():
         ref = batch[f"plan_{k}"].astype(np.int32)
         assert v.dtype == torch.int32
@@ -171,13 +174,13 @@ def test_vxnet_device_plans_matches_jax():
         train=False, host_plans=None, dense_tail=True, store_im2col=False)
     ref = np.asarray(out[1])                                # [B,D,H,W,C]
 
-    model = weights.from_jax(cfg, params, state)
+    model = weights.from_jax(cfg, params, state, "cpu")
     plans = sp.device_rulebook(torch.from_numpy(keys),
                                model.vxnet.level_shapes,
                                cfg.caps.level_caps[1:])
     feats = vfe_mean(torch.from_numpy(batch["voxels"]),
                      torch.from_numpy(batch["num_points"]))
-    got = model.vxnet(feats, plans).numpy()
+    got = model.vxnet(feats, plans).detach().numpy()
     assert got.shape == ref.shape
     assert np.abs(ref).max() > 0.1
     np.testing.assert_allclose(got, ref, atol=1e-4)
@@ -204,13 +207,13 @@ def test_forward_test_device_plans_matches_jax_and_host_plans():
                                  {k: jnp.asarray(v) for k, v in jbatch.items()},
                                  jnp.asarray(anchors), jcfg_d)
     ref = {k: np.asarray(v) for k, v in ref.items()}
-    model = weights.from_jax(cfg_d, params, state)
+    model = weights.from_jax(cfg_d, params, state, "cpu")
     got = inference.make_test_step(cfg_d, anchors, "cpu")(model, batch)
     got = {k: v.numpy() for k, v in got.items()}
     host_batch = synthetic.make_random_batch(cfg, np.random.default_rng(5),
                                              batch_size=2, n_points=900)
     host = inference.make_test_step(cfg, anchors, "cpu")(
-        weights.from_jax(cfg, params, state), host_batch)
+        weights.from_jax(cfg, params, state, "cpu"), host_batch)
     host = {k: v.numpy() for k, v in host.items()}
     counts = [matched(got, ref, i) for i in range(2)]
     assert min(counts) >= 3

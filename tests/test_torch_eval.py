@@ -268,10 +268,12 @@ def split(tmp_path_factory):
                               test_mode=True)
     ref = jinference.run_inference(jcfg, jds, params, state, batch_size=2)
     ds = kitti.KittiDataset(cfg, str(data_root), str(split_file))
-    model = weights.from_jax(cfg, params, state)
-    got = inference.run_inference(cfg, ds, model, batch_size=2)
+    model = weights.from_jax(cfg, params, state, "cpu")
+    got = inference.run_inference(cfg, ds, model, batch_size=2,
+                                  device="cpu")
     cfg_v = split_config(config, "voxels")
-    vox = inference.run_inference(cfg_v, ds, model, batch_size=1)
+    vox = inference.run_inference(cfg_v, ds, model, batch_size=1,
+                                  device="cpu")
     return cfg, ds, data_root, got, ref, vox
 
 

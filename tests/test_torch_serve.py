@@ -235,7 +235,7 @@ def served():
     scans = [serve.prepare_points(r, cfg) for r in raws]
     batch = dict(points=np.stack([p for p, _ in scans]),
                  n_points=np.asarray([k for _, k in scans], np.int32))
-    model = weights.from_jax(cfg, params, state)
+    model = weights.from_jax(cfg, params, state, "cpu")
     got = serve.make_serving_step(cfg, anchors, anchors_bv, "cpu")(model,
                                                                    batch)
     jstep = jserve.make_serving_step(jcfg, anchors, anchors_bv)
