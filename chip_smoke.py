@@ -46,7 +46,22 @@ Phases, each of which fails the run (nonzero exit, no result line):
    finite, no update skipped, and the last checkpoint must restore to the
    trained parameters. The train step is timed (host clock, synchronised,
    loader excluded) beside the host leg of a batch (voxelize + mask + the
-   C++ train rulebook).
+   C++ train rulebook);
+8. three-class training on device plans (multi_config, host_plans=False,
+   batch 1): a 4-scan car-range synthetic three-class KITTI train split,
+   its info file and GT database written by the port's data.create_data,
+   and KittiDataset(train=True) with the GT-sampling augmentor. On an
+   augmented sample the device train rulebook (strideT and aux plans
+   included) must equal the C++ one bitwise, and one forward_train +
+   backward on device plans must agree with the same step on host plans
+   on the card (losses 1e-5, gradients 1e-4 per module: only the atomics'
+   order differs); a diagnostic line compares K15's
+   3-NN sets with a float64 direct-difference 3-NN (no gate). Then
+   train_model for 2 epochs of 4 steps with the ring aux and again with
+   the exact aux, launch counters reset just before and read just after:
+   K6, K7 and K13 must launch in both, K14 in the ring run only, K15 and
+   K11's backward in the exact run; every logged loss finite, no update
+   skipped. The steps at batch 1 and 2 are timed beside a host-plans step.
 
 Phase 3 also holds K8 (device voxelizer) and K9 (anchors mask) against
 their plain versions, bitwise, on the car scans (at the 20,000-voxel cap,
@@ -54,7 +69,11 @@ so the lowest-key truncation runs) and on one frustum scan; and the
 training kernels at batch 2 on the train plans of the car scans: K10
 (sparse-conv weight gradient) and K4's input gradients, K11 (ring 3-NN
 interpolation, forward and backward), K12 (aux targets), K3b (PSWarp
-backward) and K5b (densify backward).
+backward) and K5b (densify backward); and the kernels of training on
+device plans, at batch 2 on the same scans: K13 (transpose plans) and K14
+(aux ring plans) against their plain versions and the C++ train rulebook,
+bitwise, and K15 (exact 3-NN) at the full level sizes (rows and weights
+bitwise, its backward through K11's).
 
 Every kernel row carries its bound: the larger of the bytes it must move
 (each input read once, each output written once, at this run's active
@@ -97,7 +116,14 @@ TRAIN_LOSS_RTOL = 1e-3  # card vs CPU train step: cuDNN vs CPU conv sums
 # by the batch-statistics backward of train-mode BatchNorm)
 TRAIN_GNORM_RTOL = 2e-3
 TRAIN_GRAD_L2 = 1e-2
-N_TRAIN_EPOCHS = 3      # of 2 steps at batch 2 over the 4 train scans
+# phase 8, device vs host plans on the card: the same cuDNN algorithms on
+# bitwise-equal rulebooks leave only the atomics' order (measured on the
+# H100: losses equal, grad norms equal to 7 digits, module rel L2 <= 1.1e-6)
+PLANS_LOSS_RTOL = 1e-5
+PLANS_GNORM_RTOL = 1e-5
+PLANS_GRAD_L2 = 1e-4
+N_TRAIN_EPOCHS = 3     # of 2 steps at batch 2 over the 4 train scans
+N_MULTI_EPOCHS = 2      # phase 8: of 4 steps at batch 1
 
 # the card's peaks the bounds are taken against (H100 SXM data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -165,6 +191,30 @@ def grad_ms(out, inputs, cot, iters: int = 20) -> float:
     return cuda_ms(lambda: torch.autograd.grad(out, inputs, cot,
                                                retain_graph=True),
                    iters=iters)
+
+
+def reset_launches():
+    from sassd_tpu_torch.ops import cuda
+    for kern in cuda.KERNELS.values():
+        kern.launches = 0
+
+
+def read_launches() -> dict:
+    from sassd_tpu_torch.ops import cuda
+    return {k: v.launches for k, v in cuda.KERNELS.items()}
+
+
+def train_step_ms(torch, step, model, batch, n: int = 3):
+    """Host-clock ms of n synchronised train steps after one warm-up."""
+    step(model, batch)
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(n):
+        t = time.perf_counter()
+        step(model, batch)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t) * 1e3)
+    return out
 
 
 def nms_boxes(rng, n: int):
@@ -761,6 +811,159 @@ def check_train_kernels(torch, np, device, cfg, samples, gts):
     return rows
 
 
+def level_centers(np, cfg, coords, level):
+    """Cell centres [B, M, 3] xyz of a level's zyx coords (the aux branch's
+    known points of the exact 3-NN)."""
+    from sassd_tpu_torch.ops import interpolate as itp
+    vs = np.asarray(cfg.voxel.voxel_size, np.float32) * 2 ** level
+    pcr = np.asarray(cfg.voxel.point_cloud_range[:3], np.float32)
+    return itp.cell_centers(coords, vs.tolist(), pcr.tolist())
+
+
+def check_train_plan_kernels(torch, np, device, cfg, samples):
+    """Phase 3, the kernels of training without host plans, at batch 2 on
+    the train plans of the first two car scans: K13 (transpose plans) and
+    K14 (aux ring plans) against their plain versions and the C++ train
+    rulebook, bitwise; K15 (exact 3-NN) against its plain version at the
+    full level sizes: rows and weights bitwise, features within
+    TRAIN_GRAD_RTOL of their largest magnitude, and its backward (K11's)
+    within TRAIN_GRAD_RTOL."""
+    from sassd_tpu_torch.ops import interpolate as itp
+    from sassd_tpu_torch.ops import sparse as sp
+
+    rng = np.random.default_rng(SEED + 5)
+    batch = {k: torch.from_numpy(np.stack([s[k] for s in samples[:2]])).to(
+        device) for k in samples[0] if k != "meta"}
+    caps = (cfg.voxel.max_voxels,) + tuple(cfg.caps.level_caps[1:])
+    shapes = [cfg.sparse_shape]
+    for _ in range(3):
+        shapes.append(sp.out_shape_stride2(shapes[-1]))
+    cell0 = batch["coords"]
+    rows = []
+
+    # K13 and K14 at the three levels
+    k13, k14, diff, err = [], [], {}, {}
+    for lvl in (1, 2, 3):
+        plan = batch[f"plan_stride{lvl}"].to(torch.int32)
+        got = sp.stride_plan_T(plan, caps[lvl - 1])
+        ref = sp.stride_plan_T_plain(plan, caps[lvl - 1])
+        host = batch[f"plan_strideT{lvl}"].to(torch.int32)
+        diff[f"strideT{lvl}"] = (int((got != ref).sum()),
+                                 int((got != host).sum()))
+        err[f"strideT{lvl}"] = float((got - ref).abs().max())
+        ms = cuda_ms(lambda: sp.stride_plan_T(plan, caps[lvl - 1]))
+        plain_ms = cuda_ms(lambda: sp.stride_plan_T_plain(plan,
+                                                          caps[lvl - 1]))
+        k13.append((lvl, ms, plain_ms, bound(
+            plan.numel() * 4 + got.numel() * 4, 0)))
+        keys = sp.coords_to_keys(batch[f"plan_coords{lvl}"], shapes[lvl])
+        imap = sp.build_index_map(keys, shapes[lvl])
+        got = sp.aux_plan(cell0, lvl, imap, shapes[lvl])
+        ref = sp.aux_plan_plain(cell0, lvl, imap, shapes[lvl])
+        host = batch[f"plan_aux{lvl}"].to(torch.int32)
+        diff[f"aux{lvl}"] = (int((got != ref).sum()),
+                             int((got != host).sum()))
+        err[f"aux{lvl}"] = float((got - ref).abs().max())
+        ms = cuda_ms(lambda: sp.aux_plan(cell0, lvl, imap, shapes[lvl]))
+        plain_ms = cuda_ms(lambda: sp.aux_plan_plain(cell0, lvl, imap,
+                                                     shapes[lvl]))
+        n_valid = int((cell0[..., 0] >= 0).sum())
+        # cells in, 27 map reads a valid row (at most the map), plan out
+        k14.append((lvl, ms, plain_ms, bound(
+            cell0.numel() * 4 + min(27 * n_valid, imap.numel()) * 4
+            + got.numel() * 4, 0)))
+        del imap
+    print(f"K13 stride_plan_T, K14 aux_plan, batch 2, levels 1-3: entries "
+          f"differing (from plain, from the C++ train rulebook): {diff}; "
+          f"max|kernel-plain|: {err}")
+    if any(a or b for a, b in diff.values()):
+        fail("K13 or K14 differs from its plain version or the C++ train "
+             "rulebook")
+    for name, src_line, parts, prefix in (
+            ("K13 stride_plan_T", "sassd_tpu/ops/sparse.py:732", k13,
+             "strideT"),
+            ("K14 aux_plan", "sassd_tpu/ops/sparse.py:785", k14, "aux")):
+        rows.append(dict(name=name, route="cuda",
+                         source="sassd_tpu_torch/csrc/device_plans.cu",
+                         replaces=src_line,
+                         max_abs_err=max(v for k, v in err.items()
+                                         if k.startswith(prefix)),
+                         ms=sum(m for _, m, _, _ in parts),
+                         plain_ms=sum(m for _, _, m, _ in parts),
+                         library_ms=None, at="batch 2, sum over levels 1-3",
+                         per_level={lv: dict(ms=m, plain_ms=pm, **bd)
+                                    for lv, m, pm, bd in parts},
+                         **add_bounds([bd for *_, bd in parts])))
+        print(f"  {name} per level (kernel, plain ms): "
+              f"{[(lv, round(m, 4), round(pm, 4)) for lv, m, pm, _ in parts]}")
+
+    # K15 at the three levels: the voxel centroids of both scans against
+    # every cell centre of the level
+    npts = torch.clamp(batch["num_points"], min=1)[..., None].float()
+    query = (batch["voxels"][..., :3].sum(-2) / npts).contiguous()
+    k15, err15 = [], 0.0
+    for lvl, c in ((1, 32), (2, 64), (3, 64)):
+        coords = batch[f"plan_coords{lvl}"]
+        centers = level_centers(np, cfg, coords, lvl).contiguous()
+        valid = (coords[..., 0] >= 0).contiguous()
+        feats = torch.from_numpy(rng.normal(
+            size=(2, caps[lvl], c)).astype(np.float32)).to(device)
+        out, rsel, wsel = itp.three_nn_fwd(query, centers, valid, feats)
+        ref_rows, ref_w = itp.three_nn_select_plain(query, centers, valid)
+        ref = itp.three_nn_interpolate_plain(query, centers, valid, feats)
+        same_sel = (torch.equal(rsel.long(), ref_rows)
+                    and torch.equal(wsel, ref_w))
+        fwd_err = rel_err(out, ref)
+        cot = torch.from_numpy(rng.normal(size=tuple(out.shape)).astype(
+            np.float32)).to(device)
+        fk = feats.clone().requires_grad_()
+        itp.three_nn_interpolate(query, centers, valid, fk).backward(cot)
+        fp = feats.clone().requires_grad_()
+        out_p = itp.three_nn_interpolate_plain(query, centers, valid, fp)
+        bwd_err = rel_err(fk.grad, torch.autograd.grad(
+            out_p, fp, cot, retain_graph=True)[0])
+        err15 = max(err15, fwd_err, bwd_err)
+        print(f"K15 three_nn level {lvl} {tuple(query.shape)} x "
+              f"{tuple(centers.shape)} -> {tuple(out.shape)}: rows and "
+              f"weights {'bitwise equal to' if same_sel else 'DIFFER from'}"
+              f" plain; forward rel err {fwd_err:.3g}, backward (K11) rel "
+              f"err {bwd_err:.3g} (tol {TRAIN_GRAD_RTOL})")
+        if not same_sel or max(fwd_err, bwd_err) > TRAIN_GRAD_RTOL:
+            fail(f"K15 disagrees with its plain version at level {lvl}")
+        ms = cuda_ms(lambda: itp.three_nn_fwd(query, centers, valid, feats))
+        bwd_ms = cuda_ms(lambda: itp.ring_interp_bwd(cot, rsel, wsel,
+                                                     feats.shape))
+        plain_ms = cuda_ms(lambda: itp.three_nn_interpolate_plain(
+            query, centers, valid, feats), iters=3)
+        plain_bwd_ms = grad_ms(out_p, fp, cot)
+        q = query.shape[0] * query.shape[1]
+        m = centers.shape[1]
+        # queries, known points, validity, 3 feature rows a query (at most
+        # the level) in; features, rows and weights out; 9 float32
+        # operations a (query, known) pair: the dot (5), u2 + k2, 2 * dot,
+        # the difference and the validity bias
+        k15.append((lvl, ms, bwd_ms, plain_ms, plain_bwd_ms, bound(
+            q * 12 + 2 * m * 13 + min(feats.numel(), 3 * q * c) * 4
+            + q * c * 4 + q * 24, q * m * 9)))
+    rows.append(dict(name="K15 three_nn", route="cuda",
+                     source="sassd_tpu_torch/csrc/interpolate.cu",
+                     replaces="sassd_tpu/ops/interpolate.py:23",
+                     max_abs_err=err15, err_kind="relative to max |plain|; "
+                     "rows and weights bitwise",
+                     ms=sum(m for _, m, *_ in k15),
+                     plain_ms=sum(m for _, _, _, m, _, _ in k15),
+                     library_ms=None,
+                     backward_ms=sum(m for _, _, m, *_ in k15),
+                     plain_backward_ms=sum(m for *_, m, _ in k15),
+                     at="batch 2, forward, levels 1-3 (backward: K11's "
+                        "sassd_ring_interp_bwd)",
+                     per_level={lv: dict(ms=m, backward_ms=bm, plain_ms=pm,
+                                         plain_backward_ms=pbm, **bd)
+                                for lv, m, bm, pm, pbm, bd in k15},
+                     **add_bounds([bd for *_, bd in k15])))
+    return rows
+
+
 def match_detections(a, b, what: str):
     """Match two detection sets (dicts of numpy, one sample) within the
     tolerances; returns the number of detections."""
@@ -790,7 +993,6 @@ def run_phase(torch, np, device, cfg, model_dev, anchors, samples,
     launches)."""
     from sassd_tpu_torch.data import kitti
     from sassd_tpu_torch.inference import make_test_step
-    from sassd_tpu_torch.ops import cuda
 
     step = make_test_step(cfg, anchors, device)
     batch1 = [kitti.collate([s])[0] for s in samples]
@@ -799,8 +1001,7 @@ def run_phase(torch, np, device, cfg, model_dev, anchors, samples,
         step(model_dev, b)
     torch.cuda.synchronize()
 
-    for kern in cuda.KERNELS.values():
-        kern.launches = 0
+    reset_launches()
     dets1, ms1 = [], []
     for b in batch1:
         t = time.perf_counter()
@@ -812,7 +1013,7 @@ def run_phase(torch, np, device, cfg, model_dev, anchors, samples,
     d2 = step(model_dev, batch2)
     torch.cuda.synchronize()
     ms2 = (time.perf_counter() - t) * 1e3
-    launches = {k: v.launches for k, v in cuda.KERNELS.items()}
+    launches = read_launches()
     dets2 = {k: v.cpu().numpy() for k, v in d2.items()}
 
     print(f"{what}: launches {launches}")
@@ -881,7 +1082,6 @@ def run_serving(torch, np, device, cfg, model_dev, model_cpu, root: str):
     from sassd_tpu_torch import inference, serve
     from sassd_tpu_torch.data import kitti, synthetic
     from sassd_tpu_torch.eval import results
-    from sassd_tpu_torch.ops import cuda
 
     cfg_pts = dataclasses.replace(cfg, test=dataclasses.replace(
         cfg.test, device_input="points"))
@@ -900,12 +1100,11 @@ def run_serving(torch, np, device, cfg, model_dev, model_cpu, root: str):
         step(model_dev, b)
     torch.cuda.synchronize()
 
-    for kern in cuda.KERNELS.values():
-        kern.launches = 0
+    reset_launches()
     runs = {bs: inference.run_inference(cfg_pts, ds, model_dev, bs, device)
             for bs in (1, 2)}
     torch.cuda.synchronize()
-    launches = {k: v.launches for k, v in cuda.KERNELS.items()}
+    launches = read_launches()
     print(f"serving: launches {launches}")
 
     host = inference.run_inference(cfg, ds, model_dev, 1, device)
@@ -951,11 +1150,10 @@ def run_serving(torch, np, device, cfg, model_dev, model_cpu, root: str):
           f"weights):\n{text}")
 
     torch.cuda.synchronize()
-    for kern in cuda.KERNELS.values():
-        kern.launches = 0
+    reset_launches()
     step(model_dev, batch1[0])
     torch.cuda.synchronize()
-    per_step = {k: v.launches for k, v in cuda.KERNELS.items()}
+    per_step = read_launches()
     ms1, ms2 = [], []
     for b in batch1:
         t = time.perf_counter()
@@ -985,7 +1183,6 @@ def run_training(torch, np, device, cfg, root: str):
     from sassd_tpu_torch.data import kitti, synthetic
     from sassd_tpu_torch.inference import to_device
     from sassd_tpu_torch.models.detector import Detector, parse_losses
-    from sassd_tpu_torch.ops import cuda
     from sassd_tpu_torch.train import checkpoint as ckpt, loop
 
     cfg = dataclasses.replace(
@@ -1070,15 +1267,14 @@ def run_training(torch, np, device, cfg, root: str):
     logger.addHandler(Keep())
     work = os.path.join(root, "work")
     torch.cuda.synchronize()
-    for kern in cuda.KERNELS.values():
-        kern.launches = 0
+    reset_launches()
     t = time.perf_counter()
     model, opt, steps = loop.train_model(cfg, ds, work,
                                          total_epochs=N_TRAIN_EPOCHS,
                                          device=device, logger=logger)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t
-    launches = {k: v.launches for k, v in cuda.KERNELS.items()}
+    launches = read_launches()
     print(f"training: train_model ran {steps} steps in {run_s:.1f} s; "
           f"launches {launches}")
     steps_logged = [m for m in logged if " step " in m]
@@ -1105,20 +1301,257 @@ def run_training(torch, np, device, cfg, root: str):
 
     # timing: synchronised steps on one prepared batch, loader excluded
     step = loop.make_train_step(cfg, ds.anchors, opt, device)
+    ms = train_step_ms(torch, step, model, batch)
+    reset_launches()
     step(model, batch)
     torch.cuda.synchronize()
-    ms = []
-    for _ in range(3):
-        t = time.perf_counter()
-        step(model, batch)
-        torch.cuda.synchronize()
-        ms.append((time.perf_counter() - t) * 1e3)
-    for kern in cuda.KERNELS.values():
-        kern.launches = 0
-    step(model, batch)
-    torch.cuda.synchronize()
-    per_step = {k: v.launches for k, v in cuda.KERNELS.items()}
+    per_step = read_launches()
     return launches, per_step, ms, host_ms, gl
+
+
+def three_nn_diagnostic(torch, np, cfg, query, qvalid, coords, level):
+    """The share of valid queries whose K15 3-NN set differs from a
+    float64 direct-difference 3-NN over the level's cells, and the largest
+    weight difference on the queries whose sets agree (no gate)."""
+    from sassd_tpu_torch.ops import interpolate as itp
+    centers = level_centers(np, cfg, coords, level).contiguous()
+    valid = (coords[..., 0] >= 0).contiguous()
+    feats = torch.zeros(coords.shape[:2] + (32,), device=coords.device)
+    _, rows, w = itp.three_nn_fwd(query, centers, valid, feats)
+    m = centers.shape[1]
+    rows = rows.long().view(query.shape[0], -1, 3) % m
+    w = w.view(query.shape[0], -1, 3).double()
+    differ, n_q, w_err = 0, 0, 0.0
+    k64 = centers.double()
+    for b in range(query.shape[0]):
+        for s in range(0, query.shape[1], 1024):
+            ok = qvalid[b, s:s + 1024]
+            u = query[b, s:s + 1024].double()
+            d2 = ((u[:, None] - k64[b][None]) ** 2).sum(-1)
+            d2 = torch.where(valid[b][None], d2, torch.inf)
+            best, idx = torch.topk(d2, 3, dim=1, largest=False)
+            w64 = 1.0 / (best + 1e-8)
+            w64 = w64 / w64.sum(1, keepdim=True)
+            got_i, order = torch.sort(rows[b, s:s + 1024], dim=1)
+            ref_i, order64 = torch.sort(idx, dim=1)
+            same = (got_i == ref_i).all(1) & ok
+            differ += int(((got_i != ref_i).any(1) & ok).sum())
+            n_q += int(ok.sum())
+            dw = (torch.gather(w[b, s:s + 1024], 1, order)
+                  - torch.gather(w64, 1, order64)).abs().max(1).values
+            if same.any():
+                w_err = max(w_err, float(dw[same].max()))
+    return differ / max(n_q, 1), w_err, n_q
+
+
+def run_multi_training(torch, np, device, root: str, host_step_ms):
+    """Phase 8: three-class training on device plans (multi_config,
+    host_plans=False) on a synthetic three-class split with its GT
+    database. Returns the launches of the ring and exact train_model runs
+    and of one batch-1 step of each."""
+    import dataclasses
+    import logging
+    from sassd_tpu_torch import weights
+    from sassd_tpu_torch.config import multi_config
+    from sassd_tpu_torch.data import create_data, kitti, synthetic
+    from sassd_tpu_torch.inference import to_device
+    from sassd_tpu_torch.models.detector import parse_losses
+    from sassd_tpu_torch.ops import sparse as sp
+    from sassd_tpu_torch.train import loop, optim
+
+    classes = ("Car", "Pedestrian", "Cyclist")
+    synthetic.write_synthetic_kitti(root, n_train=N_SCANS, n_val=0,
+                                    seed=SEED + 7, classes=classes)
+    t = time.perf_counter()
+    create_data.create_kitti_info_file(root, splits=("train",))
+    db = create_data.create_groundtruth_database(root, "train",
+                                                 list(classes))
+    db_s = time.perf_counter() - t
+    base = multi_config()
+
+    def config(aux: str, host_plans: bool = False):
+        return dataclasses.replace(
+            base, model=dataclasses.replace(base.model, host_plans=host_plans,
+                                            aux_interp=aux),
+            train=dataclasses.replace(base.train, batch_size=1,
+                                      log_interval=1,
+                                      checkpoint_interval=N_MULTI_EPOCHS),
+            data=dataclasses.replace(
+                base.data, num_workers=2,
+                db_info_path=os.path.join(root, "kitti_dbinfos_train.pkl")))
+    cfg = config("ring")
+    split = os.path.join(root, "ImageSets", "train.txt")
+    data_root = os.path.join(root, "training")
+    ds = kitti.KittiDataset(cfg, data_root, split, train=True)
+    if ds.augmentor is None:
+        fail("three-class training: the dataset built no augmentor")
+    t = time.perf_counter()
+    samples = [ds[i] for i in range(2)]
+    leg_ms = (time.perf_counter() - t) * 1e3 / 2
+    if any(k.startswith("plan_") for k in samples[0]):
+        fail("three-class training: host plans built with host_plans=False")
+    n_gt = [int(s["gt_valid"].sum()) for s in samples]
+    labels = sorted({int(c) for s in samples
+                     for c in s["gt_classes"][s["gt_valid"]]})
+    print(f"three-class training: GT database of {len(ds)} scans "
+          f"{ {k: len(v) for k, v in db.items()} } in {db_s:.1f} s; "
+          f"augmented samples: GT boxes {n_gt}, classes {labels}, active "
+          f"voxels {[int((s['coords'][:, 0] >= 0).sum()) for s in samples]}"
+          f"; host leg (read + augment + voxelize + mask) {leg_ms:.1f} "
+          f"ms/scan")
+
+    # the device rulebook of sample 0 against the C++ train rulebook
+    cfg_host = config("ring", host_plans=True)
+    t = time.perf_counter()
+    host_plans = kitti.build_host_plans(cfg_host, samples[0]["coords"],
+                                        train=True)
+    host_ms = (time.perf_counter() - t) * 1e3
+    model = weights.seeded_detector(cfg, SEED, device)
+    shapes = model.vxnet.level_shapes
+    keys0 = sp.coords_to_keys(torch.from_numpy(
+        samples[0]["coords"][None]).to(device), shapes[0])
+    rb = sp.device_rulebook(keys0, shapes, cfg.caps.level_caps[1:],
+                            train=True)
+    torch.cuda.synchronize()
+    diff = {k: int((v[0].cpu().numpy()
+                    != host_plans[f"plan_{k}"].astype(np.int32)).sum())
+            for k, v in rb.items()}
+    if set(rb) != {k[5:] for k in host_plans} - {"subm3"} or any(
+            diff.values()):
+        fail(f"three-class training: device rulebook differs from the C++ "
+             f"train rulebook: {diff}")
+    dev_ms = cuda_ms(lambda: sp.device_rulebook(
+        keys0, shapes, cfg.caps.level_caps[1:], train=True), iters=10)
+    dev_exact_ms = cuda_ms(lambda: sp.device_rulebook(
+        keys0, shapes, cfg.caps.level_caps[1:], train=True, aux=False),
+        iters=10)
+    print(f"three-class training: the device train rulebook ({len(rb)} "
+          f"arrays) equals the C++ one bitwise; build time at batch 1: "
+          f"card {dev_ms:.3f} ms (ring), {dev_exact_ms:.3f} ms (exact, no "
+          f"aux plans), C++ host {host_ms:.1f} ms")
+
+    # the exact 3-NN against float64 direct differences on level 1
+    q = torch.from_numpy(samples[0]["voxels"][None]).to(device)
+    n = torch.clamp(torch.from_numpy(samples[0]["num_points"][None]).to(
+        device), min=1)[..., None].float()
+    query = (q[..., :3].sum(-2) / n).contiguous()
+    share, w_err, n_q = three_nn_diagnostic(
+        torch, np, cfg, query, keys0 != sp.INVALID_KEY, rb["coords1"], 1)
+    print(f"three-class training, diagnostic (no gate): K15's 3-NN set "
+          f"differs from a float64 direct-difference 3-NN on "
+          f"{100 * share:.4f}% of {n_q} queries (level 1, "
+          f"{int((rb['coords1'][0, :, 0] >= 0).sum())} cells); largest "
+          f"weight difference where the sets agree {w_err:.3g}")
+
+    # one step on device plans against the same step on host plans
+    anchors = torch.from_numpy(ds.anchors).to(device)
+    res = {}
+    for name, c, extra in (("device", cfg, {}), ("host", cfg_host,
+                                                 host_plans)):
+        m = weights.seeded_detector(c, SEED, device)
+        m.train()
+        b = to_device(kitti.collate([dict(samples[0], **extra)])[0], device)
+        losses = m.forward_train(b, anchors)
+        parse_losses(losses).backward()
+        torch.cuda.synchronize()
+        res[name] = ({k: float(v.detach()) for k, v in losses.items()},
+                     {k: p.grad.detach().double()
+                      for k, p in m.named_parameters()})
+    (dl, dg), (hl, hg) = res["device"], res["host"]
+    loss_err = max(abs(dl[k] - v) / max(abs(v), 1e-12)
+                   for k, v in hl.items() if "loss" in k)
+    keys = list(hg)
+    norm_h = sum(float((hg[k] ** 2).sum()) for k in keys) ** 0.5
+    norm_d = sum(float((dg[k] ** 2).sum()) for k in keys) ** 0.5
+    mod_err = {}
+    for mod in ("vxnet", "bevnet", "head", "pswarp", "aux"):
+        mk = [k for k in keys if k.startswith(mod + ".")]
+        ref = sum(float((hg[k] ** 2).sum()) for k in mk) ** 0.5
+        mod_err[mod] = sum(float(((dg[k] - hg[k]) ** 2).sum())
+                           for k in mk) ** 0.5 / max(ref, 1e-300)
+    print(f"three-class training, device vs host plans on the card: "
+          f"largest loss rel diff {loss_err:.3g} (tol {PLANS_LOSS_RTOL}); "
+          f"grad norm {norm_d:.7g} vs {norm_h:.7g} (rel diff "
+          f"{abs(norm_d - norm_h) / norm_h:.3g}, tol {PLANS_GNORM_RTOL}); "
+          f"module rel L2 "
+          f"{ {k: float(f'{v:.3g}') for k, v in mod_err.items()} } (tol "
+          f"{PLANS_GRAD_L2}); losses {dict(sorted(dl.items()))}")
+    for k in ("guided_valid", "guided_pos"):
+        if dl[k] != hl[k]:
+            fail(f"three-class training: {k} {dl[k]} on device plans vs "
+                 f"{hl[k]} on host plans")
+    if (loss_err > PLANS_LOSS_RTOL
+            or abs(norm_d - norm_h) > PLANS_GNORM_RTOL * norm_h
+            or max(mod_err.values()) > PLANS_GRAD_L2):
+        fail("three-class training: device and host plans disagree")
+
+    # train_model, ring then exact, and the step times
+    logger = logging.getLogger("sassd.chip_smoke.multi")
+    logger.setLevel(logging.INFO)
+    runs, per_step, times = {}, {}, {}
+    batch1 = kitti.collate(samples[:1])[0]
+    batch2 = kitti.collate(samples)[0]
+    for aux in ("ring", "exact"):
+        c = config(aux)
+        d = kitti.KittiDataset(c, data_root, split, train=True)
+        logged = []
+
+        class Keep(logging.Handler):
+            def emit(self, record):
+                logged.append(record.getMessage())
+        handler = Keep()
+        logger.addHandler(handler)
+        torch.cuda.synchronize()
+        reset_launches()
+        t = time.perf_counter()
+        model, opt, steps = loop.train_model(
+            c, d, os.path.join(root, f"work_{aux}"),
+            total_epochs=N_MULTI_EPOCHS, device=device, logger=logger)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t
+        runs[aux] = read_launches()
+        logger.removeHandler(handler)
+        steps_logged = [m for m in logged if " step " in m]
+        values = [float(kv.split("=")[1]) for m in steps_logged
+                  for kv in m.split() if "=" in kv]
+        print(f"three-class training, {aux} aux: train_model ran {steps} "
+              f"steps in {run_s:.1f} s; launches {runs[aux]}")
+        for m in steps_logged:
+            print("  " + m)
+        if steps != N_MULTI_EPOCHS * N_SCANS or opt.count != steps:
+            fail(f"three-class training, {aux}: {steps} steps, "
+                 f"{opt.count} updates applied")
+        if len(steps_logged) != steps or not np.isfinite(values).all():
+            fail(f"three-class training, {aux}: a logged loss or metric "
+                 f"is not finite")
+        if any("nonfinite_skips=0.0000" not in m for m in steps_logged):
+            fail(f"three-class training, {aux}: an update was skipped")
+        step = loop.make_train_step(c, ds.anchors, optim.make_optimizer(
+            model, c.train, 1000), device)
+        times[aux] = (train_step_ms(torch, step, model, batch1),
+                      train_step_ms(torch, step, model, batch2))
+        reset_launches()
+        step(model, batch1)
+        torch.cuda.synchronize()
+        per_step[aux] = read_launches()
+    host_model = weights.seeded_detector(cfg_host, SEED, device)
+    host_step = loop.make_train_step(cfg_host, ds.anchors,
+                                     optim.make_optimizer(
+                                         host_model, cfg_host.train, 1000),
+                                     device)
+    host_b1 = train_step_ms(torch, host_step, host_model, kitti.collate(
+        [dict(samples[0], **host_plans)])[0])
+    for aux in ("ring", "exact"):
+        b1, b2 = times[aux]
+        print(f"three-class training step on device plans, {aux} aux: "
+              f"batch 1 {', '.join(f'{m:.2f}' for m in b1)} ms/step; batch "
+              f"2 {', '.join(f'{m:.2f}' for m in b2)} ms/step (host clock, "
+              f"synchronised, loader excluded)")
+    print(f"three-class training step on host plans, ring aux, batch 1: "
+          f"{', '.join(f'{m:.2f}' for m in host_b1)} ms/step; the car "
+          f"config's phase-7 host-plans step at batch 2: "
+          f"{', '.join(f'{m:.2f}' for m in host_step_ms)} ms/step")
+    return runs, per_step
 
 
 def main() -> int:
@@ -1202,6 +1635,7 @@ def main() -> int:
     rows = check_kernels(torch, np, device)
     rows += check_sparse_kernels(torch, np, device, cfg, samples)
     rows += check_train_kernels(torch, np, device, cfg, train_samples, gts)
+    rows += check_train_plan_kernels(torch, np, device, cfg, train_samples)
     frustum = synthetic.make_scene(np.random.default_rng(SEED + 2),
                                    n_cars=(6, 12), n_ground=18000,
                                    frustum=True)[0]
@@ -1222,6 +1656,9 @@ def main() -> int:
                               root)
     with tempfile.TemporaryDirectory() as root:
         training = run_training(torch, np, device, cfg, root)
+    with tempfile.TemporaryDirectory() as root:
+        multi_runs, multi_step = run_multi_training(torch, np, device, root,
+                                                    training[2])
     symbols = {"K1": ("sassd_riou_overlap",), "K2": ("sassd_nms_keep",),
                **warp.KERNEL_SYMBOLS, **sp.KERNEL_SYMBOLS,
                **vox.KERNEL_SYMBOLS, **serve.KERNEL_SYMBOLS,
@@ -1232,11 +1669,22 @@ def main() -> int:
                                 ("serving", serving[0],
                                  "K1 K2 K3 K4 K5 K6 K7 K8 K9"),
                                 ("training", training[0],
-                                 "K1 K3 K3b K4 K5 K5b K10 K11 K12")):
+                                 "K1 K3 K3b K4 K5 K5b K10 K11 K12"),
+                                ("three-class training, ring",
+                                 multi_runs["ring"], "K1 K3 K3b K4 K5 K5b "
+                                 "K6 K7 K10 K11 K12 K13 K14"),
+                                ("three-class training, exact",
+                                 multi_runs["exact"], "K1 K3 K3b K4 K5 K5b "
+                                 "K6 K7 K10 K12 K13 K15")):
         idle = [s for k in ids.split() for s in symbols[k]
                 if launches[s] == 0]
         if idle:
             fail(f"{what}: a kernel of the path was not launched: {idle}")
+    exact = multi_runs["exact"]
+    if exact["sassd_ring_interp_bwd"] == 0:
+        fail("three-class training, exact: K11's backward was not launched")
+    if exact["sassd_aux_plan"] or exact["sassd_ring_interp_fwd"]:
+        fail("three-class training, exact: the ring aux path ran")
     for i in range(N_SCANS):
         match_detections(dev[0][i], host[0][i],
                          f"scan {i}: device plans vs host plans")
@@ -1263,16 +1711,22 @@ def main() -> int:
     for r in rows:
         kid = r["name"].split()[0]
         by_phase = {what: sum(launches[s] for s in symbols[kid])
-                    for what, launches in (("host plans", host[4]),
-                                           ("device plans", dev[4]),
-                                           ("serving", serving[0]),
-                                           ("training", training[0]))}
+                    for what, launches in (
+                        ("host plans", host[4]), ("device plans", dev[4]),
+                        ("serving", serving[0]), ("training", training[0]),
+                        ("three-class training, ring", multi_runs["ring"]),
+                        ("three-class training, exact",
+                         multi_runs["exact"]))}
         r["launches"] = sum(by_phase.values())
         r["launches_by_phase"] = by_phase
         r["launches_per_step"] = {
             what: sum(launches[s] for s in symbols[kid])
-            for what, launches in (("serving, batch 1", serving[4]),
-                                   ("training, batch 2", training[1]))}
+            for what, launches in (
+                ("serving, batch 1", serving[4]),
+                ("training, batch 2", training[1]),
+                ("three-class training, ring, batch 1", multi_step["ring"]),
+                ("three-class training, exact, batch 1",
+                 multi_step["exact"]))}
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -80,7 +80,8 @@ class ModelConfig:
     sorted_device_levels: bool = True
     plan_lookup: str = "dense"
     # aux-branch 3-NN candidates: "ring" = the 3x3x3 neighbourhood of the
-    # query's parent cell (the host rulebook's aux plans)
+    # query's parent cell (the rulebook's aux plans); "exact" = every
+    # active cell of the level (ops.interpolate.three_nn_interpolate)
     aux_interp: str = "ring"
 
 
@@ -102,9 +103,19 @@ class DataConfig:
     class_names: Tuple[str, ...] = ("Car",)
     anchor_area_threshold: float = 1.0
     out_size_factor: int = 8
-    # GT-sampling augmentation: runs only with a GT database configured
+    # training augmentation (data.augment.PointAugmentor); it runs only
+    # with a GT database configured (db_info_path, data.create_data)
     gt_sampling: bool = True
     db_info_path: str = ""
+    sample_classes: Tuple[str, ...] = ("Car",)
+    sample_max_num: Tuple[int, ...] = (15,)
+    min_num_points: Tuple[int, ...] = (5,)
+    removed_difficulties: Tuple[int, ...] = (-1,)
+    global_rot_range: Tuple[float, float] = (-0.78539816, 0.78539816)
+    gt_rot_range: Tuple[float, float] = (-0.78539816, 0.78539816)
+    center_noise_std: Tuple[float, float, float] = (1.0, 1.0, 0.5)
+    scale_range: Tuple[float, float] = (0.95, 1.05)
+    flip_ratio: float = 0.5
     num_workers: int = 4
 
 
@@ -179,10 +190,11 @@ def check_supported(cfg: SASSDConfig, train: bool = False) -> None:
     Without host plans, and always with ``test.device_input="points"``,
     the port builds the rulebook on the device the one way the JAX package
     does by default: dense index maps, key-sorted levels, windowed plan
-    lookups. Training (`train=True`) runs on host plans, with the ring aux
-    interpolation, the one-cycle AdamW and no GT-sampling database.
+    lookups; in training also the transpose and aux plans. Training
+    (`train=True`) runs on either rulebook, with either aux interpolation,
+    the GT-sampling augmentor and the one-cycle AdamW.
     """
-    m, t, p, d = cfg.model, cfg.test, cfg.parallel, cfg.data
+    m, t, p = cfg.model, cfg.test, cfg.parallel
     unsupported = {
         "model.dense_index=False": not m.dense_index,
         "model.sorted_device_levels=False": not m.sorted_device_levels,
@@ -199,10 +211,8 @@ def check_supported(cfg: SASSDConfig, train: bool = False) -> None:
     }
     if train:
         unsupported.update({
-            f"model.aux_interp={m.aux_interp!r}": m.aux_interp != "ring",
-            "training with model.host_plans=False": not m.host_plans,
-            "data.gt_sampling with data.db_info_path":
-                d.gt_sampling and bool(d.db_info_path),
+            f"model.aux_interp={m.aux_interp!r}":
+                m.aux_interp not in ("ring", "exact"),
             f"train.weight_decay_mode={cfg.train.weight_decay_mode!r}":
                 cfg.train.weight_decay_mode != "exclude_bn_bias",
             f"train.rpn_similarity={cfg.train.rpn_similarity!r}":
@@ -218,6 +228,32 @@ def check_supported(cfg: SASSDConfig, train: bool = False) -> None:
 def car_config(**overrides) -> SASSDConfig:
     """The single-class KITTI Car configuration."""
     return SASSDConfig(**overrides)
+
+
+def multi_config(**overrides) -> SASSDConfig:
+    """The three-class Car/Pedestrian/Cyclist configuration: the car grid
+    with one anchor set per class (class-major), per-class assigner
+    thresholds, and GT sampling of all three classes."""
+    anchors = {
+        "Car": AnchorConfig(sizes=(1.6, 3.9, 1.56),
+                            matched_threshold=0.6, unmatched_threshold=0.45),
+        "Pedestrian": AnchorConfig(sizes=(0.6, 0.8, 1.73),
+                                   matched_threshold=0.5,
+                                   unmatched_threshold=0.35),
+        "Cyclist": AnchorConfig(sizes=(0.6, 1.76, 1.73),
+                                matched_threshold=0.5,
+                                unmatched_threshold=0.35),
+    }
+    base = dict(
+        model=ModelConfig(num_class=3),
+        anchors=anchors,
+        data=DataConfig(class_names=("Car", "Pedestrian", "Cyclist"),
+                        sample_classes=("Car", "Pedestrian", "Cyclist"),
+                        sample_max_num=(15, 10, 10),
+                        min_num_points=(5, 5, 5)),
+    )
+    base.update(overrides)
+    return SASSDConfig(**base)
 
 
 def tiny_config(**overrides) -> SASSDConfig:

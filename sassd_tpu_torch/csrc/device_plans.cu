@@ -1,9 +1,12 @@
 // K6: the device-built rulebook of the sparse backbone: per-level dense
-// index maps and the 27-tap gather plans resolved through them.
+// index maps and the 27-tap gather plans resolved through them. K13 and
+// K14: the rulebook's train-only plans, the stride convs' transpose plans
+// and the aux branch's ring plans.
 //
 // Replaces: sassd_tpu/ops/sparse.py build_index_map, lookup_dense3,
 // _window_plan, build_subm_plan and build_stride_plan (the dense-index,
-// windowed path that vxnet_apply takes without host plans).
+// windowed path that vxnet_apply takes without host plans); K13
+// build_stride_plan_T, K14 build_aux_plan.
 //
 // Index map: map[b, key] = row for every valid row of sample b's
 // key-sorted level, -1 elsewhere; [B, D * H * W] int32.
@@ -26,6 +29,20 @@
 // That is the TPU version's SASSD_WINDOW_TABLE=0 form, identical in result
 // to its window-table form; the [total + 1, 3] table (~1 GB at L0) is never
 // built.
+//
+// K13, transpose plan: for input row i (cell c) and tap k (offset off_k),
+// the output row of the cell (c - off_k) / 2 when it is on the grid and
+// active, else -1; [B, 27, M_in] int32. Input row i is the tap-k input of
+// output row o exactly when c = 2 * o + off_k, so the transpose plan is
+// the forward stride plan inverted: planT[k, plan[k, o]] = o. Each (k, i)
+// has at most one writer; output rows beyond the level's cap are absent
+// from the forward plan, so the cap holds. Design: a memset to -1 and one
+// thread per (sample, tap, output row) of the forward plan.
+//
+// K14, aux plan: for level-0 row n with cell c0 (-1 on padding), the
+// window plan of the base cell c0 >> L through level L's index map (-1 >> L
+// stays -1, so padding rows are all -1); [B, 27, M0] int32. It runs the
+// window plan's lookup with another base cell.
 #include <cuda_runtime.h>
 
 namespace {
@@ -42,6 +59,28 @@ __global__ void index_map_kernel(const int* __restrict__ keys, int m,
   map[static_cast<long long>(b) * total + key] = row;
 }
 
+// The three x-consecutive taps of tap group g (dz, dy) around the base
+// cell (z, y, x) of sample b, written to plan rows 3g..3g+2 at column m.
+__device__ void window_taps(const int* __restrict__ map, int b, int z, int y,
+                           int x, int g, int d, int h, int w,
+                           int* __restrict__ plan, int m, int m_out) {
+  int r0 = -1, r1 = -1, r2 = -1;
+  const int zq = z + g / 3 - 1;
+  const int yq = y + g % 3 - 1;
+  if (z >= 0 && x >= 0 && x < w && zq >= 0 && zq < d && yq >= 0 && yq < h) {
+    const long long total = static_cast<long long>(d) * h * w;
+    const int* mb = map + static_cast<long long>(b) * total;
+    const long long q = (static_cast<long long>(zq) * h + yq) * w + x;
+    if (x >= 1) r0 = mb[q - 1];
+    r1 = mb[q];
+    if (x + 1 < w) r2 = mb[q + 1];
+  }
+  int* pb = plan + (static_cast<long long>(b) * 27 + 3 * g) * m_out + m;
+  pb[0] = r0;
+  pb[m_out] = r1;
+  pb[2 * m_out] = r2;
+}
+
 __global__ void window_plan_kernel(const int* __restrict__ out_keys,
                                    int m_out, int oh, int ow, int scale,
                                    const int* __restrict__ map, int d, int h,
@@ -51,26 +90,36 @@ __global__ void window_plan_kernel(const int* __restrict__ out_keys,
   const int b = blockIdx.z;
   if (m >= m_out) return;
   const int key = out_keys[static_cast<long long>(b) * m_out + m];
-  int r0 = -1, r1 = -1, r2 = -1;
+  int x = -1, y = -1, z = -1;
   if (key != kInvalidKey) {
-    const int x = scale * (key % ow);
-    const int y = scale * ((key / ow) % oh);
-    const int z = scale * (key / (ow * oh));
-    const int zq = z + g / 3 - 1;
-    const int yq = y + g % 3 - 1;
-    if (x >= 0 && x < w && zq >= 0 && zq < d && yq >= 0 && yq < h) {
-      const long long total = static_cast<long long>(d) * h * w;
-      const int* mb = map + static_cast<long long>(b) * total;
-      const long long q = (static_cast<long long>(zq) * h + yq) * w + x;
-      if (x >= 1) r0 = mb[q - 1];
-      r1 = mb[q];
-      if (x + 1 < w) r2 = mb[q + 1];
-    }
+    x = scale * (key % ow);
+    y = scale * ((key / ow) % oh);
+    z = scale * (key / (ow * oh));
   }
-  int* pb = plan + (static_cast<long long>(b) * 27 + 3 * g) * m_out + m;
-  pb[0] = r0;
-  pb[m_out] = r1;
-  pb[2 * m_out] = r2;
+  window_taps(map, b, z, y, x, g, d, h, w, plan, m, m_out);
+}
+
+__global__ void aux_plan_kernel(const int* __restrict__ cell0, int m0,
+                                int level, const int* __restrict__ map, int d,
+                                int h, int w, int* __restrict__ plan) {
+  const int m = blockIdx.x * blockDim.x + threadIdx.x;
+  const int g = blockIdx.y;
+  const int b = blockIdx.z;
+  if (m >= m0) return;
+  const int* c = cell0 + 3 * (static_cast<long long>(b) * m0 + m);
+  window_taps(map, b, c[0] >> level, c[1] >> level, c[2] >> level, g, d, h,
+              w, plan, m, m0);
+}
+
+__global__ void stride_plan_t_kernel(const int* __restrict__ plan, int m_out,
+                                     int m_in, int* __restrict__ plan_t) {
+  const int o = blockIdx.x * blockDim.x + threadIdx.x;
+  const int k = blockIdx.y;
+  const int b = blockIdx.z;
+  if (o >= m_out) return;
+  const long long row = static_cast<long long>(b) * 27 + k;
+  const int i = plan[row * m_out + o];
+  if (i >= 0 && i < m_in) plan_t[row * m_in + i] = o;
 }
 
 }  // namespace
@@ -104,6 +153,40 @@ extern "C" int sassd_window_plan(const int* out_keys, int batch, int m_out,
     window_plan_kernel<<<grid, threads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
         out_keys, m_out, oh, ow, scale, map, d, h, w, plan);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// plan [batch, 27, m_out] int32: a stride plan into the previous level's
+// m_in rows; plan_t [batch, 27, m_in] int32.
+extern "C" int sassd_stride_plan_t(const int* plan, int batch, int m_out,
+                                   int m_in, int* plan_t, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (batch > 0 && m_in > 0) {
+    cudaError_t err = cudaMemsetAsync(
+        plan_t, 0xff, sizeof(int) * static_cast<size_t>(batch) * 27 * m_in,
+        s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (m_out > 0) {
+      const int threads = 256;
+      const dim3 grid((m_out + threads - 1) / threads, 27, batch);
+      stride_plan_t_kernel<<<grid, threads, 0, s>>>(plan, m_out, m_in,
+                                                    plan_t);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// cell0 [batch, m0, 3] int32 level-0 zyx cells (-1 padding); map [batch,
+// d * h * w] int32 of level `level`; plan [batch, 27, m0].
+extern "C" int sassd_aux_plan(const int* cell0, int batch, int m0, int level,
+                              const int* map, int d, int h, int w, int* plan,
+                              void* stream) {
+  if (batch > 0 && m0 > 0) {
+    const int threads = 256;
+    const dim3 grid((m0 + threads - 1) / threads, 9, batch);
+    aux_plan_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+        cell0, m0, level, map, d, h, w, plan);
   }
   return static_cast<int>(cudaGetLastError());
 }

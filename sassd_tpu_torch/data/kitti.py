@@ -7,6 +7,7 @@ of the arrays and the list of metas (:func:`collate`).
 """
 from __future__ import annotations
 
+import os
 import struct
 from pathlib import Path
 from typing import Dict, List, Optional
@@ -17,8 +18,8 @@ from sassd_tpu_torch.config import SASSDConfig
 from sassd_tpu_torch.core import anchors as anchor_lib
 from sassd_tpu_torch.ops import native
 from sassd_tpu_torch.ops.voxelize import voxelize_np
+from . import augment as aug
 from . import calib as calib_lib
-from .augment import filter_gt_box_outside_range, nearest_bev_np
 
 DEFAULT_IMAGE_SHAPE = (375, 1242)
 
@@ -42,7 +43,7 @@ def build_anchors(cfg: SASSDConfig):
             (1, h, w), ac.sizes, ac.strides, ac.offsets, ac.rotations)
         flats.append(grid.reshape(-1, 7).astype(np.float32))
     anchors = np.concatenate(flats, 0)
-    return anchors, nearest_bev_np(anchors)
+    return anchors, aug.nearest_bev_np(anchors)
 
 
 def build_host_plans(cfg: SASSDConfig, coords: np.ndarray,
@@ -101,8 +102,10 @@ class KittiDataset:
     """KITTI 3D detection samples from the standard directory layout
     (``velodyne[_reduced]``, ``calib``, ``label_2``, ``image_2``): test
     samples, or with `train` training samples (GT boxes in the lidar frame
-    and the train plans). The GT-sampling augmentor is not carried, so a
-    training sample is the scan as it is on disk."""
+    and the train plans). A training sample is augmented when the config
+    names an existing GT database (``data.gt_sampling`` and
+    ``data.db_info_path``, made by data.create_data); the augmentor draws
+    from the dataset's generator."""
 
     # retries of an empty training sample before one is returned with no
     # valid GT (an unbounded retry would spin if no scan has an in-range GT)
@@ -120,6 +123,22 @@ class KittiDataset:
             self.sample_ids = [int(x) for x in f.read().split()]
         self.anchors, self.anchors_bv = build_anchors(cfg)
         self.class_names = list(cfg.class_names)
+        d = cfg.data
+        self.augmentor = None
+        if (train and d.gt_sampling
+                and d.db_info_path and os.path.exists(d.db_info_path)):
+            # the database's point files are relative to the split root,
+            # the parent of `root` (its "training" directory)
+            self.augmentor = aug.PointAugmentor(
+                root_path=str(self.root.parent), info_path=d.db_info_path,
+                sample_classes=d.sample_classes,
+                min_num_points=list(d.min_num_points),
+                sample_max_num=list(d.sample_max_num),
+                removed_difficulties=list(d.removed_difficulties),
+                gt_rot_range=d.gt_rot_range,
+                global_rot_range=d.global_rot_range,
+                center_noise_std=d.center_noise_std,
+                scale_range=d.scale_range, rng=self.rng)
 
     def __len__(self):
         return len(self.sample_ids)
@@ -168,23 +187,40 @@ class KittiDataset:
                       ) -> Optional[Dict]:
         """One training sample, or None when no GT of the model's classes
         lies in range (unless `allow_empty`). GT boxes: camera labels to
-        the lidar frame, Van counted as Car, boxes with no BEV corner in
-        the point-cloud range dropped, yaw wrapped to [-pi, pi), padded to
-        caps.max_gt."""
+        the lidar frame; with the augmentor, database objects pasted (the
+        scene's points inside them removed); Van counted as Car and other
+        classes dropped; with the augmentor, per-object noise, flip, global
+        rotation and scaling; boxes with no BEV corner in the point-cloud
+        range dropped, yaw wrapped to [-pi, pi), padded to caps.max_gt."""
         sid, points, calib, objects = self.load_raw(idx)
         objects = [o for o in objects if o.type != "DontCare"]
         gt_boxes = (np.stack([o.box3d for o in objects])
                     if objects else np.zeros((0, 7), np.float32))
+        gt_types = [o.type for o in objects]
         if len(gt_boxes):
             gt_boxes[:, :3] = calib_lib.project_rect_to_velo(
                 gt_boxes[:, :3], calib)
-        gt_types = ["Car" if o.type == "Van" else o.type for o in objects]
+        augmentor = self.augmentor
+        if augmentor is not None:
+            s_boxes, s_types, s_points = augmentor.sample_all(gt_boxes,
+                                                              gt_types)
+            gt_boxes = np.concatenate([gt_boxes, s_boxes])
+            gt_types = gt_types + s_types
+            masks = aug.points_in_rbbox_np(points, s_boxes)
+            points = np.concatenate([s_points, points[~masks.any(-1)]], 0)
+        gt_types = ["Car" if t == "Van" else t for t in gt_types]
         sel = [i for i, t in enumerate(gt_types) if t in self.class_names]
         gt_boxes = gt_boxes[sel]
         gt_labels = np.array(
             [self.class_names.index(gt_types[i]) + 1 for i in sel], np.int64)
+        if augmentor is not None:
+            gt_boxes, points = augmentor.noise_per_object(gt_boxes, points)
+            gt_boxes, points = augmentor.random_flip(
+                gt_boxes, points, self.cfg.data.flip_ratio)
+            gt_boxes, points = augmentor.global_rotation(gt_boxes, points)
+            gt_boxes, points = augmentor.global_scaling(gt_boxes, points)
         pcr = np.asarray(self.cfg.voxel.point_cloud_range)
-        keep = filter_gt_box_outside_range(gt_boxes, pcr[[0, 1, 3, 4]])
+        keep = aug.filter_gt_box_outside_range(gt_boxes, pcr[[0, 1, 3, 4]])
         gt_boxes, gt_labels = gt_boxes[keep], gt_labels[keep]
         if len(gt_boxes) == 0 and not allow_empty:
             return None

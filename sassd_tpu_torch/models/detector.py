@@ -13,11 +13,13 @@ Batch layout (per-sample padding, B = batch), tensors on one device:
                  absent with model.host_plans=False, and then the
                  rulebook is built on the device (ops.sparse.device_rulebook)
     gt_boxes [B, G, 7], gt_classes [B, G] (1-based), gt_valid [B, G]:
-                 training only; the plans then include strideT* and aux*
+                 training only; the plans (host or device) then include
+                 strideT* and, for the ring aux interpolation, aux*
 
 forward_test marks its stages (rulebook, vxnet, bevnet, head, pswarp,
-nms) and forward_train its own (vxnet, bevnet, aux, head, targets_losses,
-pswarp) with torch.profiler ranges (see sassd_tpu_torch/profile_slice.py).
+nms) and forward_train its own (rulebook, vxnet, bevnet, aux, head,
+targets_losses, pswarp) with torch.profiler ranges (see
+sassd_tpu_torch/profile_slice.py).
 A new Detector is in eval mode; training puts it in train mode, where
 every BatchNorm takes batch statistics and updates its running buffers.
 """
@@ -48,6 +50,8 @@ class SpineOut(NamedTuple):
     middles: Optional[List[backbone.Middle]] = None   # training only
     points_mean: Optional[torch.Tensor] = None        # [B, V, 3] centroids
     points_valid: Optional[torch.Tensor] = None       # [B, V]
+    # the rulebook's aux1..3 ring plans (training with aux_interp="ring")
+    aux_plans: Optional[Dict[str, torch.Tensor]] = None
 
 
 class Detector(nn.Module):
@@ -85,8 +89,10 @@ class Detector(nn.Module):
             with record_function("rulebook"):
                 keys0 = sp.coords_to_keys(batch["coords"],
                                           self.cfg.sparse_shape)
-                plans = sp.device_rulebook(keys0, self.vxnet.level_shapes,
-                                           self.cfg.caps.level_caps[1:])
+                plans = sp.device_rulebook(
+                    keys0, self.vxnet.level_shapes,
+                    self.cfg.caps.level_caps[1:], train=self.training,
+                    aux=self.cfg.model.aux_interp == "ring")
         keys0 = None
         with record_function("vxnet"):
             vfe = backbone.vfe_mean(batch["voxels"], batch["num_points"])
@@ -103,23 +109,37 @@ class Detector(nn.Module):
             bev_map, conv6 = self.bevnet(bev_in)
         if keys0 is None:
             return SpineOut(bev_map, conv6)
+        aux_plans = None
+        if self.cfg.model.aux_interp == "ring":
+            aux_plans = {k: plans[k] for k in ("aux1", "aux2", "aux3")}
         return SpineOut(bev_map, conv6, middles, vfe[..., :3],
-                        keys0 != sp.INVALID_KEY)
+                        keys0 != sp.INVALID_KEY, aux_plans)
 
     def aux_forward(self, spine: SpineOut, batch: Dict[str, torch.Tensor]):
-        """Middle features interpolated onto the voxel centroids (ring 3-NN
-        over the host aux plans, K11) -> point_fc -> (point_cls [B, V],
-        point_reg [B, V, 3])."""
+        """Middle features interpolated onto the voxel centroids -> point_fc
+        -> (point_cls [B, V], point_reg [B, V, 3]). The 3-NN is the ring
+        one over the rulebook's aux plans (K11), or with
+        model.aux_interp="exact" the exact one over every active cell
+        centre of the level (K15)."""
         cfg = self.cfg
         pcr = np.asarray(cfg.voxel.point_cloud_range[:3], np.float32)
         vs0 = np.asarray(cfg.voxel.voxel_size, np.float32)
         feats = []
         for lvl, (mid, mult) in enumerate(zip(spine.middles,
                                               _LEVEL_VOXEL_MULT), start=1):
-            feats.append(interpolate.neighborhood_interpolate_cells(
-                spine.points_mean, batch["coords"], lvl, mid.feats,
-                batch[f"plan_aux{lvl}"], (vs0 * mult).tolist(),
-                pcr.tolist()))
+            vs = vs0 * mult
+            if spine.aux_plans is not None:
+                feats.append(interpolate.neighborhood_interpolate_cells(
+                    spine.points_mean, batch["coords"], lvl, mid.feats,
+                    spine.aux_plans[f"aux{lvl}"], vs.tolist(),
+                    pcr.tolist()))
+                continue
+            centers = interpolate.cell_centers(
+                sp.keys_to_coords(mid.keys, self.vxnet.level_shapes[lvl]),
+                vs.tolist(), pcr.tolist())
+            feats.append(interpolate.three_nn_interpolate(
+                spine.points_mean, centers, mid.keys != sp.INVALID_KEY,
+                mid.feats))
         pointwise = torch.cat(feats, dim=-1) @ self.aux.point_fc.w
         return ((pointwise @ self.aux.point_cls.w)[..., 0],
                 pointwise @ self.aux.point_reg.w)

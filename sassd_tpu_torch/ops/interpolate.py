@@ -1,16 +1,23 @@
-"""Ring 3-NN feature interpolation of the aux branch (kernel K11).
+"""3-NN feature interpolation of the aux branch: ring (kernel K11) and
+exact (kernel K15).
 
-The host rulebook's aux plan ``aux{L}`` [B, 27, N] gives, for every
+Ring: the rulebook's aux plan ``aux{L}`` [B, 27, N] gives, for every
 level-0 voxel (query), the level-L rows of the 3x3x3 ring of cells around
 its parent cell (cell0 >> L), -1 where a cell is inactive. The candidate
 centres are arithmetic in the tap order, so only the 3 winners' features
 are gathered. Weights are the inverse squared distances of the 3 nearest
-found candidates, normalised; the gradient goes to the features only (the
-queries are voxel centroids and carry none).
+found candidates, normalised.
 
+Exact: every active cell centre of the level is a candidate, by the
+expanded squared distance |u|^2 + |k|^2 - 2 u.k of the JAX package
+(``three_nn_interpolate``); padded cells get 1e10 added.
+
+In both the gradient goes to the features only (the queries are voxel
+centroids and the centres cell arithmetic, neither a parameter).
 ``neighborhood_interpolate_cells`` runs K11 (``csrc/interpolate.cu``)
-forward and backward on CUDA tensors, and the plain PyTorch version under
-ordinary autograd on CPU tensors.
+forward and backward on CUDA tensors, ``three_nn_interpolate`` K15 forward
+and K11's backward; on CPU tensors each runs its plain PyTorch version
+under ordinary autograd.
 """
 from __future__ import annotations
 
@@ -33,7 +40,25 @@ _K11_FWD = cuda.Kernel("sassd_ring_interp_fwd",
                         cuda.P])
 _K11_BWD = cuda.Kernel("sassd_ring_interp_bwd",
                        [cuda.P, cuda.P, cuda.P, cuda.I, cuda.I, cuda.P])
-KERNEL_SYMBOLS = {"K11": ("sassd_ring_interp_fwd", "sassd_ring_interp_bwd")}
+_K15 = cuda.Kernel("sassd_three_nn_fwd",
+                   [cuda.P, cuda.I, cuda.I, cuda.P, cuda.P, cuda.I, cuda.P,
+                    cuda.I, cuda.P, cuda.P, cuda.P])
+KERNEL_SYMBOLS = {"K11": ("sassd_ring_interp_fwd", "sassd_ring_interp_bwd"),
+                  "K15": ("sassd_three_nn_fwd",)}
+# queries per step of the plain exact 3-NN: bounds its [B, chunk, M]
+# distance matrix (1.5 GB a level and sample unchunked at the car caps)
+THREE_NN_CHUNK = 512
+
+
+def cell_centers(coords_zyx: torch.Tensor, voxel_size_xyz: Sequence[float],
+                 pc_min_xyz: Sequence[float]) -> torch.Tensor:
+    """[..., 3] integer zyx cells -> [..., 3] float32 xyz centres,
+    (cell + 0.5) * voxel size + grid origin (the candidate points of both
+    3-NN forms; padding cells give finite centres off the grid)."""
+    dev = coords_zyx.device
+    vs = torch.tensor(voxel_size_xyz, dtype=torch.float32, device=dev)
+    pc = torch.tensor(pc_min_xyz, dtype=torch.float32, device=dev)
+    return (coords_zyx.flip(-1).to(torch.float32) + 0.5) * vs + pc
 
 
 def ring_select_plain(query_xyz: torch.Tensor, query_cell0: torch.Tensor,
@@ -49,9 +74,7 @@ def ring_select_plain(query_xyz: torch.Tensor, query_cell0: torch.Tensor,
     parent = query_cell0.to(torch.int32) >> level                 # [B,N,3]
     off = torch.from_numpy(_OFFSETS27).to(dev, torch.int32)
     cand = parent[:, None] + off[None, :, None, :]              # [B,27,N,3]
-    vs = torch.tensor(voxel_size_xyz, dtype=torch.float32, device=dev)
-    pc = torch.tensor(pc_min_xyz, dtype=torch.float32, device=dev)
-    centers = (cand.flip(-1).to(torch.float32) + 0.5) * vs + pc
+    centers = cell_centers(cand, voxel_size_xyz, pc_min_xyz)
     d = centers - query_xyz[:, None]
     d2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
     found = plan >= 0
@@ -173,3 +196,109 @@ def neighborhood_interpolate_cells(query_xyz: torch.Tensor,
     return _RingInterpFn.apply(feats, query_xyz.contiguous(),
                                query_cell0.contiguous(), plan, int(level),
                                tuple(voxel_size_xyz), tuple(pc_min_xyz))
+
+
+def three_nn_select_plain(query_xyz: torch.Tensor, known_xyz: torch.Tensor,
+                          known_valid: torch.Tensor,
+                          chunk: int = THREE_NN_CHUNK
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The exact 3 nearest known points of every query: flat feature rows
+    [B*N, 3] (b * M + row) and normalised weights [B*N, 3]. The float32
+    operations of K15, in its order; the 3 smallest d2 by repeated argmin
+    (the first minimum: lax.top_k's lower index on ties)."""
+    b, n, _ = query_xyz.shape
+    m = known_xyz.shape[1]
+    dev = query_xyz.device
+    kx, ky, kz = (known_xyz[..., i][:, None] for i in range(3))  # [B,1,M]
+    k2 = kx * kx + ky * ky + kz * kz
+    bias = torch.where(known_valid, 0.0, _BIG).to(torch.float32)[:, None]
+    rows, ws = [], []
+    for s in range(0, n, chunk):
+        u = query_xyz[:, s:s + chunk]
+        ux, uy, uz = (u[..., i:i + 1] for i in range(3))         # [B,c,1]
+        u2 = ux * ux + uy * uy + uz * uz
+        dot = ux * kx + uy * ky + uz * kz                          # [B,c,M]
+        d2 = torch.clamp((u2 + k2) - 2.0 * dot, min=0.0) + bias
+        sel, best = [], []
+        for _ in range(3):
+            i = torch.argmin(d2, dim=-1, keepdim=True)
+            sel.append(i)
+            best.append(torch.gather(d2, -1, i))
+            d2 = d2.scatter(-1, i, torch.inf)
+        w = [1.0 / (v + 1e-8) for v in best]
+        denom = w[0] + w[1] + w[2]
+        ws.append(torch.cat([v / denom for v in w], -1))
+        rows.append(torch.cat(sel, -1))
+    base = torch.arange(b, device=dev)[:, None, None] * m
+    return ((torch.cat(rows, 1) + base).reshape(b * n, 3),
+            torch.cat(ws, 1).reshape(b * n, 3))
+
+
+def three_nn_interpolate_plain(query_xyz, known_xyz, known_valid,
+                               known_feats) -> torch.Tensor:
+    """Plain PyTorch version of K15 (see three_nn_interpolate)."""
+    b, m, c = known_feats.shape
+    rows, w = three_nn_select_plain(query_xyz, known_xyz, known_valid)
+    return gather_sum_plain(known_feats.reshape(b * m, c), rows,
+                            w).reshape(b, -1, c)
+
+
+def three_nn_fwd(query_xyz, known_xyz, known_valid, known_feats):
+    """K15: (out [B, N, C], rows [B*N, 3], weights [B*N, 3])."""
+    cuda.check_cuda("query_xyz", query_xyz, torch.float32, 3)
+    cuda.check_cuda("known_xyz", known_xyz, torch.float32, 3)
+    cuda.check_cuda("known_valid", known_valid, torch.bool, 2)
+    cuda.check_cuda("known_feats", known_feats, torch.float32, 3)
+    b, m, c = known_feats.shape
+    n = query_xyz.shape[1]
+    if (query_xyz.shape != (b, n, 3) or known_xyz.shape != (b, m, 3)
+            or known_valid.shape != (b, m)):
+        raise ValueError(f"queries {tuple(query_xyz.shape)}, known "
+                         f"{tuple(known_xyz.shape)}, validity "
+                         f"{tuple(known_valid.shape)} do not fit feats "
+                         f"{tuple(known_feats.shape)}")
+    dev = known_feats.device
+    with torch.cuda.device(dev):
+        out = torch.empty((b, n, c), dtype=torch.float32, device=dev)
+        rows = torch.empty((b * n, 3), dtype=torch.int32, device=dev)
+        w = torch.empty((b * n, 3), dtype=torch.float32, device=dev)
+        _K15.launch(query_xyz.data_ptr(), b, n, known_xyz.data_ptr(),
+                    known_valid.data_ptr(), m, known_feats.data_ptr(), c,
+                    out.data_ptr(), rows.data_ptr(), w.data_ptr())
+    return out, rows, w
+
+
+class _ThreeNNFn(torch.autograd.Function):
+    """Exact 3-NN on the card: forward K15, backward K11's scatter."""
+
+    @staticmethod
+    def forward(ctx, feats, query_xyz, known_xyz, known_valid):
+        out, rows, w = three_nn_fwd(query_xyz, known_xyz, known_valid, feats)
+        ctx.save_for_backward(rows, w)
+        ctx.feats_shape = tuple(feats.shape)
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        rows, w = ctx.saved_tensors
+        d_feats = ring_interp_bwd(d_out.contiguous(), rows, w,
+                                  ctx.feats_shape)
+        return d_feats, None, None, None
+
+
+def three_nn_interpolate(query_xyz: torch.Tensor, known_xyz: torch.Tensor,
+                         known_valid: torch.Tensor,
+                         known_feats: torch.Tensor) -> torch.Tensor:
+    """Interpolate a level's features onto the queries from their 3
+    nearest known points (the exact aux 3-NN).
+
+    query_xyz: [B, N, 3] float32; known_xyz: [B, M, 3] float32 cell
+    centres; known_valid: [B, M] bool (padded rows are excluded, as far as
+    a 1e10 distance excludes them); known_feats: [B, M, C] float32.
+    Returns [B, N, C], differentiable in `known_feats`.
+    """
+    if known_feats.device.type == "cpu":
+        return three_nn_interpolate_plain(query_xyz, known_xyz, known_valid,
+                                          known_feats)
+    return _ThreeNNFn.apply(known_feats, query_xyz.contiguous(),
+                            known_xyz.contiguous(), known_valid.contiguous())

@@ -26,7 +26,10 @@ which a wrapper takes only for CPU tensors:
   key -> row maps and the plans resolved through them
   (``device_plans.cu``);
 - K7 ``downsample_keys``: the sorted, capped active set of a stride-2
-  level (``downsample.cu``).
+  level (``downsample.cu``);
+- K13 ``stride_plan_T`` and K14 ``aux_plan``: the rulebook's train-only
+  plans, the stride convs' transpose plans and the aux branch's ring
+  plans (``device_plans.cu``).
 
 Training differentiates the convs through :func:`subm_conv_sym` and
 :func:`stride_conv_hostT` (autograd Functions whose forward is K4 and whose
@@ -69,6 +72,11 @@ _K7_CANDS = cuda.Kernel("sassd_downsample_candidates",
                          cuda.I, cuda.I, cuda.P])
 _K7_UNIQUE = cuda.Kernel("sassd_unique_sorted",
                          [cuda.P, cuda.I, cuda.I, cuda.I, cuda.P])
+_K13 = cuda.Kernel("sassd_stride_plan_t",
+                   [cuda.P, cuda.I, cuda.I, cuda.I, cuda.P])
+_K14 = cuda.Kernel("sassd_aux_plan",
+                   [cuda.P, cuda.I, cuda.I, cuda.I, cuda.P, cuda.I, cuda.I,
+                    cuda.I, cuda.P])
 # the C entry points of each kernel id, for launch counts
 KERNEL_SYMBOLS = {
     "K4": ("sassd_sparse_conv",),
@@ -77,6 +85,8 @@ KERNEL_SYMBOLS = {
     "K10": ("sassd_sparse_conv_dw",),
     "K6": ("sassd_index_map", "sassd_window_plan"),
     "K7": ("sassd_downsample_candidates", "sassd_unique_sorted"),
+    "K13": ("sassd_stride_plan_t",),
+    "K14": ("sassd_aux_plan",),
 }
 
 # tap groups (dz, dy) of the 27-tap order, each covering dx = -1, 0, 1
@@ -472,20 +482,17 @@ def build_index_map(keys: torch.Tensor,
     return out
 
 
-def window_plan_plain(out_keys: torch.Tensor,
-                      out_shape: Tuple[int, int, int],
-                      index_map: torch.Tensor,
-                      in_shape: Tuple[int, int, int],
-                      scale: int) -> torch.Tensor:
-    """Plain PyTorch version of K6's plan (see window_plan)."""
+def _window_lookup_plain(c: torch.Tensor, index_map: torch.Tensor,
+                         in_shape: Tuple[int, int, int]) -> torch.Tensor:
+    """[B, M, 3] int64 zyx base cells (negative = padding) -> the [B, 27,
+    M] int32 plan of their 3x3x3 windows through the [B, D*H*W] map."""
     d, h, w = in_shape
-    b, m = out_keys.shape
-    dev = out_keys.device
-    c = keys_to_coords(out_keys, out_shape).to(torch.int64) * scale
+    b, m = c.shape[:2]
+    dev = c.device
     z, y, x = (c[..., i].unsqueeze(1) for i in range(3))     # [B, 1, M]
     zq = z + torch.tensor(_DZ, device=dev)[None, :, None]    # [B, 9, M]
     yq = y + torch.tensor(_DY, device=dev)[None, :, None]
-    gok = ((x >= 0) & (x < w) & (zq >= 0) & (zq < d)
+    gok = ((z >= 0) & (x >= 0) & (x < w) & (zq >= 0) & (zq < d)
            & (yq >= 0) & (yq < h))
     q = (zq * h + yq) * w + x
     flat = index_map.reshape(-1)
@@ -497,6 +504,16 @@ def window_plan_plain(out_keys: torch.Tensor,
     plan = torch.stack([look(q - 1, gok & (x >= 1)), look(q, gok),
                         look(q + 1, gok & (x + 1 < w))], 2)  # [B, 9, 3, M]
     return plan.reshape(b, 27, m).to(torch.int32)
+
+
+def window_plan_plain(out_keys: torch.Tensor,
+                      out_shape: Tuple[int, int, int],
+                      index_map: torch.Tensor,
+                      in_shape: Tuple[int, int, int],
+                      scale: int) -> torch.Tensor:
+    """Plain PyTorch version of K6's plan (see window_plan)."""
+    c = keys_to_coords(out_keys, out_shape).to(torch.int64) * scale
+    return _window_lookup_plain(c, index_map, in_shape)
 
 
 def window_plan(out_keys: torch.Tensor, out_shape: Tuple[int, int, int],
@@ -527,6 +544,68 @@ def window_plan(out_keys: torch.Tensor, out_shape: Tuple[int, int, int],
         _K6_PLAN.launch(out_keys.data_ptr(), b, m, out_shape[1],
                         out_shape[2], scale, index_map.data_ptr(), d, h, w,
                         plan.data_ptr())
+    return plan
+
+
+def stride_plan_T_plain(plan: torch.Tensor, m_in: int) -> torch.Tensor:
+    """Plain PyTorch version of K13 (see stride_plan_T)."""
+    b, k, m_out = plan.shape
+    p = plan.to(torch.int64)
+    row = torch.arange(b * k, device=plan.device).reshape(b, k, 1) * m_in
+    flat = torch.where(p >= 0, row + p, b * k * m_in)
+    out = torch.full((b * k * m_in + 1,), -1, dtype=torch.int32,
+                     device=plan.device)
+    o = torch.arange(m_out, dtype=torch.int32, device=plan.device)
+    out[flat.reshape(-1)] = o.repeat(b * k)
+    return out[:b * k * m_in].view(b, k, m_in)
+
+
+def stride_plan_T(plan: torch.Tensor, m_in: int) -> torch.Tensor:
+    """Transpose plan of a stride-2 k3 p1 conv: its [B, 27, M_out] int32
+    stride plan into the previous level's M_in rows -> [B, 27, M_in]
+    int32, the output row that reads input row i through tap k (-1 =
+    none): the host rulebook's ``strideT`` plan. K13 on the card."""
+    if plan.device.type == "cpu":
+        return stride_plan_T_plain(plan, m_in)
+    cuda.check_cuda("plan", plan, torch.int32, 3)
+    b, k, m_out = plan.shape
+    if k != 27:
+        raise ValueError(f"plan {tuple(plan.shape)} is not [B, 27, M]")
+    with torch.cuda.device(plan.device):
+        out = torch.empty((b, 27, m_in), dtype=torch.int32,
+                          device=plan.device)
+        _K13.launch(plan.data_ptr(), b, m_out, m_in, out.data_ptr())
+    return out
+
+
+def aux_plan_plain(cell0: torch.Tensor, level: int, index_map: torch.Tensor,
+                   level_shape: Tuple[int, int, int]) -> torch.Tensor:
+    """Plain PyTorch version of K14 (see aux_plan)."""
+    return _window_lookup_plain(cell0.to(torch.int64) >> level, index_map,
+                                level_shape)
+
+
+def aux_plan(cell0: torch.Tensor, level: int, index_map: torch.Tensor,
+             level_shape: Tuple[int, int, int]) -> torch.Tensor:
+    """Aux-branch ring plan of level `level`: [B, M0, 3] int32 level-0
+    zyx cells (-1 = padding) and the level's [B, D*H*W] index map ->
+    [B, 27, M0] int32 rows of the 3x3x3 neighbourhood of cell0 >> level
+    (taps (dz, dy, dx) row-major), -1 = missing: the host rulebook's
+    ``aux{L}`` plan. K14 on the card."""
+    if cell0.device.type == "cpu":
+        return aux_plan_plain(cell0, level, index_map, level_shape)
+    cuda.check_cuda("cell0", cell0, torch.int32, 3)
+    cuda.check_cuda("index_map", index_map, torch.int32, 2)
+    b, m0, _ = cell0.shape
+    d, h, w = level_shape
+    if cell0.shape[2] != 3 or index_map.shape != (b, d * h * w):
+        raise ValueError(f"cell0 {tuple(cell0.shape)} / index_map "
+                         f"{tuple(index_map.shape)} do not fit {level_shape}")
+    with torch.cuda.device(cell0.device):
+        plan = torch.empty((b, 27, m0), dtype=torch.int32,
+                           device=cell0.device)
+        _K14.launch(cell0.data_ptr(), b, m0, int(level),
+                    index_map.data_ptr(), d, h, w, plan.data_ptr())
     return plan
 
 
@@ -590,17 +669,21 @@ def downsample_keys(keys: torch.Tensor, shape_zyx: Tuple[int, int, int],
 
 def device_rulebook(keys0: torch.Tensor,
                     level_shapes: Sequence[Tuple[int, int, int]],
-                    level_caps: Sequence[int]) -> Dict[str, torch.Tensor]:
+                    level_caps: Sequence[int], train: bool = False,
+                    aux: bool = True) -> Dict[str, torch.Tensor]:
     """The backbone's rulebook built on the keys' device, in the host
     rulebook's format (data.kitti.build_host_plans without the plan_
     prefix): subm0..2 and stride1..3 [B, 27, capL] int32 plans, and
-    coords1..3 [B, capL, 3] int32.
+    coords1..3 [B, capL, 3] int32; with `train` also strideT1..3 [B, 27,
+    cap_{L-1}] (K13) and, with `aux`, aux1..3 [B, 27, cap0] (K14), which
+    need the index map of level 3 too.
 
     keys0: [B, cap0] key-sorted level-0 keys; level_shapes: the four level
     grids; level_caps: the caps of levels 1..3. Level 3 gets no subm plan:
-    the dense tail runs it.
+    the dense tail runs it. The level-0 map (360 MB a sample at the car
+    grid) is freed once its plans are built.
     """
-    plans = {}
+    plans, maps = {}, {}
     keys, shape = keys0, level_shapes[0]
     imap = build_index_map(keys, shape)
     plans["subm0"] = window_plan(keys, shape, imap, shape, 1)
@@ -609,8 +692,20 @@ def device_rulebook(keys0: torch.Tensor,
         out = downsample_keys(keys, shape, level_caps[lvl - 1])
         plans[f"stride{lvl}"] = window_plan(out, out_shape, imap, shape, 2)
         plans[f"coords{lvl}"] = keys_to_coords(out, out_shape)
+        if train:
+            plans[f"strideT{lvl}"] = stride_plan_T(plans[f"stride{lvl}"],
+                                                   keys.shape[1])
         keys, shape = out, out_shape
-        if lvl < 3:
+        imap = None
+        if lvl < 3 or (train and aux):
             imap = build_index_map(keys, shape)
+        if train and aux:
+            maps[lvl] = imap
+        if lvl < 3:
             plans[f"subm{lvl}"] = window_plan(keys, shape, imap, shape, 1)
+    if train and aux:
+        cell0 = keys_to_coords(keys0, level_shapes[0])
+        for lvl in (1, 2, 3):
+            plans[f"aux{lvl}"] = aux_plan(cell0, lvl, maps[lvl],
+                                          level_shapes[lvl])
     return plans

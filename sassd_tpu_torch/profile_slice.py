@@ -1,16 +1,19 @@
-"""Where the time goes: car-config inference or training on one GPU under
+"""Where the time goes: inference or training on one GPU under
 torch.profiler.
 
-    python -m sassd_tpu_torch.profile_slice [--batch 1] [--device-plans | --serve | --train]
+    python -m sassd_tpu_torch.profile_slice [--batch 1] [--config car|multi]
+        [--device-plans | --serve] [--train [--exact]]
 
-Runs forward_test on synthetic car-config scans (seeded weights, as
-chip_smoke.py), with the C++ host rulebook or, with --device-plans
-(model.host_plans=False), the rulebook built on the card, or, with
---serve, the device-resident serving step (serve.make_serving_step: raw
-points uploaded, voxelized, masked and the rulebook built on the card),
-or, with --train, the train step (train.loop.make_train_step on the
-scans' train plans and their GT boxes: forward_train, backward, one-cycle
-AdamW); then profiles RUNS steps and prints: the host-clock step time, the
+Runs forward_test on synthetic scans (seeded weights, as chip_smoke.py)
+of the car config or, with --config multi, the three-class config, with
+the C++ host rulebook or, with --device-plans (model.host_plans=False),
+the rulebook built on the card, or, with --serve, the device-resident
+serving step (serve.make_serving_step: raw points uploaded, voxelized,
+masked and the rulebook built on the card), or, with --train, the train
+step (train.loop.make_train_step on the scans and their GT boxes:
+forward_train, backward, one-cycle AdamW; with --device-plans the card
+builds the train rulebook inside the step, with --exact the aux branch
+takes the exact 3-NN); then profiles RUNS steps and prints: the host-clock step time, the
 device time of each stage (voxelize, anchors_mask, rulebook, vxnet,
 bevnet, aux, head, targets_losses, pswarp, nms, backward, optimizer), the
 CUDA kernels with the most device time, and the device busy share of the
@@ -28,7 +31,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from sassd_tpu_torch import serve
-from sassd_tpu_torch.config import car_config
+from sassd_tpu_torch.config import car_config, multi_config
 from sassd_tpu_torch.data import kitti, synthetic
 from sassd_tpu_torch.inference import make_test_step
 from sassd_tpu_torch.train import loop, optim
@@ -93,39 +96,52 @@ def _busy_us(prof) -> float:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=1)
+    ap.add_argument("--config", choices=("car", "multi"), default="car",
+                    help="car_config() or the three-class multi_config()")
     mode = ap.add_mutually_exclusive_group()
     mode.add_argument("--device-plans", action="store_true",
                       help="build the rulebook on the card "
                            "(host_plans=False)")
     mode.add_argument("--serve", action="store_true",
                       help="serve raw points (test.device_input='points')")
-    mode.add_argument("--train", action="store_true",
-                      help="the train step (forward_train, backward, AdamW)")
+    ap.add_argument("--train", action="store_true",
+                    help="the train step (forward_train, backward, AdamW)")
+    ap.add_argument("--exact", action="store_true",
+                    help="with --train: the exact aux 3-NN "
+                         "(aux_interp='exact')")
     args = ap.parse_args()
+    if args.train and args.serve:
+        ap.error("--train runs on host or device plans, not --serve")
+    if args.exact and not args.train:
+        ap.error("--exact needs --train")
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
 
-    cfg = car_config()
+    cfg = multi_config() if args.config == "multi" else car_config()
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(
-        cfg.model, host_plans=not args.device_plans))
+        cfg.model, host_plans=not args.device_plans,
+        aux_interp="exact" if args.exact else "ring"))
     anchors, anchors_bv = kitti.build_anchors(cfg)
     model = seeded_detector(cfg, SEED, device)
     rng = np.random.default_rng(SEED)
-    scenes = [synthetic.make_scene(rng, n_cars=(6, 12), n_ground=18000)
+    scenes = [synthetic.make_scene(rng, n_cars=(6, 12), n_ground=18000,
+                                   classes=cfg.class_names)
               for _ in range(args.batch)]
     scans = [p for p, _, _ in scenes]
     if args.train:
         samples = []
-        for p, bx, _ in scenes:
+        for p, bx, types in scenes:
             s = kitti.prepare_scan(cfg, p, anchors_bv, train=True)
             g = cfg.caps.max_gt
             s["gt_boxes"] = np.zeros((g, 7), np.float32)
             s["gt_boxes"][:len(bx)] = bx[:g]
             s["gt_valid"] = np.arange(g) < len(bx)
-            s["gt_classes"] = s["gt_valid"].astype(np.int32)
+            s["gt_classes"] = np.zeros((g,), np.int32)
+            s["gt_classes"][:len(bx)] = [cfg.class_names.index(t) + 1
+                                         for t in types[:g]]
             samples.append(s)
         batch = kitti.collate(samples)[0]
         step = loop.make_train_step(
@@ -160,9 +176,11 @@ def main() -> None:
     events = prof.key_averages()
 
     what = ("serving from raw points" if args.serve else
-            "training" if args.train else
             "device plans" if args.device_plans else "host plans")
-    print(f"{torch.cuda.get_device_name(0)}, batch {args.batch}, {what}: "
+    if args.train:
+        what = f"training on {what}, {cfg.model.aux_interp} aux"
+    print(f"{torch.cuda.get_device_name(0)}, {args.config} config, batch "
+          f"{args.batch}, {what}: "
           f"{step_ms:.2f} ms/step unprofiled (host clock, synced)")
     print("stage ms/step: " + _stage_table(prof, RUNS))
     busy_us = _busy_us(prof)

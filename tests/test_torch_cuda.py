@@ -13,7 +13,10 @@ keys, copies of points, float32 sums of integer counts). The training
 kernels, relative to the largest magnitude of the plain result: K10 and
 K4's input gradients 1e-5 (float32 sums over thousands of rows in another
 order), K11's forward, K12 and K5b exact (the same float32 operations,
-copies), K11's backward and K3b 1e-5 (atomicAdd order).
+copies), K11's backward and K3b 1e-5 (atomicAdd order). The train-only rulebook
+plans (K13, K14) are integers and exact; K15's selections, weights and
+output are exact (the plain version's float32 operations in its order),
+its backward (K11's) 1e-5.
 """
 import numpy as np
 import pytest
@@ -605,6 +608,155 @@ def test_tiny_train_step_card_matches_cpu(dev):
             *[s for k in ("K4", "K5", "K5b", "K10")
               for s in sp.KERNEL_SYMBOLS[k]]}
     assert ran == path, ran
+    (cl, cg), (gl, gg) = out["cpu"], out[str(dev)]
+    for k, v in cl.items():
+        assert abs(gl[k] - v) <= 1e-4 * max(abs(v), 1e-6), (k, gl[k], v)
+    assert abs(gg - cg) <= 1e-3 * cg
+
+
+def test_k13_k14_train_rulebook_matches_plain_and_host(dev):
+    """device_rulebook(train=True) on the card (K6, K7, K13, K14) == its
+    plain versions == the C++ train rulebook; without aux, no aux plans."""
+    from sassd_tpu_torch.ops import sparse as sp
+    cfg, batch, shapes = tiny_rulebook(10)
+    keys0 = sp.coords_to_keys(torch.from_numpy(batch["coords"]), shapes[0])
+    before = (sp._K13.launches, sp._K14.launches)
+    got = sp.device_rulebook(keys0.to(dev), shapes, cfg.caps.level_caps[1:],
+                             train=True)
+    torch.cuda.synchronize()
+    assert (sp._K13.launches, sp._K14.launches) == (before[0] + 3,
+                                                    before[1] + 3)
+    ref = sp.device_rulebook(keys0, shapes, cfg.caps.level_caps[1:],
+                             train=True)
+    assert sorted(got) == sorted(ref)
+    for k, v in got.items():
+        assert torch.equal(v.cpu(), ref[k]), k
+        np.testing.assert_array_equal(
+            v.cpu().numpy(), batch[f"plan_{k}"].astype(np.int32), err_msg=k)
+    exact = sp.device_rulebook(keys0.to(dev), shapes,
+                               cfg.caps.level_caps[1:], train=True,
+                               aux=False)
+    assert sorted(exact) == sorted(k for k in got if not k.startswith("aux"))
+
+
+def three_nn_inputs(seed, level, dev):
+    """Voxel centroids of tiny scans (queries), a level's cell centres,
+    validity and random features, on `dev`."""
+    from sassd_tpu_torch.ops import interpolate as itp
+    from sassd_tpu_torch.ops import sparse as sp
+    cfg, batch, shapes = tiny_rulebook(seed)
+    keys = sp.coords_to_keys(torch.from_numpy(batch["coords"]), shapes[0])
+    for lvl in range(1, level + 1):
+        keys = sp.downsample_keys(keys, shapes[lvl - 1],
+                                  cfg.caps.level_caps[lvl])
+    vs = np.asarray(cfg.voxel.voxel_size, np.float32) * 2 ** level
+    centers = itp.cell_centers(sp.keys_to_coords(keys, shapes[level]),
+                               vs.tolist(), cfg.voxel.point_cloud_range[:3])
+    npts = np.maximum(batch["num_points"], 1)[..., None].astype(np.float32)
+    query = torch.from_numpy(
+        (batch["voxels"][..., :3].sum(-2) / npts).astype(np.float32))
+    feats = torch.from_numpy(np.random.default_rng(level).normal(
+        size=tuple(keys.shape) + (32,)).astype(np.float32))
+    return [t.to(dev) for t in (query, centers, keys != sp.INVALID_KEY,
+                                feats)]
+
+
+@pytest.mark.parametrize("level", [1, 2, 3])
+def test_k15_matches_plain(dev, level):
+    """Rows, weights and output bitwise (also the CPU's selections);
+    feature gradients (K11's backward) 1e-5."""
+    from sassd_tpu_torch.ops import interpolate as itp
+    query, centers, valid, feats = three_nn_inputs(11, level, dev)
+    before = itp._K15.launches
+    out, rows, w = itp.three_nn_fwd(query, centers, valid, feats)
+    torch.cuda.synchronize()
+    assert itp._K15.launches == before + 1
+    ref_rows, ref_w = itp.three_nn_select_plain(query, centers, valid)
+    assert torch.equal(rows.long(), ref_rows)
+    assert torch.equal(w, ref_w)
+    assert torch.equal(out, itp.three_nn_interpolate_plain(
+        query, centers, valid, feats))
+    cpu_rows, _ = itp.three_nn_select_plain(*[t.cpu() for t in (
+        query, centers, valid)])
+    assert torch.equal(rows.cpu().long(), cpu_rows)
+    cot = torch.randn(out.shape, generator=torch.Generator().manual_seed(
+        level)).to(dev)
+    fd = feats.clone().requires_grad_()
+    itp.three_nn_interpolate(query, centers, valid, fd).backward(cot)
+    fp = feats.clone().requires_grad_()
+    itp.three_nn_interpolate_plain(query, centers, valid, fp).backward(cot)
+    assert rel_err(fd.grad, fp.grad) <= 1e-5
+
+
+def test_train_plan_wrappers_reject_bad_inputs(dev):
+    from sassd_tpu_torch.ops import interpolate as itp
+    from sassd_tpu_torch.ops import sparse as sp
+    plan = torch.zeros((1, 27, 8), dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):                       # int16 plan
+        sp.stride_plan_T(plan.short(), 8)
+    with pytest.raises(ValueError):                      # 9 taps
+        sp.stride_plan_T(plan[:, :9].contiguous(), 8)
+    cell0 = torch.zeros((1, 8, 3), dtype=torch.int32, device=dev)
+    imap = torch.zeros((1, 24), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):                      # map of another grid
+        sp.aux_plan(cell0, 1, imap, (2, 3, 5))
+    with pytest.raises(ValueError):                      # map on the host
+        sp.aux_plan(cell0, 1, imap.cpu(), (2, 3, 4))
+    q = torch.zeros((1, 8, 3), device=dev)
+    k = torch.zeros((1, 6, 3), device=dev)
+    f = torch.zeros((1, 6, 16), device=dev)
+    v = torch.ones((1, 6), dtype=torch.bool, device=dev)
+    with pytest.raises(TypeError):                       # float validity
+        itp.three_nn_fwd(q, k, v.float(), f)
+    with pytest.raises(ValueError):                      # 5 known rows
+        itp.three_nn_fwd(q, k[:, :5].contiguous(), v, f)
+
+
+@pytest.mark.parametrize("aux", ["ring", "exact"])
+def test_tiny_three_class_device_plans_step_card_matches_cpu(dev, aux):
+    """A three-class forward_train + backward on device plans, on the card
+    and on the CPU: losses 1e-4, grad norm 1e-3; the rulebook's kernels
+    (K6, K7, K13) launched, and K14 (ring) or K15 (exact)."""
+    import dataclasses
+    from sassd_tpu_torch.config import AnchorConfig, tiny_config
+    from sassd_tpu_torch.data import kitti, synthetic
+    from sassd_tpu_torch.inference import to_device
+    from sassd_tpu_torch.models.detector import parse_losses
+    from sassd_tpu_torch.ops import cuda, interpolate, sparse as sp
+    from sassd_tpu_torch.weights import seeded_detector
+    base = tiny_config()
+    kw = dict(strides=(0.8, 0.8, 1.0), offsets=(0.4, -2.8, -1.0))
+    cfg = dataclasses.replace(
+        base, model=dataclasses.replace(base.model, num_class=3,
+                                        host_plans=False, aux_interp=aux),
+        anchors={"Car": AnchorConfig(sizes=(1.6, 3.9, 1.56), **kw),
+                 "Pedestrian": AnchorConfig(sizes=(0.6, 0.8, 1.73), **kw),
+                 "Cyclist": AnchorConfig(sizes=(0.6, 1.76, 1.73), **kw)})
+    batch = synthetic.make_random_batch(cfg, np.random.default_rng(3),
+                                        batch_size=2, n_points=900)
+    g = batch["gt_classes"].shape[1]
+    batch["gt_classes"] = np.where(batch["gt_valid"], 1 + np.arange(g) % 3,
+                                   0).astype(np.int32)
+    anchors = torch.from_numpy(kitti.build_anchors(cfg)[0])
+    out = {}
+    before = {k: v.launches for k, v in cuda.KERNELS.items()}
+    for where in ("cpu", dev):
+        model = seeded_detector(cfg, 2, where)
+        model.train()
+        losses = model.forward_train(to_device(batch, where),
+                                     anchors.to(where))
+        parse_losses(losses).backward()
+        gnorm = torch.sqrt(sum((p.grad.double() ** 2).sum()
+                               for p in model.parameters()))
+        out[str(where)] = ({k: float(v) for k, v in losses.items()},
+                           float(gnorm))
+    torch.cuda.synchronize()
+    ran = {k for k, v in cuda.KERNELS.items() if v.launches > before[k]}
+    need = [s for k in ("K6", "K7", "K13") for s in sp.KERNEL_SYMBOLS[k]]
+    need += (list(sp.KERNEL_SYMBOLS["K14"]) if aux == "ring"
+             else list(interpolate.KERNEL_SYMBOLS["K15"]))
+    assert set(need) <= ran, ran
+    assert (aux == "ring") == ("sassd_aux_plan" in ran)
     (cl, cg), (gl, gg) = out["cpu"], out[str(dev)]
     for k, v in cl.items():
         assert abs(gl[k] - v) <= 1e-4 * max(abs(v), 1e-6), (k, gl[k], v)

@@ -341,15 +341,29 @@ def test_train_model_on_a_synthetic_split(tmp_path, caplog):
 
 
 def test_train_checks_the_config():
+    """Options training does not run raise; device plans, the exact aux
+    3-NN and the GT database pass, alone and together, and so does the
+    three-class config."""
     cfg = config.tiny_config()
-    for section, override in (("model", dict(aux_interp="exact")),
-                              ("model", dict(host_plans=False)),
-                              ("data", dict(db_info_path="db.pkl"))):
-        bad = dataclasses.replace(cfg, **{section: dataclasses.replace(
+
+    def with_(section, **override):
+        return dataclasses.replace(cfg, **{section: dataclasses.replace(
             getattr(cfg, section), **override)})
+    for bad in (with_("model", vfe_type="pointnet"),
+                with_("model", compute_dtype="bfloat16"),
+                with_("model", aux_interp="nearest")):
         with pytest.raises(NotImplementedError):
             config.check_supported(bad, train=True)
-    config.check_supported(cfg, train=True)
+    for good in (cfg, with_("model", aux_interp="exact"),
+                 with_("model", host_plans=False),
+                 with_("data", db_info_path="db.pkl"),
+                 with_("model", host_plans=False, aux_interp="exact")):
+        config.check_supported(good, train=True)
+    multi = config.multi_config()
+    for aux in ("ring", "exact"):
+        config.check_supported(dataclasses.replace(
+            multi, model=dataclasses.replace(multi.model, host_plans=False,
+                                             aux_interp=aux)), train=True)
 
 
 def test_entry_points_default_to_the_card():
