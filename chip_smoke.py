@@ -63,6 +63,29 @@ Phases, each of which fails the run (nonzero exit, no result line):
    K11's backward in the exact run; every logged loss finite, no update
    skipped. The steps at batch 1 and 2 are timed beside a host-plans step.
 
+9. long range (long_range_config(), grid [40, 1600, 2048], 102,400
+   anchors), banded over 4 y-bands (parallel.strategy="banded", the
+   user's configs/long_range_banded.py) against replicated on device
+   plans, at full width: a 4-scan long-range synthetic KITTI train split
+   (frustum scans of about 29,000 voxels: every level of both runs under
+   its cap, no band overflow; the voxel count of every level is printed)
+   and one denser timing scan (~70,000 voxels). Kernel checks at these
+   shapes: K16 (band partition) bitwise, also with a cap that drops
+   members; K7 with each band row's y limit bitwise; K11 with per-row grid
+   origins (rows, weights, output bitwise; backward 1e-5). forward_test
+   banded vs replicated on two scans at batch 1 (matched detections, boxes
+   1e-2, scores 1e-3; launch counts of each run); one forward_train +
+   backward at batch 2 banded vs replicated (losses 1e-3; the gradients of
+   the objective without the PSWarp loss, which follows the guided
+   anchors' top-k, whose near-ties flip between float32 runs: norm 2e-3,
+   each module 1e-2; the PSWarp module's full gradients 1e-2; BatchNorm
+   running-statistic updates 2e-3; printed beside a replicated step on
+   inputs one float32 ulp off); then
+   train_model of the banded config for 2 steps at batch 2 (8 band rows):
+   K16, K7 and K11 (with a limit, with origins) must launch, every logged
+   loss finite, band_overflow 0. Timed: the timing scan at batch 1, banded
+   and replicated in turns, and the train step at batch 2.
+
 Phase 3 also holds K8 (device voxelizer) and K9 (anchors mask) against
 their plain versions, bitwise, on the car scans (at the 20,000-voxel cap,
 so the lowest-key truncation runs) and on one frustum scan; and the
@@ -124,6 +147,12 @@ PLANS_GNORM_RTOL = 1e-5
 PLANS_GRAD_L2 = 1e-4
 N_TRAIN_EPOCHS = 3     # of 2 steps at batch 2 over the 4 train scans
 N_MULTI_EPOCHS = 2      # phase 8: of 4 steps at batch 1
+# phase 9: frustum ground returns of the long-range comparison scans (about
+# 29,000 voxels, under every replicated and per-band cap), and the banded
+# step's BatchNorm running-statistic updates against the replicated ones,
+# relative to each buffer's largest update
+LR_GROUND = 60000
+BN_UPDATE_RTOL = 2e-3
 
 # the card's peaks the bounds are taken against (H100 SXM data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -1554,6 +1583,435 @@ def run_multi_training(torch, np, device, root: str, host_step_ms):
     return runs, per_step
 
 
+def level_counts(sp, keys0, plans) -> list:
+    """Active rows of each level [L0, L1, L2, L3], each a list over the
+    rulebook's rows."""
+    return [(keys0 != sp.INVALID_KEY).sum(1).tolist()] + [
+        (plans[f"coords{lvl}"][..., 0] >= 0).sum(1).tolist()
+        for lvl in (1, 2, 3)]
+
+
+def rulebook_counts(torch, device, cfg, spec, sample_batch):
+    """Level counts of a batch's replicated device rulebook and of its
+    banded one, and the banded level-0 overflow [S, B]."""
+    from sassd_tpu_torch.models import backbone
+    from sassd_tpu_torch.ops import sparse as sp
+    from sassd_tpu_torch.parallel import sparse_spatial as ss
+    coords = torch.from_numpy(sample_batch["coords"]).to(device)
+    shapes = backbone.level_shapes(cfg.sparse_shape)
+    keys0 = sp.coords_to_keys(coords, shapes[0])
+    rep = level_counts(sp, keys0, sp.device_rulebook(
+        keys0, shapes, cfg.caps.level_caps[1:]))
+    bc, _, over = ss.partition(coords, torch.zeros(
+        coords.shape[:2] + (4,), device=device), spec)
+    bshapes = backbone.level_shapes(ss.band_shape(cfg, spec))
+    keys0 = sp.coords_to_keys(bc.reshape(-1, bc.shape[2], 3), bshapes[0])
+    band = level_counts(sp, keys0, sp.device_rulebook(
+        keys0, bshapes, spec.caps[1:],
+        y_top=ss.y_top_rows(cfg, spec, coords.shape[0], device)))
+    return rep, band, over.tolist()
+
+
+def check_banded_kernels(torch, np, device, cfg, spec, batch, timing):
+    """Phase 9, the kernels of the banded stage at full long-range width
+    on the comparison batch (2 scans, 8 band rows): K16 (band partition)
+    bitwise against its plain version, also with a fifth of the level-0
+    cap, which drops members; K7 with each row's y limit, levels 1-3 of the band
+    rulebook, bitwise; K11 with per-row grid origins at levels 1-3: rows,
+    weights and output bitwise, its backward within TRAIN_GRAD_RTOL.
+    Timed: K16 and K7 (L0 -> L1) on the timing scan (batch 1, 4 band
+    rows), K11 at batch 2."""
+    from sassd_tpu_torch.models import backbone
+    from sassd_tpu_torch.ops import interpolate as itp
+    from sassd_tpu_torch.ops import sparse as sp
+    from sassd_tpu_torch.parallel import sparse_spatial as ss
+
+    def inputs(b):
+        coords = torch.from_numpy(b["coords"]).to(device)
+        vfe = backbone.vfe_mean(torch.from_numpy(b["voxels"]).to(device),
+                                torch.from_numpy(b["num_points"]).to(device))
+        return coords, vfe
+    rng = np.random.default_rng(SEED + 9)
+    coords, vfe = inputs(batch)
+    tc, tv = inputs(timing)
+    nb = coords.shape[0]
+    bshapes = backbone.level_shapes(ss.band_shape(cfg, spec))
+    rows = []
+
+    # K16
+    err16, over16 = 0.0, {}
+    forced = f"cap0 {spec.caps[0] // 5}"
+    for what, sp_ in (("caps", spec),
+                      (forced, spec._replace(
+                          caps=(spec.caps[0] // 5,) + spec.caps[1:]))):
+        got = ss.partition(coords, vfe, sp_)
+        ref = ss.partition_plain(coords, vfe, sp_)
+        same = all(torch.equal(g, r) for g, r in zip(got, ref))
+        err16 = max([err16] + [float((g.double() - r.double()).abs().max())
+                               for g, r in zip(got, ref)])
+        over16[what] = got[2].tolist()
+        print(f"K16 band_partition {tuple(coords.shape)} -> "
+              f"{tuple(got[0].shape)} ({what}): "
+              f"{'bitwise equal to' if same else 'DIFFERS from'} plain; "
+              f"overflow [S, B] {over16[what]}")
+        if not same:
+            fail(f"K16 differs from its plain version ({what})")
+    if not any(v for r in over16[forced] for v in r):
+        fail("K16: the forced-overflow case dropped no member")
+    ms = cuda_ms(lambda: ss.partition(tc, tv, spec))
+    plain_ms = cuda_ms(lambda: ss.partition_plain(tc, tv, spec))
+    print(f"  K16 batch 1 (timing scan): kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms")
+    m0, f = tc.shape[1], tv.shape[2]
+    n_tv = int((tc[..., 0] >= 0).sum())
+    rows.append(dict(name="K16 band_partition", route="cuda",
+                     source="sassd_tpu_torch/csrc/band_partition.cu",
+                     replaces="sassd_tpu/parallel/sparse_spatial.py:89",
+                     max_abs_err=err16, ms=ms, plain_ms=plain_ms,
+                     library_ms=None,
+                     at=f"batch 1, the timing scan ({n_tv} voxels), "
+                        f"{spec.s} bands, cap0 {spec.caps[0]}",
+                     # coords and rows in once; the band arrays and the
+                     # overflow out
+                     **bound(m0 * (12 + 4 * f)
+                             + spec.s * spec.caps[0] * (12 + 4 * f)
+                             + spec.s * 4, 0)))
+
+    # K7 with the y limit, levels 1-3 of the comparison batch's bands
+    bc, bv, over = ss.partition(coords, vfe, spec)
+    cell0 = bc.reshape(spec.s * nb, -1, 3)
+    keys = keys0 = sp.coords_to_keys(cell0, bshapes[0])
+    y_top = ss.y_top_rows(cfg, spec, nb, device)
+    err7, clipped = 0.0, []
+    for lvl in (1, 2, 3):
+        args = (bshapes[lvl - 1], spec.caps[lvl], y_top >> lvl)
+        out = sp.downsample_keys(keys, *args)
+        ref = sp.downsample_keys_plain(keys, *args)
+        err7 = max(err7, float((out.long() - ref.long()).abs().max()))
+        free = sp.downsample_keys(keys, *args[:2])
+        clipped.append(int((out != free).any(1).sum()))
+        keys = out
+    print(f"K7 downsample with y_top, {spec.s * nb} band rows, levels 1-3: "
+          f"max|kernel-plain| {err7:g}; rows the limit changed per level "
+          f"{clipped}")
+    if err7:
+        fail("K7 with a y limit differs from its plain version")
+    tkeys = sp.coords_to_keys(ss.partition(tc, tv, spec)[0].reshape(
+        spec.s, -1, 3), bshapes[0])
+    ty = ss.y_top_rows(cfg, spec, 1, device) >> 1
+    ms = cuda_ms(lambda: sp.downsample_keys(tkeys, bshapes[0], spec.caps[1],
+                                            ty))
+    plain_ms = cuda_ms(lambda: sp.downsample_keys_plain(
+        tkeys, bshapes[0], spec.caps[1], ty))
+    print(f"  K7' L0->L1 with y_top (batch 1, {spec.s} band rows, incl. "
+          f"torch.sort): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    n_cand = 8 * tkeys.shape[1]
+    rows.append(dict(name="K7' downsample_y_top", route="cuda",
+                     source="sassd_tpu_torch/csrc/downsample.cu",
+                     replaces="sassd_tpu/ops/sparse.py:590",
+                     max_abs_err=err7, ms=ms, plain_ms=plain_ms,
+                     library_ms=None,
+                     at=f"L0 -> L1 of the timing scan's {spec.s} band rows, "
+                        f"torch.sort included",
+                     # keys and limits in, the capped levels out; a
+                     # comparison sort of each row's candidates
+                     **bound(tkeys.numel() * 4 + spec.s * 4
+                             + spec.s * spec.caps[1] * 4,
+                             spec.s * n_cand
+                             * int(np.ceil(np.log2(n_cand))))))
+
+    # K11 with per-row origins on the band train rulebook's aux plans
+    plans = sp.device_rulebook(keys0, bshapes, spec.caps[1:], train=True,
+                               y_top=y_top)
+    query = bv.reshape(spec.s * nb, -1, bv.shape[-1])[..., :3].contiguous()
+    origins = ss.band_origins(cfg, spec, nb, device)
+    k11, err11 = [], 0.0
+    for level, c in ((1, 32), (2, 64), (3, 64)):
+        vs = (np.asarray(cfg.voxel.voxel_size, np.float32)
+              * 2 ** level).tolist()
+        plan = plans[f"aux{level}"]
+        m = spec.caps[level]
+        feats = torch.from_numpy(rng.normal(size=(spec.s * nb, m, c)).astype(
+            np.float32)).to(device)
+        out, rsel, wsel = itp.ring_interp_fwd(query, cell0, level, feats,
+                                              plan, vs, origins)
+        ref_rows, ref_w = itp.ring_select_plain(query, cell0, level, plan, m,
+                                                vs, origins)
+        ref = itp.neighborhood_interpolate_cells_plain(
+            query, cell0, level, feats, plan, vs, origins)
+        same = (torch.equal(rsel.long(), ref_rows)
+                and torch.equal(wsel, ref_w) and torch.equal(out, ref))
+        cot = torch.from_numpy(rng.normal(size=tuple(out.shape)).astype(
+            np.float32)).to(device)
+        fk = feats.clone().requires_grad_()
+        itp.neighborhood_interpolate_cells(query, cell0, level, fk, plan, vs,
+                                           origins).backward(cot)
+        fp = feats.clone().requires_grad_()
+        out_p = itp.neighborhood_interpolate_cells_plain(
+            query, cell0, level, fp, plan, vs, origins)
+        bwd_err = rel_err(fk.grad, torch.autograd.grad(
+            out_p, fp, cot, retain_graph=True)[0])
+        err11 = max(err11, bwd_err)
+        print(f"K11 ring_interp with per-row origins, level {level} "
+              f"{tuple(query.shape)} -> {tuple(out.shape)}: forward, rows "
+              f"and weights {'bitwise equal to' if same else 'DIFFER from'} "
+              f"plain; backward rel err {bwd_err:.3g} (tol "
+              f"{TRAIN_GRAD_RTOL})")
+        if not same or bwd_err > TRAIN_GRAD_RTOL:
+            fail(f"K11 with origins disagrees with its plain version at "
+                 f"level {level}")
+        ms = cuda_ms(lambda: itp.ring_interp_bwd(
+            cot, rsel, wsel, feats.shape)) + cuda_ms(
+            lambda: itp.ring_interp_fwd(query, cell0, level, feats, plan, vs,
+                                        origins))
+        plain_ms = grad_ms(out_p, fp, cot) + cuda_ms(
+            lambda: itp.neighborhood_interpolate_cells_plain(
+                query, cell0, level, feats, plan, vs, origins))
+        q = query.shape[0] * query.shape[1]
+        k11.append((level, ms, plain_ms, bound(
+            q * (12 + 12 + 27 * plan.element_size() + 2 * c * 4 + 24)
+            + min(feats.numel(), 3 * q * c) * 4 + feats.numel() * 4
+            + origins.numel() * 4,
+            q * (27 * 12 + 3 * c * 2 + 3 * c * 2))))
+    rows.append(dict(name="K11' ring_interp_origins", route="cuda",
+                     source="sassd_tpu_torch/csrc/interpolate.cu",
+                     replaces="sassd_tpu/parallel/sparse_spatial.py:143",
+                     max_abs_err=err11, err_kind="backward, relative to max "
+                     "|plain|; the forward is bitwise",
+                     ms=sum(m for _, m, *_ in k11),
+                     plain_ms=sum(m for _, _, m, _ in k11),
+                     library_ms=None,
+                     at=f"batch 2 ({spec.s * nb} band rows), forward + "
+                        f"backward, levels 1-3",
+                     per_level={lv: dict(ms=m, plain_ms=pm, **bd)
+                                for lv, m, pm, bd in k11},
+                     **add_bounds([bd for *_, bd in k11])))
+    return rows
+
+
+def run_long_range(torch, np, device, root: str):
+    """Phase 9: the long-range config, banded over 4 y-bands against
+    replicated (device plans), at full width. Returns (kernel rows,
+    launches of banded inference, of replicated inference and of the
+    banded train_model run, launches of one banded train step)."""
+    import dataclasses
+    import logging
+    from sassd_tpu_torch.config import ParallelConfig, long_range_config
+    from sassd_tpu_torch.data import kitti, synthetic
+    from sassd_tpu_torch.inference import make_test_step, to_device
+    from sassd_tpu_torch.models.detector import parse_losses
+    from sassd_tpu_torch.parallel import sparse_spatial as ss
+    from sassd_tpu_torch.train import loop, optim
+    from sassd_tpu_torch.weights import seeded_detector
+
+    base = long_range_config()
+    cfg_b = dataclasses.replace(
+        base, parallel=ParallelConfig(strategy="banded", spatial=4),
+        train=dataclasses.replace(base.train, log_interval=1,
+                                  checkpoint_interval=1),
+        data=dataclasses.replace(base.data, num_workers=2))
+    cfg_r = dataclasses.replace(cfg_b, parallel=ParallelConfig(),
+                                model=dataclasses.replace(
+                                    base.model, host_plans=False))
+    spec = ss.config_band_spec(cfg_b)
+    synthetic.write_synthetic_kitti(
+        root, n_train=N_SCANS, n_val=0, seed=SEED + 9,
+        point_cloud_range=cfg_b.voxel.point_cloud_range,
+        n_ground=LR_GROUND)
+    data_root = os.path.join(root, "training")
+    ds = kitti.KittiDataset(cfg_b, data_root,
+                            os.path.join(root, "ImageSets", "train.txt"),
+                            train=True)
+    samples = [ds[i] for i in range(2)]
+    if any(k.startswith("plan_") for k in samples[0]):
+        fail("long range: host plans built for the banded config")
+    batch = kitti.collate(samples)[0]
+    timing = kitti.prepare_scan(cfg_b, synthetic.long_range_scene(
+        np.random.default_rng(SEED + 10))[0], ds.anchors_bv)
+    t_batch = kitti.collate([timing])[0]
+
+    rows = check_banded_kernels(torch, np, device, cfg_b, spec, batch,
+                                t_batch)
+    for what, b in (("comparison scans", batch), ("timing scan", t_batch)):
+        rep, band, over = rulebook_counts(torch, device, cfg_b, spec, b)
+        print(f"long range, {what}: active rows per level, replicated "
+              f"{rep} (caps {list(cfg_b.caps.level_caps)}); banded, "
+              f"band-major rows {band} (caps {list(spec.caps)}); level-0 "
+              f"band overflow {over}")
+        if what == "comparison scans":
+            full = [lv for lv, (n, cap) in enumerate(zip(rep, base.caps
+                                                         .level_caps))
+                    if max(n) >= cap]
+            full += [lv for lv, (n, cap) in enumerate(zip(band, spec.caps))
+                     if max(n) >= cap]
+            if full or any(v for r in over for v in r):
+                fail(f"long range: a comparison scan fills a cap (levels "
+                     f"{full}) or overflows a band")
+
+    model_b = seeded_detector(cfg_b, SEED, device)
+    model_r = seeded_detector(cfg_r, SEED, device)
+    model_r.load_state_dict(model_b.state_dict())
+    anchors = torch.from_numpy(ds.anchors).to(device)
+
+    # forward_test, banded then replicated, each scan at batch 1
+    b1 = [kitti.collate([s])[0] for s in samples]
+    steps = {"banded": (make_test_step(cfg_b, ds.anchors, device), model_b),
+             "replicated": (make_test_step(cfg_r, ds.anchors, device),
+                            model_r)}
+    dets, launches = {}, {}
+    for what, (step, model) in steps.items():
+        step(model, b1[0])                                # warm-up
+        torch.cuda.synchronize()
+        reset_launches()
+        dets[what] = [{k: v.cpu().numpy() for k, v in step(model, b).items()}
+                      for b in b1]
+        torch.cuda.synchronize()
+        launches[what] = read_launches()
+        print(f"long range, {what} inference: launches {launches[what]}")
+    counts = [match_detections(dets["banded"][i], dets["replicated"][i],
+                               f"long range, scan {i}: banded vs replicated")
+              for i in range(len(b1))]
+    print(f"long range: banded detections match replicated ones on both "
+          f"scans ({counts} detections; boxes {DET_BOX_ATOL}, scores "
+          f"{DET_SCORE_ATOL})")
+
+    # one forward_train + backward, banded and replicated, same weights.
+    # The guided candidates are a top-k over scores, so a near-tie may
+    # flip between two float32 runs and change the PSWarp loss's
+    # gradients; the gradients are held to the gates with that loss left
+    # out (everything upstream of the top-k), the PSWarp module's own
+    # gradients with it. A replicated step on inputs perturbed by one
+    # float32 ulp shows how far float32 rounding alone moves them.
+    res = {}
+    for what, cfg in (("banded", cfg_b), ("replicated", cfg_r),
+                      ("perturbed", cfg_r)):
+        model = seeded_detector(cfg, SEED, device)
+        model.load_state_dict(model_b.state_dict())
+        model.train()
+        before = {k: v.clone() for k, v in model.named_buffers()
+                  if k.rsplit(".", 1)[-1] in ("mean", "var")}
+        b = to_device(batch, device)
+        if what == "perturbed":
+            b["voxels"] = b["voxels"] * (1.0 + 2.0 ** -23)
+        losses = model.forward_train(b, anchors)
+        params = dict(model.named_parameters())
+        upstream = sum(v for k, v in losses.items()
+                       if "loss" in k and k != "loss_cls")
+        g_up = torch.autograd.grad(upstream, list(params.values()),
+                                   retain_graph=True, allow_unused=True)
+        parse_losses(losses).backward()
+        torch.cuda.synchronize()
+        res[what] = dict(
+            losses={k: float(v.detach()) for k, v in losses.items()},
+            upstream={k: (g if g is not None else torch.zeros_like(p))
+                      .detach().double()
+                      for (k, p), g in zip(params.items(), g_up)},
+            full={k: p.grad.detach().double() for k, p in params.items()},
+            bn={k: (v - before[k]).double()
+                for k, v in model.named_buffers() if k in before})
+
+    def grad_diff(a, b, kind):
+        """(relative norm difference, module rel L2 errors) of b vs a."""
+        ga, gb = res[a][kind], res[b][kind]
+        norm_a = sum(float((g ** 2).sum()) for g in ga.values()) ** 0.5
+        norm_b = sum(float((g ** 2).sum()) for g in gb.values()) ** 0.5
+        mods = {}
+        for mod in ("vxnet", "bevnet", "head", "pswarp", "aux"):
+            mk = [k for k in ga if k.startswith(mod + ".")]
+            ref = sum(float((ga[k] ** 2).sum()) for k in mk) ** 0.5
+            if ref > 0:
+                mods[mod] = sum(float(((gb[k] - ga[k]) ** 2).sum())
+                                for k in mk) ** 0.5 / ref
+        return abs(norm_b - norm_a) / norm_a, mods
+
+    def fmt(d):
+        return {k: float(f"{v:.3g}") for k, v in d.items()}
+    bl, rl = res["banded"]["losses"], res["replicated"]["losses"]
+    if bl.get("band_overflow") != 0.0:
+        fail(f"long range: band_overflow {bl.get('band_overflow')}")
+    bad = [k for k, v in rl.items() if "loss" in k
+           and not abs(bl[k] - v) <= TRAIN_LOSS_RTOL * abs(v)]
+    up_norm, up_mods = grad_diff("replicated", "banded", "upstream")
+    full_norm, full_mods = grad_diff("replicated", "banded", "full")
+    noise_norm, noise_mods = grad_diff("replicated", "perturbed", "full")
+    bs, rs = res["banded"]["bn"], res["replicated"]["bn"]
+    bn_err = max(float((bs[k] - rs[k]).abs().max()
+                       / rs[k].abs().max().clamp(min=1e-12)) for k in rs)
+    print(f"long range, one train step at batch 2, banded vs replicated: "
+          f"losses {dict(sorted(bl.items()))} vs {dict(sorted(rl.items()))}"
+          f"; gradients without the PSWarp loss: norm rel diff "
+          f"{up_norm:.3g}, module rel L2 {fmt(up_mods)} (tol "
+          f"{TRAIN_GNORM_RTOL}, {TRAIN_GRAD_L2}); full objective: norm "
+          f"{full_norm:.3g}, modules {fmt(full_mods)}; a replicated step on "
+          f"inputs one ulp off: norm {noise_norm:.3g}, modules "
+          f"{fmt(noise_mods)}; largest BN running-stat update difference "
+          f"{bn_err:.3g} of its buffer's largest update")
+    if (bad or up_norm > TRAIN_GNORM_RTOL
+            or max(up_mods.values()) > TRAIN_GRAD_L2
+            or full_mods["pswarp"] > TRAIN_GRAD_L2
+            or bn_err > BN_UPDATE_RTOL):
+        fail(f"long range: banded and replicated train steps disagree "
+             f"({bad or 'gradients or BN statistics'})")
+
+    # train_model of the banded config: 2 steps at batch 2 (8 band rows)
+    logged = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            logged.append(record.getMessage())
+    logger = logging.getLogger("sassd.chip_smoke.long_range")
+    logger.setLevel(logging.INFO)
+    logger.addHandler(Keep())
+    torch.cuda.synchronize()
+    reset_launches()
+    t = time.perf_counter()
+    model_t, opt, n_steps = loop.train_model(
+        cfg_b, ds, os.path.join(root, "work"), total_epochs=1,
+        device=device, logger=logger)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t
+    launches["training"] = read_launches()
+    lines = [m for m in logged if " step " in m]
+    print(f"long range, banded train_model ran {n_steps} steps in "
+          f"{run_s:.1f} s; launches {launches['training']}")
+    for m in lines:
+        print("  " + m)
+    values = [float(kv.split("=")[1]) for m in lines for kv in m.split()
+              if "=" in kv]
+    if n_steps != N_SCANS // cfg_b.train.batch_size or opt.count != n_steps:
+        fail(f"long range: {n_steps} steps, {opt.count} updates applied")
+    if len(lines) != n_steps or not np.isfinite(values).all():
+        fail("long range: a logged loss or metric is not finite")
+    if any("band_overflow=0.0000" not in m
+           or "nonfinite_skips=0.0000" not in m for m in lines):
+        fail("long range: a step overflowed a band or skipped its update")
+
+    # timings: ms/scan at batch 1 on the timing scan, in turns, and the
+    # train step at batch 2, banded and replicated
+    ms = {"banded": [], "replicated": []}
+    for what in ("banded", "replicated", "replicated", "banded"):
+        step, model = steps[what]
+        step(model, t_batch)
+        torch.cuda.synchronize()
+        for _ in range(2):
+            t = time.perf_counter()
+            step(model, t_batch)
+            torch.cuda.synchronize()
+            ms[what].append((time.perf_counter() - t) * 1e3)
+    train_ms = {}
+    for what, cfg, model in (("banded", cfg_b, model_t),
+                             ("replicated", cfg_r, model_r)):
+        step = loop.make_train_step(cfg, ds.anchors, optim.make_optimizer(
+            model, cfg.train, 1000), device)
+        train_ms[what] = train_step_ms(torch, step, model, batch)
+        if what == "banded":
+            reset_launches()
+            step(model, batch)
+            torch.cuda.synchronize()
+            per_step = read_launches()
+    return rows, launches, per_step, ms, train_ms
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "sassd_tpu_torch")):
         fail("sassd_tpu_torch is not next to chip_smoke.py; run it from a "
@@ -1584,6 +2042,7 @@ def main() -> int:
     from sassd_tpu_torch.ops import interpolate as itp
     from sassd_tpu_torch.ops import sparse as sp
     from sassd_tpu_torch.ops import voxelize as vox
+    from sassd_tpu_torch.parallel import sparse_spatial as ss
     from sassd_tpu_torch.weights import seeded_detector
     print(run([cuda.nvcc(), "--version"]).splitlines()[-1:])
 
@@ -1659,10 +2118,20 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as root:
         multi_runs, multi_step = run_multi_training(torch, np, device, root,
                                                     training[2])
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        lr_rows, lr_runs, lr_step, lr_ms, lr_train_ms = run_long_range(
+            torch, np, device, root)
+    print(f"long range: phase 9 took {time.perf_counter() - t:.1f} s")
+    rows += lr_rows
+    # K7' and K11' are K7 and K11 called with a limit and with origins:
+    # the banded phases are the only callers that pass them
     symbols = {"K1": ("sassd_riou_overlap",), "K2": ("sassd_nms_keep",),
                **warp.KERNEL_SYMBOLS, **sp.KERNEL_SYMBOLS,
                **vox.KERNEL_SYMBOLS, **serve.KERNEL_SYMBOLS,
-               **itp.KERNEL_SYMBOLS, **boxes.KERNEL_SYMBOLS}
+               **itp.KERNEL_SYMBOLS, **boxes.KERNEL_SYMBOLS,
+               **ss.KERNEL_SYMBOLS, "K7'": sp.KERNEL_SYMBOLS["K7"],
+               "K11'": itp.KERNEL_SYMBOLS["K11"]}
     for what, launches, ids in (("host plans", host[4], "K1 K2 K3 K4 K5"),
                                 ("device plans", dev[4],
                                  "K1 K2 K3 K4 K5 K6 K7"),
@@ -1675,7 +2144,16 @@ def main() -> int:
                                  "K6 K7 K10 K11 K12 K13 K14"),
                                 ("three-class training, exact",
                                  multi_runs["exact"], "K1 K3 K3b K4 K5 K5b "
-                                 "K6 K7 K10 K12 K13 K15")):
+                                 "K6 K7 K10 K12 K13 K15"),
+                                ("long range, banded inference",
+                                 lr_runs["banded"],
+                                 "K1 K2 K3 K4 K5 K6 K16 K7'"),
+                                ("long range, replicated inference",
+                                 lr_runs["replicated"],
+                                 "K1 K2 K3 K4 K5 K6 K7"),
+                                ("long range, banded training",
+                                 lr_runs["training"], "K1 K3 K3b K4 K5 K5b "
+                                 "K6 K10 K12 K13 K14 K16 K7' K11'")):
         idle = [s for k in ids.split() for s in symbols[k]
                 if launches[s] == 0]
         if idle:
@@ -1685,6 +2163,8 @@ def main() -> int:
         fail("three-class training, exact: K11's backward was not launched")
     if exact["sassd_aux_plan"] or exact["sassd_ring_interp_fwd"]:
         fail("three-class training, exact: the ring aux path ran")
+    if lr_runs["replicated"]["sassd_band_partition"]:
+        fail("long range, replicated inference: the band partition ran")
     for i in range(N_SCANS):
         match_detections(dev[0][i], host[0][i],
                          f"scan {i}: device plans vs host plans")
@@ -1708,25 +2188,37 @@ def main() -> int:
           f"{', '.join(f'{m:.2f}' for m in train_ms)} ms/step (host clock, "
           f"synchronised, loader excluded); host leg (read + voxelize + "
           f"mask + C++ train rulebook) {train_leg_ms:.2f} ms/step")
+    for what in ("banded", "replicated"):
+        print(f"long range, {what}, timing scan at batch 1, on {name} "
+              f"[{card}]: {', '.join(f'{m:.2f}' for m in lr_ms[what])} "
+              f"ms/scan; train step at batch 2 (comparison scans): "
+              f"{', '.join(f'{m:.2f}' for m in lr_train_ms[what])} ms/step "
+              f"(host clock, synchronised, loader excluded)")
+    banded_phases = (("long range, banded inference", lr_runs["banded"]),
+                     ("long range, banded training", lr_runs["training"]))
+    all_phases = (("host plans", host[4]), ("device plans", dev[4]),
+                  ("serving", serving[0]), ("training", training[0]),
+                  ("three-class training, ring", multi_runs["ring"]),
+                  ("three-class training, exact", multi_runs["exact"]),
+                  ("long range, replicated inference",
+                   lr_runs["replicated"])) + banded_phases
+    banded_step = (("long range banded training, batch 2", lr_step),)
+    all_steps = (("serving, batch 1", serving[4]),
+                 ("training, batch 2", training[1]),
+                 ("three-class training, ring, batch 1", multi_step["ring"]),
+                 ("three-class training, exact, batch 1",
+                  multi_step["exact"])) + banded_step
     for r in rows:
         kid = r["name"].split()[0]
+        primed = kid.endswith("'")
         by_phase = {what: sum(launches[s] for s in symbols[kid])
-                    for what, launches in (
-                        ("host plans", host[4]), ("device plans", dev[4]),
-                        ("serving", serving[0]), ("training", training[0]),
-                        ("three-class training, ring", multi_runs["ring"]),
-                        ("three-class training, exact",
-                         multi_runs["exact"]))}
+                    for what, launches in (banded_phases if primed
+                                           else all_phases)}
         r["launches"] = sum(by_phase.values())
         r["launches_by_phase"] = by_phase
         r["launches_per_step"] = {
             what: sum(launches[s] for s in symbols[kid])
-            for what, launches in (
-                ("serving, batch 1", serving[4]),
-                ("training, batch 2", training[1]),
-                ("three-class training, ring, batch 1", multi_step["ring"]),
-                ("three-class training, exact, batch 1",
-                 multi_step["exact"]))}
+            for what, launches in (banded_step if primed else all_steps)}
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -7,6 +7,7 @@ Subpackages and modules mirror sassd_tpu's names:
             and the device rulebook (K4-K7), PSWarp sampling (K3), rotated
             overlap (K1), CUDA build
   models    VxNet / BEVNet / SSD head / PSWarp head / detector
+  parallel  the banded sparse stage (band partition, K16)
   data      KITTI and raw-scan datasets, loader, synthetic scenes
   eval      KITTI result files and the official AP evaluation
   serve     device-resident serving from raw points (anchors mask, K9)

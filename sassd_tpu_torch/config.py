@@ -145,10 +145,19 @@ class TrainConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ParallelConfig:
-    """Mesh layout of the JAX package; the port runs "data" on one device
-    (spatial and banded sharding raise in check_supported)."""
+    """Mesh layout of the JAX package. The port runs on one device:
+    "data", and "banded" with ``spatial`` > 1 y-bands of the sparse stage,
+    every band a batch row (parallel/sparse_spatial.py); "spatial" raises
+    in check_supported.
+
+    band_halo: level-0 y halo cells on each side of a band ("banded").
+    band_cap_margin: per-band cap safety factor over the band's covered
+      fraction of the grid ("banded"; an undersized cap shows as the
+      ``band_overflow`` train metric)."""
     strategy: str = "data"
     spatial: int = 1
+    band_halo: int = 64
+    band_cap_margin: float = 1.5
 
 
 @dataclasses.dataclass(frozen=True)
@@ -184,6 +193,13 @@ class SASSDConfig:
         return len(self.anchors) * h * w * self.model.num_anchor_per_loc
 
 
+def banded(cfg: SASSDConfig) -> bool:
+    """Whether the sparse stage runs in y-bands (strategy "banded" with
+    more than one band); any other strategy with spatial <= 1 runs
+    replicated, as in the JAX package's train loop."""
+    return cfg.parallel.strategy == "banded" and cfg.parallel.spatial > 1
+
+
 def check_supported(cfg: SASSDConfig, train: bool = False) -> None:
     """Raise NotImplementedError for options the port does not run.
 
@@ -192,9 +208,15 @@ def check_supported(cfg: SASSDConfig, train: bool = False) -> None:
     does by default: dense index maps, key-sorted levels, windowed plan
     lookups; in training also the transpose and aux plans. Training
     (`train=True`) runs on either rulebook, with either aux interpolation,
-    the GT-sampling augmentor and the one-cycle AdamW.
+    the GT-sampling augmentor and the one-cycle AdamW. The banded sparse
+    stage always builds its rulebook on the device; its training takes
+    the ring aux only (ValueError otherwise, as in the JAX package: the
+    exact 3-NN is not band-local).
     """
     m, t, p = cfg.model, cfg.test, cfg.parallel
+    if train and banded(cfg) and m.aux_interp != "ring":
+        raise ValueError("banded sharding requires aux_interp='ring' "
+                         "(exact 3-NN is not band-local)")
     unsupported = {
         "model.dense_index=False": not m.dense_index,
         "model.sorted_device_levels=False": not m.sorted_device_levels,
@@ -207,7 +229,7 @@ def check_supported(cfg: SASSDConfig, train: bool = False) -> None:
             t.device_input not in ("voxels", "points"),
         "test.serve_persistent_plans=True": t.serve_persistent_plans,
         f"parallel.strategy={p.strategy!r} with spatial={p.spatial}":
-            p.strategy != "data" and p.spatial > 1,
+            p.strategy not in ("data", "banded") and p.spatial > 1,
     }
     if train:
         unsupported.update({
@@ -251,6 +273,25 @@ def multi_config(**overrides) -> SASSDConfig:
                         sample_classes=("Car", "Pedestrian", "Cyclist"),
                         sample_max_num=(15, 10, 10),
                         min_num_points=(5, 5, 5)),
+    )
+    base.update(overrides)
+    return SASSDConfig(**base)
+
+
+def long_range_config(**overrides) -> SASSDConfig:
+    """The long-range stress configuration: 0-102.4 m at the car voxel
+    size (grid [40, 1600, 2048], ~4x the car voxel budget)."""
+    base = dict(
+        voxel=VoxelConfig(voxel_size=(0.05, 0.05, 0.1),
+                          point_cloud_range=(0.0, -40.0, -3.0, 102.4, 40.0,
+                                             1.0),
+                          max_num_points=5, max_voxels=80000),
+        caps=Caps(max_points_per_scan=262144, max_gt=64,
+                  level_caps=(80000, 73728, 57344, 40960),
+                  guided_train=640, guided_test=2048, max_det=100),
+        anchors={"Car": AnchorConfig(
+            sizes=(1.6, 3.9, 1.56), strides=(0.4, 0.4, 1.0),
+            offsets=(0.2, -39.8, -1.78))},
     )
     base.update(overrides)
     return SASSDConfig(**base)

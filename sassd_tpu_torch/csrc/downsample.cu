@@ -1,11 +1,17 @@
 // K7: the active output set of a stride-2, kernel-3, pad-1 sparse conv.
 //
 // Replaces: sassd_tpu/ops/sparse.py _downsample_candidates, _unique_sorted
-// and downsample_keys (the sort-based, key-sorted device downsample).
+// and downsample_keys (the sort-based, key-sorted device downsample), with
+// the optional per-row output-y limit `y_limit_out` of the banded sparse
+// stage (B9': backbone.vxnet_apply(y_top=...)).
 //
 // Input voxel coordinate i feeds outputs o with 2o - 1 <= i <= 2o + 1, so
 // per axis o is i // 2 or (i + 1) // 2: at most 8 parents per voxel, cut
-// at the output grid's upper edge. The output level is the sorted union of
+// at the output grid's upper edge; with a limit array, a parent at output
+// y >= min(y_limit[b], oh) is cut too (a band whose grid runs past the
+// global grid's top clips there, as the replicated grid does; without the
+// array the candidates are those of the unlimited kernel, bit for bit).
+// The output level is the sorted union of
 // the parents, capped at `cap` rows: the lowest keys win the cap, the tail
 // is INVALID_KEY. This equals the C++ host rulebook's level arrays.
 //
@@ -30,10 +36,12 @@ constexpr int kUniqueThreads = 1024;
 
 __global__ void candidates_kernel(const int* __restrict__ keys, int m, int h,
                                   int w, int od, int oh, int ow,
+                                  const int* __restrict__ y_limit,
                                   int* __restrict__ cands) {
   const int row = blockIdx.x * blockDim.x + threadIdx.x;
   const int b = blockIdx.y;
   if (row >= m) return;
+  const int y_hi = y_limit != nullptr ? min(y_limit[b], oh) : oh;
   const int key = keys[static_cast<long long>(b) * m + row];
   int* cb = cands + static_cast<long long>(b) * 8 * m + row;
   if (key == kInvalidKey) {
@@ -47,7 +55,7 @@ __global__ void candidates_kernel(const int* __restrict__ keys, int m, int h,
     const int cz = (s & 4) ? (z + 1) / 2 : z / 2;
     const int cy = (s & 2) ? (y + 1) / 2 : y / 2;
     const int cx = (s & 1) ? (x + 1) / 2 : x / 2;
-    const bool ok = cz < od && cy < oh && cx < ow;
+    const bool ok = cz < od && cy < y_hi && cx < ow;
     cb[static_cast<long long>(s) * m] = ok ? (cz * oh + cy) * ow + cx
                                            : kInvalidKey;
   }
@@ -106,17 +114,19 @@ unique_kernel(const int* __restrict__ sorted, int n, int cap,
 
 }  // namespace
 
-// keys [batch, m] int32 on the input grid (d, h, w); cands [batch, 8 * m]
-// int32 on the output grid (od, oh, ow).
+// keys [batch, m] int32 on the input grid (d, h, w); y_limit [batch] int32
+// exclusive output-y bounds, or null for none; cands [batch, 8 * m] int32 on
+// the output grid (od, oh, ow).
 extern "C" int sassd_downsample_candidates(const int* keys, int batch, int m,
                                            int h, int w, int od, int oh,
-                                           int ow, int* cands, void* stream) {
+                                           int ow, const int* y_limit,
+                                           int* cands, void* stream) {
   if (batch > 0 && m > 0) {
     const int threads = 256;
     const dim3 grid((m + threads - 1) / threads, batch);
     candidates_kernel<<<grid, threads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
-        keys, m, h, w, od, oh, ow, cands);
+        keys, m, h, w, od, oh, ow, y_limit, cands);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,14 +3,17 @@
 // backward is K11's.
 //
 // Replaces: sassd_tpu/ops/interpolate.py neighborhood_interpolate_cells
-// (B13, aux_interp="ring") and its autodiff transpose; K15
+// (B13, aux_interp="ring") and its autodiff transpose, also with a grid
+// origin per sample row (B13': the banded stage's per-band origins,
+// sassd_tpu/parallel/sparse_spatial.py _banded_aux); K15
 // three_nn_interpolate (B13, aux_interp="exact").
 //
 // For query n of sample b (an input-voxel centroid q with level-0 cell
 // (z, y, x)), tap k of the host rulebook's aux plan names the level-L row
 // of the cell ((z, y, x) >> L) + off_k, off_k = (dz, dy, dx) row-major over
 // {-1, 0, 1}, or -1 where that cell is inactive. The candidate centre is
-// ((cell + 0.5) * vs + pcr) in xyz, its squared distance d2 (1e10 where the
+// ((cell + 0.5) * vs + pcr) in xyz (pcr: the one grid origin, or row b's
+// of the [batch, 3] origins), its squared distance d2 (1e10 where the
 // tap is missing); the 3 smallest d2 win (the lower tap on ties, as
 // lax.top_k), w_i = 1 / (d2_i + 1e-8) for found winners (0 otherwise),
 // normalised by their sum, and out = sum_i w_i * feats[row_i]. The float32
@@ -82,7 +85,8 @@ __global__ void ring_interp_fwd_kernel(
     const float* __restrict__ query, const int* __restrict__ cell0,
     const IdxT* __restrict__ plan, int batch, int n, int level,
     const float* __restrict__ feats, int m, int c, float vsx, float vsy,
-    float vsz, float px, float py, float pz, float* __restrict__ out,
+    float vsz, float px, float py, float pz,
+    const float* __restrict__ origins, float* __restrict__ out,
     int* __restrict__ rows, float* __restrict__ weights) {
   const int total = batch * n;
   const int q = blockIdx.x * blockDim.x + threadIdx.x;
@@ -91,6 +95,11 @@ __global__ void ring_interp_fwd_kernel(
   if (q < total) {
     const int b = q / n;
     const int i = q - b * n;
+    if (origins != nullptr) {
+      px = origins[3 * b];
+      py = origins[3 * b + 1];
+      pz = origins[3 * b + 2];
+    }
     const float qx = query[3LL * q], qy = query[3LL * q + 1],
                 qz = query[3LL * q + 2];
     const int cz = cell0[3LL * q] >> level, cy = cell0[3LL * q + 1] >> level,
@@ -265,14 +274,17 @@ __global__ void ring_interp_bwd_kernel(const float* __restrict__ d_out,
 // query [batch * n, 3] float32 xyz; cell0 [batch * n, 3] int32 zyx (-1
 // padding); plan [batch, 27, n] int16 (plan_is_i16 != 0) or int32, rows
 // into each sample's m feature rows; feats [batch * m, c] float32; vs and
-// pc the level's voxel size and the grid origin, xyz. Writes out [batch *
-// n, c], rows [batch * n, 3] (flat feature rows) and weights [batch * n, 3].
+// pc the level's voxel size and the grid origin, xyz, or origins [batch, 3]
+// float32 xyz, one origin per sample row (then pc is not read). Writes out
+// [batch * n, c], rows [batch * n, 3] (flat feature rows) and weights
+// [batch * n, 3].
 extern "C" int sassd_ring_interp_fwd(const float* query, const int* cell0,
                                      const void* plan, int plan_is_i16,
                                      int batch, int n, int level,
                                      const float* feats, int m, int c,
                                      float vsx, float vsy, float vsz,
-                                     float px, float py, float pz, float* out,
+                                     float px, float py, float pz,
+                                     const float* origins, float* out,
                                      int* rows, float* weights,
                                      void* stream) {
   const int total = batch * n;
@@ -283,11 +295,13 @@ extern "C" int sassd_ring_interp_fwd(const float* query, const int* cell0,
     if (plan_is_i16) {
       ring_interp_fwd_kernel<short><<<blocks, threads, 0, s>>>(
           query, cell0, static_cast<const short*>(plan), batch, n, level,
-          feats, m, c, vsx, vsy, vsz, px, py, pz, out, rows, weights);
+          feats, m, c, vsx, vsy, vsz, px, py, pz, origins, out, rows,
+          weights);
     } else {
       ring_interp_fwd_kernel<int><<<blocks, threads, 0, s>>>(
           query, cell0, static_cast<const int*>(plan), batch, n, level,
-          feats, m, c, vsx, vsy, vsz, px, py, pz, out, rows, weights);
+          feats, m, c, vsx, vsy, vsz, px, py, pz, origins, out, rows,
+          weights);
     }
   }
   return static_cast<int>(cudaGetLastError());

@@ -14,7 +14,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from sassd_tpu_torch.config import SASSDConfig
+from sassd_tpu_torch.config import SASSDConfig, banded
 from sassd_tpu_torch.core import anchors as anchor_lib
 from sassd_tpu_torch.ops import native
 from sassd_tpu_torch.ops.voxelize import voxelize_np
@@ -49,14 +49,15 @@ def build_anchors(cfg: SASSDConfig):
 def build_host_plans(cfg: SASSDConfig, coords: np.ndarray,
                      train: bool = False) -> Dict[str, np.ndarray]:
     """C++ host rulebook of the sparse backbone, as ``plan_*`` arrays;
-    none with ``model.host_plans=False`` (the device builds them). With
+    none with ``model.host_plans=False`` or a banded config (the device
+    builds them; the banded stage never reads host plans). With
     `train`, also the transpose plans (``plan_strideT*``) and the aux ring
     plans (``plan_aux*``).
 
     Plans travel as int16 when every row index fits (-1 = missing), which
     halves the host-to-device bytes.
     """
-    if not cfg.model.host_plans:
+    if not cfg.model.host_plans or banded(cfg):
         return {}
     caps = (cfg.voxel.max_voxels,) + tuple(cfg.caps.level_caps[1:])
     plans = native.build_plans_cpp(coords, cfg.sparse_shape, caps,

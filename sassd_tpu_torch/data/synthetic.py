@@ -113,6 +113,23 @@ def make_scene(rng, n_cars=(3, 8), n_ground=12000,
     return points, boxes, types
 
 
+def long_range_scene(rng, n_cars=(10, 20), n_ground=200000,
+                     n_far=35000, classes=("Car",)):
+    """A dense scan of the long-range grid (~70,000 voxels, near its
+    80,000 cap): a frustum scan (make_scene(frustum=True), objects out to
+    101.9 m, scan lines to ~69 m) plus `n_far` ground returns spread
+    uniformly over x in [60, 102.4] m, y in [-40, 40] m. Returns (points,
+    boxes, types) as make_scene."""
+    points, boxes, types = make_scene(
+        rng, n_cars=n_cars, n_ground=n_ground, x_range=(2.5, 101.9),
+        y_range=(-36.0, 36.0), frustum=True, classes=classes)
+    far = np.stack([rng.uniform(60.0, 102.4, n_far),
+                    rng.uniform(-40.0, 40.0, n_far),
+                    rng.normal(-1.75, 0.03, n_far),
+                    rng.uniform(0, 0.3, n_far)], 1).astype(np.float32)
+    return np.concatenate([points, far], 0), boxes, types
+
+
 def lidar_box_to_label_line(box, calib, score=None, name="Car") -> str:
     """Lidar box -> KITTI label line (inverse of the dataset's cam->lidar)."""
     loc = project_velo_to_rect(box[None, :3], calib)[0]

@@ -13,6 +13,11 @@ masked dense convs on [B, D*C, H, W] with z-banded weights: a conv
 followed by multiplication with the occupancy mask is exactly the
 submanifold conv, and D = 5 folds into the channels.
 
+VxNet runs at the grid it was built for or at any other of the same
+depth (its weights do not depend on H or W): the banded sparse stage runs
+it on band grids, with ``owned_y`` restricting the BatchNorm statistics
+to the band-owned rows.
+
 In train mode every BatchNorm takes masked batch statistics (the level's
 valid rows, or the occupied cells of the dense tail), the convs are
 differentiable (sparse.subm_conv_sym, sparse.stride_conv_hostT with the
@@ -83,6 +88,27 @@ def zbanded_oihw(w27: torch.Tensor, d: int) -> torch.Tensor:
     return out.reshape(d * cout, d * cin, 3, 3)
 
 
+def level_shapes(sparse_shape: Tuple[int, int, int]
+                 ) -> List[Tuple[int, int, int]]:
+    """The grids (zyx) of levels 0-3 of the ladder on `sparse_shape`."""
+    shapes = [tuple(sparse_shape)]
+    for _ in range(3):
+        shapes.append(sp.out_shape_stride2(shapes[-1]))
+    return shapes
+
+
+def _owned_rows(keys: torch.Tensor, shape: Tuple[int, int, int],
+                level: int, owned_y: Optional[Tuple[int, int]]
+                ) -> torch.Tensor:
+    """[B, M] valid rows of a level, restricted to y in [lo >> level,
+    hi >> level) when the level-0 range owned_y = (lo, hi) is given."""
+    ok = keys != sp.INVALID_KEY
+    if owned_y is None:
+        return ok
+    y = (keys // shape[2]) % shape[1]
+    return ok & (y >= owned_y[0] >> level) & (y < owned_y[1] >> level)
+
+
 class Middle(NamedTuple):
     """Rows of one backbone level for the aux branch."""
     keys: torch.Tensor      # [B, M] int32 keys (INVALID_KEY padded)
@@ -94,11 +120,8 @@ class VxNet(nn.Module):
     def __init__(self, gen: torch.Generator, num_input_features: int,
                  sparse_shape: Tuple[int, int, int]):
         super().__init__()
-        shapes = [tuple(sparse_shape)]
-        for _ in range(3):
-            shapes.append(sp.out_shape_stride2(shapes[-1]))
-        self.level_shapes = shapes                             # L0..L3 (zyx)
-        self.shape3 = shapes[3]
+        self.level_shapes = level_shapes(sparse_shape)        # L0..L3 (zyx)
+        self.shape3 = self.level_shapes[3]
         self.conv0 = SubmBlock(gen, (num_input_features, 16), (16, 16))
         self.down0 = SubmBlock(gen, (16,), (32,))
         self.conv1 = SubmBlock(gen, (32, 32), (32, 32))
@@ -130,13 +153,12 @@ class VxNet(nn.Module):
         return self
 
     def _down(self, block: SubmBlock, x: torch.Tensor,
-              plans: Dict[str, torch.Tensor], level: int):
+              plans: Dict[str, torch.Tensor], level: int, shapes, owned_y):
         """Stride-2 conv into level `level`: the rulebook's coords give
         the output active set, the stride plan indexes the previous level's
         rows (and the transpose plan, where the rulebook has it, serves the
         backward)."""
-        out_keys = sp.coords_to_keys(plans[f"coords{level}"],
-                                     self.level_shapes[level])
+        out_keys = sp.coords_to_keys(plans[f"coords{level}"], shapes[level])
         if f"strideT{level}" in plans:
             y = sp.stride_conv_hostT(x, block.conv0.w, plans[f"stride{level}"],
                                      plans[f"strideT{level}"])
@@ -144,60 +166,75 @@ class VxNet(nn.Module):
             y = sp.subm_conv_batched(x, block.conv0.w,
                                      plans[f"stride{level}"])
         omask = (out_keys != sp.INVALID_KEY)[..., None]
-        return out_keys, L.relu(block.bn0(y, mask=omask)) * omask
+        bn_mask = _owned_rows(out_keys, shapes[level], level, owned_y)
+        y = block.bn0(y, mask=bn_mask[..., None])
+        return out_keys, L.relu(y) * omask
 
-    def forward(self, feats0: torch.Tensor,
-                plans: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def forward(self, feats0: torch.Tensor, plans: Dict[str, torch.Tensor],
+                shapes=None, owned_y=None) -> torch.Tensor:
         """[B, cap0, F] voxel features + rulebook -> [B, D, H, W, 64].
 
         plans: subm0..2 [B,27,capL], stride1..3 [B,27,capL] and coords1..3
         [B,capL,3] (int16 or int32, -1 = missing/padding), from the host
         (data.kitti.build_host_plans) or the device (sp.device_rulebook).
+        shapes: the four level grids the plans are on (default: the grid
+        the net was built for). owned_y: optional level-0 y range (lo, hi)
+        of the rows BatchNorm statistics count (train mode).
         """
-        return self._run(feats0, plans)[0]
+        return self._run(feats0, plans, None, shapes, owned_y)[0]
 
     def forward_train(self, feats0: torch.Tensor, keys0: torch.Tensor,
-                      plans: Dict[str, torch.Tensor]
-                      ) -> Tuple[torch.Tensor, List[Middle]]:
+                      plans: Dict[str, torch.Tensor], shapes=None,
+                      owned_y=None) -> Tuple[torch.Tensor, List[Middle]]:
         """forward, plus the aux branch's middles: the rows of levels 1
         and 2 after their subm blocks, and level 3's rows of the conv3
         block's output (before the 1x1x1 conv)."""
-        return self._run(feats0, plans, keys0)
+        return self._run(feats0, plans, keys0, shapes, owned_y)
 
-    def _run(self, feats0, plans, keys0=None):
+    def _run(self, feats0, plans, keys0, shapes, owned_y):
         """keys0 (the level-0 keys) gives level 0's BatchNorm mask; train
         mode needs it, eval mode reads no mask."""
-        mask0 = None if keys0 is None else keys0 != sp.INVALID_KEY
+        shapes = shapes or self.level_shapes
+        mask0 = (None if keys0 is None
+                 else _owned_rows(keys0, shapes[0], 0, owned_y))
         x = self.conv0(feats0, plans["subm0"], mask0)
-        keys1, x = self._down(self.down0, x, plans, 1)
-        x = self.conv1(x, plans["subm1"], keys1 != sp.INVALID_KEY)
+        keys1, x = self._down(self.down0, x, plans, 1, shapes, owned_y)
+        x = self.conv1(x, plans["subm1"],
+                       _owned_rows(keys1, shapes[1], 1, owned_y))
         mid0 = Middle(keys1, x)
-        keys2, x = self._down(self.down1, x, plans, 2)
-        x = self.conv2(x, plans["subm2"], keys2 != sp.INVALID_KEY)
+        keys2, x = self._down(self.down1, x, plans, 2, shapes, owned_y)
+        x = self.conv2(x, plans["subm2"],
+                       _owned_rows(keys2, shapes[2], 2, owned_y))
         mid1 = Middle(keys2, x)
-        keys3, x = self._down(self.down2, x, plans, 3)
-        out, conv3 = self._dense_tail(keys3, x)
+        keys3, x = self._down(self.down2, x, plans, 3, shapes, owned_y)
+        out, conv3 = self._dense_tail(keys3, x, shapes[3], owned_y)
         if keys0 is None:
             return out, None
         return out, [mid0, mid1, Middle(keys3, sp.gather_rows(keys3, conv3))]
 
-    def _dense_tail(self, keys3: torch.Tensor, x: torch.Tensor):
+    def _dense_tail(self, keys3: torch.Tensor, x: torch.Tensor, shape3,
+                    owned_y):
         """-> ([B, D, H, W, C] output, [B, D, C, H, W] conv3-block output)."""
-        d, h, w = self.shape3
+        d, h, w = shape3
         b, _, c = x.shape
-        xf, occ = sp.densify_nchw(keys3, x, self.shape3)  # ch = z*C + c
+        xf, occ = sp.densify_nchw(keys3, x, shape3)       # ch = z*C + c
+        bn_mask = occ > 0                                  # [B, D, 1, H, W]
+        if owned_y is not None:
+            yr = torch.arange(h, device=occ.device)
+            bn_mask = bn_mask & ((yr >= owned_y[0] >> 3)
+                                 & (yr < owned_y[1] >> 3))[:, None]
         for i in range(self.conv3.n):
             wt = (zbanded_oihw(getattr(self.conv3, f"conv{i}").w, d)
                   if self.training else getattr(self, f"tail_w{i}"))
             xf = F.conv2d(xf, wt, padding=1)
             x5 = xf.reshape(b, d, c, h, w) * occ
             x5 = L.relu(getattr(self.conv3, f"bn{i}")(
-                x5, dim=2, mask=occ > 0)) * occ
+                x5, dim=2, mask=bn_mask)) * occ
             xf = x5.reshape(b, d * c, h, w)
         conv3 = x5
         # 1x1x1 conv: one [C, C] matmul per z slice, as a 1x1 conv
         x5 = L.conv2d_nchw(xf.reshape(b * d, c, h, w),
                            self.extra.conv0.w[None, None])
         x5 = x5.reshape(b, d, c, h, w) * occ
-        x5 = L.relu(self.extra.bn0(x5, dim=2, mask=occ > 0)) * occ
+        x5 = L.relu(self.extra.bn0(x5, dim=2, mask=bn_mask)) * occ
         return x5.permute(0, 1, 3, 4, 2), conv3                 # [B,D,H,W,C]

@@ -6,7 +6,8 @@ level-0 voxel (query), the level-L rows of the 3x3x3 ring of cells around
 its parent cell (cell0 >> L), -1 where a cell is inactive. The candidate
 centres are arithmetic in the tap order, so only the 3 winners' features
 are gathered. Weights are the inverse squared distances of the 3 nearest
-found candidates, normalised.
+found candidates, normalised. The grid origin is one [3] point, or one per
+sample row ([B, 3], the banded stage's per-band origins).
 
 Exact: every active cell centre of the level is a candidate, by the
 expanded squared distance |u|^2 + |k|^2 - 2 u.k of the JAX package
@@ -37,7 +38,7 @@ _K11_FWD = cuda.Kernel("sassd_ring_interp_fwd",
                        [cuda.P, cuda.P, cuda.P, cuda.I, cuda.I, cuda.I,
                         cuda.I, cuda.P, cuda.I, cuda.I, cuda.F, cuda.F,
                         cuda.F, cuda.F, cuda.F, cuda.F, cuda.P, cuda.P,
-                        cuda.P])
+                        cuda.P, cuda.P])
 _K11_BWD = cuda.Kernel("sassd_ring_interp_bwd",
                        [cuda.P, cuda.P, cuda.P, cuda.I, cuda.I, cuda.P])
 _K15 = cuda.Kernel("sassd_three_nn_fwd",
@@ -51,29 +52,33 @@ THREE_NN_CHUNK = 512
 
 
 def cell_centers(coords_zyx: torch.Tensor, voxel_size_xyz: Sequence[float],
-                 pc_min_xyz: Sequence[float]) -> torch.Tensor:
+                 pc_min_xyz) -> torch.Tensor:
     """[..., 3] integer zyx cells -> [..., 3] float32 xyz centres,
     (cell + 0.5) * voxel size + grid origin (the candidate points of both
-    3-NN forms; padding cells give finite centres off the grid)."""
+    3-NN forms; padding cells give finite centres off the grid). The
+    origin is a [3] sequence or a float32 tensor that broadcasts."""
     dev = coords_zyx.device
     vs = torch.tensor(voxel_size_xyz, dtype=torch.float32, device=dev)
-    pc = torch.tensor(pc_min_xyz, dtype=torch.float32, device=dev)
+    pc = torch.as_tensor(pc_min_xyz, dtype=torch.float32, device=dev)
     return (coords_zyx.flip(-1).to(torch.float32) + 0.5) * vs + pc
 
 
 def ring_select_plain(query_xyz: torch.Tensor, query_cell0: torch.Tensor,
                       level: int, plan: torch.Tensor, rows_per_sample: int,
-                      voxel_size_xyz: Sequence[float],
-                      pc_min_xyz: Sequence[float]
+                      voxel_size_xyz: Sequence[float], pc_min_xyz
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The 3 winners of every query: flat feature rows [B*N, 3] (b * M +
     row; 0 where missing) and normalised weights [B*N, 3] (0 where
-    missing). The float32 operations of K11, in its order."""
+    missing). pc_min_xyz: the grid origin, a [3] sequence or a [B, 3]
+    float32 tensor of one origin per row. The float32 operations of K11,
+    in its order."""
     b, _, n = plan.shape
     dev = query_xyz.device
     parent = query_cell0.to(torch.int32) >> level                 # [B,N,3]
     off = torch.from_numpy(_OFFSETS27).to(dev, torch.int32)
     cand = parent[:, None] + off[None, :, None, :]              # [B,27,N,3]
+    if torch.is_tensor(pc_min_xyz):
+        pc_min_xyz = pc_min_xyz[:, None, None, :]
     centers = cell_centers(cand, voxel_size_xyz, pc_min_xyz)
     d = centers - query_xyz[:, None]
     d2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
@@ -113,7 +118,9 @@ def neighborhood_interpolate_cells_plain(query_xyz, query_cell0, level,
 
 def ring_interp_fwd(query_xyz, query_cell0, level, feats, plan,
                     voxel_size_xyz, pc_min_xyz):
-    """K11's forward: (out [B, N, C], rows [B*N, 3], weights [B*N, 3])."""
+    """K11's forward: (out [B, N, C], rows [B*N, 3], weights [B*N, 3]).
+    pc_min_xyz: a [3] sequence, or a [B, 3] float32 CUDA tensor of one
+    grid origin per row."""
     cuda.check_cuda("query_xyz", query_xyz, torch.float32, 3)
     cuda.check_cuda("query_cell0", query_cell0, torch.int32, 3)
     cuda.check_cuda("feats", feats, torch.float32, 3)
@@ -128,6 +135,13 @@ def ring_interp_fwd(query_xyz, query_cell0, level, feats, plan,
                          f"{tuple(query_xyz.shape)}, cells "
                          f"{tuple(query_cell0.shape)} do not fit feats "
                          f"{tuple(feats.shape)}")
+    origins = None
+    if torch.is_tensor(pc_min_xyz):
+        cuda.check_cuda("pc_min_xyz", pc_min_xyz, torch.float32, 2)
+        if pc_min_xyz.shape != (b, 3):
+            raise ValueError(f"origins {tuple(pc_min_xyz.shape)} are not "
+                             f"[{b}, 3]")
+        origins, pc_min_xyz = pc_min_xyz.data_ptr(), (0.0, 0.0, 0.0)
     dev = feats.device
     with torch.cuda.device(dev):
         out = torch.empty((b, n, c), dtype=torch.float32, device=dev)
@@ -137,8 +151,8 @@ def ring_interp_fwd(query_xyz, query_cell0, level, feats, plan,
                         plan.data_ptr(), int(plan.dtype == torch.int16), b, n,
                         int(level), feats.data_ptr(), m, c,
                         *[float(v) for v in voxel_size_xyz],
-                        *[float(v) for v in pc_min_xyz], out.data_ptr(),
-                        rows.data_ptr(), w.data_ptr())
+                        *[float(v) for v in pc_min_xyz], origins,
+                        out.data_ptr(), rows.data_ptr(), w.data_ptr())
     return out, rows, w
 
 
@@ -178,24 +192,26 @@ def neighborhood_interpolate_cells(query_xyz: torch.Tensor,
                                    query_cell0: torch.Tensor, level: int,
                                    feats: torch.Tensor, plan: torch.Tensor,
                                    voxel_size_xyz: Sequence[float],
-                                   pc_min_xyz: Sequence[float]
-                                   ) -> torch.Tensor:
+                                   pc_min_xyz) -> torch.Tensor:
     """Interpolate level-`level` features onto level-0 voxel centroids.
 
     query_xyz: [B, N, 3] float32 centroids; query_cell0: [B, N, 3] int32
     zyx level-0 cells (-1 padding); feats: [B, M, C] float32 level rows;
     plan: the host rulebook's [B, 27, N] aux plan (int16 or int32, rows
     into each sample's M rows, -1 missing); voxel_size_xyz / pc_min_xyz:
-    the level's voxel size and the grid origin. Returns [B, N, C] (0 where
-    no candidate exists), differentiable in `feats`.
+    the level's voxel size and the grid origin, a [3] sequence or a [B, 3]
+    float32 tensor of one origin per row. Returns [B, N, C] (0 where no
+    candidate exists), differentiable in `feats`.
     """
     if feats.device.type == "cpu":
         return neighborhood_interpolate_cells_plain(
             query_xyz, query_cell0, level, feats, plan, voxel_size_xyz,
             pc_min_xyz)
+    pc = (pc_min_xyz.contiguous() if torch.is_tensor(pc_min_xyz)
+          else tuple(pc_min_xyz))
     return _RingInterpFn.apply(feats, query_xyz.contiguous(),
                                query_cell0.contiguous(), plan, int(level),
-                               tuple(voxel_size_xyz), tuple(pc_min_xyz))
+                               tuple(voxel_size_xyz), pc)
 
 
 def three_nn_select_plain(query_xyz: torch.Tensor, known_xyz: torch.Tensor,

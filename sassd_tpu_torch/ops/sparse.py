@@ -26,7 +26,7 @@ which a wrapper takes only for CPU tensors:
   key -> row maps and the plans resolved through them
   (``device_plans.cu``);
 - K7 ``downsample_keys``: the sorted, capped active set of a stride-2
-  level (``downsample.cu``);
+  level, optionally with a per-row output-y limit (``downsample.cu``);
 - K13 ``stride_plan_T`` and K14 ``aux_plan``: the rulebook's train-only
   plans, the stride convs' transpose plans and the aux branch's ring
   plans (``device_plans.cu``).
@@ -39,7 +39,7 @@ tensors each is its plain forward under ordinary autograd.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -69,7 +69,7 @@ _K6_PLAN = cuda.Kernel("sassd_window_plan",
                         cuda.P, cuda.I, cuda.I, cuda.I, cuda.P])
 _K7_CANDS = cuda.Kernel("sassd_downsample_candidates",
                         [cuda.P, cuda.I, cuda.I, cuda.I, cuda.I, cuda.I,
-                         cuda.I, cuda.I, cuda.P])
+                         cuda.I, cuda.I, cuda.P, cuda.P])
 _K7_UNIQUE = cuda.Kernel("sassd_unique_sorted",
                          [cuda.P, cuda.I, cuda.I, cuda.I, cuda.P])
 _K13 = cuda.Kernel("sassd_stride_plan_t",
@@ -610,13 +610,17 @@ def aux_plan(cell0: torch.Tensor, level: int, index_map: torch.Tensor,
 
 
 def downsample_candidates(keys: torch.Tensor,
-                          shape_zyx: Tuple[int, int, int]) -> torch.Tensor:
+                          shape_zyx: Tuple[int, int, int],
+                          y_limit: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
     """[B, M] keys -> [B, 8*M] parent keys of a stride-2 k3 p1 conv
-    (INVALID_KEY for padding rows and parents off the output grid)."""
+    (INVALID_KEY for padding rows and parents off the output grid, or at
+    output y >= y_limit[b] where the [B] int32 limit is given)."""
     od, oh, ow = out_shape_stride2(shape_zyx)
     c = keys_to_coords(keys, shape_zyx)
     c0, c1 = c // 2, (c + 1) // 2
     valid = c[..., 0] >= 0
+    y_hi = oh if y_limit is None else torch.clamp(y_limit, max=oh)[:, None]
     cands = []
     for sz in range(2):
         for sy in range(2):
@@ -624,17 +628,19 @@ def downsample_candidates(keys: torch.Tensor,
                 z = (c1 if sz else c0)[..., 0]
                 y = (c1 if sy else c0)[..., 1]
                 x = (c1 if sx else c0)[..., 2]
-                ok = valid & (z < od) & (y < oh) & (x < ow)
+                ok = valid & (z < od) & (y < y_hi) & (x < ow)
                 cands.append(torch.where(ok, (z * oh + y) * ow + x,
                                          INVALID_KEY))
     return torch.cat(cands, 1).to(torch.int32)
 
 
 def downsample_keys_plain(keys: torch.Tensor,
-                          shape_zyx: Tuple[int, int, int],
-                          cap: int) -> torch.Tensor:
+                          shape_zyx: Tuple[int, int, int], cap: int,
+                          y_limit: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
     """Plain PyTorch version of K7 (see downsample_keys)."""
-    s = torch.sort(downsample_candidates(keys, shape_zyx), dim=1).values
+    s = torch.sort(downsample_candidates(keys, shape_zyx, y_limit),
+                   dim=1).values
     first = torch.ones_like(s, dtype=torch.bool)
     first[:, 1:] = s[:, 1:] != s[:, :-1]
     first &= s != INVALID_KEY
@@ -646,20 +652,29 @@ def downsample_keys_plain(keys: torch.Tensor,
 
 
 def downsample_keys(keys: torch.Tensor, shape_zyx: Tuple[int, int, int],
-                    cap: int) -> torch.Tensor:
+                    cap: int, y_limit: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
     """Active set of a stride-2 k3 p1 conv: [B, M] keys on `shape_zyx` ->
     [B, cap] ascending keys on the output grid, INVALID_KEY padded; the
-    lowest keys win the cap. K7 (around torch.sort) on the card."""
+    lowest keys win the cap. y_limit: optional [B] int32 exclusive bound
+    on the output y of each row (the banded stage's global grid top in
+    band coordinates). K7 (around torch.sort) on the card."""
     if keys.device.type == "cpu":
-        return downsample_keys_plain(keys, shape_zyx, cap)
+        return downsample_keys_plain(keys, shape_zyx, cap, y_limit)
     cuda.check_cuda("keys", keys, torch.int32, 2)
     b, m = keys.shape
+    if y_limit is not None:
+        cuda.check_cuda("y_limit", y_limit, torch.int32, 1)
+        if y_limit.shape[0] != b:
+            raise ValueError(f"y_limit {tuple(y_limit.shape)} does not fit "
+                             f"keys {tuple(keys.shape)}")
     d, h, w = shape_zyx
     od, oh, ow = out_shape_stride2(shape_zyx)
     with torch.cuda.device(keys.device):
         cands = torch.empty((b, 8 * m), dtype=torch.int32,
                             device=keys.device)
         _K7_CANDS.launch(keys.data_ptr(), b, m, h, w, od, oh, ow,
+                         None if y_limit is None else y_limit.data_ptr(),
                          cands.data_ptr())
         s = torch.sort(cands, dim=1).values
         out = torch.empty((b, cap), dtype=torch.int32, device=keys.device)
@@ -670,7 +685,9 @@ def downsample_keys(keys: torch.Tensor, shape_zyx: Tuple[int, int, int],
 def device_rulebook(keys0: torch.Tensor,
                     level_shapes: Sequence[Tuple[int, int, int]],
                     level_caps: Sequence[int], train: bool = False,
-                    aux: bool = True) -> Dict[str, torch.Tensor]:
+                    aux: bool = True,
+                    y_top: Optional[torch.Tensor] = None
+                    ) -> Dict[str, torch.Tensor]:
     """The backbone's rulebook built on the keys' device, in the host
     rulebook's format (data.kitti.build_host_plans without the plan_
     prefix): subm0..2 and stride1..3 [B, 27, capL] int32 plans, and
@@ -679,7 +696,9 @@ def device_rulebook(keys0: torch.Tensor,
     need the index map of level 3 too.
 
     keys0: [B, cap0] key-sorted level-0 keys; level_shapes: the four level
-    grids; level_caps: the caps of levels 1..3. Level 3 gets no subm plan:
+    grids; level_caps: the caps of levels 1..3; y_top: optional [B] int32
+    exclusive level-0 y bound of each row, which clips level L's
+    downsample at y_top >> L (the banded stage). Level 3 gets no subm plan:
     the dense tail runs it. The level-0 map (360 MB a sample at the car
     grid) is freed once its plans are built.
     """
@@ -689,7 +708,8 @@ def device_rulebook(keys0: torch.Tensor,
     plans["subm0"] = window_plan(keys, shape, imap, shape, 1)
     for lvl in (1, 2, 3):
         out_shape = level_shapes[lvl]
-        out = downsample_keys(keys, shape, level_caps[lvl - 1])
+        out = downsample_keys(keys, shape, level_caps[lvl - 1],
+                              None if y_top is None else y_top >> lvl)
         plans[f"stride{lvl}"] = window_plan(out, out_shape, imap, shape, 2)
         plans[f"coords{lvl}"] = keys_to_coords(out, out_shape)
         if train:

@@ -1,21 +1,27 @@
 """Where the time goes: inference or training on one GPU under
 torch.profiler.
 
-    python -m sassd_tpu_torch.profile_slice [--batch 1] [--config car|multi]
-        [--device-plans | --serve] [--train [--exact]]
+    python -m sassd_tpu_torch.profile_slice [--batch 1]
+        [--config car|multi|long_range] [--device-plans | --serve | --banded]
+        [--train [--exact]]
 
 Runs forward_test on synthetic scans (seeded weights, as chip_smoke.py)
-of the car config or, with --config multi, the three-class config, with
-the C++ host rulebook or, with --device-plans (model.host_plans=False),
+of the car config or, with --config multi, the three-class config, or,
+with --config long_range, the long-range config (0-102.4 m; frustum scans
+with far-field returns, ~70,000 voxels, as chip_smoke.py's timing scan),
+with the C++ host rulebook or, with --device-plans (model.host_plans=False),
 the rulebook built on the card, or, with --serve, the device-resident
 serving step (serve.make_serving_step: raw points uploaded, voxelized,
-masked and the rulebook built on the card), or, with --train, the train
+masked and the rulebook built on the card), or, with --banded, the banded
+sparse stage over 4 y-bands (parallel.strategy="banded"; the partition,
+the band rulebook and VxNet on the card), or, with --train, the train
 step (train.loop.make_train_step on the scans and their GT boxes:
 forward_train, backward, one-cycle AdamW; with --device-plans the card
 builds the train rulebook inside the step, with --exact the aux branch
 takes the exact 3-NN); then profiles RUNS steps and prints: the host-clock step time, the
-device time of each stage (voxelize, anchors_mask, rulebook, vxnet,
-bevnet, aux, head, targets_losses, pswarp, nms, backward, optimizer), the
+device time of each stage (voxelize, anchors_mask, partition, rulebook,
+vxnet, bevnet, aux, head, targets_losses, pswarp, nms, backward,
+optimizer), the
 CUDA kernels with the most device time, and the device busy share of the
 profiled window. Needs a CUDA device.
 """
@@ -31,14 +37,16 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from sassd_tpu_torch import serve
-from sassd_tpu_torch.config import car_config, multi_config
+from sassd_tpu_torch.config import (ParallelConfig, car_config,
+                                    long_range_config, multi_config)
 from sassd_tpu_torch.data import kitti, synthetic
 from sassd_tpu_torch.inference import make_test_step
 from sassd_tpu_torch.train import loop, optim
 from sassd_tpu_torch.weights import seeded_detector
 
-STAGES = ("voxelize", "anchors_mask", "rulebook", "vxnet", "bevnet", "aux",
-          "head", "targets_losses", "pswarp", "nms", "backward", "optimizer")
+STAGES = ("voxelize", "anchors_mask", "partition", "rulebook", "vxnet",
+          "bevnet", "aux", "head", "targets_losses", "pswarp", "nms",
+          "backward", "optimizer")
 RUNS = 8
 SEED = 0
 
@@ -96,14 +104,19 @@ def _busy_us(prof) -> float:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=1)
-    ap.add_argument("--config", choices=("car", "multi"), default="car",
-                    help="car_config() or the three-class multi_config()")
+    ap.add_argument("--config", choices=("car", "multi", "long_range"),
+                    default="car",
+                    help="car_config(), the three-class multi_config() or "
+                         "long_range_config()")
     mode = ap.add_mutually_exclusive_group()
     mode.add_argument("--device-plans", action="store_true",
                       help="build the rulebook on the card "
                            "(host_plans=False)")
     mode.add_argument("--serve", action="store_true",
                       help="serve raw points (test.device_input='points')")
+    mode.add_argument("--banded", action="store_true",
+                      help="the banded sparse stage over 4 y-bands "
+                           "(parallel.strategy='banded')")
     ap.add_argument("--train", action="store_true",
                     help="the train step (forward_train, backward, AdamW)")
     ap.add_argument("--exact", action="store_true",
@@ -120,16 +133,24 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
 
-    cfg = multi_config() if args.config == "multi" else car_config()
+    cfg = dict(car=car_config, multi=multi_config,
+               long_range=long_range_config)[args.config]()
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(
         cfg.model, host_plans=not args.device_plans,
         aux_interp="exact" if args.exact else "ring"))
+    if args.banded:
+        cfg = dataclasses.replace(cfg, parallel=ParallelConfig(
+            strategy="banded", spatial=4))
     anchors, anchors_bv = kitti.build_anchors(cfg)
     model = seeded_detector(cfg, SEED, device)
     rng = np.random.default_rng(SEED)
-    scenes = [synthetic.make_scene(rng, n_cars=(6, 12), n_ground=18000,
-                                   classes=cfg.class_names)
-              for _ in range(args.batch)]
+    if args.config == "long_range":
+        scenes = [synthetic.long_range_scene(rng, classes=cfg.class_names)
+                  for _ in range(args.batch)]
+    else:
+        scenes = [synthetic.make_scene(rng, n_cars=(6, 12), n_ground=18000,
+                                       classes=cfg.class_names)
+                  for _ in range(args.batch)]
     scans = [p for p, _, _ in scenes]
     if args.train:
         samples = []
@@ -176,6 +197,7 @@ def main() -> None:
     events = prof.key_averages()
 
     what = ("serving from raw points" if args.serve else
+            "banded, 4 bands" if args.banded else
             "device plans" if args.device_plans else "host plans")
     if args.train:
         what = f"training on {what}, {cfg.model.aux_interp} aux"

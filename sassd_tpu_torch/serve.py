@@ -194,7 +194,8 @@ def make_serving_step(cfg: SASSDConfig, anchors: np.ndarray,
             points, n_points = (torch.from_numpy(np.ascontiguousarray(
                 batch[k])).to(device) for k in ("points", "n_points"))
             full = batch_from_points(points, n_points, corners, cfg)
-            return model.forward_test(full, anchors_t)
+            # serving ignores the parallel strategy, as in the JAX package
+            return model.forward_test(full, anchors_t, replicated=True)
     return step
 
 

@@ -16,7 +16,10 @@ order), K11's forward, K12 and K5b exact (the same float32 operations,
 copies), K11's backward and K3b 1e-5 (atomicAdd order). The train-only rulebook
 plans (K13, K14) are integers and exact; K15's selections, weights and
 output are exact (the plain version's float32 operations in its order),
-its backward (K11's) 1e-5.
+its backward (K11's) 1e-5. The banded stage's kernels: K16 (band
+partition, integer coords and copied rows) and K7 with a y limit are
+exact, K11 with per-row origins as K11; a banded train step card vs CPU
+1e-4 (losses) and 1e-3 (grad norm), as the three-class one.
 """
 import numpy as np
 import pytest
@@ -761,3 +764,199 @@ def test_tiny_three_class_device_plans_step_card_matches_cpu(dev, aux):
     for k, v in cl.items():
         assert abs(gl[k] - v) <= 1e-4 * max(abs(v), 1e-6), (k, gl[k], v)
     assert abs(gg - cg) <= 1e-3 * cg
+
+
+def tall_banded():
+    """The tall tiny config of tests/test_torch_banded.py (H = 256), banded
+    over 2 y-bands."""
+    import dataclasses
+    from sassd_tpu_torch import config
+    cfg = config.tiny_config()
+    return dataclasses.replace(
+        cfg,
+        voxel=config.VoxelConfig(voxel_size=(0.1, 0.1, 0.5),
+                                 point_cloud_range=(0.0, -12.8, -2.5, 6.4,
+                                                    12.8, 1.5),
+                                 max_num_points=5, max_voxels=1024),
+        caps=dataclasses.replace(cfg.caps,
+                                 level_caps=(1024, 4096, 4096, 4096)),
+        parallel=config.ParallelConfig(strategy="banded", spatial=2))
+
+
+def band_inputs(seed):
+    """A tall banded batch and its level-0 coords and VFE rows."""
+    from sassd_tpu_torch.data import synthetic
+    from sassd_tpu_torch.models import backbone
+    from sassd_tpu_torch.parallel import sparse_spatial as ss
+    cfg = tall_banded()
+    batch = synthetic.make_random_batch(cfg, np.random.default_rng(seed),
+                                        batch_size=2, n_points=900)
+    coords = torch.from_numpy(batch["coords"])
+    vfe = backbone.vfe_mean(torch.from_numpy(batch["voxels"]),
+                            torch.from_numpy(batch["num_points"]))
+    return cfg, ss.config_band_spec(cfg), batch, coords, vfe
+
+
+@pytest.mark.parametrize("cap0", [None, 150])
+def test_k16_matches_plain(dev, cap0):
+    """The band partition on the card == its plain version, bitwise;
+    cap0 150 drops members and counts them."""
+    from sassd_tpu_torch.parallel import sparse_spatial as ss
+    _, spec, _, coords, vfe = band_inputs(3)
+    if cap0 is not None:
+        spec = spec._replace(caps=(cap0,) + spec.caps[1:])
+    before = ss._K16.launches
+    got = ss.partition(coords.to(dev), vfe.to(dev), spec)
+    torch.cuda.synchronize()
+    assert ss._K16.launches == before + 1
+    ref = ss.partition_plain(coords, vfe, spec)
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and torch.equal(g.cpu(), r)
+    assert (ref[2] > 0).any() == (cap0 is not None)
+
+
+@pytest.mark.parametrize("level", [1, 2, 3])
+def test_k7_y_limit_matches_plain(dev, level):
+    """K7 with each band row's limit y_top >> level == the plain version,
+    bitwise; the limit clips the top band and no limit is the unlimited
+    kernel."""
+    from sassd_tpu_torch.models import backbone
+    from sassd_tpu_torch.ops import sparse as sp
+    from sassd_tpu_torch.parallel import sparse_spatial as ss
+    cfg, spec, _, coords, vfe = band_inputs(4)
+    bc = ss.partition_plain(coords, vfe, spec)[0]
+    shapes = backbone.level_shapes(ss.band_shape(cfg, spec))
+    y_top = ss.y_top_rows(cfg, spec, 2, "cpu")
+    keys = sp.coords_to_keys(bc.reshape(4, -1, 3), shapes[0])
+    for lvl in range(1, level):
+        keys = sp.downsample_keys_plain(keys, shapes[lvl - 1],
+                                        spec.caps[lvl], y_top >> lvl)
+    args = (shapes[level - 1], spec.caps[level])
+    got = sp.downsample_keys(keys.to(dev), *args, (y_top >> level).to(dev))
+    free = sp.downsample_keys(keys.to(dev), *args)
+    torch.cuda.synchronize()
+    ref = sp.downsample_keys_plain(keys, *args, y_top >> level)
+    assert torch.equal(got.cpu(), ref)
+    assert torch.equal(free.cpu(), sp.downsample_keys_plain(keys, *args))
+    assert not torch.equal(got[2:], free[2:])
+
+
+@pytest.mark.parametrize("level", [1, 2, 3])
+def test_k11_origins_match_plain(dev, level):
+    """K11 with a grid origin per band row: forward, rows and weights
+    bitwise its plain version's, feature gradients 1e-5; the one-origin
+    call with every row's origin set to it is bitwise the scalar call."""
+    from sassd_tpu_torch.models import backbone
+    from sassd_tpu_torch.ops import interpolate as itp
+    from sassd_tpu_torch.ops import sparse as sp
+    from sassd_tpu_torch.parallel import sparse_spatial as ss
+    cfg, spec, _, coords, vfe = band_inputs(5)
+    bc, br, _ = ss.partition_plain(coords, vfe, spec)
+    shapes = backbone.level_shapes(ss.band_shape(cfg, spec))
+    cell0 = bc.reshape(4, -1, 3)
+    query = br.reshape(4, -1, 4)[..., :3].contiguous()
+    plans = sp.device_rulebook(sp.coords_to_keys(cell0, shapes[0]), shapes,
+                               spec.caps[1:], train=True,
+                               y_top=ss.y_top_rows(cfg, spec, 2, "cpu"))
+    plan = plans[f"aux{level}"]
+    m = spec.caps[level]
+    c = 32 if level == 1 else 64
+    rng = np.random.default_rng(level)
+    feats = torch.from_numpy(rng.normal(size=(4, m, c)).astype(np.float32))
+    vs = (np.asarray(cfg.voxel.voxel_size, np.float32) * 2 ** level).tolist()
+    origins = ss.band_origins(cfg, spec, 2, "cpu")
+    out, rows, w = itp.ring_interp_fwd(query.to(dev), cell0.to(dev), level,
+                                       feats.to(dev), plan.to(dev), vs,
+                                       origins.to(dev))
+    torch.cuda.synchronize()
+    ref_rows, ref_w = itp.ring_select_plain(query, cell0, level, plan, m, vs,
+                                            origins)
+    assert torch.equal(rows.cpu().long(), ref_rows)
+    assert torch.equal(w.cpu(), ref_w)
+    assert torch.equal(out.cpu(), itp.neighborhood_interpolate_cells_plain(
+        query, cell0, level, feats, plan, vs, origins))
+    assert (w.cpu() > 0).any()
+    cot = torch.from_numpy(rng.normal(size=tuple(out.shape)).astype(
+        np.float32))
+    fc = feats.clone().requires_grad_()
+    itp.neighborhood_interpolate_cells(query, cell0, level, fc, plan, vs,
+                                       origins).backward(cot)
+    fd = feats.to(dev).requires_grad_()
+    itp.neighborhood_interpolate_cells(query.to(dev), cell0.to(dev), level,
+                                       fd, plan.to(dev), vs, origins.to(dev)
+                                       ).backward(cot.to(dev))
+    assert rel_err(fd.grad, fc.grad) <= 1e-5
+    pc = np.asarray(cfg.voxel.point_cloud_range[:3], np.float32)
+    one = torch.from_numpy(np.repeat(pc[None], 4, 0)).to(dev)
+    a = itp.ring_interp_fwd(query.to(dev), cell0.to(dev), level,
+                            feats.to(dev), plan.to(dev), vs, one)
+    b = itp.ring_interp_fwd(query.to(dev), cell0.to(dev), level,
+                            feats.to(dev), plan.to(dev), vs, pc.tolist())
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_banded_wrappers_reject_bad_inputs(dev):
+    from sassd_tpu_torch.ops import interpolate as itp
+    from sassd_tpu_torch.ops import sparse as sp
+    from sassd_tpu_torch.parallel import sparse_spatial as ss
+    spec = ss.BandSpec(2, 8, 8, (16, 16, 16, 16))
+    coords = torch.zeros((1, 8, 3), dtype=torch.int32, device=dev)
+    rows = torch.zeros((1, 8, 4), device=dev)
+    with pytest.raises(TypeError):                       # int64 coords
+        ss.partition(coords.long(), rows, spec)
+    with pytest.raises(ValueError):                      # 7 feature rows
+        ss.partition(coords, rows[:, :7].contiguous(), spec)
+    keys = torch.zeros((2, 8), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):                      # one limit, 2 rows
+        sp.downsample_keys(keys, (2, 4, 4), 8,
+                           torch.zeros(1, dtype=torch.int32, device=dev))
+    q = torch.zeros((2, 8, 3), device=dev)
+    plan = torch.full((2, 27, 8), -1, dtype=torch.int32, device=dev)
+    f = torch.zeros((2, 6, 16), device=dev)
+    with pytest.raises(ValueError):                      # [1, 3] origins
+        itp.ring_interp_fwd(q, coords.expand(2, 8, 3).contiguous(), 1, f,
+                            plan, (0.1, 0.1, 0.1),
+                            torch.zeros((1, 3), device=dev))
+
+
+def test_tiny_banded_step_card_matches_cpu(dev):
+    """A banded forward_train + backward and forward_test on the card and
+    on the CPU: losses 1e-4, grad norm 1e-3, detections matched; K16, K7
+    and K11 launched, no band overflow."""
+    from sassd_tpu_torch.data import kitti
+    from sassd_tpu_torch.inference import make_test_step, to_device
+    from sassd_tpu_torch.models.detector import parse_losses
+    from sassd_tpu_torch.ops import cuda, interpolate, sparse as sp
+    from sassd_tpu_torch.parallel import sparse_spatial as ss
+    from sassd_tpu_torch.weights import seeded_detector
+    cfg, _, batch, _, _ = band_inputs(3)
+    anchors = torch.from_numpy(kitti.build_anchors(cfg)[0])
+    out = {}
+    before = {k: v.launches for k, v in cuda.KERNELS.items()}
+    for where in ("cpu", dev):
+        model = seeded_detector(cfg, 2, where)
+        model.train()
+        losses = model.forward_train(to_device(batch, where),
+                                     anchors.to(where))
+        parse_losses(losses).backward()
+        gnorm = torch.sqrt(sum((p.grad.double() ** 2).sum()
+                               for p in model.parameters()))
+        dets = make_test_step(cfg, anchors.numpy(), where)(model, batch)
+        out[str(where)] = ({k: float(v) for k, v in losses.items()},
+                           float(gnorm), {k: v.cpu().numpy()
+                                          for k, v in dets.items()})
+    torch.cuda.synchronize()
+    ran = {k for k, v in cuda.KERNELS.items() if v.launches > before[k]}
+    need = [s for ids in (ss.KERNEL_SYMBOLS["K16"], sp.KERNEL_SYMBOLS["K7"],
+                          interpolate.KERNEL_SYMBOLS["K11"]) for s in ids]
+    assert set(need) <= ran, ran
+    (cl, cg, cd), (gl, gg, gd) = out["cpu"], out[str(dev)]
+    assert cl["band_overflow"] == gl["band_overflow"] == 0.0
+    for k, v in cl.items():
+        assert abs(gl[k] - v) <= 1e-4 * max(abs(v), 1e-6), (k, gl[k], v)
+    assert abs(gg - cg) <= 1e-3 * cg
+    for i in range(2):
+        gv, rv = gd["valid"][i], cd["valid"][i]
+        assert gv.sum() == rv.sum() and gv.sum() > 0
+        for box in gd["boxes"][i][gv]:
+            assert (np.abs(cd["boxes"][i][rv] - box).max(1) <= 1e-2).any()
