@@ -10,11 +10,12 @@ Phases, each of which fails the run (nonzero exit, no result line):
 2. build: the C++ host library (g++) and the CUDA kernels (nvcc), timed;
 3. kernels: each hand-written kernel against its plain PyTorch version on
    the card, at the shapes of the car-config path, with stated tolerances,
-   and both timed with CUDA events. K4 (sparse conv) and K5 (dense-tail
-   scatter) run on the host plans of synthetic car scans; K6 (index maps +
-   window plans) and K7 (downsample) build the device rulebook of those
-   scans, which must equal both the plain versions and the C++ host
-   rulebook bit for bit;
+   and both timed with CUDA events. K4 (sparse conv, at the sparse
+   ladder's 10 convs, each with its found-slot fraction and bound) and K5
+   (dense-tail scatter) run on the host plans of synthetic car scans; K6
+   (index maps + window plans) and K7 (downsample) build the device
+   rulebook of those scans, which must equal both the plain versions and
+   the C++ host rulebook bit for bit;
 4. host plans: car-config inference (full widths, random weights from a
    seed) over 4 synthetic scans at batch 1 and once at batch 2, with the
    launch counters reset just before and read just after; K1-K5 must have
@@ -90,13 +91,17 @@ Phase 3 also holds K8 (device voxelizer) and K9 (anchors mask) against
 their plain versions, bitwise, on the car scans (at the 20,000-voxel cap,
 so the lowest-key truncation runs) and on one frustum scan; and the
 training kernels at batch 2 on the train plans of the car scans: K10
-(sparse-conv weight gradient) and K4's input gradients, K11 (ring 3-NN
+(sparse-conv weight gradient, also bitwise equal over two calls) and K4's
+input gradients at the ladder's 10 training convs, K11 (ring 3-NN
 interpolation, forward and backward), K12 (aux targets), K3b (PSWarp
 backward) and K5b (densify backward); and the kernels of training on
 device plans, at batch 2 on the same scans: K13 (transpose plans) and K14
 (aux ring plans) against their plain versions and the C++ train rulebook,
 bitwise, and K15 (exact 3-NN) at the full level sizes (rows and weights
 bitwise, its backward through K11's).
+
+K5, K5b and K7's unique pass are also timed beside one PyTorch call that
+computes their work (library_ms), a yardstick the port never calls.
 
 Every kernel row carries its bound: the larger of the bytes it must move
 (each input read once, each output written once, at this run's active
@@ -153,6 +158,16 @@ N_MULTI_EPOCHS = 2      # phase 8: of 4 steps at batch 1
 # relative to each buffer's largest update
 LR_GROUND = 60000
 BN_UPDATE_RTOL = 2e-3
+
+# the sparse ladder's 10 convs (models/backbone.py VxNet) as distinct
+# shapes: name, plan, input level, Cin, Cout, convs of that shape
+LADDER = (("conv0.0", "plan_subm0", 0, 4, 16, 1),
+          ("conv0.1", "plan_subm0", 0, 16, 16, 1),
+          ("down0", "plan_stride1", 0, 16, 32, 1),
+          ("conv1", "plan_subm1", 1, 32, 32, 2),
+          ("down1", "plan_stride2", 1, 32, 64, 1),
+          ("conv2", "plan_subm2", 2, 64, 64, 3),
+          ("down2", "plan_stride3", 2, 64, 64, 1))
 
 # the card's peaks the bounds are taken against (H100 SXM data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -220,6 +235,16 @@ def grad_ms(out, inputs, cot, iters: int = 20) -> float:
     return cuda_ms(lambda: torch.autograd.grad(out, inputs, cot,
                                                retain_graph=True),
                    iters=iters)
+
+
+def keys_bzyx(torch, keys, shape_zyx):
+    """The (b, z, y, x) index tensors of the active rows of [B, M] keys."""
+    from sassd_tpu_torch.ops import sparse as sp
+    ok = keys != sp.INVALID_KEY
+    b = torch.nonzero(ok)[:, 0]
+    k = keys[ok].long()
+    _, h, w = shape_zyx
+    return b, k // (h * w), (k // w) % h, k % w
 
 
 def reset_launches():
@@ -381,12 +406,10 @@ def check_sparse_kernels(torch, np, device, cfg, samples):
         shapes.append(sp.out_shape_stride2(shapes[-1]))
     rows = []
 
-    # K4 at L0 16->16, the stride conv L1->L2 32->64 and L2 64->64, on the
-    # int16 wire plans of scan 0 (batch 1)
+    # K4 at the ladder's 10 convs (7 distinct shapes), on the int16 wire
+    # plans of scan 0 (batch 1)
     k4 = []
-    for plan_key, level_in, cin, cout in (("plan_subm0", 0, 16, 16),
-                                          ("plan_stride2", 1, 32, 64),
-                                          ("plan_subm2", 2, 64, 64)):
+    for name, plan_key, level_in, cin, cout, mult in LADDER:
         feats = torch.from_numpy(rng.normal(
             size=(1, caps[level_in], cin)).astype(np.float32)).to(device)
         w = torch.from_numpy((rng.normal(size=(27, cin, cout))
@@ -399,28 +422,33 @@ def check_sparse_kernels(torch, np, device, cfg, samples):
         ok = bool(torch.allclose(got, ref, rtol=K4_RTOL, atol=K4_ATOL))
         ms = cuda_ms(lambda: sp.subm_conv_batched(feats, w, plan))
         plain_ms = cuda_ms(lambda: sp.subm_conv_batched_plain(feats, w, plan))
-        print(f"K4 sparse_conv {plan_key[5:]} {tuple(plan.shape)} "
-              f"{cin}->{cout}: max|kernel-plain| = {err:.3g} (rtol "
-              f"{K4_RTOL}, atol {K4_ATOL}); kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms")
-        if not ok:
-            fail(f"K4 disagrees with its plain version on {plan_key}")
         found = int((plan >= 0).sum())
-        k4.append((f"{plan_key[5:]} {cin}->{cout}", err, ms, plain_ms,
-                   bound(feats.numel() * 4 + plan.numel() * plan.element_size()
-                         + w.numel() * 4 + plan.shape[2] * cout * 4,
-                         2 * found * cin * cout)))
+        bd = bound(feats.numel() * 4 + plan.numel() * plan.element_size()
+                   + w.numel() * 4 + plan.shape[2] * cout * 4,
+                   2 * found * cin * cout)
+        print(f"K4 sparse_conv {name} x{mult} {plan_key[5:]} "
+              f"{tuple(plan.shape)} {cin}->{cout}: found slots "
+              f"{found / plan.numel():.4f}; max|kernel-plain| = {err:.3g} "
+              f"(rtol {K4_RTOL}, atol {K4_ATOL}); kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms "
+              f"({bd['bound_by']})")
+        if not ok:
+            fail(f"K4 disagrees with its plain version on {name}")
+        k4.append((name, mult, err, ms, plain_ms, found / plan.numel(), bd))
     rows.append(dict(name="K4 sparse_conv", route="cuda",
                      source="sassd_tpu_torch/csrc/sparse_conv.cu",
                      replaces="sassd_tpu/ops/sparse.py:411",
-                     max_abs_err=max(e for _, e, _, _, _ in k4),
-                     ms=sum(m for _, _, m, _, _ in k4),
-                     plain_ms=sum(m for _, _, _, m, _ in k4),
+                     max_abs_err=max(e for _, _, e, *_ in k4),
+                     ms=sum(n * m for _, n, _, m, *_ in k4),
+                     plain_ms=sum(n * m for _, n, _, _, m, *_ in k4),
                      library_ms=None,
-                     at="sum over " + ", ".join(n for n, *_ in k4),
-                     per_shape={n: dict(ms=m, plain_ms=pm, **bd)
-                                for n, _, m, pm, bd in k4},
-                     **add_bounds([bd for *_, bd in k4])))
+                     at="batch 1, one scan's forward: the ladder's 10 convs,"
+                        " launches x ms summed",
+                     per_shape={name: dict(convs=n, ms=m, plain_ms=pm,
+                                           found_frac=ff, **bd)
+                                for name, n, _, m, pm, ff, bd in k4},
+                     **add_bounds([bd for _, n, *_, bd in k4
+                                   for _ in range(n)])))
 
     # K5: scan 0's level 3 (10240 rows x 64) into [1, 5*64, 200, 176]
     keys3 = sp.coords_to_keys(s0["plan_coords3"], shapes[3])
@@ -439,11 +467,23 @@ def check_sparse_kernels(torch, np, device, cfg, samples):
     if not same5:
         fail("K5 differs from its plain version")
     d3, h3, w3 = shapes[3]
+    # the one-call yardstick: index_put_ of the active rows into a zeroed
+    # [B, D, C, H, W] canvas (K5's canvas; its occupancy aside)
+    bzyx = keys_bzyx(torch, keys3, shapes[3])
+    rows3 = x3[keys3 != sp.INVALID_KEY]
+
+    def put5():
+        canvas = torch.zeros((1, d3, 64, h3, w3), device=device)
+        canvas[bzyx[0], bzyx[1], :, bzyx[2], bzyx[3]] = rows3
+    lib_ms = cuda_ms(put5)
+    print(f"  K5 one-call yardstick (zeros + index_put_): {lib_ms:.4f} ms")
     rows.append(dict(name="K5 densify", route="cuda",
                      source="sassd_tpu_torch/csrc/densify.cu",
                      replaces="sassd_tpu/ops/sparse.py:835",
                      max_abs_err=err5, ms=ms, plain_ms=plain_ms,
-                     library_ms=None,
+                     library_ms=lib_ms,
+                     library_what="torch.zeros + index_put_ of the rows "
+                                  "into the NCHW canvas (no occupancy)",
                      # keys and rows in; the zeroed canvas and occupancy out
                      **bound(x3.numel() * 4 + keys3.numel() * 4
                              + canvas.numel() * 4 + occ.numel() * 4, 0)))
@@ -518,11 +558,23 @@ def check_sparse_kernels(torch, np, device, cfg, samples):
     print(f"  K7 L0->L1 downsample (batch 1, incl. torch.sort): kernel "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
     n_cand = 8 * m0
+    # K7's unique pass alone beside one torch.unique_consecutive of the
+    # same sorted candidates
+    s7 = torch.sort(sp.downsample_candidates(keys0, shapes[0]),
+                    dim=1).values
+    out7 = torch.empty((1, caps[1]), dtype=torch.int32, device=device)
+    unique_ms = cuda_ms(lambda: sp._K7_UNIQUE.launch(
+        s7.data_ptr(), 1, n_cand, caps[1], out7.data_ptr()))
+    lib_ms = cuda_ms(lambda: torch.unique_consecutive(s7[0]))
+    print(f"  K7 unique pass alone {unique_ms:.4f} ms; "
+          f"torch.unique_consecutive {lib_ms:.4f} ms")
     rows.append(dict(name="K7 downsample", route="cuda",
                      source="sassd_tpu_torch/csrc/downsample.cu",
                      replaces="sassd_tpu/ops/sparse.py:618",
                      max_abs_err=err7, ms=ms, plain_ms=plain_ms,
-                     library_ms=None,
+                     unique_pass_ms=unique_ms, library_ms=lib_ms,
+                     library_what="torch.unique_consecutive of the sorted "
+                                  "candidates, against unique_pass_ms",
                      at="L0 -> L1, batch 1, torch.sort included",
                      # keys in, the capped level out; a comparison sort of
                      # the 8 candidates a row
@@ -626,55 +678,97 @@ def check_train_kernels(torch, np, device, cfg, samples, gts):
             np.float32)).to(device)
     rows = []
 
-    # K10, and K4 as the input gradient, at L0 16->16, the stride conv
-    # L1->L2 32->64 (K4 on the transpose plan) and L2 64->64
-    k10, dx_err = [], 0.0
-    for kind, level_in, cin, cout in (("subm0", 0, 16, 16),
-                                      ("stride2", 1, 32, 64),
-                                      ("subm2", 2, 64, 64)):
-        plan = batch[f"plan_{kind}"]
+    # K10, and K4 as the input gradient, at the ladder's 10 convs (7
+    # distinct shapes; the first conv's input takes no gradient): K4 runs
+    # the subm plan with the tap-reversed transposed weights, or the stride
+    # conv's transpose plan with the transposed weights
+    k10, k4dx = [], []
+    for name, plan_key, level_in, cin, cout, mult in LADDER:
+        plan = batch[plan_key]
         x = randn(2, caps[level_in], cin)
         w = randn(27, cin, cout, scale=1 / np.sqrt(27 * cin))
         cot = randn(2, plan.shape[2], cout)
         dw = sp.conv_weight_grad(x, plan, cot)
+        dw2 = sp.conv_weight_grad(x, plan, cot)
         dw_ref = sp.conv_weight_grad_plain(x, plan, cot)
         err = rel_err(dw, dw_ref)
-        if kind.startswith("subm"):
-            args = (plan,)
-            fn = sp.subm_conv_sym
+        if not torch.equal(dw, dw2):
+            fail(f"K10 gives two different weight gradients on {name}")
+        ms = cuda_ms(lambda: sp.conv_weight_grad(x, plan, cot))
+        plain_ms = cuda_ms(lambda: sp.conv_weight_grad_plain(x, plan, cot))
+        found = int((plan >= 0).sum())
+        bd = bound(x.numel() * 4 + cot.numel() * 4
+                   + plan.numel() * plan.element_size() + dw.numel() * 4,
+                   2 * found * cin * cout)
+        print(f"K10 conv_weight_grad {name} x{mult} {plan_key[5:]} "
+              f"{cin}->{cout} {tuple(plan.shape)}: found slots "
+              f"{found / plan.numel():.4f}; rel err {err:.3g} (tol "
+              f"{TRAIN_GRAD_RTOL}), two calls bitwise equal; kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+        if not err <= TRAIN_GRAD_RTOL:
+            fail(f"K10 disagrees with its plain version on {name}")
+        k10.append((name, mult, err, ms, plain_ms, found / plan.numel(), bd))
+        if cin == 4:
+            continue
+        if plan_key.startswith("plan_subm"):
+            fn, args = sp.subm_conv_sym, (plan,)
+            dx_plan = plan
+            w_dx = w.flip(0).transpose(1, 2).contiguous()
         else:
-            args = (plan, batch[f"plan_strideT{kind[-1]}"])
-            fn = sp.stride_conv_hostT
+            dx_plan = batch["plan_strideT" + plan_key[-1]]
+            fn, args = sp.stride_conv_hostT, (plan, dx_plan)
+            w_dx = w.transpose(1, 2).contiguous()
         xk, xp = x.clone().requires_grad_(), x.clone().requires_grad_()
         fn(xk, w, *args).backward(cot)
         sp.subm_conv_batched_plain(xp, w, plan).backward(cot)
-        dx_err = max(dx_err, rel_err(xk.grad, xp.grad))
-        ms = cuda_ms(lambda: sp.conv_weight_grad(x, plan, cot))
-        plain_ms = cuda_ms(lambda: sp.conv_weight_grad_plain(x, plan, cot))
-        print(f"K10 conv_weight_grad {kind} {cin}->{cout} {tuple(plan.shape)}"
-              f": rel err {err:.3g}; input gradient (K4) rel err "
-              f"{rel_err(xk.grad, xp.grad):.3g} (tol {TRAIN_GRAD_RTOL}); "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        if not (err <= TRAIN_GRAD_RTOL and dx_err <= TRAIN_GRAD_RTOL):
-            fail(f"K10 or K4's input gradient disagrees on {kind}")
-        found = int((plan >= 0).sum())
-        k10.append((f"{kind} {cin}->{cout}", err, ms, plain_ms,
-                    bound(x.numel() * 4 + cot.numel() * 4
-                          + plan.numel() * plan.element_size()
-                          + dw.numel() * 4, 2 * found * cin * cout)))
+        dx_err = rel_err(xk.grad, xp.grad)
+        ms = cuda_ms(lambda: sp.subm_conv_batched(cot, w_dx, dx_plan))
+        plain_ms = cuda_ms(lambda: sp.subm_conv_batched_plain(cot, w_dx,
+                                                              dx_plan))
+        found = int((dx_plan >= 0).sum())
+        bd = bound(cot.numel() * 4 + dx_plan.numel() * dx_plan.element_size()
+                   + w_dx.numel() * 4 + x.numel() * 4,
+                   2 * found * cin * cout)
+        print(f"  K4 input gradient {name} x{mult} on "
+              f"{'the subm plan' if dx_plan is plan else 'strideT'} "
+              f"{tuple(dx_plan.shape)} {cout}->{cin}: found slots "
+              f"{found / dx_plan.numel():.4f}; rel err {dx_err:.3g} (tol "
+              f"{TRAIN_GRAD_RTOL}); kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms "
+              f"({bd['bound_by']})")
+        if not dx_err <= TRAIN_GRAD_RTOL:
+            fail(f"K4's input gradient disagrees on {name}")
+        k4dx.append((name, mult, dx_err, ms, plain_ms,
+                     found / dx_plan.numel(), bd))
     rows.append(dict(name="K10 conv_weight_grad", route="cuda",
                      source="sassd_tpu_torch/csrc/sparse_conv_bwd.cu",
                      replaces="sassd_tpu/ops/sparse.py:541",
-                     max_abs_err=max(e for _, e, *_ in k10),
-                     err_kind="relative to max |plain|",
-                     input_grad_rel_err=dx_err,
-                     ms=sum(m for _, _, m, _, _ in k10),
-                     plain_ms=sum(m for _, _, _, m, _ in k10),
-                     library_ms=None, at="batch 2, sum over " + ", ".join(
-                         n for n, *_ in k10),
-                     per_shape={n: dict(ms=m, plain_ms=pm, **bd)
-                                for n, _, m, pm, bd in k10},
-                     **add_bounds([bd for *_, bd in k10])))
+                     max_abs_err=max(e for _, _, e, *_ in k10),
+                     err_kind="relative to max |plain|; two calls bitwise "
+                              "equal",
+                     ms=sum(n * m for _, n, _, m, *_ in k10),
+                     plain_ms=sum(n * m for _, n, _, _, m, *_ in k10),
+                     library_ms=None,
+                     at="batch 2, one train step's weight gradients: the "
+                        "ladder's 10 convs, launches x ms summed",
+                     per_shape={name: dict(convs=n, ms=m, plain_ms=pm,
+                                           found_frac=ff, **bd)
+                                for name, n, _, m, pm, ff, bd in k10},
+                     input_grad=dict(
+                         kernel="K4", max_rel_err=max(e for _, _, e, *_
+                                                      in k4dx),
+                         ms=sum(n * m for _, n, _, m, *_ in k4dx),
+                         plain_ms=sum(n * m for _, n, _, _, m, *_ in k4dx),
+                         at="batch 2, the 9 convs whose input takes a "
+                            "gradient, launches x ms summed",
+                         per_shape={name: dict(convs=n, ms=m, plain_ms=pm,
+                                               found_frac=ff, **bd)
+                                    for name, n, _, m, pm, ff, bd in k4dx},
+                         **add_bounds([bd for _, n, *_, bd in k4dx
+                                       for _ in range(n)])),
+                     **add_bounds([bd for _, n, *_, bd in k10
+                                   for _ in range(n)])))
 
     # K11 at the three levels: forward bitwise with identical selections,
     # backward within TRAIN_GRAD_RTOL
@@ -828,11 +922,20 @@ def check_train_kernels(torch, np, device, cfg, samples, gts):
     plain_ms = cuda_ms(lambda: sp.densify_grad_plain(keys3, d_canvas,
                                                      shapes[3]))
     n_rows = int((keys3 != sp.INVALID_KEY).sum())
+    # the one-call yardstick: one gather of the active rows from the
+    # [B, D, C, H, W] view of the canvas gradient
+    bzyx = keys_bzyx(torch, keys3, shapes[3])
+    dv = d_canvas.view(2, d3, 64, h3, w3)
+    lib_ms = cuda_ms(lambda: dv[bzyx[0], bzyx[1], :, bzyx[2], bzyx[3]])
+    print(f"  K5b one-call yardstick (gather of the active rows): "
+          f"{lib_ms:.4f} ms")
     rows.append(dict(name="K5b densify_grad", route="cuda",
                      source="sassd_tpu_torch/csrc/densify.cu",
                      replaces="sassd_tpu/ops/sparse.py:835",
                      max_abs_err=float((got - ref).abs().max()), ms=ms,
-                     plain_ms=plain_ms, library_ms=None,
+                     plain_ms=plain_ms, library_ms=lib_ms,
+                     library_what="one advanced-index gather of the active "
+                                  "rows (padding rows not zeroed)",
                      at="batch 2, 10,240-row cap",
                      # keys and the active rows' canvas values in, rows out
                      **bound(keys3.numel() * 4 + n_rows * 64 * 4

@@ -72,7 +72,9 @@ class Kernel:
             fn.argtypes = self.argtypes + [P]
             fn.restype = I
             self._fn = fn
-        err = self._fn(*args, torch.cuda.current_stream().cuda_stream)
+        # the current stream's handle, without building a Stream object
+        stream = torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
+        err = self._fn(*args, stream)
         if err != 0:
             msg = load().sassd_cuda_error_string(err).decode()
             raise RuntimeError(f"{self.symbol}: CUDA error {err}: {msg}")

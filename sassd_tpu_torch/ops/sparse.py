@@ -58,10 +58,12 @@ _K5B = cuda.Kernel("sassd_densify_bwd",
                     cuda.I, cuda.P])
 _K10 = cuda.Kernel("sassd_sparse_conv_dw",
                    [cuda.P, cuda.I, cuda.I, cuda.P, cuda.I, cuda.I, cuda.I,
-                    cuda.P, cuda.I, cuda.I, cuda.P, cuda.P])
-# output rows per K10 block: each block writes one [Cin, Cout] partial per
-# tap, which a second pass sums in chunk order
-K10_CHUNK_ROWS = 512
+                    cuda.P, cuda.I, cuda.I, cuda.P, cuda.P, cuda.P, cuda.P,
+                    cuda.P])
+# K10's blocks: each multiplies an equal share of all taps' found rows and
+# writes a [Cin, Cout] partial per tap it touches, which a last pass sums
+# in block order (two blocks an SM of the H100's 132)
+K10_BLOCKS = 264
 _K6_MAP = cuda.Kernel("sassd_index_map",
                       [cuda.P, cuda.I, cuda.I, cuda.L, cuda.P])
 _K6_PLAN = cuda.Kernel("sassd_window_plan",
@@ -188,8 +190,9 @@ def subm_conv_batched(feats: torch.Tensor, weight: torch.Tensor,
     if cin % 4 or cin > 64 or cout not in (16, 32, 64):
         raise ValueError(f"K4 takes Cin a multiple of 4 up to 64 and Cout "
                          f"16, 32 or 64, got {cin} -> {cout}")
-    if feats.data_ptr() % 16:
-        raise ValueError("feats must be 16-byte aligned (float4 loads)")
+    if feats.data_ptr() % 16 or weight.data_ptr() % 16:
+        raise ValueError("feats and weight must be 16-byte aligned "
+                         "(16-byte cp.async copies)")
     with torch.cuda.device(feats.device):
         out = torch.empty((b, m_out, cout), dtype=torch.float32,
                           device=feats.device)
@@ -235,16 +238,24 @@ def conv_weight_grad(feats: torch.Tensor, plan: torch.Tensor,
                          f"got {cin} -> {cout}")
     if feats.data_ptr() % 16 or d_out.data_ptr() % 16:
         raise ValueError("feats and d_out must be 16-byte aligned")
-    chunks = -(-(b * m_out) // K10_CHUNK_ROWS)
+    rows = b * m_out
+    n_counts = 27 * b * -(-m_out // 1024)
+    # one scratch buffer: counts, totals, the (input, output) row pairs
+    # and the partials, each at a 16-byte offset
+    offs = [0]
+    for n in (4 * n_counts, 4 * 27, 8 * 27 * rows):
+        offs.append(offs[-1] + -(-n // 16) * 16)
+    size = offs[-1] + 4 * (K10_BLOCKS + 27) * cin * cout
     with torch.cuda.device(feats.device):
-        partial = torch.empty((max(chunks, 1), 27, cin, cout),
-                              dtype=torch.float32, device=feats.device)
+        work = torch.empty(size, dtype=torch.uint8, device=feats.device)
         dw = torch.empty((27, cin, cout), dtype=torch.float32,
                          device=feats.device)
+        base = work.data_ptr()
         _K10.launch(feats.data_ptr(), m_in, cin, plan.data_ptr(),
                     int(plan.dtype == torch.int16), b, m_out,
-                    d_out.data_ptr(), cout, K10_CHUNK_ROWS,
-                    partial.data_ptr(), dw.data_ptr())
+                    d_out.data_ptr(), cout, K10_BLOCKS, *(base + o for o in
+                                                          offs),
+                    dw.data_ptr())
     return dw
 
 

@@ -12,7 +12,7 @@ order than cuBLAS), K5-K9 exact (integer results, a scatter of unique
 keys, copies of points, float32 sums of integer counts). The training
 kernels, relative to the largest magnitude of the plain result: K10 and
 K4's input gradients 1e-5 (float32 sums over thousands of rows in another
-order), K11's forward, K12 and K5b exact (the same float32 operations,
+order; K10 also bitwise equal over two calls), K11's forward, K12 and K5b exact (the same float32 operations,
 copies), K11's backward and K3b 1e-5 (atomicAdd order). The train-only rulebook
 plans (K13, K14) are integers and exact; K15's selections, weights and
 output are exact (the plain version's float32 operations in its order),
@@ -153,15 +153,48 @@ def tiny_rulebook(seed, batch_size=2):
     return cfg, batch, shapes
 
 
-@pytest.mark.parametrize("kind,level_in,cin,cout,dtype", [
-    ("subm0", 0, 4, 16, torch.int16), ("subm0", 0, 16, 16, torch.int32),
-    ("stride1", 0, 16, 32, torch.int16), ("subm1", 1, 32, 32, torch.int32),
-    ("stride2", 1, 32, 64, torch.int16), ("subm2", 2, 64, 64, torch.int16),
-    ("stride3", 2, 64, 64, torch.int32)])
-def test_k4_matches_plain(dev, kind, level_in, cin, cout, dtype):
+def edge_plan(plan, case):
+    """A wire plan [B, 27, M] made into one of the edge cases of K4's and
+    K10's tap skipping: a tap found for no row, a 64-row tile (rows
+    64..127) with no found row, or sample 1 all padding."""
+    p = plan.clone()
+    if case == "tap_never_found":
+        p[:, 13] = -1
+    elif case == "empty_tile":
+        p[..., 64:128] = -1
+    elif case == "padded_sample":
+        p[1] = -1
+    return p
+
+
+# the ladder's plans, the stride convs' transpose plans (K4 as the input
+# gradient: [B, 27, M_in] into the output level's rows, Cin and Cout
+# swapped) and the edge cases of tap skipping, on int16 and int32 plans
+K4_CASES = [
+    ("subm0", 0, 4, 16, torch.int16, None),
+    ("subm0", 0, 16, 16, torch.int32, None),
+    ("stride1", 0, 16, 32, torch.int16, None),
+    ("subm1", 1, 32, 32, torch.int32, None),
+    ("stride2", 1, 32, 64, torch.int16, None),
+    ("subm2", 2, 64, 64, torch.int16, None),
+    ("stride3", 2, 64, 64, torch.int32, None),
+    ("strideT1", 1, 32, 16, torch.int32, None),
+    ("strideT2", 2, 64, 32, torch.int16, None),
+    ("strideT3", 3, 64, 64, torch.int32, "padded_sample"),
+    ("subm0", 0, 4, 16, torch.int32, "tap_never_found"),
+    ("subm2", 2, 64, 64, torch.int16, "tap_never_found"),
+    ("subm1", 1, 32, 32, torch.int16, "empty_tile"),
+    ("stride2", 1, 32, 64, torch.int32, "empty_tile"),
+    ("subm0", 0, 16, 16, torch.int16, "padded_sample"),
+    ("stride3", 2, 64, 64, torch.int32, "padded_sample"),
+]
+
+
+@pytest.mark.parametrize("kind,level_in,cin,cout,dtype,case", K4_CASES)
+def test_k4_matches_plain(dev, kind, level_in, cin, cout, dtype, case):
     from sassd_tpu_torch.ops import sparse as sp
     cfg, batch, _ = tiny_rulebook(1)
-    plan = torch.from_numpy(batch[f"plan_{kind}"]).to(dtype)
+    plan = edge_plan(torch.from_numpy(batch[f"plan_{kind}"]).to(dtype), case)
     caps = (cfg.voxel.max_voxels,) + tuple(cfg.caps.level_caps[1:])
     rng = np.random.default_rng(cin + cout)
     feats = torch.from_numpy(
@@ -175,6 +208,11 @@ def test_k4_matches_plain(dev, kind, level_in, cin, cout, dtype):
     ref = sp.subm_conv_batched_plain(feats, w, plan)
     np.testing.assert_allclose(got.cpu().numpy(), ref.numpy(), rtol=1e-4,
                                atol=1e-4)
+    if case == "padded_sample":
+        assert not got[1].any()
+    if case == "empty_tile":
+        assert not got[:, 64:128].any()
+    assert (plan >= 0).any() and ref.abs().max() > 0.1
 
 
 def test_k5_matches_plain(dev):
@@ -469,6 +507,40 @@ def test_k10_and_k4_backward_match_plain(dev, kind, level_in, cin, cout):
         assert rel_err(xd.grad, xc.grad) <= 1e-5
     assert rel_err(sp.conv_weight_grad(x.to(dev), plan.to(dev), cot.to(dev)),
                    sp.conv_weight_grad_plain(x, plan, cot)) <= 1e-5
+
+
+@pytest.mark.parametrize("kind,level_in,cin,cout,dtype,case", [
+    ("subm0", 0, 4, 16, torch.int16, "tap_never_found"),
+    ("subm2", 2, 64, 64, torch.int32, "tap_never_found"),
+    ("subm1", 1, 32, 32, torch.int32, "empty_tile"),
+    ("stride2", 1, 32, 64, torch.int16, "empty_tile"),
+    ("subm0", 0, 16, 16, torch.int32, "padded_sample"),
+    ("stride3", 2, 64, 64, torch.int16, "padded_sample")])
+def test_k10_edge_plans_match_plain_and_repeat_bitwise(
+        dev, kind, level_in, cin, cout, dtype, case):
+    """K10 on the edge cases of tap skipping against its plain version
+    (1e-5 of the largest magnitude), bitwise equal over two calls, one
+    launch a call; a tap found for no row gets a zero gradient."""
+    from sassd_tpu_torch.ops import sparse as sp
+    cfg, batch, _ = tiny_rulebook(6)
+    caps = (cfg.voxel.max_voxels,) + tuple(cfg.caps.level_caps[1:])
+    plan = edge_plan(torch.from_numpy(batch[f"plan_{kind}"]).to(dtype), case)
+    rng = np.random.default_rng(cin * cout + 1)
+    x = torch.from_numpy(rng.normal(
+        size=(2, caps[level_in], cin)).astype(np.float32))
+    cot = torch.from_numpy(rng.normal(
+        size=(2, plan.shape[2], cout)).astype(np.float32))
+    args = [a.to(dev) for a in (x, plan, cot)]
+    before = sp._K10.launches
+    got = sp.conv_weight_grad(*args)
+    again = sp.conv_weight_grad(*args)
+    torch.cuda.synchronize()
+    assert sp._K10.launches == before + 2
+    assert torch.equal(got, again)
+    ref = sp.conv_weight_grad_plain(x, plan, cot)
+    assert rel_err(got, ref) <= 1e-5
+    if case == "tap_never_found":
+        assert not got[13].any()
 
 
 def test_k5b_matches_plain(dev):

@@ -64,6 +64,61 @@ def test_subm_conv_batched_matches_jax_triple(kind, level_in, cin, cout,
     assert (plan >= 0).sum() > 0 and np.abs(got).max() > 0.5
 
 
+def edge_plan(plan, case):
+    """A wire plan [B, 27, M] made into one of the edge cases of the card
+    kernels' tap skipping: a tap found for no row, a 64-row tile (rows
+    64..127) with no found row, or sample 1 all padding."""
+    p = plan.clone()
+    if case == "tap_never_found":
+        p[:, 13] = -1
+    elif case == "empty_tile":
+        p[..., 64:128] = -1
+    elif case == "padded_sample":
+        p[1] = -1
+    return p
+
+
+@pytest.mark.parametrize("kind,level_in,cin,cout,dtype,case", [
+    ("subm0", 0, 4, 16, torch.int32, "tap_never_found"),
+    ("subm2", 2, 64, 64, torch.int16, "tap_never_found"),
+    ("subm1", 1, 32, 32, torch.int32, "empty_tile"),
+    ("stride2", 1, 32, 64, torch.int16, "empty_tile"),
+    ("subm0", 0, 16, 16, torch.int16, "padded_sample"),
+    ("stride3", 2, 64, 64, torch.int32, "padded_sample"),
+    ("strideT2", 2, 64, 32, torch.int16, None),
+    ("strideT1", 1, 32, 16, torch.int32, "padded_sample")])
+def test_subm_conv_batched_edge_plans_match_jax(kind, level_in, cin, cout,
+                                                dtype, case):
+    """The plain K4 path on the edge-case plans of tap skipping and on the
+    stride convs' transpose plans (the input gradient's plan into the
+    output level) == JAX _subm_conv_raw per sample, with the unpacked
+    gather (a masked tap breaks the packed gather's adjacency)."""
+    plans, shapes, keys = tiny_rulebook(1)
+    if kind.startswith("strideT"):
+        plans = sp.device_rulebook(keys[0], shapes,
+                                   config.tiny_config().caps.level_caps[1:],
+                                   train=True, aux=False)
+    plan = edge_plan(plans[kind].to(dtype), case)
+    m_in = keys[level_in].shape[1]
+    rng = np.random.default_rng(cin + cout + 1)
+    feats = rng.normal(size=(2, m_in, cin)).astype(np.float32)
+    w = (rng.normal(size=(27, cin, cout)) / np.sqrt(27 * cin)).astype(
+        np.float32)
+    got = sp.subm_conv_batched(torch.from_numpy(feats), torch.from_numpy(w),
+                               plan).numpy()
+    for b in range(2):
+        p = jnp.asarray(plan[b].to(torch.int32).numpy())
+        ref = jsp._subm_conv_raw(jnp.asarray(feats[b]), jnp.asarray(w),
+                                 jsp.SubmPlan(jnp.maximum(p, 0), p >= 0),
+                                 jnp.float32, triple=False)
+        np.testing.assert_allclose(got[b], np.asarray(ref), atol=1e-5)
+    if case == "padded_sample":
+        assert not got[1].any()
+    if case == "empty_tile":
+        assert not got[:, 64:128].any()
+    assert (plan >= 0).sum() > 0 and np.abs(got).max() > 0.5
+
+
 def test_densify_matches_jax_to_dense():
     """Plain K5: canvas == JAX densify_bev's [B,H,W,D*C] (d-major channel
     z*C + c) transposed to NCHW, occupancy == to_dense of ones; exact."""

@@ -103,6 +103,50 @@ def test_sparse_conv_grads_match_jax(train_batch, kind, level, cin, cout):
     assert np.abs(np.asarray(jdx)).max() > 0
 
 
+def edge_plan(plan, case):
+    """A wire plan [B, 27, M] made into one of the edge cases of the card
+    kernels' tap skipping: a tap found for no row, a 64-row tile (rows
+    64..127) with no found row, or sample 1 all padding."""
+    p = np.array(plan)
+    if case == "tap_never_found":
+        p[:, 13] = -1
+    elif case == "empty_tile":
+        p[..., 64:128] = -1
+    elif case == "padded_sample":
+        p[1] = -1
+    return p
+
+
+@pytest.mark.parametrize("kind,level_in,cin,cout,dtype,case", [
+    ("subm0", 0, 4, 16, np.int16, "tap_never_found"),
+    ("subm2", 2, 64, 64, np.int32, "tap_never_found"),
+    ("subm1", 1, 32, 32, np.int32, "empty_tile"),
+    ("stride2", 1, 32, 64, np.int16, "empty_tile"),
+    ("subm0", 0, 16, 16, np.int32, "padded_sample"),
+    ("stride3", 2, 64, 64, np.int16, "padded_sample")])
+def test_conv_weight_grad_edge_plans_match_jax(train_batch, kind, level_in,
+                                               cin, cout, dtype, case):
+    """The plain K10 path (int16 or int32 plans) on the edge-case plans of
+    tap skipping == the weight gradient of JAX subm_conv_batched (jax.vjp,
+    unpacked gather); a tap found for no row gets a zero gradient."""
+    _, batch, caps = train_batch
+    rng = np.random.default_rng(cin * cout + level_in)
+    plan = edge_plan(batch[f"plan_{kind}"], case).astype(dtype)
+    x = rng.normal(size=(2, caps[level_in], cin)).astype(np.float32)
+    w = (rng.normal(size=(27, cin, cout)) / np.sqrt(27 * cin)).astype(
+        np.float32)
+    cot = rng.normal(size=(2, plan.shape[2], cout)).astype(np.float32)
+    _, vjp = jax.vjp(lambda ww: jsp.subm_conv_batched(
+        jnp.asarray(x), ww, jplan(plan.astype(np.int32)), symmetric=False,
+        triple=False), jnp.asarray(w))
+    (jdw,) = vjp(jnp.asarray(cot))
+    got = sp.conv_weight_grad_plain(t(x), t(plan), t(cot))
+    close(got, jdw)
+    if case == "tap_never_found":
+        assert not got[13].any()
+    assert np.abs(np.asarray(jdw)).max() > 0
+
+
 def test_densify_grad_matches_jax(train_batch):
     cfg, batch, caps = train_batch
     shape3 = (cfg.sparse_shape[0], cfg.sparse_shape[1], cfg.sparse_shape[2])
