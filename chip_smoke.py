@@ -72,7 +72,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
    its cap, no band overflow; the voxel count of every level is printed)
    and one denser timing scan (~70,000 voxels). Kernel checks at these
    shapes: K16 (band partition) bitwise, also with a cap that drops
-   members; K7 with each band row's y limit bitwise; K11 with per-row grid
+   members; K7 with each band row's y limit bitwise, and replicated on the
+   timing scan's level 0 (timed beside torch.unique); K11 with per-row grid
    origins (rows, weights, output bitwise; backward 1e-5). forward_test
    banded vs replicated on two scans at batch 1 (matched detections, boxes
    1e-2, scores 1e-3; launch counts of each run); one forward_train +
@@ -100,8 +101,10 @@ device plans, at batch 2 on the same scans: K13 (transpose plans) and K14
 bitwise, and K15 (exact 3-NN) at the full level sizes (rows and weights
 bitwise, its backward through K11's).
 
-K5, K5b and K7's unique pass are also timed beside one PyTorch call that
-computes their work (library_ms), a yardstick the port never calls.
+K5, K5b, K6's level-0 map, K7 (the whole op, batch 1) and K13 are also
+timed beside one PyTorch call that computes their work (library_ms), a
+yardstick the port never calls; K5 and K7 also as CUDA-graph replays
+(graph_ms: the device's time without the host's launch path).
 
 Every kernel row carries its bound: the larger of the bytes it must move
 (each input read once, each output written once, at this run's active
@@ -201,6 +204,22 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 20) -> float:
+    """Mean milliseconds per replay of fn() captured in a CUDA graph: the
+    device's time without the host's launch path (Python, ctypes)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(graph.replay, iters=iters)
 
 
 def bound(nbytes: float, ops: float) -> dict:
@@ -460,10 +479,12 @@ def check_sparse_kernels(torch, np, device, cfg, samples):
     err5 = float(max((canvas - ref_canvas).abs().max(),
                      (occ - ref_occ).abs().max()))
     ms = cuda_ms(lambda: sp.densify_nchw(keys3, x3, shapes[3]))
+    dev5_ms = graph_ms(lambda: sp.densify_nchw(keys3, x3, shapes[3]))
     plain_ms = cuda_ms(lambda: sp.densify_nchw_plain(keys3, x3, shapes[3]))
     print(f"K5 densify {tuple(x3.shape)} -> {tuple(canvas.shape)}: "
           f"{'bitwise equal to' if same5 else 'DIFFERS from'} plain; "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+          f"kernel {ms:.4f} ms ({dev5_ms:.4f} replayed from a CUDA graph), "
+          f"plain {plain_ms:.4f} ms")
     if not same5:
         fail("K5 differs from its plain version")
     d3, h3, w3 = shapes[3]
@@ -480,8 +501,8 @@ def check_sparse_kernels(torch, np, device, cfg, samples):
     rows.append(dict(name="K5 densify", route="cuda",
                      source="sassd_tpu_torch/csrc/densify.cu",
                      replaces="sassd_tpu/ops/sparse.py:835",
-                     max_abs_err=err5, ms=ms, plain_ms=plain_ms,
-                     library_ms=lib_ms,
+                     max_abs_err=err5, ms=ms, graph_ms=dev5_ms,
+                     plain_ms=plain_ms, library_ms=lib_ms,
                      library_what="torch.zeros + index_put_ of the rows "
                                   "into the NCHW canvas (no occupancy)",
                      # keys and rows in; the zeroed canvas and occupancy out
@@ -539,48 +560,68 @@ def check_sparse_kernels(torch, np, device, cfg, samples):
     ms = cuda_ms(lambda: k6(sp.build_index_map, sp.window_plan))
     plain_ms = cuda_ms(lambda: k6(sp.build_index_map_plain,
                                   sp.window_plan_plain))
-    print(f"  K6 L0 map + subm0 plan (batch 1): kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms")
     m0 = keys0.shape[1]
     total0 = shapes[0][0] * shapes[0][1] * shapes[0][2]
+    # the map alone beside one torch.full + index_put_ of the valid rows
+    map_ms = cuda_ms(lambda: sp.build_index_map(keys0, shapes[0]))
+    ok0 = keys0[0] != sp.INVALID_KEY
+    key_idx = keys0[0][ok0].long()
+    row_vals = torch.nonzero(ok0)[:, 0].to(torch.int32)
+
+    def put6():
+        imap = torch.full((total0,), -1, dtype=torch.int32, device=device)
+        imap.index_put_((key_idx,), row_vals)
+    lib6_ms = cuda_ms(put6)
+    print(f"  K6 L0 map + subm0 plan (batch 1): kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms; the map alone {map_ms:.4f} ms, one-call "
+          f"yardstick (full + index_put_) {lib6_ms:.4f} ms")
     rows.append(dict(name="K6 device_plans", route="cuda",
                      source="sassd_tpu_torch/csrc/device_plans.cu",
                      replaces="sassd_tpu/ops/sparse.py:84",
                      max_abs_err=err6, ms=ms, plain_ms=plain_ms,
-                     library_ms=None,
+                     map_ms=map_ms, library_ms=lib6_ms,
+                     library_what="torch.full(-1) + index_put_ of the valid "
+                                  "rows: the L0 map alone, against map_ms",
                      at="L0 index map + subm0 plan, batch 1",
                      # keys in, the whole map written, 27 map reads and
                      # one plan entry out per row and tap
                      **bound(m0 * 4 + total0 * 4 + 2 * 27 * m0 * 4, 0)))
-    ms = cuda_ms(lambda: sp.downsample_keys(keys0, shapes[0], caps[1]))
-    plain_ms = cuda_ms(lambda: sp.downsample_keys_plain(keys0, shapes[0],
-                                                        caps[1]))
-    print(f"  K7 L0->L1 downsample (batch 1, incl. torch.sort): kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
-    n_cand = 8 * m0
-    # K7's unique pass alone beside one torch.unique_consecutive of the
-    # same sorted candidates
-    s7 = torch.sort(sp.downsample_candidates(keys0, shapes[0]),
-                    dim=1).values
-    out7 = torch.empty((1, caps[1]), dtype=torch.int32, device=device)
-    unique_ms = cuda_ms(lambda: sp._K7_UNIQUE.launch(
-        s7.data_ptr(), 1, n_cand, caps[1], out7.data_ptr()))
-    lib_ms = cuda_ms(lambda: torch.unique_consecutive(s7[0]))
-    print(f"  K7 unique pass alone {unique_ms:.4f} ms; "
-          f"torch.unique_consecutive {lib_ms:.4f} ms")
-    rows.append(dict(name="K7 downsample", route="cuda",
-                     source="sassd_tpu_torch/csrc/downsample.cu",
-                     replaces="sassd_tpu/ops/sparse.py:618",
-                     max_abs_err=err7, ms=ms, plain_ms=plain_ms,
-                     unique_pass_ms=unique_ms, library_ms=lib_ms,
-                     library_what="torch.unique_consecutive of the sorted "
-                                  "candidates, against unique_pass_ms",
-                     at="L0 -> L1, batch 1, torch.sort included",
-                     # keys in, the capped level out; a comparison sort of
-                     # the 8 candidates a row
-                     **bound(m0 * 4 + caps[1] * 4,
-                             n_cand * int(np.ceil(np.log2(n_cand))))))
+    rows.append(k7_row(torch, sp, keys0, shapes[0], caps[1], err7,
+                       "K7 downsample", "L0 -> L1, batch 1, the car scan"))
     return rows
+
+
+def k7_row(torch, sp, keys, shape, cap, err, name, at, y_limit=None):
+    """K7's kernel row: the whole op (K7 on the card) against its plain
+    version and, on one row, torch.unique of its candidates (one call,
+    sorted: the same set before the cap), on [B, M] keys."""
+    ms = cuda_ms(lambda: sp.downsample_keys(keys, shape, cap, y_limit))
+    dev_ms = graph_ms(lambda: sp.downsample_keys(keys, shape, cap, y_limit))
+    plain_ms = cuda_ms(lambda: sp.downsample_keys_plain(keys, shape, cap,
+                                                        y_limit))
+    b = keys.shape[0]
+    lib_ms = None
+    if b == 1:
+        cands = sp.downsample_candidates(keys, shape, y_limit)[0]
+        lib_ms = cuda_ms(lambda: torch.unique(cands))
+    print(f"  {name} ({at}): kernel {ms:.4f} ms ({dev_ms:.4f} replayed from "
+          f"a CUDA graph), plain {plain_ms:.4f} ms; torch.unique of the "
+          f"{8 * keys.shape[1]} candidates "
+          f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}")
+    return dict(name=name, route="cuda",
+                source="sassd_tpu_torch/csrc/downsample.cu",
+                replaces="sassd_tpu/ops/sparse.py:618" if y_limit is None
+                else "sassd_tpu/ops/sparse.py:590",
+                max_abs_err=err, ms=ms, graph_ms=dev_ms, plain_ms=plain_ms,
+                library_ms=lib_ms,
+                library_what="torch.unique of the candidates (sorted, "
+                             "uncapped); batch 1 only",
+                at=at,
+                # the function's bytes: keys (and limits) in, the capped
+                # levels out; 8 parent keys a row
+                **bound(keys.numel() * 4 + b * cap * 4
+                        + (0 if y_limit is None else b * 4),
+                        8 * keys.numel()))
 
 
 def check_serving_kernels(torch, np, device, cfg, scans, anchors_bv):
@@ -986,8 +1027,18 @@ def check_train_plan_kernels(torch, np, device, cfg, samples):
         ms = cuda_ms(lambda: sp.stride_plan_T(plan, caps[lvl - 1]))
         plain_ms = cuda_ms(lambda: sp.stride_plan_T_plain(plan,
                                                           caps[lvl - 1]))
+        # one torch.full + index_put_ of the plan's found entries
+        bk, kk, oo = torch.nonzero(plan >= 0, as_tuple=True)
+        put_idx = (bk, kk, plan[bk, kk, oo].long())
+        put_val = oo.to(torch.int32)
+        shape_t = tuple(got.shape)
+
+        def put13():
+            out = torch.full(shape_t, -1, dtype=torch.int32, device=device)
+            out.index_put_(put_idx, put_val)
+        lib_ms = cuda_ms(put13)
         k13.append((lvl, ms, plain_ms, bound(
-            plan.numel() * 4 + got.numel() * 4, 0)))
+            plan.numel() * 4 + got.numel() * 4, 0), lib_ms))
         keys = sp.coords_to_keys(batch[f"plan_coords{lvl}"], shapes[lvl])
         imap = sp.build_index_map(keys, shapes[lvl])
         got = sp.aux_plan(cell0, lvl, imap, shapes[lvl])
@@ -1003,7 +1054,7 @@ def check_train_plan_kernels(torch, np, device, cfg, samples):
         # cells in, 27 map reads a valid row (at most the map), plan out
         k14.append((lvl, ms, plain_ms, bound(
             cell0.numel() * 4 + min(27 * n_valid, imap.numel()) * 4
-            + got.numel() * 4, 0)))
+            + got.numel() * 4, 0), None))
         del imap
     print(f"K13 stride_plan_T, K14 aux_plan, batch 2, levels 1-3: entries "
           f"differing (from plain, from the C++ train rulebook): {diff}; "
@@ -1011,23 +1062,30 @@ def check_train_plan_kernels(torch, np, device, cfg, samples):
     if any(a or b for a, b in diff.values()):
         fail("K13 or K14 differs from its plain version or the C++ train "
              "rulebook")
-    for name, src_line, parts, prefix in (
+    for name, src_line, parts, prefix, lib_what in (
             ("K13 stride_plan_T", "sassd_tpu/ops/sparse.py:732", k13,
-             "strideT"),
-            ("K14 aux_plan", "sassd_tpu/ops/sparse.py:785", k14, "aux")):
+             "strideT", "torch.full(-1) + index_put_ of the forward plan's "
+                        "found entries"),
+            ("K14 aux_plan", "sassd_tpu/ops/sparse.py:785", k14, "aux",
+             None)):
         rows.append(dict(name=name, route="cuda",
                          source="sassd_tpu_torch/csrc/device_plans.cu",
                          replaces=src_line,
                          max_abs_err=max(v for k, v in err.items()
                                          if k.startswith(prefix)),
-                         ms=sum(m for _, m, _, _ in parts),
-                         plain_ms=sum(m for _, _, m, _ in parts),
-                         library_ms=None, at="batch 2, sum over levels 1-3",
-                         per_level={lv: dict(ms=m, plain_ms=pm, **bd)
-                                    for lv, m, pm, bd in parts},
-                         **add_bounds([bd for *_, bd in parts])))
-        print(f"  {name} per level (kernel, plain ms): "
-              f"{[(lv, round(m, 4), round(pm, 4)) for lv, m, pm, _ in parts]}")
+                         ms=sum(m for _, m, *_ in parts),
+                         plain_ms=sum(m for _, _, m, *_ in parts),
+                         library_ms=(lib_what and
+                                     sum(lm for *_, lm in parts)),
+                         library_what=lib_what,
+                         at="batch 2, sum over levels 1-3",
+                         per_level={lv: dict(ms=m, plain_ms=pm,
+                                             library_ms=lm, **bd)
+                                    for lv, m, pm, bd, lm in parts},
+                         **add_bounds([bd for *_, bd, _ in parts])))
+        per = [(lv, round(m, 4), round(pm, 4), lm and round(lm, 4))
+               for lv, m, pm, _, lm in parts]
+        print(f"  {name} per level (kernel, plain, one-call ms): {per}")
 
     # K15 at the three levels: the voxel centroids of both scans against
     # every cell centre of the level
@@ -1723,7 +1781,8 @@ def check_banded_kernels(torch, np, device, cfg, spec, batch, timing):
     rulebook, bitwise; K11 with per-row grid origins at levels 1-3: rows,
     weights and output bitwise, its backward within TRAIN_GRAD_RTOL.
     Timed: K16 and K7 (L0 -> L1) on the timing scan (batch 1, 4 band
-    rows), K11 at batch 2."""
+    rows), K7 replicated (L0 -> L1 of the timing scan, bitwise), K11 at
+    batch 2."""
     from sassd_tpu_torch.models import backbone
     from sassd_tpu_torch.ops import interpolate as itp
     from sassd_tpu_torch.ops import sparse as sp
@@ -1802,26 +1861,29 @@ def check_banded_kernels(torch, np, device, cfg, spec, batch, timing):
     tkeys = sp.coords_to_keys(ss.partition(tc, tv, spec)[0].reshape(
         spec.s, -1, 3), bshapes[0])
     ty = ss.y_top_rows(cfg, spec, 1, device) >> 1
-    ms = cuda_ms(lambda: sp.downsample_keys(tkeys, bshapes[0], spec.caps[1],
-                                            ty))
-    plain_ms = cuda_ms(lambda: sp.downsample_keys_plain(
-        tkeys, bshapes[0], spec.caps[1], ty))
-    print(f"  K7' L0->L1 with y_top (batch 1, {spec.s} band rows, incl. "
-          f"torch.sort): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    n_cand = 8 * tkeys.shape[1]
-    rows.append(dict(name="K7' downsample_y_top", route="cuda",
-                     source="sassd_tpu_torch/csrc/downsample.cu",
-                     replaces="sassd_tpu/ops/sparse.py:590",
-                     max_abs_err=err7, ms=ms, plain_ms=plain_ms,
-                     library_ms=None,
-                     at=f"L0 -> L1 of the timing scan's {spec.s} band rows, "
-                        f"torch.sort included",
-                     # keys and limits in, the capped levels out; a
-                     # comparison sort of each row's candidates
-                     **bound(tkeys.numel() * 4 + spec.s * 4
-                             + spec.s * spec.caps[1] * 4,
-                             spec.s * n_cand
-                             * int(np.ceil(np.log2(n_cand))))))
+    rows.append(k7_row(torch, sp, tkeys, bshapes[0], spec.caps[1], err7,
+                       "K7' downsample_y_top",
+                       f"L0 -> L1 of the timing scan's {spec.s} band rows",
+                       ty))
+
+    # K7 replicated at long range: L0 -> L1 of the timing scan, batch 1
+    rshapes = backbone.level_shapes(cfg.sparse_shape)
+    rkeys = sp.coords_to_keys(tc, rshapes[0])
+    cap1 = cfg.caps.level_caps[1]
+    got = sp.downsample_keys(rkeys, rshapes[0], cap1)
+    ref = sp.downsample_keys_plain(rkeys, rshapes[0], cap1)
+    err_lr = float((got.long() - ref.long()).abs().max())
+    n0 = int((rkeys != sp.INVALID_KEY).sum())
+    n1 = int((ref != sp.INVALID_KEY).sum())
+    print(f"K7 downsample, long range replicated, L0 -> L1 of the timing "
+          f"scan ({n0} voxels -> {n1} rows, cap {cap1}): max|kernel-plain| "
+          f"{err_lr:g}")
+    if err_lr:
+        fail("K7 differs from its plain version at long range")
+    rows.append(k7_row(torch, sp, rkeys, rshapes[0], cap1, err_lr,
+                       "K7 downsample_long_range",
+                       "L0 -> L1 of the long-range timing scan, replicated, "
+                       "batch 1"))
 
     # K11 with per-row origins on the band train rulebook's aux plans
     plans = sp.device_rulebook(keys0, bshapes, spec.caps[1:], train=True,

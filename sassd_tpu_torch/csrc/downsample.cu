@@ -10,133 +10,213 @@
 // at the output grid's upper edge; with a limit array, a parent at output
 // y >= min(y_limit[b], oh) is cut too (a band whose grid runs past the
 // global grid's top clips there, as the replicated grid does; without the
-// array the candidates are those of the unlimited kernel, bit for bit).
-// The output level is the sorted union of
-// the parents, capped at `cap` rows: the lowest keys win the cap, the tail
-// is INVALID_KEY. This equals the C++ host rulebook's level arrays.
+// array the parents are those of the unlimited kernel, bit for bit).
+// The output level is the sorted union of the parents, capped at `cap`
+// rows: the lowest keys win the cap, the tail is INVALID_KEY. This equals
+// the C++ host rulebook's level arrays.
 //
-// Two kernels around a stock sort (torch.sort, as the TPU version uses
-// jnp.sort): `candidates` writes the [B, 8 * M] parent keys (INVALID_KEY
-// where the voxel is padding or the parent is off the grid); `unique`
-// takes the sorted candidates of one sample per block, marks the first of
-// each run of equal valid keys, ranks the marks with a block-wide scan and
-// writes each marked key to its rank if the rank is below the cap.
+// Design: no candidates array and no sort. Three kernels after a memset of
+// a one-bit-per-cell bitmap of the output grid, each row of it padded to a
+// whole number of 1,024-word tiles (32,768 cells):
+// - mark: one thread per input row sets its parents' bits with atomicOr
+//   (one atomic per 32-bit word touched; OR is idempotent, so the bitmap
+//   does not depend on the order of the writes);
+// - count: one block per (tile, sample) writes the popcount of its tile;
+// - write: one block per (tile, sample) sums the counts of the tiles before
+//   it (its base) and of all tiles (the total), ranks its words' set bits
+//   with a block scan and writes key word * 32 + bit to rank base + r while
+//   that is below the cap, so the output comes out ascending; every block
+//   fills its share of the INVALID_KEY tail [total, cap).
+// Ranks follow the bit order, which is the key order, so the result is
+// deterministic and bitwise the sort-based plain version's.
 //
-// Bound on the H100: latency. 8 x 20000 candidates at L0 are 640 KB; the
-// sort dominates. One block of 1024 threads per sample walks 160k sorted
-// keys in contiguous chunks of ~157, so the scan is one pass of counts,
-// one block scan of 1024 partial sums and one pass of writes, with no
-// atomics and a deterministic result.
+// Memory: the bitmap is (od * oh * ow) / 8 bytes a sample: 1.41 MB at the
+// car config's L1 ([20, 800, 704], 344 tiles), 2.05 MB at long range's L1
+// ([20, 800, 1024], 500 tiles), 0.68 MB at a long-range band row's L1
+// ([20, 264, 1024], 165 tiles); it stays in the H100's 50 MB L2 between the
+// passes. The wrapper allocates it and the tile counts; this file only
+// clears the bitmap (cudaMemsetAsync) before marking it.
+//
+// Bound on the H100: bytes, the input keys read and the capped level
+// written once (0.15 MB at the car's L0 -> L1, ~0.05 us at 3.35 TB/s); the
+// passes are latency bound. The bitmap costs one 1.4-2 MB memset and two
+// coalesced 16-byte-a-thread reads of it; the write pass's per-block base
+// reads at most ~500 tile counts from L2.
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kInvalidKey = 0x7fffffff;
-constexpr int kUniqueThreads = 1024;
+constexpr int kThreads = 256;
+constexpr int kWordsPerThread = 4;                          // one uint4
+constexpr int kTileWords = kThreads * kWordsPerThread;      // 32,768 cells
 
-__global__ void candidates_kernel(const int* __restrict__ keys, int m, int h,
-                                  int w, int od, int oh, int ow,
-                                  const int* __restrict__ y_limit,
-                                  int* __restrict__ cands) {
+// Calls emit(key) for each distinct parent of input cell (z, y, x) on the
+// output grid (od, oh, ow) below output row y_hi, in ascending key order
+// (at most 8).
+template <class Emit>
+__device__ __forceinline__ void for_each_parent(int z, int y, int x, int od,
+                                                int oh, int ow, int y_hi,
+                                                Emit emit) {
+  for (int cz = z / 2; cz <= (z + 1) / 2 && cz < od; ++cz) {
+    for (int cy = y / 2; cy <= (y + 1) / 2 && cy < y_hi; ++cy) {
+      for (int cx = x / 2; cx <= (x + 1) / 2 && cx < ow; ++cx) {
+        emit((cz * oh + cy) * ow + cx);
+      }
+    }
+  }
+}
+
+__global__ void downsample_mark_kernel(const int* __restrict__ keys, int m,
+                                       int d, int h, int w, int od, int oh,
+                                       int ow,
+                                       const int* __restrict__ y_limit,
+                                       long long stride,
+                                       unsigned* __restrict__ bitmap) {
   const int row = blockIdx.x * blockDim.x + threadIdx.x;
   const int b = blockIdx.y;
   if (row >= m) return;
-  const int y_hi = y_limit != nullptr ? min(y_limit[b], oh) : oh;
   const int key = keys[static_cast<long long>(b) * m + row];
-  int* cb = cands + static_cast<long long>(b) * 8 * m + row;
-  if (key == kInvalidKey) {
-    for (int s = 0; s < 8; ++s) cb[static_cast<long long>(s) * m] = kInvalidKey;
+  if (key == kInvalidKey || key < 0 ||
+      key >= static_cast<long long>(d) * h * w) {
     return;
   }
-  const int x = key % w;
-  const int y = (key / w) % h;
-  const int z = key / (w * h);
-  for (int s = 0; s < 8; ++s) {           // (sz, sy, sx) row-major
-    const int cz = (s & 4) ? (z + 1) / 2 : z / 2;
-    const int cy = (s & 2) ? (y + 1) / 2 : y / 2;
-    const int cx = (s & 1) ? (x + 1) / 2 : x / 2;
-    const bool ok = cz < od && cy < y_hi && cx < ow;
-    cb[static_cast<long long>(s) * m] = ok ? (cz * oh + cy) * ow + cx
-                                           : kInvalidKey;
+  const int y_hi = y_limit != nullptr ? min(y_limit[b], oh) : oh;
+  unsigned* bm = bitmap + static_cast<long long>(b) * stride;
+  int word = -1;                      // parents ascend: one atomic per word
+  unsigned mask = 0u;
+  for_each_parent(key / (w * h), (key / w) % h, key % w, od, oh, ow, y_hi,
+                  [&](int p) {
+                    if ((p >> 5) != word) {
+                      if (mask) atomicOr(bm + word, mask);
+                      word = p >> 5;
+                      mask = 0u;
+                    }
+                    mask |= 1u << (p & 31);
+                  });
+  if (mask) atomicOr(bm + word, mask);
+}
+
+// Sum of v over the block; `red` holds kThreads / 32 ints.
+__device__ __forceinline__ int block_sum(int v, int* red) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    v += __shfl_xor_sync(0xffffffffu, v, off);
   }
+  __syncthreads();                    // red may still be read by a caller
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  int t = 0;
+#pragma unroll
+  for (int i = 0; i < kThreads / 32; ++i) t += red[i];
+  return t;
 }
 
-__device__ __forceinline__ bool is_first(const int* s, int i) {
-  return s[i] != kInvalidKey && (i == 0 || s[i] != s[i - 1]);
-}
-
-__global__ void __launch_bounds__(kUniqueThreads)
-unique_kernel(const int* __restrict__ sorted, int n, int cap,
-              int* __restrict__ out) {
-  __shared__ int warp_sums[kUniqueThreads / 32];
-  const int b = blockIdx.x;
-  const int* s = sorted + static_cast<long long>(b) * n;
-  int* o = out + static_cast<long long>(b) * cap;
-  const int tid = threadIdx.x;
-  const int chunk = (n + kUniqueThreads - 1) / kUniqueThreads;
-  const int lo = min(tid * chunk, n);
-  const int hi = min(lo + chunk, n);
-  int count = 0;
-  for (int i = lo; i < hi; ++i) count += is_first(s, i) ? 1 : 0;
-
-  // block-wide inclusive scan of the per-thread counts
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  int v = count;
+// Exclusive prefix sum of v over the block's threads in thread order.
+__device__ __forceinline__ int block_exclusive_scan(int v, int* red) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int s = v;
 #pragma unroll
   for (int off = 1; off < 32; off <<= 1) {
-    const int u = __shfl_up_sync(0xffffffffu, v, off);
-    if (lane >= off) v += u;
-  }
-  if (lane == 31) warp_sums[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    int t = warp_sums[lane];              // kUniqueThreads / 32 == 32 warps
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const int u = __shfl_up_sync(0xffffffffu, t, off);
-      if (lane >= off) t += u;
-    }
-    warp_sums[lane] = t;
+    const int u = __shfl_up_sync(0xffffffffu, s, off);
+    if (lane >= off) s += u;
   }
   __syncthreads();
-  int rank = v - count + (warp > 0 ? warp_sums[warp - 1] : 0);
-  const int total = warp_sums[kUniqueThreads / 32 - 1];
+  if (lane == 31) red[warp] = s;
+  __syncthreads();
+  int before = 0;
+  for (int i = 0; i < warp; ++i) before += red[i];
+  return before + s - v;
+}
 
-  for (int i = lo; i < hi && rank < cap; ++i) {
-    if (is_first(s, i)) {
-      o[rank] = s[i];
-      ++rank;
+__device__ __forceinline__ int popc4(const uint4& q) {
+  return __popc(q.x) + __popc(q.y) + __popc(q.z) + __popc(q.w);
+}
+
+__global__ void __launch_bounds__(kThreads)
+downsample_count_kernel(const unsigned* __restrict__ bitmap, int tiles,
+                        int* __restrict__ tile_counts) {
+  __shared__ int red[kThreads / 32];
+  const int t = blockIdx.x;
+  const int b = blockIdx.y;
+  const uint4 q = reinterpret_cast<const uint4*>(
+      bitmap + (static_cast<long long>(b) * tiles + t) * kTileWords)
+      [threadIdx.x];
+  const int n = block_sum(popc4(q), red);
+  if (threadIdx.x == 0) tile_counts[static_cast<long long>(b) * tiles + t] = n;
+}
+
+__global__ void __launch_bounds__(kThreads)
+downsample_write_kernel(const unsigned* __restrict__ bitmap,
+                        const int* __restrict__ tile_counts, int tiles,
+                        int cap, int* __restrict__ out) {
+  __shared__ int red[kThreads / 32];
+  const int t = blockIdx.x;
+  const int b = blockIdx.y;
+  const int* tc = tile_counts + static_cast<long long>(b) * tiles;
+  int before = 0, all = 0;
+  for (int i = threadIdx.x; i < tiles; i += kThreads) {
+    const int c = tc[i];
+    all += c;
+    if (i < t) before += c;
+  }
+  before = block_sum(before, red);
+  all = block_sum(all, red);
+  int* o = out + static_cast<long long>(b) * cap;
+  for (long long i = all + static_cast<long long>(t) * kThreads + threadIdx.x;
+       i < cap; i += static_cast<long long>(tiles) * kThreads) {
+    o[i] = kInvalidKey;
+  }
+  if (before >= cap) return;          // uniform over the block
+  const long long word0 = static_cast<long long>(t) * kTileWords +
+                          threadIdx.x * kWordsPerThread;
+  const uint4 q = reinterpret_cast<const uint4*>(
+      bitmap + static_cast<long long>(b) * tiles * kTileWords + word0)[0];
+  int rank = before + block_exclusive_scan(popc4(q), red);
+  const unsigned words[kWordsPerThread] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+  for (int j = 0; j < kWordsPerThread; ++j) {
+    unsigned v = words[j];
+    const int cell0 = static_cast<int>((word0 + j) * 32);
+    while (v != 0u && rank < cap) {
+      o[rank++] = cell0 + __ffs(v) - 1;
+      v &= v - 1u;
     }
   }
-  for (int i = total + tid; i < cap; i += kUniqueThreads) o[i] = kInvalidKey;
 }
 
 }  // namespace
 
-// keys [batch, m] int32 on the input grid (d, h, w); y_limit [batch] int32
-// exclusive output-y bounds, or null for none; cands [batch, 8 * m] int32 on
-// the output grid (od, oh, ow).
-extern "C" int sassd_downsample_candidates(const int* keys, int batch, int m,
-                                           int h, int w, int od, int oh,
-                                           int ow, const int* y_limit,
-                                           int* cands, void* stream) {
-  if (batch > 0 && m > 0) {
-    const int threads = 256;
-    const dim3 grid((m + threads - 1) / threads, batch);
-    candidates_kernel<<<grid, threads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-        keys, m, h, w, od, oh, ow, y_limit, cands);
+// keys [batch, m] int32 on the input grid (d, h, w), ascending or not;
+// y_limit [batch] int32 exclusive output-y bounds, or null for none;
+// bitmap [batch, tiles * 1024] 32-bit words, tiles = ceil(od * oh * ow /
+// 32768), cleared here; tile_counts [batch, tiles] int32; out [batch, cap]
+// int32 on the output grid (od, oh, ow).
+extern "C" int sassd_downsample(const int* keys, int batch, int m, int d,
+                                int h, int w, int od, int oh, int ow,
+                                const int* y_limit, int tiles,
+                                unsigned* bitmap, int* tile_counts, int cap,
+                                int* out, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (batch <= 0 || cap <= 0 || tiles <= 0) {
+    return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// sorted [batch, n] int32 ascending per sample; out [batch, cap] int32.
-extern "C" int sassd_unique_sorted(const int* sorted, int batch, int n,
-                                   int cap, int* out, void* stream) {
-  if (batch > 0 && cap > 0) {
-    unique_kernel<<<batch, kUniqueThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(sorted, n, cap, out);
+  const long long stride = static_cast<long long>(tiles) * kTileWords;
+  cudaError_t err = cudaMemsetAsync(
+      bitmap, 0, sizeof(unsigned) * static_cast<size_t>(batch) * stride, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (m > 0) {
+    const dim3 grid((m + kThreads - 1) / kThreads, batch);
+    downsample_mark_kernel<<<grid, kThreads, 0, s>>>(
+        keys, m, d, h, w, od, oh, ow, y_limit, stride, bitmap);
   }
+  const dim3 tgrid(tiles, batch);
+  downsample_count_kernel<<<tgrid, kThreads, 0, s>>>(bitmap, tiles,
+                                                     tile_counts);
+  downsample_write_kernel<<<tgrid, kThreads, 0, s>>>(bitmap, tile_counts,
+                                                     tiles, cap, out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -52,7 +52,7 @@ _K4 = cuda.Kernel("sassd_sparse_conv",
                    cuda.P, cuda.I, cuda.P])
 _K5 = cuda.Kernel("sassd_densify",
                   [cuda.P, cuda.P, cuda.I, cuda.I, cuda.I, cuda.I, cuda.I,
-                   cuda.I, cuda.P, cuda.P])
+                   cuda.I, cuda.P, cuda.P, cuda.P])
 _K5B = cuda.Kernel("sassd_densify_bwd",
                    [cuda.P, cuda.P, cuda.I, cuda.I, cuda.I, cuda.I, cuda.I,
                     cuda.I, cuda.P])
@@ -69,11 +69,12 @@ _K6_MAP = cuda.Kernel("sassd_index_map",
 _K6_PLAN = cuda.Kernel("sassd_window_plan",
                        [cuda.P, cuda.I, cuda.I, cuda.I, cuda.I, cuda.I,
                         cuda.P, cuda.I, cuda.I, cuda.I, cuda.P])
-_K7_CANDS = cuda.Kernel("sassd_downsample_candidates",
-                        [cuda.P, cuda.I, cuda.I, cuda.I, cuda.I, cuda.I,
-                         cuda.I, cuda.I, cuda.P, cuda.P])
-_K7_UNIQUE = cuda.Kernel("sassd_unique_sorted",
-                         [cuda.P, cuda.I, cuda.I, cuda.I, cuda.P])
+_K7 = cuda.Kernel("sassd_downsample",
+                  [cuda.P, cuda.I, cuda.I, cuda.I, cuda.I, cuda.I, cuda.I,
+                   cuda.I, cuda.I, cuda.P, cuda.I, cuda.P, cuda.P, cuda.I,
+                   cuda.P])
+# K7's bitmap tile: 1024 32-bit words (32,768 output cells) a block
+K7_TILE_CELLS = 32768
 _K13 = cuda.Kernel("sassd_stride_plan_t",
                    [cuda.P, cuda.I, cuda.I, cuda.I, cuda.P])
 _K14 = cuda.Kernel("sassd_aux_plan",
@@ -86,7 +87,7 @@ KERNEL_SYMBOLS = {
     "K5b": ("sassd_densify_bwd",),
     "K10": ("sassd_sparse_conv_dw",),
     "K6": ("sassd_index_map", "sassd_window_plan"),
-    "K7": ("sassd_downsample_candidates", "sassd_unique_sorted"),
+    "K7": ("sassd_downsample",),
     "K13": ("sassd_stride_plan_t",),
     "K14": ("sassd_aux_plan",),
 }
@@ -378,12 +379,15 @@ def _densify_k5(keys: torch.Tensor, feats: torch.Tensor,
                          f"{tuple(feats.shape)}")
     d, h, w = shape_zyx
     with torch.cuda.device(feats.device):
-        canvas = torch.zeros((b, d * c, h, w), dtype=torch.float32,
+        # K5 writes every element of both outputs; the row map is scratch
+        row_map = torch.empty((b, d * h * w), dtype=torch.int32,
+                              device=feats.device)
+        canvas = torch.empty((b, d * c, h, w), dtype=torch.float32,
                              device=feats.device)
-        occ = torch.zeros((b, d, 1, h, w), dtype=torch.float32,
+        occ = torch.empty((b, d, 1, h, w), dtype=torch.float32,
                           device=feats.device)
         _K5.launch(keys.data_ptr(), feats.data_ptr(), b, m, c, d, h, w,
-                   canvas.data_ptr(), occ.data_ptr())
+                   row_map.data_ptr(), canvas.data_ptr(), occ.data_ptr())
     return canvas, occ
 
 
@@ -669,7 +673,8 @@ def downsample_keys(keys: torch.Tensor, shape_zyx: Tuple[int, int, int],
     [B, cap] ascending keys on the output grid, INVALID_KEY padded; the
     lowest keys win the cap. y_limit: optional [B] int32 exclusive bound
     on the output y of each row (the banded stage's global grid top in
-    band coordinates). K7 (around torch.sort) on the card."""
+    band coordinates). Keys must lie on `shape_zyx`. K7 on the card: a
+    bitmap of the output grid, ranked, no sort."""
     if keys.device.type == "cpu":
         return downsample_keys_plain(keys, shape_zyx, cap, y_limit)
     cuda.check_cuda("keys", keys, torch.int32, 2)
@@ -681,15 +686,17 @@ def downsample_keys(keys: torch.Tensor, shape_zyx: Tuple[int, int, int],
                              f"keys {tuple(keys.shape)}")
     d, h, w = shape_zyx
     od, oh, ow = out_shape_stride2(shape_zyx)
+    tiles = -(-(od * oh * ow) // K7_TILE_CELLS)
+    words = b * tiles * (K7_TILE_CELLS // 32)
     with torch.cuda.device(keys.device):
-        cands = torch.empty((b, 8 * m), dtype=torch.int32,
-                            device=keys.device)
-        _K7_CANDS.launch(keys.data_ptr(), b, m, h, w, od, oh, ow,
-                         None if y_limit is None else y_limit.data_ptr(),
-                         cands.data_ptr())
-        s = torch.sort(cands, dim=1).values
+        # scratch: the bitmap (cleared by K7), then the per-tile counts
+        work = torch.empty(words + b * tiles, dtype=torch.int32,
+                           device=keys.device)
         out = torch.empty((b, cap), dtype=torch.int32, device=keys.device)
-        _K7_UNIQUE.launch(s.data_ptr(), b, 8 * m, cap, out.data_ptr())
+        _K7.launch(keys.data_ptr(), b, m, d, h, w, od, oh, ow,
+                   None if y_limit is None else y_limit.data_ptr(), tiles,
+                   work.data_ptr(), work.data_ptr() + 4 * words, cap,
+                   out.data_ptr())
     return out
 
 

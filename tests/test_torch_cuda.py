@@ -215,19 +215,138 @@ def test_k4_matches_plain(dev, kind, level_in, cin, cout, dtype, case):
     assert (plan >= 0).any() and ref.abs().max() > 0.1
 
 
-def test_k5_matches_plain(dev):
+INVALID = np.iinfo(np.int32).max
+
+
+def sorted_keys(rng, shape_zyx, counts, m):
+    """[len(counts), m] int32 rows of distinct ascending random keys on the
+    grid, counts[i] valid in row i, INVALID padded."""
+    d, h, w = shape_zyx
+    out = np.full((len(counts), m), INVALID, np.int32)
+    for i, n in enumerate(counts):
+        out[i, :n] = np.sort(rng.choice(d * h * w, n, replace=False))
+    return out
+
+
+def k5_edge_case(name, c):
+    """(shape_zyx, [B, M] int32 keys, [B, M, c] float32 rows, zero on
+    padding) of one of K5's edge cases: a grid whose W is not a multiple of
+    4 ("w_not_4"), sample 1 all padding ("empty_row"), or keys off the grid
+    (negative, D*H*W and above) among the rows ("out_of_range"; those keys
+    must write nothing)."""
+    rng = np.random.default_rng(len(name) + c)
+    shape = (3, 10, 13) if name == "w_not_4" else (2, 8, 12)
+    counts = {"w_not_4": (120, 60), "empty_row": (50, 0),
+              "out_of_range": (50, 40)}[name]
+    keys = sorted_keys(rng, shape, counts, 64 if name != "w_not_4" else 128)
+    if name == "out_of_range":
+        total = shape[0] * shape[1] * shape[2]
+        keys[0, 50:53] = (-5, total, total + 3)
+        keys[1, 0] = -1
+    feats = rng.normal(size=keys.shape + (c,)).astype(np.float32)
+    feats[keys == INVALID] = 0.0
+    return shape, keys, feats
+
+
+@pytest.mark.parametrize("case,c", [("tiny", 64), ("w_not_4", 24),
+                                    ("empty_row", 64), ("out_of_range", 64)])
+def test_k5_matches_plain(dev, case, c):
+    """K5 == its plain version bitwise, one launch a call: the tiny
+    config's level 3 at batch 2 and the edge cases (W % 4 != 0 takes the
+    scalar stores; C 24 a partial channel chunk; off-grid keys are held to
+    the plain version with those keys made padding)."""
     from sassd_tpu_torch.ops import sparse as sp
-    _, batch, shapes = tiny_rulebook(2)
-    keys = sp.coords_to_keys(torch.from_numpy(batch["plan_coords3"]),
-                             shapes[3])
-    feats = torch.from_numpy(np.random.default_rng(3).normal(
-        size=tuple(keys.shape) + (64,)).astype(np.float32))
-    feats[keys == sp.INVALID_KEY] = 0.0
-    canvas, occ = sp.densify_nchw(keys.to(dev), feats.to(dev), shapes[3])
+    if case == "tiny":
+        _, batch, shapes = tiny_rulebook(2)
+        shape = shapes[3]
+        keys = sp.coords_to_keys(torch.from_numpy(batch["plan_coords3"]),
+                                 shape)
+        feats = torch.from_numpy(np.random.default_rng(3).normal(
+            size=tuple(keys.shape) + (c,)).astype(np.float32))
+        feats[keys == sp.INVALID_KEY] = 0.0
+    else:
+        shape, keys, feats = k5_edge_case(case, c)
+        keys, feats = torch.from_numpy(keys), torch.from_numpy(feats)
+    total = shape[0] * shape[1] * shape[2]
+    ref_keys = torch.where((keys >= 0) & (keys < total), keys, sp.INVALID_KEY)
+    before = sp._K5.launches
+    canvas, occ = sp.densify_nchw(keys.to(dev), feats.to(dev), shape)
     torch.cuda.synchronize()
-    ref_canvas, ref_occ = sp.densify_nchw_plain(keys, feats, shapes[3])
+    assert sp._K5.launches == before + 1
+    ref_canvas, ref_occ = sp.densify_nchw_plain(ref_keys, feats, shape)
     assert torch.equal(canvas.cpu(), ref_canvas)
     assert torch.equal(occ.cpu(), ref_occ)
+    assert occ.sum() == (ref_keys != sp.INVALID_KEY).sum() > 0
+
+
+# K7's output grid in the edge cases: 10 x 50 x 80 = 40,000 cells, 1,250
+# bitmap words, two tiles of 1,024 words, the second partial
+K7_BIG = (20, 100, 160)
+
+
+def k7_edge_case(name):
+    """(shape_zyx, [B, M] int32 keys, cap, [B] int32 y limit or None) of
+    one of K7's edge cases: a cap that cuts the second bitmap tile
+    ("cap_in_tile") or equals row 0's unique count ("cap_at_count"), an
+    all-padding row among rows of other counts ("padding_row"), a single
+    key at the grid's last cell ("last_cell"), limits 0 ("y_limit_0") and
+    at or above the output height ("y_limit_high"), and a 75-cell output
+    grid of 3 words ("small_grid")."""
+    from sassd_tpu_torch.ops import sparse as sp
+    rng = np.random.default_rng(sum(map(ord, name)))
+    shape, y_limit = K7_BIG, None
+    if name == "last_cell":
+        keys = np.full((1, 8), INVALID, np.int32)
+        keys[0, 0] = shape[0] * shape[1] * shape[2] - 1
+    elif name == "padding_row":
+        keys = sorted_keys(rng, shape, (2000, 0, 900), 2048)
+    elif name == "small_grid":
+        shape = (6, 10, 9)
+        keys = sorted_keys(rng, shape, (200, 37), 256)
+        y_limit = np.array([3, 100], np.int32)
+    else:
+        keys = sorted_keys(rng, shape, (3000, 2500), 3072)
+    oh = sp.out_shape_stride2(shape)[1]
+    if name == "y_limit_0":
+        y_limit = np.zeros(2, np.int32)
+    elif name == "y_limit_high":
+        y_limit = np.array([oh, oh + 7], np.int32)
+    full = sp.downsample_keys_plain(torch.from_numpy(keys), shape,
+                                    8 * keys.shape[1])
+    n0 = int((full[0] != sp.INVALID_KEY).sum())
+    cap = {"cap_in_tile": n0 - 300, "cap_at_count": n0}.get(name, n0 + 64)
+    return shape, keys, cap, y_limit
+
+
+K7_CASES = ["cap_in_tile", "cap_at_count", "padding_row", "last_cell",
+            "y_limit_0", "y_limit_high", "small_grid"]
+
+
+@pytest.mark.parametrize("case", K7_CASES)
+def test_k7_edge_cases_match_plain(dev, case):
+    """K7 == its plain version bitwise on its edge cases, one launch a
+    call."""
+    from sassd_tpu_torch.ops import sparse as sp
+    shape, keys, cap, y_limit = k7_edge_case(case)
+    keys = torch.from_numpy(keys)
+    y_limit = None if y_limit is None else torch.from_numpy(y_limit)
+    before = sp._K7.launches
+    got = sp.downsample_keys(keys.to(dev), shape, cap,
+                             None if y_limit is None else y_limit.to(dev))
+    torch.cuda.synchronize()
+    assert sp._K7.launches == before + 1
+    ref = sp.downsample_keys_plain(keys, shape, cap, y_limit)
+    assert torch.equal(got.cpu(), ref)
+    n = (ref != sp.INVALID_KEY).sum(1)
+    if case == "cap_in_tile":
+        assert n[0] == cap and ref[0, -1] >= 32768      # cut in tile 1
+    if case == "padding_row":
+        assert n[1] == 0 and n[0] > n[2] > 0
+    if case == "last_cell":
+        od, oh, ow = sp.out_shape_stride2(shape)
+        assert ref[0, 0] == od * oh * ow - 1 and n[0] == 1
+    if case == "y_limit_0":
+        assert n.sum() == 0
 
 
 def test_k6_k7_rulebook_matches_plain_and_host(dev):

@@ -28,6 +28,7 @@ from sassd_tpu_torch.data import kitti, synthetic  # noqa: E402
 from sassd_tpu_torch.models.backbone import vfe_mean  # noqa: E402
 from sassd_tpu_torch.ops import native  # noqa: E402
 from sassd_tpu_torch.ops import sparse as sp  # noqa: E402
+from test_torch_cuda import K7_CASES, k7_edge_case  # noqa: E402
 from test_torch_detector import jax_weights, matched  # noqa: E402
 
 SHAPE = (6, 10, 9)          # odd W exercises the x = w - 1 edge
@@ -117,6 +118,27 @@ def test_downsample_keys_matches_jax(cap):
         np.testing.assert_array_equal(got[b], ref)
     n_valid = (got != sp.INVALID_KEY).sum(1)
     assert (n_valid == cap).all() if cap == 40 else (n_valid < cap).all()
+
+
+@pytest.mark.parametrize("case", K7_CASES)
+def test_downsample_keys_edge_cases_match_jax(case):
+    """The plain K7 path == JAX downsample_keys (eager, per row, with
+    y_limit_out) on K7's edge cases: caps that cut inside a bitmap tile or
+    at the unique count, an all-padding row, the grid's last cell, limits 0
+    and above the output height, an output grid of 3 words."""
+    shape, keys, cap, y_limit = k7_edge_case(case)
+    got = sp.downsample_keys(
+        torch.from_numpy(keys), shape, cap,
+        None if y_limit is None else torch.from_numpy(y_limit)).numpy()
+    assert got.shape == (keys.shape[0], cap) and got.dtype == np.int32
+    for b in range(keys.shape[0]):
+        ref = jsp.downsample_keys(
+            jnp.asarray(keys[b]), shape, cap,
+            None if y_limit is None else int(y_limit[b]))
+        np.testing.assert_array_equal(got[b], np.asarray(ref))
+    n = (got != sp.INVALID_KEY).sum(1)
+    assert (n.sum() == 0) == (case == "y_limit_0")
+    assert (n[0] == cap) == case.startswith("cap_")
 
 
 def test_device_rulebook_matches_host_rulebook():

@@ -19,6 +19,7 @@ from sassd_tpu.ops import sparse as jsp  # noqa: E402
 from sassd_tpu_torch import config  # noqa: E402
 from sassd_tpu_torch.data import synthetic  # noqa: E402
 from sassd_tpu_torch.ops import sparse as sp  # noqa: E402
+from test_torch_cuda import k5_edge_case  # noqa: E402
 
 
 def tiny_rulebook(seed):
@@ -119,14 +120,21 @@ def test_subm_conv_batched_edge_plans_match_jax(kind, level_in, cin, cout,
     assert (plan >= 0).sum() > 0 and np.abs(got).max() > 0.5
 
 
-def test_densify_matches_jax_to_dense():
+@pytest.mark.parametrize("case", ["tiny", "w_not_4", "empty_row"])
+def test_densify_matches_jax_to_dense(case):
     """Plain K5: canvas == JAX densify_bev's [B,H,W,D*C] (d-major channel
-    z*C + c) transposed to NCHW, occupancy == to_dense of ones; exact."""
-    _, shapes, keys = tiny_rulebook(2)
-    k3, shape3 = keys[3], shapes[3]
-    feats = np.random.default_rng(3).normal(
-        size=tuple(k3.shape) + (8,)).astype(np.float32)
-    feats[(k3 == sp.INVALID_KEY).numpy()] = 0.0      # padding rows are zero
+    z*C + c) transposed to NCHW, occupancy == to_dense of ones; exact. On
+    the tiny config's level 3, a grid whose W is not a multiple of 4 and a
+    batch whose sample 1 is all padding."""
+    if case == "tiny":
+        _, shapes, keys = tiny_rulebook(2)
+        k3, shape3 = keys[3], shapes[3]
+        feats = np.random.default_rng(3).normal(
+            size=tuple(k3.shape) + (8,)).astype(np.float32)
+        feats[(k3 == sp.INVALID_KEY).numpy()] = 0.0  # padding rows are zero
+    else:
+        shape3, k3, feats = k5_edge_case(case, 8)
+        k3 = torch.from_numpy(k3)
     canvas, occ = sp.densify_nchw(k3, torch.from_numpy(feats), shape3)
     ref = np.asarray(jbackbone.densify_bev(jnp.asarray(k3.numpy()),
                                            jnp.asarray(feats), shape3))
@@ -137,3 +145,5 @@ def test_densify_matches_jax_to_dense():
         np.testing.assert_array_equal(occ[b, :, 0].numpy(),
                                       np.asarray(ones)[..., 0])
     assert occ.sum() == (k3 != sp.INVALID_KEY).sum() > 0
+    if case == "empty_row":
+        assert not canvas[1].any() and not occ[1].any()
