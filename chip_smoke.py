@@ -98,13 +98,17 @@ interpolation, forward and backward), K12 (aux targets), K3b (PSWarp
 backward) and K5b (densify backward); and the kernels of training on
 device plans, at batch 2 on the same scans: K13 (transpose plans) and K14
 (aux ring plans) against their plain versions and the C++ train rulebook,
-bitwise, and K15 (exact 3-NN) at the full level sizes (rows and weights
-bitwise, its backward through K11's).
+bitwise, and K15 (exact 3-NN) at the full level sizes (rows, weights and
+output bitwise, its backward through K11's).
 
 K5, K5b, K6's level-0 map, K7 (the whole op, batch 1) and K13 are also
 timed beside one PyTorch call that computes their work (library_ms), a
-yardstick the port never calls; K5 and K7 also as CUDA-graph replays
-(graph_ms: the device's time without the host's launch path).
+yardstick the port never calls. Those kernels, K15 and the yardsticks
+are also timed as CUDA-graph replays (graph_ms, library_graph_ms: the
+device's time without the host's launch path), except torch.unique,
+which reads its output's size back to the host and cannot be captured.
+K5b and K13 and their yardsticks are timed over 100 calls each, K5b and
+its gather also with the L2 cold before each call (cold_l2_ms).
 
 Every kernel row carries its bound: the larger of the bytes it must move
 (each input read once, each output written once, at this run's active
@@ -113,6 +117,12 @@ of float32 outside the tensor cores.
 
 The second-to-last lines are a JSON object of the kernels and the card's
 name and power limit; the last line is the JSON result object.
+
+    python3 chip_smoke.py --kernels-only
+
+runs phases 1-3 and prints the kernel rows under the key kernels_only
+(without launch counts) and the card, and no result line: the kernels of two checkouts can be timed
+in one call, each from its own root.
 """
 from __future__ import annotations
 
@@ -175,6 +185,10 @@ LADDER = (("conv0.0", "plan_subm0", 0, 4, 16, 1),
 # the card's peaks the bounds are taken against (H100 SXM data sheet)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+# an estimate, printed beside K15's times and kept out of the kernel rows:
+# float32 instructions issued one by one at 128 lanes x 132 SMs x 1.98 GHz
+# (the clock at which 67 TFLOP/s counts an FMA as two operations)
+INSTR_PER_S = 128 * 132 * 1.98e9
 
 
 def fail(msg: str):
@@ -220,6 +234,27 @@ def graph_ms(fn, iters: int = 20) -> float:
     with torch.cuda.graph(graph):
         fn()
     return cuda_ms(graph.replay, iters=iters)
+
+
+def cold_ms(fn, iters: int = 20) -> float:
+    """Mean milliseconds of fn() on the card with a cold L2: 256 MB (five
+    times the L2) are written before each call, and CUDA events bracket
+    fn() alone. The write outlasts fn()'s host path, so the events see
+    the device's time."""
+    import torch
+    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    fn()
+    total = 0.0
+    for _ in range(iters):
+        flush.fill_(1.0)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / iters
 
 
 def bound(nbytes: float, ops: float) -> dict:
@@ -497,12 +532,15 @@ def check_sparse_kernels(torch, np, device, cfg, samples):
         canvas = torch.zeros((1, d3, 64, h3, w3), device=device)
         canvas[bzyx[0], bzyx[1], :, bzyx[2], bzyx[3]] = rows3
     lib_ms = cuda_ms(put5)
-    print(f"  K5 one-call yardstick (zeros + index_put_): {lib_ms:.4f} ms")
+    lib_graph_ms = graph_ms(put5)
+    print(f"  K5 one-call yardstick (zeros + index_put_): {lib_ms:.4f} ms "
+          f"({lib_graph_ms:.4f} replayed from a CUDA graph)")
     rows.append(dict(name="K5 densify", route="cuda",
                      source="sassd_tpu_torch/csrc/densify.cu",
                      replaces="sassd_tpu/ops/sparse.py:835",
                      max_abs_err=err5, ms=ms, graph_ms=dev5_ms,
                      plain_ms=plain_ms, library_ms=lib_ms,
+                     library_graph_ms=lib_graph_ms,
                      library_what="torch.zeros + index_put_ of the rows "
                                   "into the NCHW canvas (no occupancy)",
                      # keys and rows in; the zeroed canvas and occupancy out
@@ -572,14 +610,19 @@ def check_sparse_kernels(torch, np, device, cfg, samples):
         imap = torch.full((total0,), -1, dtype=torch.int32, device=device)
         imap.index_put_((key_idx,), row_vals)
     lib6_ms = cuda_ms(put6)
+    map_graph_ms = graph_ms(lambda: sp.build_index_map(keys0, shapes[0]))
+    lib6_graph_ms = graph_ms(put6)
     print(f"  K6 L0 map + subm0 plan (batch 1): kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms; the map alone {map_ms:.4f} ms, one-call "
-          f"yardstick (full + index_put_) {lib6_ms:.4f} ms")
+          f"plain {plain_ms:.4f} ms; the map alone {map_ms:.4f} ms "
+          f"({map_graph_ms:.4f} replayed from a CUDA graph), one-call "
+          f"yardstick (full + index_put_) {lib6_ms:.4f} ms "
+          f"({lib6_graph_ms:.4f} replayed)")
     rows.append(dict(name="K6 device_plans", route="cuda",
                      source="sassd_tpu_torch/csrc/device_plans.cu",
                      replaces="sassd_tpu/ops/sparse.py:84",
                      max_abs_err=err6, ms=ms, plain_ms=plain_ms,
-                     map_ms=map_ms, library_ms=lib6_ms,
+                     map_ms=map_ms, map_graph_ms=map_graph_ms,
+                     library_ms=lib6_ms, library_graph_ms=lib6_graph_ms,
                      library_what="torch.full(-1) + index_put_ of the valid "
                                   "rows: the L0 map alone, against map_ms",
                      at="L0 index map + subm0 plan, batch 1",
@@ -614,6 +657,9 @@ def k7_row(torch, sp, keys, shape, cap, err, name, at, y_limit=None):
                 else "sassd_tpu/ops/sparse.py:590",
                 max_abs_err=err, ms=ms, graph_ms=dev_ms, plain_ms=plain_ms,
                 library_ms=lib_ms,
+                # torch.unique reads its output's size back to the host,
+                # which a CUDA graph cannot capture
+                library_graph_ms=None,
                 library_what="torch.unique of the candidates (sorted, "
                              "uncapped); batch 1 only",
                 at=at,
@@ -959,7 +1005,10 @@ def check_train_kernels(torch, np, device, cfg, samples, gts):
           f" {'bitwise equal to' if same5b else 'DIFFERS from'} plain")
     if not same5b:
         fail("K5b differs from its plain version")
-    ms = cuda_ms(lambda: sp.densify_grad(keys3, d_canvas, shapes[3]))
+    ms = cuda_ms(lambda: sp.densify_grad(keys3, d_canvas, shapes[3]),
+                 iters=100)
+    dev_ms = graph_ms(lambda: sp.densify_grad(keys3, d_canvas, shapes[3]),
+                      iters=100)
     plain_ms = cuda_ms(lambda: sp.densify_grad_plain(keys3, d_canvas,
                                                      shapes[3]))
     n_rows = int((keys3 != sp.INVALID_KEY).sum())
@@ -967,14 +1016,33 @@ def check_train_kernels(torch, np, device, cfg, samples, gts):
     # [B, D, C, H, W] view of the canvas gradient
     bzyx = keys_bzyx(torch, keys3, shapes[3])
     dv = d_canvas.view(2, d3, 64, h3, w3)
-    lib_ms = cuda_ms(lambda: dv[bzyx[0], bzyx[1], :, bzyx[2], bzyx[3]])
-    print(f"  K5b one-call yardstick (gather of the active rows): "
-          f"{lib_ms:.4f} ms")
+
+    def gather5b():
+        return dv[bzyx[0], bzyx[1], :, bzyx[2], bzyx[3]]
+    lib_ms = cuda_ms(gather5b, iters=100)
+    lib_graph_ms = graph_ms(gather5b, iters=100)
+    # the replays reread the same sectors of the 90 MB canvas, at most
+    # 42 MB at one 32-byte sector an active (row, channel), which the 50 MB
+    # L2 can
+    # keep between calls; the cold-L2 times need no such luck
+    cold = cold_ms(lambda: sp.densify_grad(keys3, d_canvas, shapes[3]))
+    lib_cold = cold_ms(gather5b)
+    # an estimate for a cold L2, printed only: one 32-byte sector per
+    # active (row, channel), the row's values lying H*W floats apart
+    sector_ms = n_rows * 64 * 32 / HBM_BYTES_PER_S * 1e3
+    print(f"  K5b kernel {ms:.4f} ms ({dev_ms:.4f} replayed from a CUDA "
+          f"graph, L2 warm; {cold:.4f} with the L2 cold), plain "
+          f"{plain_ms:.4f} ms; one-call yardstick (gather of the active "
+          f"rows) {lib_ms:.4f} ms ({lib_graph_ms:.4f} replayed; "
+          f"{lib_cold:.4f} cold); {n_rows} active rows, sector estimate "
+          f"(L2 cold) {sector_ms:.4f} ms")
     rows.append(dict(name="K5b densify_grad", route="cuda",
                      source="sassd_tpu_torch/csrc/densify.cu",
                      replaces="sassd_tpu/ops/sparse.py:835",
                      max_abs_err=float((got - ref).abs().max()), ms=ms,
-                     plain_ms=plain_ms, library_ms=lib_ms,
+                     graph_ms=dev_ms, cold_l2_ms=cold, plain_ms=plain_ms,
+                     library_ms=lib_ms, library_graph_ms=lib_graph_ms,
+                     library_cold_l2_ms=lib_cold,
                      library_what="one advanced-index gather of the active "
                                   "rows (padding rows not zeroed)",
                      at="batch 2, 10,240-row cap",
@@ -998,9 +1066,8 @@ def check_train_plan_kernels(torch, np, device, cfg, samples):
     the train plans of the first two car scans: K13 (transpose plans) and
     K14 (aux ring plans) against their plain versions and the C++ train
     rulebook, bitwise; K15 (exact 3-NN) against its plain version at the
-    full level sizes: rows and weights bitwise, features within
-    TRAIN_GRAD_RTOL of their largest magnitude, and its backward (K11's)
-    within TRAIN_GRAD_RTOL."""
+    full level sizes: rows, weights and features bitwise, and its backward
+    (K11's) within TRAIN_GRAD_RTOL."""
     from sassd_tpu_torch.ops import interpolate as itp
     from sassd_tpu_torch.ops import sparse as sp
 
@@ -1024,7 +1091,12 @@ def check_train_plan_kernels(torch, np, device, cfg, samples):
         diff[f"strideT{lvl}"] = (int((got != ref).sum()),
                                  int((got != host).sum()))
         err[f"strideT{lvl}"] = float((got - ref).abs().max())
-        ms = cuda_ms(lambda: sp.stride_plan_T(plan, caps[lvl - 1]))
+        # K13 and its yardstick over 100 calls each, by events and as
+        # CUDA-graph replays
+        ms = cuda_ms(lambda: sp.stride_plan_T(plan, caps[lvl - 1]),
+                     iters=100)
+        dev_ms = graph_ms(lambda: sp.stride_plan_T(plan, caps[lvl - 1]),
+                          iters=100)
         plain_ms = cuda_ms(lambda: sp.stride_plan_T_plain(plan,
                                                           caps[lvl - 1]))
         # one torch.full + index_put_ of the plan's found entries
@@ -1036,9 +1108,10 @@ def check_train_plan_kernels(torch, np, device, cfg, samples):
         def put13():
             out = torch.full(shape_t, -1, dtype=torch.int32, device=device)
             out.index_put_(put_idx, put_val)
-        lib_ms = cuda_ms(put13)
-        k13.append((lvl, ms, plain_ms, bound(
-            plan.numel() * 4 + got.numel() * 4, 0), lib_ms))
+        lib_ms = cuda_ms(put13, iters=100)
+        k13.append((lvl, ms, plain_ms, dict(
+            bound(plan.numel() * 4 + got.numel() * 4, 0), graph_ms=dev_ms,
+            library_graph_ms=graph_ms(put13, iters=100)), lib_ms))
         keys = sp.coords_to_keys(batch[f"plan_coords{lvl}"], shapes[lvl])
         imap = sp.build_index_map(keys, shapes[lvl])
         got = sp.aux_plan(cell0, lvl, imap, shapes[lvl])
@@ -1068,7 +1141,16 @@ def check_train_plan_kernels(torch, np, device, cfg, samples):
                         "found entries"),
             ("K14 aux_plan", "sassd_tpu/ops/sparse.py:785", k14, "aux",
              None)):
-        rows.append(dict(name=name, route="cuda",
+        graphs = {}
+        if lib_what:
+            graphs = {k: sum(bd[k] for *_, bd, _ in parts)
+                      for k in ("graph_ms", "library_graph_ms")}
+            per = {lv: (round(bd["graph_ms"], 4),
+                        round(bd["library_graph_ms"], 4))
+                   for lv, *_, bd, _ in parts}
+            print(f"  {name} per level (kernel, yardstick), replayed from "
+                  f"CUDA graphs, 100 replays: {per}")
+        rows.append(dict(name=name, route="cuda", **graphs,
                          source="sassd_tpu_torch/csrc/device_plans.cu",
                          replaces=src_line,
                          max_abs_err=max(v for k, v in err.items()
@@ -1101,8 +1183,8 @@ def check_train_plan_kernels(torch, np, device, cfg, samples):
         out, rsel, wsel = itp.three_nn_fwd(query, centers, valid, feats)
         ref_rows, ref_w = itp.three_nn_select_plain(query, centers, valid)
         ref = itp.three_nn_interpolate_plain(query, centers, valid, feats)
-        same_sel = (torch.equal(rsel.long(), ref_rows)
-                    and torch.equal(wsel, ref_w))
+        same = (torch.equal(rsel.long(), ref_rows)
+                and torch.equal(wsel, ref_w) and torch.equal(out, ref))
         fwd_err = rel_err(out, ref)
         cot = torch.from_numpy(rng.normal(size=tuple(out.shape)).astype(
             np.float32)).to(device)
@@ -1114,13 +1196,15 @@ def check_train_plan_kernels(torch, np, device, cfg, samples):
             out_p, fp, cot, retain_graph=True)[0])
         err15 = max(err15, fwd_err, bwd_err)
         print(f"K15 three_nn level {lvl} {tuple(query.shape)} x "
-              f"{tuple(centers.shape)} -> {tuple(out.shape)}: rows and "
-              f"weights {'bitwise equal to' if same_sel else 'DIFFER from'}"
-              f" plain; forward rel err {fwd_err:.3g}, backward (K11) rel "
-              f"err {bwd_err:.3g} (tol {TRAIN_GRAD_RTOL})")
-        if not same_sel or max(fwd_err, bwd_err) > TRAIN_GRAD_RTOL:
+              f"{tuple(centers.shape)} -> {tuple(out.shape)}: rows, "
+              f"weights and output "
+              f"{'bitwise equal to' if same else 'DIFFER from'} plain; "
+              f"backward (K11) rel err {bwd_err:.3g} (tol {TRAIN_GRAD_RTOL})")
+        if not same or bwd_err > TRAIN_GRAD_RTOL:
             fail(f"K15 disagrees with its plain version at level {lvl}")
         ms = cuda_ms(lambda: itp.three_nn_fwd(query, centers, valid, feats))
+        dev_ms = graph_ms(lambda: itp.three_nn_fwd(query, centers, valid,
+                                                   feats))
         bwd_ms = cuda_ms(lambda: itp.ring_interp_bwd(cot, rsel, wsel,
                                                      feats.shape))
         plain_ms = cuda_ms(lambda: itp.three_nn_interpolate_plain(
@@ -1132,24 +1216,34 @@ def check_train_plan_kernels(torch, np, device, cfg, samples):
         # the level) in; features, rows and weights out; 9 float32
         # operations a (query, known) pair: the dot (5), u2 + k2, 2 * dot,
         # the difference and the validity bias
-        k15.append((lvl, ms, bwd_ms, plain_ms, plain_bwd_ms, bound(
-            q * 12 + 2 * m * 13 + min(feats.numel(), 3 * q * c) * 4
-            + q * c * 4 + q * 24, q * m * 9)))
+        bd = bound(q * 12 + 2 * m * 13 + min(feats.numel(), 3 * q * c) * 4
+                   + q * c * 4 + q * 24, q * m * 9)
+        # an estimate, printed only: those operations issued one by one
+        # (-fmad=false), with a compare and the bit it sets, 10
+        # instructions a pair at one a lane and cycle
+        instr_ms = q * m * 10 / INSTR_PER_S * 1e3
+        print(f"  K15 level {lvl}: kernel {ms:.4f} ms ({dev_ms:.4f} "
+              f"replayed from a CUDA graph), plain {plain_ms:.4f} ms; "
+              f"bound {bd['bound_ms']:.4f} ms (operations), unfused "
+              f"instruction estimate {instr_ms:.4f} ms")
+        k15.append((lvl, ms, dev_ms, bwd_ms, plain_ms, plain_bwd_ms, bd))
     rows.append(dict(name="K15 three_nn", route="cuda",
                      source="sassd_tpu_torch/csrc/interpolate.cu",
                      replaces="sassd_tpu/ops/interpolate.py:23",
                      max_abs_err=err15, err_kind="relative to max |plain|; "
-                     "rows and weights bitwise",
+                     "rows, weights and output bitwise",
                      ms=sum(m for _, m, *_ in k15),
-                     plain_ms=sum(m for _, _, _, m, _, _ in k15),
+                     graph_ms=sum(g for _, _, g, *_ in k15),
+                     plain_ms=sum(pm for *_, pm, _, _ in k15),
                      library_ms=None,
-                     backward_ms=sum(m for _, _, m, *_ in k15),
-                     plain_backward_ms=sum(m for *_, m, _ in k15),
+                     backward_ms=sum(bm for _, _, _, bm, *_ in k15),
+                     plain_backward_ms=sum(pbm for *_, pbm, _ in k15),
                      at="batch 2, forward, levels 1-3 (backward: K11's "
                         "sassd_ring_interp_bwd)",
-                     per_level={lv: dict(ms=m, backward_ms=bm, plain_ms=pm,
+                     per_level={lv: dict(ms=m, graph_ms=g, backward_ms=bm,
+                                         plain_ms=pm,
                                          plain_backward_ms=pbm, **bd)
-                                for lv, m, bm, pm, pbm, bd in k15},
+                                for lv, m, g, bm, pm, pbm, bd in k15},
                      **add_bounds([bd for *_, bd in k15])))
     return rows
 
@@ -2268,6 +2362,13 @@ def main() -> int:
     for r in rows:
         print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms")
+    if "--kernels-only" in sys.argv[1:]:
+        # phases 1-3 alone: the kernel rows of this checkout under their
+        # own key (no launch counts, no result line), for comparing two
+        # checkouts in one call
+        print(json.dumps({"kernels_only": rows}))
+        print(card)
+        return 0
 
     model = seeded_detector(cfg, SEED, "cpu")               # CPU copy
     model_dev = seeded_detector(cfg, SEED, device)

@@ -27,15 +27,39 @@
 //   are not 16-byte aligned and the thread stores its pixels one by one,
 //   masked at the grid's edge.
 // The rows' features are read at ~6% of the cells at the car L3 and stay in
-// L2. K5b reads d_canvas at the same addresses into d_feats (0 for padding
-// rows), one thread per (row, channel); a copy, so bitwise equal to the
-// plain autograd gather.
+// L2.
+//
+// K5b reads d_canvas at the same addresses into d_feats (0 for padding rows
+// and keys off the grid); a copy, so bitwise equal to the plain autograd
+// gather. Bound on the H100: bytes, counted two ways. Useful bytes: the
+// keys, one float per active (row, channel) and d_feats written once, ~5.2
+// MB at the car L3 (batch 2, ~20,000 active rows x 64 channels), 0.0032 ms
+// at 3.35 TB/s. At sector granularity, an estimate for a cold L2: the
+// canvas values of one row lie H*W floats apart, so each active (row,
+// channel) costs one 32-byte sector unless an x-neighbour shares it: ~41
+// MB, 0.012 ms (calls repeated on one canvas find those sectors in the
+// 50 MB L2 and run under it). Design:
+// row-stationary through shared memory, one block per tile of 32
+// consecutive rows of one sample and up to 64 channels:
+// - one thread per row reads its key and decodes it to its canvas offset
+//   once (padding and off-grid keys marked);
+// - read phase: lanes run over the tile's rows, the 8 warps over channels,
+//   so a warp reads one channel of 32 key-sorted rows, and x-adjacent
+//   active cells share a sector; the values go into a [32][65] tile (the
+//   padding column keeps lanes on distinct banks);
+// - write phase: the tile's rows are one contiguous run of d_feats when
+//   C <= 64, written with lanes over consecutive floats, 16-byte stores
+//   when C % 4 == 0 (0 for marked rows).
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kInvalidKey = 0x7fffffff;
 constexpr int kChanChunk = 16;
+// K5b's tile: rows (one per lane) by channels, read by kBwdThreads / 32 warps
+constexpr int kBwdRows = 32;
+constexpr int kBwdChans = 64;
+constexpr int kBwdThreads = 256;
 
 __global__ void densify_map_kernel(const int* __restrict__ keys, int m,
                                    long long total, int* __restrict__ map) {
@@ -109,27 +133,58 @@ __global__ void densify_kernel(const int* __restrict__ map,
   }
 }
 
-__global__ void densify_bwd_kernel(const int* __restrict__ keys,
-                                   const float* __restrict__ d_canvas, int m,
-                                   int c, int d, int h, int w,
-                                   float* __restrict__ d_feats) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  const int b = blockIdx.y;
-  if (i >= static_cast<long long>(m) * c) return;
-  const int row = static_cast<int>(i / c);
-  const int ch = static_cast<int>(i - static_cast<long long>(row) * c);
-  const int key = keys[static_cast<long long>(b) * m + row];
+// grid (ceil(m / kBwdRows), ceil(c / kBwdChans), batch), kBwdThreads
+__global__ void __launch_bounds__(kBwdThreads) densify_bwd_kernel(
+    const int* __restrict__ keys, const float* __restrict__ d_canvas, int m,
+    int c, int d, int h, int w, float* __restrict__ d_feats) {
+  __shared__ long long s_off[kBwdRows];            // -1: write 0
+  __shared__ float s_tile[kBwdRows][kBwdChans + 1];
+  const int r0 = blockIdx.x * kBwdRows;
+  const int c0 = blockIdx.y * kBwdChans;
+  const int b = blockIdx.z;
+  const int rows = min(kBwdRows, m - r0);
+  const int cc = min(kBwdChans, c - c0);
   const long long hw = static_cast<long long>(h) * w;
-  float v = 0.0f;
-  if (key != kInvalidKey && key >= 0 && key < d * hw) {
-    const int x = key % w;
-    const int y = (key / w) % h;
-    const int z = static_cast<int>(key / hw);
-    v = d_canvas[((static_cast<long long>(b) * d + z) * c + ch) * hw +
-                 static_cast<long long>(y) * w + x];
+  const int tid = threadIdx.x;
+  if (tid < kBwdRows) {
+    long long off = -1;
+    if (tid < rows) {
+      const int key = keys[static_cast<long long>(b) * m + r0 + tid];
+      if (key != kInvalidKey && key >= 0 && key < d * hw) {
+        const int x = key % w;
+        const int y = (key / w) % h;
+        const int z = static_cast<int>(key / hw);
+        off = ((static_cast<long long>(b) * d + z) * c + c0) * hw +
+              static_cast<long long>(y) * w + x;
+      }
+    }
+    s_off[tid] = off;
   }
-  d_feats[(static_cast<long long>(b) * m + row) * c + ch] = v;
+  __syncthreads();
+  const int lane = tid & 31;
+  const long long off = s_off[lane];
+  for (int ch = tid >> 5; ch < cc; ch += kBwdThreads / 32) {
+    s_tile[lane][ch] = off >= 0 ? d_canvas[off + ch * hw] : 0.0f;
+  }
+  __syncthreads();
+  float* dst = d_feats + (static_cast<long long>(b) * m + r0) * c + c0;
+  if ((c & 3) == 0) {
+    // c0 is a multiple of 64, so cc and every row's run are 16-byte aligned
+    const int n4 = rows * cc / 4;
+    for (int j = tid; j < n4; j += kBwdThreads) {
+      const int r = 4 * j / cc;
+      const int col = 4 * j - r * cc;
+      const float* t = &s_tile[r][col];
+      *reinterpret_cast<float4*>(dst + static_cast<long long>(r) * c + col) =
+          make_float4(t[0], t[1], t[2], t[3]);
+    }
+  } else {
+    for (int j = tid; j < rows * cc; j += kBwdThreads) {
+      const int r = j / cc;
+      const int col = j - r * cc;
+      dst[static_cast<long long>(r) * c + col] = s_tile[r][col];
+    }
+  }
 }
 
 }  // namespace
@@ -165,12 +220,10 @@ extern "C" int sassd_densify(const int* keys, const float* feats, int batch,
 extern "C" int sassd_densify_bwd(const int* keys, const float* d_canvas,
                                  int batch, int m, int c, int d, int h, int w,
                                  float* d_feats, void* stream) {
-  const long long n = static_cast<long long>(m) * c;
-  if (batch > 0 && n > 0) {
-    const int threads = 256;
-    const dim3 grid(static_cast<unsigned>((n + threads - 1) / threads),
-                    batch);
-    densify_bwd_kernel<<<grid, threads, 0,
+  if (batch > 0 && m > 0 && c > 0) {
+    const dim3 grid((m + kBwdRows - 1) / kBwdRows,
+                    (c + kBwdChans - 1) / kBwdChans, batch);
+    densify_bwd_kernel<<<grid, kBwdThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
         keys, d_canvas, m, c, d, h, w, d_feats);
   }

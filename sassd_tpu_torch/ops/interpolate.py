@@ -42,10 +42,12 @@ _K11_FWD = cuda.Kernel("sassd_ring_interp_fwd",
 _K11_BWD = cuda.Kernel("sassd_ring_interp_bwd",
                        [cuda.P, cuda.P, cuda.P, cuda.I, cuda.I, cuda.P])
 _K15 = cuda.Kernel("sassd_three_nn_fwd",
-                   [cuda.P, cuda.I, cuda.I, cuda.P, cuda.P, cuda.I, cuda.P,
-                    cuda.I, cuda.P, cuda.P, cuda.P])
+                   [cuda.P, cuda.I, cuda.I, cuda.P, cuda.P, cuda.I, cuda.I,
+                    cuda.P, cuda.I, cuda.P, cuda.P, cuda.P, cuda.P, cuda.P])
 KERNEL_SYMBOLS = {"K11": ("sassd_ring_interp_fwd", "sassd_ring_interp_bwd"),
                   "K15": ("sassd_three_nn_fwd",)}
+# K15's search grid takes the known rows in slices of at least this many
+K15_MIN_SLICE = 256
 # queries per step of the plain exact 3-NN: bounds its [B, chunk, M]
 # distance matrix (1.5 GB a level and sample unchunked at the car caps)
 THREE_NN_CHUNK = 512
@@ -259,6 +261,17 @@ def three_nn_interpolate_plain(query_xyz, known_xyz, known_valid,
                             w).reshape(b, -1, c)
 
 
+def three_nn_slices(b: int, n: int, m: int, device) -> int:
+    """The number of slices K15 splits each sample's m known rows into:
+    enough for 4 blocks of the search grid on each SM of the device, but
+    at most one slice per K15_MIN_SLICE rows, and at least 1. The library
+    gives the queries a block of its grid takes."""
+    per_block = cuda.load().sassd_three_nn_queries_per_block()
+    tiles = max(1, b * -(-n // per_block))
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(-(-4 * sms // tiles), -(-m // K15_MIN_SLICE)))
+
+
 def three_nn_fwd(query_xyz, known_xyz, known_valid, known_feats):
     """K15: (out [B, N, C], rows [B*N, 3], weights [B*N, 3])."""
     cuda.check_cuda("query_xyz", query_xyz, torch.float32, 3)
@@ -274,13 +287,21 @@ def three_nn_fwd(query_xyz, known_xyz, known_valid, known_feats):
                          f"{tuple(known_valid.shape)} do not fit feats "
                          f"{tuple(known_feats.shape)}")
     dev = known_feats.device
+    slices = three_nn_slices(b, n, m, dev)
     with torch.cuda.device(dev):
         out = torch.empty((b, n, c), dtype=torch.float32, device=dev)
         rows = torch.empty((b * n, 3), dtype=torch.int32, device=dev)
         w = torch.empty((b * n, 3), dtype=torch.float32, device=dev)
+        # (d2, index) word pairs: each slice's top 3 of each query, and
+        # each query's seed, the top 3 of a sample of the known rows
+        part = torch.empty((b, slices, n, 3, 2), dtype=torch.float32,
+                           device=dev)
+        seed = torch.empty((b, n, 3, 2), dtype=torch.float32, device=dev)
         _K15.launch(query_xyz.data_ptr(), b, n, known_xyz.data_ptr(),
-                    known_valid.data_ptr(), m, known_feats.data_ptr(), c,
-                    out.data_ptr(), rows.data_ptr(), w.data_ptr())
+                    known_valid.data_ptr(), m, slices,
+                    known_feats.data_ptr(), c, part.data_ptr(),
+                    seed.data_ptr(), out.data_ptr(), rows.data_ptr(),
+                    w.data_ptr())
     return out, rows, w
 
 

@@ -407,18 +407,25 @@ def densify_grad(keys: torch.Tensor, d_canvas: torch.Tensor,
     if d_canvas.device.type == "cpu":
         return densify_grad_plain(keys, d_canvas, shape_zyx)
     cuda.check_cuda("keys", keys, torch.int32, 2)
+    return _densify_k5b(keys, d_canvas, shape_zyx)
+
+
+def _densify_k5b(keys: torch.Tensor, d_canvas: torch.Tensor,
+                 shape_zyx: Tuple[int, int, int]) -> torch.Tensor:
+    """K5b on `keys` already checked (by densify_grad, or by K5's wrapper
+    in the forward whose backward this is); checks d_canvas."""
     cuda.check_cuda("d_canvas", d_canvas, torch.float32, 4)
     d, h, w = shape_zyx
     b, m = keys.shape
-    if d_canvas.shape[0] != b or d_canvas.shape[1] % d \
-            or d_canvas.shape[2:] != (h, w):
+    nb, dc, hh, ww = d_canvas.shape
+    if nb != b or dc % d or hh != h or ww != w:
         raise ValueError(f"d_canvas {tuple(d_canvas.shape)} does not fit "
                          f"keys {tuple(keys.shape)} on {shape_zyx}")
-    c = d_canvas.shape[1] // d
+    out = torch.empty((b, m, dc // d), dtype=torch.float32,
+                      device=keys.device)
     with torch.cuda.device(keys.device):
-        out = torch.empty((b, m, c), dtype=torch.float32, device=keys.device)
-        _K5B.launch(keys.data_ptr(), d_canvas.data_ptr(), b, m, c, d, h, w,
-                    out.data_ptr())
+        _K5B.launch(keys.data_ptr(), d_canvas.data_ptr(), b, m, dc // d, d,
+                    h, w, out.data_ptr())
     return out
 
 
@@ -438,7 +445,7 @@ class _DensifyFn(torch.autograd.Function):
         (keys,) = ctx.saved_tensors
         d_feats = None
         if ctx.needs_input_grad[1]:
-            d_feats = densify_grad(keys, d_canvas.contiguous(),
+            d_feats = _densify_k5b(keys, d_canvas.contiguous(),
                                    ctx.shape_zyx)
         return None, d_feats, None
 

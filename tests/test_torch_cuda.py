@@ -233,16 +233,22 @@ def k5_edge_case(name, c):
     padding) of one of K5's edge cases: a grid whose W is not a multiple of
     4 ("w_not_4"), sample 1 all padding ("empty_row"), or keys off the grid
     (negative, D*H*W and above) among the rows ("out_of_range"; those keys
-    must write nothing)."""
+    must write nothing); and of K5b's: a key at the grid's last cell
+    ("last_cell") and 100 rows, not a multiple of its 32-row tile
+    ("ragged_rows")."""
     rng = np.random.default_rng(len(name) + c)
     shape = (3, 10, 13) if name == "w_not_4" else (2, 8, 12)
     counts = {"w_not_4": (120, 60), "empty_row": (50, 0),
-              "out_of_range": (50, 40)}[name]
-    keys = sorted_keys(rng, shape, counts, 64 if name != "w_not_4" else 128)
+              "out_of_range": (50, 40), "last_cell": (50, 40),
+              "ragged_rows": (90, 37)}[name]
+    m = {"w_not_4": 128, "ragged_rows": 100}.get(name, 64)
+    keys = sorted_keys(rng, shape, counts, m)
+    total = shape[0] * shape[1] * shape[2]
     if name == "out_of_range":
-        total = shape[0] * shape[1] * shape[2]
         keys[0, 50:53] = (-5, total, total + 3)
         keys[1, 0] = -1
+    if name == "last_cell":
+        keys[0, 49] = total - 1                 # the largest of 50 sorted
     feats = rng.normal(size=keys.shape + (c,)).astype(np.float32)
     feats[keys == INVALID] = 0.0
     return shape, keys, feats
@@ -662,24 +668,49 @@ def test_k10_edge_plans_match_plain_and_repeat_bitwise(
         assert not got[13].any()
 
 
-def test_k5b_matches_plain(dev):
+@pytest.mark.parametrize("case,c", [
+    ("tiny", 64), ("tiny", 16), ("ragged_rows", 64), ("empty_row", 64),
+    ("w_not_4", 70), ("last_cell", 24), ("out_of_range", 64)])
+def test_k5b_matches_plain(dev, case, c):
+    """K5b (the backward of densify_nchw, and densify_grad) == its plain
+    version bitwise, one launch a backward: the tiny config's level 3 at
+    batch 2 (C 64 and 16) and the edge cases: rows not a multiple of the
+    32-row tile, an all-padding sample, W % 4 != 0 with C 70 (two channel
+    tiles, scalar stores), a key at the last cell with C 24, keys off the
+    grid (held to the plain version with those keys made padding: 0)."""
     from sassd_tpu_torch.ops import sparse as sp
-    _, batch, shapes = tiny_rulebook(7)
-    keys = sp.coords_to_keys(torch.from_numpy(batch["plan_coords3"]),
-                             shapes[3])
-    d, h, w = shapes[3]
-    rng = np.random.default_rng(8)
+    if case == "tiny":
+        _, batch, shapes = tiny_rulebook(7)
+        shape = shapes[3]
+        keys = sp.coords_to_keys(torch.from_numpy(batch["plan_coords3"]),
+                                 shape)
+    else:
+        shape, keys, _ = k5_edge_case(case, c)
+        keys = torch.from_numpy(keys)
+    d, h, w = shape
+    total = d * h * w
+    ref_keys = torch.where((keys >= 0) & (keys < total), keys, sp.INVALID_KEY)
+    rng = np.random.default_rng(8 + c)
     d_canvas = torch.from_numpy(rng.normal(
-        size=(2, d * 64, h, w)).astype(np.float32))
+        size=(2, d * c, h, w)).astype(np.float32))
     before = sp._K5B.launches
-    feats = torch.zeros(tuple(keys.shape) + (64,), device=dev,
+    feats = torch.zeros(tuple(keys.shape) + (c,), device=dev,
                         requires_grad=True)
-    canvas, _ = sp.densify_nchw(keys.to(dev), feats, shapes[3])
+    canvas, _ = sp.densify_nchw(keys.to(dev), feats, shape)
     canvas.backward(d_canvas.to(dev))
     torch.cuda.synchronize()
     assert sp._K5B.launches == before + 1
-    assert torch.equal(feats.grad.cpu(),
-                       sp.densify_grad_plain(keys, d_canvas, shapes[3]))
+    ref = sp.densify_grad_plain(ref_keys, d_canvas, shape)
+    assert torch.equal(feats.grad.cpu(), ref)
+    got = sp.densify_grad(keys.to(dev), d_canvas.to(dev), shape)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), ref)
+    assert ref.abs().max() > 1.0
+    if case == "empty_row":
+        assert not got[1].any()
+    if case == "last_cell":
+        assert torch.equal(got[0, 49].cpu(), d_canvas[0, :, h - 1, w - 1]
+                           .reshape(d, c)[d - 1])
 
 
 @pytest.mark.parametrize("level", [1, 2, 3])
@@ -855,12 +886,69 @@ def three_nn_inputs(seed, level, dev):
                                 feats)]
 
 
-@pytest.mark.parametrize("level", [1, 2, 3])
-def test_k15_matches_plain(dev, level):
-    """Rows, weights and output bitwise (also the CPU's selections);
-    feature gradients (K11's backward) 1e-5."""
+# K15's edge cases (three_nn_edge_case): N and M off the tile and slice
+# sizes, fewer known rows than slices, fewer than 3 valid known rows, equal
+# known points across slice boundaries, queries on known points, and two
+# samples of different valid counts
+K15_CASES = ["ragged", "m_below_slices", "few_valid", "ties", "coincident",
+             "batch_counts"]
+
+
+def three_nn_edge_case(name):
+    """(query [2, N, 3], known [2, M, 3], valid [2, M], feats [2, M, 16],
+    slices or None) of one of K15's edge cases, numpy float32 points in the
+    car range; padding known rows (a valid prefix of each sample's rows)
+    all sit at one point off the range, as padded cells do. `slices`, where
+    set, is the slice count the case needs (ties straddle its boundaries;
+    m_below_slices has 5 known rows in 8 slices; few_valid's padding
+    winners lie in the second of 20)."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    n, m, counts, slices = {
+        "ragged": (700, 1001, (1001, 800), None),
+        "m_below_slices": (300, 5, (5, 3), 8),
+        "few_valid": (300, 40, (2, 0), 20),
+        "ties": (400, 64, (64, 60), 4),
+        "coincident": (300, 200, (200, 150), 3),
+        "batch_counts": (1000, 1500, (1500, 611), None)}[name]
+    lo = np.array([0.0, -40.0, -3.0], np.float32)
+    hi = np.array([70.4, 40.0, 1.0], np.float32)
+    known = rng.uniform(lo, hi, (2, m, 3)).astype(np.float32)
+    valid = np.arange(m)[None] < np.asarray(counts)[:, None]
+    known[~valid] = (-1.0, -41.0, -4.0)
+    query = rng.uniform(lo, hi, (2, n, 3)).astype(np.float32)
+    if name == "ties":
+        per = -(-m // slices)
+        for bnd in range(per, m, per):                 # rows bnd - 1, bnd
+            known[:, bnd] = known[:, bnd - 1]
+        known[:, per + 1] = known[:, per - 1]          # three at one point
+        dup = known[:, per - 1::per][:, :3]            # [2, 3, 3]
+        pick = rng.integers(0, 3, (2, n // 2))
+        query[:, :n // 2] = (np.take_along_axis(dup, pick[..., None], 1)
+                             + rng.normal(0, 0.05, (2, n // 2, 3)))
+        query[:, :n // 8] = np.take_along_axis(dup, pick[:, :n // 8, None], 1)
+    if name == "coincident":
+        for b in range(2):
+            query[b, ::3] = known[b, rng.integers(0, counts[b],
+                                                  len(query[b, ::3]))]
+    feats = rng.normal(size=(2, m, 16)).astype(np.float32)
+    return query, known, valid, feats, slices
+
+
+@pytest.mark.parametrize("case", [1, 2, 3] + K15_CASES)
+def test_k15_matches_plain(dev, case, monkeypatch):
+    """Rows, weights and output bitwise (also the CPU's selections), one
+    launch a call; feature gradients (K11's backward) 1e-5. The tiny
+    config's levels 1-3 and K15's edge cases."""
     from sassd_tpu_torch.ops import interpolate as itp
-    query, centers, valid, feats = three_nn_inputs(11, level, dev)
+    if isinstance(case, int):
+        query, centers, valid, feats = three_nn_inputs(11, case, dev)
+    else:
+        *arrays, slices = three_nn_edge_case(case)
+        query, centers, valid, feats = [torch.from_numpy(a).to(dev)
+                                        for a in arrays]
+        if slices:
+            monkeypatch.setattr(itp, "three_nn_slices",
+                                lambda b, n, m, device: slices)
     before = itp._K15.launches
     out, rows, w = itp.three_nn_fwd(query, centers, valid, feats)
     torch.cuda.synchronize()
@@ -873,8 +961,9 @@ def test_k15_matches_plain(dev, level):
     cpu_rows, _ = itp.three_nn_select_plain(*[t.cpu() for t in (
         query, centers, valid)])
     assert torch.equal(rows.cpu().long(), cpu_rows)
+    seed = case if isinstance(case, int) else 10 + K15_CASES.index(case)
     cot = torch.randn(out.shape, generator=torch.Generator().manual_seed(
-        level)).to(dev)
+        seed)).to(dev)
     fd = feats.clone().requires_grad_()
     itp.three_nn_interpolate(query, centers, valid, fd).backward(cot)
     fp = feats.clone().requires_grad_()

@@ -37,6 +37,7 @@ from sassd_tpu_torch.models.detector import parse_losses  # noqa: E402
 from sassd_tpu_torch.ops import interpolate as itp  # noqa: E402
 from sassd_tpu_torch.ops import native  # noqa: E402
 from sassd_tpu_torch.ops import sparse as sp  # noqa: E402
+from test_torch_cuda import three_nn_edge_case  # noqa: E402
 from test_torch_device_plans import SHAPE, batch_keys, jax_plan  # noqa: E402
 
 LOSS_RTOL = 1e-4
@@ -193,9 +194,19 @@ def jax_three_nn(q, k, v, f):
                       for b in range(q.shape[0])])
 
 
-@pytest.mark.parametrize("level", [1, 2, 3])
+@pytest.mark.parametrize("level", [1, 2, 3, "ties", "coincident",
+                                   "few_valid"])
 def test_three_nn_plain_matches_jax(level):
-    q, k, v, f, qvalid = interp_inputs(8, level)
+    """The plain exact 3-NN against JAX three_nn_interpolate on the tiny
+    config's levels and on K15's edge cases (tests/test_torch_cuda.py):
+    equal known points across slice boundaries, queries on known points,
+    and samples with 2 and 0 valid known rows (padding rows win by the
+    lowest index, as top_k's)."""
+    if isinstance(level, int):
+        q, k, v, f, qvalid = interp_inputs(8, level)
+    else:
+        q, k, v, f, _ = three_nn_edge_case(level)
+        qvalid = np.ones(q.shape[:2], bool)
     ref = np.asarray(jax_three_nn(*map(jnp.asarray, (q, k, v, f))))[qvalid]
     got = itp.three_nn_interpolate(*map(torch.from_numpy, (q, k, v, f)))
     got = got.numpy()[qvalid]
@@ -206,6 +217,64 @@ def test_three_nn_plain_matches_jax(level):
     np.testing.assert_allclose(w.sum(1).numpy(), 1.0, rtol=1e-6)
     assert (rows.numpy() // k.shape[1] == np.repeat(
         np.arange(2), q.shape[1])[:, None]).all()
+
+
+def plain_d2(q, k, v):
+    """[N, M] float32 squared distances of one sample, the float32
+    operations of three_nn_select_plain in its order."""
+    kx, ky, kz = (k[None, :, i] for i in range(3))
+    ux, uy, uz = (q[:, i:i + 1] for i in range(3))
+    k2 = kx * kx + ky * ky + kz * kz
+    dot = ux * kx + uy * ky + uz * kz
+    bias = torch.where(v, 0.0, 1e10).to(torch.float32)[None]
+    return (torch.clamp((ux * ux + uy * uy + uz * uz + k2) - 2.0 * dot,
+                        min=0.0) + bias).numpy()
+
+
+def lex_top3(d2, rows):
+    """The (d2, index) lexicographic top 3 of the distinct `rows` of one
+    query's [M] distances."""
+    rows = np.unique(rows)
+    return rows[np.lexsort((rows, d2[rows]))[:3]]
+
+
+def slice_merge_top3(d2, slices, stride=None):
+    """K15's selection on one query's [M] distances: each of `slices`
+    slices of the known rows keeps its top 3 among its rows and, with
+    `stride`, the 3 seed rows (the top 3 of rows 0, stride, 2 * stride,
+    ...); then the top 3 of the partials, copies dropped."""
+    m = len(d2)
+    seeds = lex_top3(d2, np.arange(0, m, stride)) if stride else []
+    per = -(-m // slices)
+    parts = [lex_top3(d2, np.concatenate([np.arange(s0, min(s0 + per, m)),
+                                          seeds]).astype(np.int64))
+             for s0 in range(0, m, per)]
+    return lex_top3(d2, np.concatenate(parts))
+
+
+@pytest.mark.parametrize("case", ["tiny", "ties", "coincident", "few_valid"])
+def test_three_nn_slice_merge_equals_unsplit(case):
+    """The invariant K15 relies on: the lexicographic merge of slice-wise
+    top 3s of the plain version's distances, each slice also seeded with
+    the top 3 of a strided sample of the rows, is its unsplit selection,
+    for any slice count and sample, ties included (equal points across
+    slice boundaries, coincident queries, padding rows at one point)."""
+    if case == "tiny":
+        q, k, v, _, _ = interp_inputs(8, 1)
+    else:
+        q, k, v, _, _ = three_nn_edge_case(case)
+    rows, _ = itp.three_nn_select_plain(*map(torch.from_numpy, (q, k, v)))
+    n, m = q.shape[1], k.shape[1]
+    rows = rows.numpy().reshape(2, n, 3) - (np.arange(2) * m)[:, None, None]
+    for b in range(2):
+        d2 = plain_d2(*map(torch.from_numpy, (q[b], k[b], v[b])))
+        np.testing.assert_array_equal(
+            np.argsort(d2, axis=1, kind="stable")[:, :3], rows[b])
+        for i in range(0, n, 5):
+            for slices in (2, 3, 4, 7, 20):
+                for stride in (None, 1, 5, m):
+                    np.testing.assert_array_equal(
+                        slice_merge_top3(d2[i], slices, stride), rows[b, i])
 
 
 def test_three_nn_grad_matches_jax():

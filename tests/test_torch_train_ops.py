@@ -32,6 +32,7 @@ from sassd_tpu_torch.core import boxes  # noqa: E402
 from sassd_tpu_torch.data import synthetic  # noqa: E402
 from sassd_tpu_torch.models import layers  # noqa: E402
 from sassd_tpu_torch.ops import interpolate, sparse as sp, warp  # noqa: E402
+from test_torch_cuda import k5_edge_case  # noqa: E402
 
 RTOL = 1e-5
 
@@ -147,21 +148,31 @@ def test_conv_weight_grad_edge_plans_match_jax(train_batch, kind, level_in,
     assert np.abs(np.asarray(jdw)).max() > 0
 
 
-def test_densify_grad_matches_jax(train_batch):
+@pytest.mark.parametrize("case", ["tiny", "w_not_4", "empty_row"])
+def test_densify_grad_matches_jax(train_batch, case):
+    """The canvas gradient at the rows (autograd of densify_nchw and the
+    plain K5b) == jax.vjp of to_dense + the d-major transpose, exact: the
+    train batch's level 3, a grid whose W is not a multiple of 4, and a
+    batch whose sample 1 is all padding."""
     cfg, batch, caps = train_batch
-    shape3 = (cfg.sparse_shape[0], cfg.sparse_shape[1], cfg.sparse_shape[2])
-    for _ in range(3):
-        shape3 = sp.out_shape_stride2(shape3)
+    c = 64 if case == "tiny" else 24
+    if case == "tiny":
+        shape3 = cfg.sparse_shape
+        for _ in range(3):
+            shape3 = sp.out_shape_stride2(shape3)
+        keys = sp.coords_to_keys(t(batch["plan_coords3"]), shape3)
+    else:
+        shape3, keys, _ = k5_edge_case(case, c)
+        keys = t(keys)
     rng = np.random.default_rng(4)
-    keys = sp.coords_to_keys(t(batch["plan_coords3"]), shape3)
-    x = rng.normal(size=(2, caps[3], 64)).astype(np.float32)
+    x = rng.normal(size=tuple(keys.shape) + (c,)).astype(np.float32)
     d, h, w = shape3
-    cot = rng.normal(size=(2, d * 64, h, w)).astype(np.float32)
+    cot = rng.normal(size=(2, d * c, h, w)).astype(np.float32)
 
     def jfn(xx):
         dense = jax.vmap(lambda k, f: jsp.to_dense(k, f, shape3))(
             jnp.asarray(keys.numpy()), xx)                    # [B,D,H,W,C]
-        return jnp.transpose(dense, (0, 1, 4, 2, 3)).reshape(2, d * 64, h, w)
+        return jnp.transpose(dense, (0, 1, 4, 2, 3)).reshape(2, d * c, h, w)
     _, vjp = jax.vjp(jfn, jnp.asarray(x))
     (jdx,) = vjp(jnp.asarray(cot))
     xt = t(x, True)
@@ -171,6 +182,9 @@ def test_densify_grad_matches_jax(train_batch):
     np.testing.assert_array_equal(
         sp.densify_grad_plain(keys, t(cot), shape3).numpy(), np.asarray(jdx))
     assert not occ.requires_grad
+    assert np.abs(np.asarray(jdx)).max() > 1.0
+    if case == "empty_row":
+        assert not xt.grad[1].any()
 
 
 def test_gather_mid_grad_matches_jax(train_batch):
