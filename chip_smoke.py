@@ -88,9 +88,14 @@ Phases, each of which fails the run (nonzero exit, no result line):
    loss finite, band_overflow 0. Timed: the timing scan at batch 1, banded
    and replicated in turns, and the train step at batch 2.
 
-Phase 3 also holds K8 (device voxelizer) and K9 (anchors mask) against
+Phase 3 holds K2 (NMS keep flags) bitwise against the plain greedy at
+N = 2000 and at 1, 63, 64, 65 and 2113 boxes (the sweep's 64-box blocks
+and its register words), at thresholds 0.1 and 0.5. It also holds K8
+(device voxelizer) and K9 (anchors mask) against
 their plain versions, bitwise, on the car scans (at the 20,000-voxel cap,
-so the lowest-key truncation runs) and on one frustum scan; and the
+so the lowest-key truncation runs) and on one frustum scan, K8 also on a
+batch of two with one sample empty and on phase 9's long-range timing
+scan (262,144-point cap, 80,000 voxels: the bitmap follows the grid); and the
 training kernels at batch 2 on the train plans of the car scans: K10
 (sparse-conv weight gradient, also bitwise equal over two calls) and K4's
 input gradients at the ladder's 10 training convs, K11 (ring 3-NN
@@ -103,7 +108,11 @@ output bitwise, its backward through K11's).
 
 K5, K5b, K6's level-0 map, K7 (the whole op, batch 1) and K13 are also
 timed beside one PyTorch call that computes their work (library_ms), a
-yardstick the port never calls. Those kernels, K15 and the yardsticks
+yardstick the port never calls; no single call computes K2's or K8's
+function. K2 and K8 (batch 1 and 2 car, batch 1 long range) print their
+device time by kernel (torch.profiler, kernel_split), and K8's rows the
+parent design's torch.sort of the same keys alone (sort_ms). Those
+kernels, K15 and the yardsticks
 are also timed as CUDA-graph replays (graph_ms, library_graph_ms: the
 device's time without the host's launch path), except torch.unique,
 which reads its output's size back to the host and cannot be captured.
@@ -257,6 +266,31 @@ def cold_ms(fn, iters: int = 20) -> float:
     return total / iters
 
 
+def kernel_split(fn, iters: int = 10) -> dict:
+    """Device milliseconds per call of each kernel (and memset) that fn()
+    runs, by name, from torch.profiler over `iters` calls: the parts of one
+    wrapper call."""
+    import re
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            name = re.sub(r"\(anonymous namespace\)::|^void ", "",
+                          e.key).split("(")[0][:60]
+            out[name] = out.get(name, 0.0) + (e.self_device_time_total
+                                              / iters / 1e3)
+    return out
+
+
 def bound(nbytes: float, ops: float) -> dict:
     """The least time the card could take for the work: bytes over the
     memory rate or operations over the float32 rate, whichever is longer."""
@@ -329,7 +363,7 @@ def nms_boxes(rng, n: int):
     """NMS-like candidates: clusters of jittered car boxes over the KITTI
     range, so that many pairs overlap."""
     import numpy as np
-    n_obj = n // 20
+    n_obj = max(n // 20, 1)
     centers = np.stack([rng.uniform(0, 70.4, n_obj),
                         rng.uniform(-40, 40, n_obj)], 1)
     which = rng.integers(0, n_obj, n)
@@ -385,30 +419,56 @@ def check_kernels(torch, np, device):
                      # ~400 operations a pair: corners, 2 x 4 clipped edges
                      **bound(2 * n1 * 5 * 4 + n1 * n1 * 4, n1 * n1 * 400)))
 
-    # K2: keep flags on the same boxes with random scores
+    # K2: keep flags on the same boxes with random scores, then at sizes
+    # around the sweep's 64-box blocks and its register words
     scores = torch.from_numpy(rng.uniform(0, 1, 2000).astype(np.float32))
     order = torch.argsort(-scores, stable=True).to(device)
     srt = bt[:2000][order].contiguous()
     iou = riou.rotate_iou_bev(srt, srt)
     keep0 = torch.from_numpy(rng.uniform(size=2000) < 0.95).to(device)
+    rng2 = np.random.default_rng(SEED + 20)
+    cases = [(iou, keep0)]
+    for n2 in (1, 63, 64, 65, 2113):
+        b2 = torch.from_numpy(nms_boxes(rng2, n2)).to(device)
+        cases.append((riou.rotate_iou_bev(b2, b2), torch.from_numpy(
+            rng2.uniform(size=n2) < 0.95).to(device)))
     err2 = 0
-    for thr in (0.1, 0.5):
-        k_got = riou.nms_keep(iou, keep0, thr)
-        k_ref = riou.nms_keep_plain(iou, keep0, thr)
-        n_diff = int((k_got != k_ref).sum())
-        err2 = max(err2, n_diff)
-        print(f"K2 nms_keep N=2000 thr={thr}: kept {int(k_got.sum())}, "
-              f"flags differing from plain greedy: {n_diff}")
+    for iou_c, keep0_c in cases:
+        for thr in (0.1, 0.5):
+            k_got = riou.nms_keep(iou_c, keep0_c, thr)
+            k_ref = riou.nms_keep_plain(iou_c, keep0_c, thr)
+            n_diff = int((k_got != k_ref).sum())
+            err2 = max(err2, n_diff)
+            print(f"K2 nms_keep N={keep0_c.shape[0]} thr={thr}: kept "
+                  f"{int(k_got.sum())}, flags differing from plain greedy: "
+                  f"{n_diff}")
     if err2:
         fail("K2 keep flags differ from the plain greedy")
+    # the NMS path's threshold 0.1, and 0.5, where a 64-box block keeps
+    # more boxes (K2's sweep follows the kept boxes)
     ms = cuda_ms(lambda: riou.nms_keep(iou, keep0, 0.1))
+    dev_ms = graph_ms(lambda: riou.nms_keep(iou, keep0, 0.1))
+    split = kernel_split(lambda: riou.nms_keep(iou, keep0, 0.1))
+    ms5 = cuda_ms(lambda: riou.nms_keep(iou, keep0, 0.5))
+    dev_ms5 = graph_ms(lambda: riou.nms_keep(iou, keep0, 0.5))
     plain_ms = cuda_ms(lambda: riou.nms_keep_plain(iou, keep0, 0.1), iters=5)
+    print(f"  K2 N=2000: kernel {ms:.4f} ms ({dev_ms:.4f} replayed from a "
+          f"CUDA graph), plain {plain_ms:.4f} ms; device ms a call by "
+          f"kernel {({k: round(v, 4) for k, v in split.items()})}; at thr "
+          f"0.5 {ms5:.4f} ms ({dev_ms5:.4f} replayed)")
     rows.append(dict(name="K2 nms_keep", route="cuda",
                      source="sassd_tpu_torch/csrc/rotate_nms.cu",
                      replaces="sassd_tpu/core/riou.py:188",
-                     max_abs_err=float(err2), ms=ms, plain_ms=plain_ms,
-                     library_ms=None,
-                     **bound(2000 * 2000 * 4 + 2 * 2000, 2000 * 2000)))
+                     max_abs_err=float(err2), ms=ms, graph_ms=dev_ms,
+                     thr05_ms=ms5, thr05_graph_ms=dev_ms5,
+                     plain_ms=plain_ms, library_ms=None,
+                     library_what="none: torch has no rotated NMS and no "
+                                  "greedy keep over an IoU matrix",
+                     kernel_split=split, at="N = 2000, thr 0.1",
+                     # the upper triangle of the matrix and keep0 in, the
+                     # flags out; a compare a pair
+                     **bound(2000 * 1999 // 2 * 4 + 2 * 2000,
+                             2000 * 1999 // 2)))
 
     # K3: [2, 28, 200, 176] part map, 2048 boxes per sample, ~10% off-map
     b, k, h, w, n = 2, 28, 200, 176, 2048
@@ -670,62 +730,124 @@ def k7_row(torch, sp, keys, shape, cap, err, name, at, y_limit=None):
                         8 * keys.numel()))
 
 
+def voxel_keys(torch, points, n_points, vc):
+    """[B, P] int32 voxel keys of padded points, INVALID_KEY where a point
+    is padding or off the grid: the keys the parent design sorted."""
+    dev = points.device
+    pcr = torch.tensor(vc.point_cloud_range[:3], dtype=torch.float32,
+                       device=dev)
+    vs = torch.tensor(vc.voxel_size, dtype=torch.float32, device=dev)
+    c = torch.floor((points[..., :3] - pcr) / vs).to(torch.int32)
+    gx, gy, gz = (int(g) for g in vc.grid_size)
+    ok = ((torch.arange(points.shape[1], device=dev)[None]
+           < n_points[:, None])
+          & ((c >= 0) & (c < torch.tensor([gx, gy, gz], dtype=torch.int32,
+                                          device=dev))).all(-1))
+    return torch.where(ok, (c[..., 2] * gy + c[..., 1]) * gx + c[..., 0],
+                       torch.iinfo(torch.int32).max)
+
+
+def k8_row(torch, vox, pts, n, vc, err, name, at, extra=None):
+    """K8's kernel row on [1, P] points: the whole op against its plain
+    version, as events and as a graph replay, its parts by kernel, and the
+    parent design's torch.sort of the same keys alone (a component of
+    the old design, not a yardstick: it is not the function)."""
+    fn = lambda: vox.voxelize(pts, n, vc)                      # noqa: E731
+    ms = cuda_ms(fn)
+    dev_ms = graph_ms(fn)
+    split = kernel_split(fn)
+    plain_ms = cuda_ms(lambda: vox.voxelize_plain(pts, n, vc))
+    keys = voxel_keys(torch, pts, n, vc)
+    sort_ms = cuda_ms(lambda: torch.sort(keys, dim=1, stable=True))
+    n_in = int(n.sum())
+    print(f"  {name} ({at}): kernel {ms:.4f} ms ({dev_ms:.4f} replayed "
+          f"from a CUDA graph), plain {plain_ms:.4f} ms; the old design's "
+          f"torch.sort of the keys alone {sort_ms:.4f} ms; device ms a call "
+          f"by kernel {({k: round(v, 4) for k, v in split.items()})}")
+    return dict(name=name, route="cuda",
+                source="sassd_tpu_torch/csrc/voxelize.cu",
+                replaces="sassd_tpu/ops/voxelize.py:142",
+                max_abs_err=err, ms=ms, graph_ms=dev_ms, plain_ms=plain_ms,
+                library_ms=None,
+                library_what="none: no PyTorch call voxelizes",
+                sort_ms=sort_ms, kernel_split=split, at=at, **(extra or {}),
+                # the valid points in; voxels, coords and counts out; the
+                # quantisation's 9 float32 operations a point
+                **bound(n_in * pts.shape[2] * 4 + vc.max_voxels * (
+                    vc.max_num_points * pts.shape[2] * 4 + 12 + 4),
+                    9 * n_in))
+
+
 def check_serving_kernels(torch, np, device, cfg, scans, anchors_bv):
     """Phase 3, K8 and K9: the device voxelizer and the anchors mask of
-    raw car-config scans against their plain versions on the card."""
+    raw car-config scans against their plain versions on the card; K8 also
+    on a batch of two with one sample empty and on phase 9's long-range
+    timing scan."""
     from sassd_tpu_torch import serve
-    from sassd_tpu_torch.ops.voxelize import voxelize, voxelize_plain
+    from sassd_tpu_torch.config import long_range_config
+    from sassd_tpu_torch.data import synthetic
+    from sassd_tpu_torch.ops import voxelize as vox
 
     prepared = [serve.prepare_points(p, cfg) for p in scans]
     pts = torch.from_numpy(np.stack([p for p, _ in prepared])).to(device)
     n = torch.from_numpy(np.asarray([k for _, k in prepared],
                                     np.int32)).to(device)
-    got = voxelize(pts, n, cfg.voxel)
-    ref = voxelize_plain(pts, n, cfg.voxel)
-    same8 = all(torch.equal(a, b) for a, b in zip(got, ref))
-    err8 = float(max((a.double() - b.double()).abs().max()
-                     for a, b in zip(got, ref)))
-    n_vox = (got[1][..., 0] >= 0).sum(1).tolist()
-    print(f"K8 voxelize {tuple(pts.shape)}, n_points {n.tolist()}: "
-          f"{'bitwise equal to' if same8 else 'DIFFERS from'} plain; "
-          f"voxels {n_vox} (cap {cfg.voxel.max_voxels})")
-    if not same8:
-        fail("K8 differs from its plain version")
+    lr = long_range_config()
+    lr_pts, lr_n = serve.prepare_points(synthetic.long_range_scene(
+        np.random.default_rng(SEED + 10))[0], lr)
+    lr_pts = torch.from_numpy(lr_pts[None]).to(device)
+    lr_n = torch.from_numpy(np.asarray([lr_n], np.int32)).to(device)
+    n_empty = n[:2].clone()
+    n_empty[1] = 0
+    err8 = 0.0
+    for what, p8, n8, vc in (
+            (f"car scans at the {cfg.voxel.max_voxels}-voxel cap and a "
+             f"frustum scan", pts, n, cfg.voxel),
+            ("a batch of two, the second sample empty", pts[:2], n_empty,
+             cfg.voxel),
+            ("the long-range timing scan", lr_pts, lr_n, lr.voxel)):
+        got = vox.voxelize(p8, n8, vc)
+        ref = vox.voxelize_plain(p8, n8, vc)
+        same8 = all(torch.equal(a, b) for a, b in zip(got, ref))
+        err8 = max(err8, float(max((a.double() - b.double()).abs().max()
+                                   for a, b in zip(got, ref))))
+        n_vox = (got[1][..., 0] >= 0).sum(1).tolist()
+        print(f"K8 voxelize, {what}, {tuple(p8.shape)}, n_points "
+              f"{n8.tolist()}: {'bitwise equal to' if same8 else 'DIFFERS from'}"
+              f" plain; voxels {n_vox} (cap {vc.max_voxels})")
+        if not same8:
+            fail(f"K8 differs from its plain version on {what}")
+        if p8 is pts:
+            coords8 = got[1]
     corners = torch.from_numpy(serve.anchor_corner_indices(
         anchors_bv, cfg.voxel.voxel_size, cfg.voxel.point_cloud_range,
         cfg.voxel.grid_size)).to(device)
     hw = (int(cfg.voxel.grid_size[1]), int(cfg.voxel.grid_size[0]))
     thr = cfg.data.anchor_area_threshold
-    mask = serve.anchors_mask(got[1], corners, hw, thr)
-    mask_ref = serve.anchors_mask_plain(got[1], corners, hw, thr)
+    mask = serve.anchors_mask(coords8, corners, hw, thr)
+    mask_ref = serve.anchors_mask_plain(coords8, corners, hw, thr)
     same9 = torch.equal(mask, mask_ref)
     err9 = float((mask.int() - mask_ref.int()).abs().max())
-    print(f"K9 anchors_mask {tuple(got[1].shape)} -> {tuple(mask.shape)} "
+    print(f"K9 anchors_mask {tuple(coords8.shape)} -> {tuple(mask.shape)} "
           f"over a {hw[0]}x{hw[1]} grid: "
           f"{'bitwise equal to' if same9 else 'DIFFERS from'} plain; "
           f"anchors kept {mask.sum(1).tolist()}")
     if not same9:
         fail("K9 differs from its plain version")
 
-    p1, n1, c1 = pts[:1], n[:1], got[1][:1].contiguous()
-    rows = []
-    ms = cuda_ms(lambda: voxelize(p1, n1, cfg.voxel))
-    plain_ms = cuda_ms(lambda: voxelize_plain(p1, n1, cfg.voxel))
-    print(f"  K8 batch 1 (incl. torch.sort): kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms")
-    n_in = int(n1[0])
-    v_cap = cfg.voxel.max_voxels
-    rows.append(dict(name="K8 voxelize", route="cuda",
-                     source="sassd_tpu_torch/csrc/voxelize.cu",
-                     replaces="sassd_tpu/ops/voxelize.py:142",
-                     max_abs_err=err8, ms=ms, plain_ms=plain_ms,
-                     library_ms=None,
-                     at="batch 1, 65,536-point cap, torch.sort included",
-                     # the valid points in; voxels, coords and counts out;
-                     # a comparison sort of the points' keys
-                     **bound(n_in * 16 + v_cap * (cfg.voxel.max_num_points
-                                                  * 16 + 12 + 4),
-                             n_in * int(np.ceil(np.log2(max(n_in, 2)))))))
+    p1, n1, c1 = pts[:1], n[:1], coords8[:1].contiguous()
+    p2, n2 = pts[:2], n[:2]
+    b2_ms = cuda_ms(lambda: vox.voxelize(p2, n2, cfg.voxel))
+    b2_graph_ms = graph_ms(lambda: vox.voxelize(p2, n2, cfg.voxel))
+    print(f"  K8 batch 2 (car scans 0-1): kernel {b2_ms:.4f} ms "
+          f"({b2_graph_ms:.4f} replayed from a CUDA graph)")
+    rows = [k8_row(torch, vox, p1, n1, cfg.voxel, err8, "K8 voxelize",
+                   "batch 1 car scan, 65,536-point cap",
+                   dict(batch2_ms=b2_ms, batch2_graph_ms=b2_graph_ms)),
+            k8_row(torch, vox, lr_pts, lr_n, lr.voxel, err8,
+                   "K8 voxelize, long range",
+                   "batch 1, phase 9's long-range timing scan, "
+                   "262,144-point cap, 80,000 voxels")]
     ms = cuda_ms(lambda: serve.anchors_mask(c1, corners, hw, thr))
     plain_ms = cuda_ms(lambda: serve.anchors_mask_plain(c1, corners, hw,
                                                         thr))

@@ -13,6 +13,9 @@ from sassd_tpu_torch.ops.riou_kernel import rotate_overlap
 
 _K2 = cuda.Kernel("sassd_nms_keep",
                   [cuda.P, cuda.P, cuda.I, cuda.F, cuda.P, cuda.P])
+# K2's sweep is one warp holding the removed bits of the boxes in
+# registers, at most 4 words of 64 boxes a lane
+K2_MAX_BOXES = 32 * 64 * 4
 
 
 def boxes3d_to_bev5(boxes3d: torch.Tensor) -> torch.Tensor:
@@ -69,21 +72,27 @@ def nms_keep(iou: torch.Tensor, keep0: torch.Tensor,
 
     iou: [N, N] float32, iou[i, j] with box i as the overlap's subject;
     keep0: [N] bool candidates. Box i is dropped when a kept j < i has
-    iou[i, j] > thr. Returns [N] bool.
+    iou[i, j] > thr. Returns [N] bool. On the card N <= K2_MAX_BOXES.
     """
     if iou.device.type == "cpu":
         return nms_keep_plain(iou, keep0, iou_threshold)
     cuda.check_cuda("iou", iou, torch.float32, 2)
     cuda.check_cuda("keep0", keep0, torch.bool, 1)
     n = keep0.shape[0]
+    if n > K2_MAX_BOXES:
+        raise ValueError(f"nms_keep takes at most {K2_MAX_BOXES} boxes on "
+                         f"the card, got {n}; lower test.nms_pre")
     if iou.shape != (n, n):
         raise ValueError(f"iou {tuple(iou.shape)} does not match keep0 [{n}]")
+    blocks = -(-n // 64)
     with torch.cuda.device(iou.device):
-        mask = torch.empty((n * ((n + 63) // 64),), dtype=torch.int64,
-                           device=iou.device)
+        # scratch: the bitmask's upper triangle of 64-box blocks (block w:
+        # 64 rows of blocks - w words), then the candidate word of each
+        scratch = torch.empty((32 * blocks * (blocks + 1) + blocks,),
+                              dtype=torch.int64, device=iou.device)
         keep = torch.empty((n,), dtype=torch.bool, device=iou.device)
         _K2.launch(iou.data_ptr(), keep0.data_ptr(), n, float(iou_threshold),
-                   mask.data_ptr(), keep.data_ptr())
+                   scratch.data_ptr(), keep.data_ptr())
     return keep
 
 

@@ -7,10 +7,10 @@ linear zyx key, padding last.
 - :func:`voxelize_np` (host, the loader's path): per-voxel contents and the
   max_voxels cut keep first-come semantics.
 - :func:`voxelize` (device serving, K8 ``csrc/voxelize.cu`` on the card,
-  :func:`voxelize_plain` on the CPU): a stable key sort keeps first-come
-  slots inside a voxel, and the max_voxels cut keeps the lowest keys, as
-  the JAX package's ``voxelize_jax``. Below the cap both give the same
-  voxels.
+  :func:`voxelize_plain` on the CPU): first-come slots inside a voxel (the
+  plain version by a stable key sort, K8 without one), and the max_voxels
+  cut keeps the lowest keys, as the JAX package's ``voxelize_jax``. Below
+  the cap both give the same voxels.
 """
 from __future__ import annotations
 
@@ -22,17 +22,13 @@ from . import cuda, native
 
 INVALID_KEY = torch.iinfo(torch.int32).max
 
-_K8_KEYS = cuda.Kernel("sassd_voxel_keys",
-                       [cuda.P, cuda.P, cuda.I, cuda.I, cuda.I]
-                       + [cuda.F] * 6 + [cuda.I, cuda.I, cuda.I, cuda.P])
-_K8_RUNS = cuda.Kernel("sassd_voxel_runs",
-                       [cuda.P, cuda.I, cuda.I, cuda.I, cuda.P])
-_K8_WRITE = cuda.Kernel("sassd_voxel_write",
-                        [cuda.P, cuda.P, cuda.P, cuda.P] + [cuda.I] * 7
-                        + [cuda.P, cuda.P, cuda.P])
+_K8 = cuda.Kernel("sassd_voxelize",
+                  [cuda.P, cuda.P, cuda.I, cuda.I, cuda.I] + [cuda.F] * 6
+                  + [cuda.I] * 6 + [cuda.P, cuda.P, cuda.P, cuda.P])
+# K8's bitmap tile: 1024 32-bit words (32,768 grid cells) a block
+K8_TILE_CELLS = 32768
 # the C entry points of the kernel, for launch counts
-KERNEL_SYMBOLS = {"K8": ("sassd_voxel_keys", "sassd_voxel_runs",
-                         "sassd_voxel_write")}
+KERNEL_SYMBOLS = {"K8": ("sassd_voxelize",)}
 
 
 def voxelize_np(points: np.ndarray, cfg: VoxelConfig, pad: bool = False):
@@ -109,7 +105,7 @@ def voxelize(points: torch.Tensor, n_points: torch.Tensor, cfg: VoxelConfig):
     n_points: [B] int32. Returns voxels [B, max_voxels, T, F] (zero
     padded), coords [B, max_voxels, 3] int32 zyx (-1 padded) and
     num_points [B, max_voxels] int32; the max_voxels lowest keys win the
-    cap. K8 around ``torch.sort`` on the card.
+    cap. K8 on the card: a bitmap of the grid, ranked, no sort.
     """
     if points.device.type == "cpu":
         return voxelize_plain(points, n_points, cfg)
@@ -123,22 +119,25 @@ def voxelize(points: torch.Tensor, n_points: torch.Tensor, cfg: VoxelConfig):
     if n_points.device != points.device:
         raise ValueError("points and n_points must be on one device")
     gx, gy, gz = (int(g) for g in cfg.grid_size)
+    if gx * gy * gz >= INVALID_KEY:
+        raise ValueError(f"grid {cfg.grid_size} has more cells than int32 "
+                         f"keys can name")
     t_max, vmax = cfg.max_num_points, cfg.max_voxels
+    tiles = -(-(gx * gy * gz) // K8_TILE_CELLS)
     dev = points.device
     with torch.cuda.device(dev):
-        keys = torch.empty((b, p), dtype=torch.int32, device=dev)
-        _K8_KEYS.launch(points.data_ptr(), n_points.data_ptr(), b, p, f,
-                        *cfg.point_cloud_range[:3], *cfg.voxel_size,
-                        gx, gy, gz, keys.data_ptr())
-        ks, perm = torch.sort(keys, dim=1, stable=True)
-        start = torch.empty((b, vmax + 1), dtype=torch.int32, device=dev)
-        _K8_RUNS.launch(ks.data_ptr(), b, p, vmax, start.data_ptr())
+        # scratch (int32): bitmap, tile counts, tile bases, totals, point
+        # keys, sorted keys, slots; K8 clears what it needs
+        scratch = torch.empty(
+            b * (tiles * (K8_TILE_CELLS // 32 + 2) + 1 + p
+                 + vmax * (1 + t_max)), dtype=torch.int32, device=dev)
         voxels = torch.empty((b, vmax, t_max, f), dtype=torch.float32,
                              device=dev)
         coords = torch.empty((b, vmax, 3), dtype=torch.int32, device=dev)
         num_points = torch.empty((b, vmax), dtype=torch.int32, device=dev)
-        _K8_WRITE.launch(points.data_ptr(), perm.data_ptr(), ks.data_ptr(),
-                         start.data_ptr(), b, p, f, vmax, t_max, gx, gy,
-                         voxels.data_ptr(), coords.data_ptr(),
-                         num_points.data_ptr())
+        _K8.launch(points.data_ptr(), n_points.data_ptr(), b, p, f,
+                   *cfg.point_cloud_range[:3], *cfg.voxel_size,
+                   gx, gy, gz, vmax, t_max, tiles, scratch.data_ptr(),
+                   voxels.data_ptr(), coords.data_ptr(),
+                   num_points.data_ptr())
     return voxels, coords, num_points

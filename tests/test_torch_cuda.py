@@ -21,6 +21,8 @@ partition, integer coords and copied rows) and K7 with a y limit are
 exact, K11 with per-row origins as K11; a banded train step card vs CPU
 1e-4 (losses) and 1e-3 (grad norm), as the three-class one.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -82,6 +84,56 @@ def test_k2_matches_plain_greedy(dev, n, thr):
     torch.cuda.synchronize()
     ref = riou.nms_keep_plain(iou, keep0, thr)
     assert torch.equal(got.cpu(), ref)
+
+
+def k2_matrix(kind, n, thr, rng):
+    """[N, N] IoU matrices that pin K2's greedy: "chain" (box i overlaps
+    only box i + 1, so kept and dropped alternate down the chain), "ties"
+    (many entries exactly at thr, which do not suppress), "random" (sparse
+    random overlaps)."""
+    if kind == "chain":
+        iou = np.zeros((n, n), np.float32)
+        i = np.arange(n - 1)
+        iou[i + 1, i] = iou[i, i + 1] = 0.9
+        return iou
+    if kind == "ties":
+        return rng.choice(np.float32([0.0, thr, 0.9]), (n, n),
+                          p=[0.9, 0.08, 0.02])
+    return (rng.uniform(0, 1, (n, n))
+            * (rng.uniform(size=(n, n)) < 4.0 / max(n, 1))).astype(np.float32)
+
+
+@pytest.mark.parametrize("n", [0, 1, 63, 64, 65, 2000, 2113, 4100])
+@pytest.mark.parametrize("kind", ["chain", "ties", "random", "no_candidate"])
+def test_k2_edge_cases_match_plain(dev, n, kind):
+    """Bitwise against the plain greedy across the sweep's 64-box blocks
+    and its register words (2113: two words a lane; 4100: four, and over
+    48 KB of shared memory)."""
+    from sassd_tpu_torch.core import riou
+    rng = np.random.default_rng(n)
+    thr = 0.5
+    iou = torch.from_numpy(k2_matrix(
+        "random" if kind == "no_candidate" else kind, n, thr, rng))
+    keep0 = torch.from_numpy(rng.uniform(size=n) < 0.9)
+    if kind == "no_candidate":
+        keep0[:] = False
+    before = riou._K2.launches
+    got = riou.nms_keep(iou.to(dev), keep0.to(dev), thr)
+    torch.cuda.synchronize()
+    assert riou._K2.launches == before + 1
+    # the plain greedy on the card: a chain takes N rounds
+    ref = riou.nms_keep_plain(iou.to(dev), keep0.to(dev), thr).cpu()
+    assert torch.equal(got.cpu(), ref)
+    if kind == "chain" and n > 1:
+        assert not ref.all() and ref.any()
+
+
+def test_k2_refuses_too_many_boxes(dev):
+    from sassd_tpu_torch.core import riou
+    n = riou.K2_MAX_BOXES + 1
+    with pytest.raises(ValueError, match="at most"):
+        riou.nms_keep(torch.zeros((1, 1), device=dev),
+                      torch.ones(n, dtype=torch.bool, device=dev), 0.1)
 
 
 def test_k2_rotate_nms_matches_cpu(dev):
@@ -468,17 +520,96 @@ def test_k8_matches_plain(dev, n_points):
     keys win) and an empty scan."""
     from sassd_tpu_torch.ops import voxelize as vox
     cfg, pts, n = tiny_points(len(n_points), len(n_points), n_points)
-    before = vox._K8_WRITE.launches
+    before = vox._K8.launches
     got = vox.voxelize(torch.from_numpy(pts).to(dev),
                        torch.from_numpy(n).to(dev), cfg.voxel)
     torch.cuda.synchronize()
-    assert vox._K8_WRITE.launches == before + 1
+    assert vox._K8.launches == before + 1
     ref = vox.voxelize_plain(torch.from_numpy(pts), torch.from_numpy(n),
                              cfg.voxel)
     for g, r in zip(got, ref):
         assert torch.equal(g.cpu(), r)
     n_vox = (ref[1][..., 0] >= 0).sum(1)
     assert n_vox.max() == cfg.voxel.max_voxels or len(n_points) == 1
+
+
+def grid_top_points(vc, rng, n):
+    """[n, 4] points over the grid, a quarter of them in the grid's top
+    cells (keys near gx * gy * gz), a few just past its top edges."""
+    pcr = np.asarray(vc.point_cloud_range, np.float32)
+    vs = np.asarray(vc.voxel_size, np.float32)
+    pts = np.zeros((n, 4), np.float32)
+    for i in range(3):
+        pts[:, i] = rng.uniform(pcr[i], pcr[i + 3], n)
+    k = n // 4
+    pts[:k, :3] = pcr[3:] - vs * rng.uniform(0.05, 2.5, (k, 3))
+    pts[k:k + 8, :3] = pcr[3:] + vs * 0.25               # off the grid
+    pts[:, 3] = rng.uniform(0, 1, n)
+    return pts
+
+
+@pytest.mark.parametrize("case", ["over_cap_interleaved", "empty_sample",
+                                  "car_top", "long_range_top"])
+def test_k8_edge_cases_match_plain(dev, case):
+    """Bitwise against the plain version: a voxel with more than T points
+    interleaved in scan order with other voxels' points, over the cap (the
+    lowest keys win); a batch whose second sample is empty; keys near the
+    top of the car and long-range grids (bitmaps of 2,750 and 4,000
+    tiles)."""
+    from sassd_tpu_torch import config
+    from sassd_tpu_torch.ops import voxelize as vox
+    rng = np.random.default_rng(7)
+    if case in ("car_top", "long_range_top"):
+        vc = (config.car_config() if case == "car_top"
+              else config.long_range_config()).voxel
+        pts = grid_top_points(vc, rng, 6000)[None]
+        n = np.asarray([6000], np.int32)
+    else:
+        cfg, pts, n = tiny_points(11, 2, (2048, 2048))
+        vc = cfg.voxel
+        # 100 points in the grid's first cell, so under the cap
+        pts[:, 100:1000:9, :3] = (np.float32(vc.point_cloud_range[:3])
+                                  + np.float32(vc.voxel_size) / 2)
+        if case == "empty_sample":
+            n[1] = 0
+    got = vox.voxelize(torch.from_numpy(pts).to(dev),
+                       torch.from_numpy(n).to(dev), vc)
+    torch.cuda.synchronize()
+    ref = vox.voxelize_plain(torch.from_numpy(pts), torch.from_numpy(n), vc)
+    for g, r in zip(got, ref):
+        assert torch.equal(g.cpu(), r)
+    n_vox = (ref[1][..., 0] >= 0).sum(1)
+    if case == "over_cap_interleaved":
+        assert (n_vox == vc.max_voxels).all()
+        assert ref[2].max() == vc.max_num_points
+    elif case == "empty_sample":
+        assert n_vox[1] == 0 and n_vox[0] == vc.max_voxels
+    else:
+        d, h, w = vc.grid_size[2], vc.grid_size[1], vc.grid_size[0]
+        top = (ref[1][0, :, 0].long() * h + ref[1][0, :, 1]) * w \
+            + ref[1][0, :, 2]
+        assert int(top.max()) > d * h * w - 3 * h * w
+
+
+def test_k8_calls_no_library_sort(dev, monkeypatch):
+    """The card's voxelize runs K8 alone: torch.sort (the parent design's
+    central step) must not come back."""
+    from sassd_tpu_torch.ops import voxelize as vox
+    cfg, pts, n = tiny_points(3, 2, (300, 2048))
+    ref = vox.voxelize_plain(torch.from_numpy(pts), torch.from_numpy(n),
+                             cfg.voxel)
+    p, k = torch.from_numpy(pts).to(dev), torch.from_numpy(n).to(dev)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("voxelize called torch.sort")
+    for name in ("sort", "argsort", "unique", "unique_consecutive"):
+        monkeypatch.setattr(torch, name, refuse)
+        monkeypatch.setattr(torch.Tensor, name, refuse)
+    got = vox.voxelize(p, k, cfg.voxel)
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    for g, r in zip(got, ref):
+        assert torch.equal(g.cpu(), r)
 
 
 @pytest.mark.parametrize("name", ["tiny_config", "car_config"])
@@ -522,6 +653,9 @@ def test_serving_wrappers_reject_bad_inputs(dev):
                      vc)
     with pytest.raises(ValueError):                      # n_points on host
         vox.voxelize(pts, n.cpu(), vc)
+    with pytest.raises(ValueError, match="int32"):       # 2^31 cells
+        vox.voxelize(pts, n, dataclasses.replace(
+            vc, voxel_size=(0.001, 0.001, 0.001)))
     coords = torch.zeros((1, 8, 3), dtype=torch.int32, device=dev)
     corners = torch.zeros((4, 4), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):                      # corners [4, 3]

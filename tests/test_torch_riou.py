@@ -17,6 +17,7 @@ from sassd_tpu.core import riou as jriou  # noqa: E402
 from sassd_tpu.ops.pallas.riou_kernel import rotate_overlap_green  # noqa: E402
 from sassd_tpu_torch.core import riou  # noqa: E402
 from sassd_tpu_torch.ops import cuda, riou_kernel  # noqa: E402
+from test_torch_cuda import k2_matrix  # noqa: E402
 
 
 def random_bev(rng, n):
@@ -126,6 +127,32 @@ def test_nms_keep_plain_is_exact_greedy():
         ref[i] = keep0[i] and not any(ref[j] and iou[i, j] > 0.2
                                       for j in range(i))
     np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("n,kind", [
+    (1, "chain"), (63, "chain"), (64, "chain"), (65, "chain"),
+    (130, "chain"), (63, "ties"), (64, "ties"), (65, "ties"),
+    (130, "ties"), (2113, "random")])
+def test_nms_keep_plain_matches_jax_fixpoint(n, kind):
+    """K2's plain version == the JAX package's _fixpoint_keep on the same
+    matrix, with the suppression relation built as its rotate_nms builds
+    it (strict iou > thr, j < i): suppression chains (kept and dropped
+    alternate), entries exactly at thr (no suppression) and a sparse
+    random matrix across several 64-box blocks."""
+    rng = np.random.default_rng(n)
+    thr = 0.5
+    iou = k2_matrix(kind, n, thr, rng)
+    keep0 = rng.uniform(size=n) < 0.9
+    got = riou.nms_keep_plain(torch.from_numpy(iou), torch.from_numpy(keep0),
+                              thr).numpy()
+    tri = jnp.tril(jnp.ones((n, n), bool), k=-1)
+    sup = tri & (jnp.asarray(iou) > thr)
+    ref = np.asarray(jriou._fixpoint_keep(jnp.asarray(keep0), sup))
+    np.testing.assert_array_equal(got, ref)
+    if kind == "chain" and n > 2:
+        assert got.any() and not got[keep0].all()
+    if kind == "ties":
+        assert (iou == thr).sum() > n                 # ties are present
 
 
 def test_cpu_tensors_take_the_plain_versions():

@@ -27,6 +27,7 @@ from sassd_tpu_torch.data import kitti  # noqa: E402
 from sassd_tpu_torch.ops import native  # noqa: E402
 from sassd_tpu_torch.ops.voxelize import (voxelize, voxelize_np,  # noqa: E402
                                           voxelize_plain)
+from test_torch_cuda import grid_top_points, tiny_points  # noqa: E402
 from test_torch_detector import jax_weights, matched  # noqa: E402
 
 
@@ -107,6 +108,49 @@ def test_voxelize_plain_matches_jax(case):
         assert 0 < n_vox[0] < cfg.voxel.max_voxels
     else:
         assert n_vox[-1] == cfg.voxel.max_voxels
+
+
+@pytest.mark.parametrize("case", ["interleaved_over_t", "empty_sample",
+                                  "car_grid_top"])
+def test_voxelize_plain_matches_jax_edges(case):
+    """voxelize_plain == eager voxelize_jax bit for bit on the semantics K8
+    keeps without a sort: a voxel with more than T points spread through
+    the scan between other voxels' points (first-come slots across the
+    gaps) over the voxel cap; a batch of two whose second sample is empty;
+    keys at the top of the car grid (and points just past its edges)."""
+    if case == "car_grid_top":
+        cfg, jcfg = config.car_config(), jconfig.car_config()
+        pts = grid_top_points(cfg.voxel, np.random.default_rng(4), 3000)[None]
+        n = np.asarray([3000], np.int32)
+    else:
+        jcfg = jconfig.tiny_config()
+        cfg, pts, n = tiny_points(11, 2, (2048, 2048))
+        # 100 points in the grid's first cell, so under the cap
+        pts[:, 100:1000:9, :3] = (np.float32(cfg.voxel.point_cloud_range[:3])
+                                  + np.float32(cfg.voxel.voxel_size) / 2)
+        if case == "empty_sample":
+            n[1] = 0
+    got = [t.numpy() for t in voxelize(torch.from_numpy(pts),
+                                       torch.from_numpy(n), cfg.voxel)]
+    for b in range(len(n)):
+        valid = jnp.arange(pts.shape[1]) < n[b]
+        ref = voxelize_jax(jnp.asarray(pts[b]), valid, jcfg.voxel)
+        for g, r, name in zip(got, ref, ("voxels", "coords", "num_points")):
+            np.testing.assert_array_equal(g[b], np.asarray(r), err_msg=name)
+    n_vox = (got[1][..., 0] >= 0).sum(1)
+    if case == "car_grid_top":
+        assert got[1][0, :, 0].max() >= cfg.voxel.grid_size[2] - 3
+    else:
+        assert n_vox[0] == cfg.voxel.max_voxels
+        assert got[2][0].max() == cfg.voxel.max_num_points
+        # the 100-point voxel holds its first T points in scan order
+        first = pts[0, 100, :3]
+        row = np.flatnonzero((got[0][0, :, 0, :3] == first).all(-1))
+        assert len(row) == 1
+        np.testing.assert_array_equal(
+            got[0][0, row[0], :, 3], pts[0, 100:145:9, 3])
+        if case == "empty_sample":
+            assert n_vox[1] == 0
 
 
 def corner_table(cfg, anchors_bv):
