@@ -109,15 +109,19 @@ output bitwise, its backward through K11's).
 K5, K5b, K6's level-0 map, K7 (the whole op, batch 1) and K13 are also
 timed beside one PyTorch call that computes their work (library_ms), a
 yardstick the port never calls; no single call computes K2's or K8's
-function. K2 and K8 (batch 1 and 2 car, batch 1 long range) print their
-device time by kernel (torch.profiler, kernel_split), and K8's rows the
-parent design's torch.sort of the same keys alone (sort_ms). Those
-kernels, K15 and the yardsticks
-are also timed as CUDA-graph replays (graph_ms, library_graph_ms: the
+function. K8's rows carry the parent design's torch.sort of the same
+keys alone (sort_ms). K2, K8, K15 and the yardsticks are also timed as CUDA-graph replays (graph_ms, library_graph_ms: the
 device's time without the host's launch path), except torch.unique,
 which reads its output's size back to the host and cannot be captured.
 K5b and K13 and their yardsticks are timed over 100 calls each, K5b and
-its gather also with the L2 cold before each call (cold_l2_ms).
+its gather also with the L2 cold before each call (cold_l2_ms). K11 and
+K11' (per level: the forward, the backward with its memset of d_feats,
+that memset alone, the zeroing as torch.zeros, and forward + backward
+replayed from one graph) and K16 are timed by events and graph replay. K2, K8, K11,
+K11' and K16 also print torch.profiler's device time by kernel
+(kernel_split) after their timed runs, as a diagnostic only: those
+totals have read below the replay of the same call, so no row carries
+them.
 
 Every kernel row carries its bound: the larger of the bytes it must move
 (each input read once, each output written once, at this run's active
@@ -129,9 +133,10 @@ name and power limit; the last line is the JSON result object.
 
     python3 chip_smoke.py --kernels-only
 
-runs phases 1-3 and prints the kernel rows under the key kernels_only
-(without launch counts) and the card, and no result line: the kernels of two checkouts can be timed
-in one call, each from its own root.
+runs phases 1-3 and phase 9's kernel checks and prints the kernel rows
+under the key kernels_only (without launch counts) and the card, and no
+result line: the kernels of two checkouts can be timed in one call, each
+from its own root.
 """
 from __future__ import annotations
 
@@ -291,6 +296,24 @@ def kernel_split(fn, iters: int = 10) -> dict:
     return out
 
 
+def timed(fn, iters: int = 20) -> dict:
+    """fn()'s milliseconds by CUDA events (ms) and replayed from a CUDA
+    graph (graph_ms)."""
+    return dict(ms=cuda_ms(fn, iters=iters), graph_ms=graph_ms(fn, iters))
+
+
+def fmt_timed(t: dict) -> str:
+    return f"{t['ms']:.4f} ms ({t['graph_ms']:.4f} replayed)"
+
+
+def fmt_split(fn) -> str:
+    """kernel_split(fn) as a diagnostic: torch.profiler's per-kernel totals
+    have read below the replay of the same call, so they are printed after
+    the timed runs and kept out of the kernel rows."""
+    parts = ", ".join(f"{k} {v:.4f}" for k, v in kernel_split(fn).items())
+    return f"profiler totals a call (diagnostic, not in the row): {parts}"
+
+
 def bound(nbytes: float, ops: float) -> dict:
     """The least time the card could take for the work: bytes over the
     memory rate or operations over the float32 rate, whichever is longer."""
@@ -416,6 +439,7 @@ def check_kernels(torch, np, device):
                      replaces="sassd_tpu/ops/pallas/riou_kernel.py:137",
                      max_abs_err=err1, ms=ms, plain_ms=plain_ms,
                      library_ms=None,
+                     library_what="none: torch has no rotated-box overlap",
                      # ~400 operations a pair: corners, 2 x 4 clipped edges
                      **bound(2 * n1 * 5 * 4 + n1 * n1 * 4, n1 * n1 * 400)))
 
@@ -448,14 +472,13 @@ def check_kernels(torch, np, device):
     # more boxes (K2's sweep follows the kept boxes)
     ms = cuda_ms(lambda: riou.nms_keep(iou, keep0, 0.1))
     dev_ms = graph_ms(lambda: riou.nms_keep(iou, keep0, 0.1))
-    split = kernel_split(lambda: riou.nms_keep(iou, keep0, 0.1))
     ms5 = cuda_ms(lambda: riou.nms_keep(iou, keep0, 0.5))
     dev_ms5 = graph_ms(lambda: riou.nms_keep(iou, keep0, 0.5))
     plain_ms = cuda_ms(lambda: riou.nms_keep_plain(iou, keep0, 0.1), iters=5)
     print(f"  K2 N=2000: kernel {ms:.4f} ms ({dev_ms:.4f} replayed from a "
-          f"CUDA graph), plain {plain_ms:.4f} ms; device ms a call by "
-          f"kernel {({k: round(v, 4) for k, v in split.items()})}; at thr "
-          f"0.5 {ms5:.4f} ms ({dev_ms5:.4f} replayed)")
+          f"CUDA graph), plain {plain_ms:.4f} ms; at thr 0.5 {ms5:.4f} ms "
+          f"({dev_ms5:.4f} replayed); "
+          f"{fmt_split(lambda: riou.nms_keep(iou, keep0, 0.1))}")
     rows.append(dict(name="K2 nms_keep", route="cuda",
                      source="sassd_tpu_torch/csrc/rotate_nms.cu",
                      replaces="sassd_tpu/core/riou.py:188",
@@ -464,7 +487,7 @@ def check_kernels(torch, np, device):
                      plain_ms=plain_ms, library_ms=None,
                      library_what="none: torch has no rotated NMS and no "
                                   "greedy keep over an IoU matrix",
-                     kernel_split=split, at="N = 2000, thr 0.1",
+                     at="N = 2000, thr 0.1",
                      # the upper triangle of the matrix and keep0 in, the
                      # flags out; a compare a pair
                      **bound(2000 * 1999 // 2 * 4 + 2 * 2000,
@@ -501,6 +524,9 @@ def check_kernels(torch, np, device):
                      replaces="sassd_tpu/ops/warp.py:76",
                      max_abs_err=err3, ms=ms, plain_ms=plain_ms,
                      library_ms=None,
+                     library_what="none: grid_sample samples every channel "
+                                  "at every point; the part's channel and "
+                                  "the mean take more calls",
                      # boxes, valid, scores; 4 map taps a part; ~70
                      # operations a part (lattice, sin/cos, 4 weights)
                      **bound(b * n * (7 * 4 + 1 + 4) + b * n * k * 4 * 4,
@@ -749,28 +775,26 @@ def voxel_keys(torch, points, n_points, vc):
 
 def k8_row(torch, vox, pts, n, vc, err, name, at, extra=None):
     """K8's kernel row on [1, P] points: the whole op against its plain
-    version, as events and as a graph replay, its parts by kernel, and the
-    parent design's torch.sort of the same keys alone (a component of
+    version, as events and as a graph replay (its parts by kernel printed
+    as a diagnostic), and the parent design's torch.sort of the same keys alone (a component of
     the old design, not a yardstick: it is not the function)."""
     fn = lambda: vox.voxelize(pts, n, vc)                      # noqa: E731
     ms = cuda_ms(fn)
     dev_ms = graph_ms(fn)
-    split = kernel_split(fn)
     plain_ms = cuda_ms(lambda: vox.voxelize_plain(pts, n, vc))
     keys = voxel_keys(torch, pts, n, vc)
     sort_ms = cuda_ms(lambda: torch.sort(keys, dim=1, stable=True))
     n_in = int(n.sum())
     print(f"  {name} ({at}): kernel {ms:.4f} ms ({dev_ms:.4f} replayed "
           f"from a CUDA graph), plain {plain_ms:.4f} ms; the old design's "
-          f"torch.sort of the keys alone {sort_ms:.4f} ms; device ms a call "
-          f"by kernel {({k: round(v, 4) for k, v in split.items()})}")
+          f"torch.sort of the keys alone {sort_ms:.4f} ms; {fmt_split(fn)}")
     return dict(name=name, route="cuda",
                 source="sassd_tpu_torch/csrc/voxelize.cu",
                 replaces="sassd_tpu/ops/voxelize.py:142",
                 max_abs_err=err, ms=ms, graph_ms=dev_ms, plain_ms=plain_ms,
                 library_ms=None,
                 library_what="none: no PyTorch call voxelizes",
-                sort_ms=sort_ms, kernel_split=split, at=at, **(extra or {}),
+                sort_ms=sort_ms, at=at, **(extra or {}),
                 # the valid points in; voxels, coords and counts out; the
                 # quantisation's 9 float32 operations a point
                 **bound(n_in * pts.shape[2] * 4 + vc.max_voxels * (
@@ -851,13 +875,23 @@ def check_serving_kernels(torch, np, device, cfg, scans, anchors_bv):
     ms = cuda_ms(lambda: serve.anchors_mask(c1, corners, hw, thr))
     plain_ms = cuda_ms(lambda: serve.anchors_mask_plain(c1, corners, hw,
                                                         thr))
-    print(f"  K9 batch 1: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
     n_anchors = corners.shape[0]
+    # an estimate, printed only: the present design's floor, which adds
+    # its [H, W] float32 integral image written once and read once to the
+    # function's bytes
+    image_ms = bound(c1.shape[1] * 12 + n_anchors * 17
+                     + 2 * hw[0] * hw[1] * 4, 0)["bound_ms"]
+    print(f"  K9 batch 1: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
+          f"integral-image design floor (estimate, not the bound) "
+          f"{image_ms:.4f} ms")
     rows.append(dict(name="K9 anchors_mask", route="cuda",
                      source="sassd_tpu_torch/csrc/anchors_mask.cu",
                      replaces="sassd_tpu/serve.py:106",
                      max_abs_err=err9, ms=ms, plain_ms=plain_ms,
                      library_ms=None,
+                     library_what="none: the occupancy scatter, two "
+                                  "cumsums and the corner reads are "
+                                  "separate calls",
                      at="batch 1, 20,000 voxels, 70,400 anchors",
                      # coords and corner indices in, the mask out
                      **bound(c1.shape[1] * 12 + n_anchors * 17,
@@ -865,12 +899,130 @@ def check_serving_kernels(torch, np, device, cfg, scans, anchors_bv):
     return rows
 
 
+def ring_interp_level(torch, what, query, cell0, level, feats, plan, vs, pc,
+                      cot) -> dict:
+    """K11 at one level: rows, weights and output bitwise its plain
+    version's (the signs of zeros included), the feature gradient within
+    TRAIN_GRAD_RTOL of autograd through the plain version. Timed by
+    events and graph replay, each in its own graph: the forward (one
+    kernel), the backward (its memset of d_feats and its kernel), that
+    memset alone (the backward called with no query) and the zeroing as
+    the parent wrapper made it (torch.zeros); forward + backward replayed
+    from one graph; the plain version; index_add_, the backward's one-call
+    yardstick. Bounds: a padded query (cell z < 0)
+    reads its cell and writes its output row and its rows and weights; a
+    valid one also reads its point and its plan, and in the backward its
+    d_out row and its rows and weights; each selected feature row is read
+    once, d_feats written once."""
+    from sassd_tpu_torch.ops import interpolate as itp
+    from sassd_tpu_torch.ops.cuda import same_bits
+    b, m, c = feats.shape
+    args = (query, cell0, level, feats, plan, vs, pc)
+    out, rsel, wsel = itp.ring_interp_fwd(*args)
+    ref_rows, ref_w = itp.ring_select_plain(query, cell0, level, plan, m, vs,
+                                            pc)
+    same = (torch.equal(rsel.long(), ref_rows)
+            and same_bits(wsel, ref_w)
+            and same_bits(out,
+                          itp.neighborhood_interpolate_cells_plain(*args)))
+    fk = feats.clone().requires_grad_()
+    itp.neighborhood_interpolate_cells(query, cell0, level, fk, plan, vs,
+                                       pc).backward(cot)
+    fp = feats.clone().requires_grad_()
+    out_p = itp.neighborhood_interpolate_cells_plain(query, cell0, level, fp,
+                                                     plan, vs, pc)
+    err = rel_err(fk.grad, torch.autograd.grad(out_p, fp, cot,
+                                               retain_graph=True)[0])
+    valid = cell0[..., 0] >= 0
+    q_v, q_p = int(valid.sum()), int((~valid).sum())
+    print(f"K11 ring_interp{what} level {level} {tuple(query.shape)} -> "
+          f"{tuple(out.shape)}, {q_p} padded queries: forward, rows and "
+          f"weights {'bitwise equal to' if same else 'DIFFER from'} plain; "
+          f"backward rel err {err:.3g} (tol {TRAIN_GRAD_RTOL})")
+    if not same or err > TRAIN_GRAD_RTOL:
+        fail(f"K11{what} disagrees with its plain version at level {level}")
+
+    def fwd():
+        return itp.ring_interp_fwd(*args)
+
+    def bwd():
+        return itp.ring_interp_bwd(cot, rsel, wsel, feats.shape)
+
+    def both():
+        _, r, w = fwd()
+        return itp.ring_interp_bwd(cot, r, w, feats.shape)
+
+    def zero():
+        return torch.zeros(feats.shape, device=feats.device)
+
+    def memset():                           # the backward with no query
+        return itp.ring_interp_bwd(cot[:, :0], rsel[:0], wsel[:0],
+                                   feats.shape)
+    both_graph = graph_ms(both)
+    t_fwd, t_bwd, t_zero = timed(fwd), timed(bwd), timed(zero)
+    t_set = timed(memset)
+    plain_ms = grad_ms(out_p, fp, cot) + cuda_ms(
+        lambda: itp.neighborhood_interpolate_cells_plain(*args))
+    src = (cot[:, :, None] * wsel.view(b, -1, 3, 1)).reshape(-1, c)
+    flat = torch.zeros((b * m, c), device=feats.device)
+    lib_ms = cuda_ms(lambda: flat.index_add_(0, rsel.view(-1).long(), src))
+    n_rows = int(torch.unique(rsel).numel())
+    org = pc.numel() * 4 if torch.is_tensor(pc) else 0
+    # 17 float32 operations a tap's distance, 5 a channel of the sum; 6 a
+    # channel of the backward
+    bd_fwd = bound(q_v * (24 + 27 * plan.element_size() + 4 * c + 24)
+                   + q_p * (12 + 4 * c + 24) + n_rows * c * 4 + org,
+                   q_v * 27 * 17 + (q_v + q_p) * 5 * c)
+    bd_bwd = bound(q_v * (4 * c + 24) + feats.numel() * 4, q_v * 6 * c)
+    bd_zero = bound(feats.numel() * 4, 0)
+    print(f"  K11{what} level {level}: forward {fmt_timed(t_fwd)}, bound "
+          f"{bd_fwd['bound_ms']:.4f}; backward {fmt_timed(t_bwd)}, bound "
+          f"{bd_bwd['bound_ms']:.4f}, of which its memset alone "
+          f"{fmt_timed(t_set)}; zeroing as the parent made it (torch.zeros) "
+          f"{fmt_timed(t_zero)}; zeroing bound {bd_zero['bound_ms']:.4f}; "
+          f"forward + backward replayed {both_graph:.4f} ms; plain "
+          f"{plain_ms:.4f} ms; index_add_ (backward) {lib_ms:.4f} ms")
+    print(f"    forward {fmt_split(fwd)}; backward {fmt_split(bwd)}")
+    return dict(err=err, ms=t_fwd["ms"] + t_bwd["ms"], graph_ms=both_graph,
+                plain_ms=plain_ms, library_backward_ms=lib_ms, queries=q_v,
+                padded_queries=q_p, forward=dict(**t_fwd, **bd_fwd),
+                backward=dict(**t_bwd, **bd_bwd), memset=dict(**t_set,
+                                                              **bd_zero),
+                zeroing_torch=dict(**t_zero, **bd_zero),
+                **add_bounds([bd_fwd, bd_bwd]))
+
+
+def ring_interp_row(levels: dict, name: str, replaces: str, at: str) -> dict:
+    """The kernel row of K11 (or K11') from ring_interp_level's results:
+    ms by events (forward + backward), graph_ms replayed (the same, one
+    graph a level), summed over the levels."""
+    return dict(name=name, route="cuda",
+                source="sassd_tpu_torch/csrc/interpolate.cu",
+                replaces=replaces,
+                max_abs_err=max(d["err"] for d in levels.values()),
+                err_kind="backward, relative to max |plain|; the forward is "
+                         "bitwise",
+                ms=sum(d["ms"] for d in levels.values()),
+                graph_ms=sum(d["graph_ms"] for d in levels.values()),
+                plain_ms=sum(d["plain_ms"] for d in levels.values()),
+                library_ms=None,
+                library_what="none for the forward (the 27-tap selection "
+                             "takes several calls); index_add_ of the "
+                             "weighted d_out rows for the backward alone "
+                             "(library_backward_ms)",
+                library_backward_ms=sum(d["library_backward_ms"]
+                                        for d in levels.values()),
+                at=f"{at}, forward + backward (with the d_feats zeroing)",
+                per_level={lv: {k: v for k, v in d.items() if k != "err"}
+                           for lv, d in levels.items()},
+                **add_bounds(list(levels.values())))
+
+
 def check_train_kernels(torch, np, device, cfg, samples, gts):
     """Phase 3, the training kernels at batch 2 on the train plans of the
     first two car scans: K10 and K4's input gradients, K11, K12, K3b, K5b.
     gts: [2, max_gt, 7] GT boxes and [2, max_gt] validity (the scenes')."""
     from sassd_tpu_torch.core import boxes
-    from sassd_tpu_torch.ops import interpolate as itp
     from sassd_tpu_torch.ops import sparse as sp
     from sassd_tpu_torch.ops import warp
 
@@ -985,65 +1137,17 @@ def check_train_kernels(torch, np, device, cfg, samples, gts):
     query = (batch["voxels"][..., :3].sum(-2) / npts).contiguous()
     cell0 = batch["coords"]
     pc = np.asarray(cfg.voxel.point_cloud_range[:3], np.float32).tolist()
-    k11, err11 = [], 0.0
+    k11 = {}
     for level, c in ((1, 32), (2, 64), (3, 64)):
         vs = (np.asarray(cfg.voxel.voxel_size, np.float32)
               * 2 ** level).tolist()
-        plan = batch[f"plan_aux{level}"]
-        feats = randn(2, caps[level], c)
-        out, rsel, wsel = itp.ring_interp_fwd(query, cell0, level, feats,
-                                              plan, vs, pc)
-        ref_rows, ref_w = itp.ring_select_plain(query, cell0, level, plan,
-                                                caps[level], vs, pc)
-        ref = itp.neighborhood_interpolate_cells_plain(
-            query, cell0, level, feats, plan, vs, pc)
-        same = (torch.equal(rsel.long(), ref_rows)
-                and torch.equal(wsel, ref_w) and torch.equal(out, ref))
-        cot = randn(*out.shape)
-        fk = feats.clone().requires_grad_()
-        itp.neighborhood_interpolate_cells(query, cell0, level, fk, plan, vs,
-                                           pc).backward(cot)
-        fp = feats.clone().requires_grad_()
-        out_p = itp.neighborhood_interpolate_cells_plain(query, cell0, level,
-                                                         fp, plan, vs, pc)
-        bwd_err = rel_err(fk.grad, torch.autograd.grad(
-            out_p, fp, cot, retain_graph=True)[0])
-        err11 = max(err11, bwd_err)
-        print(f"K11 ring_interp level {level} {tuple(query.shape)} -> "
-              f"{tuple(out.shape)}: forward, rows and weights "
-              f"{'bitwise equal to' if same else 'DIFFER from'} plain; "
-              f"backward rel err {bwd_err:.3g} (tol {TRAIN_GRAD_RTOL})")
-        if not same or bwd_err > TRAIN_GRAD_RTOL:
-            fail(f"K11 disagrees with its plain version at level {level}")
-        ms = cuda_ms(lambda: itp.ring_interp_bwd(
-            cot, rsel, wsel, feats.shape)) + cuda_ms(
-            lambda: itp.ring_interp_fwd(query, cell0, level, feats, plan, vs,
-                                        pc))
-        plain_ms = grad_ms(out_p, fp, cot) + cuda_ms(
-            lambda: itp.neighborhood_interpolate_cells_plain(
-                query, cell0, level, feats, plan, vs, pc))
-        src = (cot[:, :, None] * wsel.view(2, -1, 3, 1)).reshape(-1, c)
-        flat = torch.zeros((2 * caps[level], c), device=device)
-        lib_ms = cuda_ms(lambda: flat.index_add_(0, rsel.view(-1).long(),
-                                                 src))
-        q = query.shape[0] * query.shape[1]
-        k11.append((level, ms, plain_ms, lib_ms, bound(
-            q * (12 + 12 + 27 * plan.element_size() + 2 * c * 4 + 24)
-            + min(feats.numel(), 3 * q * c) * 4 + feats.numel() * 4,
-            q * (27 * 12 + 3 * c * 2 + 3 * c * 2))))
-    rows.append(dict(name="K11 ring_interp", route="cuda",
-                     source="sassd_tpu_torch/csrc/interpolate.cu",
-                     replaces="sassd_tpu/ops/interpolate.py:115",
-                     max_abs_err=err11, err_kind="backward, relative to max "
-                     "|plain|; the forward is bitwise",
-                     ms=sum(m for _, m, *_ in k11),
-                     plain_ms=sum(m for _, _, m, *_ in k11),
-                     library_ms=None,
-                     library_backward_ms=sum(m for *_, m, _ in k11),
-                     at="batch 2, forward + backward, levels 1-3",
-                     per_level={lv: dict(ms=m, plain_ms=pm, **bd)
-                                for lv, m, pm, _, bd in k11},
-                     **add_bounds([bd for *_, bd in k11])))
+        k11[level] = ring_interp_level(
+            torch, "", query, cell0, level, randn(2, caps[level], c),
+            batch[f"plan_aux{level}"], vs, pc,
+            randn(*query.shape[:2], c))
+    rows.append(ring_interp_row(
+        k11, "K11 ring_interp", "sassd_tpu/ops/interpolate.py:115",
+        "batch 2, levels 1-3"))
 
     # K12: the voxel centroids of the two scans against their GT boxes
     pvalid = batch["coords"][..., 0] >= 0
@@ -1065,6 +1169,8 @@ def check_train_kernels(torch, np, device, cfg, samples, gts):
                      replaces="sassd_tpu/core/boxes.py:281",
                      max_abs_err=float((off - ref_off).abs().max()), ms=ms,
                      plain_ms=plain_ms, library_ms=None,
+                     library_what="none: torch has no points-in-rotated-"
+                                  "boxes test",
                      at="batch 2, 20,000-voxel cap, 64 GT slots",
                      # points, validity, boxes in; labels, offsets out;
                      # ~25 operations a point-box test (sin and cos
@@ -1109,6 +1215,8 @@ def check_train_kernels(torch, np, device, cfg, samples, gts):
                      replaces="sassd_tpu/ops/warp.py:76",
                      max_abs_err=err3b, err_kind="relative to max |plain|",
                      ms=ms, plain_ms=plain_ms, library_ms=None,
+                     library_what="none: as K3, grid_sample's backward "
+                                  "covers every channel at every point",
                      at="batch 2, 640 boxes a sample",
                      # d_score, boxes, valid, 4 map taps a part in; the
                      # whole zeroed d_map and d_boxes out; ~100 operations
@@ -1281,7 +1389,9 @@ def check_train_plan_kernels(torch, np, device, cfg, samples):
                          plain_ms=sum(m for _, _, m, *_ in parts),
                          library_ms=(lib_what and
                                      sum(lm for *_, lm in parts)),
-                         library_what=lib_what,
+                         library_what=lib_what or (
+                             "none: the window's tap cells and edge masks "
+                             "take several calls before one gather"),
                          at="batch 2, sum over levels 1-3",
                          per_level={lv: dict(ms=m, plain_ms=pm,
                                              library_ms=lm, **bd)
@@ -2000,8 +2110,8 @@ def check_banded_kernels(torch, np, device, cfg, spec, batch, timing):
     rows), K7 replicated (L0 -> L1 of the timing scan, bitwise), K11 at
     batch 2."""
     from sassd_tpu_torch.models import backbone
-    from sassd_tpu_torch.ops import interpolate as itp
     from sassd_tpu_torch.ops import sparse as sp
+    from sassd_tpu_torch.ops.cuda import same_bits
     from sassd_tpu_torch.parallel import sparse_spatial as ss
 
     def inputs(b):
@@ -2024,7 +2134,7 @@ def check_banded_kernels(torch, np, device, cfg, spec, batch, timing):
                           caps=(spec.caps[0] // 5,) + spec.caps[1:]))):
         got = ss.partition(coords, vfe, sp_)
         ref = ss.partition_plain(coords, vfe, sp_)
-        same = all(torch.equal(g, r) for g, r in zip(got, ref))
+        same = all(same_bits(g, r) for g, r in zip(got, ref))
         err16 = max([err16] + [float((g.double() - r.double()).abs().max())
                                for g, r in zip(got, ref)])
         over16[what] = got[2].tolist()
@@ -2036,17 +2146,21 @@ def check_banded_kernels(torch, np, device, cfg, spec, batch, timing):
             fail(f"K16 differs from its plain version ({what})")
     if not any(v for r in over16[forced] for v in r):
         fail("K16: the forced-overflow case dropped no member")
-    ms = cuda_ms(lambda: ss.partition(tc, tv, spec))
+    t16 = timed(lambda: ss.partition(tc, tv, spec))
     plain_ms = cuda_ms(lambda: ss.partition_plain(tc, tv, spec))
-    print(f"  K16 batch 1 (timing scan): kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms")
+    print(f"  K16 batch 1 (timing scan): kernel {fmt_timed(t16)}, plain "
+          f"{plain_ms:.4f} ms; "
+          f"{fmt_split(lambda: ss.partition(tc, tv, spec))}")
     m0, f = tc.shape[1], tv.shape[2]
     n_tv = int((tc[..., 0] >= 0).sum())
     rows.append(dict(name="K16 band_partition", route="cuda",
                      source="sassd_tpu_torch/csrc/band_partition.cu",
                      replaces="sassd_tpu/parallel/sparse_spatial.py:89",
-                     max_abs_err=err16, ms=ms, plain_ms=plain_ms,
+                     max_abs_err=err16, **t16, plain_ms=plain_ms,
                      library_ms=None,
+                     library_what="none: a boolean-mask compaction is one "
+                                  "call a band and field, without the "
+                                  "padding or the cap",
                      at=f"batch 1, the timing scan ({n_tv} voxels), "
                         f"{spec.s} bands, cap0 {spec.caps[0]}",
                      # coords and rows in once; the band arrays and the
@@ -2106,84 +2220,34 @@ def check_banded_kernels(torch, np, device, cfg, spec, batch, timing):
                                y_top=y_top)
     query = bv.reshape(spec.s * nb, -1, bv.shape[-1])[..., :3].contiguous()
     origins = ss.band_origins(cfg, spec, nb, device)
-    k11, err11 = [], 0.0
+    k11 = {}
     for level, c in ((1, 32), (2, 64), (3, 64)):
         vs = (np.asarray(cfg.voxel.voxel_size, np.float32)
               * 2 ** level).tolist()
-        plan = plans[f"aux{level}"]
         m = spec.caps[level]
         feats = torch.from_numpy(rng.normal(size=(spec.s * nb, m, c)).astype(
             np.float32)).to(device)
-        out, rsel, wsel = itp.ring_interp_fwd(query, cell0, level, feats,
-                                              plan, vs, origins)
-        ref_rows, ref_w = itp.ring_select_plain(query, cell0, level, plan, m,
-                                                vs, origins)
-        ref = itp.neighborhood_interpolate_cells_plain(
-            query, cell0, level, feats, plan, vs, origins)
-        same = (torch.equal(rsel.long(), ref_rows)
-                and torch.equal(wsel, ref_w) and torch.equal(out, ref))
-        cot = torch.from_numpy(rng.normal(size=tuple(out.shape)).astype(
+        cot = torch.from_numpy(rng.normal(size=query.shape[:2] + (c,)).astype(
             np.float32)).to(device)
-        fk = feats.clone().requires_grad_()
-        itp.neighborhood_interpolate_cells(query, cell0, level, fk, plan, vs,
-                                           origins).backward(cot)
-        fp = feats.clone().requires_grad_()
-        out_p = itp.neighborhood_interpolate_cells_plain(
-            query, cell0, level, fp, plan, vs, origins)
-        bwd_err = rel_err(fk.grad, torch.autograd.grad(
-            out_p, fp, cot, retain_graph=True)[0])
-        err11 = max(err11, bwd_err)
-        print(f"K11 ring_interp with per-row origins, level {level} "
-              f"{tuple(query.shape)} -> {tuple(out.shape)}: forward, rows "
-              f"and weights {'bitwise equal to' if same else 'DIFFER from'} "
-              f"plain; backward rel err {bwd_err:.3g} (tol "
-              f"{TRAIN_GRAD_RTOL})")
-        if not same or bwd_err > TRAIN_GRAD_RTOL:
-            fail(f"K11 with origins disagrees with its plain version at "
-                 f"level {level}")
-        ms = cuda_ms(lambda: itp.ring_interp_bwd(
-            cot, rsel, wsel, feats.shape)) + cuda_ms(
-            lambda: itp.ring_interp_fwd(query, cell0, level, feats, plan, vs,
-                                        origins))
-        plain_ms = grad_ms(out_p, fp, cot) + cuda_ms(
-            lambda: itp.neighborhood_interpolate_cells_plain(
-                query, cell0, level, feats, plan, vs, origins))
-        q = query.shape[0] * query.shape[1]
-        k11.append((level, ms, plain_ms, bound(
-            q * (12 + 12 + 27 * plan.element_size() + 2 * c * 4 + 24)
-            + min(feats.numel(), 3 * q * c) * 4 + feats.numel() * 4
-            + origins.numel() * 4,
-            q * (27 * 12 + 3 * c * 2 + 3 * c * 2))))
-    rows.append(dict(name="K11' ring_interp_origins", route="cuda",
-                     source="sassd_tpu_torch/csrc/interpolate.cu",
-                     replaces="sassd_tpu/parallel/sparse_spatial.py:143",
-                     max_abs_err=err11, err_kind="backward, relative to max "
-                     "|plain|; the forward is bitwise",
-                     ms=sum(m for _, m, *_ in k11),
-                     plain_ms=sum(m for _, _, m, _ in k11),
-                     library_ms=None,
-                     at=f"batch 2 ({spec.s * nb} band rows), forward + "
-                        f"backward, levels 1-3",
-                     per_level={lv: dict(ms=m, plain_ms=pm, **bd)
-                                for lv, m, pm, bd in k11},
-                     **add_bounds([bd for *_, bd in k11])))
+        k11[level] = ring_interp_level(torch, " with per-row origins", query,
+                                       cell0, level, feats,
+                                       plans[f"aux{level}"], vs, origins, cot)
+    rows.append(ring_interp_row(
+        k11, "K11' ring_interp_origins",
+        "sassd_tpu/parallel/sparse_spatial.py:143",
+        f"batch 2 ({spec.s * nb} band rows), levels 1-3"))
     return rows
 
 
-def run_long_range(torch, np, device, root: str):
-    """Phase 9: the long-range config, banded over 4 y-bands against
-    replicated (device plans), at full width. Returns (kernel rows,
-    launches of banded inference, of replicated inference and of the
-    banded train_model run, launches of one banded train step)."""
+def long_range_inputs(np, root: str):
+    """Phase 9's configs and inputs: the long-range config banded over 4
+    y-bands (cfg_b) and replicated on device plans (cfg_r), the band spec,
+    the 4-scan synthetic train split written under root, its first two
+    samples and their batch, and the timing scan's batch."""
     import dataclasses
-    import logging
     from sassd_tpu_torch.config import ParallelConfig, long_range_config
     from sassd_tpu_torch.data import kitti, synthetic
-    from sassd_tpu_torch.inference import make_test_step, to_device
-    from sassd_tpu_torch.models.detector import parse_losses
     from sassd_tpu_torch.parallel import sparse_spatial as ss
-    from sassd_tpu_torch.train import loop, optim
-    from sassd_tpu_torch.weights import seeded_detector
 
     base = long_range_config()
     cfg_b = dataclasses.replace(
@@ -2194,23 +2258,39 @@ def run_long_range(torch, np, device, root: str):
     cfg_r = dataclasses.replace(cfg_b, parallel=ParallelConfig(),
                                 model=dataclasses.replace(
                                     base.model, host_plans=False))
-    spec = ss.config_band_spec(cfg_b)
     synthetic.write_synthetic_kitti(
         root, n_train=N_SCANS, n_val=0, seed=SEED + 9,
         point_cloud_range=cfg_b.voxel.point_cloud_range,
         n_ground=LR_GROUND)
-    data_root = os.path.join(root, "training")
-    ds = kitti.KittiDataset(cfg_b, data_root,
+    ds = kitti.KittiDataset(cfg_b, os.path.join(root, "training"),
                             os.path.join(root, "ImageSets", "train.txt"),
                             train=True)
     samples = [ds[i] for i in range(2)]
     if any(k.startswith("plan_") for k in samples[0]):
         fail("long range: host plans built for the banded config")
-    batch = kitti.collate(samples)[0]
     timing = kitti.prepare_scan(cfg_b, synthetic.long_range_scene(
         np.random.default_rng(SEED + 10))[0], ds.anchors_bv)
-    t_batch = kitti.collate([timing])[0]
+    return dict(cfg_b=cfg_b, cfg_r=cfg_r, spec=ss.config_band_spec(cfg_b),
+                ds=ds, samples=samples, batch=kitti.collate(samples)[0],
+                t_batch=kitti.collate([timing])[0])
 
+
+def run_long_range(torch, np, device, root: str):
+    """Phase 9: the long-range config, banded over 4 y-bands against
+    replicated (device plans), at full width. Returns (kernel rows,
+    launches of banded inference, of replicated inference and of the
+    banded train_model run, launches of one banded train step)."""
+    import logging
+    from sassd_tpu_torch.data import kitti
+    from sassd_tpu_torch.inference import make_test_step, to_device
+    from sassd_tpu_torch.models.detector import parse_losses
+    from sassd_tpu_torch.train import loop, optim
+    from sassd_tpu_torch.weights import seeded_detector
+
+    lr = long_range_inputs(np, root)
+    cfg_b, cfg_r, spec, ds, samples, batch, t_batch = (
+        lr[k] for k in ("cfg_b", "cfg_r", "spec", "ds", "samples", "batch",
+                        "t_batch"))
     rows = check_banded_kernels(torch, np, device, cfg_b, spec, batch,
                                 t_batch)
     for what, b in (("comparison scans", batch), ("timing scan", t_batch)):
@@ -2220,7 +2300,7 @@ def run_long_range(torch, np, device, root: str):
               f"band-major rows {band} (caps {list(spec.caps)}); level-0 "
               f"band overflow {over}")
         if what == "comparison scans":
-            full = [lv for lv, (n, cap) in enumerate(zip(rep, base.caps
+            full = [lv for lv, (n, cap) in enumerate(zip(rep, cfg_b.caps
                                                          .level_caps))
                     if max(n) >= cap]
             full += [lv for lv, (n, cap) in enumerate(zip(band, spec.caps))
@@ -2481,13 +2561,18 @@ def main() -> int:
                                    frustum=True)[0]
     rows += check_serving_kernels(torch, np, device, cfg, scans + [frustum],
                                   anchors_bv)
-    for r in rows:
-        print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms")
     if "--kernels-only" in sys.argv[1:]:
-        # phases 1-3 alone: the kernel rows of this checkout under their
-        # own key (no launch counts, no result line), for comparing two
-        # checkouts in one call
+        # phases 1-3 and phase 9's kernel checks alone: the kernel rows of
+        # this checkout under their own key (no launch counts, no result
+        # line), for comparing two checkouts in one call
+        with tempfile.TemporaryDirectory() as root:
+            lr = long_range_inputs(np, root)
+            rows += check_banded_kernels(torch, np, device, lr["cfg_b"],
+                                         lr["spec"], lr["batch"],
+                                         lr["t_batch"])
+        for r in rows:
+            print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain "
+                  f"{r['plain_ms']:.4f} ms")
         print(json.dumps({"kernels_only": rows}))
         print(card)
         return 0
@@ -2512,6 +2597,9 @@ def main() -> int:
             torch, np, device, root)
     print(f"long range: phase 9 took {time.perf_counter() - t:.1f} s")
     rows += lr_rows
+    for r in rows:
+        print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms")
     # K7' and K11' are K7 and K11 called with a limit and with origins:
     # the banded phases are the only callers that pass them
     symbols = {"K1": ("sassd_riou_overlap",), "K2": ("sassd_nms_keep",),

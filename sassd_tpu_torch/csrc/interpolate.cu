@@ -22,14 +22,35 @@
 // weights are bitwise equal to it.
 //
 // Bound on the H100: bytes. At the car config a level holds 2 x 20,000
-// queries; the forward reads their plans (27 x 2 bytes each), centroids and
-// cells, and 3 feature rows (C = 32 or 64 floats), and writes C floats:
-// ~1 KB a query, ~40 MB in all, ~12 us at 3.35 TB/s. Design: a thread
-// selects the 3 winners of its query; then the warp walks its 32 queries
-// and spreads each one's channels over the lanes (shuffled rows and
-// weights), so feature reads and writes are coalesced. The selected rows
-// and weights are kept for the backward, which adds w_i * d_out into
-// d_feats[row_i] with atomicAdd (their order changes from run to run).
+// queries; the forward reads their points, cells and plans (27 x 2 bytes)
+// and each selected feature row once, and writes C floats and 3 rows and
+// weights a query; the backward reads d_out, the rows and the weights and
+// writes d_feats: 7-12 us a level at 3.35 TB/s (chip_smoke.py counts it
+// from the run's data). A padded query (cell z < 0) needs only its cell
+// and its output row; in the banded stage three quarters of the queries
+// are padding.
+//
+// Design, a block of 64 queries (626 blocks at car level 1 balance the SMs
+// better than 313 of 128, 4.7 a SM against 2.4; on the H100 that took the
+// backward kernel at levels 2 and 3 from 0.0077-0.0090 to 0.0069-0.0080
+// ms, chip_smoke.py):
+// - selection, a thread a query: the 27 plan loads issued together, the
+//   candidates' squared offsets computed once an axis (3 values each, the
+//   float32 values the plain version computes per tap), every tap inserted
+//   with selects. A padded query reads neither its plan nor its point:
+//   every maker of the aux plans writes -1 for all 27 of its taps (K14
+//   and the banded plans through it, the C++ host plans past the
+//   voxelizer's compact rows; tests pin each), so its result is the
+//   all-missing one, rows b * m and weights 0, whose output the gather
+//   still computes as (f * 0 + f * 0) + f * 0 for the sign of each zero;
+// - gather: the block's rows and weights staged in shared memory, threads
+//   laid over flat (query, 4-channel group) items, 4 items a thread with
+//   their 12 float4 loads in flight, float4 stores (single floats where
+//   c % 4 != 0 or a pointer is not 16-byte aligned);
+// - backward: the same items; d_out read only for a query with a nonzero
+//   weight, one float4 atomicAdd (CUDA 12, sm_90) per nonzero weight, in an
+//   order that changes from run to run; d_feats zeroed by a memset in the
+//   same entry point.
 //
 // K15, exact 3-NN: query u of sample b against every known point k of the
 // sample's level (M_L rows, validity v_k): d2 = max((u2 + k2) - 2 * dot, 0)
@@ -132,75 +153,158 @@ __device__ void warp_gather_sum(const float* __restrict__ feats, int c,
   }
 }
 
-template <typename IdxT>
-__global__ void ring_interp_fwd_kernel(
+constexpr int kRingQueries = 64;                   // a block: a thread each
+constexpr int kRingUnroll = 4;                     // gather items in flight
+
+// 16-byte alignment of a pointer (the float4 paths)
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<unsigned long long>(p) & 15ull) == 0;
+}
+
+// four channels at once, each product and sum rounded on its own
+__device__ __forceinline__ float4 mul4(float4 a, float w) {
+  return make_float4(a.x * w, a.y * w, a.z * w, a.w * w);
+}
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+// The block's queries [q0, q0 + nq) gathered from their staged winners:
+// out[q] = (f0 * w0 + f1 * w1) + f2 * w2 over flat (query, item) pairs, an
+// item 4 channels (kVec) or one, kRingUnroll items a thread in flight.
+template <bool kVec>
+__device__ __forceinline__ void block_gather_sum(
+    const float* __restrict__ feats, int c, int (*s_row)[kRingQueries],
+    float (*s_w)[kRingQueries], long long q0, int nq,
+    float* __restrict__ out) {
+  const int per = kVec ? c >> 2 : c;               // items a query
+  const int items = nq * per;
+  for (int base = threadIdx.x; base < items;
+       base += kRingQueries * kRingUnroll) {
+    int lq[kRingUnroll], ch[kRingUnroll];
+    float4 f[kRingUnroll][3];
+#pragma unroll
+    for (int u = 0; u < kRingUnroll; ++u) {
+      const int it = base + u * kRingQueries;
+      lq[u] = it / per;
+      ch[u] = (it - lq[u] * per) * (kVec ? 4 : 1);
+      if (it < items) {
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          const float* src = feats +
+              static_cast<long long>(s_row[j][lq[u]]) * c + ch[u];
+          f[u][j] = kVec ? *reinterpret_cast<const float4*>(src)
+                         : make_float4(*src, 0.0f, 0.0f, 0.0f);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kRingUnroll; ++u) {
+      if (base + u * kRingQueries < items) {
+        const float4 v = add4(add4(mul4(f[u][0], s_w[0][lq[u]]),
+                                   mul4(f[u][1], s_w[1][lq[u]])),
+                              mul4(f[u][2], s_w[2][lq[u]]));
+        float* dst = out + (q0 + lq[u]) * c + ch[u];
+        if (kVec) {
+          *reinterpret_cast<float4*>(dst) = v;
+        } else {
+          *dst = v.x;
+        }
+      }
+    }
+  }
+}
+
+// One block of kRingQueries flat queries q = b * n + i. Selection, a
+// thread a query: the 27 plan loads issued together, then the taps in
+// order, each inserted with selects (strict <: the lower tap first on
+// ties). A padded query (cell z < 0), whose plan every maker fills with
+// -1, takes the all-missing result without reading its plan or point:
+// taps 0-2, rows b * m, weights 0. Gather: the winners staged in shared
+// memory, then block_gather_sum.
+template <typename IdxT, bool kVec>
+__global__ void __launch_bounds__(kRingQueries) ring_interp_fwd_kernel(
     const float* __restrict__ query, const int* __restrict__ cell0,
     const IdxT* __restrict__ plan, int batch, int n, int level,
     const float* __restrict__ feats, int m, int c, float vsx, float vsy,
     float vsz, float px, float py, float pz,
     const float* __restrict__ origins, float* __restrict__ out,
     int* __restrict__ rows, float* __restrict__ weights) {
+  __shared__ int s_row[3][kRingQueries];
+  __shared__ float s_w[3][kRingQueries];
   const int total = batch * n;
-  const int q = blockIdx.x * blockDim.x + threadIdx.x;
-  int r[3] = {0, 0, 0};
-  float w[3] = {0.0f, 0.0f, 0.0f};
+  const long long q0 = static_cast<long long>(blockIdx.x) * kRingQueries;
+  const int q = static_cast<int>(q0) + threadIdx.x;
   if (q < total) {
     const int b = q / n;
     const int i = q - b * n;
-    if (origins != nullptr) {
-      px = origins[3 * b];
-      py = origins[3 * b + 1];
-      pz = origins[3 * b + 2];
-    }
-    const float qx = query[3LL * q], qy = query[3LL * q + 1],
-                qz = query[3LL * q + 2];
-    const int cz = cell0[3LL * q] >> level, cy = cell0[3LL * q + 1] >> level,
-              cx = cell0[3LL * q + 2] >> level;
-    const IdxT* pb = plan + static_cast<long long>(b) * 27 * n + i;
+    const int z0 = cell0[3LL * q];
     float best[3] = {3e38f, 3e38f, 3e38f};
-    int tap[3] = {0, 0, 0};
-    int found[3] = {0, 0, 0};
-    int idx[3] = {0, 0, 0};
-    for (int k = 0; k < 27; ++k) {
-      const int p = static_cast<int>(pb[static_cast<long long>(k) * n]);
-      const float ex = (static_cast<float>(cx + k % 3 - 1) + 0.5f) * vsx + px;
-      const float ey =
-          (static_cast<float>(cy + (k / 3) % 3 - 1) + 0.5f) * vsy + py;
-      const float ez = (static_cast<float>(cz + k / 9 - 1) + 0.5f) * vsz + pz;
-      const float dx = ex - qx, dy = ey - qy, dz = ez - qz;
-      const float d2 = p >= 0 ? dx * dx + dy * dy + dz * dz : kBig;
-      // insertion keeping ascending d2; strict < keeps the lower tap first
-      if (d2 < best[2]) {
-        int pos = 2;
-        if (d2 < best[1]) pos = 1;
-        if (d2 < best[0]) pos = 0;
-        for (int j = 2; j > pos; --j) {
-          best[j] = best[j - 1];
-          tap[j] = tap[j - 1];
-          found[j] = found[j - 1];
-          idx[j] = idx[j - 1];
-        }
-        best[pos] = d2;
-        tap[pos] = k;
-        found[pos] = p >= 0;
-        idx[pos] = p >= 0 ? p : 0;
+    int val[3] = {-1, -1, -1};                    // plan entries, -1 missing
+    if (z0 >= 0) {
+      const IdxT* pb = plan + static_cast<long long>(b) * 27 * n + i;
+      int p[27];
+#pragma unroll
+      for (int k = 0; k < 27; ++k) {
+        p[k] = static_cast<int>(pb[static_cast<long long>(k) * n]);
+      }
+      if (origins != nullptr) {
+        px = origins[3 * b];
+        py = origins[3 * b + 1];
+        pz = origins[3 * b + 2];
+      }
+      const float qx = query[3LL * q], qy = query[3LL * q + 1],
+                  qz = query[3LL * q + 2];
+      const int cz = z0 >> level, cy = cell0[3LL * q + 1] >> level,
+                cx = cell0[3LL * q + 2] >> level;
+      // squared offsets of the 3 candidate centres on each axis, d - 1 .. 1
+      float sx[3], sy[3], sz[3];
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        const float dx = (static_cast<float>(cx + d - 1) + 0.5f) * vsx + px
+                         - qx;
+        const float dy = (static_cast<float>(cy + d - 1) + 0.5f) * vsy + py
+                         - qy;
+        const float dz = (static_cast<float>(cz + d - 1) + 0.5f) * vsz + pz
+                         - qz;
+        sx[d] = dx * dx;
+        sy[d] = dy * dy;
+        sz[d] = dz * dz;
+      }
+#pragma unroll
+      for (int k = 0; k < 27; ++k) {
+        const float d2 =
+            p[k] >= 0 ? sx[k % 3] + sy[(k / 3) % 3] + sz[k / 9] : kBig;
+        const bool a0 = d2 < best[0], a1 = d2 < best[1], a2 = d2 < best[2];
+        best[2] = a1 ? best[1] : (a2 ? d2 : best[2]);
+        val[2] = a1 ? val[1] : (a2 ? p[k] : val[2]);
+        best[1] = a0 ? best[0] : (a1 ? d2 : best[1]);
+        val[1] = a0 ? val[0] : (a1 ? p[k] : val[1]);
+        best[0] = a0 ? d2 : best[0];
+        val[0] = a0 ? p[k] : val[0];
       }
     }
+    float w[3];
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
-      w[j] = found[j] ? 1.0f / (best[j] + 1e-8f) : 0.0f;
-      r[j] = b * m + idx[j];
+      w[j] = val[j] >= 0 ? 1.0f / (best[j] + 1e-8f) : 0.0f;
     }
     const float denom = w[0] + w[1] + w[2];
     const float safe = denom > 0.0f ? denom : 1.0f;
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
+      const int r = b * m + (val[j] >= 0 ? val[j] : 0);
       w[j] = w[j] / safe;
-      rows[3LL * q + j] = r[j];
+      rows[3LL * q + j] = r;
       weights[3LL * q + j] = w[j];
+      s_row[j][threadIdx.x] = r;
+      s_w[j][threadIdx.x] = w[j];
     }
   }
-  warp_gather_sum(feats, c, r, w, q, total, out);
+  __syncthreads();
+  block_gather_sum<kVec>(feats, c, s_row, s_w, q0,
+                         min(kRingQueries, total - static_cast<int>(q0)),
+                         out);
 }
 
 // 6 blocks of 4 warps an SM: up to 80 registers a thread
@@ -470,34 +574,64 @@ __global__ void three_nn_merge_kernel(const float2* __restrict__ part, int n,
   warp_gather_sum(feats, c, r, w, q, total, out);
 }
 
-__global__ void ring_interp_bwd_kernel(const float* __restrict__ d_out,
-                                       const int* __restrict__ rows,
-                                       const float* __restrict__ weights,
-                                       int total, int c,
-                                       float* __restrict__ d_feats) {
-  const int lane = threadIdx.x & 31;
-  const int q = blockIdx.x * blockDim.x + threadIdx.x;
-  int r[3] = {0, 0, 0};
-  float w[3] = {0.0f, 0.0f, 0.0f};
-  if (q < total) {
+// d_feats[rows[q, j]] += w[q, j] * d_out[q], for the block's kRingQueries
+// flat queries: their rows and weights staged in shared memory, then flat
+// (query, item) pairs as in the forward, kRingUnroll items a thread in
+// flight; a zero weight adds nothing and a query whose weights are all
+// zero (padding) reads no d_out. Vector (kVec) or scalar atomic adds, in
+// an order that changes from run to run.
+template <bool kVec>
+__global__ void __launch_bounds__(kRingQueries) ring_interp_bwd_kernel(
+    const float* __restrict__ d_out, const int* __restrict__ rows,
+    const float* __restrict__ weights, int total, int c,
+    float* __restrict__ d_feats) {
+  __shared__ int s_row[3][kRingQueries];
+  __shared__ float s_w[3][kRingQueries];
+  const long long q0 = static_cast<long long>(blockIdx.x) * kRingQueries;
+  const int nq = min(kRingQueries, total - static_cast<int>(q0));
+  if (threadIdx.x < nq) {
+    const long long q = q0 + threadIdx.x;
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
-      r[j] = rows[3LL * q + j];
-      w[j] = weights[3LL * q + j];
+      s_row[j][threadIdx.x] = rows[3 * q + j];
+      s_w[j][threadIdx.x] = weights[3 * q + j];
     }
   }
-  const int q0 = q - lane;
-  for (int j = 0; j < 32; ++j) {
-    const int qj = q0 + j;
-    if (qj >= total) break;                        // warp-uniform
+  __syncthreads();
+  const int per = kVec ? c >> 2 : c;
+  const int items = nq * per;
+  for (int base = threadIdx.x; base < items;
+       base += kRingQueries * kRingUnroll) {
+    int lq[kRingUnroll], ch[kRingUnroll];
+    float4 g[kRingUnroll];
 #pragma unroll
-    for (int t = 0; t < 3; ++t) {
-      const int rt = __shfl_sync(0xffffffffu, r[t], j);
-      const float wt = __shfl_sync(0xffffffffu, w[t], j);
-      if (wt == 0.0f) continue;                    // warp-uniform
-      for (int ch = lane; ch < c; ch += 32) {
-        atomicAdd(d_feats + static_cast<long long>(rt) * c + ch,
-                  wt * d_out[static_cast<long long>(qj) * c + ch]);
+    for (int u = 0; u < kRingUnroll; ++u) {
+      const int it = base + u * kRingQueries;
+      lq[u] = it / per;
+      ch[u] = (it - lq[u] * per) * (kVec ? 4 : 1);
+      if (it < items && (s_w[0][lq[u]] != 0.0f || s_w[1][lq[u]] != 0.0f ||
+                         s_w[2][lq[u]] != 0.0f)) {
+        const float* src = d_out + (q0 + lq[u]) * c + ch[u];
+        g[u] = kVec ? *reinterpret_cast<const float4*>(src)
+                    : make_float4(*src, 0.0f, 0.0f, 0.0f);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kRingUnroll; ++u) {
+      if (base + u * kRingQueries >= items) continue;
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        const float w = s_w[j][lq[u]];
+        if (w == 0.0f) continue;
+        float* dst =
+            d_feats + static_cast<long long>(s_row[j][lq[u]]) * c + ch[u];
+        if (kVec) {
+          // CUDA 12's vector atomic (sm_90, global memory): one
+          // reduction of four floats
+          atomicAdd(reinterpret_cast<float4*>(dst), mul4(g[u], w));
+        } else {
+          atomicAdd(dst, g[u].x * w);
+        }
       }
     }
   }
@@ -511,7 +645,8 @@ __global__ void ring_interp_bwd_kernel(const float* __restrict__ d_out,
 // pc the level's voxel size and the grid origin, xyz, or origins [batch, 3]
 // float32 xyz, one origin per sample row (then pc is not read). Writes out
 // [batch * n, c], rows [batch * n, 3] (flat feature rows) and weights
-// [batch * n, 3].
+// [batch * n, 3]. The gather moves float4s where c % 4 == 0 and feats and
+// out are 16-byte aligned, single floats otherwise.
 extern "C" int sassd_ring_interp_fwd(const float* query, const int* cell0,
                                      const void* plan, int plan_is_i16,
                                      int batch, int n, int level,
@@ -523,35 +658,46 @@ extern "C" int sassd_ring_interp_fwd(const float* query, const int* cell0,
                                      void* stream) {
   const int total = batch * n;
   if (total > 0) {
-    const int threads = 128;
-    const int blocks = (total + threads - 1) / threads;
+    const int blocks = (total + kRingQueries - 1) / kRingQueries;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const bool vec = c % 4 == 0 && aligned16(feats) && aligned16(out);
+#define SASSD_RING_FWD(IDX, VEC)                                          \
+  ring_interp_fwd_kernel<IDX, VEC><<<blocks, kRingQueries, 0, s>>>(       \
+      query, cell0, static_cast<const IDX*>(plan), batch, n, level, feats, \
+      m, c, vsx, vsy, vsz, px, py, pz, origins, out, rows, weights)
     if (plan_is_i16) {
-      ring_interp_fwd_kernel<short><<<blocks, threads, 0, s>>>(
-          query, cell0, static_cast<const short*>(plan), batch, n, level,
-          feats, m, c, vsx, vsy, vsz, px, py, pz, origins, out, rows,
-          weights);
+      if (vec) SASSD_RING_FWD(short, true); else SASSD_RING_FWD(short, false);
     } else {
-      ring_interp_fwd_kernel<int><<<blocks, threads, 0, s>>>(
-          query, cell0, static_cast<const int*>(plan), batch, n, level,
-          feats, m, c, vsx, vsy, vsz, px, py, pz, origins, out, rows,
-          weights);
+      if (vec) SASSD_RING_FWD(int, true); else SASSD_RING_FWD(int, false);
     }
+#undef SASSD_RING_FWD
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // d_out [total, c]; rows, weights [total, 3] from the forward; d_feats
-// [batch * m, c] float32, zeroed by the caller.
+// [feat_rows, c] float32, zeroed here (a memset on the stream) before the
+// kernel adds into it. Vector adds where c % 4 == 0 and d_out and d_feats
+// are 16-byte aligned, scalar ones otherwise.
 extern "C" int sassd_ring_interp_bwd(const float* d_out, const int* rows,
                                      const float* weights, int total, int c,
-                                     float* d_feats, void* stream) {
-  if (total > 0) {
-    const int threads = 128;
-    const int blocks = (total + threads - 1) / threads;
-    ring_interp_bwd_kernel<<<blocks, threads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-        d_out, rows, weights, total, c, d_feats);
+                                     float* d_feats, int feat_rows,
+                                     void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t bytes = sizeof(float) * static_cast<size_t>(feat_rows) * c;
+  if (bytes > 0) {
+    const cudaError_t err = cudaMemsetAsync(d_feats, 0, bytes, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (total > 0 && c > 0) {
+    const int blocks = (total + kRingQueries - 1) / kRingQueries;
+    if (c % 4 == 0 && aligned16(d_out) && aligned16(d_feats)) {
+      ring_interp_bwd_kernel<true><<<blocks, kRingQueries, 0, s>>>(
+          d_out, rows, weights, total, c, d_feats);
+    } else {
+      ring_interp_bwd_kernel<false><<<blocks, kRingQueries, 0, s>>>(
+          d_out, rows, weights, total, c, d_feats);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

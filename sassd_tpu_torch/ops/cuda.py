@@ -92,3 +92,12 @@ def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype,
         raise ValueError(f"{name} must have {ndim} dims, got {tuple(t.shape)}")
     if contiguous and not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal dtypes, shapes and bit patterns (-0.0 is not 0.0): how a
+    kernel's result is held against its plain version's, on any devices."""
+    a, b = a.detach().cpu(), b.detach().cpu()
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.dtype == b.dtype and torch.equal(a, b)

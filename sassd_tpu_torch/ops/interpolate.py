@@ -40,7 +40,8 @@ _K11_FWD = cuda.Kernel("sassd_ring_interp_fwd",
                         cuda.F, cuda.F, cuda.F, cuda.F, cuda.P, cuda.P,
                         cuda.P, cuda.P])
 _K11_BWD = cuda.Kernel("sassd_ring_interp_bwd",
-                       [cuda.P, cuda.P, cuda.P, cuda.I, cuda.I, cuda.P])
+                       [cuda.P, cuda.P, cuda.P, cuda.I, cuda.I, cuda.P,
+                        cuda.I])
 _K15 = cuda.Kernel("sassd_three_nn_fwd",
                    [cuda.P, cuda.I, cuda.I, cuda.P, cuda.P, cuda.I, cuda.I,
                     cuda.P, cuda.I, cuda.P, cuda.P, cuda.P, cuda.P, cuda.P])
@@ -161,14 +162,14 @@ def ring_interp_fwd(query_xyz, query_cell0, level, feats, plan,
 def ring_interp_bwd(d_out: torch.Tensor, rows: torch.Tensor, w: torch.Tensor,
                     feats_shape) -> torch.Tensor:
     """K11's backward: d_feats [B, M, C] from d_out [B, N, C] and the
-    forward's rows and weights."""
+    forward's rows and weights (the entry point zeroes d_feats)."""
     cuda.check_cuda("d_out", d_out, torch.float32, 3)
     b, m, c = feats_shape
     dev = d_out.device
     with torch.cuda.device(dev):
-        d_feats = torch.zeros((b, m, c), dtype=torch.float32, device=dev)
+        d_feats = torch.empty((b, m, c), dtype=torch.float32, device=dev)
         _K11_BWD.launch(d_out.data_ptr(), rows.data_ptr(), w.data_ptr(),
-                        rows.shape[0], c, d_feats.data_ptr())
+                        rows.shape[0], c, d_feats.data_ptr(), b * m)
     return d_feats
 
 

@@ -37,7 +37,7 @@ HALO = 64   # level-0 y cells; see the module docstring for the reach
 
 _K16 = cuda.Kernel("sassd_band_partition",
                    [cuda.P, cuda.P, cuda.I, cuda.I, cuda.I, cuda.I, cuda.I,
-                    cuda.I, cuda.I, cuda.P, cuda.P, cuda.P])
+                    cuda.I, cuda.I, cuda.P, cuda.P, cuda.P, cuda.P])
 KERNEL_SYMBOLS = {"K16": ("sassd_band_partition",)}
 
 
@@ -155,13 +155,17 @@ def partition(coords: torch.Tensor, rows: torch.Tensor, spec: BandSpec):
                          f"{tuple(rows.shape)} are not [B, M, 3] / [B, M, F]")
     cap = spec.caps[0]
     dev = coords.device
+    # the kernels' tiles of rows, each counted into a scratch [B, tiles, S]
+    tiles = max(1, -(-m // cuda.load().sassd_band_partition_tile_rows()))
     with torch.cuda.device(dev):
+        counts = torch.empty((b, tiles, spec.s), dtype=torch.int32,
+                             device=dev)
         out_c = torch.empty((spec.s, b, cap, 3), dtype=torch.int32,
                             device=dev)
         out_r = torch.empty((spec.s, b, cap, f), dtype=torch.float32,
                             device=dev)
         over = torch.empty((spec.s, b), dtype=torch.int32, device=dev)
         _K16.launch(coords.data_ptr(), rows.data_ptr(), b, m, f, spec.s,
-                    spec.band_h, spec.halo, cap, out_c.data_ptr(),
-                    out_r.data_ptr(), over.data_ptr())
+                    spec.band_h, spec.halo, cap, counts.data_ptr(),
+                    out_c.data_ptr(), out_r.data_ptr(), over.data_ptr())
     return out_c, out_r, over

@@ -45,6 +45,7 @@ from sassd_tpu_torch.parallel import sparse_spatial as ss  # noqa: E402
 from sassd_tpu_torch.train import loop  # noqa: E402
 from test_spatial import _tall_config  # noqa: E402
 from test_torch_train_device_plans import jax_weights, leaves  # noqa: E402
+from test_torch_cases import PARTITION_CASES, partition_case  # noqa: E402
 
 LOSS_RTOL = 1e-4
 GRAD_RTOL = 1e-3
@@ -114,6 +115,39 @@ def test_partition_plain_matches_jax(cap0):
     assert (members.sum(0) > torch.from_numpy(n_valid)).all()  # the halos
     assert (over > 0).any() == (cap0 is not None)
 
+
+
+@pytest.mark.parametrize("case", PARTITION_CASES)
+def test_partition_plain_matches_jax_edges(case):
+    """K16's plain version == JAX partition, bitwise, on the card tests'
+    edge cases: rows on every band's lo - 1, lo, hi - 1 and hi with padding
+    between them, samples of different counts and an empty one, M one past
+    the kernel's tile, a cap that drops members."""
+    coords, rows, spec = partition_case(case)
+    bc, br, over = ss.partition(torch.from_numpy(coords),
+                                torch.from_numpy(rows), spec)
+    jc, (jr,), jover = jss.partition(jnp.asarray(coords),
+                                     [jnp.asarray(rows)], jss.BandSpec(*spec))
+    np.testing.assert_array_equal(bc.numpy(), np.asarray(jc))
+    np.testing.assert_array_equal(br.numpy().view(np.int32),
+                                  np.asarray(jr).view(np.int32))
+    np.testing.assert_array_equal(over.numpy(), np.asarray(jover))
+    valid = coords[..., 0] >= 0
+    members = (bc[..., 0] >= 0).sum(-1) + over                    # [S, B]
+    assert (over > 0).any() == (case == "cap_cut")
+    assert (members.sum(0) >= torch.from_numpy(valid.sum(1))).all()
+    if case == "uneven_samples":
+        assert (members[:, 2] == 0).all() and (bc[:, 2] == -1).all()
+    if case == "band_edges":
+        for s in range(spec.s):
+            lo = s * spec.band_h - spec.halo
+            hi = lo + spec.band_h + 2 * spec.halo
+            y = coords[..., 1][valid]
+            kept = bc[s, ..., 1][bc[s, ..., 0] >= 0] + lo
+            assert (kept >= lo).all() and (kept < hi).all()
+            assert int(((y >= lo) & (y < hi)).sum()) == int(
+                (bc[s, ..., 0] >= 0).sum())
+            assert {lo, hi - 1} & set(range(256)) <= set(kept.tolist())
 
 @pytest.mark.parametrize("level", [1, 2, 3])
 def test_downsample_with_y_limit_matches_jax(level):

@@ -28,6 +28,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from sassd_tpu_torch.ops.cuda import same_bits  # noqa: E402
+from test_torch_cases import (K16_TILE, PARTITION_CASES,  # noqa: E402
+                              partition_case, partition_rows)
+
 pytestmark = pytest.mark.cuda
 
 
@@ -885,6 +889,102 @@ def test_k11_matches_plain(dev, level):
     assert rel_err(fd.grad, fc.grad) <= 1e-5
 
 
+
+K11_CASES = ["c32_int16", "c64_int32", "c30", "misaligned", "padded_origins",
+             "all_padded"]
+
+
+def k11_case(case):
+    """K11's inputs on the tiny train rulebook at batch 2: level 1 at 32
+    channels, level 2 at 30 or 64. c32_int16 and c64_int32 the two plan
+    types; c30 a width that is not a multiple of 4, and misaligned 32
+    channels with features and d_out 4 bytes past a 16-byte boundary (both
+    take the single-float gather and scalar adds); padded_origins the second sample's last half
+    padded (cells and plan -1, as every plan maker writes them) with a
+    grid origin per row; all_padded the second sample all padding.
+    Returns (level, query, cell0, plan, feats, cot, vs, pc) as numpy, pc a
+    [2, 3] float32 tensor of origins or a list."""
+    cfg, batch, _ = tiny_rulebook(11)
+    caps = (cfg.voxel.max_voxels,) + tuple(cfg.caps.level_caps[1:])
+    c = {"c30": 30, "c64_int32": 64}.get(case, 32)
+    level = 1 if c == 32 else 2
+    rng = np.random.default_rng(len(case))
+    npts = np.maximum(batch["num_points"], 1)[..., None].astype(np.float32)
+    query = (batch["voxels"][..., :3].sum(-2) / npts).astype(np.float32)
+    cell0 = batch["coords"].copy()
+    plan = batch[f"plan_aux{level}"].astype(
+        np.int32 if case == "c64_int32" else np.int16)
+    if case in ("padded_origins", "all_padded"):
+        cut = 0 if case == "all_padded" else (cell0[1, :, 0] >= 0).sum() // 2
+        cell0[1, cut:] = -1
+        plan[1, :, cut:] = -1
+    pc = np.asarray(cfg.voxel.point_cloud_range[:3], np.float32)
+    pc = (torch.from_numpy(np.stack([pc, pc + np.float32([0.0, 0.8, 0.0])]))
+          if case == "padded_origins" else pc.tolist())
+    feats = rng.normal(size=(2, caps[level], c)).astype(np.float32)
+    cot = rng.normal(size=(2, cell0.shape[1], c)).astype(np.float32)
+    vs = (np.asarray(cfg.voxel.voxel_size, np.float32) * 2 ** level).tolist()
+    return level, query, cell0, plan, feats, cot, vs, pc
+
+
+@pytest.mark.parametrize("case", K11_CASES)
+def test_k11_cases_match_plain(dev, case):
+    """K11 on its edge cases: rows, weights and output bitwise the plain
+    version's (the signs of zeros included), the feature gradient within
+    1e-5 of autograd through it; a padded query weighs nothing."""
+    from sassd_tpu_torch.ops import interpolate as itp
+    level, query, cell0, plan, feats, cot, vs, pc = k11_case(case)
+    q, c0, pl, f, co = (torch.from_numpy(a)
+                        for a in (query, cell0, plan, feats, cot))
+
+    def on_dev(a):
+        if case != "misaligned":
+            return a.to(dev)
+        flat = torch.zeros(a.numel() + 1, device=dev)
+        flat[1:] = a.reshape(-1).to(dev)
+        return flat[1:].view(a.shape)
+    fd, cod = on_dev(f), on_dev(co)
+    assert (fd.data_ptr() % 16 != 0) == (case == "misaligned")
+    pcd = pc.to(dev) if torch.is_tensor(pc) else pc
+    out, rows, w = itp.ring_interp_fwd(q.to(dev), c0.to(dev), level, fd,
+                                       pl.to(dev), vs, pcd)
+    d_feats = itp.ring_interp_bwd(cod, rows, w, tuple(f.shape))
+    torch.cuda.synchronize()
+    ref_rows, ref_w = itp.ring_select_plain(q, c0, level, pl, f.shape[1], vs,
+                                            pc)
+    assert torch.equal(rows.cpu().long(), ref_rows)
+    assert same_bits(w, ref_w)
+    assert same_bits(out, itp.neighborhood_interpolate_cells_plain(
+        q, c0, level, f, pl, vs, pc))
+    fp = f.clone().requires_grad_()
+    ref_g = torch.autograd.grad(itp.neighborhood_interpolate_cells_plain(
+        q, c0, level, fp, pl, vs, pc), fp, co)[0]
+    assert rel_err(d_feats, ref_g) <= 1e-5
+    padded = c0[..., 0].reshape(-1) < 0
+    assert padded.any() == (case in ("padded_origins", "all_padded"))
+    assert (w.cpu()[padded] == 0).all() and (w.cpu()[~padded] > 0).any()
+
+
+def test_k14_padded_rows_are_missing(dev):
+    """K14 writes -1 for all 27 taps of a padded level-0 row, wherever it
+    lies (K11 reads no plan for one), as its plain version does."""
+    from sassd_tpu_torch.ops import sparse as sp
+    cfg, batch, shapes = tiny_rulebook(12)
+    cell0 = torch.from_numpy(batch["coords"].copy())
+    cell0[:, ::3] = -1                                # padding in between
+    padded = cell0[..., 0] < 0
+    keys = sp.coords_to_keys(torch.from_numpy(batch["coords"]), shapes[0])
+    for level in (1, 2, 3):
+        keys = sp.downsample_keys_plain(keys, shapes[level - 1],
+                                        cfg.caps.level_caps[level])
+        imap = sp.build_index_map(keys, shapes[level])
+        got = sp.aux_plan(cell0.to(dev), level, imap.to(dev), shapes[level])
+        torch.cuda.synchronize()
+        ref = sp.aux_plan_plain(cell0, level, imap, shapes[level])
+        assert torch.equal(got.cpu(), ref)
+        assert (got.cpu().transpose(1, 2)[padded] == -1).all()
+        assert (got.cpu().transpose(1, 2)[~padded] >= 0).any()
+
 def test_k12_matches_plain(dev):
     from sassd_tpu_torch.core import boxes
     rng = np.random.default_rng(10)
@@ -1211,22 +1311,55 @@ def band_inputs(seed):
     return cfg, ss.config_band_spec(cfg), batch, coords, vfe
 
 
-@pytest.mark.parametrize("cap0", [None, 150])
-def test_k16_matches_plain(dev, cap0):
-    """The band partition on the card == its plain version, bitwise;
-    cap0 150 drops members and counts them."""
+K16_CASES = (["tall", "tall_cap150"] + PARTITION_CASES
+             + [f"m{m}_s{bands}{cut}"
+                for m in (1, K16_TILE - 1, K16_TILE, K16_TILE + 1, 80000)
+                for bands in (1, 2, 5, 9) for cut in ("", "_cut")])
+
+
+def k16_case(case):
+    """A K16 case: (coords, rows, spec, whether the cap drops members).
+    "tall" is the tall banded batch, "tall_cap150" the same at cap0 150;
+    the names of PARTITION_CASES are the band edges, uneven and empty
+    samples, a ragged tile and a cap cut; "m{M}_s{S}" is batch 2 (the
+    second sample with M // 2 rows) over S bands (9: two passes of 8),
+    around the tile size and at the long-range size, with "_cut" a cap
+    that drops members."""
+    if case.startswith("tall"):
+        _, spec, _, coords, vfe = band_inputs(3)
+        if case == "tall_cap150":
+            spec = spec._replace(caps=(150,) + spec.caps[1:])
+        return coords, vfe, spec, case == "tall_cap150"
+    if case in PARTITION_CASES:
+        coords, rows, spec = partition_case(case)
+        cut = case == "cap_cut"
+    else:
+        m_id, s_id = case.split("_")[:2]
+        m, bands = int(m_id[1:]), int(s_id[1:])
+        coords, rows, spec = partition_rows(np.random.default_rng(m + bands),
+                                            [m, m // 2], m, bands)
+        cut = case.endswith("_cut")
+        if cut:
+            spec = spec._replace(caps=(max(1, m // (2 * bands)),)
+                                 + spec.caps[1:])
+            cut = m > 1
+    return torch.from_numpy(coords), torch.from_numpy(rows), spec, cut
+
+
+@pytest.mark.parametrize("case", K16_CASES)
+def test_k16_matches_plain(dev, case):
+    """The band partition on the card == its plain version, bitwise (see
+    k16_case); a case whose cap drops members counts them."""
     from sassd_tpu_torch.parallel import sparse_spatial as ss
-    _, spec, _, coords, vfe = band_inputs(3)
-    if cap0 is not None:
-        spec = spec._replace(caps=(cap0,) + spec.caps[1:])
+    coords, rows, spec, cut = k16_case(case)
     before = ss._K16.launches
-    got = ss.partition(coords.to(dev), vfe.to(dev), spec)
+    got = ss.partition(coords.to(dev), rows.to(dev), spec)
     torch.cuda.synchronize()
     assert ss._K16.launches == before + 1
-    ref = ss.partition_plain(coords, vfe, spec)
-    for g, r in zip(got, ref):
-        assert g.dtype == r.dtype and torch.equal(g.cpu(), r)
-    assert (ref[2] > 0).any() == (cap0 is not None)
+    ref = ss.partition_plain(coords, rows, spec)
+    assert all(same_bits(g, r) for g, r in zip(got, ref))
+    assert bool((ref[2] > 0).any()) == cut
+
 
 
 @pytest.mark.parametrize("level", [1, 2, 3])

@@ -144,6 +144,51 @@ def test_aux_plan_matches_jax_and_host_rulebook(level):
     assert (got[:, :, (batch["coords"][0, :, 0] < 0)] == -1).all()
 
 
+@pytest.mark.parametrize("maker", ["host", "device", "banded"])
+def test_aux_plans_of_padded_queries_are_missing(maker):
+    """Every maker of the aux ring plans writes -1 for all 27 taps of a
+    padded level-0 row (K11 reads no plan for one): the C++ host rulebook
+    past the voxelizer's compact rows (scans that fill about 40% of the
+    slots), K14's plain version with padding between valid rows, and the
+    banded stage's plans on band rows (K14 through the device rulebook,
+    each band's padding past its members)."""
+    from sassd_tpu_torch.models import backbone
+    from sassd_tpu_torch.parallel import sparse_spatial as ss
+    from test_torch_banded import band_rows
+    if maker == "banded":
+        cfg, spec, bc, _, _, _ = band_rows(3)
+        shapes = backbone.level_shapes(ss.band_shape(cfg, spec))
+        cell0 = bc.reshape(-1, bc.shape[2], 3)
+        plans = sp.device_rulebook(
+            sp.coords_to_keys(cell0, shapes[0]), shapes, spec.caps[1:],
+            train=True, y_top=ss.y_top_rows(cfg, spec, 2, "cpu"))
+        auxs = [plans[f"aux{lvl}"] for lvl in (1, 2, 3)]
+    else:
+        cfg = config.tiny_config()
+        batch = synthetic.make_random_batch(cfg, np.random.default_rng(40),
+                                            batch_size=2, n_points=200)
+        cell0 = torch.from_numpy(batch["coords"])
+        if maker == "host":
+            auxs = [torch.from_numpy(batch[f"plan_aux{lvl}"].astype(np.int32))
+                    for lvl in (1, 2, 3)]
+        else:
+            shapes = level_shapes(cfg)
+            keys = sp.coords_to_keys(cell0, shapes[0])
+            cell0 = cell0.clone()
+            cell0[:, 1::4] = -1                       # padding in between
+            auxs = []
+            for lvl in (1, 2, 3):
+                keys = sp.downsample_keys(keys, shapes[lvl - 1],
+                                          cfg.caps.level_caps[lvl])
+                auxs.append(sp.aux_plan(cell0, lvl, sp.build_index_map(
+                    keys, shapes[lvl]), shapes[lvl]))
+    padded = cell0[..., 0] < 0
+    assert 0.2 < padded.float().mean() < 0.9
+    for aux in auxs:
+        taps = aux.transpose(1, 2)                    # [B, M0, 27]
+        assert (taps[padded] == -1).all()
+        assert (taps[~padded] >= 0).any()
+
 @pytest.mark.parametrize("aux", [True, False])
 def test_device_rulebook_train_matches_host_rulebook(aux):
     """device_rulebook(train=True) == build_plans_cpp(train=True), key for

@@ -239,6 +239,52 @@ def test_ring_interpolation_matches_jax(train_batch, level):
     assert np.abs(np.asarray(ref)[valid]).min(axis=-1).max() > 0
 
 
+
+@pytest.mark.parametrize("level", [1, 2, 3])
+def test_ring_interpolation_with_padding_matches_jax(level):
+    """neighborhood_interpolate_cells with padded queries mixed in (scans
+    of 200 points fill about 40% of the 512 slots, the C++ host plans'
+    rows past them): values and feature gradients as JAX's, zero output
+    and no gradient from a padded query."""
+    cfg = config.tiny_config()
+    batch = synthetic.make_random_batch(cfg, np.random.default_rng(30),
+                                        batch_size=2, n_points=200)
+    caps = (cfg.voxel.max_voxels,) + tuple(cfg.caps.level_caps[1:])
+    rng = np.random.default_rng(30 + level)
+    c = 32 if level == 1 else 64
+    feats = rng.normal(size=(2, caps[level], c)).astype(np.float32)
+    npts = np.maximum(batch["num_points"], 1)[..., None].astype(np.float32)
+    query = (batch["voxels"][..., :3].sum(-2) / npts).astype(np.float32)
+    cell0, plan = batch["coords"], batch[f"plan_aux{level}"]
+    padded = cell0[..., 0] < 0
+    assert 0.3 < padded.mean() < 0.9
+    vs = (np.asarray(cfg.voxel.voxel_size, np.float32) * 2 ** level)
+    pcr = np.asarray(cfg.voxel.point_cloud_range[:3], np.float32)
+    cot = rng.normal(size=(2, cell0.shape[1], c)).astype(np.float32)
+
+    def jfn(f):
+        return jax.vmap(lambda q, c0, ff, pl: jinterp.
+                        neighborhood_interpolate_cells(q, c0, level, ff, pl,
+                                                       vs, pcr))(
+            jnp.asarray(query), jnp.asarray(cell0), f,
+            jnp.asarray(plan).astype(jnp.int32))
+    ref, vjp = jax.vjp(jfn, jnp.asarray(feats))
+    (jdf,) = vjp(jnp.asarray(cot))
+    ft = t(feats, True)
+    got = interpolate.neighborhood_interpolate_cells(
+        t(query), t(cell0), level, ft, t(plan), vs.tolist(), pcr.tolist())
+    got.backward(t(cot))
+    close(got.detach(), ref)
+    close(ft.grad, jdf)
+    assert (got.detach().numpy()[padded] == 0).all()
+    assert np.abs(np.asarray(ref)[~padded]).max() > 0.1
+    ft.grad = None
+    cot_valid = np.where(padded[..., None], 0.0, cot).astype(np.float32)
+    interpolate.neighborhood_interpolate_cells(
+        t(query), t(cell0), level, ft, t(plan), vs.tolist(),
+        pcr.tolist()).backward(t(cot_valid))
+    close(ft.grad, jdf)
+
 def test_points_in_boxes_and_aux_targets_match_jax():
     """Flags, labels and offsets bitwise: centroid-like points around GT
     boxes, some boxes and points invalid."""
