@@ -88,12 +88,19 @@ Phases, each of which fails the run (nonzero exit, no result line):
    loss finite, band_overflow 0. Timed: the timing scan at batch 1, banded
    and replicated in turns, and the train step at batch 2.
 
-Phase 3 holds K2 (NMS keep flags) bitwise against the plain greedy at
+Phase 3 holds K1 (rotated overlap) in all four criteria within K1_ATOL
+of its plain version and at exactly +0.0 on every pair that its
+separation cull rejects, on the 2008-box set and on phase 6's NMS input
+(the sorted boxes rotate_nms hands to K1 in one served car scan,
+captured), printing the near pairs and a hash of each output, equal
+across checkouts exactly when every value is. It holds K2 (NMS keep
+flags) bitwise against the plain greedy at
 N = 2000 and at 1, 63, 64, 65 and 2113 boxes (the sweep's 64-box blocks
 and its register words), at thresholds 0.1 and 0.5. It also holds K8
 (device voxelizer) and K9 (anchors mask) against
 their plain versions, bitwise, on the car scans (at the 20,000-voxel cap,
-so the lowest-key truncation runs) and on one frustum scan, K8 also on a
+so the lowest-key truncation runs; K9 at batch 1, 2 and 5 on the car and
+the three-class corner tables) and on one frustum scan, K8 also on a
 batch of two with one sample empty and on phase 9's long-range timing
 scan (262,144-point cap, 80,000 voxels: the bitmap follows the grid); and the
 training kernels at batch 2 on the train plans of the car scans: K10
@@ -108,17 +115,23 @@ output bitwise, its backward through K11's).
 
 K5, K5b, K6's level-0 map, K7 (the whole op, batch 1) and K13 are also
 timed beside one PyTorch call that computes their work (library_ms), a
-yardstick the port never calls; no single call computes K2's or K8's
-function. K8's rows carry the parent design's torch.sort of the same
-keys alone (sort_ms). K2, K8, K15 and the yardsticks are also timed as CUDA-graph replays (graph_ms, library_graph_ms: the
-device's time without the host's launch path), except torch.unique,
+yardstick the port never calls; no single call computes K1's, K2's, K8's
+or K9's function. K6's map and its yardstick are also replayed in turns
+(map, yardstick, yardstick, map). K8's rows carry the parent design's
+torch.sort of the same keys alone (sort_ms). K2, K8, K15 and the
+yardsticks are also timed as CUDA-graph replays (graph_ms,
+library_graph_ms: the device's time without the host's launch path),
+except torch.unique,
 which reads its output's size back to the host and cannot be captured.
 K5b and K13 and their yardsticks are timed over 100 calls each, K5b and
-its gather also with the L2 cold before each call (cold_l2_ms). K11 and
+its gather also with the L2 cold before each call (cold_l2_ms). K1 (at
+both inputs) and K9 (car batch 1 and 2, and on no voxels: all but its
+scatter) are timed by events and graph replay. K11 and
 K11' (per level: the forward, the backward with its memset of d_feats,
 that memset alone, the zeroing as torch.zeros, and forward + backward
-replayed from one graph) and K16 are timed by events and graph replay. K2, K8, K11,
-K11' and K16 also print torch.profiler's device time by kernel
+replayed from one graph) and K16 are timed by events and graph replay.
+K1, K2, K8, K9, K11, K11' and K16 also print torch.profiler's device
+time by kernel
 (kernel_split) after their timed runs, as a diagnostic only: those
 totals have read below the replay of the same call, so no row carries
 them.
@@ -406,6 +419,130 @@ DEGENERATE = [
 ]
 
 
+# criterion-2 areas of pairs of DEGENERATE, appended last to a box set
+DEGENERATE_AREAS = {(0, 1): 8.0, (0, 2): 0.0, (0, 3): 2.0, (0, 4): 0.0,
+                    (0, 6): 4.0, (0, 7): 8.0}
+
+
+def k1_check(torch, riou_kernel, boxes, what: str,
+             degenerate: bool = False) -> dict:
+    """K1 on [N, 5] card boxes against itself in all four criteria: within
+    K1_ATOL of the plain version, and exactly +0.0 on every pair that the
+    separation cull rejects; with `degenerate`, the last boxes are
+    DEGENERATE and their criterion-2 areas must be DEGENERATE_AREAS.
+    Returns the largest error, the near-pair count and a hash of each
+    criterion's bytes (equal across checkouts exactly when every value is
+    bitwise equal)."""
+    import hashlib
+    near = riou_kernel.near_pairs_plain(boxes, boxes)
+    err, sums, bad, deg = 0.0, {}, {}, {}
+    for crit in (2, -1, 0, 1):
+        got = riou_kernel.rotate_overlap(boxes, boxes, crit)
+        ref = riou_kernel.rotate_overlap_plain(boxes, boxes, crit)
+        err = max(err, float((got - ref).abs().max()))
+        sums[crit] = hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest(
+            )[:16]
+        bad[crit] = int((got.view(torch.int32)[~near] != 0).sum())
+        if crit == 2 and degenerate:
+            k = len(DEGENERATE)
+            tail = got[-k:, -k:].cpu().numpy()
+            deg = {ij: float(tail[ij]) for ij, v in DEGENERATE_AREAS.items()
+                   if abs(tail[ij] - v) > 1e-2}
+    n = boxes.shape[0]
+    n_near = int(near.sum())
+    # near pairs per 64 x 64 tile of the kernel's grid: a block clips its
+    # own tile's near pairs
+    nt = -(-n // K1_TILE)
+    grid = torch.zeros((nt * K1_TILE, nt * K1_TILE), dtype=torch.int32,
+                       device=near.device)
+    grid[:n, :n] = near.int()
+    per = grid.view(nt, K1_TILE, nt, K1_TILE).sum((1, 3)).flatten()
+    dense = per > K1_TILE * K1_TILE // 4
+    deg_note = f"degenerate pairs {deg or 'ok'}; " if degenerate else ""
+    print(f"K1 on {what}, N = {n}, criteria 2, -1, 0, 1: max|kernel-plain| "
+          f"{err:.3g} (tol {K1_ATOL}); near pairs {n_near} "
+          f"({n_near / n / n:.4%}) (per {K1_TILE}x{K1_TILE} tile: mean "
+          f"{float(per.float().mean()):.1f}, max {int(per.max())}; "
+          f"{int(dense.sum())} of {per.numel()} tiles over a quarter near "
+          f"hold {float(per[dense].sum() / per.sum().clamp(min=1)):.1%} of "
+          f"them); culled pairs not +0.0: {bad}; {deg_note}output hashes "
+          f"{sums}")
+    if not err <= K1_ATOL or any(bad.values()) or deg:
+        fail(f"K1 disagrees with its plain version on {what}")
+    return dict(max_abs_err=err, n_near=n_near, checksums=sums)
+
+
+# a near pair's full clipping: corners, 2 x 4 clipped edges; a pair's cull
+# test: two differences, two squares, a sum, two adds, a square, a compare
+K1_PAIR_OPS = 400
+K1_CULL_OPS = 9
+K1_TILE = 64            # boxes a side of a block's tile (riou_overlap.cu)
+
+
+def k1_bound(n: int, m: int, n_near: int) -> dict:
+    """K1's bound on [N, 5] x [M, 5] boxes: the boxes in, the matrix out;
+    the cull test for every pair and the full clipping for the n_near
+    pairs it keeps."""
+    return bound((n + m) * 5 * 4 + n * m * 4,
+                 n * m * K1_CULL_OPS + n_near * K1_PAIR_OPS)
+
+
+def serving_split(torch, np, device, cfg, root: str):
+    """Phase 6's inputs: a 4-scan synthetic KITTI val split written under
+    root, its dataset, the serving step on `device` and the collated
+    batches of one and of two scans."""
+    import dataclasses
+    from sassd_tpu_torch import serve
+    from sassd_tpu_torch.data import kitti, synthetic
+    cfg_pts = dataclasses.replace(cfg, test=dataclasses.replace(
+        cfg.test, device_input="points"))
+    synthetic.write_synthetic_kitti(root, n_train=0, n_val=N_SCANS,
+                                    seed=SEED)
+    ds = kitti.KittiDataset(cfg, os.path.join(root, "training"),
+                            os.path.join(root, "ImageSets", "val.txt"))
+    view = serve.PointsView(ds, cfg_pts)
+    step = serve.make_serving_step(cfg_pts, ds.anchors, ds.anchors_bv,
+                                   device)
+    batch1 = [kitti.collate([view[i]])[0] for i in range(N_SCANS)]
+    batch2 = [kitti.collate([view[i], view[i + 1]])[0]
+              for i in range(0, N_SCANS, 2)]
+    return cfg_pts, ds, step, batch1, batch2
+
+
+def check_nms_input(torch, np, device, cfg, model_dev) -> dict:
+    """K1 at the NMS input of phase 6's first served car scan: the sorted
+    boxes that rotate_nms hands to K1 (criterion -1), captured in one
+    serving step, checked as on the 2008-box set and timed."""
+    from sassd_tpu_torch.core import riou
+    from sassd_tpu_torch.ops import riou_kernel
+    seen = []
+    orig = riou.rotate_iou_bev
+
+    def capture(a, b):
+        seen.append(a.clone())
+        return orig(a, b)
+    with tempfile.TemporaryDirectory() as root:
+        _, _, step, batch1, _ = serving_split(torch, np, device, cfg, root)
+        riou.rotate_iou_bev = capture
+        try:
+            step(model_dev, batch1[0])
+        finally:
+            riou.rotate_iou_bev = orig
+    torch.cuda.synchronize()
+    boxes = seen[0]
+    k1 = k1_check(torch, riou_kernel, boxes, "phase 6's NMS input")
+    t = timed(lambda: riou_kernel.rotate_overlap(boxes, boxes, -1))
+    n = boxes.shape[0]
+    print(f"  K1 at phase 6's NMS input, N = {n}, criterion -1: kernel "
+          f"{fmt_timed(t)}; bound "
+          f"{k1_bound(n, n, k1['n_near'])['bound_ms']:.4f} ms")
+    return dict(nms_n=n, nms_n_near=k1["n_near"], nms_ms=t["ms"],
+                nms_graph_ms=t["graph_ms"],
+                nms_bound_ms=k1_bound(n, n, k1["n_near"])["bound_ms"],
+                nms_checksums=k1["checksums"],
+                max_abs_err=k1["max_abs_err"])
+
+
 def check_kernels(torch, np, device):
     """Phase 3: each kernel against its plain version at path shapes."""
     from sassd_tpu_torch.core import riou
@@ -417,31 +554,23 @@ def check_kernels(torch, np, device):
     boxes = np.concatenate([nms_boxes(rng, 2000),
                             np.asarray(DEGENERATE, np.float32)])
     bt = torch.from_numpy(boxes).to(device)
-    got = riou_kernel.rotate_overlap(bt, bt, 2)
-    ref = riou_kernel.rotate_overlap_plain(bt, bt, 2)
-    err1 = float((got - ref).abs().max())
-    deg = got[-8:, -8:].cpu().numpy()
-    expect = {(0, 1): 8.0, (0, 2): 0.0, (0, 3): 2.0, (0, 4): 0.0,
-              (0, 6): 4.0, (0, 7): 8.0}
-    bad = {k: float(deg[k]) for k, v in expect.items()
-           if abs(deg[k] - v) > 1e-2}
-    print(f"K1 rotate_overlap {tuple(got.shape)}: max|kernel-plain| = "
-          f"{err1:.3g} m^2 (tol {K1_ATOL}); degenerate pairs "
-          f"{'ok' if not bad else bad}")
-    if not err1 <= K1_ATOL or bad:
-        fail("K1 disagrees with its plain version")
-    ms = cuda_ms(lambda: riou_kernel.rotate_overlap(bt, bt, 2))
+    k1 = k1_check(torch, riou_kernel, bt, "the 2008-box set",
+                  degenerate=True)
+    t1 = timed(lambda: riou_kernel.rotate_overlap(bt, bt, 2))
     plain_ms = cuda_ms(lambda: riou_kernel.rotate_overlap_plain(bt, bt, 2),
                        iters=5)
-    n1 = bt.shape[0]
+    print(f"  K1 {bt.shape[0]}^2, criterion 2: kernel {fmt_timed(t1)}, plain "
+          f"{plain_ms:.4f} ms; "
+          f"{fmt_split(lambda: riou_kernel.rotate_overlap(bt, bt, 2))}")
     rows.append(dict(name="K1 rotate_overlap", route="cuda",
                      source="sassd_tpu_torch/csrc/riou_overlap.cu",
                      replaces="sassd_tpu/ops/pallas/riou_kernel.py:137",
-                     max_abs_err=err1, ms=ms, plain_ms=plain_ms,
-                     library_ms=None,
+                     max_abs_err=k1["max_abs_err"], **t1,
+                     plain_ms=plain_ms, library_ms=None,
                      library_what="none: torch has no rotated-box overlap",
-                     # ~400 operations a pair: corners, 2 x 4 clipped edges
-                     **bound(2 * n1 * 5 * 4 + n1 * n1 * 4, n1 * n1 * 400)))
+                     at=f"{bt.shape[0]}^2 boxes, criterion 2",
+                     n_near=k1["n_near"], checksums=k1["checksums"],
+                     **k1_bound(bt.shape[0], bt.shape[0], k1["n_near"])))
 
     # K2: keep flags on the same boxes with random scores, then at sizes
     # around the sweep's 64-box blocks and its register words
@@ -703,11 +832,22 @@ def check_sparse_kernels(torch, np, device, cfg, samples):
           f"({map_graph_ms:.4f} replayed from a CUDA graph), one-call "
           f"yardstick (full + index_put_) {lib6_ms:.4f} ms "
           f"({lib6_graph_ms:.4f} replayed)")
+    # the map's two replay modes: the map and its yardstick in turns (map,
+    # yardstick, yardstick, map), each turn three graphs of 50 replays
+    turns = []
+    for what, fn in (("map", lambda: sp.build_index_map(keys0, shapes[0])),
+                     ("yardstick", put6), ("yardstick", put6),
+                     ("map", lambda: sp.build_index_map(keys0, shapes[0]))):
+        turns.append((what, [graph_ms(fn, iters=50) for _ in range(3)]))
+    print("  K6 L0 map against its yardstick in turns, replayed: "
+          + "; ".join(f"{w} {', '.join(f'{t:.4f}' for t in ts)}"
+                      for w, ts in turns))
     rows.append(dict(name="K6 device_plans", route="cuda",
                      source="sassd_tpu_torch/csrc/device_plans.cu",
                      replaces="sassd_tpu/ops/sparse.py:84",
                      max_abs_err=err6, ms=ms, plain_ms=plain_ms,
                      map_ms=map_ms, map_graph_ms=map_graph_ms,
+                     map_turns_graph_ms=turns,
                      library_ms=lib6_ms, library_graph_ms=lib6_graph_ms,
                      library_what="torch.full(-1) + index_put_ of the valid "
                                   "rows: the L0 map alone, against map_ms",
@@ -806,10 +946,10 @@ def check_serving_kernels(torch, np, device, cfg, scans, anchors_bv):
     """Phase 3, K8 and K9: the device voxelizer and the anchors mask of
     raw car-config scans against their plain versions on the card; K8 also
     on a batch of two with one sample empty and on phase 9's long-range
-    timing scan."""
+    timing scan, K9 also on the three-class corner table."""
     from sassd_tpu_torch import serve
-    from sassd_tpu_torch.config import long_range_config
-    from sassd_tpu_torch.data import synthetic
+    from sassd_tpu_torch.config import long_range_config, multi_config
+    from sassd_tpu_torch.data import kitti, synthetic
     from sassd_tpu_torch.ops import voxelize as vox
 
     prepared = [serve.prepare_points(p, cfg) for p in scans]
@@ -843,21 +983,31 @@ def check_serving_kernels(torch, np, device, cfg, scans, anchors_bv):
             fail(f"K8 differs from its plain version on {what}")
         if p8 is pts:
             coords8 = got[1]
-    corners = torch.from_numpy(serve.anchor_corner_indices(
-        anchors_bv, cfg.voxel.voxel_size, cfg.voxel.point_cloud_range,
-        cfg.voxel.grid_size)).to(device)
     hw = (int(cfg.voxel.grid_size[1]), int(cfg.voxel.grid_size[0]))
     thr = cfg.data.anchor_area_threshold
-    mask = serve.anchors_mask(coords8, corners, hw, thr)
-    mask_ref = serve.anchors_mask_plain(coords8, corners, hw, thr)
-    same9 = torch.equal(mask, mask_ref)
-    err9 = float((mask.int() - mask_ref.int()).abs().max())
-    print(f"K9 anchors_mask {tuple(coords8.shape)} -> {tuple(mask.shape)} "
-          f"over a {hw[0]}x{hw[1]} grid: "
-          f"{'bitwise equal to' if same9 else 'DIFFERS from'} plain; "
-          f"anchors kept {mask.sum(1).tolist()}")
-    if not same9:
-        fail("K9 differs from its plain version")
+    multi = multi_config()
+    err9 = 0.0
+    for what, cfg9, bv in (("car", cfg, anchors_bv),
+                           ("three-class", multi,
+                            kitti.build_anchors(multi)[1])):
+        corners = serve.anchor_corner_indices(
+            bv, cfg9.voxel.voxel_size, cfg9.voxel.point_cloud_range,
+            cfg9.voxel.grid_size)
+        lat = serve.anchor_lattice(corners, hw).to(device)
+        for c in (coords8[:1], coords8[:2], coords8):
+            mask = serve.anchors_mask(c, lat, thr)
+            mask_ref = serve.anchors_mask_plain(c, lat.corners, hw, thr)
+            same9 = torch.equal(mask, mask_ref)
+            err9 = max(err9, float((mask.int() - mask_ref.int()).abs().max()))
+            print(f"K9 anchors_mask, {what} corner table "
+                  f"({corners.shape[0]} anchors, lattice {lat.shape}), "
+                  f"coords {tuple(c.shape)} over a {hw[0]}x{hw[1]} grid: "
+                  f"{'bitwise equal to' if same9 else 'DIFFERS from'} plain; "
+                  f"anchors kept {mask.sum(1).tolist()}")
+            if not same9:
+                fail(f"K9 differs from its plain version ({what})")
+        if what == "car":
+            car = lat
 
     p1, n1, c1 = pts[:1], n[:1], coords8[:1].contiguous()
     p2, n2 = pts[:2], n[:2]
@@ -872,22 +1022,35 @@ def check_serving_kernels(torch, np, device, cfg, scans, anchors_bv):
                    "K8 voxelize, long range",
                    "batch 1, phase 9's long-range timing scan, "
                    "262,144-point cap, 80,000 voxels")]
-    ms = cuda_ms(lambda: serve.anchors_mask(c1, corners, hw, thr))
-    plain_ms = cuda_ms(lambda: serve.anchors_mask_plain(c1, corners, hw,
-                                                        thr))
-    n_anchors = corners.shape[0]
-    # an estimate, printed only: the present design's floor, which adds
-    # its [H, W] float32 integral image written once and read once to the
-    # function's bytes
-    image_ms = bound(c1.shape[1] * 12 + n_anchors * 17
-                     + 2 * hw[0] * hw[1] * 4, 0)["bound_ms"]
-    print(f"  K9 batch 1: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
-          f"integral-image design floor (estimate, not the bound) "
-          f"{image_ms:.4f} ms")
+    lat, ct = car, car.corners
+
+    def k9(c):
+        return serve.anchors_mask(c, lat, thr)
+
+    c2 = coords8[:2].contiguous()
+    t1 = timed(lambda: k9(c1))
+    t2 = timed(lambda: k9(c2))
+    # all but the scatter: the call on no voxels
+    none_ms = graph_ms(lambda: k9(c1[:, :0]))
+    plain_ms = cuda_ms(lambda: serve.anchors_mask_plain(c1, ct, hw, thr))
+    n_anchors = ct.shape[0]
+    # an estimate, printed only: the design's floor, which adds the
+    # lattice written once and read once to the function's bytes
+    cells = lat.shape[0] * lat.shape[1]
+    floor_ms = bound(c1.shape[1] * 12 + n_anchors * 17 + 2 * cells * 4,
+                     0)["bound_ms"]
+    print(f"  K9 car batch 1: kernel {fmt_timed(t1)}, plain {plain_ms:.4f} "
+          f"ms; batch 2 {fmt_timed(t2)}; on no voxels (all but the "
+          f"scatter) {none_ms:.4f} replayed (a call replayed alone reads "
+          f"0.008-0.015 ms even for a memset); lattice design floor "
+          f"(estimate, not the bound) {floor_ms:.4f} ms; "
+          f"{fmt_split(lambda: k9(c1))}")
     rows.append(dict(name="K9 anchors_mask", route="cuda",
                      source="sassd_tpu_torch/csrc/anchors_mask.cu",
                      replaces="sassd_tpu/serve.py:106",
-                     max_abs_err=err9, ms=ms, plain_ms=plain_ms,
+                     max_abs_err=err9, **t1, batch2_ms=t2["ms"],
+                     batch2_graph_ms=t2["graph_ms"],
+                     no_voxels_graph_ms=none_ms, plain_ms=plain_ms,
                      library_ms=None,
                      library_what="none: the occupancy scatter, two "
                                   "cumsums and the corner reads are "
@@ -1594,24 +1757,12 @@ def run_serving(torch, np, device, cfg, model_dev, model_cpu, root: str):
     """Phase 6: device-resident serving through run_inference and the KITTI
     evaluator. Returns (launches, ms1, ms2, host_ms, launches of one
     batch-1 step)."""
-    import dataclasses
     from sassd_tpu_torch import inference, serve
-    from sassd_tpu_torch.data import kitti, synthetic
     from sassd_tpu_torch.eval import results
 
-    cfg_pts = dataclasses.replace(cfg, test=dataclasses.replace(
-        cfg.test, device_input="points"))
-    synthetic.write_synthetic_kitti(root, n_train=0, n_val=N_SCANS,
-                                    seed=SEED)
+    cfg_pts, ds, step, batch1, batch2 = serving_split(torch, np, device, cfg,
+                                                      root)
     data_root = os.path.join(root, "training")
-    ds = kitti.KittiDataset(cfg, data_root,
-                            os.path.join(root, "ImageSets", "val.txt"))
-    view = serve.PointsView(ds, cfg_pts)
-    step = serve.make_serving_step(cfg_pts, ds.anchors, ds.anchors_bv,
-                                   device)
-    batch1 = [kitti.collate([view[i]])[0] for i in range(N_SCANS)]
-    batch2 = [kitti.collate([view[i], view[i + 1]])[0]
-              for i in range(0, N_SCANS, 2)]
     for b in (batch1[0], batch2[0]):                 # warm-up
         step(model_dev, b)
     torch.cuda.synchronize()
@@ -2561,6 +2712,11 @@ def main() -> int:
                                    frustum=True)[0]
     rows += check_serving_kernels(torch, np, device, cfg, scans + [frustum],
                                   anchors_bv)
+    model_dev = seeded_detector(cfg, SEED, device)
+    k1_row = next(r for r in rows if r["name"] == "K1 rotate_overlap")
+    nms = check_nms_input(torch, np, device, cfg, model_dev)
+    k1_row["max_abs_err"] = max(k1_row["max_abs_err"], nms.pop("max_abs_err"))
+    k1_row.update(nms)
     if "--kernels-only" in sys.argv[1:]:
         # phases 1-3 and phase 9's kernel checks alone: the kernel rows of
         # this checkout under their own key (no launch counts, no result
@@ -2578,7 +2734,6 @@ def main() -> int:
         return 0
 
     model = seeded_detector(cfg, SEED, "cpu")               # CPU copy
-    model_dev = seeded_detector(cfg, SEED, device)
     host = run_phase(torch, np, device, cfg, model_dev, anchors, samples,
                      "host plans")
     dev = run_phase(torch, np, device, cfg_dev, model_dev, anchors,

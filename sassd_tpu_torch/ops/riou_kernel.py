@@ -9,6 +9,13 @@ cross(p, q) over those clipped, CCW-directed segments. Coincident
 boundaries (identical or edge-touching boxes) are resolved by a
 direction-aware eps tie-break; see ``_clipped_cross_sum``.
 
+The kernel runs the full clipping only for the pairs that
+:func:`near_pairs_plain` keeps: a pair whose centres lie farther apart than
+the sum of the boxes' circumradii plus CULL_MARGIN cannot touch, and the
+plain version gives it exactly +0.0 in every criterion, which the kernel
+writes without clipping. A box with a non-finite field, or a centre or a
+size beyond CULL_LIMIT, is never culled.
+
 Non-differentiable by design: every consumer makes discrete decisions
 (NMS) from the overlaps.
 """
@@ -19,6 +26,11 @@ import torch
 from . import cuda
 
 EPS_SHRINK = 1e-5
+# the separation cull (csrc/riou_overlap.cu): a margin of 1 cm, 40 times the
+# float32 spacing at 2,048 m, which bounds every coordinate that the
+# clipping computes for boxes with centres and sizes within CULL_LIMIT
+CULL_MARGIN = 1e-2
+CULL_LIMIT = 1000.0
 
 _K1 = cuda.Kernel("sassd_riou_overlap",
                   [cuda.P, cuda.I, cuda.P, cuda.I, cuda.I, cuda.P])
@@ -125,6 +137,31 @@ def rotate_overlap_plain(boxes_a: torch.Tensor, boxes_b: torch.Tensor,
     else:
         denom = torch.broadcast_to(b_area, inter.shape)
     return inter / torch.clamp(denom, min=1e-7)
+
+
+def _cull_radius(boxes: torch.Tensor) -> torch.Tensor:
+    """[N] float32 circumradius of each box, NaN where the box is never
+    culled (a non-finite field, a centre or a size beyond CULL_LIMIT)."""
+    b = boxes.float()
+    x, y, w, l, _ = b.unbind(1)
+    ok = (torch.isfinite(b).all(1) & (x.abs() <= CULL_LIMIT)
+          & (y.abs() <= CULL_LIMIT) & (w.abs() <= CULL_LIMIT)
+          & (l.abs() <= CULL_LIMIT))
+    return torch.where(ok, 0.5 * torch.sqrt(w * w + l * l), torch.nan)
+
+
+def near_pairs_plain(boxes_a: torch.Tensor,
+                     boxes_b: torch.Tensor) -> torch.Tensor:
+    """[N, M] bool: the pairs that K1 clips in full, in its float32
+    operations. The others have centres farther apart than r_a + r_b +
+    CULL_MARGIN, and the plain version gives them exactly +0.0. A NaN
+    radius makes the comparison false, so such a pair stays near."""
+    a, b = boxes_a.float(), boxes_b.float()
+    dx = a[:, 0][:, None] - b[:, 0][None, :]
+    dy = a[:, 1][:, None] - b[:, 1][None, :]
+    reach = (_cull_radius(a)[:, None] + _cull_radius(b)[None, :]
+             + CULL_MARGIN)
+    return ~(dx * dx + dy * dy > reach * reach)
 
 
 def rotate_overlap(boxes_a: torch.Tensor, boxes_b: torch.Tensor,

@@ -5,8 +5,9 @@ The loader's whole per-scan job is a range crop and a pad
 config's 65,536-point cap). On the device:
 
     points [B, P, F] --K8 voxelize (ops/voxelize.py)--> key-sorted voxels
-      --K9 anchors mask (integral image, static corner table)-->
-      --device rulebook (K6, K7; Detector.forward_spine)--> forward_test
+      --K9 anchors mask (integral image on the corner lattice, static
+        tables)--> --device rulebook (K6, K7; Detector.forward_spine)-->
+      forward_test
 
 Select it with ``TestConfig.device_input = "points"``
 (``inference.run_inference`` honours it). The sparse path always runs on
@@ -14,11 +15,12 @@ the device rulebook here: there is no loader to build host plans.
 
 Kernels (``sassd_tpu_torch/csrc``), each beside its plain PyTorch version,
 which a wrapper takes only for CPU tensors: K8 ``voxelize.cu`` and K9
-``anchors_mask.cu`` (:func:`anchors_mask`).
+``anchors_mask.cu`` (:func:`anchors_mask`, on the tables of
+:func:`anchor_lattice`).
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -29,13 +31,11 @@ from sassd_tpu_torch.models.detector import Detector
 from sassd_tpu_torch.ops import cuda
 from sassd_tpu_torch.ops.voxelize import voxelize
 
-_K9_INTEGRAL = cuda.Kernel("sassd_integral_image",
-                           [cuda.P, cuda.I, cuda.I, cuda.I, cuda.I, cuda.P])
-_K9_MASK = cuda.Kernel("sassd_anchors_mask",
-                       [cuda.P, cuda.P, cuda.I, cuda.I, cuda.I, cuda.I,
-                        cuda.F, cuda.P])
+_K9 = cuda.Kernel("sassd_anchors_mask",
+                  [cuda.P, cuda.I, cuda.I, cuda.P, cuda.I, cuda.P, cuda.I,
+                   cuda.P, cuda.I, cuda.I, cuda.I, cuda.F, cuda.P, cuda.P])
 # the C entry points of the kernel, for launch counts
-KERNEL_SYMBOLS = {"K9": ("sassd_integral_image", "sassd_anchors_mask")}
+KERNEL_SYMBOLS = {"K9": ("sassd_anchors_mask",)}
 
 
 # ---------------------------------------------------------------------------
@@ -92,37 +92,121 @@ def anchors_mask_plain(coords_zyx: torch.Tensor, corners: torch.Tensor,
     return area > threshold
 
 
-def anchors_mask(coords_zyx: torch.Tensor, corners: torch.Tensor,
-                 grid_hw: Tuple[int, int], threshold: float) -> torch.Tensor:
+class AnchorLattice(NamedTuple):
+    """K9's static tables (:func:`anchor_lattice`): the compressed corner
+    lattice of a corner table.
+
+    The mask reads the integral image only at the anchors' corner rows and
+    columns, so K9 keeps it on the lattice of those rows and columns: Y
+    and X, the sorted distinct corner values. Grid row y maps to lattice
+    row ``ymap[y]`` = searchsorted_left(Y, y), the first corner row at or
+    past y (-1 past the last corner row: such a cell is in no anchor), and
+    likewise for columns. Since x0 < x <= x1 holds exactly when
+    x0 < X[xmap[x]] <= x1, the lattice's inclusive integral read at the
+    corners' lattice indices gives the grid's counts exactly.
+    """
+    corners: torch.Tensor          # [A, 4] int32 grid cells (x0, y0, x1, y1)
+    ymap: torch.Tensor             # [H] int32 lattice row of each grid row
+    xmap: torch.Tensor             # [W] int32 lattice column, or -1
+    lattice_corners: torch.Tensor  # [A, 4] int32 (x0, y0, x1, y1), lattice
+    shape: Tuple[int, int]         # (LY, LX) = (|Y|, |X|)
+
+    @property
+    def grid_hw(self) -> Tuple[int, int]:
+        return self.ymap.shape[0], self.xmap.shape[0]
+
+    def to(self, device) -> "AnchorLattice":
+        return self._replace(corners=self.corners.to(device),
+                             ymap=self.ymap.to(device),
+                             xmap=self.xmap.to(device),
+                             lattice_corners=self.lattice_corners.to(device))
+
+
+def anchor_lattice(corners: np.ndarray,
+                   grid_hw: Tuple[int, int]) -> AnchorLattice:
+    """The lattice tables of a [A, 4] int32 corner table
+    (:func:`anchor_corner_indices`) on an (H, W) grid, as CPU tensors."""
+    h, w = grid_hw
+    corners = np.ascontiguousarray(corners, np.int32).reshape(-1, 4)
+    if corners.size and (corners.min() < 0 or corners[:, [0, 2]].max() >= w
+                         or corners[:, [1, 3]].max() >= h):
+        raise ValueError(f"corner cells lie off the {h}x{w} grid")
+    xs = np.unique(corners[:, [0, 2]])
+    ys = np.unique(corners[:, [1, 3]])
+
+    def cell_map(values, n):
+        m = np.searchsorted(values, np.arange(n), side="left")
+        return torch.from_numpy(np.where(m < len(values), m, -1)
+                                .astype(np.int32))
+    lat = np.stack([np.searchsorted(xs, corners[:, 0]),
+                    np.searchsorted(ys, corners[:, 1]),
+                    np.searchsorted(xs, corners[:, 2]),
+                    np.searchsorted(ys, corners[:, 3])], 1).astype(np.int32)
+    return AnchorLattice(torch.from_numpy(corners), cell_map(ys, h),
+                         cell_map(xs, w), torch.from_numpy(lat),
+                         (len(ys), len(xs)))
+
+
+def anchors_mask_lattice_plain(coords_zyx: torch.Tensor,
+                               lattice: AnchorLattice,
+                               threshold: float) -> torch.Tensor:
+    """K9's steps in plain PyTorch: the voxel counts scattered into the
+    [B, LY, LX] lattice, its inclusive integral, the 4-corner sum of each
+    anchor at its lattice corners as float32 against the threshold. Equal
+    to :func:`anchors_mask_plain` bit for bit."""
+    ly, lx = lattice.shape
+    b = coords_zyx.shape[0]
+    c = coords_zyx.to(torch.int64)
+    my = lattice.ymap.to(torch.int64)[c[..., 1].clamp(min=0)]
+    mx = lattice.xmap.to(torch.int64)[c[..., 2].clamp(min=0)]
+    ok = (c[..., 0] >= 0) & (my >= 0) & (mx >= 0)
+    base = torch.arange(b, device=c.device)[:, None] * (ly * lx)
+    flat = torch.where(ok, base + my * lx + mx, b * ly * lx).reshape(-1)
+    dense = torch.zeros(b * ly * lx + 1, dtype=torch.int64, device=c.device)
+    dense.index_add_(0, flat, torch.ones_like(flat))
+    integral = dense[:b * ly * lx].view(b, ly, lx).cumsum(1).cumsum(2)
+    x0, y0, x1, y1 = lattice.lattice_corners.to(torch.int64).unbind(1)
+    area = (integral[:, y1, x1] - integral[:, y0, x1]
+            - integral[:, y1, x0] + integral[:, y0, x0])
+    return area.to(torch.float32) > threshold
+
+
+def anchors_mask(coords_zyx: torch.Tensor, lattice: AnchorLattice,
+                 threshold: float) -> torch.Tensor:
     """BEV occupancy prefilter on the coords' device.
 
-    coords_zyx: [B, V, 3] int32 (-1 rows = padding); corners: [A, 4] int32
-    from :func:`anchor_corner_indices`; grid_hw: the voxel grid's (H, W).
-    Returns [B, A] bool: anchors whose footprint covers more than
-    `threshold` voxels, in the anchor order (class -> y -> x -> rot). K9
-    on the card.
+    coords_zyx: [B, V, 3] int32 (-1 rows = padding); lattice: the corner
+    table's :class:`AnchorLattice` on the coords' device. Returns [B, A]
+    bool: anchors whose footprint covers more than `threshold` voxels, in
+    the anchor order (class -> y -> x -> rot). K9 on the card; CPU coords
+    take :func:`anchors_mask_plain` on the grid corners.
     """
     if coords_zyx.device.type == "cpu":
-        return anchors_mask_plain(coords_zyx, corners, grid_hw, threshold)
+        return anchors_mask_plain(coords_zyx, lattice.corners,
+                                  lattice.grid_hw, threshold)
     cuda.check_cuda("coords_zyx", coords_zyx, torch.int32, 3)
-    cuda.check_cuda("corners", corners, torch.int32, 2)
+    for name in ("ymap", "xmap"):
+        cuda.check_cuda(name, getattr(lattice, name), torch.int32, 1)
+    lc = lattice.lattice_corners
+    cuda.check_cuda("lattice_corners", lc, torch.int32, 2)
     b, v, three = coords_zyx.shape
-    a = corners.shape[0]
-    if three != 3 or corners.shape[1] != 4:
-        raise ValueError(f"coords {tuple(coords_zyx.shape)} / corners "
-                         f"{tuple(corners.shape)} are not [B, V, 3] / [A, 4]")
-    if corners.device != coords_zyx.device or corners.data_ptr() % 16:
-        raise ValueError("corners must be 16-byte aligned on the coords' "
-                         "device")
-    h, w = grid_hw
+    a = lc.shape[0]
+    if three != 3 or lc.shape[1] != 4:
+        raise ValueError(f"coords {tuple(coords_zyx.shape)} / lattice "
+                         f"corners {tuple(lc.shape)} are not [B, V, 3] / "
+                         f"[A, 4]")
     dev = coords_zyx.device
+    if any(t.device != dev for t in (lattice.ymap, lattice.xmap, lc)):
+        raise ValueError("the lattice tables must be on the coords' device")
+    if lc.data_ptr() % 16:
+        raise ValueError("lattice corners must be 16-byte aligned")
+    (h, w), (ly, lx) = lattice.grid_hw, lattice.shape
     with torch.cuda.device(dev):
-        integral = torch.empty((b, h, w), dtype=torch.float32, device=dev)
-        _K9_INTEGRAL.launch(coords_zyx.data_ptr(), b, v, h, w,
-                            integral.data_ptr())
+        cells = torch.empty((b, ly, lx), dtype=torch.int32, device=dev)
         mask = torch.empty((b, a), dtype=torch.bool, device=dev)
-        _K9_MASK.launch(integral.data_ptr(), corners.data_ptr(), b, a, h, w,
-                        float(threshold), mask.data_ptr())
+        _K9.launch(coords_zyx.data_ptr(), b, v, lattice.ymap.data_ptr(), h,
+                   lattice.xmap.data_ptr(), w, lc.data_ptr(), a, ly, lx,
+                   float(threshold), cells.data_ptr(), mask.data_ptr())
     return mask
 
 
@@ -153,22 +237,29 @@ def prepare_points(points: np.ndarray,
 # the serving step
 # ---------------------------------------------------------------------------
 
+def serving_lattice(cfg: SASSDConfig, anchors_bv: np.ndarray) -> AnchorLattice:
+    """The config's anchor corner table and its K9 lattice, on the CPU."""
+    return anchor_lattice(anchor_corner_indices(
+        anchors_bv, cfg.voxel.voxel_size, cfg.voxel.point_cloud_range,
+        cfg.voxel.grid_size),
+        (int(cfg.voxel.grid_size[1]), int(cfg.voxel.grid_size[0])))
+
+
 def batch_from_points(points: torch.Tensor, n_points: torch.Tensor,
-                      corners: torch.Tensor,
+                      lattice: AnchorLattice,
                       cfg: SASSDConfig) -> Dict[str, torch.Tensor]:
     """Voxelize + anchors mask on the points' device.
 
-    points [B, P, F] float32 (zero padded), n_points [B] int32, corners
-    [A, 4] int32 (anchor_corner_indices). Returns the test batch (voxels,
-    num_points, coords, anchors_mask) with no ``plan_*`` keys, so
-    ``Detector.forward_spine`` builds the rulebook on the device.
+    points [B, P, F] float32 (zero padded), n_points [B] int32, lattice
+    the config's :func:`serving_lattice` on the same device. Returns the
+    test batch (voxels, num_points, coords, anchors_mask) with no
+    ``plan_*`` keys, so ``Detector.forward_spine`` builds the rulebook on
+    the device.
     """
     with record_function("voxelize"):
         voxels, coords, nums = voxelize(points, n_points, cfg.voxel)
     with record_function("anchors_mask"):
-        gh, gw = int(cfg.voxel.grid_size[1]), int(cfg.voxel.grid_size[0])
-        mask = anchors_mask(coords, corners, (gh, gw),
-                            cfg.data.anchor_area_threshold)
+        mask = anchors_mask(coords, lattice, cfg.data.anchor_area_threshold)
     return dict(voxels=voxels, num_points=nums, coords=coords,
                 anchors_mask=mask)
 
@@ -179,13 +270,11 @@ def make_serving_step(cfg: SASSDConfig, anchors: np.ndarray,
                                     Dict[str, torch.Tensor]]:
     """Returns step(model, batch) -> detections on `device` (not synced),
     where batch is dict(points [B, P, F] f32, n_points [B] int32) in
-    numpy; the upload is inside the step. The corner table and the anchors
-    are uploaded once, here. The step puts the model in eval mode and runs
-    without autograd."""
+    numpy; the upload is inside the step. The mask's lattice tables and the
+    anchors are built and uploaded once, here. The step puts the model in
+    eval mode and runs without autograd."""
     check_supported(cfg)
-    corners = torch.from_numpy(anchor_corner_indices(
-        anchors_bv, cfg.voxel.voxel_size, cfg.voxel.point_cloud_range,
-        cfg.voxel.grid_size)).to(device)
+    lattice = serving_lattice(cfg, anchors_bv).to(device)
     anchors_t = torch.from_numpy(np.asarray(anchors, np.float32)).to(device)
 
     def step(model: Detector, batch: Dict[str, np.ndarray]):
@@ -193,7 +282,7 @@ def make_serving_step(cfg: SASSDConfig, anchors: np.ndarray,
         with torch.inference_mode():
             points, n_points = (torch.from_numpy(np.ascontiguousarray(
                 batch[k])).to(device) for k in ("points", "n_points"))
-            full = batch_from_points(points, n_points, corners, cfg)
+            full = batch_from_points(points, n_points, lattice, cfg)
             # serving ignores the parallel strategy, as in the JAX package
             return model.forward_test(full, anchors_t, replicated=True)
     return step

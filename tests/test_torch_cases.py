@@ -43,3 +43,63 @@ def partition_case(case):
     if case == "ragged_m":
         return partition_rows(rng, [K16_TILE + 1, 900], K16_TILE + 1, 4)
     return partition_rows(rng, [1500, 1200], 1500, 4, cap0=200)
+
+
+# K9's cases: (config, kind). "edges": two samples, padding rows between
+# the voxels and voxels on the grid's first and last rows and columns,
+# each twice; "empty_sample": the second sample all padding; "at_cap_b1":
+# one sample of max_voxels rows; "past_last_corner": a corner table cut to
+# the anchors of the lower-left quarter, so that cells past the last
+# corner row and column hold voxels
+K9_CASES = {"tiny_edges": ("tiny_config", "edges"),
+            "tiny_empty_sample": ("tiny_config", "empty_sample"),
+            "car_edges": ("car_config", "edges"),
+            "car_empty_sample": ("car_config", "empty_sample"),
+            "car_at_cap_b1": ("car_config", "at_cap_b1"),
+            "car_past_last_corner": ("car_config", "past_last_corner"),
+            "multi_edges": ("multi_config", "edges"),
+            "long_range_edges": ("long_range_config", "edges"),
+            "car_tall_lattice": ("car_config", "tall_lattice")}
+
+
+def k9_case(case):
+    """(config, corner table [A, 4] int32, grid (H, W), coords [B, V, 3]
+    int32) of a K9 case. The first sample's voxels lie in the lower half of
+    the grid (the lower quarter where the table is cut to the lower-left
+    quarter), so that some anchors pass the mask and some do not. The tall
+    lattice adds a thin anchor at every grid row, so that the lattice has
+    a row for each (more than K9's column scan holds in registers a
+    chunk)."""
+    from sassd_tpu_torch import config, serve
+    from sassd_tpu_torch.data import kitti
+    name, kind = K9_CASES[case]
+    rng = np.random.default_rng(list(K9_CASES).index(case))
+    cfg = getattr(config, name)()
+    _, anchors_bv = kitti.build_anchors(cfg)
+    corners = serve.anchor_corner_indices(
+        anchors_bv, cfg.voxel.voxel_size, cfg.voxel.point_cloud_range,
+        cfg.voxel.grid_size)
+    d, h, w = cfg.sparse_shape
+    if kind == "past_last_corner":
+        corners = corners[(corners[:, 2] < w // 2) & (corners[:, 3] < h // 2)]
+    if kind == "tall_lattice":
+        ys = np.arange(h - 1, dtype=np.int32)
+        thin = np.stack([np.full_like(ys, 10), ys, np.full_like(ys, 30),
+                         ys + 1], 1)
+        corners = np.concatenate([corners, thin])
+    v = cfg.voxel.max_voxels
+    coords = np.full((1 if kind == "at_cap_b1" else 2, v, 3), -1, np.int32)
+
+    def fill(b, n, y_hi):
+        coords[b, :n] = np.stack([rng.integers(0, d, n),
+                                  rng.integers(0, y_hi, n),
+                                  rng.integers(0, w, n)], 1)
+    fill(0, v if kind == "at_cap_b1" else 2 * v // 3,
+         h // 4 if kind == "past_last_corner" else h // 2)
+    if kind != "at_cap_b1":
+        if kind != "empty_sample":
+            fill(1, v // 3, h)
+        edge = [(y, x) for y in (0, h // 2, h - 1) for x in (0, w // 2, w - 1)]
+        coords[0, :2 * len(edge), 1:] = edge + edge
+        coords[0, 2 * len(edge)::7] = -1
+    return cfg, corners, (h, w), coords

@@ -6,7 +6,8 @@ machine (which has no JAX, which tests/conftest.py imports) run them with
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Tolerances: K1 1e-4 m^2 (float32, -fmad=false, same op sequence as the
-plain version), K2 exact flags, K3 1e-5 (sum order of 28 samples), K4
+plain version) and exactly +0.0 on every pair its separation cull
+rejects, K2 exact flags, K3 1e-5 (sum order of 28 samples), K4
 1e-4 abs + 1e-4 rel (float32 sums of up to 27 * 64 products in another
 order than cuBLAS), K5-K9 exact (integer results, a scatter of unique
 keys, copies of points, float32 sums of integer counts). The training
@@ -29,8 +30,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from sassd_tpu_torch.ops.cuda import same_bits  # noqa: E402
-from test_torch_cases import (K16_TILE, PARTITION_CASES,  # noqa: E402
-                              partition_case, partition_rows)
+from test_torch_cases import (K9_CASES, K16_TILE,  # noqa: E402
+                              PARTITION_CASES, k9_case, partition_case,
+                              partition_rows)
 
 pytestmark = pytest.mark.cuda
 
@@ -74,6 +76,32 @@ def test_k1_matches_plain(dev, criterion):
     deg = riou_kernel.rotate_overlap(a[-8:].to(dev), a[-8:].to(dev), 2).cpu()
     assert abs(deg[0, 1] - 8.0) < 1e-2 and abs(deg[0, 2]) < 1e-2
     assert abs(deg[0, 7] - 8.0) < 1e-2 and abs(deg[0, 6] - 4.0) < 1e-2
+
+
+@pytest.mark.parametrize("n,m", [(1, 1), (63, 65), (64, 64), (65, 63),
+                                 (2008, 2008), (2113, 130)])
+def test_k1_cull_matches_plain(dev, n, m):
+    """Around the kernel's 64-box tiles and at NMS's 2008 boxes: within
+    1e-4 of the plain version in all four criteria, and exactly +0.0 on
+    every pair the separation cull rejects (near_pairs_plain, the
+    kernel's test in the same float32 operations)."""
+    from sassd_tpu_torch.ops import riou_kernel
+    rng = np.random.default_rng(n + m)
+    a = random_bev(rng, n, spread=2.0 * np.sqrt(n) + 4.0)
+    if n >= 8:
+        a[-8:] = DEGENERATE
+    a = torch.from_numpy(a)
+    b = torch.from_numpy(random_bev(rng, m, spread=2.0 * np.sqrt(m) + 4.0))
+    near = riou_kernel.near_pairs_plain(a, b)
+    for crit in (2, -1, 0, 1):
+        got = riou_kernel.rotate_overlap(a.to(dev), b.to(dev), crit)
+        torch.cuda.synchronize()
+        ref = riou_kernel.rotate_overlap_plain(a.to(dev), b.to(dev), crit)
+        np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                                   atol=1e-4)
+        assert (got.cpu().view(torch.int32)[~near] == 0).all(), crit
+    if n * m > 4096:
+        assert near.any() and not near.all()
 
 
 @pytest.mark.parametrize("n,thr", [(1, 0.1), (63, 0.1), (64, 0.3),
@@ -616,27 +644,23 @@ def test_k8_calls_no_library_sort(dev, monkeypatch):
         assert torch.equal(g.cpu(), r)
 
 
-@pytest.mark.parametrize("name", ["tiny_config", "car_config"])
-def test_k9_matches_plain(dev, name):
-    from sassd_tpu_torch import config, serve
-    from sassd_tpu_torch.data import kitti
-    cfg = getattr(config, name)()
-    _, anchors_bv = kitti.build_anchors(cfg)
-    corners = torch.from_numpy(serve.anchor_corner_indices(
-        anchors_bv, cfg.voxel.voxel_size, cfg.voxel.point_cloud_range,
-        cfg.voxel.grid_size))
-    d, h, w = cfg.sparse_shape
-    cap = cfg.voxel.max_voxels
-    rng = np.random.default_rng(5)
-    coords = np.full((2, cap, 3), -1, np.int32)
-    for b, n in enumerate((cap // 3, cap)):
-        coords[b, :n] = np.stack([rng.integers(0, d, n),
-                                  rng.integers(0, h // 2, n),
-                                  rng.integers(0, w, n)], 1)
+@pytest.mark.parametrize("case", list(K9_CASES))
+def test_k9_matches_plain(dev, case):
+    """Bitwise against the plain version on car scans at batch 1 (at the
+    voxel cap) and 2, the three-class 211,200-anchor and the long-range
+    corner tables, padding rows, grid-edge cells, an empty sample, cells
+    past the last corner and a lattice of a row for each grid row
+    (test_torch_cases.K9_CASES)."""
+    from sassd_tpu_torch import serve
+    cfg, corners, hw, coords = k9_case(case)
+    thr = cfg.data.anchor_area_threshold
+    lattice = serve.anchor_lattice(corners, hw)
     c = torch.from_numpy(coords)
-    got = serve.anchors_mask(c.to(dev), corners.to(dev), (h, w), 1.0)
+    before = serve._K9.launches
+    got = serve.anchors_mask(c.to(dev), lattice.to(dev), thr)
     torch.cuda.synchronize()
-    ref = serve.anchors_mask_plain(c, corners, (h, w), 1.0)
+    assert serve._K9.launches == before + 1
+    ref = serve.anchors_mask_plain(c, lattice.corners, hw, thr)
     assert torch.equal(got.cpu(), ref)
     assert ref.any() and not ref.all()
 
@@ -661,13 +685,16 @@ def test_serving_wrappers_reject_bad_inputs(dev):
         vox.voxelize(pts, n, dataclasses.replace(
             vc, voxel_size=(0.001, 0.001, 0.001)))
     coords = torch.zeros((1, 8, 3), dtype=torch.int32, device=dev)
-    corners = torch.zeros((4, 4), dtype=torch.int32, device=dev)
+    lattice = serve.anchor_lattice(np.zeros((4, 4), np.int32), (2, 2))
+    on_card = lattice.to(dev)
     with pytest.raises(ValueError):                      # corners [4, 3]
-        serve.anchors_mask(coords, corners[:, :3].contiguous(), (2, 2), 1.0)
-    with pytest.raises(ValueError):                      # corners on host
-        serve.anchors_mask(coords, corners.cpu(), (2, 2), 1.0)
+        serve.anchors_mask(coords, on_card._replace(
+            lattice_corners=on_card.lattice_corners[:, :3].contiguous()),
+            1.0)
+    with pytest.raises(ValueError):                      # tables on host
+        serve.anchors_mask(coords, on_card._replace(xmap=lattice.xmap), 1.0)
     with pytest.raises(TypeError):
-        serve.anchors_mask(coords.long(), corners, (2, 2), 1.0)
+        serve.anchors_mask(coords.long(), on_card, 1.0)
 
 
 def test_tiny_serving_card_matches_host_input(dev):
@@ -695,13 +722,11 @@ def test_tiny_serving_card_matches_host_input(dev):
     batch = dict(points=np.stack([p for p, _ in prepared]),
                  n_points=np.asarray([n for _, n in prepared], np.int32))
     anchors, anchors_bv = kitti.build_anchors(cfg)
-    corners = torch.from_numpy(serve.anchor_corner_indices(
-        anchors_bv, cfg.voxel.voxel_size, cfg.voxel.point_cloud_range,
-        cfg.voxel.grid_size))
+    lattice = serve.serving_lattice(cfg, anchors_bv)
     pts, n = (torch.from_numpy(batch[k]) for k in ("points", "n_points"))
-    got = serve.batch_from_points(pts.to(dev), n.to(dev), corners.to(dev),
+    got = serve.batch_from_points(pts.to(dev), n.to(dev), lattice.to(dev),
                                   cfg)
-    ref = serve.batch_from_points(pts, n, corners, cfg)
+    ref = serve.batch_from_points(pts, n, lattice, cfg)
     for k in ref:
         assert torch.equal(got[k].cpu(), ref[k]), k
 

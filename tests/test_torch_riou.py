@@ -169,3 +169,113 @@ def test_cpu_tensors_take_the_plain_versions():
                                riou.nms_keep_plain(out, keep0, 0.1))
     assert {k: v.launches for k, v in cuda.KERNELS.items()} == before
     assert cuda._lib is None
+
+
+def far_pairs(rng, n, scale, align):
+    """[N, 5] a and b boxes, pair i at centre distance scale x (r_a + r_b +
+    CULL_MARGIN), r the circumradius: sizes 0.1-20 m, centres up to
+    +-110 m, random directions. align=True turns a corner of each box onto
+    the centre line, towards the other box (the closest two rectangles at
+    that distance can come); else random yaws."""
+    a = np.zeros((n, 5), np.float32)
+    b = np.zeros((n, 5), np.float32)
+    a[:, :2] = rng.uniform(-110, 110, (n, 2))
+    a[:, 2:4] = rng.uniform(0.1, 20, (n, 2))
+    b[:, 2:4] = rng.uniform(0.1, 20, (n, 2))
+    th = rng.uniform(-np.pi, np.pi, n)
+    r = [0.5 * np.hypot(x[:, 2].astype(np.float64), x[:, 3]) for x in (a, b)]
+    d = (r[0] + r[1] + riou_kernel.CULL_MARGIN) * scale
+    b[:, 0] = a[:, 0] + d * np.cos(th)
+    b[:, 1] = a[:, 1] + d * np.sin(th)
+    if align:
+        # corner k in the box frame points at atan2(sy l, sx w); the yaw
+        # turns it clockwise
+        sx = np.array([0.5, -0.5, -0.5, 0.5])
+        sy = np.array([0.5, 0.5, -0.5, -0.5])
+        k = rng.integers(0, 4, (2, n))
+        for x, kk, to in ((a, k[0], th), (b, k[1], th + np.pi)):
+            phi = np.arctan2(sy[kk] * x[:, 3], sx[kk] * x[:, 2])
+            x[:, 4] = np.angle(np.exp(1j * (phi - to)))
+    else:
+        a[:, 4] = rng.uniform(-np.pi, np.pi, n)
+        b[:, 4] = rng.uniform(-np.pi, np.pi, n)
+    return torch.from_numpy(a), torch.from_numpy(b)
+
+
+def cull_case(case, rng):
+    """(a, b, pairs that must be near) of a separation-cull case."""
+    if case == "random":
+        boxes = []
+        for n in (300, 200):
+            x = np.zeros((n, 5), np.float32)
+            x[:, :2] = rng.uniform(-110, 110, (n, 2))
+            x[:, 2:4] = rng.uniform(0.1, 20, (n, 2))
+            x[:, 4] = rng.uniform(-np.pi, np.pi, n)
+            boxes.append(torch.from_numpy(x))
+        return boxes[0], boxes[1], None
+    if case.startswith("outside"):
+        return (*far_pairs(rng, 400, 1 + 1e-5, case.endswith("aligned")),
+                None)
+    if case == "inside_aligned":
+        a, b = far_pairs(rng, 400, 1 - 1e-3, True)
+        return a, b, torch.eye(400, dtype=torch.bool)
+    if case == "degenerate_and_padding":
+        # the degenerate set and zero-size padding boxes on the base box's
+        # corner and edge, 5 mm off its edge, at its centre and far away
+        zero = np.array([[1.0, 2.0, 0, 0, 0], [1.0, 0.0, 0, 0, 0],
+                         [1.005, 0.0, 0, 0, 0], [0.0, 0.0, 0, 0, 0],
+                         [50.0, 50.0, 0, 0, 0]], np.float32)
+        boxes = torch.from_numpy(np.concatenate([DEGENERATE, zero]))
+        must = torch.zeros((13, 13), dtype=torch.bool)
+        must[0, [1, 2, 3, 5, 6, 7, 8, 9, 10, 11]] = True
+        return boxes, boxes, must | must.T
+    # boxes the cull never rejects: a non-finite field, or a centre or a
+    # size beyond CULL_LIMIT
+    x = np.zeros((8, 5), np.float32)
+    x[:, :2] = rng.uniform(-30, 30, (8, 2))
+    x[:, 2:4] = 2.0
+    x[0, 4] = np.nan
+    x[1, 0] = np.inf
+    x[2, 2] = np.nan
+    x[3, 1] = -2000.0
+    x[4, 3] = 1500.0
+    x[5, 2] = -np.inf
+    must = torch.zeros((8, 8), dtype=torch.bool)
+    must[:6] = True
+    return torch.from_numpy(x), torch.from_numpy(x), must | must.T
+
+
+DEGENERATE = np.array([
+    [0.0, 0.0, 2.0, 4.0, 0.0], [0.0, 0.0, 2.0, 4.0, 0.0],
+    [2.0, 0.0, 2.0, 4.0, 0.0], [0.0, 0.0, 1.0, 2.0, 0.0],
+    [10.0, 10.0, 2.0, 4.0, 0.0], [0.5, 0.0, 2.0, 4.0, 0.0],
+    [0.0, 0.0, 2.0, 4.0, np.pi / 2], [0.0, 0.0, 2.0, 4.0, np.pi],
+], np.float32)
+
+
+@pytest.mark.parametrize("case", [
+    "random", "outside_aligned", "outside_random_yaw", "inside_aligned",
+    "degenerate_and_padding", "never_culled"])
+def test_cull_rejects_only_pairs_of_zero_overlap(case):
+    """K1's separation cull (near_pairs_plain): every pair it rejects has
+    exactly +0.0 (the sign bit clear) from the plain version in all four
+    criteria, which is what the kernel writes for it. Pairs just outside
+    r_a + r_b + CULL_MARGIN with a corner of each box facing the other are
+    rejected; pairs 0.1% inside it, touching boxes, zero-size boxes on an
+    edge and boxes with a non-finite field or beyond CULL_LIMIT are not."""
+    rng = np.random.default_rng(len(case))
+    a, b, must_near = cull_case(case, rng)
+    near = riou_kernel.near_pairs_plain(a, b)
+    assert near.shape == (a.shape[0], b.shape[0])
+    for crit in (2, -1, 0, 1):
+        out = riou_kernel.rotate_overlap_plain(a, b, crit)
+        assert (out.view(torch.int32)[~near] == 0).all(), crit
+    if must_near is not None:
+        assert near[must_near].all()
+    if case.startswith("outside"):
+        assert not near.diagonal().any()
+    if case == "random":
+        assert near.any() and (~near).sum() > 0.9 * near.numel()
+    if case == "inside_aligned":
+        inter = riou_kernel.rotate_overlap_plain(a, b, 2).diagonal()
+        assert (inter > 0).sum() > 100          # corners overlap

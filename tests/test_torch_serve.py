@@ -182,7 +182,7 @@ def test_anchors_mask_plain_matches_jax(name):
         coords[b, :n, 1] = rng.integers(0, h // 2, n)
         coords[b, :n, 2] = rng.integers(0, w, n)
     got = serve.anchors_mask(torch.from_numpy(coords),
-                             torch.from_numpy(corners), (h, w),
+                             serve.anchor_lattice(corners, (h, w)),
                              cfg.data.anchor_area_threshold).numpy()
     sep = jserve.separable_corners(anchors_bv, jcfg)
     for b in range(2):
@@ -257,7 +257,7 @@ def test_batch_from_points_matches_jax(batch_size):
     _, anchors_bv = kitti.build_anchors(cfg)
     corners = corner_table(cfg, anchors_bv)
     got = serve.batch_from_points(torch.from_numpy(pts), torch.from_numpy(n),
-                                  torch.from_numpy(corners), cfg)
+                                  serve.serving_lattice(cfg, anchors_bv), cfg)
     ref = jserve.batch_from_points(jnp.asarray(pts), jnp.asarray(n),
                                    jnp.asarray(corners), jcfg)
     assert got.keys() == ref.keys()
