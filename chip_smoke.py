@@ -107,7 +107,9 @@ training kernels at batch 2 on the train plans of the car scans: K10
 (sparse-conv weight gradient, also bitwise equal over two calls) and K4's
 input gradients at the ladder's 10 training convs, K11 (ring 3-NN
 interpolation, forward and backward), K12 (aux targets), K3b (PSWarp
-backward) and K5b (densify backward); and the kernels of training on
+backward, also bitwise equal over two calls, there and on phase 7's first
+train step's inputs) and K5b (densify backward); and the kernels of
+training on
 device plans, at batch 2 on the same scans: K13 (transpose plans) and K14
 (aux ring plans) against their plain versions and the C++ train rulebook,
 bitwise, and K15 (exact 3-NN) at the full level sizes (rows, weights and
@@ -118,7 +120,14 @@ timed beside one PyTorch call that computes their work (library_ms), a
 yardstick the port never calls; no single call computes K1's, K2's, K8's
 or K9's function. K6's map and its yardstick are also replayed in turns
 (map, yardstick, yardstick, map). K8's rows carry the parent design's
-torch.sort of the same keys alone (sort_ms). K2, K8, K15 and the
+torch.sort of the same keys alone (sort_ms). K3 (at 2 x 2048 boxes and
+at the serving shape: phase 6's first scan's part map and guided boxes,
+batch 1, under inference_mode) and K3b print torch.profiler's kernel
+split and their host path taken apart by cProfile (host_split), as
+diagnostics; K3b also prints its replay at several tile heights of its
+second pass and a replay of torch.zeros of its d_map, K3 a replay of a
+one-element fill (the replay's floor), each on its own line. K2, K3,
+K3b, K8, K15 and the
 yardsticks are also timed as CUDA-graph replays (graph_ms,
 library_graph_ms: the device's time without the host's launch path),
 except torch.unique,
@@ -175,8 +184,10 @@ DET_SCORE_ATOL = 1e-3   # card vs CPU detections: cuDNN vs CPU conv sums
 DET_BOX_ATOL = 1e-2
 # training kernels, relative to the largest magnitude of the plain result:
 # K10 and K4's input gradients sum thousands of rows in another order; the
-# K11 and K3b backwards add with atomics in an order that changes from run
-# to run. K11's forward, K12 and K5b are held bitwise.
+# K11 backward adds with atomics in an order that changes from run to run;
+# K3b sums each d_map cell in box order where autograd sums each tap apart
+# (and is bitwise equal over two calls). K11's forward, K12 and K5b are
+# held bitwise.
 TRAIN_GRAD_RTOL = 1e-5
 TRAIN_LOSS_RTOL = 1e-3  # card vs CPU train step: cuDNN vs CPU conv sums
 # card train-step gradients against a float64 CPU step: the global norm,
@@ -208,6 +219,10 @@ LADDER = (("conv0.0", "plan_subm0", 0, 4, 16, 1),
           ("down1", "plan_stride2", 1, 32, 64, 1),
           ("conv2", "plan_subm2", 2, 64, 64, 3),
           ("down2", "plan_stride3", 2, 64, 64, 1))
+
+# tile heights of K3b's pass B replayed beside the one in use (at 96
+# columns a 5120-float tile holds 53 rows)
+K3B_ROWS_TRIED = (8, 16, 25, 50)
 
 # the card's peaks the bounds are taken against (H100 SXM data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -325,6 +340,57 @@ def fmt_split(fn) -> str:
     the timed runs and kept out of the kernel rows."""
     parts = ", ".join(f"{k} {v:.4f}" for k, v in kernel_split(fn).items())
     return f"profiler totals a call (diagnostic, not in the row): {parts}"
+
+
+# host_split's groups, by the first pattern a cProfile entry (file:function)
+# matches: the Python functions and builtins of one wrapper call
+HOST_GROUPS = (("check", ("check",)),
+               ("device context", ("torch/cuda/__init__.py",)),
+               ("allocation", ("torch.empty", "torch.zeros")),
+               ("autograd", ("autograd/function.py", "method apply",
+                             "_functorch", "save_for_backward")),
+               ("launch (ctypes)", ("cuda.py:launch", "RawStream",
+                                    "_cuda_getDevice")))
+
+
+def host_split(fn, iters: int = 200) -> str:
+    """The host path of one call of fn(), as a diagnostic: the host clock
+    per call over `iters` calls, then cProfile's self time per call (each
+    Python function and builtin; the profiler's own cost inflates each),
+    summed by HOST_GROUPS, and its largest entries. The ctypes call runs
+    inside cuda.py's Kernel.launch and counts there."""
+    import cProfile
+    import pstats
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    wall_us = (time.perf_counter() - t) * 1e6 / iters
+    torch.cuda.synchronize()
+    prof = cProfile.Profile()
+    prof.enable()
+    for _ in range(iters):
+        fn()
+    prof.disable()
+    torch.cuda.synchronize()
+    keys = [(f"{path}:{name}", tottime * 1e6 / iters) for (path, _, name), (
+        _, _, tottime, _, _) in pstats.Stats(prof).stats.items()
+        if "chip_smoke.py" not in path]
+    groups = {g: 0.0 for g, _ in HOST_GROUPS}
+    groups["other"] = 0.0
+    for key, us in keys:
+        g = next((g for g, pats in HOST_GROUPS
+                  if any(p in key for p in pats)), "other")
+        groups[g] += us
+    top = sorted(keys, key=lambda kv: -kv[1])[:8]
+    return (f"host path a call (diagnostic): {wall_us:.1f} us by the host "
+            f"clock; cProfile self us a call: "
+            + ", ".join(f"{g} {us:.1f}" for g, us in groups.items())
+            + "; largest: "
+            + ", ".join(f"{k.split('/')[-1][:48]} {us:.1f}" for k, us in top))
 
 
 def bound(nbytes: float, ops: float) -> dict:
@@ -509,27 +575,79 @@ def serving_split(torch, np, device, cfg, root: str):
     return cfg_pts, ds, step, batch1, batch2
 
 
-def check_nms_input(torch, np, device, cfg, model_dev) -> dict:
-    """K1 at the NMS input of phase 6's first served car scan: the sorted
-    boxes that rotate_nms hands to K1 (criterion -1), captured in one
-    serving step, checked as on the 2008-box set and timed."""
+def serving_inputs(torch, np, device, cfg, model_dev):
+    """The inputs of K1 and K3 in phase 6's first served car scan, captured
+    in one serving step: the sorted boxes that rotate_nms hands to K1, and
+    pswarp_score's part map, guided boxes, validity and arguments."""
     from sassd_tpu_torch.core import riou
-    from sassd_tpu_torch.ops import riou_kernel
-    seen = []
-    orig = riou.rotate_iou_bev
+    from sassd_tpu_torch.ops import warp
+    seen, k3 = [], []
+    orig, orig_k3 = riou.rotate_iou_bev, warp.pswarp_score
 
     def capture(a, b):
         seen.append(a.clone())
         return orig(a, b)
+
+    def capture_k3(part_map, boxes, valid, *args):
+        k3.append((part_map.clone(), boxes.clone(), valid.clone(), args))
+        return orig_k3(part_map, boxes, valid, *args)
     with tempfile.TemporaryDirectory() as root:
         _, _, step, batch1, _ = serving_split(torch, np, device, cfg, root)
-        riou.rotate_iou_bev = capture
+        riou.rotate_iou_bev, warp.pswarp_score = capture, capture_k3
         try:
             step(model_dev, batch1[0])
         finally:
-            riou.rotate_iou_bev = orig
+            riou.rotate_iou_bev, warp.pswarp_score = orig, orig_k3
     torch.cuda.synchronize()
-    boxes = seen[0]
+    return seen[0], k3[0]
+
+
+def check_k3_serving(torch, k3_inputs) -> dict:
+    """K3 at the serving shape: phase 6's first scan's part map and guided
+    boxes (batch 1), under inference_mode as the serving step runs it (the
+    mode entered once, as the step enters it)."""
+    from sassd_tpu_torch.ops import warp
+    part_map, boxes3, valid, args = k3_inputs
+    b, k, h, w = part_map.shape
+    n = boxes3.shape[1]
+
+    def call():
+        return warp.pswarp_score(part_map, boxes3, valid, *args)
+    with torch.inference_mode():
+        got = call()
+        ref = warp.pswarp_score_plain(part_map, boxes3, valid, *args)
+        err = float((got - ref).abs().max())
+        n_valid = int(valid.sum())
+        print(f"K3 pswarp_score at the serving shape {tuple(part_map.shape)} "
+              f"x {n} boxes ({n_valid} valid): max|kernel-plain| = {err:.3g} "
+              f"(tol {K3_ATOL})")
+        if not err <= K3_ATOL:
+            fail("K3 disagrees with its plain version at the serving shape")
+        t = timed(call)
+        plain_ms = cuda_ms(
+            lambda: warp.pswarp_score_plain(part_map, boxes3, valid, *args),
+            iters=5)
+        print(f"  K3 serving b1: kernel {fmt_timed(t)}, plain "
+              f"{plain_ms:.4f} ms; {fmt_split(call)}")
+        print(f"  K3 serving b1 {host_split(call)}")
+    return dict(name="K3 pswarp_score, serving b1", route="cuda",
+                source="sassd_tpu_torch/csrc/pswarp_score.cu",
+                replaces="sassd_tpu/ops/warp.py:76", max_abs_err=err, **t,
+                plain_ms=plain_ms, library_ms=None,
+                library_what="none, as K3", n_valid=n_valid,
+                at=f"phase 6's first scan, batch 1 x {n} guided boxes",
+                **k3_bound(b, n, k))
+
+
+def k3_bound(b: int, n: int, k: int) -> dict:
+    """K3's bound: boxes, valid and scores, 4 map taps a part; ~70
+    operations a part (lattice, sin/cos, 4 weights)."""
+    return bound(b * n * (7 * 4 + 1 + 4) + b * n * k * 4 * 4, b * n * k * 70)
+
+
+def check_nms_input(torch, riou_kernel, boxes) -> dict:
+    """K1 at the NMS input of phase 6's first served car scan (criterion
+    -1), checked as on the 2008-box set and timed."""
     k1 = k1_check(torch, riou_kernel, boxes, "phase 6's NMS input")
     t = timed(lambda: riou_kernel.rotate_overlap(boxes, boxes, -1))
     n = boxes.shape[0]
@@ -644,22 +762,28 @@ def check_kernels(torch, np, device):
           f"max|kernel-plain| = {err3:.3g} (tol {K3_ATOL})")
     if not err3 <= K3_ATOL:
         fail("K3 disagrees with its plain version")
-    ms = cuda_ms(lambda: warp.pswarp_score(part_map, boxes3, valid, *args))
+
+    def k3():
+        return warp.pswarp_score(part_map, boxes3, valid, *args)
+    t3 = timed(k3)
     plain_ms = cuda_ms(
         lambda: warp.pswarp_score_plain(part_map, boxes3, valid, *args),
         iters=5)
+    print(f"  K3 batch 2: kernel {fmt_timed(t3)}, plain {plain_ms:.4f} ms; "
+          f"{fmt_split(k3)}")
+    print(f"  K3 batch 2 {host_split(k3)}")
+    one = torch.zeros(1, device=device)
+    print(f"  lone replay, not a kernel row: a one-element zero_ (the "
+          f"replay harness's floor) {graph_ms(one.zero_):.4f} ms")
     rows.append(dict(name="K3 pswarp_score", route="cuda",
                      source="sassd_tpu_torch/csrc/pswarp_score.cu",
                      replaces="sassd_tpu/ops/warp.py:76",
-                     max_abs_err=err3, ms=ms, plain_ms=plain_ms,
+                     max_abs_err=err3, **t3, plain_ms=plain_ms,
                      library_ms=None,
                      library_what="none: grid_sample samples every channel "
                                   "at every point; the part's channel and "
                                   "the mean take more calls",
-                     # boxes, valid, scores; 4 map taps a part; ~70
-                     # operations a part (lattice, sin/cos, 4 weights)
-                     **bound(b * n * (7 * 4 + 1 + 4) + b * n * k * 4 * 4,
-                             b * n * k * 70)))
+                     at=f"batch 2 x {n} boxes", **k3_bound(b, n, k)))
     return rows
 
 
@@ -1181,6 +1305,33 @@ def ring_interp_row(levels: dict, name: str, replaces: str, at: str) -> dict:
                 **add_bounds(list(levels.values())))
 
 
+def k3b_check(torch, what, part_map, boxes3, valid, d_score, args):
+    """K3b on one set of inputs: within TRAIN_GRAD_RTOL of autograd of the
+    plain version, and d_map and d_boxes bitwise equal over two calls.
+    Returns the error and the plain version's leaves and output."""
+    from sassd_tpu_torch.ops import warp
+    from sassd_tpu_torch.ops.cuda import same_bits
+    d_map, d_boxes = warp.pswarp_score_grad(part_map, boxes3, valid, d_score,
+                                            *args)
+    again = warp.pswarp_score_grad(part_map, boxes3, valid, d_score, *args)
+    pm, pb = part_map.clone().requires_grad_(), boxes3.clone(
+        ).requires_grad_()
+    out_p = warp.pswarp_score_plain(pm, pb, valid, *args)
+    ref_map, ref_boxes = torch.autograd.grad(out_p, (pm, pb), d_score,
+                                             retain_graph=True)
+    err_map, err_boxes = rel_err(d_map, ref_map), rel_err(d_boxes, ref_boxes)
+    same = same_bits(again[0], d_map) and same_bits(again[1], d_boxes)
+    print(f"K3b pswarp_score_grad on {what}, {tuple(part_map.shape)} x "
+          f"{boxes3.shape[1]} boxes ({int(valid.sum())} valid): rel err map "
+          f"{err_map:.3g}, boxes {err_boxes:.3g} (tol {TRAIN_GRAD_RTOL}); "
+          f"two calls {'bitwise equal' if same else 'DIFFER'}")
+    if not max(err_map, err_boxes) <= TRAIN_GRAD_RTOL:
+        fail(f"K3b disagrees with autograd of the plain version on {what}")
+    if not same:
+        fail(f"K3b: two calls on {what} differ")
+    return max(err_map, err_boxes), (pm, pb, out_p)
+
+
 def check_train_kernels(torch, np, device, cfg, samples, gts):
     """Phase 3, the training kernels at batch 2 on the train plans of the
     first two car scans: K10 and K4's input gradients, K11, K12, K3b, K5b.
@@ -1357,33 +1508,40 @@ def check_train_kernels(torch, np, device, cfg, samples, gts):
     d_score = randn(b, n)
     args = (cfg.model.window_size, cfg.model.grid_offsets,
             1.0 / cfg.model.featmap_stride)
-    d_map, d_boxes = warp.pswarp_score_grad(part_map, boxes3, valid, d_score,
-                                            *args)
-    pm, pb = part_map.clone().requires_grad_(), boxes3.clone(
-        ).requires_grad_()
-    out_p = warp.pswarp_score_plain(pm, pb, valid, *args)
-    ref_map, ref_boxes = torch.autograd.grad(out_p, (pm, pb), d_score,
-                                             retain_graph=True)
-    err3b = max(rel_err(d_map, ref_map), rel_err(d_boxes, ref_boxes))
-    print(f"K3b pswarp_score_grad {tuple(part_map.shape)} x {n} boxes: rel "
-          f"err map {rel_err(d_map, ref_map):.3g}, boxes "
-          f"{rel_err(d_boxes, ref_boxes):.3g} (tol {TRAIN_GRAD_RTOL})")
-    if not err3b <= TRAIN_GRAD_RTOL:
-        fail("K3b disagrees with autograd of the plain version")
-    ms = cuda_ms(lambda: warp.pswarp_score_grad(part_map, boxes3, valid,
-                                                d_score, *args))
+
+    def k3b():
+        return warp.pswarp_score_grad(part_map, boxes3, valid, d_score, *args)
+    err3b, (pm, pb, out_p) = k3b_check(torch, "phase 3's inputs", part_map,
+                                       boxes3, valid, d_score, args)
+    t3b = timed(k3b)
     plain_ms = grad_ms(out_p, (pm, pb), d_score)
+    print(f"  K3b: kernel {fmt_timed(t3b)}, plain (autograd) {plain_ms:.4f} "
+          f"ms; {fmt_split(k3b)}")
+    print(f"  K3b {host_split(k3b)}")
+    heights = []                    # pass B's tile height, replayed
+    default_rows = warp.K3B_TILE_ROWS
+    try:
+        for rows_b in K3B_ROWS_TRIED:
+            warp.K3B_TILE_ROWS = rows_b
+            heights.append(f"{rows_b} rows {graph_ms(k3b):.4f}")
+    finally:
+        warp.K3B_TILE_ROWS = default_rows
+    print(f"  K3b replayed by pass B's tile height (diagnostic; "
+          f"{default_rows} in use): {', '.join(heights)} ms")
+    zeros_ms = graph_ms(lambda: torch.zeros((b, k, h, w), device=device))
+    print(f"  lone replay, not a kernel row: torch.zeros of K3b's d_map "
+          f"{(b, k, h, w)}, {zeros_ms:.4f} ms")
     rows.append(dict(name="K3b pswarp_score_grad", route="cuda",
                      source="sassd_tpu_torch/csrc/pswarp_score.cu",
                      replaces="sassd_tpu/ops/warp.py:76",
                      max_abs_err=err3b, err_kind="relative to max |plain|",
-                     ms=ms, plain_ms=plain_ms, library_ms=None,
+                     **t3b, plain_ms=plain_ms, library_ms=None,
                      library_what="none: as K3, grid_sample's backward "
                                   "covers every channel at every point",
                      at="batch 2, 640 boxes a sample",
                      # d_score, boxes, valid, 4 map taps a part in; the
-                     # whole zeroed d_map and d_boxes out; ~100 operations
-                     # a part
+                     # whole d_map (zeros included) and d_boxes out; ~100
+                     # operations a part
                      **bound(b * n * (4 + 28 + 1 + 28) + b * n * k * 16
                              + part_map.numel() * 4, b * n * k * 100)))
 
@@ -1850,6 +2008,7 @@ def run_training(torch, np, device, cfg, root: str):
     from sassd_tpu_torch.data import kitti, synthetic
     from sassd_tpu_torch.inference import to_device
     from sassd_tpu_torch.models.detector import Detector, parse_losses
+    from sassd_tpu_torch.ops import warp
     from sassd_tpu_torch.train import checkpoint as ckpt, loop
 
     cfg = dataclasses.replace(
@@ -1875,6 +2034,15 @@ def run_training(torch, np, device, cfg, root: str):
     # and in float64 (the gradients' reference: backpropagating through
     # train-mode BatchNorm over 70k-cell maps amplifies float32 rounding)
     res = {}
+    k3_in = []                  # the card step's K3 inputs and d_score
+    orig_k3 = warp.pswarp_score
+
+    def capture_k3(part_map, boxes, valid, *args):
+        out = orig_k3(part_map, boxes, valid, *args)
+        k3_in.append([part_map.detach().clone(), boxes.detach().clone(),
+                      valid.clone(), args])
+        out.register_hook(lambda g: k3_in[0].append(g.detach().clone()))
+        return out
     for name, where, dtype in (("cpu64", "cpu", torch.float64),
                                ("cpu", "cpu", torch.float32),
                                ("card", device, torch.float32)):
@@ -1883,7 +2051,12 @@ def run_training(torch, np, device, cfg, root: str):
         b = {k: v.to(dtype) if v.is_floating_point() else v
              for k, v in to_device(batch, where).items()}
         t = time.perf_counter()
-        losses = model.forward_train(b, anchors.to(where, dtype))
+        if name == "card":
+            warp.pswarp_score = capture_k3
+        try:
+            losses = model.forward_train(b, anchors.to(where, dtype))
+        finally:
+            warp.pswarp_score = orig_k3
         parse_losses(losses).backward()
         if where != "cpu":
             torch.cuda.synchronize()
@@ -1922,6 +2095,9 @@ def run_training(torch, np, device, cfg, root: str):
     if (bad or norm_err > TRAIN_GNORM_RTOL
             or max(mod_err.values()) > TRAIN_GRAD_L2):
         fail(f"training: card and CPU disagree on {bad or 'the gradients'}")
+    part_map, boxes3, valid, args, d_score = k3_in[0]
+    k3b_check(torch, "phase 7's first train step", part_map, boxes3, valid,
+              d_score.contiguous(), args)
 
     # the short run through train_model
     logged = []
@@ -2650,7 +2826,7 @@ def main() -> int:
     from sassd_tpu_torch.core import boxes
     from sassd_tpu_torch.data import kitti, synthetic
     from sassd_tpu_torch import serve
-    from sassd_tpu_torch.ops import build, cuda, native, warp
+    from sassd_tpu_torch.ops import build, cuda, native, riou_kernel, warp
     from sassd_tpu_torch.ops import interpolate as itp
     from sassd_tpu_torch.ops import sparse as sp
     from sassd_tpu_torch.ops import voxelize as vox
@@ -2714,9 +2890,12 @@ def main() -> int:
                                   anchors_bv)
     model_dev = seeded_detector(cfg, SEED, device)
     k1_row = next(r for r in rows if r["name"] == "K1 rotate_overlap")
-    nms = check_nms_input(torch, np, device, cfg, model_dev)
+    nms_boxes_in, k3_inputs = serving_inputs(torch, np, device, cfg,
+                                             model_dev)
+    nms = check_nms_input(torch, riou_kernel, nms_boxes_in)
     k1_row["max_abs_err"] = max(k1_row["max_abs_err"], nms.pop("max_abs_err"))
     k1_row.update(nms)
+    rows.append(check_k3_serving(torch, k3_inputs))
     if "--kernels-only" in sys.argv[1:]:
         # phases 1-3 and phase 9's kernel checks alone: the kernel rows of
         # this checkout under their own key (no launch counts, no result

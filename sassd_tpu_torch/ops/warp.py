@@ -9,7 +9,8 @@ align_corners semantics: pixel coordinates are used directly).
 the sampling and the mean over parts; :func:`pswarp_score_plain` is its
 plain PyTorch version. Its gradient reaches both the part map and the
 boxes (x, y, w, l, yaw): K3b on the card, autograd of the plain version on
-the CPU.
+the CPU. When no input needs a gradient (serving, under inference_mode),
+K3 launches without an autograd Function.
 """
 from __future__ import annotations
 
@@ -26,9 +27,15 @@ _K3 = cuda.Kernel("sassd_pswarp_score",
 _K3B = cuda.Kernel("sassd_pswarp_score_bwd",
                    [cuda.P, cuda.L, cuda.L, cuda.L, cuda.L, cuda.I, cuda.I,
                     cuda.I, cuda.P, cuda.P, cuda.P, cuda.I, cuda.I, cuda.I,
-                    cuda.I, cuda.F, cuda.F, cuda.F, cuda.P, cuda.P])
+                    cuda.I, cuda.F, cuda.F, cuda.F, cuda.I, cuda.I, cuda.P,
+                    cuda.P, cuda.P])
 KERNEL_SYMBOLS = {"K3": ("sassd_pswarp_score",),
                   "K3b": ("sassd_pswarp_score_bwd",)}
+# K3b's pass B: the tile of d_map a block writes, rows by columns (fewer
+# rows where the tile would pass K3B_TILE floats of shared memory)
+K3B_TILE_ROWS = 25
+K3B_TILE_COLS = 96          # at most 128
+K3B_TILE = 5120
 
 
 def gen_sample_grid(boxes: torch.Tensor,
@@ -104,7 +111,9 @@ def pswarp_score_plain(part_map: torch.Tensor, boxes: torch.Tensor,
     return torch.where(valid, torch.stack(scores), 0.0)
 
 
-def _check(part_map, boxes, valid, window_size):
+def _check(part_map, boxes, valid):
+    """Raise unless K3 takes these CUDA tensors (K3b too, with its
+    d_score checked apart)."""
     b, k, h, w = part_map.shape
     cuda.check_cuda("part_map", part_map, torch.float32, 4, contiguous=False)
     cuda.check_cuda("boxes", boxes, torch.float32, 3)
@@ -113,24 +122,32 @@ def _check(part_map, boxes, valid, window_size):
     if boxes.shape != (b, n, 7) or valid.shape != (b, n):
         raise ValueError(f"boxes {tuple(boxes.shape)} / valid "
                          f"{tuple(valid.shape)} do not match batch {b}")
+    if boxes.device != part_map.device or valid.device != part_map.device:
+        raise ValueError("part_map, boxes and valid must be on one card")
     if k > 32:
         raise ValueError(f"at most 32 parts (one warp lane each), got {k}")
 
 
-def pswarp_score_k3(part_map, boxes, valid, window_size, grid_offsets,
-                    spatial_scale) -> torch.Tensor:
-    """K3 launch (see pswarp_score)."""
-    _check(part_map, boxes, valid, window_size)
+def _launch(kernel: cuda.Kernel, t: torch.Tensor, *args) -> None:
+    """kernel.launch(*args) with t's card as the current device, entered
+    only when it is not the current one already."""
+    if t.device.index == torch._C._cuda_getDevice():
+        kernel.launch(*args)
+    else:
+        with torch.cuda.device(t.device):
+            kernel.launch(*args)
+
+
+def _k3(part_map, boxes, valid, window_size, grid_offsets, spatial_scale):
+    """K3 launch on inputs _check passed."""
     b, k, h, w = part_map.shape
     n = boxes.shape[1]
-    with torch.cuda.device(part_map.device):
-        out = torch.empty((b, n), dtype=torch.float32, device=boxes.device)
-        sb, sk, sh, sw = part_map.stride()
-        _K3.launch(part_map.data_ptr(), sb, sk, sh, sw, h, w, k,
-                   boxes.data_ptr(), valid.data_ptr(), b, n,
-                   window_size[0], window_size[1], float(grid_offsets[0]),
-                   float(grid_offsets[1]), float(spatial_scale),
-                   out.data_ptr())
+    out = torch.empty((b, n), dtype=torch.float32, device=part_map.device)
+    sb, sk, sh, sw = part_map.stride()
+    _launch(_K3, part_map, part_map.data_ptr(), sb, sk, sh, sw, h, w, k,
+            boxes.data_ptr(), valid.data_ptr(), b, n, window_size[0],
+            window_size[1], float(grid_offsets[0]), float(grid_offsets[1]),
+            float(spatial_scale), out.data_ptr())
     return out
 
 
@@ -138,41 +155,59 @@ def pswarp_score_grad(part_map, boxes, valid, d_score, window_size,
                       grid_offsets, spatial_scale):
     """K3b: the gradients of pswarp_score's [B, N] scores with respect to
     the part map ([B, K, H, W], contiguous) and the boxes ([B, N, 7], 0 in
-    z and h), given d_score [B, N]."""
-    _check(part_map, boxes, valid, window_size)
+    z and h), given d_score [B, N]. Two calls on the same inputs give the
+    same bits."""
+    _check(part_map, boxes, valid)
+    return _k3b(part_map, boxes, valid, d_score, window_size, grid_offsets,
+                spatial_scale)
+
+
+def _k3b(part_map, boxes, valid, d_score, window_size, grid_offsets,
+         spatial_scale):
+    """K3b launch; part_map, boxes and valid passed _check (in the forward,
+    when autograd calls it), d_score is checked here."""
     cuda.check_cuda("d_score", d_score, torch.float32, 2)
     b, k, h, w = part_map.shape
     n = boxes.shape[1]
-    with torch.cuda.device(part_map.device):
-        d_map = torch.zeros((b, k, h, w), dtype=torch.float32,
-                            device=part_map.device)
-        d_boxes = torch.empty((b, n, 7), dtype=torch.float32,
-                              device=boxes.device)
-        sb, sk, sh, sw = part_map.stride()
-        _K3B.launch(part_map.data_ptr(), sb, sk, sh, sw, h, w, k,
-                    boxes.data_ptr(), valid.data_ptr(), d_score.data_ptr(),
-                    b, n, window_size[0], window_size[1],
-                    float(grid_offsets[0]), float(grid_offsets[1]),
-                    float(spatial_scale), d_map.data_ptr(),
-                    d_boxes.data_ptr())
+    if d_score.shape != (b, n) or d_score.device != part_map.device:
+        raise ValueError(f"d_score {tuple(d_score.shape)} on "
+                         f"{d_score.device} does not match the {b} x {n} "
+                         f"boxes on {part_map.device}")
+    cols = max(1, min(w, K3B_TILE_COLS))
+    rows = max(1, min(K3B_TILE_ROWS, K3B_TILE // cols))
+    # one allocation: pass A's tap records ([B, K, N] x 4 taps, then x0 and
+    # y0 as int32), d_map and d_boxes, each at a multiple of 64 floats
+    n_rec = -(-b * k * n * 6 // 64) * 64
+    n_map = -(-b * k * h * w // 64) * 64
+    buf = torch.empty((n_rec + n_map + b * n * 7,), dtype=torch.float32,
+                      device=part_map.device)
+    d_map = buf[n_rec:n_rec + b * k * h * w].view(b, k, h, w)
+    d_boxes = buf[n_rec + n_map:].view(b, n, 7)
+    sb, sk, sh, sw = part_map.stride()
+    _launch(_K3B, part_map, part_map.data_ptr(), sb, sk, sh, sw, h, w, k,
+            boxes.data_ptr(), valid.data_ptr(), d_score.data_ptr(), b, n,
+            window_size[0], window_size[1], float(grid_offsets[0]),
+            float(grid_offsets[1]), float(spatial_scale), rows, cols,
+            buf.data_ptr(), d_map.data_ptr(), d_boxes.data_ptr())
     return d_map, d_boxes
 
 
 class _PSWarpScoreFn(torch.autograd.Function):
-    """pswarp_score on the card: forward K3, backward K3b."""
+    """pswarp_score under autograd on the card: forward K3, backward K3b.
+    pswarp_score checks the inputs before apply."""
 
     @staticmethod
     def forward(ctx, part_map, boxes, valid, window_size, grid_offsets,
                 spatial_scale):
         ctx.save_for_backward(part_map, boxes, valid)
         ctx.args = (window_size, grid_offsets, spatial_scale)
-        return pswarp_score_k3(part_map, boxes, valid, *ctx.args)
+        return _k3(part_map, boxes, valid, *ctx.args)
 
     @staticmethod
     def backward(ctx, d_score):
         part_map, boxes, valid = ctx.saved_tensors
-        d_map, d_boxes = pswarp_score_grad(part_map, boxes, valid,
-                                           d_score.contiguous(), *ctx.args)
+        d_map, d_boxes = _k3b(part_map, boxes, valid, d_score.contiguous(),
+                              *ctx.args)
         return d_map, d_boxes, None, None, None, None
 
 
@@ -192,5 +227,11 @@ def pswarp_score(part_map: torch.Tensor, boxes: torch.Tensor,
     if part_map.device.type == "cpu":
         return pswarp_score_plain(part_map, boxes, valid, window_size,
                                   grid_offsets, spatial_scale)
-    return _PSWarpScoreFn.apply(part_map, boxes, valid, tuple(window_size),
-                                tuple(grid_offsets), float(spatial_scale))
+    _check(part_map, boxes, valid)
+    if torch.is_grad_enabled() and (part_map.requires_grad
+                                    or boxes.requires_grad):
+        return _PSWarpScoreFn.apply(part_map, boxes, valid,
+                                    tuple(window_size), tuple(grid_offsets),
+                                    float(spatial_scale))
+    return _k3(part_map, boxes, valid, window_size, grid_offsets,
+               spatial_scale)

@@ -14,7 +14,9 @@ keys, copies of points, float32 sums of integer counts). The training
 kernels, relative to the largest magnitude of the plain result: K10 and
 K4's input gradients 1e-5 (float32 sums over thousands of rows in another
 order; K10 also bitwise equal over two calls), K11's forward, K12 and K5b exact (the same float32 operations,
-copies), K11's backward and K3b 1e-5 (atomicAdd order). The train-only rulebook
+copies), K11's backward 1e-5 (atomicAdd order), K3b 1e-5 (each d_map cell
+summed in box order, where autograd sums each tap apart; bitwise equal over
+two calls). The train-only rulebook
 plans (K13, K14) are integers and exact; K15's selections, weights and
 output are exact (the plain version's float32 operations in its order),
 its backward (K11's) 1e-5. The banded stage's kernels: K16 (band
@@ -1056,6 +1058,133 @@ def test_k3b_matches_autograd_of_plain(dev):
     assert warp._K3B.launches == before + 1
     assert rel_err(idv.grad, ic.grad) <= 1e-5
     assert rel_err(bdv.grad, bc.grad) <= 1e-5
+
+
+def k3_inputs(rng, b, n, h, w, extent_pad=1.0):
+    """A [b, 28, h, w] part map and n boxes a sample whose lattices cover
+    the map and its edges (scale 2.5, offsets (0, h / 5))."""
+    img = torch.from_numpy(rng.normal(size=(b, 28, h, w)).astype(np.float32))
+    bx = np.zeros((b, n, 7), np.float32)
+    bx[..., 0] = rng.uniform(-extent_pad, w / 2.5 + extent_pad, (b, n))
+    bx[..., 1] = rng.uniform(-h / 5 - extent_pad, h / 5 + extent_pad, (b, n))
+    bx[..., 3:6] = rng.uniform([1.4, 3.2, 1.4], [1.9, 4.5, 1.8], (b, n, 3))
+    bx[..., 6] = rng.uniform(-np.pi, np.pi, (b, n))
+    valid = torch.from_numpy(rng.uniform(size=(b, n)) < 0.9)
+    d_score = torch.from_numpy(rng.normal(size=(b, n)).astype(np.float32))
+    return img, torch.from_numpy(bx), valid, d_score, ((4, 7),
+                                                       (0.0, h / 5), 2.5)
+
+
+def test_k3b_repeats_bitwise(dev):
+    """K3b writes each d_map cell once, in box order: two calls on the car
+    train shape (2 x 640 boxes on [2, 28, 200, 176]) give the same bits,
+    and so do two backwards through pswarp_score."""
+    from sassd_tpu_torch.ops import warp
+    img, boxes, valid, d_score, args = k3_inputs(np.random.default_rng(12),
+                                                 2, 640, 200, 176)
+    ins = [t.to(dev) for t in (img, boxes, valid, d_score)]
+    first = warp.pswarp_score_grad(*ins, *args)
+    second = warp.pswarp_score_grad(*ins, *args)
+    assert all(same_bits(a, b) for a, b in zip(first, second))
+    grads = []
+    for _ in range(2):
+        pm, bx = ins[0].clone().requires_grad_(), ins[1].clone(
+            ).requires_grad_()
+        warp.pswarp_score(pm, bx, ins[2], *args).backward(ins[3])
+        grads.append((pm.grad, bx.grad))
+    assert all(same_bits(a, b) for a, b in zip(*grads))
+    assert same_bits(grads[0][0], first[0])
+    assert same_bits(grads[0][1], first[1])
+
+
+def test_k3_no_grad_route_matches_autograd_route(dev):
+    """Under inference_mode K3 launches without the autograd Function; the
+    scores are bitwise those of the autograd route."""
+    from sassd_tpu_torch.ops import warp
+    img, boxes, valid, _, args = k3_inputs(np.random.default_rng(13), 2,
+                                           700, 60, 50)
+    pm, bx, vd = img.to(dev), boxes.to(dev), valid.to(dev)
+    before = warp._K3.launches
+    with torch.inference_mode():
+        served = warp.pswarp_score(pm, bx, vd, *args)
+    trained = warp.pswarp_score(pm.clone().requires_grad_(), bx, vd, *args)
+    torch.cuda.synchronize()
+    assert warp._K3.launches == before + 2
+    assert served.grad_fn is None and trained.grad_fn is not None
+    assert same_bits(served, trained)
+
+
+def grid_aligned(boxes):
+    """Boxes with yaw 0 and centres on the pixel grid (scale 2.5): lattice
+    points fall on pixel edges, where one ulp of a linspace value moves a
+    point to other taps."""
+    boxes[..., 0] = torch.round(boxes[..., 0] * 2.5) / 2.5
+    boxes[..., 1] = torch.round(boxes[..., 1] * 2.5) / 2.5
+    boxes[..., 6] = 0.0
+
+
+def test_k3_grid_aligned_boxes_match_plain(dev):
+    """K3 against its plain version on the card where lattice points lie on
+    pixel edges (the middle of a 7-point lattice row is linspace's
+    -1.49e-8, not 0)."""
+    from sassd_tpu_torch.ops import warp
+    img, boxes, valid, _, args = k3_inputs(np.random.default_rng(21), 2, 400,
+                                           60, 50)
+    grid_aligned(boxes)
+    pm, bx, vd = img.to(dev), boxes.to(dev), valid.to(dev)
+    got = warp.pswarp_score(pm, bx, vd, *args)
+    ref = warp.pswarp_score_plain(pm, bx, vd, *args)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                               atol=1e-5)
+
+
+K3B_CASES = ("band_edges", "off_map", "ragged_chunk", "single_band",
+             "all_invalid", "no_boxes", "wide_map", "grid_aligned")
+
+
+@pytest.mark.parametrize("case", K3B_CASES)
+def test_k3b_edge_cases_match_autograd_of_plain(dev, case, monkeypatch):
+    """K3b's records and bands at their edges against autograd of the plain
+    version on the card (1e-5 relative; the card's sin and cos, as K3b's:
+    at 300 columns a lattice point's pixel x reaches 300, where the CPU's
+    sin and cos move a tap weight by ~1e-5), reproducible over two calls:
+    tiles of 4 rows
+    (taps on every tile's first and last row, a last tile of 2 rows), boxes
+    off the map, N not a multiple of pass B's chunk (8 x 64 = 512 records
+    at 40 columns: 513, the second chunk one record; 1,100 at 300 columns,
+    chunks of 768), one band of rows, no valid box, no box, a map of 300
+    columns (tiles of 96 columns and one of 12), and lattice points on pixel
+    edges (grid_aligned)."""
+    from sassd_tpu_torch.ops import warp
+    b, n, h, w = 2, 300, 26, 40
+    if case == "band_edges":
+        monkeypatch.setattr(warp, "K3B_TILE_ROWS", 4)
+    n = {"ragged_chunk": 513, "no_boxes": 0, "wide_map": 1100}.get(case, n)
+    h = 10 if case == "single_band" else h
+    w = 300 if case == "wide_map" else w
+    img, boxes, valid, d_score, args = k3_inputs(
+        np.random.default_rng(14 + K3B_CASES.index(case)), b, n, h, w)
+    if case == "off_map":
+        boxes[..., 0] -= 50.0
+    if case == "all_invalid":
+        valid[:] = False
+    if case == "grid_aligned":
+        grid_aligned(boxes)
+    ins = [t.to(dev) for t in (img, boxes, valid, d_score)]
+    ic, bc = ins[0].clone().requires_grad_(), ins[1].clone().requires_grad_()
+    warp.pswarp_score_plain(ic, bc, ins[2], *args).backward(ins[3])
+    d_map, d_boxes = warp.pswarp_score_grad(*ins, *args)
+    again = warp.pswarp_score_grad(*ins, *args)
+    torch.cuda.synchronize()
+    assert rel_err(d_map, ic.grad) <= 1e-5
+    assert d_boxes.shape == (b, n, 7)
+    assert n == 0 or rel_err(d_boxes, bc.grad) <= 1e-5
+    assert same_bits(again[0], d_map) and same_bits(again[1], d_boxes)
+    if case in ("off_map", "all_invalid", "no_boxes"):
+        assert same_bits(d_map, torch.zeros_like(d_map))
+    else:
+        assert int((d_map != 0).sum()) > 0
 
 
 def test_tiny_train_step_card_matches_cpu(dev):
