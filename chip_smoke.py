@@ -45,9 +45,10 @@ Phases, each of which fails the run (nonzero exit, no result line):
    counters reset just before and read just after: K1, K3, K3b, K4, K5,
    K5b, K10, K11 and K12 must have launched, every logged loss must be
    finite, no update skipped, and the last checkpoint must restore to the
-   trained parameters. The train step is timed (host clock, synchronised,
-   loader excluded) beside the host leg of a batch (voxelize + mask + the
-   C++ train rulebook);
+   trained parameters. K12 is held bitwise against its plain version on
+   the first card step's inputs (captured). The train step is timed (host
+   clock, synchronised, loader excluded) beside the host leg of a batch
+   (voxelize + mask + the C++ train rulebook);
 8. three-class training on device plans (multi_config, host_plans=False,
    batch 1): a 4-scan car-range synthetic three-class KITTI train split,
    its info file and GT database written by the port's data.create_data,
@@ -62,7 +63,9 @@ Phases, each of which fails the run (nonzero exit, no result line):
    the exact aux, launch counters reset just before and read just after:
    K6, K7 and K13 must launch in both, K14 in the ring run only, K15 and
    K11's backward in the exact run; every logged loss finite, no update
-   skipped. The steps at batch 1 and 2 are timed beside a host-plans step.
+   skipped. One batch-1 step of each must launch K14 once (the three
+   levels' aux plans in one launch; ring) or not at all (exact). The steps
+   at batch 1 and 2 are timed beside a host-plans step.
 
 9. long range (long_range_config(), grid [40, 1600, 2048], 102,400
    anchors), banded over 4 y-bands (parallel.strategy="banded", the
@@ -85,7 +88,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
    inputs one float32 ulp off); then
    train_model of the banded config for 2 steps at batch 2 (8 band rows):
    K16, K7 and K11 (with a limit, with origins) must launch, every logged
-   loss finite, band_overflow 0. Timed: the timing scan at batch 1, banded
+   loss finite, band_overflow 0; one banded train step must launch K14
+   once. Timed: the timing scan at batch 1, banded
    and replicated in turns, and the train step at batch 2.
 
 Phase 3 holds K1 (rotated overlap) in all four criteria within K1_ATOL
@@ -111,9 +115,10 @@ backward, also bitwise equal over two calls, there and on phase 7's first
 train step's inputs) and K5b (densify backward); and the kernels of
 training on
 device plans, at batch 2 on the same scans: K13 (transpose plans) and K14
-(aux ring plans) against their plain versions and the C++ train rulebook,
-bitwise, and K15 (exact 3-NN) at the full level sizes (rows, weights and
-output bitwise, its backward through K11's).
+(the three levels' aux ring plans, one call) against their plain versions
+and the C++ train rulebook, bitwise, and K15 (exact 3-NN) at the full
+level sizes (rows, weights and output bitwise, its backward through
+K11's).
 
 K5, K5b, K6's level-0 map, K7 (the whole op, batch 1) and K13 are also
 timed beside one PyTorch call that computes their work (library_ms), a
@@ -132,7 +137,7 @@ yardsticks are also timed as CUDA-graph replays (graph_ms,
 library_graph_ms: the device's time without the host's launch path),
 except torch.unique,
 which reads its output's size back to the host and cannot be captured.
-K5b and K13 and their yardsticks are timed over 100 calls each, K5b and
+K5b, K12, K13, K14 and the yardsticks are timed over 100 calls each, K5b and
 its gather also with the L2 cold before each call (cold_l2_ms). K1 (at
 both inputs) and K9 (car batch 1 and 2, and on no voxels: all but its
 scatter) are timed by events and graph replay. K11 and
@@ -143,7 +148,13 @@ K1, K2, K8, K9, K11, K11' and K16 also print torch.profiler's device
 time by kernel
 (kernel_split) after their timed runs, as a diagnostic only: those
 totals have read below the replay of the same call, so no row carries
-them.
+them. K12 (batch 2) and K14 (its three levels in one call, at batch 2 and
+at phase 8's batch-1 shape) are read four ways, each in their row: events
+(ms), replay (graph_ms), torch.profiler's kernel time (profiler_ms, with
+kernel_split: the ranking of device time, since a lone replay reads
+0.006-0.015 ms even for a one-element fill) and the host clock a call
+(host_us, with host_split's parts printed); K14 also prints the
+torch.full of its plans' buffer alone, the write part of its time.
 
 Every kernel row carries its bound: the larger of the bytes it must move
 (each input read once, each output written once, at this run's active
@@ -346,19 +357,19 @@ def fmt_split(fn) -> str:
 # matches: the Python functions and builtins of one wrapper call
 HOST_GROUPS = (("check", ("check",)),
                ("device context", ("torch/cuda/__init__.py",)),
-               ("allocation", ("torch.empty", "torch.zeros")),
+               ("allocation", ("torch.empty", "torch.zeros", "new_empty")),
                ("autograd", ("autograd/function.py", "method apply",
                              "_functorch", "save_for_backward")),
                ("launch (ctypes)", ("cuda.py:launch", "RawStream",
                                     "_cuda_getDevice")))
 
 
-def host_split(fn, iters: int = 200) -> str:
-    """The host path of one call of fn(), as a diagnostic: the host clock
-    per call over `iters` calls, then cProfile's self time per call (each
-    Python function and builtin; the profiler's own cost inflates each),
-    summed by HOST_GROUPS, and its largest entries. The ctypes call runs
-    inside cuda.py's Kernel.launch and counts there."""
+def host_split(fn, iters: int = 200):
+    """The host path of one call of fn(): the host clock per call over
+    `iters` calls (us), and as a diagnostic (text) cProfile's self time per
+    call (each Python function and builtin; the profiler's own cost
+    inflates each), summed by HOST_GROUPS, and its largest entries. The
+    ctypes call runs inside cuda.py's Kernel.launch and counts there."""
     import cProfile
     import pstats
     import torch
@@ -386,11 +397,34 @@ def host_split(fn, iters: int = 200) -> str:
                   if any(p in key for p in pats)), "other")
         groups[g] += us
     top = sorted(keys, key=lambda kv: -kv[1])[:8]
-    return (f"host path a call (diagnostic): {wall_us:.1f} us by the host "
-            f"clock; cProfile self us a call: "
-            + ", ".join(f"{g} {us:.1f}" for g, us in groups.items())
-            + "; largest: "
-            + ", ".join(f"{k.split('/')[-1][:48]} {us:.1f}" for k, us in top))
+    return wall_us, (
+        f"host path a call (diagnostic): {wall_us:.1f} us by the host "
+        f"clock; cProfile self us a call: "
+        + ", ".join(f"{g} {us:.1f}" for g, us in groups.items())
+        + "; largest: "
+        + ", ".join(f"{k.split('/')[-1][:48]} {us:.1f}" for k, us in top))
+
+
+def measured(fn, what: str, iters: int = 20) -> dict:
+    """fn() by CUDA events (ms), replayed from a CUDA graph (graph_ms), by
+    torch.profiler's kernel time a call (profiler_ms, the sum of
+    kernel_split) and by the host clock a call (host_us), each printed:
+    the four readings of a small kernel whose event time is mostly its
+    host path. Rank device time by profiler_ms (a lone replay reads
+    0.006-0.015 ms even for a one-element fill), the host path by ms and
+    host_us."""
+    t = timed(fn, iters)
+    for _ in range(3):      # the profiler can return no kernel for a call
+        split = kernel_split(fn)
+        if split:
+            break
+    host_us, host_text = host_split(fn)
+    print(f"  {what}: kernel {fmt_timed(t)}; profiler "
+          + (", ".join(f"{k} {v:.4f}" for k, v in split.items())
+             or "saw no kernel (not measured)")
+          + f" ms a call; {host_text}")
+    return dict(**t, profiler_ms=sum(split.values()) if split else None,
+                kernel_split=split, host_us=host_us)
 
 
 def bound(nbytes: float, ops: float) -> dict:
@@ -629,7 +663,7 @@ def check_k3_serving(torch, k3_inputs) -> dict:
             iters=5)
         print(f"  K3 serving b1: kernel {fmt_timed(t)}, plain "
               f"{plain_ms:.4f} ms; {fmt_split(call)}")
-        print(f"  K3 serving b1 {host_split(call)}")
+        print(f"  K3 serving b1 {host_split(call)[1]}")
     return dict(name="K3 pswarp_score, serving b1", route="cuda",
                 source="sassd_tpu_torch/csrc/pswarp_score.cu",
                 replaces="sassd_tpu/ops/warp.py:76", max_abs_err=err, **t,
@@ -771,7 +805,7 @@ def check_kernels(torch, np, device):
         iters=5)
     print(f"  K3 batch 2: kernel {fmt_timed(t3)}, plain {plain_ms:.4f} ms; "
           f"{fmt_split(k3)}")
-    print(f"  K3 batch 2 {host_split(k3)}")
+    print(f"  K3 batch 2 {host_split(k3)[1]}")
     one = torch.zeros(1, device=device)
     print(f"  lone replay, not a kernel row: a one-element zero_ (the "
           f"replay harness's floor) {graph_ms(one.zero_):.4f} ms")
@@ -1332,6 +1366,44 @@ def k3b_check(torch, what, part_map, boxes3, valid, d_score, args):
     return max(err_map, err_boxes), (pm, pb, out_p)
 
 
+def k12_check(torch, what, query, pvalid, gt, gv):
+    """K12 against its plain version on the same inputs, bitwise (labels
+    and offsets); fails otherwise. Returns the kernel's (label, offsets)
+    and the offsets' largest absolute difference from the plain version's."""
+    from sassd_tpu_torch.core import boxes
+    from sassd_tpu_torch.ops.cuda import same_bits
+    label, off = boxes.aux_targets(query, pvalid, gt, gv)
+    ref_label, ref_off = boxes.aux_targets_plain(query, pvalid, gt, gv)
+    same = torch.equal(label, ref_label) and same_bits(off, ref_off)
+    print(f"K12 aux_targets on {what}, {tuple(query.shape)} x "
+          f"{tuple(gt.shape)} ({int(gv.sum())} valid boxes): "
+          f"{'bitwise equal to' if same else 'DIFFERS from'} plain")
+    if not same:
+        fail(f"K12 differs from its plain version on {what}")
+    return label, off, float((off - ref_off).abs().max())
+
+
+def k12_bound(torch, query, pvalid, gt, gv, label, off) -> dict:
+    """K12's bound: points, validity, boxes and slots read once, labels and
+    offsets written once; operations: 15 a point-box test (two
+    differences, the rotation's four products and two sums, three
+    absolute values and compares, the z difference) over the pairs this
+    run's data tests (a valid point walks the valid boxes up to its first
+    hit), and 40 a valid box for its sine and cosine."""
+    from sassd_tpu_torch.core import boxes
+    flags = (boxes.points_in_boxes3d(query, gt)[0] & gv[:, None, :]
+             & pvalid[..., None])
+    rank = torch.cumsum(gv.to(torch.int64), 1)          # 1-based among valid
+    first = torch.argmax(flags.to(torch.uint8), -1)
+    tested = torch.where(flags.any(-1), torch.gather(rank, 1, first),
+                         rank[:, -1:].expand_as(first))
+    pairs = int(tested[pvalid].sum())
+    return dict(**bound(query.numel() * 4 + pvalid.numel() + gt.numel() * 4
+                        + gv.numel() + label.numel() + off.numel() * 4,
+                        15 * pairs + 40 * int(gv.sum())),
+                pairs_tested=pairs)
+
+
 def check_train_kernels(torch, np, device, cfg, samples, gts):
     """Phase 3, the training kernels at batch 2 on the train plans of the
     first two car scans: K10 and K4's input gradients, K11, K12, K3b, K5b.
@@ -1466,33 +1538,24 @@ def check_train_kernels(torch, np, device, cfg, samples, gts):
     # K12: the voxel centroids of the two scans against their GT boxes
     pvalid = batch["coords"][..., 0] >= 0
     gt, gv = (torch.from_numpy(a).to(device) for a in gts)
-    label, off = boxes.aux_targets(query, pvalid, gt, gv)
-    ref_label, ref_off = boxes.aux_targets_plain(query, pvalid, gt, gv)
-    same12 = torch.equal(label, ref_label) and torch.equal(off, ref_off)
-    print(f"K12 aux_targets {tuple(query.shape)} x {tuple(gt.shape)}: "
-          f"{'bitwise equal to' if same12 else 'DIFFERS from'} plain; "
-          f"points in boxes {label.sum(1).tolist()}")
-    if not same12 or not label.any():
-        fail("K12 differs from its plain version (or no point is in a box)")
-    ms = cuda_ms(lambda: boxes.aux_targets(query, pvalid, gt, gv))
+    label, off, err12 = k12_check(torch, "phase 3's inputs", query, pvalid,
+                                  gt, gv)
+    print(f"  K12 points in boxes {label.sum(1).tolist()}")
+    if not label.any():
+        fail("K12: no point of phase 3's scans is in a GT box")
+    t12 = measured(lambda: boxes.aux_targets(query, pvalid, gt, gv),
+                   "K12 aux_targets, batch 2", iters=100)
     plain_ms = cuda_ms(lambda: boxes.aux_targets_plain(query, pvalid, gt,
                                                        gv))
-    n_pts, n_box = int(pvalid.sum()), int(gv.sum(1).max())
     rows.append(dict(name="K12 aux_targets", route="cuda",
                      source="sassd_tpu_torch/csrc/points_in_boxes.cu",
                      replaces="sassd_tpu/core/boxes.py:281",
-                     max_abs_err=float((off - ref_off).abs().max()), ms=ms,
+                     max_abs_err=err12, **t12,
                      plain_ms=plain_ms, library_ms=None,
                      library_what="none: torch has no points-in-rotated-"
                                   "boxes test",
                      at="batch 2, 20,000-voxel cap, 64 GT slots",
-                     # points, validity, boxes in; labels, offsets out;
-                     # ~25 operations a point-box test (sin and cos
-                     # included), every valid box for a point in none
-                     **bound(query.numel() * 4 + pvalid.numel()
-                             + gt.numel() * 4 + gv.numel()
-                             + label.numel() + off.numel() * 4,
-                             n_pts * n_box * 25)))
+                     **k12_bound(torch, query, pvalid, gt, gv, label, off)))
 
     # K3b: [2, 28, 200, 176] part map, 640 guided boxes a sample
     b, k, h, w, n = 2, 28, 200, 176, cfg.caps.guided_train
@@ -1517,7 +1580,7 @@ def check_train_kernels(torch, np, device, cfg, samples, gts):
     plain_ms = grad_ms(out_p, (pm, pb), d_score)
     print(f"  K3b: kernel {fmt_timed(t3b)}, plain (autograd) {plain_ms:.4f} "
           f"ms; {fmt_split(k3b)}")
-    print(f"  K3b {host_split(k3b)}")
+    print(f"  K3b {host_split(k3b)[1]}")
     heights = []                    # pass B's tile height, replayed
     default_rows = warp.K3B_TILE_ROWS
     try:
@@ -1603,6 +1666,30 @@ def check_train_kernels(torch, np, device, cfg, samples, gts):
     return rows
 
 
+def k14_bound(torch, cell0, shapes) -> dict:
+    """K14's bound: cell0 read once, the three [B, 27, M0] int32 plans
+    written once, and each level's map read once at the distinct in-grid
+    cells of the valid rows' 3x3x3 windows (key-sorted neighbours share
+    most of them)."""
+    b, m0, _ = cell0.shape
+    valid = cell0[..., 0] >= 0
+    rows = cell0[valid].to(torch.int64)
+    sample = torch.arange(b, device=cell0.device)[:, None].expand(b, m0)[
+        valid][:, None]
+    taps = torch.tensor([(dz, dy, dx) for dz in (-1, 0, 1)
+                         for dy in (-1, 0, 1) for dx in (-1, 0, 1)],
+                        device=cell0.device)
+    cells = 0
+    for lvl, (d, h, w) in enumerate(shapes, 1):
+        q = (rows >> lvl)[:, None, :] + taps                   # [n, 27, 3]
+        ok = ((q >= 0) & (q < torch.tensor([d, h, w],
+                                           device=cell0.device))).all(-1)
+        lin = ((sample * d + q[..., 0]) * h + q[..., 1]) * w + q[..., 2]
+        cells += int(torch.unique(lin[ok]).numel())
+    return dict(**bound(cell0.numel() * 4 + 3 * b * 27 * m0 * 4 + cells * 4,
+                        0), map_cells_read=cells)
+
+
 def level_centers(np, cfg, coords, level):
     """Cell centres [B, M, 3] xyz of a level's zyx coords (the aux branch's
     known points of the exact 3-NN)."""
@@ -1632,8 +1719,8 @@ def check_train_plan_kernels(torch, np, device, cfg, samples):
     cell0 = batch["coords"]
     rows = []
 
-    # K13 and K14 at the three levels
-    k13, k14, diff, err = [], [], {}, {}
+    # K13 at the three levels
+    k13, diff, err = [], {}, {}
     for lvl in (1, 2, 3):
         plan = batch[f"plan_stride{lvl}"].to(torch.int32)
         got = sp.stride_plan_T(plan, caps[lvl - 1])
@@ -1663,64 +1750,83 @@ def check_train_plan_kernels(torch, np, device, cfg, samples):
         k13.append((lvl, ms, plain_ms, dict(
             bound(plan.numel() * 4 + got.numel() * 4, 0), graph_ms=dev_ms,
             library_graph_ms=graph_ms(put13, iters=100)), lib_ms))
-        keys = sp.coords_to_keys(batch[f"plan_coords{lvl}"], shapes[lvl])
-        imap = sp.build_index_map(keys, shapes[lvl])
-        got = sp.aux_plan(cell0, lvl, imap, shapes[lvl])
-        ref = sp.aux_plan_plain(cell0, lvl, imap, shapes[lvl])
+
+    # K14: the three levels' aux plans in one call
+    maps = [sp.build_index_map(sp.coords_to_keys(
+        batch[f"plan_coords{lvl}"], shapes[lvl]), shapes[lvl])
+        for lvl in (1, 2, 3)]
+    got = sp.aux_plans(cell0, maps, shapes[1:])
+    ref = sp.aux_plans_plain(cell0, maps, shapes[1:])
+    for lvl in (1, 2, 3):
         host = batch[f"plan_aux{lvl}"].to(torch.int32)
-        diff[f"aux{lvl}"] = (int((got != ref).sum()),
-                             int((got != host).sum()))
-        err[f"aux{lvl}"] = float((got - ref).abs().max())
-        ms = cuda_ms(lambda: sp.aux_plan(cell0, lvl, imap, shapes[lvl]))
-        plain_ms = cuda_ms(lambda: sp.aux_plan_plain(cell0, lvl, imap,
-                                                     shapes[lvl]))
-        n_valid = int((cell0[..., 0] >= 0).sum())
-        # cells in, 27 map reads a valid row (at most the map), plan out
-        k14.append((lvl, ms, plain_ms, bound(
-            cell0.numel() * 4 + min(27 * n_valid, imap.numel()) * 4
-            + got.numel() * 4, 0), None))
-        del imap
-    print(f"K13 stride_plan_T, K14 aux_plan, batch 2, levels 1-3: entries "
+        diff[f"aux{lvl}"] = (int((got[lvl - 1] != ref[lvl - 1]).sum()),
+                             int((got[lvl - 1] != host).sum()))
+        err[f"aux{lvl}"] = float((got[lvl - 1] - ref[lvl - 1]).abs().max())
+    print(f"K13 stride_plan_T, K14 aux_plans, batch 2, levels 1-3: entries "
           f"differing (from plain, from the C++ train rulebook): {diff}; "
           f"max|kernel-plain|: {err}")
     if any(a or b for a, b in diff.values()):
         fail("K13 or K14 differs from its plain version or the C++ train "
              "rulebook")
-    for name, src_line, parts, prefix, lib_what in (
-            ("K13 stride_plan_T", "sassd_tpu/ops/sparse.py:732", k13,
-             "strideT", "torch.full(-1) + index_put_ of the forward plan's "
-                        "found entries"),
-            ("K14 aux_plan", "sassd_tpu/ops/sparse.py:785", k14, "aux",
-             None)):
-        graphs = {}
-        if lib_what:
-            graphs = {k: sum(bd[k] for *_, bd, _ in parts)
-                      for k in ("graph_ms", "library_graph_ms")}
-            per = {lv: (round(bd["graph_ms"], 4),
-                        round(bd["library_graph_ms"], 4))
-                   for lv, *_, bd, _ in parts}
-            print(f"  {name} per level (kernel, yardstick), replayed from "
-                  f"CUDA graphs, 100 replays: {per}")
-        rows.append(dict(name=name, route="cuda", **graphs,
-                         source="sassd_tpu_torch/csrc/device_plans.cu",
-                         replaces=src_line,
-                         max_abs_err=max(v for k, v in err.items()
-                                         if k.startswith(prefix)),
-                         ms=sum(m for _, m, *_ in parts),
-                         plain_ms=sum(m for _, _, m, *_ in parts),
-                         library_ms=(lib_what and
-                                     sum(lm for *_, lm in parts)),
-                         library_what=lib_what or (
-                             "none: the window's tap cells and edge masks "
-                             "take several calls before one gather"),
-                         at="batch 2, sum over levels 1-3",
-                         per_level={lv: dict(ms=m, plain_ms=pm,
-                                             library_ms=lm, **bd)
-                                    for lv, m, pm, bd, lm in parts},
-                         **add_bounds([bd for *_, bd, _ in parts])))
-        per = [(lv, round(m, 4), round(pm, 4), lm and round(lm, 4))
-               for lv, m, pm, _, lm in parts]
-        print(f"  {name} per level (kernel, plain, one-call ms): {per}")
+    graphs = {k: sum(bd[k] for *_, bd, _ in k13)
+              for k in ("graph_ms", "library_graph_ms")}
+    per = {lv: (round(bd["graph_ms"], 4), round(bd["library_graph_ms"], 4))
+           for lv, *_, bd, _ in k13}
+    print(f"  K13 stride_plan_T per level (kernel, yardstick), replayed "
+          f"from CUDA graphs, 100 replays: {per}")
+    rows.append(dict(name="K13 stride_plan_T", route="cuda", **graphs,
+                     source="sassd_tpu_torch/csrc/device_plans.cu",
+                     replaces="sassd_tpu/ops/sparse.py:732",
+                     max_abs_err=max(v for k, v in err.items()
+                                     if k.startswith("strideT")),
+                     ms=sum(m for _, m, *_ in k13),
+                     plain_ms=sum(m for _, _, m, *_ in k13),
+                     library_ms=sum(lm for *_, lm in k13),
+                     library_what="torch.full(-1) + index_put_ of the "
+                                  "forward plan's found entries",
+                     at="batch 2, sum over levels 1-3",
+                     per_level={lv: dict(ms=m, plain_ms=pm, library_ms=lm,
+                                         **bd)
+                                for lv, m, pm, bd, lm in k13},
+                     **add_bounds([bd for *_, bd, _ in k13])))
+    per = [(lv, round(m, 4), round(pm, 4), round(lm, 4))
+           for lv, m, pm, _, lm in k13]
+    print(f"  K13 stride_plan_T per level (kernel, plain, one-call ms): "
+          f"{per}")
+    # the three-level call at batch 2 and at phase 8's batch-1 shape (one
+    # scan: multi_config shares the car grid and caps)
+    t14 = measured(lambda: sp.aux_plans(cell0, maps, shapes[1:]),
+                   "K14 aux_plans, batch 2, levels 1-3 in one call",
+                   iters=100)
+    plain_ms = cuda_ms(lambda: sp.aux_plans_plain(cell0, maps, shapes[1:]))
+    cell0_b1, maps_b1 = cell0[:1], [m[:1] for m in maps]
+    t14_b1 = measured(lambda: sp.aux_plans(cell0_b1, maps_b1, shapes[1:]),
+                      "K14 aux_plans, batch 1 (phase 8's shape)", iters=100)
+    for what, c in (("batch 2", cell0), ("batch 1", cell0_b1)):
+        fill = kernel_split(lambda: torch.full(
+            (3, c.shape[0], 27, c.shape[1]), -1, dtype=torch.int32,
+            device=device))
+        print(f"  K14's plans written alone, {what} (diagnostic, not in the "
+              f"row: torch.full(-1) of the [3, B, 27, M0] buffer, profiler "
+              f"ms a call): {sum(fill.values()):.4f}")
+    bd14, bd14_b1 = (k14_bound(torch, c, shapes[1:])
+                     for c in (cell0, cell0_b1))
+    print(f"  K14 aux_plans bound: batch 2 {bd14['bound_ms']:.4f} ms, "
+          f"batch 1 {bd14_b1['bound_ms']:.4f} ms; plain (batch 2) "
+          f"{plain_ms:.4f} ms")
+    rows.append(dict(name="K14 aux_plans", route="cuda",
+                     source="sassd_tpu_torch/csrc/device_plans.cu",
+                     replaces="sassd_tpu/ops/sparse.py:785",
+                     max_abs_err=max(v for k, v in err.items()
+                                     if k.startswith("aux")),
+                     **t14, plain_ms=plain_ms, library_ms=None,
+                     library_what="none: the window's tap cells and edge "
+                                  "masks take several calls before one "
+                                  "gather",
+                     at="batch 2, levels 1-3 in one call",
+                     batch1=dict(t14_b1, bound_ms=bd14_b1["bound_ms"]),
+                     **bd14))
+    del maps
 
     # K15 at the three levels: the voxel centroids of both scans against
     # every cell centre of the level
@@ -1799,6 +1905,17 @@ def check_train_plan_kernels(torch, np, device, cfg, samples):
                                 for lv, m, g, bm, pm, pbm, bd in k15},
                      **add_bounds([bd for *_, bd in k15])))
     return rows
+
+
+def check_k14_once(sp, launches: dict, what: str, want: int):
+    """Print K14's launches in one train step and fail unless they are
+    `want`: one launch makes the three levels' aux plans (ring aux), none
+    runs for the exact aux."""
+    n = sum(launches[s] for s in sp.KERNEL_SYMBOLS["K14"])
+    print(f"{what}: K14 (aux ring plans, three levels) launched {n} "
+          f"time(s) in one train step (want {want})")
+    if n != want:
+        fail(f"{what}: K14 launched {n} times in one step, not {want}")
 
 
 def match_detections(a, b, what: str):
@@ -2005,6 +2122,7 @@ def run_training(torch, np, device, cfg, root: str):
     import dataclasses
     import logging
     from sassd_tpu_torch import weights
+    from sassd_tpu_torch.core import boxes as box_ops
     from sassd_tpu_torch.data import kitti, synthetic
     from sassd_tpu_torch.inference import to_device
     from sassd_tpu_torch.models.detector import Detector, parse_losses
@@ -2035,7 +2153,8 @@ def run_training(torch, np, device, cfg, root: str):
     # train-mode BatchNorm over 70k-cell maps amplifies float32 rounding)
     res = {}
     k3_in = []                  # the card step's K3 inputs and d_score
-    orig_k3 = warp.pswarp_score
+    k12_in = []                 # the card step's K12 inputs
+    orig_k3, orig_k12 = warp.pswarp_score, box_ops.aux_targets
 
     def capture_k3(part_map, boxes, valid, *args):
         out = orig_k3(part_map, boxes, valid, *args)
@@ -2043,6 +2162,10 @@ def run_training(torch, np, device, cfg, root: str):
                       valid.clone(), args])
         out.register_hook(lambda g: k3_in[0].append(g.detach().clone()))
         return out
+
+    def capture_k12(*args):
+        k12_in.append([a.detach().clone() for a in args])
+        return orig_k12(*args)
     for name, where, dtype in (("cpu64", "cpu", torch.float64),
                                ("cpu", "cpu", torch.float32),
                                ("card", device, torch.float32)):
@@ -2052,11 +2175,11 @@ def run_training(torch, np, device, cfg, root: str):
              for k, v in to_device(batch, where).items()}
         t = time.perf_counter()
         if name == "card":
-            warp.pswarp_score = capture_k3
+            warp.pswarp_score, box_ops.aux_targets = capture_k3, capture_k12
         try:
             losses = model.forward_train(b, anchors.to(where, dtype))
         finally:
-            warp.pswarp_score = orig_k3
+            warp.pswarp_score, box_ops.aux_targets = orig_k3, orig_k12
         parse_losses(losses).backward()
         if where != "cpu":
             torch.cuda.synchronize()
@@ -2098,6 +2221,7 @@ def run_training(torch, np, device, cfg, root: str):
     part_map, boxes3, valid, args, d_score = k3_in[0]
     k3b_check(torch, "phase 7's first train step", part_map, boxes3, valid,
               d_score.contiguous(), args)
+    k12_check(torch, "phase 7's first train step", *k12_in[0])
 
     # the short run through train_model
     logged = []
@@ -2377,6 +2501,8 @@ def run_multi_training(torch, np, device, root: str, host_step_ms):
         step(model, batch1)
         torch.cuda.synchronize()
         per_step[aux] = read_launches()
+        check_k14_once(sp, per_step[aux], f"three-class training, {aux} aux",
+                       1 if aux == "ring" else 0)
     host_model = weights.seeded_detector(cfg_host, SEED, device)
     host_step = loop.make_train_step(cfg_host, ds.anchors,
                                      optim.make_optimizer(
@@ -2611,6 +2737,7 @@ def run_long_range(torch, np, device, root: str):
     from sassd_tpu_torch.data import kitti
     from sassd_tpu_torch.inference import make_test_step, to_device
     from sassd_tpu_torch.models.detector import parse_losses
+    from sassd_tpu_torch.ops import sparse as sp
     from sassd_tpu_torch.train import loop, optim
     from sassd_tpu_torch.weights import seeded_detector
 
@@ -2797,6 +2924,7 @@ def run_long_range(torch, np, device, root: str):
             step(model, batch)
             torch.cuda.synchronize()
             per_step = read_launches()
+            check_k14_once(sp, per_step, "long range, banded training", 1)
     return rows, launches, per_step, ms, train_ms
 
 
@@ -2971,7 +3099,8 @@ def main() -> int:
     exact = multi_runs["exact"]
     if exact["sassd_ring_interp_bwd"] == 0:
         fail("three-class training, exact: K11's backward was not launched")
-    if exact["sassd_aux_plan"] or exact["sassd_ring_interp_fwd"]:
+    if (any(exact[s] for s in sp.KERNEL_SYMBOLS["K14"])
+            or exact["sassd_ring_interp_fwd"]):
         fail("three-class training, exact: the ring aux path ran")
     if lr_runs["replicated"]["sassd_band_partition"]:
         fail("long range, replicated inference: the band partition ran")

@@ -11,11 +11,15 @@ from typing import Tuple
 import torch
 
 from sassd_tpu_torch.ops import cuda
+from sassd_tpu_torch.ops.warp import launch_on
 
 _K12 = cuda.Kernel("sassd_points_in_boxes",
                    [cuda.P, cuda.P, cuda.P, cuda.P, cuda.I, cuda.I, cuda.I,
                     cuda.P, cuda.P])
 KERNEL_SYMBOLS = {"K12": ("sassd_points_in_boxes",)}
+# K12 stages a sample's valid boxes in shared memory, 32 bytes each: at
+# most this many GT slots keep a block within the default 48 KB
+K12_MAX_BOXES = 1024
 
 # log-size decode clamp: exp(10) = 22026x the anchor dim, far beyond any
 # physical box, small enough that exp stays finite for every anchor
@@ -157,17 +161,19 @@ def aux_targets(points: torch.Tensor, points_valid: torch.Tensor,
     cuda.check_cuda("points_valid", points_valid, torch.bool, 2)
     cuda.check_cuda("gt_boxes", gt_boxes, torch.float32, 3)
     cuda.check_cuda("gt_valid", gt_valid, torch.bool, 2)
-    b, n, _ = points.shape
+    b, n, k = points.shape
     g = gt_boxes.shape[1]
-    if (points.shape[2] != 3 or points_valid.shape != (b, n)
+    if (k != 3 or points_valid.shape != (b, n)
             or gt_boxes.shape != (b, g, 7) or gt_valid.shape != (b, g)):
         raise ValueError(f"points {tuple(points.shape)}, gt_boxes "
                          f"{tuple(gt_boxes.shape)} do not fit")
-    with torch.cuda.device(points.device):
-        label = torch.empty((b, n), dtype=torch.bool, device=points.device)
-        offsets = torch.empty((b, n, 3), dtype=torch.float32,
-                              device=points.device)
-        _K12.launch(points.data_ptr(), points_valid.data_ptr(),
-                    gt_boxes.data_ptr(), gt_valid.data_ptr(), b, n, g,
-                    label.data_ptr(), offsets.data_ptr())
+    if g > K12_MAX_BOXES:
+        raise ValueError(f"at most {K12_MAX_BOXES} GT slots, got {g}")
+    # two allocations: cutting one byte buffer into both (slices and
+    # views) costs more host time than a second allocation
+    label = points_valid.new_empty((b, n))
+    offsets = points.new_empty((b, n, 3))
+    launch_on(_K12, points, points.data_ptr(), points_valid.data_ptr(),
+              gt_boxes.data_ptr(), gt_valid.data_ptr(), b, n, g,
+              label.data_ptr(), offsets.data_ptr())
     return label, offsets

@@ -39,10 +39,18 @@
 // from the forward plan, so the cap holds. Design: a memset to -1 and one
 // thread per (sample, tap, output row) of the forward plan.
 //
-// K14, aux plan: for level-0 row n with cell c0 (-1 on padding), the
-// window plan of the base cell c0 >> L through level L's index map (-1 >> L
-// stays -1, so padding rows are all -1); [B, 27, M0] int32. It runs the
-// window plan's lookup with another base cell.
+// K14, aux plans of levels 1-3: for level-0 row n with cell c0 (-1 on
+// padding), the window plan of the base cell c0 >> L through level L's
+// index map (-1 >> L stays -1, so padding rows are all -1); one [3, B, 27,
+// M0] int32 buffer, level L at [L - 1]. It runs the window plan's lookup
+// with another base cell. Bound: bytes, the plans' write (3 x 27 x M0 x 4
+// B a sample, 6.5 MB at the car cap); the map reads of key-sorted
+// neighbours share most of their cells. Design: one launch for the three
+// levels, one thread a row (sample on the grid's y): it reads its cell
+// once, and for each level issues the 27 map loads together, then writes
+// the 27 taps, each store coalesced along M0. A padded row writes -1 and
+// reads no map. (Issuing all 81 loads before any store took 96 registers
+// and was no faster on the H100.)
 #include <cuda_runtime.h>
 
 namespace {
@@ -59,26 +67,34 @@ __global__ void index_map_kernel(const int* __restrict__ keys, int m,
   map[static_cast<long long>(b) * total + key] = row;
 }
 
+// The rows r[0..2] of the three x-consecutive taps of tap group g (dz, dy)
+// around the base cell (z, y, x) in one sample's map mb, -1 where missing.
+__device__ __forceinline__ void window_rows(const int* __restrict__ mb, int z,
+                                            int y, int x, int g, int d, int h,
+                                            int w, int* r) {
+  r[0] = r[1] = r[2] = -1;
+  const int zq = z + g / 3 - 1;
+  const int yq = y + g % 3 - 1;
+  if (z >= 0 && x >= 0 && x < w && zq >= 0 && zq < d && yq >= 0 && yq < h) {
+    const long long q = (static_cast<long long>(zq) * h + yq) * w + x;
+    if (x >= 1) r[0] = mb[q - 1];
+    r[1] = mb[q];
+    if (x + 1 < w) r[2] = mb[q + 1];
+  }
+}
+
 // The three x-consecutive taps of tap group g (dz, dy) around the base
 // cell (z, y, x) of sample b, written to plan rows 3g..3g+2 at column m.
 __device__ void window_taps(const int* __restrict__ map, int b, int z, int y,
                            int x, int g, int d, int h, int w,
                            int* __restrict__ plan, int m, int m_out) {
-  int r0 = -1, r1 = -1, r2 = -1;
-  const int zq = z + g / 3 - 1;
-  const int yq = y + g % 3 - 1;
-  if (z >= 0 && x >= 0 && x < w && zq >= 0 && zq < d && yq >= 0 && yq < h) {
-    const long long total = static_cast<long long>(d) * h * w;
-    const int* mb = map + static_cast<long long>(b) * total;
-    const long long q = (static_cast<long long>(zq) * h + yq) * w + x;
-    if (x >= 1) r0 = mb[q - 1];
-    r1 = mb[q];
-    if (x + 1 < w) r2 = mb[q + 1];
-  }
+  int r[3];
+  window_rows(map + static_cast<long long>(b) * d * h * w, z, y, x, g, d, h,
+              w, r);
   int* pb = plan + (static_cast<long long>(b) * 27 + 3 * g) * m_out + m;
-  pb[0] = r0;
-  pb[m_out] = r1;
-  pb[2 * m_out] = r2;
+  pb[0] = r[0];
+  pb[m_out] = r[1];
+  pb[2 * m_out] = r[2];
 }
 
 __global__ void window_plan_kernel(const int* __restrict__ out_keys,
@@ -99,16 +115,35 @@ __global__ void window_plan_kernel(const int* __restrict__ out_keys,
   window_taps(map, b, z, y, x, g, d, h, w, plan, m, m_out);
 }
 
-__global__ void aux_plan_kernel(const int* __restrict__ cell0, int m0,
-                                int level, const int* __restrict__ map, int d,
-                                int h, int w, int* __restrict__ plan) {
-  const int m = blockIdx.x * blockDim.x + threadIdx.x;
-  const int g = blockIdx.y;
-  const int b = blockIdx.z;
+// The three levels' index maps and grids, passed by value.
+struct AuxLevels {
+  const int* map[3];
+  int d[3], h[3], w[3];
+};
+
+constexpr int kAuxThreads = 128;
+
+__global__ void __launch_bounds__(kAuxThreads)
+    aux_plans_kernel(const int* __restrict__ cell0, int batch, int m0,
+                     AuxLevels lv, int* __restrict__ plan) {
+  const int m = blockIdx.x * kAuxThreads + threadIdx.x;
+  const int b = blockIdx.y;
   if (m >= m0) return;
   const int* c = cell0 + 3 * (static_cast<long long>(b) * m0 + m);
-  window_taps(map, b, c[0] >> level, c[1] >> level, c[2] >> level, g, d, h,
-              w, plan, m, m0);
+  const int z0 = c[0], y0 = c[1], x0 = c[2];
+#pragma unroll
+  for (int l = 0; l < 3; ++l) {
+    const int d = lv.d[l], h = lv.h[l], w = lv.w[l];
+    const int* mb = lv.map[l] + static_cast<long long>(b) * d * h * w;
+    int r[27];
+#pragma unroll
+    for (int g = 0; g < 9; ++g)
+      window_rows(mb, z0 >> (l + 1), y0 >> (l + 1), x0 >> (l + 1), g, d, h,
+                  w, r + 3 * g);
+    int* pb = plan + (static_cast<long long>(l) * batch + b) * 27 * m0 + m;
+#pragma unroll
+    for (int k = 0; k < 27; ++k) pb[static_cast<long long>(k) * m0] = r[k];
+  }
 }
 
 __global__ void stride_plan_t_kernel(const int* __restrict__ plan, int m_out,
@@ -177,16 +212,20 @@ extern "C" int sassd_stride_plan_t(const int* plan, int batch, int m_out,
   return static_cast<int>(cudaGetLastError());
 }
 
-// cell0 [batch, m0, 3] int32 level-0 zyx cells (-1 padding); map [batch,
-// d * h * w] int32 of level `level`; plan [batch, 27, m0].
-extern "C" int sassd_aux_plan(const int* cell0, int batch, int m0, int level,
-                              const int* map, int d, int h, int w, int* plan,
-                              void* stream) {
+// cell0 [batch, m0, 3] int32 level-0 zyx cells (-1 padding); map1..map3
+// [batch, dL * hL * wL] int32 of levels 1-3; plan [3, batch, 27, m0].
+extern "C" int sassd_aux_plans(const int* cell0, int batch, int m0,
+                               const int* map1, const int* map2,
+                               const int* map3, int d1, int h1, int w1,
+                               int d2, int h2, int w2, int d3, int h3, int w3,
+                               int* plan, void* stream) {
   if (batch > 0 && m0 > 0) {
-    const int threads = 256;
-    const dim3 grid((m0 + threads - 1) / threads, 9, batch);
-    aux_plan_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-        cell0, m0, level, map, d, h, w, plan);
+    const AuxLevels lv = {{map1, map2, map3}, {d1, d2, d3}, {h1, h2, h3},
+                          {w1, w2, w3}};
+    const dim3 grid((m0 + kAuxThreads - 1) / kAuxThreads, batch);
+    aux_plans_kernel<<<grid, kAuxThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(cell0, batch, m0,
+                                                            lv, plan);
   }
   return static_cast<int>(cudaGetLastError());
 }

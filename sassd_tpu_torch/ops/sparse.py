@@ -27,9 +27,9 @@ which a wrapper takes only for CPU tensors:
   (``device_plans.cu``);
 - K7 ``downsample_keys``: the sorted, capped active set of a stride-2
   level, optionally with a per-row output-y limit (``downsample.cu``);
-- K13 ``stride_plan_T`` and K14 ``aux_plan``: the rulebook's train-only
+- K13 ``stride_plan_T`` and K14 ``aux_plans``: the rulebook's train-only
   plans, the stride convs' transpose plans and the aux branch's ring
-  plans (``device_plans.cu``).
+  plans of its three levels, one launch (``device_plans.cu``).
 
 Training differentiates the convs through :func:`subm_conv_sym` and
 :func:`stride_conv_hostT` (autograd Functions whose forward is K4 and whose
@@ -44,6 +44,7 @@ from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from . import cuda
+from .warp import launch_on
 
 INVALID_KEY = torch.iinfo(torch.int32).max
 
@@ -77,9 +78,9 @@ _K7 = cuda.Kernel("sassd_downsample",
 K7_TILE_CELLS = 32768
 _K13 = cuda.Kernel("sassd_stride_plan_t",
                    [cuda.P, cuda.I, cuda.I, cuda.I, cuda.P])
-_K14 = cuda.Kernel("sassd_aux_plan",
-                   [cuda.P, cuda.I, cuda.I, cuda.I, cuda.P, cuda.I, cuda.I,
-                    cuda.I, cuda.P])
+_K14 = cuda.Kernel("sassd_aux_plans",
+                   [cuda.P, cuda.I, cuda.I, cuda.P, cuda.P, cuda.P]
+                   + [cuda.I] * 9 + [cuda.P])
 # the C entry points of each kernel id, for launch counts
 KERNEL_SYMBOLS = {
     "K4": ("sassd_sparse_conv",),
@@ -89,7 +90,7 @@ KERNEL_SYMBOLS = {
     "K6": ("sassd_index_map", "sassd_window_plan"),
     "K7": ("sassd_downsample",),
     "K13": ("sassd_stride_plan_t",),
-    "K14": ("sassd_aux_plan",),
+    "K14": ("sassd_aux_plans",),
 }
 
 # tap groups (dz, dy) of the 27-tap order, each covering dx = -1, 0, 1
@@ -600,34 +601,40 @@ def stride_plan_T(plan: torch.Tensor, m_in: int) -> torch.Tensor:
     return out
 
 
-def aux_plan_plain(cell0: torch.Tensor, level: int, index_map: torch.Tensor,
-                   level_shape: Tuple[int, int, int]) -> torch.Tensor:
-    """Plain PyTorch version of K14 (see aux_plan)."""
-    return _window_lookup_plain(cell0.to(torch.int64) >> level, index_map,
-                                level_shape)
+def aux_plans_plain(cell0: torch.Tensor, maps: Sequence[torch.Tensor],
+                    shapes: Sequence[Tuple[int, int, int]]) -> torch.Tensor:
+    """Plain PyTorch version of K14 (see aux_plans): the three levels'
+    plans stacked as the kernel writes them."""
+    c = cell0.to(torch.int64)
+    return torch.stack([_window_lookup_plain(c >> lvl, imap, shape)
+                        for lvl, imap, shape in zip((1, 2, 3), maps, shapes)])
 
 
-def aux_plan(cell0: torch.Tensor, level: int, index_map: torch.Tensor,
-             level_shape: Tuple[int, int, int]) -> torch.Tensor:
-    """Aux-branch ring plan of level `level`: [B, M0, 3] int32 level-0
-    zyx cells (-1 = padding) and the level's [B, D*H*W] index map ->
-    [B, 27, M0] int32 rows of the 3x3x3 neighbourhood of cell0 >> level
-    (taps (dz, dy, dx) row-major), -1 = missing: the host rulebook's
-    ``aux{L}`` plan. K14 on the card."""
+def aux_plans(cell0: torch.Tensor, maps: Sequence[torch.Tensor],
+              shapes: Sequence[Tuple[int, int, int]]) -> torch.Tensor:
+    """Aux-branch ring plans of levels 1-3: [B, M0, 3] int32 level-0 zyx
+    cells (-1 = padding), the three levels' [B, D*H*W] index maps and
+    their (D, H, W) grids -> [3, B, 27, M0] int32, level L at [L - 1]
+    (a contiguous view in the host rulebook's ``aux{L}`` format): the rows
+    of the 3x3x3 neighbourhood of cell0 >> L (taps (dz, dy, dx)
+    row-major), -1 = missing. K14 on the card, one launch for the three
+    levels."""
     if cell0.device.type == "cpu":
-        return aux_plan_plain(cell0, level, index_map, level_shape)
+        return aux_plans_plain(cell0, maps, shapes)
     cuda.check_cuda("cell0", cell0, torch.int32, 3)
-    cuda.check_cuda("index_map", index_map, torch.int32, 2)
-    b, m0, _ = cell0.shape
-    d, h, w = level_shape
-    if cell0.shape[2] != 3 or index_map.shape != (b, d * h * w):
-        raise ValueError(f"cell0 {tuple(cell0.shape)} / index_map "
-                         f"{tuple(index_map.shape)} do not fit {level_shape}")
-    with torch.cuda.device(cell0.device):
-        plan = torch.empty((b, 27, m0), dtype=torch.int32,
-                           device=cell0.device)
-        _K14.launch(cell0.data_ptr(), b, m0, int(level),
-                    index_map.data_ptr(), d, h, w, plan.data_ptr())
+    b, m0, k = cell0.shape
+    if k != 3 or len(maps) != 3 or len(shapes) != 3:
+        raise ValueError(f"cell0 {tuple(cell0.shape)} with {len(maps)} maps "
+                         f"and {len(shapes)} shapes: want [B, M0, 3] and 3")
+    for lvl, imap, (d, h, w) in zip((1, 2, 3), maps, shapes):
+        cuda.check_cuda(f"maps[{lvl - 1}]", imap, torch.int32, 2)
+        if imap.shape != (b, d * h * w):
+            raise ValueError(f"level {lvl}'s map {tuple(imap.shape)} is not "
+                             f"[{b}, {d * h * w}]")
+    plan = cell0.new_empty((3, b, 27, m0))
+    launch_on(_K14, cell0, cell0.data_ptr(), b, m0, maps[0].data_ptr(),
+              maps[1].data_ptr(), maps[2].data_ptr(), *shapes[0], *shapes[1],
+              *shapes[2], plan.data_ptr())
     return plan
 
 
@@ -717,8 +724,8 @@ def device_rulebook(keys0: torch.Tensor,
     rulebook's format (data.kitti.build_host_plans without the plan_
     prefix): subm0..2 and stride1..3 [B, 27, capL] int32 plans, and
     coords1..3 [B, capL, 3] int32; with `train` also strideT1..3 [B, 27,
-    cap_{L-1}] (K13) and, with `aux`, aux1..3 [B, 27, cap0] (K14), which
-    need the index map of level 3 too.
+    cap_{L-1}] (K13) and, with `aux`, aux1..3 [B, 27, cap0] (K14, one
+    launch for the three), which need the index map of level 3 too.
 
     keys0: [B, cap0] key-sorted level-0 keys; level_shapes: the four level
     grids; level_caps: the caps of levels 1..3; y_top: optional [B] int32
@@ -750,7 +757,8 @@ def device_rulebook(keys0: torch.Tensor,
             plans[f"subm{lvl}"] = window_plan(keys, shape, imap, shape, 1)
     if train and aux:
         cell0 = keys_to_coords(keys0, level_shapes[0])
+        aux_levels = aux_plans(cell0, [maps[lvl] for lvl in (1, 2, 3)],
+                               level_shapes[1:])
         for lvl in (1, 2, 3):
-            plans[f"aux{lvl}"] = aux_plan(cell0, lvl, maps[lvl],
-                                          level_shapes[lvl])
+            plans[f"aux{lvl}"] = aux_levels[lvl - 1]
     return plans

@@ -103,3 +103,95 @@ def k9_case(case):
         coords[0, :2 * len(edge), 1:] = edge + edge
         coords[0, 2 * len(edge)::7] = -1
     return cfg, corners, (h, w), coords
+
+
+# K12's cases, each two samples: "faces" points exactly on each face of
+# axis-aligned boxes (|lx| = w/2, |ly| = l/2, |dz| = h/2: inside) and one
+# float32 step past them (outside); "overlap" points in two overlapping
+# valid boxes (the first slot wins), the order reversed in the second
+# sample; "invalid_first" invalid slots that hold the point before the
+# valid winner; "no_valid_box" a first sample whose slots are all invalid;
+# "all_padded" a first sample whose points are all padding; "full_slots"
+# 64 valid slots; "interleaved" 64 slots, every other one invalid
+K12_CASES = ["faces", "overlap", "invalid_first", "no_valid_box",
+             "all_padded", "full_slots", "interleaved"]
+
+
+def k12_case(case):
+    """(points [2, N, 3] float32, points_valid [2, N] bool, gt_boxes [2, G,
+    7] float32, gt_valid [2, G] bool, want [2, N] int) of a K12 case: random
+    car-sized boxes with points around them, then the case's points placed
+    by hand. want: the slot whose box a placed point must take (G: none),
+    -1 for the random points."""
+    rng = np.random.default_rng(100 + K12_CASES.index(case))
+    g = 64 if case in ("full_slots", "interleaved") else 8
+    n = 600
+    gt = np.zeros((2, g, 7), np.float32)
+    gt[..., 0] = rng.uniform(0.5, 12.0, (2, g))
+    gt[..., 1] = rng.uniform(-6.0, 6.0, (2, g))
+    gt[..., 2] = rng.uniform(-1.8, -1.5, (2, g))
+    gt[..., 3:6] = rng.uniform([1.4, 3.2, 1.4], [1.9, 4.5, 1.8], (2, g, 3))
+    gt[..., 6] = rng.uniform(-np.pi, np.pi, (2, g))
+    gv = rng.uniform(size=(2, g)) < 0.8
+    if case == "full_slots":
+        gv[:] = True
+    if case == "interleaved":
+        gv[:] = np.arange(g) % 2 == 1
+    pick = rng.integers(0, g, (2, n))
+    centre = np.take_along_axis(gt[..., :3], pick[..., None], 1)
+    pts = (centre + rng.uniform([-2.5, -2.5, -0.5], [2.5, 2.5, 2.0],
+                                (2, n, 3))).astype(np.float32)
+    pv = rng.uniform(size=(2, n)) < 0.9
+    want = np.full((2, n), -1, np.int64)
+
+    def place(b, slot, box, points, slots):
+        gt[b, slot] = box
+        k = len(points)
+        pts[b, :k] = points
+        pv[b, :k] = True
+        want[b, :k] = slots
+    def up(a, b):                  # the next float32 after a towards b
+        return np.nextafter(np.float32(a), np.float32(b))
+    if case == "faces":
+        # x in [-1, 1], y in [-2, 2], z in [-1, 1]: every face exact
+        on = [(1, 0, 0), (-1, 0, 0), (0, 2, 0), (0, -2, 0), (0, 0, 1),
+              (0, 0, -1), (1, 2, 1), (-1, -2, -1)]
+        past = [(up(1, 2), 0, 0), (-up(1, 2), 0, 0), (0, up(2, 3), 0),
+                (0, -up(2, 3), 0), (0, 0, up(1, 2)), (0, 0, -up(1, 2))]
+        place(0, 0, (0, 0, -1, 2, 4, 2, 0), on + past,
+              [0] * len(on) + [g] * len(past))
+        gt[0, 1:, 0] += 20.0                 # the other boxes far away
+        # x in [2.25, 3.75], y in [-2.5, 0.5], z in [-1.5, -0.5]
+        on = [(3.75, -1, -1), (2.25, -1, -1), (3, 0.5, -1), (3, -2.5, -1),
+              (3, -1, -0.5), (3, -1, -1.5)]
+        past = [(up(3.75, 4), -1, -1), (up(2.25, 2), -1, -1),
+                (3, np.float32(-1) + up(1.5, 2), -1),     # dy exact
+                (3, -1, np.float32(-1) + up(0.5, 1))]     # dz exact
+        place(1, 0, (3, -1, -1.5, 1.5, 3, 1, 0), on + past,
+              [0] * len(on) + [g] * len(past))
+        gt[1, 1:, 0] += 20.0
+        gv[:, 0] = True
+    elif case == "overlap":
+        a, b = (0, 0, -1, 2, 4, 2, 0), (0.5, 0, -1, 2, 4, 2, 0.3)
+        inside_both = [(0.2, 0.1, 0), (0.4, -0.5, 0.5), (0.3, 1.0, -0.5)]
+        for s, (first, second) in enumerate(((a, b), (b, a))):
+            place(s, 2, first, inside_both, [2] * 3)
+            gt[s, 5] = second
+            gv[s, 2] = gv[s, 5] = True
+            gt[s, [i for i in range(g) if i not in (2, 5)], 0] += 20.0
+    elif case == "invalid_first":
+        box = (0, 0, -1, 2, 4, 2, 0.2)
+        for s in range(2):
+            for slot in (0, 1, 2, 4):
+                gt[s, slot] = box
+            gv[s, :5] = [False, False, False, True, True]
+            gt[s, 3] = (0.3, 0, -1, 2, 4, 2, -0.1)
+            place(s, 4, box, [(0.1, 0.2, 0), (-0.2, 0.5, 0.3)], [3, 3])
+            gt[s, 5:, 0] += 20.0
+    elif case == "no_valid_box":
+        gv[0] = False
+        want[0] = g
+    elif case == "all_padded":
+        pv[0] = False
+        want[0] = g
+    return pts, pv, gt, gv, want

@@ -32,9 +32,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from sassd_tpu_torch.ops.cuda import same_bits  # noqa: E402
-from test_torch_cases import (K9_CASES, K16_TILE,  # noqa: E402
-                              PARTITION_CASES, k9_case, partition_case,
-                              partition_rows)
+from test_torch_cases import (K9_CASES, K12_CASES, K16_TILE,  # noqa: E402
+                              PARTITION_CASES, k9_case, k12_case,
+                              partition_case, partition_rows)
 
 pytestmark = pytest.mark.cuda
 
@@ -992,25 +992,58 @@ def test_k11_cases_match_plain(dev, case):
     assert (w.cpu()[padded] == 0).all() and (w.cpu()[~padded] > 0).any()
 
 
-def test_k14_padded_rows_are_missing(dev):
-    """K14 writes -1 for all 27 taps of a padded level-0 row, wherever it
-    lies (K11 reads no plan for one), as its plain version does."""
+def k14_inputs(cfg, coords, shapes):
+    """Levels 1-3's index maps of tiny level-0 coords [B, M0, 3], built on
+    the CPU by the plain versions."""
     from sassd_tpu_torch.ops import sparse as sp
-    cfg, batch, shapes = tiny_rulebook(12)
-    cell0 = torch.from_numpy(batch["coords"].copy())
-    cell0[:, ::3] = -1                                # padding in between
-    padded = cell0[..., 0] < 0
-    keys = sp.coords_to_keys(torch.from_numpy(batch["coords"]), shapes[0])
+    keys = sp.coords_to_keys(torch.from_numpy(coords), shapes[0])
+    maps = []
     for level in (1, 2, 3):
         keys = sp.downsample_keys_plain(keys, shapes[level - 1],
                                         cfg.caps.level_caps[level])
-        imap = sp.build_index_map(keys, shapes[level])
-        got = sp.aux_plan(cell0.to(dev), level, imap.to(dev), shapes[level])
-        torch.cuda.synchronize()
-        ref = sp.aux_plan_plain(cell0, level, imap, shapes[level])
-        assert torch.equal(got.cpu(), ref)
-        assert (got.cpu().transpose(1, 2)[padded] == -1).all()
-        assert (got.cpu().transpose(1, 2)[~padded] >= 0).any()
+        maps.append(sp.build_index_map(keys, shapes[level]))
+    return maps
+
+
+def test_k14_padded_rows_are_missing(dev):
+    """K14 writes -1 for all 27 taps of a padded level-0 row, wherever it
+    lies (K11 reads no plan for one), at every level, as its plain version
+    does."""
+    from sassd_tpu_torch.ops import sparse as sp
+    cfg, batch, shapes = tiny_rulebook(12)
+    maps = k14_inputs(cfg, batch["coords"], shapes)
+    cell0 = torch.from_numpy(batch["coords"].copy())
+    cell0[:, ::3] = -1                                # padding in between
+    padded = cell0[..., 0] < 0
+    got = sp.aux_plans(cell0.to(dev), [m.to(dev) for m in maps], shapes[1:])
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), sp.aux_plans_plain(cell0, maps, shapes[1:]))
+    taps = got.cpu().permute(0, 1, 3, 2)              # [3, B, M0, 27]
+    assert (taps[:, padded] == -1).all()
+    assert all((taps[lvl][~padded] >= 0).any() for lvl in range(3))
+
+
+def test_k14_three_levels_in_one_launch(dev):
+    """One aux_plans call launches K14 once and writes the three levels'
+    plans, each a contiguous [B, 27, M0] view, equal to the plain
+    version's and to the C++ train rulebook's aux plans."""
+    from sassd_tpu_torch.ops import sparse as sp
+    cfg, batch, shapes = tiny_rulebook(13)
+    maps = k14_inputs(cfg, batch["coords"], shapes)
+    cell0 = torch.from_numpy(batch["coords"])
+    before = sp._K14.launches
+    got = sp.aux_plans(cell0.to(dev), [m.to(dev) for m in maps], shapes[1:])
+    torch.cuda.synchronize()
+    assert sp._K14.launches == before + 1
+    ref = sp.aux_plans_plain(cell0, maps, shapes[1:])
+    b, m0, _ = cell0.shape
+    assert got.shape == (3, b, 27, m0)
+    for lvl in (1, 2, 3):
+        assert got[lvl - 1].is_contiguous()
+        assert torch.equal(got[lvl - 1].cpu(), ref[lvl - 1])
+        np.testing.assert_array_equal(got[lvl - 1].cpu().numpy(),
+                                      batch[f"plan_aux{lvl}"].astype(np.int32))
+
 
 def test_k12_matches_plain(dev):
     from sassd_tpu_torch.core import boxes
@@ -1033,6 +1066,27 @@ def test_k12_matches_plain(dev):
     cpu_label, _ = boxes.aux_targets_plain(*args)
     assert torch.equal(label.cpu(), cpu_label)
     assert 0 < int(label.sum()) < b * n
+
+
+@pytest.mark.parametrize("case", K12_CASES)
+def test_k12_edge_cases_bitwise(dev, case):
+    """K12 bitwise its plain version on the card (labels and offsets) on
+    points exactly on and one float32 step past the faces, overlapping
+    boxes, invalid slots before the winner, a sample with no valid box, an
+    all-padded sample, 64 valid slots and 64 slots every other one
+    invalid; the placed points take the slot the case names."""
+    from sassd_tpu_torch.core import boxes
+    pts, pv, gt, gv, want = k12_case(case)
+    args = [torch.from_numpy(a).to(dev) for a in (pts, pv, gt, gv)]
+    label, off = boxes.aux_targets(*args)
+    torch.cuda.synchronize()
+    ref_label, ref_off = boxes.aux_targets_plain(*args)
+    assert torch.equal(label, ref_label) and same_bits(off, ref_off)
+    known = torch.from_numpy(want >= 0)
+    assert torch.equal(label.cpu()[known],
+                       torch.from_numpy(want < gt.shape[1])[known])
+    if case in ("no_valid_box", "all_padded"):
+        assert not label[0].any() and label[1].any()
 
 
 def test_k3b_matches_autograd_of_plain(dev):
@@ -1237,8 +1291,9 @@ def test_k13_k14_train_rulebook_matches_plain_and_host(dev):
     got = sp.device_rulebook(keys0.to(dev), shapes, cfg.caps.level_caps[1:],
                              train=True)
     torch.cuda.synchronize()
+    # K13 once a level; K14 once for the three levels
     assert (sp._K13.launches, sp._K14.launches) == (before[0] + 3,
-                                                    before[1] + 3)
+                                                    before[1] + 1)
     ref = sp.device_rulebook(keys0, shapes, cfg.caps.level_caps[1:],
                              train=True)
     assert sorted(got) == sorted(ref)
@@ -1369,10 +1424,11 @@ def test_train_plan_wrappers_reject_bad_inputs(dev):
         sp.stride_plan_T(plan[:, :9].contiguous(), 8)
     cell0 = torch.zeros((1, 8, 3), dtype=torch.int32, device=dev)
     imap = torch.zeros((1, 24), dtype=torch.int32, device=dev)
+    shapes = [(2, 3, 4)] * 3
     with pytest.raises(ValueError):                      # map of another grid
-        sp.aux_plan(cell0, 1, imap, (2, 3, 5))
+        sp.aux_plans(cell0, [imap] * 3, shapes[:2] + [(2, 3, 5)])
     with pytest.raises(ValueError):                      # map on the host
-        sp.aux_plan(cell0, 1, imap.cpu(), (2, 3, 4))
+        sp.aux_plans(cell0, [imap, imap.cpu(), imap], shapes)
     q = torch.zeros((1, 8, 3), device=dev)
     k = torch.zeros((1, 6, 3), device=dev)
     f = torch.zeros((1, 6, 16), device=dev)
@@ -1427,7 +1483,7 @@ def test_tiny_three_class_device_plans_step_card_matches_cpu(dev, aux):
     need += (list(sp.KERNEL_SYMBOLS["K14"]) if aux == "ring"
              else list(interpolate.KERNEL_SYMBOLS["K15"]))
     assert set(need) <= ran, ran
-    assert (aux == "ring") == ("sassd_aux_plan" in ran)
+    assert (aux == "ring") == bool(ran & set(sp.KERNEL_SYMBOLS["K14"]))
     (cl, cg), (gl, gg) = out["cpu"], out[str(dev)]
     for k, v in cl.items():
         assert abs(gl[k] - v) <= 1e-4 * max(abs(v), 1e-6), (k, gl[k], v)

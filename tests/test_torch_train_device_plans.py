@@ -75,6 +75,16 @@ def level_shapes(cfg):
     return shapes
 
 
+def level_keys_and_maps(coords0, shapes, caps):
+    """Levels 1-3 of level-0 coords [B, M0, 3]: their key-sorted keys
+    (K7's plain version) and index maps (K6's), two lists."""
+    keys = [sp.coords_to_keys(coords0, shapes[0])]
+    for lvl in (1, 2, 3):
+        keys.append(sp.downsample_keys(keys[-1], shapes[lvl - 1], caps[lvl]))
+    return keys[1:], [sp.build_index_map(k, s)
+                      for k, s in zip(keys[1:], shapes[1:])]
+
+
 def tiny_scans(seed, batch_size=2):
     cfg = config.tiny_config()
     return cfg, synthetic.make_random_batch(
@@ -119,14 +129,10 @@ def test_aux_plan_matches_jax_and_host_rulebook(level):
     keys of the level (and bitwise, the levels being equal)."""
     cfg, batch = tiny_scans(7)
     shapes = level_shapes(cfg)
-    keys0 = sp.coords_to_keys(torch.from_numpy(batch["coords"]), shapes[0])
-    keys = keys0
-    for lvl in range(1, level + 1):
-        keys = sp.downsample_keys(keys, shapes[lvl - 1],
-                                  cfg.caps.level_caps[lvl])
-    imap = sp.build_index_map(keys, shapes[level])
     cell0 = torch.from_numpy(batch["coords"])
-    got = sp.aux_plan(cell0, level, imap, shapes[level]).numpy()
+    keys, maps = level_keys_and_maps(cell0, shapes, cfg.caps.level_caps)
+    keys = keys[level - 1]
+    got = sp.aux_plans(cell0, maps, shapes[1:])[level - 1].numpy()
     host = batch[f"plan_aux{level}"].astype(np.int32)
     np.testing.assert_array_equal(got, host)
     hkeys = sp.coords_to_keys(torch.from_numpy(
@@ -173,21 +179,73 @@ def test_aux_plans_of_padded_queries_are_missing(maker):
                     for lvl in (1, 2, 3)]
         else:
             shapes = level_shapes(cfg)
-            keys = sp.coords_to_keys(cell0, shapes[0])
+            _, maps = level_keys_and_maps(cell0, shapes,
+                                          cfg.caps.level_caps)
             cell0 = cell0.clone()
             cell0[:, 1::4] = -1                       # padding in between
-            auxs = []
-            for lvl in (1, 2, 3):
-                keys = sp.downsample_keys(keys, shapes[lvl - 1],
-                                          cfg.caps.level_caps[lvl])
-                auxs.append(sp.aux_plan(cell0, lvl, sp.build_index_map(
-                    keys, shapes[lvl]), shapes[lvl]))
+            auxs = sp.aux_plans(cell0, maps, shapes[1:])
     padded = cell0[..., 0] < 0
     assert 0.2 < padded.float().mean() < 0.9
     for aux in auxs:
         taps = aux.transpose(1, 2)                    # [B, M0, 27]
         assert (taps[padded] == -1).all()
         assert (taps[~padded] >= 0).any()
+
+AUX_CASES = ["scan", "padded_between", "band_rows", "all_padded_sample"]
+
+
+def aux_case(case):
+    """(level-0 coords the levels are built from [B, M0, 3], the queried
+    level-0 cells [B, M0, 3], the four level grids, the four caps) of a
+    K14 case: a tiny scan; the same with every fourth row padded in the
+    query; the band rows of the banded stage (each band's padding past
+    its members); a scan beside an all-padded sample."""
+    if case == "band_rows":
+        from sassd_tpu_torch.models import backbone
+        from sassd_tpu_torch.parallel import sparse_spatial as ss
+        from test_torch_banded import band_rows
+        cfg, spec, bc, _, _, _ = band_rows(3)
+        coords = bc.reshape(-1, bc.shape[2], 3)
+        return (coords, coords,
+                backbone.level_shapes(ss.band_shape(cfg, spec)), spec.caps)
+    cfg, batch = tiny_scans(8)
+    coords = torch.from_numpy(batch["coords"])
+    cell0 = coords
+    if case == "padded_between":
+        cell0 = coords.clone()
+        cell0[:, 1::4] = -1
+    if case == "all_padded_sample":
+        coords[1] = -1
+    return coords, cell0, level_shapes(cfg), cfg.caps.level_caps
+
+
+@pytest.mark.parametrize("case", AUX_CASES)
+def test_aux_plans_three_levels_match_jax_and_host(case):
+    """The three levels of one aux_plans call == JAX build_aux_plan of
+    levels 1-3 == the C++ train rulebook's aux plans (a row padded in the
+    query only: all -1), bitwise."""
+    coords, cell0, shapes, caps = aux_case(case)
+    keys, maps = level_keys_and_maps(coords, shapes, caps)
+    got = sp.aux_plans(cell0, maps, shapes[1:])
+    b, m0, _ = cell0.shape
+    assert got.shape == (3, b, 27, m0) and got.dtype == torch.int32
+    padded = cell0[..., 0] < 0
+    for i in range(b):
+        cpp = native.build_plans_cpp(coords[i].numpy(), shapes[0], caps,
+                                     train=True)
+        for lvl in (1, 2, 3):
+            jmap = jsp.build_index_map(jnp.asarray(keys[lvl - 1][i].numpy()),
+                                       shapes[lvl], keys_sorted=True)
+            ref = np.asarray(jsp.build_aux_plan(jnp.asarray(cell0[i].numpy()),
+                                                lvl, jmap, shapes[lvl]))
+            np.testing.assert_array_equal(got[lvl - 1, i].numpy(), ref)
+            np.testing.assert_array_equal(
+                got[lvl - 1, i].numpy(),
+                np.where(padded[i].numpy(), -1, cpp[f"aux{lvl}"]))
+    assert (got.permute(0, 1, 3, 2)[:, padded] == -1).all()
+    assert all(int((got[lvl] >= 0).sum()) > 100 for lvl in range(3))
+    assert padded.any() == (case != "scan")
+
 
 @pytest.mark.parametrize("aux", [True, False])
 def test_device_rulebook_train_matches_host_rulebook(aux):

@@ -32,6 +32,7 @@ from sassd_tpu_torch.core import boxes  # noqa: E402
 from sassd_tpu_torch.data import synthetic  # noqa: E402
 from sassd_tpu_torch.models import layers  # noqa: E402
 from sassd_tpu_torch.ops import interpolate, sparse as sp, warp  # noqa: E402
+from test_torch_cases import K12_CASES, k12_case  # noqa: E402
 from test_torch_cuda import k5_edge_case  # noqa: E402
 
 RTOL = 1e-5
@@ -320,6 +321,47 @@ def test_points_in_boxes_and_aux_targets_match_jax():
         np.testing.assert_array_equal(label[i].numpy(), lab)
         np.testing.assert_array_equal(off[i].numpy(), ref)
     assert 10 < int(label.sum()) < b * n
+
+
+def jax_targets_one(pts, pvalid, gt, gv):
+    """JAX points_in_boxes3d with the masking of detector.aux_loss's
+    targets_one, on one sample."""
+    flags = jboxes.points_in_boxes3d(jnp.asarray(pts), jnp.asarray(gt))[0]
+    flags = flags & jnp.asarray(gv)[None, :] & jnp.asarray(pvalid)[:, None]
+    label = jnp.any(flags, axis=1)
+    centers = jnp.asarray(gt)[:, :3].at[:, 2].add(jnp.asarray(gt)[:, 5] * 0.5)
+    offsets = jnp.where(label[:, None],
+                        jnp.asarray(pts) - centers[jnp.argmax(flags, axis=1)],
+                        0.0)
+    return np.asarray(label), np.asarray(offsets)
+
+
+@pytest.mark.parametrize("case", K12_CASES)
+def test_aux_targets_plain_matches_jax_on_edge_cases(case):
+    """K12's plain version == JAX's targets, bitwise, on points exactly on
+    and one float32 step past the faces, overlapping boxes (the first
+    valid slot wins), invalid slots before the winner, a sample without a
+    valid box, an all-padded sample, and 64 slots all valid or every
+    other one invalid; the placed points take the slot the case names."""
+    pts, pv, gt, gv, want = k12_case(case)
+    label, off = boxes.aux_targets_plain(t(pts), t(pv), t(gt), t(gv))
+    label, off = label.numpy(), off.numpy()
+    for i in range(2):
+        jlabel, joff = jax_targets_one(pts[i], pv[i], gt[i], gv[i])
+        np.testing.assert_array_equal(label[i], jlabel)
+        np.testing.assert_array_equal(off[i].view(np.int32),
+                                      joff.view(np.int32))
+    g = gt.shape[1]
+    known = want >= 0
+    np.testing.assert_array_equal(label[known], want[known] < g)
+    hit = known & (want < g)
+    slot = np.where(hit, want, 0)
+    centre = np.take_along_axis(gt[..., :3], slot[..., None], 1)
+    centre[..., 2] += np.take_along_axis(gt[..., 5], slot, 1) * np.float32(0.5)
+    np.testing.assert_array_equal(off[hit], (pts - centre)[hit])
+    assert (off[known & ~hit] == 0).all()
+    if case in ("no_valid_box", "all_padded"):
+        assert not label[0].any() and label[1].any()
 
 
 def test_pswarp_score_grads_match_jax():
