@@ -63,8 +63,9 @@ Phases, each of which fails the run (nonzero exit, no result line):
    the exact aux, launch counters reset just before and read just after:
    K6, K7 and K13 must launch in both, K14 in the ring run only, K15 and
    K11's backward in the exact run; every logged loss finite, no update
-   skipped. One batch-1 step of each must launch K14 once (the three
-   levels' aux plans in one launch; ring) or not at all (exact). The steps
+   skipped. One batch-1 step of each must launch K13 once (the three
+   levels' transpose plans in one launch) and K14 once (the three levels'
+   aux plans in one launch; ring) or not at all (exact). The steps
    at batch 1 and 2 are timed beside a host-plans step.
 
 9. long range (long_range_config(), grid [40, 1600, 2048], 102,400
@@ -88,8 +89,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
    inputs one float32 ulp off); then
    train_model of the banded config for 2 steps at batch 2 (8 band rows):
    K16, K7 and K11 (with a limit, with origins) must launch, every logged
-   loss finite, band_overflow 0; one banded train step must launch K14
-   once. Timed: the timing scan at batch 1, banded
+   loss finite, band_overflow 0; one banded train step must launch K13
+   and K14 once each. Timed: the timing scan at batch 1, banded
    and replicated in turns, and the train step at batch 2.
 
 Phase 3 holds K1 (rotated overlap) in all four criteria within K1_ATOL
@@ -114,16 +115,21 @@ interpolation, forward and backward), K12 (aux targets), K3b (PSWarp
 backward, also bitwise equal over two calls, there and on phase 7's first
 train step's inputs) and K5b (densify backward); and the kernels of
 training on
-device plans, at batch 2 on the same scans: K13 (transpose plans) and K14
+device plans, at batch 2 on the same scans: K13 (the three levels'
+transpose plans, one call; also against the forward stride plans
+inverted, its parent design, and again at phase 9's band rows) and K14
 (the three levels' aux ring plans, one call) against their plain versions
 and the C++ train rulebook, bitwise, and K15 (exact 3-NN) at the full
 level sizes (rows, weights and output bitwise, its backward through
 K11's).
 
-K5, K5b, K6's level-0 map, K7 (the whole op, batch 1) and K13 are also
-timed beside one PyTorch call that computes their work (library_ms), a
-yardstick the port never calls; no single call computes K1's, K2's, K8's
-or K9's function. K6's map and its yardstick are also replayed in turns
+K5, K5b, K6's level-0 map, K7 (the whole op; with a limit, at the band
+rows) and K13 are also timed beside one PyTorch call that computes their
+work (library_ms), a yardstick the port never calls; no single call
+computes K1's, K2's, K4's, K8's, K9's, K10's or K15's function (each row
+says why). K6's other launches of a train step at batch 1 (the maps of
+levels 1-3, the subm and stride plans) print torch.profiler's time beside
+their bounds. K6's map and its yardstick are also replayed in turns
 (map, yardstick, yardstick, map). K8's rows carry the parent design's
 torch.sort of the same keys alone (sort_ms). K3 (at 2 x 2048 boxes and
 at the serving shape: phase 6's first scan's part map and guided boxes,
@@ -148,8 +154,10 @@ K1, K2, K8, K9, K11, K11' and K16 also print torch.profiler's device
 time by kernel
 (kernel_split) after their timed runs, as a diagnostic only: those
 totals have read below the replay of the same call, so no row carries
-them. K12 (batch 2) and K14 (its three levels in one call, at batch 2 and
-at phase 8's batch-1 shape) are read four ways, each in their row: events
+them. K12 (batch 2), K13 (its three levels in one call, at batch 2 and
+at phase 9's band rows, beside its yardstick read the same way) and K14
+(its three levels in one call, at batch 2 and at phase 8's batch-1 shape)
+are read four ways, each in their row: events
 (ms), replay (graph_ms), torch.profiler's kernel time (profiler_ms, with
 kernel_split: the ranking of device time, since a lone replay reads
 0.006-0.015 ms even for a one-element fill) and the host clock a call
@@ -310,10 +318,10 @@ def cold_ms(fn, iters: int = 20) -> float:
     return total / iters
 
 
-def kernel_split(fn, iters: int = 10) -> dict:
+def kernel_split(fn, iters: int = 10, counts: dict = None) -> dict:
     """Device milliseconds per call of each kernel (and memset) that fn()
     runs, by name, from torch.profiler over `iters` calls: the parts of one
-    wrapper call."""
+    wrapper call. `counts`, where given, receives each name's launches."""
     import re
     import torch
     from torch.autograd import DeviceType
@@ -332,6 +340,8 @@ def kernel_split(fn, iters: int = 10) -> dict:
                           e.key).split("(")[0][:60]
             out[name] = out.get(name, 0.0) + (e.self_device_time_total
                                               / iters / 1e3)
+            if counts is not None:
+                counts[name] = counts.get(name, 0) + e.count
     return out
 
 
@@ -414,9 +424,10 @@ def measured(fn, what: str, iters: int = 20) -> dict:
     0.006-0.015 ms even for a one-element fill), the host path by ms and
     host_us."""
     t = timed(fn, iters)
-    for _ in range(3):      # the profiler can return no kernel for a call
-        split = kernel_split(fn)
-        if split:
+    for _ in range(3):      # the profiler can drop some calls' kernels
+        counts = {}
+        split = kernel_split(fn, counts=counts)
+        if split and min(counts.values()) >= 10:
             break
     host_us, host_text = host_split(fn)
     print(f"  {what}: kernel {fmt_timed(t)}; profiler "
@@ -869,6 +880,9 @@ def check_sparse_kernels(torch, np, device, cfg, samples):
                      ms=sum(n * m for _, n, _, m, *_ in k4),
                      plain_ms=sum(n * m for _, n, _, _, m, *_ in k4),
                      library_ms=None,
+                     library_what="none: the 27 taps' row gather and the "
+                                  "product are separate calls (conv3d is "
+                                  "dense, not the submanifold function)",
                      at="batch 1, one scan's forward: the ladder's 10 convs,"
                         " launches x ms summed",
                      per_shape={name: dict(convs=n, ms=m, plain_ms=pm,
@@ -1000,12 +1014,52 @@ def check_sparse_kernels(torch, np, device, cfg, samples):
     print("  K6 L0 map against its yardstick in turns, replayed: "
           + "; ".join(f"{w} {', '.join(f'{t:.4f}' for t in ts)}"
                       for w, ts in turns))
+    # K6's other launches of a train step at batch 1 (the maps of levels
+    # 1-3, the subm and stride plans), each by torch.profiler's device time
+    # a call (its map's memset included) beside its bound: keys in, a map
+    # written whole, a plan written whole with 27 map reads a valid row
+    lk = [keys0]
+    for lvl in (1, 2, 3):
+        lk.append(sp.downsample_keys(lk[-1], shapes[lvl - 1], caps[lvl]))
+    lmaps = [sp.build_index_map(k, sh) for k, sh in zip(lk, shapes)]
+    parts = {}
+    for lvl in range(4):
+        m = lk[lvl].shape[1]
+        n = int((lk[lvl] != sp.INVALID_KEY).sum())
+        plan_bd = bound(m * 4 + 27 * m * 4 + 27 * n * 4, 0)
+        if lvl:
+            total = shapes[lvl][0] * shapes[lvl][1] * shapes[lvl][2]
+            parts[f"L{lvl} map"] = (
+                lambda lvl=lvl: sp.build_index_map(lk[lvl], shapes[lvl]),
+                bound(m * 4 + total * 4, 0))
+            parts[f"stride{lvl} plan"] = (
+                lambda lvl=lvl: sp.window_plan(lk[lvl], shapes[lvl],
+                                               lmaps[lvl - 1],
+                                               shapes[lvl - 1], 2), plan_bd)
+        if lvl < 3:
+            parts[f"subm{lvl} plan"] = (
+                lambda lvl=lvl: sp.window_plan(lk[lvl], shapes[lvl],
+                                               lmaps[lvl], shapes[lvl], 1),
+                plan_bd)
+    k6_parts = {}
+    for what, (fn, bd) in parts.items():
+        split = kernel_split(fn)
+        prof = sum(split.values()) if split else None
+        k6_parts[what] = dict(profiler_ms=prof, kernel_split=split,
+                              bound_ms=bd["bound_ms"],
+                              bound_bytes=bd["bound_bytes"])
+    del lmaps
+    print("  K6's other launches, batch 1 (profiler ms a call / bound ms): "
+          + "; ".join(f"{w} " + ("not measured" if v["profiler_ms"] is None
+                                 else f"{v['profiler_ms']:.4f}")
+                      + f" / {v['bound_ms']:.4f}"
+                      for w, v in k6_parts.items()))
     rows.append(dict(name="K6 device_plans", route="cuda",
                      source="sassd_tpu_torch/csrc/device_plans.cu",
                      replaces="sassd_tpu/ops/sparse.py:84",
                      max_abs_err=err6, ms=ms, plain_ms=plain_ms,
                      map_ms=map_ms, map_graph_ms=map_graph_ms,
-                     map_turns_graph_ms=turns,
+                     map_turns_graph_ms=turns, other_launches=k6_parts,
                      library_ms=lib6_ms, library_graph_ms=lib6_graph_ms,
                      library_what="torch.full(-1) + index_put_ of the valid "
                                   "rows: the L0 map alone, against map_ms",
@@ -1027,14 +1081,17 @@ def k7_row(torch, sp, keys, shape, cap, err, name, at, y_limit=None):
     plain_ms = cuda_ms(lambda: sp.downsample_keys_plain(keys, shape, cap,
                                                         y_limit))
     b = keys.shape[0]
-    lib_ms = None
+    cands = sp.downsample_candidates(keys, shape, y_limit)
     if b == 1:
-        cands = sp.downsample_candidates(keys, shape, y_limit)[0]
-        lib_ms = cuda_ms(lambda: torch.unique(cands))
+        cands = cands[0]
+    else:
+        # rows apart: each row's candidates offset by row * 2^31 (int64)
+        cands = cands.to(torch.int64) + (torch.arange(
+            b, device=keys.device)[:, None] << 31)
+    lib_ms = cuda_ms(lambda: torch.unique(cands))
     print(f"  {name} ({at}): kernel {ms:.4f} ms ({dev_ms:.4f} replayed from "
           f"a CUDA graph), plain {plain_ms:.4f} ms; torch.unique of the "
-          f"{8 * keys.shape[1]} candidates "
-          f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}")
+          f"{8 * keys.numel()} candidates {lib_ms:.4f} ms")
     return dict(name=name, route="cuda",
                 source="sassd_tpu_torch/csrc/downsample.cu",
                 replaces="sassd_tpu/ops/sparse.py:618" if y_limit is None
@@ -1045,7 +1102,8 @@ def k7_row(torch, sp, keys, shape, cap, err, name, at, y_limit=None):
                 # which a CUDA graph cannot capture
                 library_graph_ms=None,
                 library_what="torch.unique of the candidates (sorted, "
-                             "uncapped); batch 1 only",
+                             "uncapped; rows apart by an offset of row x "
+                             "2^31 past batch 1)",
                 at=at,
                 # the function's bytes: keys (and limits) in, the capped
                 # levels out; 8 parent keys a row
@@ -1497,6 +1555,8 @@ def check_train_kernels(torch, np, device, cfg, samples, gts):
                      ms=sum(n * m for _, n, _, m, *_ in k10),
                      plain_ms=sum(n * m for _, n, _, _, m, *_ in k10),
                      library_ms=None,
+                     library_what="none: each tap's row gathers and its "
+                                  "product are separate calls",
                      at="batch 2, one train step's weight gradients: the "
                         "ladder's 10 convs, launches x ms summed",
                      per_shape={name: dict(convs=n, ms=m, plain_ms=pm,
@@ -1690,6 +1750,95 @@ def k14_bound(torch, cell0, shapes) -> dict:
                         0), map_cells_read=cells)
 
 
+def k13_bound(torch, keys, shapes) -> dict:
+    """K13's bound: the keys of levels 0-2 read once, the three [B, 27, M]
+    int32 plans written once, and each distinct 32-byte sector of the
+    level maps that a live tap reads (a sector is the least the card
+    reads), at this run's rows."""
+    from sassd_tpu_torch.ops import sparse as sp
+    dev = keys[0].device
+    taps = torch.tensor([(dz, dy, dx) for dz in (-1, 0, 1)
+                         for dy in (-1, 0, 1) for dx in (-1, 0, 1)],
+                        device=dev)
+    nbytes = sectors = live_taps = 0
+    for lvl, k in enumerate(keys):
+        b, m = k.shape
+        nbytes += k.numel() * 4 + 27 * k.numel() * 4
+        c = sp.keys_to_coords(k, shapes[lvl]).to(torch.int64)
+        valid = c[..., 0] >= 0
+        q = c[valid][:, None, :] - taps                        # [n, 27, 3]
+        od, oh, ow = shapes[lvl + 1]
+        live = ((q >= 0) & (q % 2 == 0)
+                & (q // 2 < torch.tensor([od, oh, ow], device=dev))).all(-1)
+        p = q // 2
+        sample = torch.arange(b, device=dev)[:, None].expand(b, m)[valid]
+        lin = (sample[:, None] * (od * oh * ow)
+               + (p[..., 0] * oh + p[..., 1]) * ow + p[..., 2])
+        sectors += int(torch.unique(lin[live] // 8).numel())
+        live_taps += int(live.sum())
+    return dict(**bound(nbytes + sectors * 32, 0), map_sectors_read=sectors,
+                live_taps=live_taps)
+
+
+def k13_check(torch, what: str, keys, maps, shapes, strides, host=None):
+    """K13's one call for the three levels (keys of levels 0-3, index maps
+    of levels 1-3, the four grids) held bitwise against its plain version,
+    the forward stride plans inverted and, where given, the C++ train
+    rulebook's strideT plans; read four ways by measured() beside its
+    yardstick (torch.full + index_put_ of the forward plans' found
+    entries, the three levels, also by measured()). Returns its row."""
+    from sassd_tpu_torch.ops import sparse as sp
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    # the parent design, the forward plans inverted: the tests' oracle
+    from test_torch_cases import invert_stride_plan
+
+    def k13():
+        return sp.stride_plans_T(keys[:3], maps, shapes)
+    got = k13()
+    ref = sp.stride_plans_T_plain(keys[:3], maps, shapes)
+    diff, puts = {}, []
+    for lvl, (g, r, fwd) in enumerate(zip(got, ref, strides), 1):
+        inv = invert_stride_plan(fwd, keys[lvl - 1].shape[1])
+        diff[f"strideT{lvl}"] = (int((g != r).sum()), int((g != inv).sum()),
+                                 None if host is None
+                                 else int((g != host[lvl - 1]).sum()))
+        bk, kk, oo = torch.nonzero(fwd >= 0, as_tuple=True)
+        puts.append((tuple(g.shape), (bk, kk, fwd[bk, kk, oo].long()),
+                     oo.to(torch.int32)))
+    err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+    print(f"K13 stride_plans_T, {what}: entries differing (from plain, from "
+          f"the forward plans inverted, from the C++ train rulebook): "
+          f"{diff}; max|kernel-plain| {err:g}")
+    if any(v for d in diff.values() for v in d):
+        fail(f"K13 differs from its plain version, the inverted forward "
+             f"plans or the C++ train rulebook ({what})")
+
+    def put13():
+        for shape, idx, val in puts:
+            out = torch.full(shape, -1, dtype=torch.int32,
+                             device=keys[0].device)
+            out.index_put_(idx, val)
+    t = measured(k13, f"K13 stride_plans_T, {what}", iters=100)
+    lib = measured(put13, f"K13's yardstick (torch.full + index_put_, three "
+                          f"levels), {what}", iters=100)
+    plain_ms = cuda_ms(lambda: sp.stride_plans_T_plain(keys[:3], maps,
+                                                       shapes))
+    bd = k13_bound(torch, keys[:3], shapes)
+    print(f"  K13 bound, {what}: {bd['bound_ms']:.4f} ms (bytes: plans "
+          f"written, keys read, {bd['map_sectors_read']} map sectors of 32 "
+          f"bytes for {bd['live_taps']} live taps); plain {plain_ms:.4f} ms")
+    return dict(name="K13 stride_plans_T", route="cuda",
+                source="sassd_tpu_torch/csrc/device_plans.cu",
+                replaces="sassd_tpu/ops/sparse.py:732", max_abs_err=err,
+                **t, plain_ms=plain_ms, library_ms=lib["ms"],
+                library_graph_ms=lib["graph_ms"],
+                library_profiler_ms=lib["profiler_ms"],
+                library_host_us=lib["host_us"],
+                library_what="torch.full(-1) + index_put_ of the forward "
+                             "plans' found entries, the three levels",
+                at=what, **bd)
+
+
 def level_centers(np, cfg, coords, level):
     """Cell centres [B, M, 3] xyz of a level's zyx coords (the aux branch's
     known points of the exact 3-NN)."""
@@ -1701,11 +1850,12 @@ def level_centers(np, cfg, coords, level):
 
 def check_train_plan_kernels(torch, np, device, cfg, samples):
     """Phase 3, the kernels of training without host plans, at batch 2 on
-    the train plans of the first two car scans: K13 (transpose plans) and
-    K14 (aux ring plans) against their plain versions and the C++ train
-    rulebook, bitwise; K15 (exact 3-NN) against its plain version at the
-    full level sizes: rows, weights and features bitwise, and its backward
-    (K11's) within TRAIN_GRAD_RTOL."""
+    the train plans of the first two car scans: K13 (transpose plans, also
+    against the forward plans inverted) and K14 (aux ring plans) against
+    their plain versions and the C++ train rulebook, bitwise; K15 (exact
+    3-NN) against its plain version at the full level sizes: rows, weights
+    and features bitwise, and its backward (K11's) within
+    TRAIN_GRAD_RTOL."""
     from sassd_tpu_torch.ops import interpolate as itp
     from sassd_tpu_torch.ops import sparse as sp
 
@@ -1719,80 +1869,31 @@ def check_train_plan_kernels(torch, np, device, cfg, samples):
     cell0 = batch["coords"]
     rows = []
 
-    # K13 at the three levels
-    k13, diff, err = [], {}, {}
-    for lvl in (1, 2, 3):
-        plan = batch[f"plan_stride{lvl}"].to(torch.int32)
-        got = sp.stride_plan_T(plan, caps[lvl - 1])
-        ref = sp.stride_plan_T_plain(plan, caps[lvl - 1])
-        host = batch[f"plan_strideT{lvl}"].to(torch.int32)
-        diff[f"strideT{lvl}"] = (int((got != ref).sum()),
-                                 int((got != host).sum()))
-        err[f"strideT{lvl}"] = float((got - ref).abs().max())
-        # K13 and its yardstick over 100 calls each, by events and as
-        # CUDA-graph replays
-        ms = cuda_ms(lambda: sp.stride_plan_T(plan, caps[lvl - 1]),
-                     iters=100)
-        dev_ms = graph_ms(lambda: sp.stride_plan_T(plan, caps[lvl - 1]),
-                          iters=100)
-        plain_ms = cuda_ms(lambda: sp.stride_plan_T_plain(plan,
-                                                          caps[lvl - 1]))
-        # one torch.full + index_put_ of the plan's found entries
-        bk, kk, oo = torch.nonzero(plan >= 0, as_tuple=True)
-        put_idx = (bk, kk, plan[bk, kk, oo].long())
-        put_val = oo.to(torch.int32)
-        shape_t = tuple(got.shape)
-
-        def put13():
-            out = torch.full(shape_t, -1, dtype=torch.int32, device=device)
-            out.index_put_(put_idx, put_val)
-        lib_ms = cuda_ms(put13, iters=100)
-        k13.append((lvl, ms, plain_ms, dict(
-            bound(plan.numel() * 4 + got.numel() * 4, 0), graph_ms=dev_ms,
-            library_graph_ms=graph_ms(put13, iters=100)), lib_ms))
+    # K13: the three levels' transpose plans in one call, from the keys of
+    # levels 0-2 and the index maps of levels 1-3 (K14 reads the same maps)
+    keys = [sp.coords_to_keys(cell0, shapes[0])] + [
+        sp.coords_to_keys(batch[f"plan_coords{lvl}"], shapes[lvl])
+        for lvl in (1, 2, 3)]
+    maps = [sp.build_index_map(k, s) for k, s in zip(keys[1:], shapes[1:])]
+    rows.append(k13_check(
+        torch, "batch 2, levels 1-3 in one call", keys, maps, shapes,
+        [batch[f"plan_stride{lvl}"].to(torch.int32) for lvl in (1, 2, 3)],
+        [batch[f"plan_strideT{lvl}"].to(torch.int32) for lvl in (1, 2, 3)]))
 
     # K14: the three levels' aux plans in one call
-    maps = [sp.build_index_map(sp.coords_to_keys(
-        batch[f"plan_coords{lvl}"], shapes[lvl]), shapes[lvl])
-        for lvl in (1, 2, 3)]
     got = sp.aux_plans(cell0, maps, shapes[1:])
+    diff, err = {}, {}
     ref = sp.aux_plans_plain(cell0, maps, shapes[1:])
     for lvl in (1, 2, 3):
         host = batch[f"plan_aux{lvl}"].to(torch.int32)
         diff[f"aux{lvl}"] = (int((got[lvl - 1] != ref[lvl - 1]).sum()),
                              int((got[lvl - 1] != host).sum()))
         err[f"aux{lvl}"] = float((got[lvl - 1] - ref[lvl - 1]).abs().max())
-    print(f"K13 stride_plan_T, K14 aux_plans, batch 2, levels 1-3: entries "
-          f"differing (from plain, from the C++ train rulebook): {diff}; "
-          f"max|kernel-plain|: {err}")
+    print(f"K14 aux_plans, batch 2, levels 1-3: entries differing (from "
+          f"plain, from the C++ train rulebook): {diff}; max|kernel-plain|: "
+          f"{err}")
     if any(a or b for a, b in diff.values()):
-        fail("K13 or K14 differs from its plain version or the C++ train "
-             "rulebook")
-    graphs = {k: sum(bd[k] for *_, bd, _ in k13)
-              for k in ("graph_ms", "library_graph_ms")}
-    per = {lv: (round(bd["graph_ms"], 4), round(bd["library_graph_ms"], 4))
-           for lv, *_, bd, _ in k13}
-    print(f"  K13 stride_plan_T per level (kernel, yardstick), replayed "
-          f"from CUDA graphs, 100 replays: {per}")
-    rows.append(dict(name="K13 stride_plan_T", route="cuda", **graphs,
-                     source="sassd_tpu_torch/csrc/device_plans.cu",
-                     replaces="sassd_tpu/ops/sparse.py:732",
-                     max_abs_err=max(v for k, v in err.items()
-                                     if k.startswith("strideT")),
-                     ms=sum(m for _, m, *_ in k13),
-                     plain_ms=sum(m for _, _, m, *_ in k13),
-                     library_ms=sum(lm for *_, lm in k13),
-                     library_what="torch.full(-1) + index_put_ of the "
-                                  "forward plan's found entries",
-                     at="batch 2, sum over levels 1-3",
-                     per_level={lv: dict(ms=m, plain_ms=pm, library_ms=lm,
-                                         **bd)
-                                for lv, m, pm, bd, lm in k13},
-                     **add_bounds([bd for *_, bd, _ in k13])))
-    per = [(lv, round(m, 4), round(pm, 4), round(lm, 4))
-           for lv, m, pm, _, lm in k13]
-    print(f"  K13 stride_plan_T per level (kernel, plain, one-call ms): "
-          f"{per}")
+        fail("K14 differs from its plain version or the C++ train rulebook")
     # the three-level call at batch 2 and at phase 8's batch-1 shape (one
     # scan: multi_config shares the car grid and caps)
     t14 = measured(lambda: sp.aux_plans(cell0, maps, shapes[1:]),
@@ -1817,8 +1918,7 @@ def check_train_plan_kernels(torch, np, device, cfg, samples):
     rows.append(dict(name="K14 aux_plans", route="cuda",
                      source="sassd_tpu_torch/csrc/device_plans.cu",
                      replaces="sassd_tpu/ops/sparse.py:785",
-                     max_abs_err=max(v for k, v in err.items()
-                                     if k.startswith("aux")),
+                     max_abs_err=max(err.values()),
                      **t14, plain_ms=plain_ms, library_ms=None,
                      library_what="none: the window's tap cells and edge "
                                   "masks take several calls before one "
@@ -1826,7 +1926,7 @@ def check_train_plan_kernels(torch, np, device, cfg, samples):
                      at="batch 2, levels 1-3 in one call",
                      batch1=dict(t14_b1, bound_ms=bd14_b1["bound_ms"]),
                      **bd14))
-    del maps
+    del maps, keys
 
     # K15 at the three levels: the voxel centroids of both scans against
     # every cell centre of the level
@@ -1895,6 +1995,9 @@ def check_train_plan_kernels(torch, np, device, cfg, samples):
                      graph_ms=sum(g for _, _, g, *_ in k15),
                      plain_ms=sum(pm for *_, pm, _, _ in k15),
                      library_ms=None,
+                     library_what="none: the masked distances, the top 3 "
+                                  "and the weighted gather are separate "
+                                  "calls (cdist has no validity mask)",
                      backward_ms=sum(bm for _, _, _, bm, *_ in k15),
                      plain_backward_ms=sum(pbm for *_, pbm, _ in k15),
                      at="batch 2, forward, levels 1-3 (backward: K11's "
@@ -1907,15 +2010,15 @@ def check_train_plan_kernels(torch, np, device, cfg, samples):
     return rows
 
 
-def check_k14_once(sp, launches: dict, what: str, want: int):
-    """Print K14's launches in one train step and fail unless they are
-    `want`: one launch makes the three levels' aux plans (ring aux), none
-    runs for the exact aux."""
-    n = sum(launches[s] for s in sp.KERNEL_SYMBOLS["K14"])
-    print(f"{what}: K14 (aux ring plans, three levels) launched {n} "
-          f"time(s) in one train step (want {want})")
+def check_once(sp, launches: dict, what: str, kid: str, want: int):
+    """Print a kernel's launches in one train step and fail unless they
+    are `want`: K13 makes the three levels' transpose plans in one launch
+    on every device-plans train step, K14 the aux plans (ring aux only)."""
+    n = sum(launches[s] for s in sp.KERNEL_SYMBOLS[kid])
+    print(f"{what}: {kid} (three levels a launch) launched {n} time(s) in "
+          f"one train step (want {want})")
     if n != want:
-        fail(f"{what}: K14 launched {n} times in one step, not {want}")
+        fail(f"{what}: {kid} launched {n} times in one step, not {want}")
 
 
 def match_detections(a, b, what: str):
@@ -2501,8 +2604,10 @@ def run_multi_training(torch, np, device, root: str, host_step_ms):
         step(model, batch1)
         torch.cuda.synchronize()
         per_step[aux] = read_launches()
-        check_k14_once(sp, per_step[aux], f"three-class training, {aux} aux",
-                       1 if aux == "ring" else 0)
+        check_once(sp, per_step[aux], f"three-class training, {aux} aux",
+                   "K13", 1)
+        check_once(sp, per_step[aux], f"three-class training, {aux} aux",
+                   "K14", 1 if aux == "ring" else 0)
     host_model = weights.seeded_detector(cfg_host, SEED, device)
     host_step = loop.make_train_step(cfg_host, ds.anchors,
                                      optim.make_optimizer(
@@ -2671,6 +2776,16 @@ def check_banded_kernels(torch, np, device, cfg, spec, batch, timing):
     # K11 with per-row origins on the band train rulebook's aux plans
     plans = sp.device_rulebook(keys0, bshapes, spec.caps[1:], train=True,
                                y_top=y_top)
+    # K13 at the band rows: the levels' keys and maps of the band rulebook
+    bkeys = [keys0] + [sp.coords_to_keys(plans[f"coords{lvl}"], bshapes[lvl])
+                       for lvl in (1, 2, 3)]
+    bmaps = [sp.build_index_map(k, s) for k, s in zip(bkeys[1:], bshapes[1:])]
+    row13 = k13_check(torch, f"banded, batch 2 ({spec.s * nb} band rows), "
+                             f"levels 1-3 in one call", bkeys, bmaps, bshapes,
+                      [plans[f"stride{lvl}"] for lvl in (1, 2, 3)])
+    row13["name"] = "K13 stride_plans_T, banded"
+    rows.append(row13)
+    del bmaps
     query = bv.reshape(spec.s * nb, -1, bv.shape[-1])[..., :3].contiguous()
     origins = ss.band_origins(cfg, spec, nb, device)
     k11 = {}
@@ -2924,7 +3039,9 @@ def run_long_range(torch, np, device, root: str):
             step(model, batch)
             torch.cuda.synchronize()
             per_step = read_launches()
-            check_k14_once(sp, per_step, "long range, banded training", 1)
+            for kid in ("K13", "K14"):
+                check_once(sp, per_step, "long range, banded training", kid,
+                           1)
     return rows, launches, per_step, ms, train_ms
 
 

@@ -11,7 +11,6 @@ from typing import Tuple
 import torch
 
 from sassd_tpu_torch.ops import cuda
-from sassd_tpu_torch.ops.warp import launch_on
 
 _K12 = cuda.Kernel("sassd_points_in_boxes",
                    [cuda.P, cuda.P, cuda.P, cuda.P, cuda.I, cuda.I, cuda.I,
@@ -173,7 +172,7 @@ def aux_targets(points: torch.Tensor, points_valid: torch.Tensor,
     # views) costs more host time than a second allocation
     label = points_valid.new_empty((b, n))
     offsets = points.new_empty((b, n, 3))
-    launch_on(_K12, points, points.data_ptr(), points_valid.data_ptr(),
-              gt_boxes.data_ptr(), gt_valid.data_ptr(), b, n, g,
-              label.data_ptr(), offsets.data_ptr())
+    _K12.launch_on(points, points.data_ptr(), points_valid.data_ptr(),
+                   gt_boxes.data_ptr(), gt_valid.data_ptr(), b, n, g,
+                   label.data_ptr(), offsets.data_ptr())
     return label, offsets

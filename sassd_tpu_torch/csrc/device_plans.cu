@@ -30,15 +30,25 @@
 // to its window-table form; the [total + 1, 3] table (~1 GB at L0) is never
 // built.
 //
-// K13, transpose plan: for input row i (cell c) and tap k (offset off_k),
-// the output row of the cell (c - off_k) / 2 when it is on the grid and
-// active, else -1; [B, 27, M_in] int32. Input row i is the tap-k input of
-// output row o exactly when c = 2 * o + off_k, so the transpose plan is
-// the forward stride plan inverted: planT[k, plan[k, o]] = o. Each (k, i)
-// has at most one writer; output rows beyond the level's cap are absent
-// from the forward plan, so the cap holds. Design: a memset to -1 and one
-// thread per (sample, tap, output row) of the forward plan.
-//
+// K13, transpose plans of levels 1-3: for input row i of level L - 1
+// (cell c on its grid) and tap k (offset off_k), the row of the output
+// cell (c - off_k) / 2 in level L's index map when every axis of c - off_k
+// is even, non-negative and on level L's grid, else -1; [B, 27, M_{L-1}]
+// int32 a level. The same function as the forward stride plan inverted
+// (input row i is the tap-k input of output row o exactly when
+// c = 2 * o + off_k), read from the output level's map instead: output
+// rows past the level's cap are absent from it, so the cap and the banded
+// stage's y limit hold. The x axis is checked on its own: a parent off the
+// grid in x would alias the neighbouring y row's cell. Per axis one offset
+// (c even) or two (c odd) give an integer parent, so a row has at most 8
+// live taps of 27. Bound on the H100: bytes, the plans' write once (27 x 4
+// B a row slot, 11.4 MB at batch 2 of the car caps, 0.0034 ms), the keys
+// and the map sectors the live taps touch. Design: one launch for the
+// three levels, one thread a (level, sample, input row): it decodes its
+// key once, loads the map only for its live taps, then writes its 27
+// entries, each store coalesced along M_{L-1}. A padding key writes -1 and
+// reads no map. No memset, no forward plan: each entry is written once.
+
 // K14, aux plans of levels 1-3: for level-0 row n with cell c0 (-1 on
 // padding), the window plan of the base cell c0 >> L through level L's
 // index map (-1 >> L stays -1, so padding rows are all -1); one [3, B, 27,
@@ -146,15 +156,65 @@ __global__ void __launch_bounds__(kAuxThreads)
   }
 }
 
-__global__ void stride_plan_t_kernel(const int* __restrict__ plan, int m_out,
-                                     int m_in, int* __restrict__ plan_t) {
-  const int o = blockIdx.x * blockDim.x + threadIdx.x;
-  const int k = blockIdx.y;
-  const int b = blockIdx.z;
-  if (o >= m_out) return;
-  const long long row = static_cast<long long>(b) * 27 + k;
-  const int i = plan[row * m_out + o];
-  if (i >= 0 && i < m_in) plan_t[row * m_in + i] = o;
+// The three levels' input keys, output maps and grids, passed by value;
+// level l's blocks start at block first[l] of the grid's x.
+struct StrideTLevels {
+  const int* keys[3];
+  const int* map[3];
+  int m[3], first[3];
+  int d[3], h[3], w[3];
+  int od[3], oh[3], ow[3];
+  int* out[3];
+};
+
+constexpr int kStrideTThreads = 128;
+
+// The parents (c - off) / 2 of axis coordinate c for off = -1, 0, 1, and
+// a 3-bit mask of the live ones: even, non-negative, under n.
+__device__ __forceinline__ unsigned parents(int c, int n, int* p) {
+  unsigned live = 0;
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    const int q = c - (j - 1);
+    p[j] = q >> 1;
+    if (q >= 0 && (q & 1) == 0 && (q >> 1) < n) live |= 1u << j;
+  }
+  return live;
+}
+
+__global__ void __launch_bounds__(kStrideTThreads)
+    stride_plans_t_kernel(StrideTLevels lv) {
+  const int blk = blockIdx.x;
+  const int l = blk >= lv.first[2] ? 2 : (blk >= lv.first[1] ? 1 : 0);
+  const int i = (blk - lv.first[l]) * kStrideTThreads + threadIdx.x;
+  const int b = blockIdx.y;
+  const int m = lv.m[l];
+  if (i >= m) return;
+  const int d = lv.d[l], h = lv.h[l], w = lv.w[l];
+  const int oh = lv.oh[l], ow = lv.ow[l];
+  const int key = lv.keys[l][static_cast<long long>(b) * m + i];
+  unsigned lz = 0, ly = 0, lx = 0;
+  int pz[3], py[3], px[3];
+  if (key >= 0 && static_cast<long long>(key) <
+                      static_cast<long long>(d) * h * w) {
+    lz = parents(key / (w * h), lv.od[l], pz);
+    ly = parents((key / w) % h, oh, py);
+    lx = parents(key % w, ow, px);
+  }
+  const int* mb =
+      lv.map[l] + static_cast<long long>(b) * lv.od[l] * oh * ow;
+  int r[27];
+#pragma unroll
+  for (int k = 0; k < 27; ++k) {
+    const int jz = k / 9, jy = (k / 3) % 3, jx = k % 3;
+    r[k] = -1;
+    if ((lz >> jz) & (ly >> jy) & (lx >> jx) & 1u)
+      r[k] = mb[(static_cast<long long>(pz[jz]) * oh + py[jy]) * ow +
+                px[jx]];
+  }
+  int* pb = lv.out[l] + static_cast<long long>(b) * 27 * m + i;
+#pragma unroll
+  for (int k = 0; k < 27; ++k) pb[static_cast<long long>(k) * m] = r[k];
 }
 
 }  // namespace
@@ -192,22 +252,30 @@ extern "C" int sassd_window_plan(const int* out_keys, int batch, int m_out,
   return static_cast<int>(cudaGetLastError());
 }
 
-// plan [batch, 27, m_out] int32: a stride plan into the previous level's
-// m_in rows; plan_t [batch, 27, m_in] int32.
-extern "C" int sassd_stride_plan_t(const int* plan, int batch, int m_out,
-                                   int m_in, int* plan_t, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (batch > 0 && m_in > 0) {
-    cudaError_t err = cudaMemsetAsync(
-        plan_t, 0xff, sizeof(int) * static_cast<size_t>(batch) * 27 * m_in,
-        s);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (m_out > 0) {
-      const int threads = 256;
-      const dim3 grid((m_out + threads - 1) / threads, 27, batch);
-      stride_plan_t_kernel<<<grid, threads, 0, s>>>(plan, m_out, m_in,
-                                                    plan_t);
-    }
+// keys0..2 [batch, mL] int32 input keys of levels 0-2 (INVALID_KEY
+// padded) on the grids (dL, hL, wL); map1..3 [batch, dL * hL * wL] int32
+// index maps of levels 1-3; plan_t1..3 [batch, 27, m_{L-1}] int32.
+extern "C" int sassd_stride_plans_t(const int* keys0, const int* keys1,
+                                    const int* keys2, const int* map1,
+                                    const int* map2, const int* map3,
+                                    int batch, int m0, int m1, int m2, int d0,
+                                    int h0, int w0, int d1, int h1, int w1,
+                                    int d2, int h2, int w2, int d3, int h3,
+                                    int w3, int* plan_t1, int* plan_t2,
+                                    int* plan_t3, void* stream) {
+  StrideTLevels lv = {{keys0, keys1, keys2}, {map1, map2, map3}, {m0, m1, m2},
+                      {0, 0, 0}, {d0, d1, d2}, {h0, h1, h2}, {w0, w1, w2},
+                      {d1, d2, d3}, {h1, h2, h3}, {w1, w2, w3},
+                      {plan_t1, plan_t2, plan_t3}};
+  int blocks = 0;
+  for (int l = 0; l < 3; ++l) {
+    lv.first[l] = blocks;
+    blocks += (lv.m[l] + kStrideTThreads - 1) / kStrideTThreads;
+  }
+  if (batch > 0 && blocks > 0) {
+    const dim3 grid(blocks, batch);
+    stride_plans_t_kernel<<<grid, kStrideTThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(lv);
   }
   return static_cast<int>(cudaGetLastError());
 }

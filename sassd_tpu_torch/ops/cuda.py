@@ -5,7 +5,7 @@ import), one compiler per source, all started together, and linked into
 one shared library with a plain C interface, bound with ctypes. Each C
 entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :meth:`Kernel.launch` raises on a nonzero code and
-counts the launch.
+counts the launch, and :meth:`Kernel.launch_on` does so on a tensor's card.
 """
 from __future__ import annotations
 
@@ -79,6 +79,15 @@ class Kernel:
             msg = load().sassd_cuda_error_string(err).decode()
             raise RuntimeError(f"{self.symbol}: CUDA error {err}: {msg}")
         self.launches += 1
+
+    def launch_on(self, t: torch.Tensor, *args) -> None:
+        """launch(*args) with t's card as the current device, entered only
+        when it is not the current one already."""
+        if t.device.index == torch._C._cuda_getDevice():
+            self.launch(*args)
+        else:
+            with torch.cuda.device(t.device):
+                self.launch(*args)
 
 
 def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype,

@@ -27,9 +27,9 @@ which a wrapper takes only for CPU tensors:
   (``device_plans.cu``);
 - K7 ``downsample_keys``: the sorted, capped active set of a stride-2
   level, optionally with a per-row output-y limit (``downsample.cu``);
-- K13 ``stride_plan_T`` and K14 ``aux_plans``: the rulebook's train-only
+- K13 ``stride_plans_T`` and K14 ``aux_plans``: the rulebook's train-only
   plans, the stride convs' transpose plans and the aux branch's ring
-  plans of its three levels, one launch (``device_plans.cu``).
+  plans, each of its three levels in one launch (``device_plans.cu``).
 
 Training differentiates the convs through :func:`subm_conv_sym` and
 :func:`stride_conv_hostT` (autograd Functions whose forward is K4 and whose
@@ -44,7 +44,6 @@ from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from . import cuda
-from .warp import launch_on
 
 INVALID_KEY = torch.iinfo(torch.int32).max
 
@@ -76,8 +75,8 @@ _K7 = cuda.Kernel("sassd_downsample",
                    cuda.P])
 # K7's bitmap tile: 1024 32-bit words (32,768 output cells) a block
 K7_TILE_CELLS = 32768
-_K13 = cuda.Kernel("sassd_stride_plan_t",
-                   [cuda.P, cuda.I, cuda.I, cuda.I, cuda.P])
+_K13 = cuda.Kernel("sassd_stride_plans_t",
+                   [cuda.P] * 6 + [cuda.I] * 16 + [cuda.P] * 3)
 _K14 = cuda.Kernel("sassd_aux_plans",
                    [cuda.P, cuda.I, cuda.I, cuda.P, cuda.P, cuda.P]
                    + [cuda.I] * 9 + [cuda.P])
@@ -89,7 +88,7 @@ KERNEL_SYMBOLS = {
     "K10": ("sassd_sparse_conv_dw",),
     "K6": ("sassd_index_map", "sassd_window_plan"),
     "K7": ("sassd_downsample",),
-    "K13": ("sassd_stride_plan_t",),
+    "K13": ("sassd_stride_plans_t",),
     "K14": ("sassd_aux_plans",),
 }
 
@@ -570,35 +569,86 @@ def window_plan(out_keys: torch.Tensor, out_shape: Tuple[int, int, int],
     return plan
 
 
-def stride_plan_T_plain(plan: torch.Tensor, m_in: int) -> torch.Tensor:
-    """Plain PyTorch version of K13 (see stride_plan_T)."""
-    b, k, m_out = plan.shape
-    p = plan.to(torch.int64)
-    row = torch.arange(b * k, device=plan.device).reshape(b, k, 1) * m_in
-    flat = torch.where(p >= 0, row + p, b * k * m_in)
-    out = torch.full((b * k * m_in + 1,), -1, dtype=torch.int32,
-                     device=plan.device)
-    o = torch.arange(m_out, dtype=torch.int32, device=plan.device)
-    out[flat.reshape(-1)] = o.repeat(b * k)
-    return out[:b * k * m_in].view(b, k, m_in)
+def _stride_T_plain(keys: torch.Tensor, index_map: torch.Tensor,
+                    in_shape: Tuple[int, int, int],
+                    out_shape: Tuple[int, int, int]) -> torch.Tensor:
+    """One level of stride_plans_T_plain: [B, M] input keys -> [B, 27, M]."""
+    d, h, w = in_shape
+    od, oh, ow = out_shape
+    b, m = keys.shape
+    dev = keys.device
+    k = keys.to(torch.int64)
+    ok = (k >= 0) & (k < d * h * w)
+    k = torch.where(ok, k, 0)
+    offs = torch.tensor((-1, 0, 1), device=dev)[None, :, None]
+
+    def parents(c, n):          # [B, M] -> parents, live: [B, 3, M] each
+        q = c[:, None, :] - offs
+        return q // 2, (q >= 0) & (q % 2 == 0) & (q // 2 < n)
+    pz, lz = parents(k // (h * w), od)
+    py, ly = parents((k // w) % h, oh)
+    px, lx = parents(k % w, ow)
+    lin = ((pz[:, :, None, None] * oh + py[:, None, :, None]) * ow
+           + px[:, None, None, :])                          # [B, 3, 3, 3, M]
+    live = (ok[:, None, None, None] & lz[:, :, None, None]
+            & ly[:, None, :, None] & lx[:, None, None, :])
+    base = torch.arange(b, device=dev)[:, None, None, None, None] * (
+        od * oh * ow)
+    flat = index_map.reshape(-1)
+    rows = torch.where(live, flat[torch.where(live, base + lin, 0)], -1)
+    return rows.reshape(b, 27, m).to(torch.int32)
 
 
-def stride_plan_T(plan: torch.Tensor, m_in: int) -> torch.Tensor:
-    """Transpose plan of a stride-2 k3 p1 conv: its [B, 27, M_out] int32
-    stride plan into the previous level's M_in rows -> [B, 27, M_in]
-    int32, the output row that reads input row i through tap k (-1 =
-    none): the host rulebook's ``strideT`` plan. K13 on the card."""
-    if plan.device.type == "cpu":
-        return stride_plan_T_plain(plan, m_in)
-    cuda.check_cuda("plan", plan, torch.int32, 3)
-    b, k, m_out = plan.shape
-    if k != 27:
-        raise ValueError(f"plan {tuple(plan.shape)} is not [B, 27, M]")
-    with torch.cuda.device(plan.device):
-        out = torch.empty((b, 27, m_in), dtype=torch.int32,
-                          device=plan.device)
-        _K13.launch(plan.data_ptr(), b, m_out, m_in, out.data_ptr())
-    return out
+def stride_plans_T_plain(keys: Sequence[torch.Tensor],
+                         maps: Sequence[torch.Tensor],
+                         shapes: Sequence[Tuple[int, int, int]]
+                         ) -> Tuple[torch.Tensor, ...]:
+    """Plain PyTorch version of K13 (see stride_plans_T)."""
+    return tuple(_stride_T_plain(keys[lvl], maps[lvl], shapes[lvl],
+                                 shapes[lvl + 1]) for lvl in range(3))
+
+
+def stride_plans_T(keys: Sequence[torch.Tensor],
+                   maps: Sequence[torch.Tensor],
+                   shapes: Sequence[Tuple[int, int, int]]
+                   ) -> Tuple[torch.Tensor, ...]:
+    """Transpose plans of the three stride-2 k3 p1 convs: the [B, M_L]
+    int32 keys of levels 0-2, the [B, D*H*W] index maps of levels 1-3 and
+    the four level grids (each the stride-2 output of the one before) ->
+    (strideT1, strideT2, strideT3), level L's [B, 27, M_{L-1}] int32: for
+    input row i and tap k (dz, dy, dx row-major), the output row that
+    reads it, the map's row at (cell - offset) / 2 where that is an
+    integer cell on level L's grid, -1 = none. The host rulebook's
+    ``strideT`` plans. K13 on the card, one launch for the three levels."""
+    if keys[0].device.type == "cpu":
+        return stride_plans_T_plain(keys, maps, shapes)
+    if len(keys) != 3 or len(maps) != 3 or len(shapes) != 4:
+        raise ValueError(f"{len(keys)} keys, {len(maps)} maps and "
+                         f"{len(shapes)} grids: want 3, 3 and 4")
+    b, card = keys[0].shape[0], keys[0].get_device()
+    outs = []
+    for lvl, key, imap, (d, h, w), (od, oh, ow) in zip(
+            range(3), keys, maps, shapes, shapes[1:]):
+        cuda.check_cuda(f"keys[{lvl}]", key, torch.int32, 2)
+        cuda.check_cuda(f"maps[{lvl}]", imap, torch.int32, 2)
+        if (od, oh, ow) != ((d - 1) // 2 + 1, (h - 1) // 2 + 1,
+                            (w - 1) // 2 + 1):
+            raise ValueError(f"grid {(od, oh, ow)} is not the stride-2 "
+                             f"output of {(d, h, w)}")
+        if key.shape[0] != b or imap.shape != (b, od * oh * ow):
+            raise ValueError(f"keys[{lvl}] {tuple(key.shape)} and maps[{lvl}] "
+                             f"{tuple(imap.shape)} do not fit batch {b} "
+                             f"and grid {(od, oh, ow)}")
+        if key.get_device() != card or imap.get_device() != card:
+            raise ValueError("keys and maps must be on one card")
+        outs.append(key.new_empty((b, 27, key.shape[1])))
+    _K13.launch_on(keys[0], keys[0].data_ptr(), keys[1].data_ptr(),
+                   keys[2].data_ptr(), maps[0].data_ptr(), maps[1].data_ptr(),
+                   maps[2].data_ptr(), b, keys[0].shape[1], keys[1].shape[1],
+                   keys[2].shape[1], *shapes[0], *shapes[1], *shapes[2],
+                   *shapes[3], outs[0].data_ptr(), outs[1].data_ptr(),
+                   outs[2].data_ptr())
+    return tuple(outs)
 
 
 def aux_plans_plain(cell0: torch.Tensor, maps: Sequence[torch.Tensor],
@@ -632,9 +682,9 @@ def aux_plans(cell0: torch.Tensor, maps: Sequence[torch.Tensor],
             raise ValueError(f"level {lvl}'s map {tuple(imap.shape)} is not "
                              f"[{b}, {d * h * w}]")
     plan = cell0.new_empty((3, b, 27, m0))
-    launch_on(_K14, cell0, cell0.data_ptr(), b, m0, maps[0].data_ptr(),
-              maps[1].data_ptr(), maps[2].data_ptr(), *shapes[0], *shapes[1],
-              *shapes[2], plan.data_ptr())
+    _K14.launch_on(cell0, cell0.data_ptr(), b, m0, maps[0].data_ptr(),
+                   maps[1].data_ptr(), maps[2].data_ptr(), *shapes[0],
+                   *shapes[1], *shapes[2], plan.data_ptr())
     return plan
 
 
@@ -724,18 +774,21 @@ def device_rulebook(keys0: torch.Tensor,
     rulebook's format (data.kitti.build_host_plans without the plan_
     prefix): subm0..2 and stride1..3 [B, 27, capL] int32 plans, and
     coords1..3 [B, capL, 3] int32; with `train` also strideT1..3 [B, 27,
-    cap_{L-1}] (K13) and, with `aux`, aux1..3 [B, 27, cap0] (K14, one
-    launch for the three), which need the index map of level 3 too.
+    cap_{L-1}] (K13) and, with `aux`, aux1..3 [B, 27, cap0] (K14), each
+    one launch for the three levels after the last, through the index
+    maps of levels 1-3 (level 3's is built for them).
 
     keys0: [B, cap0] key-sorted level-0 keys; level_shapes: the four level
     grids; level_caps: the caps of levels 1..3; y_top: optional [B] int32
     exclusive level-0 y bound of each row, which clips level L's
     downsample at y_top >> L (the banded stage). Level 3 gets no subm plan:
     the dense tail runs it. The level-0 map (360 MB a sample at the car
-    grid) is freed once its plans are built.
+    grid) is freed once its plans are built, each later map once its
+    plans are built unless `train` still needs it.
     """
     plans, maps = {}, {}
     keys, shape = keys0, level_shapes[0]
+    level_keys = [keys0]
     imap = build_index_map(keys, shape)
     plans["subm0"] = window_plan(keys, shape, imap, shape, 1)
     for lvl in (1, 2, 3):
@@ -744,21 +797,23 @@ def device_rulebook(keys0: torch.Tensor,
                               None if y_top is None else y_top >> lvl)
         plans[f"stride{lvl}"] = window_plan(out, out_shape, imap, shape, 2)
         plans[f"coords{lvl}"] = keys_to_coords(out, out_shape)
-        if train:
-            plans[f"strideT{lvl}"] = stride_plan_T(plans[f"stride{lvl}"],
-                                                   keys.shape[1])
         keys, shape = out, out_shape
+        level_keys.append(keys)
         imap = None
-        if lvl < 3 or (train and aux):
+        if lvl < 3 or train:
             imap = build_index_map(keys, shape)
-        if train and aux:
+        if train:
             maps[lvl] = imap
         if lvl < 3:
             plans[f"subm{lvl}"] = window_plan(keys, shape, imap, shape, 1)
-    if train and aux:
-        cell0 = keys_to_coords(keys0, level_shapes[0])
-        aux_levels = aux_plans(cell0, [maps[lvl] for lvl in (1, 2, 3)],
-                               level_shapes[1:])
-        for lvl in (1, 2, 3):
-            plans[f"aux{lvl}"] = aux_levels[lvl - 1]
+    if train:
+        levels = [maps[lvl] for lvl in (1, 2, 3)]
+        for lvl, plan in zip((1, 2, 3), stride_plans_T(
+                level_keys[:3], levels, level_shapes)):
+            plans[f"strideT{lvl}"] = plan
+        if aux:
+            cell0 = keys_to_coords(keys0, level_shapes[0])
+            for lvl, plan in zip((1, 2, 3),
+                                 aux_plans(cell0, levels, level_shapes[1:])):
+                plans[f"aux{lvl}"] = plan
     return plans

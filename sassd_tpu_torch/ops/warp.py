@@ -128,26 +128,17 @@ def _check(part_map, boxes, valid):
         raise ValueError(f"at most 32 parts (one warp lane each), got {k}")
 
 
-def launch_on(kernel: cuda.Kernel, t: torch.Tensor, *args) -> None:
-    """kernel.launch(*args) with t's card as the current device, entered
-    only when it is not the current one already."""
-    if t.device.index == torch._C._cuda_getDevice():
-        kernel.launch(*args)
-    else:
-        with torch.cuda.device(t.device):
-            kernel.launch(*args)
-
-
 def _k3(part_map, boxes, valid, window_size, grid_offsets, spatial_scale):
     """K3 launch on inputs _check passed."""
     b, k, h, w = part_map.shape
     n = boxes.shape[1]
     out = torch.empty((b, n), dtype=torch.float32, device=part_map.device)
     sb, sk, sh, sw = part_map.stride()
-    launch_on(_K3, part_map, part_map.data_ptr(), sb, sk, sh, sw, h, w, k,
-              boxes.data_ptr(), valid.data_ptr(), b, n, window_size[0],
-              window_size[1], float(grid_offsets[0]), float(grid_offsets[1]),
-              float(spatial_scale), out.data_ptr())
+    _K3.launch_on(part_map, part_map.data_ptr(), sb, sk, sh, sw, h, w, k,
+                  boxes.data_ptr(), valid.data_ptr(), b, n, window_size[0],
+                  window_size[1], float(grid_offsets[0]),
+                  float(grid_offsets[1]), float(spatial_scale),
+                  out.data_ptr())
     return out
 
 
@@ -184,11 +175,11 @@ def _k3b(part_map, boxes, valid, d_score, window_size, grid_offsets,
     d_map = buf[n_rec:n_rec + b * k * h * w].view(b, k, h, w)
     d_boxes = buf[n_rec + n_map:].view(b, n, 7)
     sb, sk, sh, sw = part_map.stride()
-    launch_on(_K3B, part_map, part_map.data_ptr(), sb, sk, sh, sw, h, w, k,
-              boxes.data_ptr(), valid.data_ptr(), d_score.data_ptr(), b, n,
-              window_size[0], window_size[1], float(grid_offsets[0]),
-              float(grid_offsets[1]), float(spatial_scale), rows, cols,
-              buf.data_ptr(), d_map.data_ptr(), d_boxes.data_ptr())
+    _K3B.launch_on(part_map, part_map.data_ptr(), sb, sk, sh, sw, h, w, k,
+                   boxes.data_ptr(), valid.data_ptr(), d_score.data_ptr(), b,
+                   n, window_size[0], window_size[1], float(grid_offsets[0]),
+                   float(grid_offsets[1]), float(spatial_scale), rows, cols,
+                   buf.data_ptr(), d_map.data_ptr(), d_boxes.data_ptr())
     return d_map, d_boxes
 
 

@@ -195,3 +195,66 @@ def k12_case(case):
         pv[0] = False
         want[0] = g
     return pts, pv, gt, gv, want
+
+
+# K13's transpose plans: "x_edges_w_odd" and "x_edges_w_even" level-0 rows
+# on every face of the grid (x = 0 and x = W - 1 with W odd and with W even:
+# a parent off the grid in x would alias the neighbouring y row); "cap_cut"
+# output levels cut by their caps; "band_rows" four band rows, each output
+# level clipped at its row's y limit as in the banded stage;
+# "padded_between" padding rows between valid level-0 rows;
+# "all_padded_sample" a second sample without rows
+K13_CASES = ["x_edges_w_odd", "x_edges_w_even", "cap_cut", "band_rows",
+             "padded_between", "all_padded_sample"]
+
+
+def k13_case(case):
+    """(the [B, M_L] int32 keys of levels 0-3 on the CPU, K7's plain
+    version downsampling each into the next, the four level grids, the
+    [B] int32 level-0 y limits or None) of a K13 case."""
+    import torch
+    from sassd_tpu_torch.ops import sparse as sp
+    rng = np.random.default_rng(200 + K13_CASES.index(case))
+    shape = (6, 10, 8) if case == "x_edges_w_even" else (6, 10, 9)
+    b, n, caps, y_top = 2, 70, (120, 120, 120), None
+    if case == "band_rows":
+        shape, b = (6, 24, 9), 4
+        y_top = torch.tensor([24, 19, 13, 7], dtype=torch.int32)
+    if case == "cap_cut":
+        caps = (20, 12, 3)
+    d, h, w = shape
+    keys = np.full((b, 80), sp.INVALID_KEY, np.int32)
+    for i in range(b):
+        z, y, x = (rng.integers(0, s, n) for s in shape)
+        # every face: x = 0, x = W - 1, y = 0, y = H - 1, z = 0, z = D - 1
+        x[:4], x[4:8], y[8:10], y[10:12] = 0, w - 1, 0, h - 1
+        z[12:14], z[14:16] = 0, d - 1
+        lin = np.unique((z * h + y) * w + x)[:n]
+        keys[i, :len(lin)] = lin
+    if case == "padded_between":
+        keys[:, 1::4] = sp.INVALID_KEY
+    if case == "all_padded_sample":
+        keys[1] = sp.INVALID_KEY
+    levels, shapes = [torch.from_numpy(keys)], [shape]
+    for lvl in (1, 2, 3):
+        levels.append(sp.downsample_keys_plain(
+            levels[-1], shapes[-1], caps[lvl - 1],
+            None if y_top is None else y_top >> lvl))
+        shapes.append(sp.out_shape_stride2(shapes[-1]))
+    return levels, shapes, y_top
+
+
+def invert_stride_plan(plan, m_in):
+    """The transpose plan as the forward stride plan [B, 27, M_out]
+    inverted, planT[k, plan[k, o]] = o, [B, 27, m_in] int32: an oracle for
+    K13, which reads the output level's map instead."""
+    import torch
+    b, k, m_out = plan.shape
+    p = plan.to(torch.int64)
+    row = torch.arange(b * k, device=plan.device).reshape(b, k, 1) * m_in
+    flat = torch.where(p >= 0, row + p, b * k * m_in)
+    out = torch.full((b * k * m_in + 1,), -1, dtype=torch.int32,
+                     device=plan.device)
+    o = torch.arange(m_out, dtype=torch.int32, device=plan.device)
+    out[flat.reshape(-1)] = o.repeat(b * k)
+    return out[:b * k * m_in].view(b, k, m_in)

@@ -32,9 +32,10 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from sassd_tpu_torch.ops.cuda import same_bits  # noqa: E402
-from test_torch_cases import (K9_CASES, K12_CASES, K16_TILE,  # noqa: E402
-                              PARTITION_CASES, k9_case, k12_case,
-                              partition_case, partition_rows)
+from test_torch_cases import (K9_CASES, K12_CASES, K13_CASES,  # noqa: E402
+                              K16_TILE, PARTITION_CASES,
+                              invert_stride_plan, k9_case, k12_case,
+                              k13_case, partition_case, partition_rows)
 
 pytestmark = pytest.mark.cuda
 
@@ -1291,8 +1292,8 @@ def test_k13_k14_train_rulebook_matches_plain_and_host(dev):
     got = sp.device_rulebook(keys0.to(dev), shapes, cfg.caps.level_caps[1:],
                              train=True)
     torch.cuda.synchronize()
-    # K13 once a level; K14 once for the three levels
-    assert (sp._K13.launches, sp._K14.launches) == (before[0] + 3,
+    # K13 and K14 once each for the three levels
+    assert (sp._K13.launches, sp._K14.launches) == (before[0] + 1,
                                                     before[1] + 1)
     ref = sp.device_rulebook(keys0, shapes, cfg.caps.level_caps[1:],
                              train=True)
@@ -1301,10 +1302,43 @@ def test_k13_k14_train_rulebook_matches_plain_and_host(dev):
         assert torch.equal(v.cpu(), ref[k]), k
         np.testing.assert_array_equal(
             v.cpu().numpy(), batch[f"plan_{k}"].astype(np.int32), err_msg=k)
+    before = (sp._K13.launches, sp._K14.launches)
     exact = sp.device_rulebook(keys0.to(dev), shapes,
                                cfg.caps.level_caps[1:], train=True,
                                aux=False)
+    assert (sp._K13.launches, sp._K14.launches) == (before[0] + 1,
+                                                    before[1])
     assert sorted(exact) == sorted(k for k in got if not k.startswith("aux"))
+    for lvl in (1, 2, 3):
+        assert torch.equal(exact[f"strideT{lvl}"].cpu(), ref[f"strideT{lvl}"])
+
+
+@pytest.mark.parametrize("case", K13_CASES)
+def test_k13_edge_cases_bitwise(dev, case):
+    """K13 on test_torch_cases.K13_CASES (rows on every grid face with W
+    odd and even, levels cut by their caps, band rows with a y limit,
+    padding between valid rows, an all-padded sample): one launch for the
+    three levels, bitwise equal to its plain version, to the forward plan
+    inverted and to itself over two calls."""
+    from sassd_tpu_torch.ops import sparse as sp
+    keys, shapes, _ = k13_case(case)
+    maps = [sp.build_index_map(k, s) for k, s in zip(keys[1:], shapes[1:])]
+    ref = sp.stride_plans_T_plain(keys[:3], maps, shapes)
+    kd, md = [k.to(dev) for k in keys[:3]], [m.to(dev) for m in maps]
+    before = sp._K13.launches
+    got = sp.stride_plans_T(kd, md, shapes)
+    again = sp.stride_plans_T(kd, md, shapes)
+    torch.cuda.synchronize()
+    assert sp._K13.launches == before + 2
+    for lvl in (1, 2, 3):
+        g = got[lvl - 1]
+        assert g.shape == ref[lvl - 1].shape and g.is_contiguous()
+        assert torch.equal(g.cpu(), ref[lvl - 1])
+        assert torch.equal(again[lvl - 1], g)
+        fwd = sp.window_plan(keys[lvl], shapes[lvl], sp.build_index_map(
+            keys[lvl - 1], shapes[lvl - 1]), shapes[lvl - 1], 2)
+        assert torch.equal(g.cpu(), invert_stride_plan(
+            fwd, keys[lvl - 1].shape[1]))
 
 
 def three_nn_inputs(seed, level, dev):
@@ -1417,11 +1451,19 @@ def test_k15_matches_plain(dev, case, monkeypatch):
 def test_train_plan_wrappers_reject_bad_inputs(dev):
     from sassd_tpu_torch.ops import interpolate as itp
     from sassd_tpu_torch.ops import sparse as sp
-    plan = torch.zeros((1, 27, 8), dtype=torch.int32, device=dev)
-    with pytest.raises(TypeError):                       # int16 plan
-        sp.stride_plan_T(plan.short(), 8)
-    with pytest.raises(ValueError):                      # 9 taps
-        sp.stride_plan_T(plan[:, :9].contiguous(), 8)
+    grids = [(4, 6, 8), (2, 3, 4), (1, 2, 2), (1, 1, 1)]
+    keys = [torch.zeros((1, 8), dtype=torch.int32, device=dev)] * 3
+    maps = [torch.full((1, d * h * w), -1, dtype=torch.int32, device=dev)
+            for d, h, w in grids[1:]]
+    sp.stride_plans_T(keys, maps, grids)                 # fits
+    with pytest.raises(TypeError):                       # int16 keys
+        sp.stride_plans_T([keys[0].short()] + keys[1:], maps, grids)
+    with pytest.raises(ValueError):                      # a wrong grid
+        sp.stride_plans_T(keys, maps, grids[:2] + [(1, 2, 3), (1, 1, 2)])
+    with pytest.raises(ValueError):                      # map on the host
+        sp.stride_plans_T(keys, [maps[0], maps[1].cpu(), maps[2]], grids)
+    with pytest.raises(ValueError):                      # a missing level
+        sp.stride_plans_T(keys, maps[:2], grids)
     cell0 = torch.zeros((1, 8, 3), dtype=torch.int32, device=dev)
     imap = torch.zeros((1, 24), dtype=torch.int32, device=dev)
     shapes = [(2, 3, 4)] * 3

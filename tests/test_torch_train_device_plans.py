@@ -37,6 +37,8 @@ from sassd_tpu_torch.models.detector import parse_losses  # noqa: E402
 from sassd_tpu_torch.ops import interpolate as itp  # noqa: E402
 from sassd_tpu_torch.ops import native  # noqa: E402
 from sassd_tpu_torch.ops import sparse as sp  # noqa: E402
+from test_torch_cases import (K13_CASES, invert_stride_plan,  # noqa: E402
+                              k13_case)
 from test_torch_cuda import three_nn_edge_case  # noqa: E402
 from test_torch_device_plans import SHAPE, batch_keys, jax_plan  # noqa: E402
 
@@ -92,35 +94,102 @@ def tiny_scans(seed, batch_size=2):
         n_points=900)
 
 
+def level_maps(keys, shapes):
+    """The index maps of levels 1-3 (K6's plain version) of the keys of
+    levels 0-3."""
+    return [sp.build_index_map(k, s) for k, s in zip(keys[1:], shapes[1:])]
+
+
+def jax_stride_plan_T(keys, shapes, lvl, b):
+    """JAX build_stride_plan_T of sample b's level lvl - 1 rows through
+    level lvl's map, in the wire format (-1 = none)."""
+    jmap = jsp.build_index_map(jnp.asarray(keys[lvl][b].numpy()),
+                               shapes[lvl], keys_sorted=True)
+    return jax_plan(jsp.build_stride_plan_T(
+        jnp.asarray(keys[lvl - 1][b].numpy()), shapes[lvl - 1], jmap,
+        out_rows_cap=keys[lvl].shape[1]))
+
+
 @pytest.mark.parametrize("cap", [120, 40])
 def test_stride_plan_T_matches_jax(cap):
-    """The inverted forward plan == JAX build_stride_plan_T through the
-    output level's map; cap 40 truncates the output level."""
-    keys = batch_keys(2)
-    kt = torch.from_numpy(keys)
-    out_shape = sp.out_shape_stride2(SHAPE)
-    out = sp.downsample_keys(kt, SHAPE, cap)
-    plan = sp.window_plan(out, out_shape, sp.build_index_map(kt, SHAPE),
-                          SHAPE, 2)
-    got = sp.stride_plan_T(plan, keys.shape[1]).numpy()
-    for b in range(2):
-        k = jnp.asarray(keys[b])
-        okeys = jsp.downsample_keys(k, SHAPE, cap)
-        omap = jsp.build_index_map(okeys, out_shape, keys_sorted=True)
-        ref = jsp.build_stride_plan_T(k, SHAPE, omap, out_rows_cap=cap)
-        np.testing.assert_array_equal(got[b], jax_plan(ref))
-    assert got.dtype == np.int32 and (got >= 0).sum() > 100
+    """The three levels of stride_plans_T == JAX build_stride_plan_T
+    through each output level's map == the forward plan inverted; cap 40
+    truncates the output levels."""
+    shapes = [SHAPE]
+    keys = [torch.from_numpy(batch_keys(2))]
+    for lvl in (1, 2, 3):
+        keys.append(sp.downsample_keys(keys[-1], shapes[-1], cap))
+        shapes.append(sp.out_shape_stride2(shapes[-1]))
+    got = sp.stride_plans_T(keys[:3], level_maps(keys, shapes), shapes)
+    for lvl in (1, 2, 3):
+        fwd = sp.window_plan(keys[lvl], shapes[lvl], sp.build_index_map(
+            keys[lvl - 1], shapes[lvl - 1]), shapes[lvl - 1], 2)
+        np.testing.assert_array_equal(
+            got[lvl - 1].numpy(),
+            invert_stride_plan(fwd, keys[lvl - 1].shape[1]).numpy())
+        for b in range(2):
+            np.testing.assert_array_equal(got[lvl - 1][b].numpy(),
+                                          jax_stride_plan_T(keys, shapes,
+                                                            lvl, b))
+    assert all(g.dtype == torch.int32 for g in got)
+    assert (got[0] >= 0).sum() > 100
+    cut = sp.downsample_keys(keys[0], SHAPE, 10 ** 6) != sp.INVALID_KEY
+    assert (int(cut.sum(1).max()) > cap) == (cap == 40)
 
 
 @pytest.mark.parametrize("level", [1, 2, 3])
 def test_stride_plan_T_matches_host_rulebook(level):
+    """strideT{level} of stride_plans_T through the host rulebook's levels
+    == the C++ train rulebook's == its forward stride plan inverted."""
     cfg, batch = tiny_scans(6)
+    shapes = level_shapes(cfg)
+    keys = [sp.coords_to_keys(torch.from_numpy(batch["coords"]), shapes[0])]
+    keys += [sp.coords_to_keys(torch.from_numpy(batch[f"plan_coords{lvl}"]),
+                               shapes[lvl]) for lvl in (1, 2, 3)]
+    got = sp.stride_plans_T(keys[:3], level_maps(keys, shapes),
+                            shapes)[level - 1].numpy()
+    want = batch[f"plan_strideT{level}"].astype(np.int32)
+    np.testing.assert_array_equal(got, want)
     plan = torch.from_numpy(batch[f"plan_stride{level}"].astype(np.int32))
-    m_in = batch[f"plan_strideT{level}"].shape[2]
-    got = sp.stride_plan_T(plan, m_in).numpy()
     np.testing.assert_array_equal(
-        got, batch[f"plan_strideT{level}"].astype(np.int32))
+        got, invert_stride_plan(plan, want.shape[2]).numpy())
     assert (got >= 0).sum() > 0
+
+
+@pytest.mark.parametrize("case", K13_CASES)
+def test_stride_plans_T_edge_cases_match_jax(case):
+    """K13's plain version on test_torch_cases.K13_CASES (the card test's
+    cases: rows on every grid face with W odd and even, levels cut by their
+    caps, band rows with a y limit, padding between valid rows, an
+    all-padded sample) == JAX build_stride_plan_T through each output
+    level's map == the forward plan inverted, bitwise."""
+    keys, shapes, y_top = k13_case(case)
+    got = sp.stride_plans_T(keys[:3], level_maps(keys, shapes), shapes)
+    padded = keys[0] == sp.INVALID_KEY
+    for lvl in (1, 2, 3):
+        fwd = sp.window_plan(keys[lvl], shapes[lvl], sp.build_index_map(
+            keys[lvl - 1], shapes[lvl - 1]), shapes[lvl - 1], 2)
+        np.testing.assert_array_equal(
+            got[lvl - 1].numpy(),
+            invert_stride_plan(fwd, keys[lvl - 1].shape[1]).numpy())
+        for b in range(keys[0].shape[0]):
+            np.testing.assert_array_equal(got[lvl - 1][b].numpy(),
+                                          jax_stride_plan_T(keys, shapes,
+                                                            lvl, b))
+    assert (got[0].transpose(1, 2)[padded] == -1).all()
+    assert all(int((g >= 0).sum()) > 0 for g in got)
+    if case == "band_rows":
+        free = sp.downsample_keys(keys[0], shapes[0], 120)
+        assert (free != keys[1]).any()          # the limit clipped level 1
+    if case == "cap_cut":
+        free = sp.downsample_keys(keys[0], shapes[0], 10 ** 6)
+        assert int((free != sp.INVALID_KEY).sum(1).max()) > 20
+    if case == "all_padded_sample":
+        assert all((g[1] == -1).all() for g in got)
+    if case.startswith("x_edges"):
+        x = sp.keys_to_coords(keys[0], shapes[0])[..., 2]
+        for edge in (x == 0, x == shapes[0][2] - 1):
+            assert (got[0].transpose(1, 2)[edge] >= 0).any()
 
 
 @pytest.mark.parametrize("level", [1, 2, 3])
