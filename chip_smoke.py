@@ -93,6 +93,29 @@ Phases, each of which fails the run (nonzero exit, no result line):
    and K14 once each. Timed: the timing scan at batch 1, banded
    and replicated in turns, and the train step at batch 2.
 
+10. data-parallel training and evaluation (parallel/dist.py): 2 steps of
+   make_train_step on phase 7's config, scans and start weights, global
+   batch 2 with the ring aux. 10a: in a one-rank NCCL group against the
+   same steps with no group, and the no-group steps once more (a
+   determinism control). The group's collectives at world size 1 are
+   copies: the losses, the BatchNorm buffers and every coalesced
+   reduction must be bitwise equal; the gradient norms and parameters
+   bitwise too where the control repeats itself bitwise, and otherwise
+   (atomics in the backward) within phase 8's atomics-order tolerances,
+   each pair's largest difference printed. K1, K3, K3b, K4, K5, K5b,
+   K10, K11 and K12 must launch in the group's run. 10b: two ranks on
+   the one card over gloo (NCCL refuses two ranks on one device), each a
+   subprocess of this script with a timeout, local batch 1: after 2 steps
+   their parameters and buffers must be bitwise equal, and step 1's
+   all-reduced losses (1e-3), gradient norm (2e-3) and each module's
+   reduced gradients (1e-2 relative L2) must match 10a's single-process
+   batch-2 step. 10c: evaluate on the same pair at batch 1 over phase 6's
+   4 val scans (raw points served on the card): rank 1 returns (None,
+   ""), and the detections rank 0 gathers, deduplicated, must match a
+   single-process run_inference's (boxes 1e-2, scores 1e-3). Each rank's
+   kernels of its path must launch. Phase 10's wall time and each gate's
+   largest difference are printed.
+
 Phase 3 holds K1 (rotated overlap) in all four criteria within K1_ATOL
 of its plain version and at exactly +0.0 on every pair that its
 separation cull rejects, on the 2008-box set and on phase 6's NMS input
@@ -178,6 +201,11 @@ runs phases 1-3 and phase 9's kernel checks and prints the kernel rows
 under the key kernels_only (without launch counts) and the card, and no
 result line: the kernels of two checkouts can be timed in one call, each
 from its own root.
+
+    python3 chip_smoke.py --data-parallel-only
+
+builds the kernels and runs phase 10 alone, with no result line.
+(``--dp-worker`` is the entry of phase 10's rank subprocesses.)
 """
 from __future__ import annotations
 
@@ -228,6 +256,13 @@ N_MULTI_EPOCHS = 2      # phase 8: of 4 steps at batch 1
 # relative to each buffer's largest update
 LR_GROUND = 60000
 BN_UPDATE_RTOL = 2e-3
+
+# phase 10: data-parallel steps; each rank subprocess's time limit and
+# the collectives' timeout of every process group the phase makes
+DP_STEPS = 2
+DP_WORKER_TIMEOUT_S = 300
+DP_GROUP_TIMEOUT_S = 120
+ADDR_IN_USE = ("address already in use", "eaddrinuse")
 
 # the sparse ladder's 10 convs (models/backbone.py VxNet) as distinct
 # shapes: name, plan, input level, Cin, Cout, convs of that shape
@@ -3045,10 +3080,407 @@ def run_long_range(torch, np, device, root: str):
     return rows, launches, per_step, ms, train_ms
 
 
+TRAIN_PHASE_IDS = "K1 K3 K3b K4 K5 K5b K10 K11 K12"
+SERVE_PHASE_IDS = "K1 K2 K3 K4 K5 K6 K7 K8 K9"
+
+
+def kernel_symbols() -> dict:
+    """Kernel id -> the launch-count symbols of its entry points."""
+    from sassd_tpu_torch import serve
+    from sassd_tpu_torch.core import boxes
+    from sassd_tpu_torch.ops import interpolate as itp
+    from sassd_tpu_torch.ops import sparse as sp
+    from sassd_tpu_torch.ops import voxelize as vox
+    from sassd_tpu_torch.ops import warp
+    from sassd_tpu_torch.parallel import sparse_spatial as ss
+    return {"K1": ("sassd_riou_overlap",), "K2": ("sassd_nms_keep",),
+            **warp.KERNEL_SYMBOLS, **sp.KERNEL_SYMBOLS,
+            **vox.KERNEL_SYMBOLS, **serve.KERNEL_SYMBOLS,
+            **itp.KERNEL_SYMBOLS, **boxes.KERNEL_SYMBOLS,
+            **ss.KERNEL_SYMBOLS, "K7'": sp.KERNEL_SYMBOLS["K7"],
+            "K11'": itp.KERNEL_SYMBOLS["K11"]}
+
+
+def check_launched(launches: dict, ids: str, what: str) -> None:
+    """Fail unless every kernel of `ids` launched in `launches`."""
+    symbols = kernel_symbols()
+    idle = [s for k in ids.split() for s in symbols[k] if launches[s] == 0]
+    if idle:
+        fail(f"{what}: a kernel of the path was not launched: {idle}")
+
+
+def write_dp_splits(root: str) -> None:
+    """Phase 10's data under root: phase 7's 4-scan train split (its seed)
+    and phase 6's 4-scan val split."""
+    from sassd_tpu_torch.data import synthetic
+    synthetic.write_synthetic_kitti(os.path.join(root, "train"),
+                                    n_train=N_SCANS, n_val=0, seed=SEED + 3)
+    synthetic.write_synthetic_kitti(os.path.join(root, "val"), n_train=0,
+                                    n_val=N_SCANS, seed=SEED)
+
+
+def dp_data(cfg, root: str):
+    """Phase 10's inputs from the splits under root. Returns (train
+    dataset, val dataset, the points-serving config, the train samples of
+    the DP_STEPS global batches of 2, the label directory)."""
+    import dataclasses
+    from sassd_tpu_torch.data import kitti
+    tr, va = os.path.join(root, "train"), os.path.join(root, "val")
+    train_ds = kitti.KittiDataset(cfg, os.path.join(tr, "training"),
+                                  os.path.join(tr, "ImageSets", "train.txt"),
+                                  train=True)
+    cfg_pts = dataclasses.replace(cfg, test=dataclasses.replace(
+        cfg.test, device_input="points"))
+    val_ds = kitti.KittiDataset(cfg, os.path.join(va, "training"),
+                                os.path.join(va, "ImageSets", "val.txt"))
+    samples = [train_ds[i] for i in range(2 * DP_STEPS)]
+    return (train_ds, val_ds, cfg_pts, samples,
+            os.path.join(va, "training", "label_2"))
+
+
+def dp_steps(torch, device, cfg, anchors, batches):
+    """DP_STEPS train steps from phase 7's start weights (seed SEED), one
+    per batch, with the launch counters reset just before and read just
+    after. Returns (metrics per step as floats, step 1's .grad (CPU), the
+    BatchNorm buffers after step 1's forward, the final state dict (CPU),
+    launches)."""
+    from sassd_tpu_torch.train import loop, optim
+    from sassd_tpu_torch.weights import seeded_detector
+    model = seeded_detector(cfg, SEED, device)
+    opt = optim.make_optimizer(model, cfg.train, DP_STEPS)
+    step = loop.make_train_step(cfg, anchors, opt, device)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    reset_launches()
+    metrics, grads, bn = [], None, None
+    for b in batches:
+        m = step(model, b)
+        metrics.append({k: float(v) for k, v in m.items()})
+        if grads is None:
+            grads = {k: p.grad.detach().cpu().clone()
+                     for k, p in model.named_parameters()}
+            bn = {k: v.detach().cpu().clone()
+                  for k, v in model.named_buffers()
+                  if k.rsplit(".", 1)[-1] in ("mean", "var")}
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    launches = read_launches()
+    state = {k: v.detach().cpu().clone()
+             for k, v in model.state_dict().items()}
+    return metrics, grads, bn, state, launches
+
+
+def max_abs_diff(torch, a: dict, b: dict) -> float:
+    """Largest |a - b| over the entries of two dicts of tensors or
+    floats (0.0 when every entry is bitwise equal)."""
+    out = 0.0
+    for k in a:
+        x, y = a[k], b[k]
+        if torch.is_tensor(x):
+            if not torch.equal(x, y):
+                out = max(out, float((x.double() - y.double()).abs().max()))
+        elif x != y:
+            out = max(out, abs(x - y))
+    return out
+
+
+def module_l2(torch, got: dict, ref: dict) -> dict:
+    """Each module's gradients' relative L2 distance from `ref`."""
+    out = {}
+    for mod in ("vxnet", "bevnet", "head", "pswarp", "aux"):
+        keys = [k for k in ref if k.startswith(mod + ".")]
+        num = sum(float(torch.sum((got[k].double() - ref[k].double()) ** 2))
+                  for k in keys)
+        den = sum(float(torch.sum(ref[k].double() ** 2)) for k in keys)
+        out[mod] = (num / max(den, 1e-300)) ** 0.5
+    return out
+
+
+def free_port() -> int:
+    import socket
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def run_dp_world_one(torch, device, cfg, anchors, batches):
+    """Phase 10a: the steps with no group, in a one-rank group of the
+    device's backend (NCCL on the card), and with no group again. Returns
+    the three runs (dp_steps' tuples) and the coalesced reductions' in ==
+    out flags of the group's run."""
+    from sassd_tpu_torch.parallel import dist
+    ref = dp_steps(torch, device, cfg, anchors, batches)
+    copies = []
+    reduce = dist.all_reduce_coalesced
+
+    def keep(tensors):
+        before = [t.clone() for t in tensors]
+        reduce(tensors)
+        copies.append(all(torch.equal(a, b)
+                          for a, b in zip(before, tensors)))
+    for attempt in range(3):
+        try:
+            dist.initialize(f"localhost:{free_port()}", 1, 0, device=device,
+                            timeout_s=DP_GROUP_TIMEOUT_S)
+            break
+        except RuntimeError as e:
+            if attempt == 2 or not any(s in str(e).lower()
+                                       for s in ADDR_IN_USE):
+                raise
+    dist.all_reduce_coalesced = keep
+    try:
+        backend = torch.distributed.get_backend()
+        group = dp_steps(torch, device, cfg, anchors, batches)
+    finally:
+        dist.all_reduce_coalesced = reduce
+        dist.shutdown()
+    again = dp_steps(torch, device, cfg, anchors, batches)
+    return ref, group, again, copies, backend
+
+
+def dp_worker(argv) -> int:
+    """One rank of phase 10b/10c, started by run_dp_ranks: argv = rank,
+    world, port, job file (a torch.save of the config, the device and the
+    paths). Joins the gloo group, runs the steps on its slice of each
+    global batch and evaluate at batch 1, and saves what the parent
+    checks."""
+    rank, world, port, job_path = (int(argv[0]), int(argv[1]),
+                                   int(argv[2]), argv[3])
+    sys.path.insert(0, HERE)
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from sassd_tpu_torch import inference
+    from sassd_tpu_torch.data import kitti
+    from sassd_tpu_torch.parallel import dist
+    from sassd_tpu_torch.weights import seeded_detector
+    job = torch.load(job_path, weights_only=False)
+    device = torch.device(job["device"])
+    cfg = job["cfg"]
+    dist.initialize(f"localhost:{port}", world, rank, backend="gloo",
+                    device=device, timeout_s=DP_GROUP_TIMEOUT_S)
+    train_ds, val_ds, cfg_pts, samples, label_dir = dp_data(cfg, job["root"])
+    local = [kitti.collate([samples[world * t + rank]])[0]
+             for t in range(DP_STEPS)]
+    metrics, grads, bn, state, launches = dp_steps(
+        torch, device, cfg, train_ds.anchors, local)
+
+    gathered = []
+    gather = dist.gather_objects
+
+    def keep(obj, *args, **kw):
+        parts = gather(obj, *args, **kw)
+        gathered.append(parts)
+        return parts
+    dist.gather_objects = keep
+    model = seeded_detector(cfg, SEED, device)
+    reset_launches()
+    results, text = inference.evaluate(
+        cfg_pts, val_ds, model, label_dir, 1, device,
+        exchange_dir=os.path.join(job["out"], "exchange"))
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    torch.save(dict(metrics=metrics, grads=grads, bn=bn, state=state,
+                    launches=launches, eval_launches=read_launches(),
+                    results=results, text=text, parts=gathered[0]),
+               os.path.join(job["out"], f"rank{rank}.pt"))
+    dist.barrier("dp_worker_done")
+    dist.shutdown()
+    return 0
+
+
+def run_dp_ranks(torch, device, cfg, root: str, world: int = 2):
+    """Phase 10b/10c: `world` rank subprocesses of this script on
+    `device`, each with a time limit (all killed at the first one over
+    it). Returns their saved results, rank order."""
+    out = os.path.join(root, "ranks")
+    os.makedirs(out, exist_ok=True)
+    job = os.path.join(out, "job.pt")
+    torch.save(dict(cfg=cfg, device=str(device), root=root, out=out), job)
+    for attempt in range(3):
+        port = free_port()
+        logs = [open(os.path.join(out, f"rank{r}_try{attempt}.log"), "w+")
+                for r in range(world)]
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dp-worker",
+             str(r), str(world), str(port), job],
+            stdout=logs[r], stderr=subprocess.STDOUT, text=True)
+            for r in range(world)]
+        deadline = time.time() + DP_WORKER_TIMEOUT_S
+        try:
+            for p in procs:
+                p.wait(timeout=max(deadline - time.time(), 1))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            over = [p for p in procs if p.poll() is None]
+            for p in over:
+                p.kill()
+                p.wait()
+        text = []
+        for f in logs:
+            f.seek(0)
+            text.append(f.read())
+            f.close()
+        if over:
+            fail(f"data-parallel: a rank outlived {DP_WORKER_TIMEOUT_S} s:\n"
+                 + "\n".join(t[-3000:] for t in text))
+        if all(p.returncode == 0 for p in procs):
+            return [torch.load(os.path.join(out, f"rank{r}.pt"),
+                               weights_only=False) for r in range(world)]
+        taken = any(s in t.lower() for t in text for s in ADDR_IN_USE)
+        if not taken or attempt == 2:
+            bad = next(t for p, t in zip(procs, text) if p.returncode)
+            fail(f"data-parallel: a rank failed:\n{bad[-4000:]}")
+    raise AssertionError("unreachable")
+
+
+def run_data_parallel(torch, np, device, cfg, root: str) -> dict:
+    """Phase 10 (see the module docstring). Returns the printed numbers."""
+    from sassd_tpu_torch import inference
+    from sassd_tpu_torch.data import kitti
+    from sassd_tpu_torch.weights import seeded_detector
+    t0 = time.perf_counter()
+    write_dp_splits(root)
+    train_ds, val_ds, cfg_pts, samples, label_dir = dp_data(cfg, root)
+    batches = [kitti.collate(samples[2 * t:2 * t + 2])[0]
+               for t in range(DP_STEPS)]
+    anchors = train_ds.anchors
+
+    # 10a: world size 1
+    ref, group, again, copies, backend = run_dp_world_one(
+        torch, device, cfg, anchors, batches)
+    check_launched(group[4], TRAIN_PHASE_IDS,
+                   f"data-parallel, world size 1 ({backend})")
+    print(f"data-parallel, world size 1 ({backend}): launches {group[4]}")
+    (rm, rg, rbn, rs, _), (gm, gg, gbn, gs, _), (am, ag, abn, as_, _) = (
+        ref, group, again)
+    pairs = {"group vs none": (gm, gg, gbn, gs), "none vs none": (am, ag,
+                                                                 abn, as_)}
+    diffs = {}
+    for what, (m, g, bn, st) in pairs.items():
+        loss1 = max_abs_diff(torch, {k: v for k, v in m[0].items()
+                                     if k != "grad_norm"},
+                             {k: v for k, v in rm[0].items()
+                              if k != "grad_norm"})
+        diffs[what] = dict(
+            losses_step1=loss1, bn_step1=max_abs_diff(torch, bn, rbn),
+            grad_norms=max(abs(a["grad_norm"] - b["grad_norm"])
+                           for a, b in zip(m, rm)),
+            losses=max(max_abs_diff(torch, a, b) for a, b in zip(m, rm)),
+            grads_step1=max_abs_diff(torch, g, rg),
+            state=max_abs_diff(torch, st, rs),
+            module_l2=max(module_l2(torch, g, rg).values()))
+        print(f"data-parallel, world size 1, {what}: largest |difference| "
+              + ", ".join(f"{k} {v:.3g}" for k, v in diffs[what].items()))
+    if not (copies and all(copies) and len(copies) == DP_STEPS):
+        fail(f"data-parallel, world size 1: the coalesced all-reduce is "
+             f"not a copy ({copies})")
+    d, ctl = diffs["group vs none"], diffs["none vs none"]
+    for k in ("losses_step1", "bn_step1"):
+        if d[k] != 0.0:
+            fail(f"data-parallel, world size 1: {k} differ from the run "
+                 f"with no group by {d[k]:.3g}")
+    repeatable = all(v == 0.0 for v in ctl.values())
+    if repeatable:
+        bad = [k for k, v in d.items() if v != 0.0]
+        if bad:
+            fail(f"data-parallel, world size 1: {bad} differ from the "
+                 f"run with no group, which repeats itself bitwise")
+    else:
+        # the backward's atomics (K11) add in another order each run:
+        # step 1's gradients are held to phase 8's tolerances for runs
+        # apart by that order alone; the later steps follow Adam's
+        # updates of those gradients and are printed beside the control
+        gn_err = (abs(gm[0]["grad_norm"] - rm[0]["grad_norm"])
+                  / rm[0]["grad_norm"])
+        if gn_err > PLANS_GNORM_RTOL or d["module_l2"] > PLANS_GRAD_L2:
+            fail(f"data-parallel, world size 1: step 1's grad norm "
+                 f"{gn_err:.3g}, module L2 {d['module_l2']:.3g} apart from "
+                 f"the run with no group")
+        print(f"data-parallel, world size 1: the run with no group does "
+              f"not repeat itself bitwise (the backward's atomics), so "
+              f"step 1's gradients are held to phase 8's atomics-order "
+              f"tolerances: grad norm {gn_err:.3g} (<= {PLANS_GNORM_RTOL}),"
+              f" module L2 {d['module_l2']:.3g} (<= {PLANS_GRAD_L2}); the "
+              f"later steps are not gated")
+    print(f"data-parallel, world size 1: step 1's losses and BatchNorm "
+          f"buffers bitwise equal to the run with no group; the "
+          f"{len(copies)} coalesced reductions are copies")
+
+    # 10b and 10c: two ranks on the one device over gloo
+    if device.type == "cuda":
+        torch.cuda.empty_cache()        # the ranks' room on the card
+    t = time.perf_counter()
+    ranks = run_dp_ranks(torch, device, cfg, root)
+    ranks_s = time.perf_counter() - t
+    for r, res in enumerate(ranks):
+        check_launched(res["launches"], TRAIN_PHASE_IDS,
+                       f"data-parallel, rank {r} of 2, training")
+        check_launched(res["eval_launches"], SERVE_PHASE_IDS,
+                       f"data-parallel, rank {r} of 2, evaluate")
+    r0, r1 = ranks
+    rank_diff = max_abs_diff(torch, r0["state"], r1["state"])
+    if rank_diff != 0.0 or r0["metrics"] != r1["metrics"]:
+        fail(f"data-parallel, 2 ranks: the replicas differ after "
+             f"{DP_STEPS} steps (largest |difference| {rank_diff:.3g})")
+    m1, ref1 = r0["metrics"][0], rm[0]
+    loss_err = {k: abs(m1[k] - v) / abs(v) for k, v in ref1.items()
+                if "loss" in k}
+    gn_err = abs(m1["grad_norm"] - ref1["grad_norm"]) / ref1["grad_norm"]
+    mod_err = module_l2(torch, r0["grads"], rg)
+    print(f"data-parallel, 2 ranks over gloo on one card: replicas bitwise "
+          f"equal after {DP_STEPS} steps; step 1 against the single-process "
+          f"batch-2 step: losses rel {max(loss_err.values()):.3g} "
+          f"(<= {TRAIN_LOSS_RTOL}), grad norm {m1['grad_norm']:.7g} vs "
+          f"{ref1['grad_norm']:.7g} rel {gn_err:.3g} (<= {TRAIN_GNORM_RTOL}),"
+          f" module rel L2 " + ", ".join(f"{k} {v:.3g}" for k, v in
+                                          mod_err.items())
+          + f" (<= {TRAIN_GRAD_L2}); guided_valid {m1['guided_valid']:g} vs "
+          f"{ref1['guided_valid']:g}, guided_pos {m1['guided_pos']:g} vs "
+          f"{ref1['guided_pos']:g}")
+    bad = [k for k, v in loss_err.items() if not v <= TRAIN_LOSS_RTOL]
+    if (bad or not gn_err <= TRAIN_GNORM_RTOL
+            or max(mod_err.values()) > TRAIN_GRAD_L2):
+        fail(f"data-parallel, 2 ranks: step 1 disagrees with the "
+             f"single-process step on {bad or 'the gradients'}")
+
+    if (r1["results"], r1["text"], r1["parts"]) != (None, "", None):
+        fail("data-parallel, evaluate: rank 1 returned a result")
+    parts = r0["parts"]
+    annos, ids = inference._dedup_by_id(
+        [a for p in parts for a in p[0]], [i for p in parts for i in p[1]])
+    model = seeded_detector(cfg, SEED, device)
+    ref_annos, ref_ids = inference._dedup_by_id(*inference.run_inference(
+        cfg_pts, val_ds, model, 1, device))
+    if ids != ref_ids:
+        fail(f"data-parallel, evaluate: samples {ids} vs {ref_ids}")
+    counts = [match_annos(np, a, b, f"data-parallel, evaluate, sample {i}")
+              for a, b, i in zip(annos, ref_annos, ids)]
+    _, ref_text = inference.evaluate(cfg_pts, val_ds, None, label_dir,
+                                     precomputed=(ref_annos, ref_ids))
+    same = "equal" if r0["text"] == ref_text else "DIFFERENT"
+    print(f"data-parallel, evaluate on 2 ranks: rank 0 gathered "
+          f"{[len(p[1]) for p in parts]} samples, detections match the "
+          f"single-process run_inference on {len(ids)} scans ({counts} "
+          f"detections); AP table {same} to the single-process one (not "
+          f"gated)")
+    wall = time.perf_counter() - t0
+    print(f"data-parallel: phase 10 took {wall:.1f} s (the two rank "
+          f"processes {ranks_s:.1f} s)")
+    return dict(wall_s=wall, ranks_s=ranks_s, world1=diffs,
+                ranks_state_diff=rank_diff, loss_err=loss_err,
+                gnorm_err=gn_err, module_l2=mod_err, detections=counts)
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "sassd_tpu_torch")):
         fail("sassd_tpu_torch is not next to chip_smoke.py; run it from a "
              "checkout of the repository")
+    if sys.argv[1:2] == ["--dp-worker"]:
+        return dp_worker(sys.argv[2:])
     sys.path.insert(0, HERE)
     import dataclasses
     import numpy as np
@@ -3068,14 +3500,9 @@ def main() -> int:
     print(f"device: {name} ({torch.cuda.device_count()} visible); "
           f"nvidia-smi: {card}")
     from sassd_tpu_torch.config import car_config
-    from sassd_tpu_torch.core import boxes
     from sassd_tpu_torch.data import kitti, synthetic
-    from sassd_tpu_torch import serve
-    from sassd_tpu_torch.ops import build, cuda, native, riou_kernel, warp
-    from sassd_tpu_torch.ops import interpolate as itp
+    from sassd_tpu_torch.ops import build, cuda, native, riou_kernel
     from sassd_tpu_torch.ops import sparse as sp
-    from sassd_tpu_torch.ops import voxelize as vox
-    from sassd_tpu_torch.parallel import sparse_spatial as ss
     from sassd_tpu_torch.weights import seeded_detector
     print(run([cuda.nvcc(), "--version"]).splitlines()[-1:])
 
@@ -3092,6 +3519,11 @@ def main() -> int:
             print("  ptxas:", line.strip())
 
     cfg = car_config()
+    if "--data-parallel-only" in sys.argv[1:]:
+        with tempfile.TemporaryDirectory() as root:
+            run_data_parallel(torch, np, device, cfg, root)
+        print(card)
+        return 0
     cfg_dev = dataclasses.replace(cfg, model=dataclasses.replace(
         cfg.model, host_plans=False))
     anchors, anchors_bv = kitti.build_anchors(cfg)
@@ -3181,12 +3613,7 @@ def main() -> int:
               f"{r['plain_ms']:.4f} ms")
     # K7' and K11' are K7 and K11 called with a limit and with origins:
     # the banded phases are the only callers that pass them
-    symbols = {"K1": ("sassd_riou_overlap",), "K2": ("sassd_nms_keep",),
-               **warp.KERNEL_SYMBOLS, **sp.KERNEL_SYMBOLS,
-               **vox.KERNEL_SYMBOLS, **serve.KERNEL_SYMBOLS,
-               **itp.KERNEL_SYMBOLS, **boxes.KERNEL_SYMBOLS,
-               **ss.KERNEL_SYMBOLS, "K7'": sp.KERNEL_SYMBOLS["K7"],
-               "K11'": itp.KERNEL_SYMBOLS["K11"]}
+    symbols = kernel_symbols()
     for what, launches, ids in (("host plans", host[4], "K1 K2 K3 K4 K5"),
                                 ("device plans", dev[4],
                                  "K1 K2 K3 K4 K5 K6 K7"),
@@ -3209,10 +3636,7 @@ def main() -> int:
                                 ("long range, banded training",
                                  lr_runs["training"], "K1 K3 K3b K4 K5 K5b "
                                  "K6 K10 K12 K13 K14 K16 K7' K11'")):
-        idle = [s for k in ids.split() for s in symbols[k]
-                if launches[s] == 0]
-        if idle:
-            fail(f"{what}: a kernel of the path was not launched: {idle}")
+        check_launched(launches, ids, what)
     exact = multi_runs["exact"]
     if exact["sassd_ring_interp_bwd"] == 0:
         fail("three-class training, exact: K11's backward was not launched")
@@ -3228,6 +3652,8 @@ def main() -> int:
     check_cpu(np, cfg, model, anchors, samples[0], host[0][0], "host plans")
     check_cpu(np, cfg_dev, model, anchors, samples_dev[0], dev[0][0],
               "device plans")
+    with tempfile.TemporaryDirectory() as root:
+        data_parallel = run_data_parallel(torch, np, device, cfg, root)
 
     for what, (_, _, ms1, ms2, _) in (("host plans", host),
                                       ("device plans", dev)):
@@ -3244,6 +3670,9 @@ def main() -> int:
           f"{', '.join(f'{m:.2f}' for m in train_ms)} ms/step (host clock, "
           f"synchronised, loader excluded); host leg (read + voxelize + "
           f"mask + C++ train rulebook) {train_leg_ms:.2f} ms/step")
+    print(f"car config, data-parallel training (phase 10), on {name} "
+          f"[{card}]: {data_parallel['wall_s']:.1f} s, the two gloo ranks "
+          f"{data_parallel['ranks_s']:.1f} s")
     for what in ("banded", "replicated"):
         print(f"long range, {what}, timing scan at batch 1, on {name} "
               f"[{card}]: {', '.join(f'{m:.2f}' for m in lr_ms[what])} "

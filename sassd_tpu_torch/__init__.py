@@ -7,11 +7,13 @@ Subpackages and modules mirror sassd_tpu's names:
             and the device rulebook (K4-K7), PSWarp sampling (K3), rotated
             overlap (K1), CUDA build
   models    VxNet / BEVNet / SSD head / PSWarp head / detector
-  parallel  the banded sparse stage (band partition, K16)
+  parallel  data-parallel process groups (dist, mesh: SyncBN, the
+            gradient all-reduce, the evaluation gather) and the banded
+            sparse stage (band partition, K16)
   data      KITTI and raw-scan datasets, loader, synthetic scenes
   eval      KITTI result files and the official AP evaluation
   serve     device-resident serving from raw points (anchors mask, K9)
-  inference test steps, run_inference, evaluate
+  inference test steps, run_inference, evaluate (sharded over ranks)
 The hand-written CUDA kernels live in csrc/ and are built with nvcc at
 their first launch; on CPU tensors every kernel wrapper runs its plain
 PyTorch version.

@@ -14,6 +14,8 @@ from typing import Dict, Tuple
 
 import numpy as np
 
+from sassd_tpu_torch.parallel import dist
+
 
 @dataclasses.dataclass(frozen=True)
 class VoxelConfig:
@@ -211,7 +213,9 @@ def check_supported(cfg: SASSDConfig, train: bool = False) -> None:
     the GT-sampling augmentor and the one-cycle AdamW. The banded sparse
     stage always builds its rulebook on the device; its training takes
     the ring aux only (ValueError otherwise, as in the JAX package: the
-    exact 3-NN is not band-local).
+    exact 3-NN is not band-local), and runs in one process: banded across
+    the ranks of a process group is refused; the data strategy runs on
+    any number of ranks.
     """
     m, t, p = cfg.model, cfg.test, cfg.parallel
     if train and banded(cfg) and m.aux_interp != "ring":
@@ -230,6 +234,10 @@ def check_supported(cfg: SASSDConfig, train: bool = False) -> None:
         "test.serve_persistent_plans=True": t.serve_persistent_plans,
         f"parallel.strategy={p.strategy!r} with spatial={p.spatial}":
             p.strategy not in ("data", "banded") and p.spatial > 1,
+        # the JAX package runs bands on a data x spatial mesh; the port
+        # keeps every band on its own rank's device (ROADMAP A.3)
+        "parallel.strategy='banded' across data-parallel ranks":
+            banded(cfg) and dist.process_count() > 1,
     }
     if train:
         unsupported.update({

@@ -4,7 +4,8 @@
   if built) in, detections out.
 - :func:`run_inference`: the detector over a dataset, in either
   ``test.device_input`` mode, as KITTI annotations.
-- :func:`evaluate`: run_inference plus the official KITTI AP table.
+- :func:`evaluate`: run_inference plus the official KITTI AP table, in
+  one process or over the ranks of a process group.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from sassd_tpu_torch.data.loader import iterate_batches
 from sassd_tpu_torch.eval import kitti_eval
 from sassd_tpu_torch.eval.results import detections_to_kitti_anno
 from sassd_tpu_torch.models.detector import Detector
+from sassd_tpu_torch.parallel import dist
 
 
 def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
@@ -43,16 +45,18 @@ def make_test_step(cfg: SASSDConfig, anchors: np.ndarray, device
 
 
 def run_inference(cfg: SASSDConfig, dataset, model: Detector,
-                  batch_size: int = 1,
-                  device="cuda") -> Tuple[List[Dict], List[int]]:
-    """Run the detector over a dataset; returns (annos, sample_ids).
+                  batch_size: int = 1, device="cuda", num_shards: int = 1,
+                  shard_id: int = 0) -> Tuple[List[Dict], List[int]]:
+    """Run the detector over a dataset, or over the strided shard
+    `shard_id` of `num_shards` of it; returns (annos, sample_ids).
 
     `model` lives on `device`. With ``test.device_input="points"`` the
     loader only crops and pads raw points (serve.PointsView) and the device
     voxelizes, masks and builds the rulebook (serve.make_serving_step);
-    with "voxels" the dataset's samples are uploaded as they are. The last
-    batch is padded by repeating samples; their duplicates are kept, as
-    the JAX runner keeps them, and :func:`evaluate` drops them.
+    with "voxels" the dataset's samples are uploaded as they are. The
+    samples are padded, by repeating them, to a multiple of num_shards x
+    batch_size; the duplicates are kept, as the JAX runner keeps them, and
+    :func:`evaluate` drops them.
     """
     check_supported(cfg)
     if cfg.test.device_input == "points":
@@ -65,7 +69,8 @@ def run_inference(cfg: SASSDConfig, dataset, model: Detector,
     class_names = list(cfg.class_names)
     annos, ids = [], []
     for batch, metas in iterate_batches(src, batch_size, shuffle=False,
-                                        num_workers=2):
+                                        num_shards=num_shards,
+                                        shard_id=shard_id, num_workers=2):
         dets = {k: v.cpu().numpy() for k, v in step(model, batch).items()}
         for i, meta in enumerate(metas):
             annos.append(detections_to_kitti_anno(
@@ -88,16 +93,35 @@ def _dedup_by_id(annos: List[Dict], ids: List[int]):
 
 def evaluate(cfg: SASSDConfig, dataset, model: Optional[Detector],
              label_dir, batch_size: int = 1, device="cuda",
-             precomputed: Optional[Tuple[List[Dict], List[int]]] = None):
-    """Inference + the official KITTI AP over the dataset, in one process.
-    Returns (results, text).
+             precomputed: Optional[Tuple[List[Dict], List[int]]] = None,
+             exchange_dir: Optional[str] = None):
+    """Inference + the official KITTI AP over the dataset. Returns
+    (results, text).
 
-    `precomputed`: (annos, ids) from an earlier run_inference over the
-    dataset (for example one that also wrote result files), used instead
-    of a second pass; `model` may then be None.
+    Under a process group of N ranks each rank runs its strided 1/N of
+    the dataset and the annotations are gathered to rank 0 through
+    `exchange_dir` (a directory every rank sees, dist.gather_objects):
+    rank 0 alone computes the AP and returns it, the other ranks return
+    (None, "").
+
+    `precomputed`: (annos, ids) from an earlier run_inference over this
+    rank's shard (for example one that also wrote result files), used
+    instead of a second pass; `model` may then be None.
     """
+    n, pid = dist.process_count(), dist.process_index()
     dt_annos, ids = (precomputed if precomputed is not None else
-                     run_inference(cfg, dataset, model, batch_size, device))
+                     run_inference(cfg, dataset, model, batch_size, device,
+                                   num_shards=n, shard_id=pid))
+    if n > 1:
+        if exchange_dir is None:
+            raise ValueError("evaluate across processes needs an "
+                             "exchange_dir every rank can reach")
+        parts = dist.gather_objects((dt_annos, ids), exchange_dir,
+                                    tag="eval")
+        if pid != 0:
+            return None, ""
+        dt_annos = [a for p in parts for a in p[0]]
+        ids = [i for p in parts for i in p[1]]
     dt_annos, ids = _dedup_by_id(dt_annos, ids)
     gt_annos = kitti_eval.get_label_annos(label_dir, ids)
     return kitti_eval.get_official_eval_result(

@@ -49,6 +49,7 @@ from sassd_tpu_torch.core import losses as loss_ops
 from sassd_tpu_torch.core import targets as target_ops
 from sassd_tpu_torch.ops import interpolate
 from sassd_tpu_torch.ops import sparse as sp
+from sassd_tpu_torch.parallel import dist
 from sassd_tpu_torch.parallel import sparse_spatial as ss
 from . import backbone, bev, pswarp, ssd_head
 
@@ -224,7 +225,9 @@ class Detector(nn.Module):
         PSWarp 3D-IoU assigner labels positive); banded, also
         band_overflow (level-0 rows dropped by the per-band cap, which
         breaks banded == replicated when nonzero). The model must be in
-        train mode; BatchNorm buffers update."""
+        train mode; BatchNorm buffers update. Under a process group the
+        losses are this rank's shares of the global batch's losses and the
+        metrics this rank's own (train.loop's step reduces both)."""
         cfg, tc = self.cfg, self.cfg.train
         spine = self.forward_spine(batch)
         with record_function("aux"):
@@ -303,10 +306,13 @@ def aux_loss(point_cls: torch.Tensor, point_reg: torch.Tensor,
              spine: SpineOut, batch: Dict[str, torch.Tensor],
              denom: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """Point segmentation (focal) + centre-offset regression (smooth-L1)
-    of the aux branch; targets from points_in_boxes (K12). denom: the
-    batch-size divisor (default the GT batch; banded, the true batch size
-    B of the S * B band rows)."""
-    b = denom if denom is not None else batch["gt_boxes"].shape[0]
+    of the aux branch; targets from points_in_boxes (K12). denom: this
+    rank's batch size (default the GT batch; banded, the true batch size
+    B of the S * B band rows). The losses divide by the global batch,
+    denom times dist.process_count(), and normalise by the positive
+    points of every rank, as the JAX step over the global batch does."""
+    b = (denom if denom is not None
+         else batch["gt_boxes"].shape[0]) * dist.process_count()
     with torch.no_grad():
         labels, offsets = box_ops.aux_targets(
             spine.points_mean, spine.points_valid, batch["gt_boxes"],
@@ -314,7 +320,7 @@ def aux_loss(point_cls: torch.Tensor, point_reg: torch.Tensor,
     valid = spine.points_valid
     posf = (labels & valid).to(torch.float32)
     negf = (~labels & valid).to(torch.float32)
-    pos_norm = torch.clamp(torch.sum(posf), min=1.0)
+    pos_norm = torch.clamp(dist.all_reduce_sum(torch.sum(posf)), min=1.0)
     cls = loss_ops.sigmoid_focal_loss(point_cls, labels.to(torch.float32),
                                       (posf + negf) / pos_norm) / b
     reg = loss_ops.smooth_l1_loss(point_reg, offsets,

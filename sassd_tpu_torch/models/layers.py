@@ -14,6 +14,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from sassd_tpu_torch.parallel import dist
+
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.01
 
@@ -57,7 +59,9 @@ class BatchNorm(nn.Module):
     it normalises with the batch statistics over the rows where `mask` is
     set (padded sparse rows and empty dense cells are invisible) and
     updates the running buffers: (1-m)·running + m·batch, with the
-    unbiased variance. torch's nn.BatchNorm has no mask, so it is not used.
+    unbiased variance. Under a process group the batch is the global one
+    (see masked_moments), so the buffers stay equal on every rank.
+    torch's nn.BatchNorm has no mask, so it is not used.
     A new BatchNorm is in eval mode (the modules serve unless trained).
     """
 
@@ -87,21 +91,33 @@ class BatchNorm(nn.Module):
 def masked_moments(x: torch.Tensor, dim: int,
                    mask: Optional[torch.Tensor]):
     """Per-channel mean and biased variance of x over all axes but `dim`,
-    over the rows where `mask` is set; and the row count (>= 1)."""
+    over the rows where `mask` is set; and the row count (>= 1).
+
+    Under a process group these are the statistics of the global batch
+    (SyncBN, parallel/dist.py): the per-channel sums and the row count
+    are all-reduced in one call, then the squared deviations from the
+    global mean in a second one. Without a group the reductions are the
+    identity, so one rank and N ranks run the same code."""
     dim = dim % x.dim()
     red = [i for i in range(x.dim()) if i != dim]
     shape = [1] * x.dim()
     shape[dim] = -1
     if mask is None:
-        n = torch.tensor(float(x.numel() // x.shape[dim]), device=x.device)
-        mean = torch.mean(x, dim=red)
-        diff = x - mean.reshape(shape)
-        return mean, torch.mean(diff * diff, dim=red), n
-    m = mask.to(x.dtype)
-    n = torch.clamp(torch.sum(m), min=1.0)
-    mean = torch.sum(x * m, dim=red) / n
-    diff = (x - mean.reshape(shape)) * m
-    return mean, torch.sum(diff * diff, dim=red) / n, n
+        m = None
+        n = torch.full((1,), float(x.numel() // x.shape[dim]),
+                       dtype=x.dtype, device=x.device)
+        s = torch.sum(x, dim=red)
+    else:
+        m = mask.to(x.dtype)
+        n = torch.sum(m).reshape(1)
+        s = torch.sum(x * m, dim=red)
+    sn = dist.all_reduce_sum(torch.cat([s, n]))
+    n = torch.clamp(sn[-1].detach(), min=1.0)
+    mean = sn[:-1] / n
+    diff = x - mean.reshape(shape)
+    if m is not None:
+        diff = diff * m
+    return mean, dist.all_reduce_sum(torch.sum(diff * diff, dim=red)) / n, n
 
 
 def conv2d_nchw(x: torch.Tensor, w_hwio: torch.Tensor, b=None) -> torch.Tensor:

@@ -18,6 +18,7 @@ from sassd_tpu_torch.core import losses as loss_ops
 from sassd_tpu_torch.core import riou
 from sassd_tpu_torch.core import targets as target_ops
 from sassd_tpu_torch.ops import warp
+from sassd_tpu_torch.parallel import dist
 from . import layers as L
 from .ssd_head import top_k_stable
 
@@ -62,12 +63,15 @@ def pswarp_labels(boxes: torch.Tensor, valid: torch.Tensor,
 def pswarp_loss(scores: torch.Tensor, labels: torch.Tensor
                 ) -> Dict[str, torch.Tensor]:
     """Rescoring focal loss over the [B, K] scores given pswarp_labels,
-    normalised by the positives of the whole batch."""
-    b = scores.shape[0]
+    normalised by the positives of the whole batch. Under a process group
+    the batch is the global one: the positives of every rank, and the
+    local B times dist.process_count() as the divisor."""
+    b = scores.shape[0] * dist.process_count()
     cared = labels >= 0
     positives = labels > 0
     cls_weights = (cared & ((labels == 0) | positives)).to(torch.float32)
-    pos_norm = torch.clamp(torch.sum(positives.to(torch.float32)), min=1.0)
+    pos_norm = torch.clamp(dist.all_reduce_sum(
+        torch.sum(positives.to(torch.float32))), min=1.0)
     cls_targets = torch.where(cared, labels, 0).to(torch.float32)
     loss = loss_ops.sigmoid_focal_loss(scores, cls_targets,
                                        cls_weights / pos_norm) / b

@@ -15,6 +15,7 @@ from torch import nn
 from sassd_tpu_torch.core import boxes as box_ops
 from sassd_tpu_torch.core import losses as loss_ops
 from sassd_tpu_torch.core import targets as target_ops
+from sassd_tpu_torch.parallel import dist
 from . import layers as L
 
 
@@ -98,7 +99,8 @@ def head_loss(outs: HeadOutputs, anchors: torch.Tensor,
     """RPN losses: rpn_loc_loss (smooth-L1 on sin-difference residuals),
     rpn_cls_loss (focal) and rpn_dir_loss (softmax CE of the yaw sign),
     each normalised by the positives per sample and averaged over the
-    batch.
+    batch: under a process group, over the global batch (the local B
+    times dist.process_count()).
 
     anchors [A, 7] class-major; anchors_mask [B, A]; gt_boxes [B, G, 7];
     gt_classes [B, G] 1-based; gt_valid [B, G].
@@ -143,9 +145,10 @@ def head_loss(outs: HeadOutputs, anchors: torch.Tensor,
         torch.sum(dir_weights, dim=1, keepdim=True), min=1.0)
     dir_loss = loss_ops.softmax_cross_entropy(outs.dir_preds, dir_targets,
                                               dir_weights)
-    return dict(rpn_loc_loss=loc_loss / b * 2.0,
-                rpn_cls_loss=cls_loss / b * 1.0,
-                rpn_dir_loss=dir_loss / b * 0.2)
+    b_all = b * dist.process_count()
+    return dict(rpn_loc_loss=loc_loss / b_all * 2.0,
+                rpn_cls_loss=cls_loss / b_all * 1.0,
+                rpn_dir_loss=dir_loss / b_all * 0.2)
 
 
 def get_guided_anchors(outs: HeadOutputs, anchors: torch.Tensor,

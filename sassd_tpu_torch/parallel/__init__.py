@@ -1,1 +1,2 @@
-"""Parallel strategies of the port (the banded sparse stage)."""
+"""Parallel strategies of the port: data-parallel process groups (dist,
+mesh) and the banded sparse stage (sparse_spatial)."""

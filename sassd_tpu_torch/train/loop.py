@@ -1,11 +1,25 @@
-"""Single-device training: the train step with its non-finite guard, log
-averaging, and the epoch loop with checkpoints and resume (the JAX
-package's ``train/loop.py`` on one device).
+"""Training: the train step with its non-finite guard, log averaging,
+and the epoch loop with checkpoints and resume (the JAX package's
+``train/loop.py``), on one device or data-parallel over a process group.
 
 A step: host batch -> device -> ``Detector.forward_train`` -> the summed
 losses -> backward (K4, K10, K5b, K11, K3b on the card) -> global-norm
 clip + one-cycle AdamW. It marks ``backward`` and ``optimizer`` with
 torch.profiler ranges (see sassd_tpu_torch/profile_slice.py).
+
+Data-parallel (a process group up, parallel/dist.py): each of N ranks
+holds a replica and takes a strided 1/N of every global batch. The step
+keeps the semantics of the JAX step over the global batch: BatchNorm
+takes global statistics and the losses global normalizers (so each
+rank's loss is its share of the global loss), and after the backward one
+coalesced SUM all-reduce gives every rank the global gradient and the
+global losses; the clip, the guard and AdamW then run alike on every
+rank. The reductions hand every rank the same bits (each element is
+summed once and the result copied), so the replicas stay bitwise equal
+without a broadcast (tests/test_torch_multiprocess.py and chip_smoke.py
+phase 10 check it). DistributedDataParallel is not used: it averages the
+gradients (the sum is wanted, before the clip) and broadcasts the
+BatchNorm buffers, which SyncBN keeps equal already.
 """
 from __future__ import annotations
 
@@ -21,6 +35,7 @@ from sassd_tpu_torch.config import SASSDConfig, check_supported
 from sassd_tpu_torch.data.loader import iterate_batches
 from sassd_tpu_torch.inference import to_device
 from sassd_tpu_torch.models.detector import Detector, parse_losses
+from sassd_tpu_torch.parallel import dist, mesh
 from . import checkpoint as ckpt_lib
 from . import optim as optim_lib
 
@@ -32,6 +47,11 @@ def make_train_step(cfg: SASSDConfig, anchors: np.ndarray,
     """Returns step(model, batch) -> metrics (device scalars): every
     forward_train entry, loss (the objective), grad_norm and
     nonfinite_skips.
+
+    Under a process group `batch` is this rank's slice of the global
+    batch; the metrics are the global batch's (losses and guided_valid /
+    guided_pos summed over the ranks, guided_truncated averaged) and the
+    parameters' .grad hold the global gradient after the step.
 
     When the gradient norm or any loss is not finite, the update is
     skipped whole: parameters, BatchNorm running buffers and optimizer
@@ -54,17 +74,22 @@ def make_train_step(cfg: SASSDConfig, anchors: np.ndarray,
             total.backward()
         with record_function("optimizer"):
             grads = optimizer.grads()
+            values = torch.stack([v.detach() for v in losses.values()])
+            dist.all_reduce_coalesced(list(grads.values()) + [values])
+            metrics = dict(zip(losses, values))
+            if "guided_truncated" in metrics:
+                metrics["guided_truncated"] = (metrics["guided_truncated"]
+                                               / dist.process_count())
             gnorm = optim_lib.global_norm(grads.values())
             ok = torch.isfinite(gnorm) & torch.isfinite(
-                sum(torch.sum(v) for v in losses.values()))
+                sum(torch.sum(v) for v in metrics.values()))
             if bool(ok):
                 optimizer.step(grads, gnorm)
             else:
                 with torch.no_grad():
                     for b, s in zip(buffers, saved):
                         b.copy_(s)
-        metrics = {k: v.detach() for k, v in losses.items()}
-        metrics["loss"] = total.detach()
+        metrics["loss"] = parse_losses(metrics)
         metrics["grad_norm"] = gnorm.detach()
         metrics["nonfinite_skips"] = (~ok).to(torch.float32)
         return metrics
@@ -112,12 +137,27 @@ def train_model(cfg: SASSDConfig, dataset, work_dir: str, *,
     after the last), and every cfg.train.checkpoint_every_steps steps
     inside an epoch when that is set. epoch_callback(epoch, model) runs
     after every epoch.
+
+    Under a process group of N ranks (parallel/dist.py) each rank calls
+    this with its own `device` (mesh.local_device()) and the same
+    `work_dir`: cfg.train.batch_size is the global batch and must divide
+    by N, each rank loads the strided 1/N of every global batch, the
+    step reduces over the ranks, and rank 0 alone writes checkpoints,
+    every rank waiting at a barrier after each save. Every rank resumes
+    from the shared work_dir.
     """
     check_supported(cfg, train=True)
     logger = logger or logging.getLogger("sassd")
     tc = cfg.train
     total_epochs = total_epochs or tc.total_epochs
     bs = tc.batch_size
+    num_shards, shard_id = mesh.host_shard_info()
+    if bs % num_shards:
+        raise ValueError(f"global batch_size {bs} not divisible by "
+                         f"{num_shards} processes")
+    local_bs = bs // num_shards
+    # the loader pads each epoch to a multiple of the global batch, so
+    # every rank takes ceil(N / bs) steps
     steps_per_epoch = max(-(-len(dataset) // bs), 1)
     total_steps = steps_per_epoch * total_epochs
 
@@ -134,6 +174,13 @@ def train_model(cfg: SASSDConfig, dataset, work_dir: str, *,
         logger.info("resumed from %s (epoch %d, step %d, batch %d)", path,
                     start_epoch, step, start_batch)
 
+    def save(epoch: int, **kw) -> None:
+        if shard_id == 0:          # replicas are equal; one writer
+            logger.info("saved %s", ckpt_lib.save(
+                work_dir, epoch, step, model, optimizer,
+                max_keep=tc.max_ckpt_keep, **kw))
+        dist.barrier(f"ckpt_step_{step}")
+
     train_step = make_train_step(cfg, dataset.anchors, optimizer, device)
     buf = LogBuffer()
     every = tc.checkpoint_every_steps
@@ -142,15 +189,14 @@ def train_model(cfg: SASSDConfig, dataset, work_dir: str, *,
         bidx = start_batch
         warned = False
         for batch, _metas in iterate_batches(
-                dataset, bs, epoch=epoch, seed=tc.seed, shuffle=True,
+                dataset, local_bs, epoch=epoch, seed=tc.seed, shuffle=True,
+                num_shards=num_shards, shard_id=shard_id,
                 num_workers=cfg.data.num_workers, start_batch=start_batch):
             buf.update(train_step(model, batch))
             step += 1
             bidx += 1
             if every and bidx < steps_per_epoch and step % every == 0:
-                logger.info("saved %s", ckpt_lib.save(
-                    work_dir, epoch, step, model, optimizer,
-                    max_keep=tc.max_ckpt_keep, batch_idx=bidx))
+                save(epoch, batch_idx=bidx)
             if step % tc.log_interval == 0:
                 avg = buf.averages()
                 lr, mom = optimizer.hyperparams()
@@ -170,9 +216,7 @@ def train_model(cfg: SASSDConfig, dataset, work_dir: str, *,
         logger.info("epoch %d done in %.1fs", epoch, time.time() - t0)
         if ((epoch + 1) % tc.checkpoint_interval == 0
                 or epoch == total_epochs - 1):
-            logger.info("saved %s", ckpt_lib.save(
-                work_dir, epoch, step, model, optimizer,
-                max_keep=tc.max_ckpt_keep))
+            save(epoch)
         if epoch_callback is not None:
             epoch_callback(epoch, model)
     return model, optimizer, step
