@@ -116,6 +116,35 @@ Phases, each of which fails the run (nonzero exit, no result line):
    kernels of its path must launch. Phase 10's wall time and each gate's
    largest difference are printed.
 
+11. the CLIs (sassd_tpu_torch.tools), each process run as
+   ``chip_smoke.py --cli-worker`` (the tool's main with its arguments,
+   the launch counters reset just before and read just after, every
+   train step's metrics and run_inference's annotations recorded), on
+   the card by default. 11a: ``tools.train configs/car.py --synthetic
+   --epochs 2`` at full width, once uninterrupted and once with
+   ``--epochs_per_run 1`` (exit 75, then a relaunch that exits 0): the
+   final step, the saved and the final optimizer count, lr and momentum
+   equal between the two; every step finite, none skipped; the
+   relaunch's first step's losses bitwise equal to a step taken here
+   from the same checkpoint on the same batch; the final weights'
+   distance from the uninterrupted run printed beside that of a second
+   uninterrupted run, the control (not gated: K11's backward atomics);
+   K1, K3, K3b, K4, K5, K5b, K10, K11 and K12 launched in each run. 11b:
+   ``tools.test`` on the relaunched run's final checkpoint with
+   ``--out``: its annotations match an in-process run_inference of the
+   same weights as sets (boxes 1e-2, scores 1e-3), its AP text equals
+   evaluate's, a result file per scan; K1-K5 launched. 11c:
+   ``configs/multi_convergence_r3.py`` (three classes, device plans,
+   weight decay on every parameter, the GT database) through a wrapper
+   config that changes only its paths and its epochs, on a small corpus
+   written by ``tools.make_synth_corpus``: one epoch at batch 1, every
+   step finite, every parameter decayed, K6, K7, K13 and K14 among the
+   kernels launched. 11d: the PointNet VFE (model.vfe_type="pointnet")
+   at car width: forward_test on the card vs the CPU as sets, and one
+   train step's losses within 1e-3 of the CPU forward_train's. The CLI
+   processes run up to four at a time beside 11d; phase 11's wall
+   time and each process's are printed.
+
 Phase 3 holds K1 (rotated overlap) in all four criteria within K1_ATOL
 of its plain version and at exactly +0.0 on every pair that its
 separation cull rejects, on the 2008-box set and on phase 6's NMS input
@@ -205,7 +234,12 @@ from its own root.
     python3 chip_smoke.py --data-parallel-only
 
 builds the kernels and runs phase 10 alone, with no result line.
-(``--dp-worker`` is the entry of phase 10's rank subprocesses.)
+
+    python3 chip_smoke.py --cli-only
+
+builds the kernels and runs phase 11 alone, with no result line.
+(``--dp-worker`` is the entry of phase 10's rank subprocesses,
+``--cli-worker`` that of phase 11's CLI processes.)
 """
 from __future__ import annotations
 
@@ -263,6 +297,13 @@ DP_STEPS = 2
 DP_WORKER_TIMEOUT_S = 300
 DP_GROUP_TIMEOUT_S = 120
 ADDR_IN_USE = ("address already in use", "eaddrinuse")
+# phase 11: the CLIs; each CLI process's time limit, the car runs' epochs
+# and the three-class run's corpus (make_synth_corpus) in scans
+CLI_TIMEOUT_S = 600
+CLI_EPOCHS = 2
+CLI_CORPUS = (4, 1)
+CLI_CAR = os.path.join(HERE, "configs", "car.py")
+CLI_MULTI = os.path.join(HERE, "configs", "multi_convergence_r3.py")
 
 # the sparse ladder's 10 convs (models/backbone.py VxNet) as distinct
 # shapes: name, plan, input level, Cin, Cout, convs of that shape
@@ -3475,12 +3516,363 @@ def run_data_parallel(torch, np, device, cfg, root: str) -> dict:
                 gnorm_err=gn_err, module_l2=mod_err, detections=counts)
 
 
+CLI_MULTI_IDS = "K1 K3 K3b K4 K5 K5b K6 K7 K10 K11 K12 K13 K14"
+CLI_TEST_IDS = "K1 K2 K3 K4 K5"
+
+
+def cli_worker(argv) -> int:
+    """One CLI process of phase 11: argv = record file, tool name, the
+    tool's arguments. Runs ``sassd_tpu_torch.tools.<tool>.main`` with the
+    launch counters reset just before and read just after, records every
+    train step's metrics (loop.make_train_step wrapped), the optimizer's
+    final count and hyperparameters and its weight-decay scope, and
+    run_inference's annotations, and pickles them to the record file."""
+    out, name, args = argv[0], argv[1], argv[2:]
+    sys.path.insert(0, HERE)
+    import importlib
+    import pickle
+    from sassd_tpu_torch import inference
+    from sassd_tpu_torch.train import loop
+    rec = {"steps": [], "annos": None}
+    make_step, run_inf = loop.make_train_step, inference.run_inference
+
+    def make_train_step(cfg, anchors, optimizer, device):
+        step = make_step(cfg, anchors, optimizer, device)
+        rec["optimizer"] = optimizer
+
+        def recorded(model, batch):
+            m = step(model, batch)
+            rec["steps"].append({k: float(v) for k, v in m.items()})
+            return m
+        return recorded
+
+    def run_inference(*a, **kw):
+        rec["annos"] = run_inf(*a, **kw)
+        return rec["annos"]
+    loop.make_train_step, inference.run_inference = make_train_step, \
+        run_inference
+    tool = importlib.import_module(f"sassd_tpu_torch.tools.{name}")
+    reset_launches()
+    rc = tool.main(args)
+    rec.update(rc=rc, launches=read_launches())
+    opt = rec.pop("optimizer", None)
+    if opt is not None:
+        rec.update(count=opt.count, hyperparams=opt.hyperparams(),
+                   decay_all=all(opt.decay.values()))
+    with open(out, "wb") as f:
+        pickle.dump(rec, f)
+    return rc
+
+
+def start_cli(root: str, tag: str, tool: str, *args):
+    """Start one CLI process of phase 11 (cli_worker) in the background;
+    its output goes to root/{tag}.log, its record to root/{tag}.pkl."""
+    log = open(os.path.join(root, f"{tag}.log"), "w+")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--cli-worker",
+         os.path.join(root, f"{tag}.pkl"), tool, *args],
+        cwd=HERE, stdout=log, stderr=subprocess.STDOUT, text=True)
+    return dict(tag=tag, proc=proc, log=log, root=root,
+                t0=time.perf_counter())
+
+
+def finish_cli(run: dict, want_rc: int = 0) -> dict:
+    """Wait for a CLI process (killed past CLI_TIMEOUT_S) and return its
+    record with its output ("text") and wall seconds; fail unless it
+    exited `want_rc`."""
+    import pickle
+    proc = run["proc"]
+    try:
+        proc.wait(timeout=max(CLI_TIMEOUT_S - (time.perf_counter()
+                                               - run["t0"]), 1))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    run["log"].seek(0)
+    text = run["log"].read()
+    run["log"].close()
+    if proc.returncode != want_rc:
+        fail(f"CLI {run['tag']}: exit {proc.returncode}, not {want_rc}:\n"
+             f"{text[-4000:]}")
+    with open(os.path.join(run["root"], f"{run['tag']}.pkl"), "rb") as f:
+        rec = pickle.load(f)
+    rec.update(text=text, wall_s=time.perf_counter() - run["t0"])
+    print(f"  CLI {run['tag']}: exit {proc.returncode} in "
+          f"{rec['wall_s']:.1f} s, {len(rec['steps'])} train steps")
+    return rec
+
+
+def wrapper_config(root: str, name: str, base: str, **replace) -> str:
+    """A config file under root that loads the config file `base` and
+    replaces the given fields (sections as dicts of fields); returns its
+    path."""
+    lines = ["import dataclasses",
+             "from sassd_tpu.config import load_config",
+             f"_c = load_config({base!r})"]
+    fields = []
+    for k, v in replace.items():
+        if isinstance(v, dict):
+            inner = ", ".join(f"{f}={x!r}" for f, x in v.items())
+            fields.append(f"{k}=dataclasses.replace(_c.{k}, {inner})")
+        else:
+            fields.append(f"{k}={v!r}")
+    lines.append(f"config = dataclasses.replace(_c, {', '.join(fields)})")
+    path = os.path.join(root, name)
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return path
+
+
+def check_train_record(np, rec: dict, n_steps: int, what: str) -> None:
+    """Every recorded step finite with no skipped update."""
+    if len(rec["steps"]) != n_steps:
+        fail(f"{what}: {len(rec['steps'])} train steps, not {n_steps}")
+    for i, m in enumerate(rec["steps"]):
+        if not all(np.isfinite(v) for v in m.values()):
+            fail(f"{what}: step {i}: a non-finite metric {m}")
+        if m["nonfinite_skips"]:
+            fail(f"{what}: step {i} skipped its update")
+
+
+def run_pointnet_vfe(torch, np, device, cfg, root: str) -> dict:
+    """Phase 11d: the PointNet VFE on `cfg` (the car config) on the card
+    against the CPU: forward_test detections as sets, and one train
+    step's losses against the CPU forward_train's (TRAIN_LOSS_RTOL)."""
+    import dataclasses
+    from sassd_tpu_torch import inference
+    from sassd_tpu_torch.data import kitti, synthetic
+    from sassd_tpu_torch.data.loader import iterate_batches
+    from sassd_tpu_torch.train import loop, optim
+    from sassd_tpu_torch.weights import seeded_detector
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, vfe_type="pointnet"))
+    synthetic.write_synthetic_kitti(
+        root, n_train=2, n_val=0, seed=SEED + 5,
+        point_cloud_range=cfg.voxel.point_cloud_range)
+    ds = kitti.KittiDataset(cfg, os.path.join(root, "training"),
+                            os.path.join(root, "ImageSets", "train.txt"),
+                            train=True)
+    batch = next(iter(iterate_batches(ds, 2, shuffle=False,
+                                      num_workers=0)))[0]
+    model_dev = seeded_detector(cfg, SEED, device)
+    model_cpu = seeded_detector(cfg, SEED, "cpu")
+    dets = {}
+    for where, model, dev in (("card", model_dev, device),
+                              ("cpu", model_cpu, "cpu")):
+        step = inference.make_test_step(cfg, ds.anchors, dev)
+        dets[where] = {k: v.cpu().numpy()
+                       for k, v in step(model, batch).items()}
+    n = [match_detections({k: v[i] for k, v in dets["card"].items()},
+                          {k: v[i] for k, v in dets["cpu"].items()},
+                          f"PointNet VFE, scan {i}: card vs CPU")
+         for i in range(2)]
+    if sum(n) == 0:
+        fail("PointNet VFE: no detections to compare")
+    model_cpu.train()
+    with torch.no_grad():
+        ref = model_cpu.forward_train(
+            inference.to_device(batch, "cpu"),
+            torch.from_numpy(ds.anchors))
+    opt = optim.make_optimizer(model_dev, cfg.train, 10)
+    got = loop.make_train_step(cfg, ds.anchors, opt, device)(model_dev,
+                                                             batch)
+    worst = 0.0
+    for k, v in ref.items():
+        if "loss" not in k:
+            continue
+        r, g = float(v), float(got[k])
+        err = abs(g - r) / max(abs(r), 1e-12)
+        worst = max(worst, err)
+        if not err <= TRAIN_LOSS_RTOL:
+            fail(f"PointNet VFE: train step {k} card {g} vs CPU {r} "
+                 f"({err:.2e} > {TRAIN_LOSS_RTOL})")
+    if float(got["nonfinite_skips"]):
+        fail("PointNet VFE: the card's train step skipped its update")
+    print(f"PointNet VFE (car width): detections card vs CPU matched "
+          f"{n}; one train step's losses within {worst:.2e} of the CPU's")
+    return dict(matched=n, loss_rel=worst)
+
+
+def run_cli(torch, np, device, root: str) -> dict:
+    """Phase 11 (see the module docstring). Returns the printed numbers."""
+    import dataclasses
+    from sassd_tpu_torch.config import load_config
+    from sassd_tpu_torch.data import kitti
+    from sassd_tpu_torch.data.loader import iterate_batches
+    from sassd_tpu_torch.inference import evaluate, run_inference
+    from sassd_tpu_torch.models.detector import Detector
+    from sassd_tpu_torch.tools import make_synth_corpus
+    from sassd_tpu_torch.train import checkpoint as ckpt, loop, optim
+    t0 = time.perf_counter()
+    car = CLI_CAR
+    # the CLIs run on the card by default; a CPU rehearsal asks for the CPU
+    dev_args = [] if device.type == "cuda" else ["--device", "cpu"]
+    work = {k: os.path.join(root, k)
+            for k in ("whole", "whole2", "split", "multi")}
+    corpus = os.path.join(root, "multi_corpus")
+    make_synth_corpus.main([corpus, "--n_train", str(CLI_CORPUS[0]),
+                            "--n_val", str(CLI_CORPUS[1]),
+                            "--seed", str(SEED)])
+    multi_cfg = wrapper_config(
+        root, "multi_r3.py", CLI_MULTI,
+        data=dict(root=corpus,
+                  info_path=os.path.join(corpus, "ImageSets", "train.txt"),
+                  db_info_path=os.path.join(corpus,
+                                            "kitti_dbinfos_train.pkl")),
+        train=dict(total_epochs=1), work_dir=work["multi"])
+    train_args = ["--synthetic", "--epochs", str(CLI_EPOCHS), *dev_args]
+    runs = [start_cli(root, "whole", "train", car, "--work_dir",
+                      work["whole"], *train_args),
+            start_cli(root, "split1", "train", car, "--work_dir",
+                      work["split"], *train_args, "--epochs_per_run", "1"),
+            start_cli(root, "multi", "train", multi_cfg, *dev_args),
+            # a second uninterrupted run: how far two runs drift apart
+            # without a relaunch (the control of 11a's distance)
+            start_cli(root, "whole2", "train", car, "--work_dir",
+                      work["whole2"], *train_args)]
+    try:
+        vfe = run_pointnet_vfe(torch, np, device, load_config(car),
+                               os.path.join(root, "vfe"))
+        split1 = finish_cli(runs[1], 75)
+        runs.append(start_cli(root, "split2", "train", car, "--work_dir",
+                              work["split"], *train_args,
+                              "--epochs_per_run", "1"))
+        whole, multi = finish_cli(runs[0]), finish_cli(runs[2])
+        whole2, split2 = finish_cli(runs[3]), finish_cli(runs[4])
+    finally:
+        for r in runs:
+            if r["proc"].poll() is None:
+                r["proc"].kill()
+                r["proc"].wait()
+    # 11a: the uninterrupted and the relaunched runs
+    cfg = load_config(car)
+    data = os.path.join(work["split"], "synthetic_kitti")
+    ds = kitti.KittiDataset(cfg, os.path.join(data, "training"),
+                            os.path.join(data, "ImageSets", "train.txt"),
+                            train=True)
+    spe = -(-len(ds) // cfg.train.batch_size)
+    check_train_record(np, whole, spe * CLI_EPOCHS, "CLI whole")
+    check_train_record(np, whole2, spe * CLI_EPOCHS, "CLI whole2")
+    check_train_record(np, split1, spe, "CLI split, first launch")
+    check_train_record(np, split2, spe * (CLI_EPOCHS - 1),
+                       "CLI split, relaunch")
+    for rec, what in ((whole, "CLI whole"), (split1, "CLI split1"),
+                      (split2, "CLI split2")):
+        check_launched(rec["launches"], TRAIN_PHASE_IDS, what)
+    final = {k: torch.load(os.path.join(work[k],
+                                        f"checkpoint_epoch_{CLI_EPOCHS - 1}"
+                                        ".pt"), weights_only=True)
+             for k in ("whole", "whole2", "split")}
+    ends = {k: (final[k]["step"], final[k]["optimizer"]["count"], r["count"],
+                r["hyperparams"]) for k, r in (("whole", whole),
+                                               ("split", split2))}
+    if ends["whole"] != ends["split"] or ends["whole"][0] != spe * CLI_EPOCHS:
+        fail(f"CLI: (step, saved count, count, (lr, momentum)) whole "
+             f"{ends['whole']} vs relaunched {ends['split']}")
+    # how far apart two runs end: parameters by their largest difference
+    # and relative L2, BatchNorm statistics by relative L2
+    names = {k for k, _ in Detector(cfg).named_parameters()}
+
+    def distance(a, b):
+        def rel_l2(keys):
+            num = sum(float(((a[k] - b[k]).double() ** 2).sum())
+                      for k in keys)
+            den = sum(float((a[k].double() ** 2).sum()) for k in keys)
+            return (num / max(den, 1e-300)) ** 0.5
+        return dict(param_max=max(float((a[k] - b[k]).abs().max())
+                                  for k in names),
+                    param_rel_l2=rel_l2(names),
+                    bn_rel_l2=rel_l2([k for k in a if k not in names]))
+    diff = {what: distance(final["whole"]["model"], final[k]["model"])
+            for what, k in (("relaunched", "split"), ("control", "whole2"))}
+    print(f"CLI 11a: whole and relaunched runs end at step "
+          f"{ends['whole'][0]}, count {ends['whole'][1]}, lr/momentum "
+          f"{ends['whole'][3]} (not gated below: K11's backward atomics)")
+    for what, d in diff.items():
+        print(f"CLI 11a: final weights, whole vs {what} "
+              f"{'(a second uninterrupted run) ' if what == 'control' else ''}"
+              f"parameters max |diff| {d['param_max']:.3e}, relative L2 "
+              f"{d['param_rel_l2']:.3e}; BatchNorm statistics relative L2 "
+              f"{d['bn_rel_l2']:.3e}")
+    # the relaunch's first step against a step taken here from the same
+    # checkpoint on the same batch
+    model = Detector(cfg).to(device)
+    opt = optim.make_optimizer(model, cfg.train, spe * CLI_EPOCHS)
+    ckpt.restore(os.path.join(work["split"], "checkpoint_epoch_0.pt"), model,
+                 opt)
+    batch = next(iter(iterate_batches(ds, cfg.train.batch_size, epoch=1,
+                                      seed=cfg.train.seed, shuffle=True,
+                                      num_workers=0)))[0]
+    here = {k: float(v) for k, v in loop.make_train_step(
+        cfg, ds.anchors, opt, device)(model, batch).items()}
+    first = split2["steps"][0]
+    losses = [k for k in here if "loss" in k]
+    off = [k for k in losses if here[k] != first[k]]
+    if off or not losses:
+        fail(f"CLI 11a: the relaunch's first step differs from the "
+             f"in-process step from its checkpoint: "
+             f"{[(k, first[k], here[k]) for k in off]}")
+    print(f"CLI 11a: the relaunch's first step's {len(losses)} losses equal "
+          f"the in-process step's bit for bit (loss {here['loss']:.6f})")
+    # 11b: tools.test on the relaunched run's final checkpoint
+    test_cfg = wrapper_config(root, "car_test.py", car, data=dict(root=data))
+    final_pt = os.path.join(work["split"],
+                            f"checkpoint_epoch_{CLI_EPOCHS - 1}.pt")
+    out = os.path.join(root, "results")
+    test = finish_cli(start_cli(root, "test", "test", test_cfg, final_pt,
+                                "--out", out, *dev_args))
+    check_launched(test["launches"], CLI_TEST_IDS, "CLI test")
+    tcfg = load_config(test_cfg)
+    val = kitti.KittiDataset(tcfg, os.path.join(data, "training"),
+                             os.path.join(data, "ImageSets", "val.txt"))
+    model = Detector(tcfg)
+    ckpt.restore(final_pt, model)
+    model.to(device)
+    annos, ids = run_inference(tcfg, val, model, 1, device)
+    got_annos, got_ids = test["annos"]
+    if list(got_ids) != list(ids):
+        fail(f"CLI test: samples {got_ids} vs {ids}")
+    n_det = [match_annos(np, g, a, f"CLI test, scan {i}")
+             for g, a, i in zip(got_annos, annos, ids)]
+    _, text = evaluate(tcfg, val, model,
+                       os.path.join(data, "training", "label_2"),
+                       device=device, precomputed=(annos, ids))
+    if text.strip() not in test["text"]:
+        fail(f"CLI test: its AP text differs from evaluate's:\n{text}")
+    files = sorted(os.listdir(out))
+    if files != [f"{i:06d}.txt" for i in ids]:
+        fail(f"CLI test: result files {files}")
+    print(f"CLI 11b: tools.test matched the in-process run on {len(ids)} "
+          f"scans ({n_det} detections), AP text equal, {len(files)} result "
+          f"files")
+    # 11c: configs/multi_convergence_r3.py on the small corpus
+    n_multi = -(-CLI_CORPUS[0] // load_config(multi_cfg).train.batch_size)
+    check_train_record(np, multi, n_multi, "CLI multi_convergence_r3")
+    check_launched(multi["launches"], CLI_MULTI_IDS,
+                   "CLI multi_convergence_r3")
+    if not multi["decay_all"]:
+        fail("CLI multi_convergence_r3: weight_decay_mode='all' did not "
+             "decay every parameter")
+    print(f"CLI 11c: multi_convergence_r3 ({n_multi} steps at batch 1, "
+          f"device plans, weight decay on every parameter, GT database) "
+          f"losses {[round(m['loss'], 4) for m in multi['steps']]}")
+    wall = time.perf_counter() - t0
+    procs = {k: r["wall_s"] for k, r in (
+        ("whole", whole), ("whole2", whole2), ("split1", split1),
+        ("split2", split2), ("multi", multi), ("test", test))}
+    print(f"CLI: phase 11 took {wall:.1f} s (process wall s: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in procs.items()) + ")")
+    return dict(wall_s=wall, diff=diff, vfe=vfe, procs=procs)
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "sassd_tpu_torch")):
         fail("sassd_tpu_torch is not next to chip_smoke.py; run it from a "
              "checkout of the repository")
     if sys.argv[1:2] == ["--dp-worker"]:
         return dp_worker(sys.argv[2:])
+    if sys.argv[1:2] == ["--cli-worker"]:
+        return cli_worker(sys.argv[2:])
     sys.path.insert(0, HERE)
     import dataclasses
     import numpy as np
@@ -3522,6 +3914,11 @@ def main() -> int:
     if "--data-parallel-only" in sys.argv[1:]:
         with tempfile.TemporaryDirectory() as root:
             run_data_parallel(torch, np, device, cfg, root)
+        print(card)
+        return 0
+    if "--cli-only" in sys.argv[1:]:
+        with tempfile.TemporaryDirectory() as root:
+            run_cli(torch, np, device, root)
         print(card)
         return 0
     cfg_dev = dataclasses.replace(cfg, model=dataclasses.replace(
@@ -3654,6 +4051,8 @@ def main() -> int:
               "device plans")
     with tempfile.TemporaryDirectory() as root:
         data_parallel = run_data_parallel(torch, np, device, cfg, root)
+    with tempfile.TemporaryDirectory() as root:
+        cli = run_cli(torch, np, device, root)
 
     for what, (_, _, ms1, ms2, _) in (("host plans", host),
                                       ("device plans", dev)):
@@ -3673,6 +4072,9 @@ def main() -> int:
     print(f"car config, data-parallel training (phase 10), on {name} "
           f"[{card}]: {data_parallel['wall_s']:.1f} s, the two gloo ranks "
           f"{data_parallel['ranks_s']:.1f} s")
+    print(f"CLIs (phase 11), on {name} [{card}]: {cli['wall_s']:.1f} s; "
+          f"processes (s) " + ", ".join(f"{k} {v:.1f}"
+                                        for k, v in cli["procs"].items()))
     for what in ("banded", "replicated"):
         print(f"long range, {what}, timing scan at batch 1, on {name} "
               f"[{card}]: {', '.join(f'{m:.2f}' for m in lr_ms[what])} "

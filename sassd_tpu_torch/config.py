@@ -1,16 +1,23 @@
-"""Configuration dataclasses read by the PyTorch port.
+"""Configuration dataclasses read by the PyTorch port, and the loader of
+the repo's config files.
 
 The fields and defaults are those of ``sassd_tpu.config`` (and of
-``sassd_tpu.ops.voxelize.VoxelConfig``), restricted to what inference and
-single-device training read. Layout knobs of the JAX package that do not
-change numerics (``triple_gather``, ``flat_batch``, ``fold_head``,
-``packed_warp``, ...) are not carried: the port implements one form of
-each. Options the port does not run yet raise ``NotImplementedError`` in :func:`check_supported`.
+``sassd_tpu.ops.voxelize.VoxelConfig``). Layout knobs of the JAX package
+that do not change numerics (``triple_gather``, ``flat_batch``,
+``fold_head``, ``packed_warp``, ...) are not carried: the port implements
+one form of each. Options the port does not run raise
+``NotImplementedError`` in :func:`check_supported`.
+
+:func:`load_config` runs a config file of ``configs/`` (written against
+``sassd_tpu.config``) and returns this module's :class:`SASSDConfig`.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+import importlib.util
+import sys
+import types
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -71,6 +78,9 @@ class ModelConfig:
     bev_channels: int = 256
     num_anchor_per_loc: int = 2
     box_code_size: int = 7
+    # declared by the JAX package and read by neither package
+    use_direction_classifier: bool = True
+    encode_rad_error_by_sin: bool = True
     grid_offsets: Tuple[float, float] = (0.0, 40.0)
     featmap_stride: float = 0.4
     num_parts: int = 28
@@ -91,6 +101,7 @@ class ModelConfig:
 class TestConfig:
     score_thr: float = 0.3
     nms_iou_thr: float = 0.1
+    max_per_img: int = 100             # not read (caps.max_det bounds it)
     anchor_thr: float = 0.1
     nms_pre: int = 2000
     serve_persistent_plans: bool = False
@@ -102,6 +113,9 @@ class TestConfig:
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
+    root: str = ""                     # KITTI root: training/, ImageSets/
+    info_path: str = ""                # train split file (default
+                                       # root/ImageSets/train.txt)
     class_names: Tuple[str, ...] = ("Car",)
     anchor_area_threshold: float = 1.0
     out_size_factor: int = 8
@@ -127,17 +141,26 @@ class TrainConfig:
     total_epochs: int = 80
     lr: float = 0.003
     weight_decay: float = 0.01
-    # "exclude_bn_bias": decay only conv/linear kernels ("w" leaves)
+    # "exclude_bn_bias": decay only conv/linear kernels ("w" leaves);
+    # "all": decay every parameter
     weight_decay_mode: str = "exclude_bn_bias"
     grad_clip_norm: float = 10.0
     # one-cycle schedule
     moms: Tuple[float, float] = (0.95, 0.85)
     div_factor: float = 10.0
     pct_start: float = 0.4
+    # cosine warmup prefix of the non-onecycle optimizers: lr rises from
+    # lr * warmup_ratio to lr over the first warmup_iters steps
+    warmup_iters: int = 0
+    warmup_ratio: float = 0.1
     anchor_thr: float = 0.1            # guided-anchor score threshold
     extra_pos_iou: float = 0.7         # PSWarp assigner (3D IoU)
     extra_neg_iou: float = 0.7
+    extra_similarity: str = "RotateIou3dSimilarity"   # not read
     rpn_similarity: str = "NearestIouSimilarity"
+    # the JAX loop's bound on steps in flight; accepted and not read: the
+    # port's step reads its non-finite check back, once a step
+    max_inflight_steps: int = 2
     checkpoint_interval: int = 2       # epochs
     checkpoint_every_steps: int = 0    # mid-epoch saves every N steps
     max_ckpt_keep: int = 10
@@ -173,6 +196,10 @@ class SASSDConfig:
     data: DataConfig = DataConfig()
     parallel: ParallelConfig = ParallelConfig()
     train: TrainConfig = TrainConfig()
+    work_dir: str = "./work_dir"
+    resume_from: Optional[str] = None  # a checkpoint to resume (.pt or a
+                                       # JAX .msgpack)
+    load_from: Optional[str] = None    # parameters to start from
 
     @property
     def class_names(self) -> Tuple[str, ...]:
@@ -215,7 +242,9 @@ def check_supported(cfg: SASSDConfig, train: bool = False) -> None:
     the ring aux only (ValueError otherwise, as in the JAX package: the
     exact 3-NN is not band-local), and runs in one process: banded across
     the ranks of a process group is refused; the data strategy runs on
-    any number of ranks.
+    any number of ranks. The PointNet VFE runs on the replicated spine
+    only (the JAX package's banded stage ignores it and encodes by the
+    mean).
     """
     m, t, p = cfg.model, cfg.test, cfg.parallel
     if train and banded(cfg) and m.aux_interp != "ring":
@@ -226,7 +255,10 @@ def check_supported(cfg: SASSDConfig, train: bool = False) -> None:
         "model.sorted_device_levels=False": not m.sorted_device_levels,
         f"model.plan_lookup={m.plan_lookup!r}": m.plan_lookup != "dense",
         "model.dense_tail=False": not m.dense_tail,
-        f"model.vfe_type={m.vfe_type!r}": m.vfe_type != "mean",
+        f"model.vfe_type={m.vfe_type!r}":
+            m.vfe_type not in ("mean", "pointnet"),
+        "model.vfe_type='pointnet' with the banded sparse stage":
+            m.vfe_type == "pointnet" and banded(cfg),
         f"model.compute_dtype={m.compute_dtype!r}":
             m.compute_dtype != "float32",
         f"test.device_input={t.device_input!r}":
@@ -244,7 +276,7 @@ def check_supported(cfg: SASSDConfig, train: bool = False) -> None:
             f"model.aux_interp={m.aux_interp!r}":
                 m.aux_interp not in ("ring", "exact"),
             f"train.weight_decay_mode={cfg.train.weight_decay_mode!r}":
-                cfg.train.weight_decay_mode != "exclude_bn_bias",
+                cfg.train.weight_decay_mode not in ("exclude_bn_bias", "all"),
             f"train.rpn_similarity={cfg.train.rpn_similarity!r}":
                 cfg.train.rpn_similarity not in (
                     "NearestIouSimilarity", "RotateIou3dSimilarity"),
@@ -322,3 +354,44 @@ def tiny_config(**overrides) -> SASSDConfig:
     )
     base.update(overrides)
     return SASSDConfig(**base)
+
+
+def load_config(path: str) -> SASSDConfig:
+    """Run a python config file that defines ``config`` and return it.
+
+    The repo's config files import ``sassd_tpu.config`` (``from
+    sassd_tpu.config import car_config``, or ``import sassd_tpu.config``).
+    While the file runs, ``sys.modules`` maps ``sassd_tpu.config`` to this
+    module and ``sassd_tpu`` to a bare package holding only it, so both
+    forms build the port's dataclasses and nothing of the JAX package is
+    imported; afterwards both entries are restored to what they were (the
+    JAX modules, when this process has them loaded), also when the file
+    raises. The limit: a config file can reach only ``sassd_tpu.config``;
+    any other ``sassd_tpu`` module (``from sassd_tpu.models import ...``)
+    raises ImportError while the file runs.
+
+    Raises TypeError when the file does not define a port SASSDConfig
+    named ``config``.
+    """
+    this = sys.modules[__name__]
+    parent = types.ModuleType("sassd_tpu")
+    parent.__path__ = []                   # a package with no submodules
+    parent.config = this
+    bound = {"sassd_tpu": parent, "sassd_tpu.config": this}
+    saved = {k: sys.modules.get(k) for k in bound}
+    spec = importlib.util.spec_from_file_location("_sassd_torch_user_config",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules.update(bound)
+    try:
+        spec.loader.exec_module(mod)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                sys.modules.pop(k, None)
+            else:
+                sys.modules[k] = v
+    cfg = getattr(mod, "config", None)
+    if not isinstance(cfg, SASSDConfig):
+        raise TypeError(f"{path} must define `config: SASSDConfig`")
+    return cfg

@@ -1,9 +1,10 @@
 """Offline data preparation for training (host side, numpy): per-split
-info files and the GT database the augmentor pastes from. The info-file
-and GT-database writers of the JAX package's ``data/create_data.py``; both
-write the same files for the same split.
+info files, frustum-cropped scans and the GT database the augmentor
+pastes from. The writers of the JAX package's ``data/create_data.py``;
+each writes the same files for the same split.
 
     from sassd_tpu_torch.data import create_data
+    create_data.create_reduced_point_cloud(root)           # velodyne_reduced/
     create_data.create_kitti_info_file(root)               # kitti_infos_*.pkl
     create_data.create_groundtruth_database(root, "train")  # gt_database/
 
@@ -84,6 +85,28 @@ def create_kitti_info_file(data_root: str, splits=("train", "val"),
         with open(out, "wb") as f:
             pickle.dump(infos, f)
         print(f"wrote {out} ({len(infos)} samples)")
+
+
+def create_reduced_point_cloud(data_root: str, splits=("train", "val")):
+    """Write each split scan's points inside the camera's image frustum
+    (``training/velodyne`` -> ``training/velodyne_reduced``; the image
+    size from ``image_2``'s PNG header, else the KITTI default). Scans
+    without a ``velodyne`` file are skipped."""
+    root = Path(data_root)
+    tdir = root / "training"
+    out_dir = tdir / "velodyne_reduced"
+    out_dir.mkdir(exist_ok=True)
+    for split in splits:
+        for sid in _load_split(root, split):
+            src = tdir / "velodyne" / f"{sid:06d}.bin"
+            if not src.exists():
+                continue
+            points = calib_lib.read_lidar(src)
+            calib = calib_lib.Calibration(tdir / "calib" / f"{sid:06d}.txt")
+            img = tdir / "image_2" / f"{sid:06d}.png"
+            shape = png_shape(img) if img.exists() else DEFAULT_IMAGE_SHAPE
+            reduced = calib_lib.remove_outside_points(points, calib, shape)
+            reduced.tofile(out_dir / f"{sid:06d}.bin")
 
 
 def create_groundtruth_database(data_root: str, split: str = "train",

@@ -44,11 +44,67 @@ def vfe_mean(voxels: torch.Tensor, num_points: torch.Tensor) -> torch.Tensor:
 
 
 class Linear(nn.Module):
-    """Bias-free [Cin, Cout] weight (the 1x1x1 sparse conv)."""
+    """[Cin, Cout] weight (the 1x1x1 sparse conv), bias-free unless
+    `bias`; both drawn U(+-1/sqrt(Cin))."""
 
-    def __init__(self, gen: torch.Generator, cin: int, cout: int):
+    def __init__(self, gen: torch.Generator, cin: int, cout: int,
+                 bias: bool = False):
         super().__init__()
         self.w = nn.Parameter(L.uniform_fan_in(gen, (cin, cout), cin))
+        self.b = (nn.Parameter(L.uniform_fan_in(gen, (cout,), cin))
+                  if bias else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = x @ self.w
+        return y if self.b is None else y + self.b
+
+
+class PointNetVFE(nn.Module):
+    """PointNet voxel feature encoder (the reference's VFELayer stack,
+    opt-in with model.vfe_type="pointnet"): each voxel's point slots get
+    their offsets from the voxel's point mean appended; then per layer
+    linear -> BatchNorm over the valid slots -> ReLU, and each slot's
+    features are concatenated with their masked max over the voxel's
+    valid slots (0 for a voxel with none). A final linear maps the last
+    layer's pooled features to `out_features`, so the sparse ladder sees
+    the width it expects. Children fc{i}, bn{i}, out as in the JAX
+    package's params, so weights convert by name. Stock ops only."""
+
+    def __init__(self, gen: torch.Generator, num_input_features: int,
+                 units: Tuple[int, ...] = (32, 64), out_features: int = 4):
+        super().__init__()
+        self.n = len(units)
+        cin = num_input_features + 3
+        for i, u in enumerate(units):
+            setattr(self, f"fc{i}", Linear(gen, cin, u, bias=True))
+            setattr(self, f"bn{i}", L.BatchNorm(u))
+            cin = 2 * u
+        self.out = Linear(gen, cin, out_features, bias=True)
+
+    def forward(self, voxels: torch.Tensor,
+                num_points: torch.Tensor) -> torch.Tensor:
+        """[B, V, T, F], [B, V] -> [B, V, out_features]. BatchNorm (train
+        mode) takes its statistics over the valid slots only, through
+        layers.masked_moments, so SyncBN holds under a process group."""
+        t = voxels.shape[-2]
+        denom = torch.clamp(num_points, min=1).to(voxels.dtype)[..., None]
+        mean_xyz = torch.sum(voxels[..., :3], dim=-2) / denom
+        x = torch.cat([voxels, voxels[..., :3] - mean_xyz[..., None, :]],
+                      dim=-1)
+        valid = (torch.arange(t, device=voxels.device)
+                 < num_points[..., None])[..., None]      # [B, V, T, 1]
+
+        def masked_max(y):
+            m = torch.amax(torch.where(valid, y, -torch.inf), dim=-2)
+            return torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+
+        for i in range(self.n):
+            x = getattr(self, f"bn{i}")(getattr(self, f"fc{i}")(x),
+                                        mask=valid)
+            x = L.relu(x)
+            pooled = masked_max(x)
+            x = torch.cat([x, pooled[..., None, :].expand_as(x)], dim=-1)
+        return self.out(masked_max(x))
 
 
 class SubmBlock(nn.Module):

@@ -1,6 +1,7 @@
-"""SA-SSD detector: VFE -> sparse backbone (host or device rulebook,
-dense tail) -> BEV trunk -> SSD head -> guided anchors -> PSWarp
-rescoring -> rotated NMS (forward_test); in training, the same spine plus
+"""SA-SSD detector: VFE (the points' mean, or the PointNet encoder) ->
+sparse backbone (host or device rulebook, dense tail) -> BEV trunk -> SSD
+head -> guided anchors -> PSWarp rescoring -> rotated NMS (forward_test);
+in training, the same spine plus
 the auxiliary point branch, the head's losses, guided anchors with the GT
 boxes prepended and the PSWarp loss (forward_train).
 
@@ -97,6 +98,12 @@ class Detector(nn.Module):
         self.aux.point_fc = backbone.Linear(gen, 160, 64)
         self.aux.point_cls = backbone.Linear(gen, 64, 1)
         self.aux.point_reg = backbone.Linear(gen, 64, 3)
+        # the PointNet VFE (model.vfe_type="pointnet"), made last so the
+        # other modules draw the same seeded weights with either encoder
+        if m.vfe_type == "pointnet":
+            self.vfe = backbone.PointNetVFE(
+                gen, m.num_input_features,
+                out_features=m.num_input_features)
         self.band_spec = ss.config_band_spec(cfg) if banded(cfg) else None
         self.eval()
 
@@ -120,13 +127,17 @@ class Detector(nn.Module):
         keys0 = None
         with record_function("vxnet"):
             vfe = backbone.vfe_mean(batch["voxels"], batch["num_points"])
+            # the PointNet VFE's features feed the ladder; the aux
+            # branch's centroids stay the points' means
+            feats = (self.vfe(batch["voxels"], batch["num_points"])
+                     if self.cfg.model.vfe_type == "pointnet" else vfe)
             if self.training:
                 keys0 = sp.coords_to_keys(batch["coords"],
                                           self.cfg.sparse_shape)
-                out_dense, middles = self.vxnet.forward_train(vfe, keys0,
+                out_dense, middles = self.vxnet.forward_train(feats, keys0,
                                                               plans)
             else:
-                out_dense, middles = self.vxnet(vfe, plans), None
+                out_dense, middles = self.vxnet(feats, plans), None
         b, d, h, w, c = out_dense.shape
         bev_in = out_dense.permute(0, 2, 3, 1, 4).reshape(b, h, w, d * c)
         with record_function("bevnet"):

@@ -260,10 +260,27 @@ def conv_weight_grad(feats: torch.Tensor, plan: torch.Tensor,
     return dw
 
 
+def _subm_input_grad(d_out: torch.Tensor, weight: torch.Tensor,
+                     plan: torch.Tensor) -> torch.Tensor:
+    """d_feats of a submanifold conv: K4 on the same (symmetric) plan with
+    the taps reversed and the weight transposed, [27, Cout, Cin]. K4
+    writes 16, 32 or 64 channels; an input narrower than 16 (the point
+    features under the PointNet VFE, whose parameters need this
+    gradient) gets zero weight columns up to 16, and its first Cin
+    output channels are kept."""
+    w_rev = weight.flip(0).transpose(1, 2)
+    cin = w_rev.shape[2]
+    pad = 16 - cin if cin < 16 else 0
+    if pad:
+        w_rev = torch.nn.functional.pad(w_rev, (0, pad))
+    d_feats = subm_conv_batched(d_out, w_rev.contiguous(), plan)
+    return d_feats[..., :cin] if pad else d_feats
+
+
 class _SubmConvFn(torch.autograd.Function):
     """Submanifold conv on the card: forward K4; backward K4 for d_feats
     (the same plan, taps reversed, weights transposed: the plan is
-    symmetric) and K10 for d_weight."""
+    symmetric; see _subm_input_grad) and K10 for d_weight."""
 
     @staticmethod
     def forward(ctx, feats, weight, plan):
@@ -276,8 +293,7 @@ class _SubmConvFn(torch.autograd.Function):
         d_out = d_out.contiguous()
         d_feats = d_w = None
         if ctx.needs_input_grad[0]:
-            w_rev = weight.flip(0).transpose(1, 2).contiguous()
-            d_feats = subm_conv_batched(d_out, w_rev, plan)
+            d_feats = _subm_input_grad(d_out, weight, plan)
         if ctx.needs_input_grad[1]:
             d_w = conv_weight_grad(feats, plan, d_out)
         return d_feats, d_w, None

@@ -4,7 +4,8 @@ and the epoch loop with checkpoints and resume (the JAX package's
 
 A step: host batch -> device -> ``Detector.forward_train`` -> the summed
 losses -> backward (K4, K10, K5b, K11, K3b on the card) -> global-norm
-clip + one-cycle AdamW. It marks ``backward`` and ``optimizer`` with
+clip + the optimizer (one-cycle AdamW unless another kind is made,
+train/optim.py). It marks ``backward`` and ``optimizer`` with
 torch.profiler ranges (see sassd_tpu_torch/profile_slice.py).
 
 Data-parallel (a process group up, parallel/dist.py): each of N ranks
@@ -41,7 +42,7 @@ from . import optim as optim_lib
 
 
 def make_train_step(cfg: SASSDConfig, anchors: np.ndarray,
-                    optimizer: optim_lib.OneCycleAdamW, device
+                    optimizer: optim_lib.Optimizer, device
                     ) -> Callable[[Detector, Dict[str, np.ndarray]],
                                   Dict[str, torch.Tensor]]:
     """Returns step(model, batch) -> metrics (device scalars): every
@@ -118,25 +119,35 @@ class LogBuffer:
         self.counts.clear()
 
 
-def train_model(cfg: SASSDConfig, dataset, work_dir: str, *,
-                total_epochs: Optional[int] = None, device="cuda",
+def train_model(cfg: SASSDConfig, dataset, work_dir: Optional[str] = None,
+                *, total_epochs: Optional[int] = None, device="cuda",
                 logger: Optional[logging.Logger] = None,
                 resume: bool = True,
-                epoch_callback: Optional[Callable] = None
-                ) -> Tuple[Detector, optim_lib.OneCycleAdamW, int]:
+                epoch_callback: Optional[Callable] = None,
+                eval_interval: Optional[int] = None,
+                epochs_per_run: Optional[int] = None
+                ) -> Tuple[Detector, optim_lib.Optimizer, int]:
     """Train a Detector from its seeded initialisation (cfg.train.seed) on
     `dataset` (a KittiDataset with train=True). Returns (model, optimizer,
     final step).
 
-    The one-cycle schedule spans total_epochs (default
-    cfg.train.total_epochs) of ceil(len(dataset) / batch_size) steps.
-    With `resume`, the newest checkpoint in work_dir is restored: after an
-    end-of-epoch save the run continues at the next epoch, after a
-    mid-epoch save it fast-forwards the same epoch's batch order.
-    Checkpoints are written every cfg.train.checkpoint_interval epochs (and
-    after the last), and every cfg.train.checkpoint_every_steps steps
-    inside an epoch when that is set. epoch_callback(epoch, model) runs
-    after every epoch.
+    work_dir defaults to cfg.work_dir. The one-cycle schedule spans
+    total_epochs (default cfg.train.total_epochs) of ceil(len(dataset) /
+    batch_size) steps. Start: with cfg.load_from,
+    the parameters of that checkpoint (.pt or JAX .msgpack; BatchNorm
+    statistics stay as initialised); then, with cfg.resume_from, or else
+    with `resume` and a checkpoint in work_dir, the newest one, the whole
+    state is restored: after an end-of-epoch save the run continues at
+    the next epoch, after a mid-epoch save it fast-forwards the same
+    epoch's batch order. epochs_per_run: stop this call after that many
+    epochs while the schedule stays pinned to total_epochs (a relaunch
+    resumes; the train CLI exits 75 while epochs remain).
+
+    Checkpoints are written every cfg.train.checkpoint_interval epochs
+    and after the call's last epoch, and every
+    cfg.train.checkpoint_every_steps steps inside an epoch when that is
+    set. epoch_callback(epoch, model) runs after every eval_interval-th
+    epoch (every epoch by default).
 
     Under a process group of N ranks (parallel/dist.py) each rank calls
     this with its own `device` (mesh.local_device()) and the same
@@ -148,6 +159,7 @@ def train_model(cfg: SASSDConfig, dataset, work_dir: str, *,
     """
     check_supported(cfg, train=True)
     logger = logger or logging.getLogger("sassd")
+    work_dir = work_dir or cfg.work_dir
     tc = cfg.train
     total_epochs = total_epochs or tc.total_epochs
     bs = tc.batch_size
@@ -164,7 +176,11 @@ def train_model(cfg: SASSDConfig, dataset, work_dir: str, *,
     model = Detector(cfg, torch.Generator().manual_seed(tc.seed)).to(device)
     optimizer = optim_lib.make_optimizer(model, tc, total_steps)
     start_epoch, step, start_batch = 0, 0, 0
-    path = ckpt_lib.latest_checkpoint(work_dir) if resume else None
+    if cfg.load_from:
+        ckpt_lib.load_params_only(cfg.load_from, model)
+        logger.info("loaded parameters from %s", cfg.load_from)
+    path = cfg.resume_from or (ckpt_lib.latest_checkpoint(work_dir)
+                               if resume else None)
     if path:
         start_epoch, step, bidx = ckpt_lib.restore(path, model, optimizer)
         if bidx >= 0:
@@ -173,6 +189,9 @@ def train_model(cfg: SASSDConfig, dataset, work_dir: str, *,
             start_epoch += 1
         logger.info("resumed from %s (epoch %d, step %d, batch %d)", path,
                     start_epoch, step, start_batch)
+    end_epoch = total_epochs
+    if epochs_per_run is not None:
+        end_epoch = min(total_epochs, start_epoch + epochs_per_run)
 
     def save(epoch: int, **kw) -> None:
         if shard_id == 0:          # replicas are equal; one writer
@@ -184,7 +203,7 @@ def train_model(cfg: SASSDConfig, dataset, work_dir: str, *,
     train_step = make_train_step(cfg, dataset.anchors, optimizer, device)
     buf = LogBuffer()
     every = tc.checkpoint_every_steps
-    for epoch in range(start_epoch, total_epochs):
+    for epoch in range(start_epoch, end_epoch):
         t0 = time.time()
         bidx = start_batch
         warned = False
@@ -215,8 +234,9 @@ def train_model(cfg: SASSDConfig, dataset, work_dir: str, *,
         start_batch = 0
         logger.info("epoch %d done in %.1fs", epoch, time.time() - t0)
         if ((epoch + 1) % tc.checkpoint_interval == 0
-                or epoch == total_epochs - 1):
+                or epoch == end_epoch - 1):
             save(epoch)
-        if epoch_callback is not None:
+        if (epoch_callback is not None
+                and (epoch + 1) % (eval_interval or 1) == 0):
             epoch_callback(epoch, model)
     return model, optimizer, step

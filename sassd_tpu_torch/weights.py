@@ -8,8 +8,9 @@ parameter and buffer by that nesting, so ``params["vxnet"]["conv0"]
 the same (conv HWIO, sparse conv [27, Cin, Cout]).
 
 The training-only ``aux`` point branch is carried too (``params["aux"]``,
-no state). :func:`grads_to_jax` gives the parameters' gradients in the
-params layout.
+no state), and the PointNet VFE (``vfe``) of a model that has one.
+:func:`grads_to_jax` gives the parameters' gradients in the params
+layout.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ import torch
 from sassd_tpu_torch.config import SASSDConfig
 from sassd_tpu_torch.models.detector import Detector
 
-MODULES = ("vxnet", "bevnet", "head", "pswarp", "aux")
+MODULES = ("vxnet", "bevnet", "head", "pswarp", "aux", "vfe")
 # He's variance-preserving gain for ReLU nets over the U(+-1/sqrt(fan_in))
 # init, which keeps seeded activations from collapsing (see seeded_detector).
 RELU_GAIN = 6.0 ** 0.5

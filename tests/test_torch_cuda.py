@@ -765,7 +765,9 @@ def rel_err(got, ref) -> float:
     ("stride3", 2, 64, 64)])
 def test_k10_and_k4_backward_match_plain(dev, kind, level_in, cin, cout):
     """The conv Functions' gradients on the card (K4 for d_feats, K10 for
-    d_weight) against autograd of the plain forward on the CPU."""
+    d_weight) against autograd of the plain forward on the CPU; d_feats
+    also at the 4-wide input (the PointNet VFE's gradient: K4 on weight
+    columns zero-padded to 16)."""
     from sassd_tpu_torch.ops import sparse as sp
     cfg, batch, _ = tiny_rulebook(6)
     caps = (cfg.voxel.max_voxels,) + tuple(cfg.caps.level_caps[1:])
@@ -784,18 +786,16 @@ def test_k10_and_k4_backward_match_plain(dev, kind, level_in, cin, cout):
     else:
         fn = sp.stride_conv_hostT
         args = [plan, torch.from_numpy(batch[f"plan_strideT{level}"])]
-    needs_dx = cin != 4
-    xc, wc = x.clone().requires_grad_(needs_dx), w.clone().requires_grad_()
+    xc, wc = x.clone().requires_grad_(), w.clone().requires_grad_()
     fn(xc, wc, *args).backward(cot)
-    xd = x.to(dev).requires_grad_(needs_dx)
+    xd = x.to(dev).requires_grad_()
     wd = w.to(dev).requires_grad_()
     before = sp._K10.launches
     fn(xd, wd, *[a.to(dev) for a in args]).backward(cot.to(dev))
     torch.cuda.synchronize()
     assert sp._K10.launches == before + 1
     assert rel_err(wd.grad, wc.grad) <= 1e-5
-    if needs_dx:
-        assert rel_err(xd.grad, xc.grad) <= 1e-5
+    assert rel_err(xd.grad, xc.grad) <= 1e-5
     assert rel_err(sp.conv_weight_grad(x.to(dev), plan.to(dev), cot.to(dev)),
                    sp.conv_weight_grad_plain(x, plan, cot)) <= 1e-5
 

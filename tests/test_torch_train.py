@@ -215,8 +215,8 @@ def test_optimizer_matches_optax():
                                lr, rtol=1e-6)
     np.testing.assert_allclose(optim.one_cycle_momentum(
         (0.95, 0.85), 0.4, 5)(2), b1, rtol=1e-6)
-    with pytest.raises(NotImplementedError):
-        optim.make_optimizer(model, tc, total, kind="sgd")
+    with pytest.raises(ValueError):
+        optim.make_optimizer(model, tc, total, kind="adam_onecycle_typo")
 
 
 @pytest.fixture(scope="module")
@@ -342,22 +342,24 @@ def test_train_model_on_a_synthetic_split(tmp_path, caplog):
 
 def test_train_checks_the_config():
     """Options training does not run raise; device plans, the exact aux
-    3-NN and the GT database pass, alone and together, and so does the
-    three-class config."""
+    3-NN, the GT database, the PointNet VFE and weight decay on every
+    parameter pass, alone and together, and so does the three-class
+    config."""
     cfg = config.tiny_config()
 
     def with_(section, **override):
         return dataclasses.replace(cfg, **{section: dataclasses.replace(
             getattr(cfg, section), **override)})
-    for bad in (with_("model", vfe_type="pointnet"),
-                with_("model", compute_dtype="bfloat16"),
+    for bad in (with_("model", compute_dtype="bfloat16"),
                 with_("model", aux_interp="nearest")):
         with pytest.raises(NotImplementedError):
             config.check_supported(bad, train=True)
     for good in (cfg, with_("model", aux_interp="exact"),
                  with_("model", host_plans=False),
                  with_("data", db_info_path="db.pkl"),
-                 with_("model", host_plans=False, aux_interp="exact")):
+                 with_("model", host_plans=False, aux_interp="exact"),
+                 with_("model", vfe_type="pointnet"),
+                 with_("train", weight_decay_mode="all")):
         config.check_supported(good, train=True)
     multi = config.multi_config()
     for aux in ("ring", "exact"):
