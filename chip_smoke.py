@@ -145,6 +145,27 @@ Phases, each of which fails the run (nonzero exit, no result line):
    processes run up to four at a time beside 11d; phase 11's wall
    time and each process's are printed.
 
+12. the spatial strategies across ranks (parallel/mesh.py,
+   parallel/spatial.py): four rank subprocesses of this script
+   (``--sp-worker``), each with a timeout, sharing the card over gloo
+   (NCCL refuses two ranks on one device), on phase 9's split and scans
+   at full width, seeded weights. 12a: the user's long-range banded
+   layout (4 bands) over 4 ranks, 1 x 4: forward_test at batch 1 on both
+   comparison scans against phase 9's single-process banded run (matched
+   sets, boxes 1e-2, scores 1e-3) and one forward_train + backward at
+   batch 2, reduced over the ranks, against phase 9's single-process
+   banded step at phase 9's gates (losses 1e-3, gradients without the
+   PSWarp loss 2e-3 norm / 1e-2 a module, PSWarp's own 1e-2, BatchNorm
+   updates 2e-3), band_overflow 0, and on each rank K1-K6, K3b, K5b, K7',
+   K10, K11', K12-K14 and K16 launched. 12b: long_range_config() with
+   strategy="spatial", spatial=2 over 2 ranks against the replicated run,
+   with the same gates and kernels (K7 and K11 without limit and
+   origins, no K16). 12c: banded over 2 bands on 4 ranks, 2 x 2:
+   train_model for 2 steps at global batch 2; the four replicas bitwise
+   equal, every loss finite, no update skipped. Phase 12's wall time and
+   each gate's largest difference are printed; the kernel rows gain each
+   rank's launches of 12a.
+
 Phase 3 holds K1 (rotated overlap) in all four criteria within K1_ATOL
 of its plain version and at exactly +0.0 on every pair that its
 separation cull rejects, on the 2008-box set and on phase 6's NMS input
@@ -238,8 +259,21 @@ builds the kernels and runs phase 10 alone, with no result line.
     python3 chip_smoke.py --cli-only
 
 builds the kernels and runs phase 11 alone, with no result line.
+
+    python3 chip_smoke.py --spatial-only
+
+builds the kernels and runs phase 12 alone (its references made as
+phase 9 makes them), with no result line.
+
+    python3 chip_smoke.py --gloo-probe
+
+runs, for each of all_reduce, all_gather and send/recv, two gloo ranks
+on the card that try it on CUDA tensors, and prints each one's exit
+codes, with no result line (parallel/dist.py moves rows between ranks
+by all-gathers and all-reduces only).
 (``--dp-worker`` is the entry of phase 10's rank subprocesses,
-``--cli-worker`` that of phase 11's CLI processes.)
+``--cli-worker`` that of phase 11's CLI processes, ``--sp-worker`` that
+of phase 12's ranks and ``--probe-worker`` that of the probe's.)
 """
 from __future__ import annotations
 
@@ -2883,51 +2917,161 @@ def check_banded_kernels(torch, np, device, cfg, spec, batch, timing):
     return rows
 
 
-def long_range_inputs(np, root: str):
+def long_range_inputs(np, root: str, write: bool = True,
+                      timing: bool = True, cfgs=None):
     """Phase 9's configs and inputs: the long-range config banded over 4
-    y-bands (cfg_b) and replicated on device plans (cfg_r), the band spec,
-    the 4-scan synthetic train split written under root, its first two
-    samples and their batch, and the timing scan's batch."""
+    y-bands (cfg_b) and replicated on device plans (cfg_r), or the pair
+    `cfgs` (phase 12's ranks take the parent's from their job file), the
+    band spec, the 4-scan synthetic train split under root (written
+    unless `write` is false: phase 12's ranks read the parent's), its
+    first two samples and their batch, and the timing scan's batch (None
+    unless `timing`)."""
     import dataclasses
     from sassd_tpu_torch.config import ParallelConfig, long_range_config
     from sassd_tpu_torch.data import kitti, synthetic
     from sassd_tpu_torch.parallel import sparse_spatial as ss
 
-    base = long_range_config()
-    cfg_b = dataclasses.replace(
-        base, parallel=ParallelConfig(strategy="banded", spatial=4),
-        train=dataclasses.replace(base.train, log_interval=1,
-                                  checkpoint_interval=1),
-        data=dataclasses.replace(base.data, num_workers=2))
-    cfg_r = dataclasses.replace(cfg_b, parallel=ParallelConfig(),
-                                model=dataclasses.replace(
-                                    base.model, host_plans=False))
-    synthetic.write_synthetic_kitti(
-        root, n_train=N_SCANS, n_val=0, seed=SEED + 9,
-        point_cloud_range=cfg_b.voxel.point_cloud_range,
-        n_ground=LR_GROUND)
+    if cfgs is None:
+        base = long_range_config()
+        cfg_b = dataclasses.replace(
+            base, parallel=ParallelConfig(strategy="banded", spatial=4),
+            train=dataclasses.replace(base.train, log_interval=1,
+                                      checkpoint_interval=1),
+            data=dataclasses.replace(base.data, num_workers=2))
+        cfg_r = dataclasses.replace(cfg_b, parallel=ParallelConfig(),
+                                    model=dataclasses.replace(
+                                        base.model, host_plans=False))
+    else:
+        cfg_b, cfg_r = cfgs
+    if write:
+        synthetic.write_synthetic_kitti(
+            root, n_train=N_SCANS, n_val=0, seed=SEED + 9,
+            point_cloud_range=cfg_b.voxel.point_cloud_range,
+            n_ground=LR_GROUND)
     ds = kitti.KittiDataset(cfg_b, os.path.join(root, "training"),
                             os.path.join(root, "ImageSets", "train.txt"),
                             train=True)
     samples = [ds[i] for i in range(2)]
     if any(k.startswith("plan_") for k in samples[0]):
         fail("long range: host plans built for the banded config")
-    timing = kitti.prepare_scan(cfg_b, synthetic.long_range_scene(
-        np.random.default_rng(SEED + 10))[0], ds.anchors_bv)
+    t_batch = None
+    if timing:
+        t_batch = kitti.collate([kitti.prepare_scan(
+            cfg_b, synthetic.long_range_scene(
+                np.random.default_rng(SEED + 10))[0], ds.anchors_bv)])[0]
     return dict(cfg_b=cfg_b, cfg_r=cfg_r, spec=ss.config_band_spec(cfg_b),
                 ds=ds, samples=samples, batch=kitti.collate(samples)[0],
-                t_batch=kitti.collate([timing])[0])
+                t_batch=t_batch)
+
+
+def lr_train_step(torch, device, cfg, state_dict, batch, anchors,
+                  perturb: bool = False) -> dict:
+    """One long-range forward_train + backward from `state_dict`: the
+    losses, the gradients of the objective without the PSWarp loss
+    (everything upstream of the guided top-k, see run_long_range) and of
+    the full objective, and the BatchNorm running-statistic updates, all
+    on the CPU in float64. `perturb`: the voxels one float32 ulp off.
+    Under a process group the gradients and losses are summed over the
+    ranks as the train step sums them (nothing without one), so every
+    rank returns the global step's."""
+    from sassd_tpu_torch.inference import to_device
+    from sassd_tpu_torch.models.detector import parse_losses
+    from sassd_tpu_torch.parallel import dist
+    from sassd_tpu_torch.weights import seeded_detector
+    model = seeded_detector(cfg, SEED, device)
+    model.load_state_dict(state_dict)
+    model.train()
+    before = {k: v.clone() for k, v in model.named_buffers()
+              if k.rsplit(".", 1)[-1] in ("mean", "var")}
+    b = to_device(batch, device)
+    if perturb:
+        b["voxels"] = b["voxels"] * (1.0 + 2.0 ** -23)
+    losses = model.forward_train(b, anchors)
+    params = dict(model.named_parameters())
+    upstream = sum(v for k, v in losses.items()
+                   if "loss" in k and k != "loss_cls")
+    g_up = torch.autograd.grad(upstream, list(params.values()),
+                               retain_graph=True, allow_unused=True)
+    g_up = [g if g is not None else torch.zeros_like(p)
+            for g, p in zip(g_up, params.values())]
+    parse_losses(losses).backward()
+    full = [p.grad if p.grad is not None else torch.zeros_like(p)
+            for p in params.values()]
+    values = torch.stack([v.detach() for v in losses.values()])
+    dist.all_reduce_coalesced(g_up + full + [values])
+    if b["voxels"].is_cuda:
+        torch.cuda.synchronize()
+    cpu = lambda ts: {k: t.detach().double().cpu()   # noqa: E731
+                      for k, t in zip(params, ts)}
+    return dict(losses=dict(zip(losses, values.tolist())),
+                upstream=cpu(g_up), full=cpu(full),
+                bn={k: (v - before[k]).double().cpu()
+                    for k, v in model.named_buffers() if k in before})
+
+
+def grad_diff(res: dict, a: str, b: str, kind: str):
+    """(relative norm difference, module rel L2 errors) of the `kind`
+    gradients of run b against run a (lr_train_step results)."""
+    ga, gb = res[a][kind], res[b][kind]
+    norm_a = sum(float((g ** 2).sum()) for g in ga.values()) ** 0.5
+    norm_b = sum(float((g ** 2).sum()) for g in gb.values()) ** 0.5
+    mods = {}
+    for mod in ("vxnet", "bevnet", "head", "pswarp", "aux"):
+        mk = [k for k in ga if k.startswith(mod + ".")]
+        ref = sum(float((ga[k] ** 2).sum()) for k in mk) ** 0.5
+        if ref > 0:
+            mods[mod] = sum(float(((gb[k] - ga[k]) ** 2).sum())
+                            for k in mk) ** 0.5 / ref
+    return abs(norm_b - norm_a) / norm_a, mods
+
+
+def bn_update_err(res: dict, a: str, b: str) -> float:
+    """The largest BatchNorm running-statistic update difference of run b
+    against run a, relative to each buffer's largest update."""
+    ua, ub = res[a]["bn"], res[b]["bn"]
+    return max(float((ub[k] - ua[k]).abs().max()
+                     / ua[k].abs().max().clamp(min=1e-12)) for k in ua)
+
+
+def train_gate(res: dict, a: str, b: str, what: str) -> dict:
+    """Phase 9's gates of run b's train step against run a's: every loss
+    within TRAIN_LOSS_RTOL, the gradients without the PSWarp loss (norm
+    TRAIN_GNORM_RTOL, each module TRAIN_GRAD_L2), the PSWarp module's own
+    full gradients (TRAIN_GRAD_L2) and the BatchNorm updates
+    (BN_UPDATE_RTOL). Returns the differences; fails on any gate."""
+    la, lb = res[a]["losses"], res[b]["losses"]
+    # relative differences; a loss of exactly 0 (no positives) must match
+    loss_err = {k: (abs(lb[k] - v) / abs(v) if v else
+                    (0.0 if lb[k] == v else float("inf")))
+                for k, v in la.items() if "loss" in k}
+    up_norm, up_mods = grad_diff(res, a, b, "upstream")
+    full_norm, full_mods = grad_diff(res, a, b, "full")
+    out = dict(losses=max(loss_err.values()), upstream_norm=up_norm,
+               upstream_modules=max(up_mods.values()),
+               pswarp_full=full_mods["pswarp"],
+               bn_update=bn_update_err(res, a, b))
+    if not (all(e <= TRAIN_LOSS_RTOL for e in loss_err.values())
+            and up_norm <= TRAIN_GNORM_RTOL
+            and all(e <= TRAIN_GRAD_L2 for e in up_mods.values())
+            and full_mods["pswarp"] <= TRAIN_GRAD_L2
+            and out["bn_update"] <= BN_UPDATE_RTOL):
+        fail(f"{what}: the train steps disagree: losses {la} vs {lb}; "
+             f"largest differences {out}")
+    return dict(out, full_norm=full_norm,
+                modules={k: float(f"{v:.3g}") for k, v in up_mods.items()})
 
 
 def run_long_range(torch, np, device, root: str):
     """Phase 9: the long-range config, banded over 4 y-bands against
     replicated (device plans), at full width. Returns (kernel rows,
     launches of banded inference, of replicated inference and of the
-    banded train_model run, launches of one banded train step)."""
+    banded train_model run, launches of one banded train step, the
+    timings, and the single-process references phase 12 holds its ranks
+    to: both scans' batch-1 detections and the batch-2 train step, banded
+    and replicated)."""
     import logging
     from sassd_tpu_torch.data import kitti
-    from sassd_tpu_torch.inference import make_test_step, to_device
-    from sassd_tpu_torch.models.detector import parse_losses
+    from sassd_tpu_torch.inference import make_test_step
     from sassd_tpu_torch.ops import sparse as sp
     from sassd_tpu_torch.train import loop, optim
     from sassd_tpu_torch.weights import seeded_detector
@@ -2988,76 +3132,30 @@ def run_long_range(torch, np, device, root: str):
     # out (everything upstream of the top-k), the PSWarp module's own
     # gradients with it. A replicated step on inputs perturbed by one
     # float32 ulp shows how far float32 rounding alone moves them.
-    res = {}
-    for what, cfg in (("banded", cfg_b), ("replicated", cfg_r),
-                      ("perturbed", cfg_r)):
-        model = seeded_detector(cfg, SEED, device)
-        model.load_state_dict(model_b.state_dict())
-        model.train()
-        before = {k: v.clone() for k, v in model.named_buffers()
-                  if k.rsplit(".", 1)[-1] in ("mean", "var")}
-        b = to_device(batch, device)
-        if what == "perturbed":
-            b["voxels"] = b["voxels"] * (1.0 + 2.0 ** -23)
-        losses = model.forward_train(b, anchors)
-        params = dict(model.named_parameters())
-        upstream = sum(v for k, v in losses.items()
-                       if "loss" in k and k != "loss_cls")
-        g_up = torch.autograd.grad(upstream, list(params.values()),
-                                   retain_graph=True, allow_unused=True)
-        parse_losses(losses).backward()
-        torch.cuda.synchronize()
-        res[what] = dict(
-            losses={k: float(v.detach()) for k, v in losses.items()},
-            upstream={k: (g if g is not None else torch.zeros_like(p))
-                      .detach().double()
-                      for (k, p), g in zip(params.items(), g_up)},
-            full={k: p.grad.detach().double() for k, p in params.items()},
-            bn={k: (v - before[k]).double()
-                for k, v in model.named_buffers() if k in before})
-
-    def grad_diff(a, b, kind):
-        """(relative norm difference, module rel L2 errors) of b vs a."""
-        ga, gb = res[a][kind], res[b][kind]
-        norm_a = sum(float((g ** 2).sum()) for g in ga.values()) ** 0.5
-        norm_b = sum(float((g ** 2).sum()) for g in gb.values()) ** 0.5
-        mods = {}
-        for mod in ("vxnet", "bevnet", "head", "pswarp", "aux"):
-            mk = [k for k in ga if k.startswith(mod + ".")]
-            ref = sum(float((ga[k] ** 2).sum()) for k in mk) ** 0.5
-            if ref > 0:
-                mods[mod] = sum(float(((gb[k] - ga[k]) ** 2).sum())
-                                for k in mk) ** 0.5 / ref
-        return abs(norm_b - norm_a) / norm_a, mods
+    state = model_b.state_dict()
+    res = {what: lr_train_step(torch, device, cfg, state, batch, anchors,
+                               perturb=what == "perturbed")
+           for what, cfg in (("banded", cfg_b), ("replicated", cfg_r),
+                             ("perturbed", cfg_r))}
 
     def fmt(d):
         return {k: float(f"{v:.3g}") for k, v in d.items()}
     bl, rl = res["banded"]["losses"], res["replicated"]["losses"]
     if bl.get("band_overflow") != 0.0:
         fail(f"long range: band_overflow {bl.get('band_overflow')}")
-    bad = [k for k, v in rl.items() if "loss" in k
-           and not abs(bl[k] - v) <= TRAIN_LOSS_RTOL * abs(v)]
-    up_norm, up_mods = grad_diff("replicated", "banded", "upstream")
-    full_norm, full_mods = grad_diff("replicated", "banded", "full")
-    noise_norm, noise_mods = grad_diff("replicated", "perturbed", "full")
-    bs, rs = res["banded"]["bn"], res["replicated"]["bn"]
-    bn_err = max(float((bs[k] - rs[k]).abs().max()
-                       / rs[k].abs().max().clamp(min=1e-12)) for k in rs)
+    noise_norm, noise_mods = grad_diff(res, "replicated", "perturbed", "full")
+    _, full_mods = grad_diff(res, "replicated", "banded", "full")
+    gate = train_gate(res, "replicated", "banded",
+                      "long range, banded vs replicated")
     print(f"long range, one train step at batch 2, banded vs replicated: "
           f"losses {dict(sorted(bl.items()))} vs {dict(sorted(rl.items()))}"
           f"; gradients without the PSWarp loss: norm rel diff "
-          f"{up_norm:.3g}, module rel L2 {fmt(up_mods)} (tol "
-          f"{TRAIN_GNORM_RTOL}, {TRAIN_GRAD_L2}); full objective: norm "
-          f"{full_norm:.3g}, modules {fmt(full_mods)}; a replicated step on "
-          f"inputs one ulp off: norm {noise_norm:.3g}, modules "
+          f"{gate['upstream_norm']:.3g}, module rel L2 {gate['modules']} "
+          f"(tol {TRAIN_GNORM_RTOL}, {TRAIN_GRAD_L2}); full objective: norm "
+          f"{gate['full_norm']:.3g}, modules {fmt(full_mods)}; a replicated "
+          f"step on inputs one ulp off: norm {noise_norm:.3g}, modules "
           f"{fmt(noise_mods)}; largest BN running-stat update difference "
-          f"{bn_err:.3g} of its buffer's largest update")
-    if (bad or up_norm > TRAIN_GNORM_RTOL
-            or max(up_mods.values()) > TRAIN_GRAD_L2
-            or full_mods["pswarp"] > TRAIN_GRAD_L2
-            or bn_err > BN_UPDATE_RTOL):
-        fail(f"long range: banded and replicated train steps disagree "
-             f"({bad or 'gradients or BN statistics'})")
+          f"{gate['bn_update']:.3g} of its buffer's largest update")
 
     # train_model of the banded config: 2 steps at batch 2 (8 band rows)
     logged = []
@@ -3118,7 +3216,9 @@ def run_long_range(torch, np, device, root: str):
             for kid in ("K13", "K14"):
                 check_once(sp, per_step, "long range, banded training", kid,
                            1)
-    return rows, launches, per_step, ms, train_ms
+    refs = dict(dets=dets, steps={k: res[k] for k in ("banded",
+                                                       "replicated")})
+    return rows, launches, per_step, ms, train_ms, refs
 
 
 TRAIN_PHASE_IDS = "K1 K3 K3b K4 K5 K5b K10 K11 K12"
@@ -3864,6 +3964,324 @@ def run_cli(torch, np, device, root: str) -> dict:
           + ", ".join(f"{k} {v:.1f}" for k, v in procs.items()) + ")")
     return dict(wall_s=wall, diff=diff, vfe=vfe, procs=procs)
 
+# phase 12: the spatial strategies across rank subprocesses sharing the
+# card over gloo: each rank's time limit, the collectives' timeout of
+# every process group, and the kernels each rank's path must launch
+SP_WORKER_TIMEOUT_S = 600
+SP_GROUP_TIMEOUT_S = 300
+SP_BANDED_IDS = "K1 K2 K3 K3b K4 K5 K5b K6 K7' K10 K11' K12 K13 K14 K16"
+SP_SPATIAL_IDS = "K1 K2 K3 K3b K4 K5 K5b K6 K7 K10 K11 K12 K13 K14"
+SP_STEPS = 2
+PROBE_OPS = ("all_reduce", "all_gather", "send_recv")
+
+
+def sp_configs(lr: dict) -> dict:
+    """Phase 12's configs: 12a the user's banded layout (phase 9's cfg_b,
+    4 bands), 12b the spatial strategy over 2 ranks on phase 9's
+    replicated config (device plans), 12c banded over 2 bands."""
+    import dataclasses
+    from sassd_tpu_torch.config import ParallelConfig
+    return {"12a": lr["cfg_b"],
+            "12b": dataclasses.replace(lr["cfg_r"], parallel=ParallelConfig(
+                strategy="spatial", spatial=2)),
+            "12c": dataclasses.replace(lr["cfg_b"], parallel=ParallelConfig(
+                strategy="banded", spatial=2))}
+
+
+def sp_path(torch, device, cfg, lr: dict) -> dict:
+    """One rank of 12a or 12b: forward_test at batch 1 on both comparison
+    scans and one train step at batch 2 (lr_train_step, reduced over the
+    ranks), from the seeded weights, with the launch counters reset just
+    before and read just after."""
+    from sassd_tpu_torch.data import kitti
+    from sassd_tpu_torch.inference import make_test_step
+    from sassd_tpu_torch.parallel import mesh
+    from sassd_tpu_torch.weights import seeded_detector
+    model = seeded_detector(cfg, SEED, device)
+    ds = lr["ds"]
+    anchors = torch.from_numpy(ds.anchors).to(device)
+    step = make_test_step(cfg, ds.anchors, device)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    reset_launches()
+    t = time.perf_counter()
+    dets = [{k: v.cpu().numpy() for k, v in step(
+        model, kitti.collate([s])[0]).items()} for s in lr["samples"]]
+    train = lr_train_step(torch, device, cfg, model.state_dict(),
+                          lr["batch"], anchors)
+    return dict(layout=tuple(mesh.layout(cfg)[:4]), dets=dets, train=train,
+                launches=read_launches(), s=time.perf_counter() - t)
+
+
+def sp_train(torch, device, cfg, root: str, out: str) -> dict:
+    """One rank of 12c: train_model for SP_STEPS steps at global batch 2
+    over the long-range split, every step's metrics recorded; returns them
+    with the final state (CPU) and the steps taken."""
+    from sassd_tpu_torch.data import kitti
+    from sassd_tpu_torch.train import loop
+    ds = kitti.KittiDataset(cfg, os.path.join(root, "training"),
+                            os.path.join(root, "ImageSets", "train.txt"),
+                            train=True)
+    metrics = []
+    make_step = loop.make_train_step
+
+    def recording(*args):
+        step = make_step(*args)
+
+        def run(model, batch):
+            m = step(model, batch)
+            metrics.append({k: float(v) for k, v in m.items()})
+            return m
+        return run
+    loop.make_train_step = recording
+    try:
+        model, opt, n = loop.train_model(
+            cfg, ds, os.path.join(out, "work"),
+            total_epochs=SP_STEPS * cfg.train.batch_size // N_SCANS,
+            device=device, resume=False)
+    finally:
+        loop.make_train_step = make_step
+    return dict(steps=n, updates=opt.count, metrics=metrics,
+                state={k: v.detach().cpu().clone()
+                       for k, v in model.state_dict().items()})
+
+
+def sp_worker(argv) -> int:
+    """One of phase 12's four rank processes, started by run_spatial:
+    argv = rank, the three rounds' ports, the job file. Round 12a: the
+    four ranks in a 1 x 4 banded group; 12b: ranks 0 and 1 in a 1 x 2
+    spatial group (ranks 2 and 3 wait for round 12c); 12c: the four in a
+    2 x 2 banded group. Every group runs over gloo on the one card."""
+    rank, ports, job_path = int(argv[0]), [int(p) for p in argv[1:4]], argv[4]
+    sys.path.insert(0, HERE)
+    import numpy as np
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from sassd_tpu_torch.parallel import dist
+    job = torch.load(job_path, weights_only=False)
+    device = torch.device(job["device"])
+    lr = long_range_inputs(np, job["root"], write=False, timing=False,
+                           cfgs=job["cfgs"])
+    cfgs = sp_configs(lr)
+    res = {}
+    for name, port, world in (("12a", ports[0], 4), ("12b", ports[1], 2),
+                              ("12c", ports[2], 4)):
+        if rank >= world:
+            continue
+        dist.initialize(f"localhost:{port}", world, rank, backend="gloo",
+                        device=device, timeout_s=SP_GROUP_TIMEOUT_S)
+        if name == "12c":
+            res[name] = sp_train(torch, device, cfgs[name], job["root"],
+                                 job["out"])
+        else:
+            res[name] = sp_path(torch, device, cfgs[name], lr)
+        dist.barrier(name)
+        dist.shutdown()
+    torch.save(res, os.path.join(job["out"], f"rank{rank}.pt"))
+    return 0
+
+
+def run_sp_ranks(torch, device, root: str, cfgs, world: int = 4):
+    """Phase 12's `world` rank subprocesses of this script on `device`,
+    each with a time limit (all killed at the first one over it), reading
+    the configs `cfgs` (cfg_b, cfg_r) from their job file; a rendezvous
+    port taken meanwhile is retried on fresh ones. Returns their saved
+    results, rank order."""
+    out = os.path.join(root, "spatial_ranks")
+    os.makedirs(out, exist_ok=True)
+    job = os.path.join(out, "job.pt")
+    torch.save(dict(device=str(device), root=root, out=out, cfgs=cfgs), job)
+    for attempt in range(3):
+        ports = [str(free_port()) for _ in range(3)]
+        logs = [open(os.path.join(out, f"rank{r}_try{attempt}.log"), "w+")
+                for r in range(world)]
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--sp-worker",
+             str(r), *ports, job],
+            stdout=logs[r], stderr=subprocess.STDOUT, text=True)
+            for r in range(world)]
+        deadline = time.time() + SP_WORKER_TIMEOUT_S
+        try:
+            for p in procs:
+                p.wait(timeout=max(deadline - time.time(), 1))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            over = [p for p in procs if p.poll() is None]
+            for p in over:
+                p.kill()
+                p.wait()
+        text = []
+        for f in logs:
+            f.seek(0)
+            text.append(f.read())
+            f.close()
+        if over:
+            fail(f"spatial: a rank outlived {SP_WORKER_TIMEOUT_S} s:\n"
+                 + "\n".join(t[-3000:] for t in text))
+        if all(p.returncode == 0 for p in procs):
+            return [torch.load(os.path.join(out, f"rank{r}.pt"),
+                               weights_only=False) for r in range(world)]
+        taken = any(s in t.lower() for t in text for s in ADDR_IN_USE)
+        if not taken or attempt == 2:
+            bad = next(t for p, t in zip(procs, text) if p.returncode)
+            fail(f"spatial: a rank failed:\n{bad[-4000:]}")
+    raise AssertionError("unreachable")
+
+
+def sp_references(torch, np, device, lr: dict) -> dict:
+    """The single-process runs phase 12 is held to, as phase 9 makes them
+    (phase 9's own when it ran in this process): both scans' batch-1
+    detections and the batch-2 train step, banded and replicated."""
+    from sassd_tpu_torch.data import kitti
+    from sassd_tpu_torch.inference import make_test_step
+    from sassd_tpu_torch.weights import seeded_detector
+    anchors = torch.from_numpy(lr["ds"].anchors).to(device)
+    refs = dict(dets={}, steps={})
+    for what in ("banded", "replicated"):
+        cfg = lr["cfg_b"] if what == "banded" else lr["cfg_r"]
+        model = seeded_detector(cfg, SEED, device)
+        step = make_test_step(cfg, lr["ds"].anchors, device)
+        refs["dets"][what] = [{k: v.cpu().numpy() for k, v in step(
+            model, kitti.collate([s])[0]).items()} for s in lr["samples"]]
+        refs["steps"][what] = lr_train_step(torch, device, cfg,
+                                            model.state_dict(), lr["batch"],
+                                            anchors)
+    return refs
+
+
+def run_spatial(torch, np, device, root: str, refs=None) -> dict:
+    """Phase 12 (see the module docstring). Returns the printed numbers and
+    each rank's launches of 12a and 12b."""
+    t0 = time.perf_counter()
+    lr = long_range_inputs(np, root, timing=False)
+    if refs is None:
+        refs = sp_references(torch, np, device, lr)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()        # the ranks' room on the card
+    t = time.perf_counter()
+    ranks = run_sp_ranks(torch, device, root, (lr["cfg_b"], lr["cfg_r"]))
+    ranks_s = time.perf_counter() - t
+    gates = {}
+    for name, ref, world, lay, ids in (
+            ("12a", "banded", 4, (1, 4), SP_BANDED_IDS),
+            ("12b", "replicated", 2, (1, 2), SP_SPATIAL_IDS)):
+        runs = [r[name] for r in ranks[:world]]
+        what = (f"spatial {name}, {ref if ref == 'banded' else 'spatial'} "
+                f"over {world} ranks")
+        for r, run in enumerate(runs):
+            if run["layout"] != lay + (0, r):
+                fail(f"{what}: rank {r} laid out as {run['layout']}")
+            check_launched(run["launches"], ids, f"{what}, rank {r}")
+        counts = [match_detections(d, e, f"{what}, rank {r}, scan {i}")
+                  for r, run in enumerate(runs)
+                  for i, (d, e) in enumerate(zip(run["dets"],
+                                                 refs["dets"][ref]))]
+        losses = [run["train"]["losses"] for run in runs]
+        if any(m != losses[0] for m in losses):
+            fail(f"{what}: the ranks' reduced losses differ: {losses}")
+        if losses[0].get("band_overflow", 0.0) != 0.0:
+            fail(f"{what}: band_overflow {losses[0]['band_overflow']}")
+        res = {"single": refs["steps"][ref], "ranks": runs[0]["train"]}
+        gates[name] = train_gate(res, "single", "ranks", what)
+        print(f"{what}: detections match the single-process {ref} run on "
+              f"both scans on every rank ({counts[:2]} detections; boxes "
+              f"{DET_BOX_ATOL}, scores {DET_SCORE_ATOL}); train step at "
+              f"batch 2: losses {dict(sorted(losses[0].items()))}; largest "
+              f"differences " + ", ".join(
+                  f"{k} {v:.3g}" if isinstance(v, float) else f"{k} {v}"
+                  for k, v in gates[name].items())
+              + f" (tol {TRAIN_LOSS_RTOL}, {TRAIN_GNORM_RTOL}, "
+              f"{TRAIN_GRAD_L2}, {BN_UPDATE_RTOL}); rank path s "
+              f"{[round(run['s'], 2) for run in runs]}; launches per rank "
+              + str([{k: v for k, v in run["launches"].items() if v}
+                     for run in runs]))
+    runs = [r["12c"] for r in ranks]
+    what = "spatial 12c, banded 2 x 2"
+    state_diff = max(max_abs_diff(torch, runs[0]["state"], run["state"])
+                     for run in runs[1:])
+    if state_diff != 0.0 or any(run["metrics"] != runs[0]["metrics"]
+                                for run in runs[1:]):
+        fail(f"{what}: the replicas differ after {SP_STEPS} steps "
+             f"(largest |difference| {state_diff:.3g})")
+    m = runs[0]["metrics"]
+    if (runs[0]["steps"] != SP_STEPS or runs[0]["updates"] != SP_STEPS
+            or len(m) != SP_STEPS
+            or not all(np.isfinite(list(x.values())).all() for x in m)
+            or any(x["nonfinite_skips"] or x["band_overflow"] for x in m)):
+        fail(f"{what}: {runs[0]['steps']} steps, {runs[0]['updates']} "
+             f"updates, metrics {m}")
+    print(f"{what}: train_model {SP_STEPS} steps at global batch 2, the "
+          f"four replicas bitwise equal, every loss finite, no update "
+          f"skipped, no band overflow; losses "
+          f"{[round(x['loss'], 4) for x in m]}")
+    wall = time.perf_counter() - t0
+    print(f"spatial: phase 12 took {wall:.1f} s (the four rank processes "
+          f"{ranks_s:.1f} s)")
+    return dict(wall_s=wall, ranks_s=ranks_s, gates=gates,
+                launches={name: [r[name]["launches"] for r in ranks
+                                 if name in r] for name in ("12a", "12b")})
+
+
+def probe_worker(argv) -> int:
+    """One rank of the gloo probe: argv = op, rank, port. Runs `op` on
+    CUDA tensors in a two-rank gloo group; exits 0 when the result is
+    right (an exception or a wrong result fails the process)."""
+    import datetime
+    import torch
+    import torch.distributed as tdist
+    op, rank, port = argv[0], int(argv[1]), int(argv[2])
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    tdist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                             world_size=2, rank=rank,
+                             timeout=datetime.timedelta(seconds=30))
+    x = torch.full((4,), float(rank + 1), device=dev)
+    if op == "all_reduce":
+        tdist.all_reduce(x)
+        ok = x.tolist() == [3.0] * 4
+    elif op == "all_gather":
+        parts = [torch.empty_like(x) for _ in range(2)]
+        tdist.all_gather(parts, x)
+        ok = [float(p[0]) for p in parts] == [1.0, 2.0]
+    else:
+        if rank == 0:
+            tdist.send(x, 1)
+        else:
+            tdist.recv(x, 0)
+        ok = float(x[0]) == 1.0
+    print(json.dumps({"op": op, "rank": rank, "ok": ok}), flush=True)
+    tdist.destroy_process_group()
+    return 0 if ok else 1
+
+
+def gloo_probe() -> dict:
+    """Whether gloo moves CUDA tensors in each of PROBE_OPS: one pair of
+    probe_worker processes per op, each with a time limit; returns op ->
+    (exit codes, the ranks' last output lines)."""
+    found = {}
+    for op in PROBE_OPS:
+        port = str(free_port())
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--probe-worker",
+             op, str(r), port], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(2)]
+        outs = []
+        for p in procs:
+            try:
+                outs.append(p.communicate(timeout=90)[0])
+            except subprocess.TimeoutExpired:
+                p.kill()
+                outs.append(p.communicate()[0] + "\n<killed at 90 s>")
+        found[op] = ([p.returncode for p in procs],
+                     [o.strip().splitlines()[-1] if o.strip() else ""
+                      for o in outs])
+        print(f"gloo probe, {op} on CUDA tensors: exit codes "
+              f"{found[op][0]}; last lines {found[op][1]}")
+    return found
+
 
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "sassd_tpu_torch")):
@@ -3873,6 +4291,10 @@ def main() -> int:
         return dp_worker(sys.argv[2:])
     if sys.argv[1:2] == ["--cli-worker"]:
         return cli_worker(sys.argv[2:])
+    if sys.argv[1:2] == ["--sp-worker"]:
+        return sp_worker(sys.argv[2:])
+    if sys.argv[1:2] == ["--probe-worker"]:
+        return probe_worker(sys.argv[2:])
     sys.path.insert(0, HERE)
     import dataclasses
     import numpy as np
@@ -3919,6 +4341,15 @@ def main() -> int:
     if "--cli-only" in sys.argv[1:]:
         with tempfile.TemporaryDirectory() as root:
             run_cli(torch, np, device, root)
+        print(card)
+        return 0
+    if "--gloo-probe" in sys.argv[1:]:
+        gloo_probe()
+        print(card)
+        return 0
+    if "--spatial-only" in sys.argv[1:]:
+        with tempfile.TemporaryDirectory() as root:
+            run_spatial(torch, np, device, root)
         print(card)
         return 0
     cfg_dev = dataclasses.replace(cfg, model=dataclasses.replace(
@@ -4001,8 +4432,8 @@ def main() -> int:
                                                     training[2])
     t = time.perf_counter()
     with tempfile.TemporaryDirectory() as root:
-        lr_rows, lr_runs, lr_step, lr_ms, lr_train_ms = run_long_range(
-            torch, np, device, root)
+        lr_rows, lr_runs, lr_step, lr_ms, lr_train_ms, lr_refs = (
+            run_long_range(torch, np, device, root))
     print(f"long range: phase 9 took {time.perf_counter() - t:.1f} s")
     rows += lr_rows
     for r in rows:
@@ -4053,6 +4484,8 @@ def main() -> int:
         data_parallel = run_data_parallel(torch, np, device, cfg, root)
     with tempfile.TemporaryDirectory() as root:
         cli = run_cli(torch, np, device, root)
+    with tempfile.TemporaryDirectory() as root:
+        spatial = run_spatial(torch, np, device, root, lr_refs)
 
     for what, (_, _, ms1, ms2, _) in (("host plans", host),
                                       ("device plans", dev)):
@@ -4075,6 +4508,9 @@ def main() -> int:
     print(f"CLIs (phase 11), on {name} [{card}]: {cli['wall_s']:.1f} s; "
           f"processes (s) " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in cli["procs"].items()))
+    print(f"spatial strategies over gloo ranks (phase 12), on {name} "
+          f"[{card}]: {spatial['wall_s']:.1f} s, the four rank processes "
+          f"{spatial['ranks_s']:.1f} s")
     for what in ("banded", "replicated"):
         print(f"long range, {what}, timing scan at batch 1, on {name} "
               f"[{card}]: {', '.join(f'{m:.2f}' for m in lr_ms[what])} "
@@ -4106,6 +4542,11 @@ def main() -> int:
         r["launches_per_step"] = {
             what: sum(launches[s] for s in symbols[kid])
             for what, launches in (banded_step if primed else all_steps)}
+        # phase 12a: the path over 4 banded ranks, each rank's count
+        r["launches_per_rank"] = {
+            "phase 12a, banded over 4 ranks": [
+                sum(launches[s] for s in symbols[kid])
+                for launches in spatial["launches"]["12a"]]}
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -21,7 +21,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-from sassd_tpu_torch.parallel import dist
+from sassd_tpu_torch.parallel import mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -170,10 +170,12 @@ class TrainConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ParallelConfig:
-    """Mesh layout of the JAX package. The port runs on one device:
-    "data", and "banded" with ``spatial`` > 1 y-bands of the sparse stage,
-    every band a batch row (parallel/sparse_spatial.py); "spatial" raises
-    in check_supported.
+    """Mesh layout of the JAX package: "data", "spatial" (the BEV trunk
+    split along y) and "banded" (``spatial`` > 1 y-bands of the sparse
+    stage, parallel/sparse_spatial.py). On one device the bands are batch
+    rows and "spatial" runs the canvas whole; across W > 1 ranks both lay
+    the ranks out as W / spatial data rows x `spatial` ranks, which split
+    each row's canvas or bands (parallel/mesh.py).
 
     band_halo: level-0 y halo cells on each side of a band ("banded").
     band_cap_margin: per-band cap safety factor over the band's covered
@@ -240,16 +242,22 @@ def check_supported(cfg: SASSDConfig, train: bool = False) -> None:
     the GT-sampling augmentor and the one-cycle AdamW. The banded sparse
     stage always builds its rulebook on the device; its training takes
     the ring aux only (ValueError otherwise, as in the JAX package: the
-    exact 3-NN is not band-local), and runs in one process: banded across
-    the ranks of a process group is refused; the data strategy runs on
-    any number of ranks. The PointNet VFE runs on the replicated spine
-    only (the JAX package's banded stage ignores it and encodes by the
-    mean).
+    exact 3-NN is not band-local). The data strategy runs on any number
+    of ranks; "spatial" and "banded" on one, or on W ranks that
+    ``parallel.spatial`` divides (ValueError otherwise, as the JAX
+    package's make_mesh raises), whose data rows must split the BEV
+    canvas's rows evenly ("spatial"). The PointNet VFE runs on the
+    replicated spine only (the JAX package's banded stage ignores it and
+    encodes by the mean).
     """
     m, t, p = cfg.model, cfg.test, cfg.parallel
     if train and banded(cfg) and m.aux_interp != "ring":
         raise ValueError("banded sharding requires aux_interp='ring' "
                          "(exact 3-NN is not band-local)")
+    s = mesh.spatial_ranks(cfg)
+    if p.strategy == "spatial" and cfg.bev_map_size[0] % s:
+        raise ValueError(f"BEV canvas of {cfg.bev_map_size[0]} rows not "
+                         f"divisible by parallel.spatial={s}")
     unsupported = {
         "model.dense_index=False": not m.dense_index,
         "model.sorted_device_levels=False": not m.sorted_device_levels,
@@ -265,11 +273,8 @@ def check_supported(cfg: SASSDConfig, train: bool = False) -> None:
             t.device_input not in ("voxels", "points"),
         "test.serve_persistent_plans=True": t.serve_persistent_plans,
         f"parallel.strategy={p.strategy!r} with spatial={p.spatial}":
-            p.strategy not in ("data", "banded") and p.spatial > 1,
-        # the JAX package runs bands on a data x spatial mesh; the port
-        # keeps every band on its own rank's device (ROADMAP A.3)
-        "parallel.strategy='banded' across data-parallel ranks":
-            banded(cfg) and dist.process_count() > 1,
+            p.strategy not in ("data", "spatial", "banded")
+            and p.spatial > 1,
     }
     if train:
         unsupported.update({

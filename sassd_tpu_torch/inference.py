@@ -5,7 +5,8 @@
 - :func:`run_inference`: the detector over a dataset, in either
   ``test.device_input`` mode, as KITTI annotations.
 - :func:`evaluate`: run_inference plus the official KITTI AP table, in
-  one process or over the ranks of a process group.
+  one process or over the ranks of a process group (each data row's
+  shard once, parallel/mesh.py).
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ from sassd_tpu_torch.data.loader import iterate_batches
 from sassd_tpu_torch.eval import kitti_eval
 from sassd_tpu_torch.eval.results import detections_to_kitti_anno
 from sassd_tpu_torch.models.detector import Detector
-from sassd_tpu_torch.parallel import dist
+from sassd_tpu_torch.parallel import dist, mesh
 
 
 def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
@@ -98,27 +99,31 @@ def evaluate(cfg: SASSDConfig, dataset, model: Optional[Detector],
     """Inference + the official KITTI AP over the dataset. Returns
     (results, text).
 
-    Under a process group of N ranks each rank runs its strided 1/N of
-    the dataset and the annotations are gathered to rank 0 through
-    `exchange_dir` (a directory every rank sees, dist.gather_objects):
-    rank 0 alone computes the AP and returns it, the other ranks return
-    (None, "").
+    Under a process group of N ranks laid out as D data rows of S
+    spatial ranks (mesh.layout; S = 1 but for the spatial strategies)
+    each data row runs its strided 1/D of the dataset, every rank of the
+    row taking part, and the annotations of the rows' first ranks are
+    gathered to rank 0 through `exchange_dir` (a directory every rank
+    sees, dist.gather_objects): rank 0 alone computes the AP and returns
+    it, the other ranks return (None, "").
 
     `precomputed`: (annos, ids) from an earlier run_inference over this
     rank's shard (for example one that also wrote result files), used
     instead of a second pass; `model` may then be None.
     """
-    n, pid = dist.process_count(), dist.process_index()
+    lay = mesh.layout(cfg)
     dt_annos, ids = (precomputed if precomputed is not None else
                      run_inference(cfg, dataset, model, batch_size, device,
-                                   num_shards=n, shard_id=pid))
-    if n > 1:
+                                   num_shards=lay.data,
+                                   shard_id=lay.data_index))
+    if dist.process_count() > 1:
         if exchange_dir is None:
             raise ValueError("evaluate across processes needs an "
                              "exchange_dir every rank can reach")
-        parts = dist.gather_objects((dt_annos, ids), exchange_dir,
-                                    tag="eval")
-        if pid != 0:
+        # the other ranks of a data row hold copies of its detections
+        mine = (dt_annos, ids) if lay.spatial_index == 0 else ([], [])
+        parts = dist.gather_objects(mine, exchange_dir, tag="eval")
+        if not dist.is_primary():
             return None, ""
         dt_annos = [a for p in parts for a in p[0]]
         ids = [i for p in parts for i in p[1]]

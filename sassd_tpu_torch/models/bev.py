@@ -2,10 +2,16 @@
 
 Returns the final map (SSD head input) and the pre-1x1 ``conv6`` map
 (PSWarp input). Public layout NHWC; the convs run NCHW on cuDNN.
+
+Split over the spatial ranks of a data row (parallel/spatial.py), each
+rank runs its own rows of the canvas: a `halo` hook pads every 3x3 conv's
+input with one row from each neighbour (parallel/dist.halo_exchange), the
+conv then pads only W, and BatchNorm takes the rank's own rows (reduced
+over the group of layers.stats_group).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 from torch import nn
@@ -28,13 +34,19 @@ class BEVNet(nn.Module):
         self.conv7 = L.Conv2d(gen, 1, cin, num_filters)
         self.bn7 = L.BatchNorm(num_filters)
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, x: torch.Tensor,
+                halo: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """[B, H, W, Cin] -> (final [B,H,W,F], conv6 [B,H,W,F]).
 
-        The outputs are NHWC views of NCHW tensors."""
+        halo: NCHW [B, C, h, W] -> [B, C, h + 2, W], the rows above and
+        below this rank's slice (None: x is the whole canvas). The outputs
+        are NHWC views of NCHW tensors."""
         x = x.permute(0, 3, 1, 2)
         for i in range(N_CONV):
-            x = getattr(self, f"conv{i}")(x)
+            conv = getattr(self, f"conv{i}")
+            x = (conv(x) if halo is None
+                 else L.conv2d_nchw(halo(x), conv.w, conv.b, padding=(0, 1)))
             x = L.relu(getattr(self, f"bn{i}")(x, dim=1))
         conv6 = x
         x = L.relu(self.bn7(self.conv7(x), dim=1))

@@ -28,6 +28,21 @@ origin and takes its loss over owned queries. Host plans are never read
 there; device-resident serving stays replicated (``replicated=True``), as
 in the JAX package.
 
+Across the ranks of a process group laid out as data rows x S spatial
+ranks (parallel/mesh.py; ``strategy`` "spatial" or "banded", S =
+``parallel.spatial`` > 1), the ranks of a data row share its batch:
+- "spatial": the VFE, VxNet, the aux branch and the heads run whole on
+  every rank of the row; BEVNet runs on the rank's canvas rows
+  (parallel/spatial.py) and its maps are gathered for the heads;
+- "banded": rank s runs band s alone (its partition, rulebook, VxNet and
+  aux branch), whose owned level-3 rows are its canvas slice for the same
+  split BEVNet.
+A module that runs whole on every rank of a row takes its BatchNorm
+statistics and loss normalizers over the data axis (each row once), a
+module on a slice or a band over every rank; the terms computed whole on
+every rank of a row enter the step scaled by 1 / S (forward_train), so
+the step's SUM over the ranks counts each once.
+
 forward_test marks its stages (partition, rulebook, vxnet, bevnet, head,
 pswarp, nms) and forward_train its own (partition, rulebook, vxnet,
 bevnet, aux, head, targets_losses, pswarp) with torch.profiler ranges
@@ -50,9 +65,9 @@ from sassd_tpu_torch.core import losses as loss_ops
 from sassd_tpu_torch.core import targets as target_ops
 from sassd_tpu_torch.ops import interpolate
 from sassd_tpu_torch.ops import sparse as sp
-from sassd_tpu_torch.parallel import dist
+from sassd_tpu_torch.parallel import dist, mesh, spatial
 from sassd_tpu_torch.parallel import sparse_spatial as ss
-from . import backbone, bev, pswarp, ssd_head
+from . import backbone, bev, layers, pswarp, ssd_head
 
 # voxel-size multiple of the aux branch's middle levels 1, 2, 3
 _LEVEL_VOXEL_MULT = (2, 4, 8)
@@ -60,7 +75,8 @@ _LEVEL_VOXEL_MULT = (2, 4, 8)
 
 class SpineOut(NamedTuple):
     """The trunk's outputs; the aux branch's inputs in training. Banded,
-    the aux rows are the S * B band rows (band-major) and B' = S * B."""
+    the aux rows are the S * B band rows (band-major) and B' = S * B;
+    banded across ranks, this rank's band's B rows (bands = 1)."""
     bev_map: torch.Tensor      # [B, H, W, F]
     conv6: torch.Tensor        # [B, H, W, F]
     middles: Optional[List[backbone.Middle]] = None   # training only
@@ -111,9 +127,12 @@ class Detector(nn.Module):
                       replicated: bool = False) -> SpineOut:
         """VFE, backbone and BEV trunk; in train mode also the aux branch's
         middles and the voxel centroids. A banded config runs the banded
-        spine unless `replicated`."""
+        spine unless `replicated`; across spatial ranks (see the module
+        docstring) the BEV trunk is split over the data row's ranks unless
+        `replicated`, which runs everything whole on every rank."""
+        lay = mesh.layout(self.cfg)
         if self.band_spec is not None and not replicated:
-            return self._banded_spine(batch)
+            return self._banded_spine(batch, lay)
         plans = {k[len("plan_"):]: v for k, v in batch.items()
                  if k.startswith("plan_")}
         if "subm0" not in plans:           # no host rulebook: build it here
@@ -125,7 +144,7 @@ class Detector(nn.Module):
                     self.cfg.caps.level_caps[1:], train=self.training,
                     aux=self.cfg.model.aux_interp == "ring")
         keys0 = None
-        with record_function("vxnet"):
+        with record_function("vxnet"), layers.stats_group(lay.data_group):
             vfe = backbone.vfe_mean(batch["voxels"], batch["num_points"])
             # the PointNet VFE's features feed the ladder; the aux
             # branch's centroids stay the points' means
@@ -141,7 +160,11 @@ class Detector(nn.Module):
         b, d, h, w, c = out_dense.shape
         bev_in = out_dense.permute(0, 2, 3, 1, 4).reshape(b, h, w, d * c)
         with record_function("bevnet"):
-            bev_map, conv6 = self.bevnet(bev_in)
+            if lay.spatial > 1 and not replicated:
+                bev_map, conv6 = spatial.split_bev(
+                    self.bevnet, spatial.canvas_slice(bev_in, lay), lay)
+            else:
+                bev_map, conv6 = self.bevnet(bev_in)
         if keys0 is None:
             return SpineOut(bev_map, conv6)
         aux_plans = None
@@ -150,19 +173,28 @@ class Detector(nn.Module):
         return SpineOut(bev_map, conv6, middles, vfe[..., :3],
                         keys0 != sp.INVALID_KEY, aux_plans, batch["coords"])
 
-    def _banded_spine(self, batch: Dict[str, torch.Tensor]) -> SpineOut:
+    def _banded_spine(self, batch: Dict[str, torch.Tensor],
+                      lay: mesh.Layout) -> SpineOut:
         """partition (K16) -> device rulebook at band shape with the
         global grid top -> VxNet with band-owned BatchNorm -> the owned
-        level-3 rows as the BEV canvas -> BEVNet."""
+        level-3 rows as the BEV canvas -> BEVNet. Across spatial ranks
+        (lay.spatial = S > 1) only this rank's band goes on after the
+        partition, and its owned rows are its slice of the split BEV
+        trunk."""
         cfg, spec = self.cfg, self.band_spec
         if self.training:
             check_supported(cfg, train=True)
         shapes = backbone.level_shapes(ss.band_shape(cfg, spec))
         owned = (spec.halo, spec.halo + spec.band_h)
+        band = lay.spatial_index if lay.spatial > 1 else None
         with record_function("partition"):
             vfe = backbone.vfe_mean(batch["voxels"], batch["num_points"])
             bcoords, bvfe, overflow = ss.partition(batch["coords"], vfe,
                                                    spec)
+            if band is not None:
+                # K16 splits every band in one launch; keep this rank's
+                bcoords, bvfe, overflow = (t[band:band + 1] for t in
+                                           (bcoords, bvfe, overflow))
             s, b = bcoords.shape[:2]
             cell0 = bcoords.reshape(s * b, -1, 3)
             feats0 = bvfe.reshape(s * b, -1, bvfe.shape[-1])
@@ -170,7 +202,7 @@ class Detector(nn.Module):
             keys0 = sp.coords_to_keys(cell0, shapes[0])
             plans = sp.device_rulebook(
                 keys0, shapes, spec.caps[1:], train=self.training,
-                y_top=ss.y_top_rows(cfg, spec, b, keys0.device))
+                y_top=ss.y_top_rows(cfg, spec, b, keys0.device, band))
         with record_function("vxnet"):
             if self.training:
                 out_dense, middles = self.vxnet.forward_train(
@@ -179,7 +211,8 @@ class Detector(nn.Module):
                 out_dense = self.vxnet(feats0, plans, shapes, owned)
             # owned rows [S*B, D, bh3, W, C] -> a contiguous NCHW canvas
             # [B, D*C, S*bh3, W] (channel z*C + c), seen as NHWC, as the
-            # replicated spine hands BEVNet its canvas
+            # replicated spine hands BEVNet its canvas (across ranks, S = 1:
+            # this band's slice of it)
             lo3, bh3 = spec.halo >> 3, spec.band_h >> 3
             od = out_dense[:, :, lo3:lo3 + bh3]
             d, w, c = od.shape[1], od.shape[3], od.shape[4]
@@ -187,7 +220,10 @@ class Detector(nn.Module):
                 1, 2, 5, 0, 3, 4).reshape(b, d * c, s * bh3, w).permute(
                     0, 2, 3, 1)
         with record_function("bevnet"):
-            bev_map, conv6 = self.bevnet(bev_in)
+            if band is not None:
+                bev_map, conv6 = spatial.split_bev(self.bevnet, bev_in, lay)
+            else:
+                bev_map, conv6 = self.bevnet(bev_in)
         if not self.training:
             return SpineOut(bev_map, conv6, bands=s, band_overflow=overflow)
         y = cell0[..., 1]
@@ -195,7 +231,7 @@ class Detector(nn.Module):
         aux_plans = {k: plans[k] for k in ("aux1", "aux2", "aux3")}
         return SpineOut(bev_map, conv6, middles, feats0[..., :3], owned0,
                         aux_plans, cell0,
-                        ss.band_origins(cfg, spec, b, keys0.device), s,
+                        ss.band_origins(cfg, spec, b, keys0.device, band), s,
                         overflow)
 
     def aux_forward(self, spine: SpineOut):
@@ -238,9 +274,15 @@ class Detector(nn.Module):
         breaks banded == replicated when nonzero). The model must be in
         train mode; BatchNorm buffers update. Under a process group the
         losses are this rank's shares of the global batch's losses and the
-        metrics this rank's own (train.loop's step reduces both)."""
+        metrics this rank's own (train.loop's step reduces both); across
+        S spatial ranks, the entries computed whole on every rank of a
+        data row are scaled by 1 / S."""
         cfg, tc = self.cfg, self.cfg.train
+        lay = mesh.layout(cfg)
         spine = self.forward_spine(batch)
+        # the aux branch runs on this rank's band when the bands are on
+        # the ranks, and whole on every rank of the data row otherwise
+        aux_split = self.band_spec is not None and lay.spatial > 1
         with record_function("aux"):
             point_cls, point_reg = self.aux_forward(spine)
         with record_function("head"):
@@ -251,7 +293,9 @@ class Detector(nn.Module):
             gt = {k: torch.cat([batch[k]] * spine.bands)
                   for k in ("gt_boxes", "gt_valid")}
             losses = aux_loss(point_cls, point_reg, spine, gt,
-                              denom=batch["gt_boxes"].shape[0])
+                              denom=batch["gt_boxes"].shape[0],
+                              data=lay.data,
+                              group=None if aux_split else lay.data_group)
             matched = tuple(a.matched_threshold for a in cfg.anchors.values())
             unmatched = tuple(a.unmatched_threshold
                               for a in cfg.anchors.values())
@@ -260,13 +304,14 @@ class Detector(nn.Module):
                 batch["gt_classes"], batch["gt_valid"],
                 num_class=cfg.model.num_class, matched_thresholds=matched,
                 unmatched_thresholds=unmatched,
-                similarity_fn=target_ops.SIMILARITY_FNS[tc.rpn_similarity]))
+                similarity_fn=target_ops.SIMILARITY_FNS[tc.rpn_similarity],
+                data=lay.data))
             ga = ssd_head.get_guided_anchors(
                 outs, anchors, batch["anchors_mask"],
                 num_class=cfg.model.num_class, thr=tc.anchor_thr,
                 cap=cfg.caps.guided_train, gt_boxes=batch["gt_boxes"],
                 gt_labels=batch["gt_classes"], gt_valid=batch["gt_valid"])
-        with record_function("pswarp"):
+        with record_function("pswarp"), layers.stats_group(lay.data_group):
             scores = self.pswarp(spine.conv6, ga.boxes, ga.valid,
                                  window_size=cfg.model.window_size,
                                  grid_offsets=cfg.model.grid_offsets,
@@ -274,11 +319,17 @@ class Detector(nn.Module):
             labels = pswarp.pswarp_labels(
                 ga.boxes, ga.valid, batch["gt_boxes"], batch["gt_valid"],
                 pos_iou_thr=tc.extra_pos_iou, neg_iou_thr=tc.extra_neg_iou)
-            losses.update(pswarp.pswarp_loss(scores, labels))
+            losses.update(pswarp.pswarp_loss(scores, labels, data=lay.data,
+                                             group=lay.data_group))
         losses["guided_truncated"] = torch.mean(
             ga.truncated.to(torch.float32))
         losses["guided_valid"] = torch.sum(ga.valid).to(torch.float32)
         losses["guided_pos"] = torch.sum(labels > 0).to(torch.float32)
+        if lay.spatial > 1:
+            split = ("aux_loss_cls", "aux_loss_reg") if aux_split else ()
+            for k in losses:
+                if k not in split:
+                    losses[k] = losses[k] / lay.spatial
         if spine.band_overflow is not None:
             losses["band_overflow"] = torch.sum(spine.band_overflow).to(
                 torch.float32)
@@ -315,15 +366,16 @@ class Detector(nn.Module):
 
 def aux_loss(point_cls: torch.Tensor, point_reg: torch.Tensor,
              spine: SpineOut, batch: Dict[str, torch.Tensor],
-             denom: Optional[int] = None) -> Dict[str, torch.Tensor]:
+             denom: Optional[int] = None, data: int = 1,
+             group=None) -> Dict[str, torch.Tensor]:
     """Point segmentation (focal) + centre-offset regression (smooth-L1)
     of the aux branch; targets from points_in_boxes (K12). denom: this
     rank's batch size (default the GT batch; banded, the true batch size
     B of the S * B band rows). The losses divide by the global batch,
-    denom times dist.process_count(), and normalise by the positive
-    points of every rank, as the JAX step over the global batch does."""
-    b = (denom if denom is not None
-         else batch["gt_boxes"].shape[0]) * dist.process_count()
+    denom times `data` (the data axis's size, mesh.layout), and normalise
+    by the positive points of every rank of `group` (None: every rank), as
+    the JAX step over the global batch does."""
+    b = (denom if denom is not None else batch["gt_boxes"].shape[0]) * data
     with torch.no_grad():
         labels, offsets = box_ops.aux_targets(
             spine.points_mean, spine.points_valid, batch["gt_boxes"],
@@ -331,7 +383,8 @@ def aux_loss(point_cls: torch.Tensor, point_reg: torch.Tensor,
     valid = spine.points_valid
     posf = (labels & valid).to(torch.float32)
     negf = (~labels & valid).to(torch.float32)
-    pos_norm = torch.clamp(dist.all_reduce_sum(torch.sum(posf)), min=1.0)
+    pos_norm = torch.clamp(dist.all_reduce_sum(torch.sum(posf), group),
+                           min=1.0)
     cls = loss_ops.sigmoid_focal_loss(point_cls, labels.to(torch.float32),
                                       (posf + negf) / pos_norm) / b
     reg = loss_ops.smooth_l1_loss(point_reg, offsets,

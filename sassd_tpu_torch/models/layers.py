@@ -7,6 +7,8 @@ Every BatchNorm of the model uses eps 1e-3 and momentum 0.01.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 from typing import Optional, Tuple
 
@@ -18,6 +20,25 @@ from sassd_tpu_torch.parallel import dist
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.01
+
+# the process group BatchNorm statistics reduce over (None: every rank)
+_STATS_GROUP: contextvars.ContextVar = contextvars.ContextVar(
+    "sassd_bn_stats_group", default=None)
+
+
+@contextlib.contextmanager
+def stats_group(group):
+    """Inside the block, every BatchNorm in train mode reduces its batch
+    statistics over `group` (None: every rank of the process group). A
+    module that runs whole on every rank of a data row reduces over the
+    data axis (parallel/mesh.Layout.data_group), so each row counts once;
+    a module that runs on a rank's own slice or band reduces over the
+    world."""
+    token = _STATS_GROUP.set(group)
+    try:
+        yield
+    finally:
+        _STATS_GROUP.reset(token)
 
 
 def uniform_fan_in(gen: torch.Generator, shape: Tuple[int, ...],
@@ -60,7 +81,8 @@ class BatchNorm(nn.Module):
     set (padded sparse rows and empty dense cells are invisible) and
     updates the running buffers: (1-m)·running + m·batch, with the
     unbiased variance. Under a process group the batch is the global one
-    (see masked_moments), so the buffers stay equal on every rank.
+    (see masked_moments, over the group of :func:`stats_group`), so the
+    buffers stay equal on every rank.
     torch's nn.BatchNorm has no mask, so it is not used.
     A new BatchNorm is in eval mode (the modules serve unless trained).
     """
@@ -80,7 +102,7 @@ class BatchNorm(nn.Module):
         if not self.training:
             return batch_norm(x, self.scale, self.bias, self.mean, self.var,
                               dim)
-        mean, var, n = masked_moments(x, dim, mask)
+        mean, var, n = masked_moments(x, dim, mask, _STATS_GROUP.get())
         with torch.no_grad():
             unbiased = var * (n / torch.clamp(n - 1.0, min=1.0))
             self.mean.mul_(1 - BN_MOMENTUM).add_(BN_MOMENTUM * mean)
@@ -89,15 +111,16 @@ class BatchNorm(nn.Module):
 
 
 def masked_moments(x: torch.Tensor, dim: int,
-                   mask: Optional[torch.Tensor]):
+                   mask: Optional[torch.Tensor], group=None):
     """Per-channel mean and biased variance of x over all axes but `dim`,
     over the rows where `mask` is set; and the row count (>= 1).
 
-    Under a process group these are the statistics of the global batch
-    (SyncBN, parallel/dist.py): the per-channel sums and the row count
-    are all-reduced in one call, then the squared deviations from the
-    global mean in a second one. Without a group the reductions are the
-    identity, so one rank and N ranks run the same code."""
+    Under a process group these are the statistics of the rows of every
+    rank of `group` (None: every rank; SyncBN, parallel/dist.py): the
+    per-channel sums and the row count are all-reduced in one call, then
+    the squared deviations from the global mean in a second one. Without
+    a group the reductions are the identity, so one rank and N ranks run
+    the same code."""
     dim = dim % x.dim()
     red = [i for i in range(x.dim()) if i != dim]
     shape = [1] * x.dim()
@@ -111,19 +134,23 @@ def masked_moments(x: torch.Tensor, dim: int,
         m = mask.to(x.dtype)
         n = torch.sum(m).reshape(1)
         s = torch.sum(x * m, dim=red)
-    sn = dist.all_reduce_sum(torch.cat([s, n]))
+    sn = dist.all_reduce_sum(torch.cat([s, n]), group)
     n = torch.clamp(sn[-1].detach(), min=1.0)
     mean = sn[:-1] / n
     diff = x - mean.reshape(shape)
     if m is not None:
         diff = diff * m
-    return mean, dist.all_reduce_sum(torch.sum(diff * diff, dim=red)) / n, n
+    return (mean, dist.all_reduce_sum(torch.sum(diff * diff, dim=red),
+                                      group) / n, n)
 
 
-def conv2d_nchw(x: torch.Tensor, w_hwio: torch.Tensor, b=None) -> torch.Tensor:
-    """NCHW conv with an HWIO weight, SAME padding for odd kernels."""
+def conv2d_nchw(x: torch.Tensor, w_hwio: torch.Tensor, b=None,
+                padding=None) -> torch.Tensor:
+    """NCHW conv with an HWIO weight, SAME padding for odd kernels unless
+    `padding` is given (as F.conv2d takes it)."""
     k = w_hwio.shape[0]
-    return F.conv2d(x, w_hwio.permute(3, 2, 0, 1), b, padding=k // 2)
+    return F.conv2d(x, w_hwio.permute(3, 2, 0, 1), b,
+                    padding=k // 2 if padding is None else padding)
 
 
 def conv2d(x: torch.Tensor, w_hwio: torch.Tensor, b=None) -> torch.Tensor:

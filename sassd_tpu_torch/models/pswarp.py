@@ -60,18 +60,21 @@ def pswarp_labels(boxes: torch.Tensor, valid: torch.Tensor,
         for i in range(boxes.shape[0])])
 
 
-def pswarp_loss(scores: torch.Tensor, labels: torch.Tensor
+def pswarp_loss(scores: torch.Tensor, labels: torch.Tensor,
+                data: int = 1, group=None
                 ) -> Dict[str, torch.Tensor]:
     """Rescoring focal loss over the [B, K] scores given pswarp_labels,
     normalised by the positives of the whole batch. Under a process group
-    the batch is the global one: the positives of every rank, and the
-    local B times dist.process_count() as the divisor."""
-    b = scores.shape[0] * dist.process_count()
+    the batch is the global one: the positives of every rank of `group`
+    (None: every rank; the data axis when spatial ranks share a batch),
+    and the local B times `data` (the data axis's size, mesh.layout) as the
+    divisor."""
+    b = scores.shape[0] * data
     cared = labels >= 0
     positives = labels > 0
     cls_weights = (cared & ((labels == 0) | positives)).to(torch.float32)
     pos_norm = torch.clamp(dist.all_reduce_sum(
-        torch.sum(positives.to(torch.float32))), min=1.0)
+        torch.sum(positives.to(torch.float32)), group), min=1.0)
     cls_targets = torch.where(cared, labels, 0).to(torch.float32)
     loss = loss_ops.sigmoid_focal_loss(scores, cls_targets,
                                        cls_weights / pos_norm) / b

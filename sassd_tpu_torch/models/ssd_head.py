@@ -15,7 +15,6 @@ from torch import nn
 from sassd_tpu_torch.core import boxes as box_ops
 from sassd_tpu_torch.core import losses as loss_ops
 from sassd_tpu_torch.core import targets as target_ops
-from sassd_tpu_torch.parallel import dist
 from . import layers as L
 
 
@@ -95,12 +94,13 @@ def head_loss(outs: HeadOutputs, anchors: torch.Tensor,
               num_class: int, matched_thresholds: Sequence[float],
               unmatched_thresholds: Sequence[float],
               similarity_fn: Callable = target_ops.nearest_iou_similarity,
-              box_code_size: int = 7) -> Dict[str, torch.Tensor]:
+              box_code_size: int = 7, data: int = 1
+              ) -> Dict[str, torch.Tensor]:
     """RPN losses: rpn_loc_loss (smooth-L1 on sin-difference residuals),
     rpn_cls_loss (focal) and rpn_dir_loss (softmax CE of the yaw sign),
     each normalised by the positives per sample and averaged over the
     batch: under a process group, over the global batch (the local B
-    times dist.process_count()).
+    times `data`, the data axis's size, mesh.layout).
 
     anchors [A, 7] class-major; anchors_mask [B, A]; gt_boxes [B, G, 7];
     gt_classes [B, G] 1-based; gt_valid [B, G].
@@ -145,7 +145,7 @@ def head_loss(outs: HeadOutputs, anchors: torch.Tensor,
         torch.sum(dir_weights, dim=1, keepdim=True), min=1.0)
     dir_loss = loss_ops.softmax_cross_entropy(outs.dir_preds, dir_targets,
                                               dir_weights)
-    b_all = b * dist.process_count()
+    b_all = b * data
     return dict(rpn_loc_loss=loc_loss / b_all * 2.0,
                 rpn_cls_loss=cls_loss / b_all * 1.0,
                 rpn_dir_loss=dir_loss / b_all * 0.2)

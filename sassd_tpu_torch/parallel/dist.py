@@ -21,6 +21,18 @@ answer 1 / 0 / True. With a group, the collectives are always called, at
 world size 1 too, so a one-rank run takes the same code path as a run of
 N ranks (its collectives are copies).
 
+Under a data x spatial layout (parallel/mesh.py) the reductions take a
+group: the ranks of one spatial index (the data axis) or of one data row
+(the spatial axis), made by :func:`spatial_subgroups`. The spatial
+strategies also move rows between the ranks of a data row:
+:func:`gather_rows` (a differentiable all-gather of row slices) and
+:func:`halo_exchange` (one boundary row from each neighbour, with the
+backward that sends each halo row's gradient back to its owner). Both are
+all-gathers and all-reduces, which NCCL and gloo both run on CUDA tensors
+where they lie (gloo's on the card: ``chip_smoke.py --gloo-probe``); the
+halo exchange is not point-to-point, since gloo's send and recv refuse
+CUDA tensors.
+
 Non-tensor results (evaluation annotations) go through a shared
 directory with deadline-protected file barriers (:func:`gather_objects`):
 a rank that died makes the others raise TimeoutError instead of hanging.
@@ -32,7 +44,7 @@ import os
 import pickle
 import time
 from pathlib import Path
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as tdist
@@ -40,6 +52,9 @@ import torch.distributed as tdist
 DEFAULT_TIMEOUT_S = 600.0
 
 _DEVICE: Optional[torch.device] = None     # where barrier() puts its tensor
+# spatial ranks S -> (spatial groups by data index, data groups by
+# spatial index); see spatial_subgroups
+_SUBGROUPS: Dict[int, Tuple[list, list]] = {}
 
 
 def is_initialized() -> bool:
@@ -97,6 +112,7 @@ def shutdown() -> None:
     if is_initialized():
         tdist.destroy_process_group()
     _DEVICE = None
+    _SUBGROUPS.clear()
 
 
 def process_count() -> int:
@@ -120,46 +136,148 @@ def barrier(name: str = "") -> None:
     tdist.all_reduce(torch.zeros(1, device=_DEVICE or "cpu"))
 
 
+def spatial_subgroups(spatial: int) -> Tuple[list, list]:
+    """The subgroups of a world of W ranks laid out as W / spatial data
+    rows x `spatial` spatial ranks (rank r at data index r // spatial,
+    spatial index r % spatial): the spatial groups, one per data row
+    (ranks [d * spatial, (d + 1) * spatial)), and the data groups, one per
+    spatial index (ranks s, s + spatial, ...). Made once per `spatial`
+    while the group lives; every rank creates every group in the same
+    order, as torch.distributed.new_group requires."""
+    if spatial not in _SUBGROUPS:
+        w = process_count()
+        rows = [tdist.new_group(list(range(d * spatial, (d + 1) * spatial)))
+                for d in range(w // spatial)]
+        cols = [tdist.new_group(list(range(s, w, spatial)))
+                for s in range(spatial)]
+        _SUBGROUPS[spatial] = (rows, cols)
+    return _SUBGROUPS[spatial]
+
+
 class _AllReduceSum(torch.autograd.Function):
-    """SUM over the ranks; the gradient of every rank's input is the SUM
-    of every rank's output gradient."""
+    """SUM over the ranks of `group`; the gradient of every rank's input
+    is the SUM of every rank's output gradient."""
 
     @staticmethod
-    def forward(ctx, t):
+    def forward(ctx, t, group):
+        ctx.group = group
         out = t.clone(memory_format=torch.contiguous_format)
-        tdist.all_reduce(out)
+        tdist.all_reduce(out, group=group)
         return out
 
     @staticmethod
     def backward(ctx, grad):
         grad = grad.clone(memory_format=torch.contiguous_format)
-        tdist.all_reduce(grad)
-        return grad
+        tdist.all_reduce(grad, group=ctx.group)
+        return grad, None
 
 
-def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
-    """Differentiable SUM all-reduce (a new tensor); `t` itself without a
-    group."""
+def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Differentiable SUM all-reduce over `group` (None: every rank), a
+    new tensor; `t` itself without a process group."""
     if not is_initialized():
         return t
-    return _AllReduceSum.apply(t)
+    return _AllReduceSum.apply(t, group)
 
 
 @torch.no_grad()
-def all_reduce_coalesced(tensors: Sequence[torch.Tensor]) -> None:
-    """In-place SUM all-reduce of tensors of one dtype and device, packed
-    into one flat buffer for one collective; nothing without a group. The
-    results are written back into the given tensors, so what reads them
-    afterwards reads the same storage with or without a group."""
+def all_reduce_coalesced(tensors: Sequence[torch.Tensor],
+                         group=None) -> None:
+    """In-place SUM all-reduce over `group` (None: every rank) of tensors
+    of one dtype and device, packed into one flat buffer for one
+    collective; nothing without a group. The results are written back
+    into the given tensors, so what reads them afterwards reads the same
+    storage with or without a group."""
     if not is_initialized() or not tensors:
         return
     flat = torch.cat([t.reshape(-1) for t in tensors])
-    tdist.all_reduce(flat)
+    tdist.all_reduce(flat, group=group)
     off = 0
     for t in tensors:
         n = t.numel()
         t.copy_(flat[off:off + n].view_as(t))
         off += n
+
+
+def all_gather_cat(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Every rank's `t` (one shape on every rank) concatenated along `dim`
+    in group-rank order, on `t`'s device."""
+    src = t.contiguous()
+    parts = [torch.empty_like(src)
+             for _ in range(tdist.get_world_size(group))]
+    tdist.all_gather(parts, src, group=group)
+    return torch.cat(parts, dim)
+
+
+class _GatherRows(torch.autograd.Function):
+    """All-gather of equal row slices along `dim`. The backward sums the
+    output gradient over the group and keeps this rank's slice: every
+    rank of the group reads the whole output, so each slice's gradient
+    is the sum of what every rank sends back."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        ctx.rows = x.shape[dim]
+        return all_gather_cat(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        tdist.all_reduce(grad, group=ctx.group)
+        r = tdist.get_rank(ctx.group)
+        return grad.narrow(ctx.dim, r * ctx.rows, ctx.rows), None, None
+
+
+def gather_rows(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The group's row slices of one tensor, each rank holding rows
+    [r * h, (r + 1) * h) along `dim` (h = x.shape[dim]), put together on
+    every rank; differentiable (see _GatherRows)."""
+    return _GatherRows.apply(x, dim, group)
+
+
+class _HaloExchange(torch.autograd.Function):
+    """x padded along `dim` with the previous rank's last row before and
+    the next rank's first row after (zeros past the group's first and last
+    rank). The backward returns the gradient of the own rows plus the
+    gradients of the neighbours' halo rows that are copies of this rank's
+    boundary rows."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        h = x.shape[dim]
+        edges = all_gather_cat(torch.cat([x.narrow(dim, 0, 1),
+                                          x.narrow(dim, h - 1, 1)], dim),
+                               dim, group)   # rank k: first 2k, last 2k + 1
+        n, r = tdist.get_world_size(group), tdist.get_rank(group)
+        zero = torch.zeros_like(x.narrow(dim, 0, 1))
+        top = edges.narrow(dim, 2 * r - 1, 1) if r > 0 else zero
+        bottom = edges.narrow(dim, 2 * r + 2, 1) if r < n - 1 else zero
+        return torch.cat([top, x, bottom], dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        dim, group = ctx.dim, ctx.group
+        h = grad.shape[dim] - 2
+        halos = all_gather_cat(torch.cat([grad.narrow(dim, 0, 1),
+                                          grad.narrow(dim, h + 1, 1)], dim),
+                               dim, group)   # rank k: top 2k, bottom 2k + 1
+        n, r = tdist.get_world_size(group), tdist.get_rank(group)
+        out = grad.narrow(dim, 1, h).clone()
+        if r > 0:            # the previous rank's bottom halo: my first row
+            out.narrow(dim, 0, 1).add_(halos.narrow(dim, 2 * r - 1, 1))
+        if r < n - 1:        # the next rank's top halo: my last row
+            out.narrow(dim, h - 1, 1).add_(halos.narrow(dim, 2 * r + 2, 1))
+        return out, None, None
+
+
+def halo_exchange(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """x [.., h, ..] -> [.., h + 2, ..] along `dim`: one halo row from each
+    neighbour in the group's rank order, zeros at the first and last
+    rank's outer edge (a SAME conv's zero padding of the whole); every
+    rank of the group calls it. Differentiable (see _HaloExchange)."""
+    return _HaloExchange.apply(x, dim, group)
 
 
 _GATHER_ROUND = 0

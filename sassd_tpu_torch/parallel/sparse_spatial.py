@@ -19,13 +19,21 @@ it).
   downsamples there (:func:`y_top_rows`), and its aux ring centres use the
   band's own grid origin (:func:`band_origins`).
 
+Across the ranks of a process group (``parallel/mesh.Layout`` with S
+spatial ranks), rank s of a data row runs band s alone: ``partition``
+splits every band (one K16 launch) and the rank keeps its own, and
+:func:`y_top_rows` / :func:`band_origins` give that band's rows. Its owned
+level-3 rows are its slice of the canvas, which goes through the split
+BEV trunk (parallel/spatial.py), as the JAX package assembles the canvas
+H-sharded on the same axis.
+
 Kernel K16 ``partition`` (``csrc/band_partition.cu``) splits the rows,
 beside its plain PyTorch version, which the wrapper takes only for CPU
 tensors.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -80,27 +88,34 @@ def band_shape(cfg: SASSDConfig, spec: BandSpec) -> Tuple[int, int, int]:
     return (d, spec.band_h + 2 * spec.halo, w)
 
 
-def y_top_rows(cfg: SASSDConfig, spec: BandSpec, b: int,
-               device) -> torch.Tensor:
+def _bands(spec: BandSpec, band: Optional[int]) -> np.ndarray:
+    return np.arange(spec.s) if band is None else np.array([band])
+
+
+def y_top_rows(cfg: SASSDConfig, spec: BandSpec, b: int, device,
+               band: Optional[int] = None) -> torch.Tensor:
     """[S*B] int32 exclusive band-local level-0 y bound of the global grid
-    top (band-major rows, as :func:`partition` flattens them)."""
+    top (band-major rows, as :func:`partition` flattens them); [B], band
+    `band`'s rows alone, when it is given."""
     h = cfg.sparse_shape[1]
-    lo = np.arange(spec.s) * spec.band_h - spec.halo
+    lo = _bands(spec, band) * spec.band_h - spec.halo
     return torch.from_numpy(np.repeat((h - lo).astype(np.int32), b)).to(
         device)
 
 
-def band_origins(cfg: SASSDConfig, spec: BandSpec, b: int,
-                 device) -> torch.Tensor:
-    """[S*B, 3] float32 xyz grid origin of each band row: the config's
-    origin shifted by lo * voxel_size_y. The shift is float32, the sum is
-    taken in float64 and rounded to float32, as the JAX package does."""
+def band_origins(cfg: SASSDConfig, spec: BandSpec, b: int, device,
+                 band: Optional[int] = None) -> torch.Tensor:
+    """[S*B, 3] float32 xyz grid origin of each band row ([B, 3], band
+    `band`'s alone, when it is given): the config's origin shifted by
+    lo * voxel_size_y. The shift is float32, the sum is taken in float64
+    and rounded to float32, as the JAX package does."""
     pcr0 = np.asarray(cfg.voxel.point_cloud_range[:3], np.float32)
     vs0 = np.asarray(cfg.voxel.voxel_size, np.float32)
-    band_lo = (np.arange(spec.s) * spec.band_h - spec.halo).astype(np.float32)
-    rows = (np.repeat(pcr0[None], spec.s, 0)
-            + np.stack([np.zeros(spec.s), band_lo * vs0[1],
-                        np.zeros(spec.s)], 1))
+    bands = _bands(spec, band)
+    band_lo = (bands * spec.band_h - spec.halo).astype(np.float32)
+    n = len(bands)
+    rows = (np.repeat(pcr0[None], n, 0)
+            + np.stack([np.zeros(n), band_lo * vs0[1], np.zeros(n)], 1))
     return torch.from_numpy(np.repeat(rows.astype(np.float32), b, 0)).to(
         device)
 

@@ -10,6 +10,14 @@ and BatchNorm statistics are loaded. The split is
 ``{data.root}/ImageSets/val.txt`` unless ``--split`` names one. ``--out``
 writes one KITTI result file per scan from the same inference pass that
 the AP is computed from.
+
+Across processes (``--dist`` under torchrun, or ``--coordinator host:port
+--num_processes N --process_id R``), each data row of ranks
+(parallel/mesh.py: every rank under the data strategy, ``parallel.spatial``
+ranks under "spatial" and "banded") runs its strided share of the split,
+its first rank writes that share's result files, and rank 0 prints the AP
+over one copy of each row's detections (gathered through
+``{work_dir}/eval_exchange``).
 """
 from __future__ import annotations
 
@@ -30,6 +38,14 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--batch_size", type=int, default=1)
     ap.add_argument("--out", default=None, help="write result files here")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--dist", action="store_true",
+                    help="join the process group from torchrun's "
+                         "environment (MASTER_ADDR/PORT, RANK, WORLD_SIZE)")
+    ap.add_argument("--coordinator", default=None,
+                    help="rank 0's host:port (with --num_processes and "
+                         "--process_id)")
+    ap.add_argument("--num_processes", type=int, default=None)
+    ap.add_argument("--process_id", type=int, default=None)
     return ap.parse_args(argv)
 
 
@@ -46,6 +62,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     from sassd_tpu_torch.utils.logging_utils import get_root_logger
 
     device = mesh.local_device(args.device)
+    if args.dist or args.coordinator:
+        dist.initialize(args.coordinator, args.num_processes,
+                        args.process_id, device=device)
     cfg = load_config(args.config)
     logger = get_root_logger()
     data_root = os.path.join(cfg.data.root, "training")
@@ -60,16 +79,22 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.out:
         # one inference pass: this rank's result files, and the same
         # annotations handed to evaluate for the AP tables
+        lay = mesh.layout(cfg)
         annos, ids = run_inference(cfg, dataset, model, args.batch_size,
-                                   device, num_shards=dist.process_count(),
-                                   shard_id=dist.process_index())
-        write_result_files(annos, ids, args.out)
-        logger.info("wrote %d result files to %s", len(ids), args.out)
+                                   device, num_shards=lay.data,
+                                   shard_id=lay.data_index)
+        if lay.spatial_index == 0:      # the row's other ranks hold copies
+            write_result_files(annos, ids, args.out)
+            logger.info("wrote %d result files to %s", len(ids), args.out)
         precomputed = (annos, ids)
     _, text = evaluate(cfg, dataset, model,
                        os.path.join(data_root, "label_2"), args.batch_size,
-                       device, precomputed=precomputed)
-    print(text)
+                       device, precomputed=precomputed,
+                       exchange_dir=os.path.join(cfg.work_dir,
+                                                 "eval_exchange"))
+    if dist.is_primary():
+        print(text)
+    dist.shutdown()
     return 0
 
 

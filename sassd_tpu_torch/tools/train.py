@@ -14,7 +14,11 @@ checkpoint in the work directory. Data-parallel: ``torchrun
 --nproc_per_node=N -m sassd_tpu_torch.tools.train ... --dist`` (the group
 from torchrun's environment), or one process per rank with
 ``--coordinator host:port --num_processes N --process_id R``; each rank
-runs on ``cuda:{LOCAL_RANK}`` (or the CPU with ``--device cpu``).
+runs on ``cuda:{LOCAL_RANK}`` over NCCL (or the CPU over gloo with
+``--device cpu``).
+A config with ``parallel.strategy`` "spatial" or "banded" lays the ranks
+out as data rows of ``parallel.spatial`` ranks (parallel/mesh.py), which
+split each row's BEV canvas or bands.
 """
 from __future__ import annotations
 

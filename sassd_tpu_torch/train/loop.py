@@ -21,6 +21,13 @@ without a broadcast (tests/test_torch_multiprocess.py and chip_smoke.py
 phase 10 check it). DistributedDataParallel is not used: it averages the
 gradients (the sum is wanted, before the clip) and broadcasts the
 BatchNorm buffers, which SyncBN keeps equal already.
+
+Across spatial ranks (``parallel.strategy`` "spatial" or "banded" with S
+= ``parallel.spatial`` > 1, parallel/mesh.py) the ranks of a data row take
+the same shard of each global batch, which must divide by the data axis's
+W / S rows, and split its BEV canvas or its bands; forward_train scales
+what every rank of a row computes whole by 1 / S, so the same SUM over
+every rank gives the global gradient and losses.
 """
 from __future__ import annotations
 
@@ -49,10 +56,11 @@ def make_train_step(cfg: SASSDConfig, anchors: np.ndarray,
     forward_train entry, loss (the objective), grad_norm and
     nonfinite_skips.
 
-    Under a process group `batch` is this rank's slice of the global
-    batch; the metrics are the global batch's (losses and guided_valid /
-    guided_pos summed over the ranks, guided_truncated averaged) and the
-    parameters' .grad hold the global gradient after the step.
+    Under a process group `batch` is this rank's data row's slice of the
+    global batch; the metrics are the global batch's (losses and
+    guided_valid / guided_pos summed over the ranks, guided_truncated
+    averaged over the data rows) and the parameters' .grad hold the
+    global gradient after the step.
 
     When the gradient norm or any loss is not finite, the update is
     skipped whole: parameters, BatchNorm running buffers and optimizer
@@ -61,6 +69,7 @@ def make_train_step(cfg: SASSDConfig, anchors: np.ndarray,
     """
     check_supported(cfg, train=True)
     anchors_t = torch.from_numpy(np.asarray(anchors, np.float32)).to(device)
+    data_rows = mesh.layout(cfg).data
 
     def step(model: Detector, batch: Dict[str, np.ndarray]):
         model.train()
@@ -80,7 +89,7 @@ def make_train_step(cfg: SASSDConfig, anchors: np.ndarray,
             metrics = dict(zip(losses, values))
             if "guided_truncated" in metrics:
                 metrics["guided_truncated"] = (metrics["guided_truncated"]
-                                               / dist.process_count())
+                                               / data_rows)
             gnorm = optim_lib.global_norm(grads.values())
             ok = torch.isfinite(gnorm) & torch.isfinite(
                 sum(torch.sum(v) for v in metrics.values()))
@@ -152,10 +161,11 @@ def train_model(cfg: SASSDConfig, dataset, work_dir: Optional[str] = None,
     Under a process group of N ranks (parallel/dist.py) each rank calls
     this with its own `device` (mesh.local_device()) and the same
     `work_dir`: cfg.train.batch_size is the global batch and must divide
-    by N, each rank loads the strided 1/N of every global batch, the
-    step reduces over the ranks, and rank 0 alone writes checkpoints,
-    every rank waiting at a barrier after each save. Every rank resumes
-    from the shared work_dir.
+    by the D = N / S data rows (S spatial ranks a row, parallel/mesh.py;
+    S = 1 but for the spatial strategies), each rank loads its row's
+    strided 1/D of every global batch, the step reduces over the ranks,
+    and rank 0 alone writes checkpoints, every rank waiting at a barrier
+    after each save. Every rank resumes from the shared work_dir.
     """
     check_supported(cfg, train=True)
     logger = logger or logging.getLogger("sassd")
@@ -163,10 +173,11 @@ def train_model(cfg: SASSDConfig, dataset, work_dir: Optional[str] = None,
     tc = cfg.train
     total_epochs = total_epochs or tc.total_epochs
     bs = tc.batch_size
-    num_shards, shard_id = mesh.host_shard_info()
+    num_shards, shard_id = mesh.host_shard_info(cfg)
     if bs % num_shards:
-        raise ValueError(f"global batch_size {bs} not divisible by "
-                         f"{num_shards} processes")
+        raise ValueError(f"global batch_size {bs} not divisible by the "
+                         f"{num_shards} data rows of "
+                         f"{dist.process_count()} processes")
     local_bs = bs // num_shards
     # the loader pads each epoch to a multiple of the global batch, so
     # every rank takes ceil(N / bs) steps
@@ -194,7 +205,7 @@ def train_model(cfg: SASSDConfig, dataset, work_dir: Optional[str] = None,
         end_epoch = min(total_epochs, start_epoch + epochs_per_run)
 
     def save(epoch: int, **kw) -> None:
-        if shard_id == 0:          # replicas are equal; one writer
+        if dist.is_primary():      # replicas are equal; one writer
             logger.info("saved %s", ckpt_lib.save(
                 work_dir, epoch, step, model, optimizer,
                 max_keep=tc.max_ckpt_keep, **kw))

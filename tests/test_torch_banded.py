@@ -429,18 +429,26 @@ def test_serving_ignores_the_band_strategy():
 
 
 @pytest.mark.parametrize("case", ["spatial", "banded_exact", "accepted"])
-def test_check_supported_banded(case):
-    """"spatial" still refuses; banded training refuses the exact aux
-    3-NN with ValueError (as the JAX package does); banded ring training,
-    banded inference with any aux, and a banded strategy over one band
-    (run replicated) pass."""
+def test_check_supported_banded(case, monkeypatch):
+    """"spatial" is accepted on one rank and on a world that its
+    `spatial` divides, and refused with ValueError on one it does not;
+    banded training refuses the exact aux 3-NN with ValueError (as the
+    JAX package does); banded ring training, banded inference with any
+    aux, and a banded strategy over one band (run replicated) pass."""
     cfg = tall()
     if case == "spatial":
-        bad = dataclasses.replace(cfg, parallel=config.ParallelConfig(
+        from sassd_tpu_torch.parallel import dist
+        sp = dataclasses.replace(cfg, parallel=config.ParallelConfig(
             strategy="spatial", spatial=2))
-        for train in (False, True):
-            with pytest.raises(NotImplementedError, match="spatial"):
-                config.check_supported(bad, train=train)
+        for world, ok in ((1, True), (2, True), (4, True), (3, False)):
+            monkeypatch.setattr(dist, "process_count", lambda: world)
+            for train in (False, True):
+                if ok:
+                    config.check_supported(sp, train=train)
+                else:
+                    with pytest.raises(ValueError,
+                                       match="3 ranks.*spatial=2"):
+                        config.check_supported(sp, train=train)
     elif case == "banded_exact":
         with pytest.raises(ValueError, match="ring"):
             config.check_supported(tall(aux_interp="exact"), train=True)

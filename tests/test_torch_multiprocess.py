@@ -581,21 +581,27 @@ def test_world_size_one_group_equals_no_group():
 
 
 def test_banded_is_refused_across_ranks(monkeypatch):
-    """Bands on a data x spatial mesh are not ported (ROADMAP A.3): the
-    banded strategy is refused with more than one rank, and the data
-    strategy runs on any number."""
+    """Bands on a data x spatial layout (ROADMAP A.3): the long-range
+    banded config over 4 bands is accepted on one rank and on 4 or 8
+    ranks (data rows of 4 spatial ranks), and refused with ValueError on
+    a world that 4 does not divide; the data strategy runs on any number
+    of ranks."""
     from sassd_tpu_torch import config
     from sassd_tpu_torch.parallel import dist
     lr = config.long_range_config(parallel=config.ParallelConfig(
         strategy="banded", spatial=4))
     assert config.banded(lr)
     config.check_supported(lr, train=True)
-    monkeypatch.setattr(dist, "process_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="data-parallel ranks"):
+    for world in (4, 8):
+        monkeypatch.setattr(dist, "process_count", lambda: world)
         config.check_supported(lr, train=True)
-    for cfg in (config.car_config(), config.multi_config(),
-                config.tiny_config()):
-        config.check_supported(cfg, train=True)
+    for world in (2, 6):
+        monkeypatch.setattr(dist, "process_count", lambda: world)
+        with pytest.raises(ValueError, match=f"{world} ranks.*spatial=4"):
+            config.check_supported(lr, train=True)
+        for cfg in (config.car_config(), config.multi_config(),
+                    config.tiny_config()):
+            config.check_supported(cfg, train=True)
 
 
 if __name__ == "__main__":
