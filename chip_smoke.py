@@ -166,6 +166,59 @@ Phases, each of which fails the run (nonzero exit, no result line):
    each gate's largest difference are printed; the kernel rows gain each
    rank's launches of 12a.
 
+13. model.compute_dtype="bfloat16" (ROADMAP A.7). 13a: K4-bf16 at the
+   sparse ladder's 10 convs at batch 1 (scan 0's host plans), its input
+   gradients at batch 2 (the train plans' 9 convs and the PointNet VFE's
+   4-wide input, zero-padded to 16 columns) and K10-bf16 at batch 2 (10
+   convs, also bitwise equal over two calls), against the plain
+   version summed in float64: each element within 1e-5 times its sum of
+   |products|;
+   each timed (CUDA events, 3 warm-ups, the mean of 20 calls, and
+   torch.profiler's kernel time) beside K4 / K10 at the same shapes, the
+   plain version and one torch.matmul of the gathered bfloat16 im2col
+   (the gather not timed), with its bound (bytes at 3.35 TB/s or the
+   found slots' operations at 989 TFLOP/s). 13b-d hold the card's
+   bfloat16 runs to runs that take the same rounding points: two runs
+   that sum in float32 in different orders round a value that lies
+   within that difference of a bfloat16 rounding boundary to different
+   neighbours, and the BEV trunk and train-mode BatchNorm's backward
+   amplify that one-ulp step, so the CPU's run is forced to the card's
+   neighbour at exactly those ties (tests/torch_bf16_points.py records
+   every rounding point of the card's run: each sparse conv's input and
+   output gradient, each bfloat16 dense conv's input, output, output
+   gradient, input and weight gradients, the tail's 1x1x1 operands; a
+   tie lies within BF16_SUM_RTOL of its sum of |products| from the
+   midpoint at a dense conv's own outputs, within BF16_TIE_RTOL of its
+   tensor's largest magnitude elsewhere); at every forward point it must
+   round every other value as the card did (the backward's points are
+   forced at ties too, but train-mode BatchNorm's backward amplifies the
+   float32 differences reaching them past any tie, so their values apart
+   are printed); a float32 card run is the control that each gate must
+   fail. 13b: car forward_test in bfloat16 on host plans and served
+   from raw points (test.device_input="points", phase 6's split),
+   launches counted; scan 0 held to the forced CPU run (detections as
+   the same set, boxes 5e-2, scores 1e-2, none unmatched; the largest
+   gaps printed). 13c: one car train step at batch 2 in bfloat16 on
+   device plans with the ring aux (phase 7's batch) against the forced
+   CPU step: every loss finite and within 1e-2, the gradient norm and
+   each module's gradients within 2e-2 (relative L2); each module's
+   distance from phase 7's float64 step printed beside the float32 card
+   step's; and each of its bfloat16 dense convs fed again its own
+   recorded operands (input, weight, output gradient): output, input
+   and weight gradients each the exact conv of the rounded operands
+   (float64) rounded to bfloat16, or the other neighbour at a tie
+   (BF16_WGRAD_RTOL for the weight gradients, whose sums run over every
+   position of the map; the float32 convs must fail). 13d: the
+   long-range banded config in bfloat16, forward_test at batch 1 on
+   phase 9's two comparison scans (full depth), held to the replicated
+   bfloat16 forward on the card at 13b's gate.
+   13e: serving at batch 1 and the train step at batch 2, float32 and
+   bfloat16 in turns, on the host clock, synchronised (for orientation,
+   no claim). Every bfloat16 run must launch its path's kernels with
+   K4-bf16 and K10-bf16 in place of K4 and K10, and no K4 or K10.
+   ``--bf16-only`` runs phase 13 alone (after phase 7 and phase 9's
+   inputs, which it needs); ``--kernels-only`` includes 13a.
+
 Phase 3 holds K1 (rotated overlap) in all four criteria within K1_ATOL
 of its plain version and at exactly +0.0 on every pair that its
 separation cull rejects, on the 2008-box set and on phase 6's NMS input
@@ -356,6 +409,29 @@ K3B_ROWS_TRIED = (8, 16, 25, 50)
 # the card's peaks the bounds are taken against (H100 SXM data sheet)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12           # dense, tensor cores
+
+# phase 13, model.compute_dtype="bfloat16": K4-bf16 and K10-bf16 against
+# their plain versions summed in float64, per element relative to the sum
+# of |products| (bfloat16 operands: the products are exact, only the
+# float32 sums' order differs); the card's runs against the CPU's with
+# the CPU's ties forced to the card's neighbours (a value before a
+# rounding within BF16_TIE_RTOL of its tensor's largest magnitude of the
+# midpoint: the two devices' float32 sums in another order, cuDNN's
+# algorithms among them): detections, the train step's losses, gradient
+# norm and modules
+BF16_SUM_RTOL = 1e-5
+# a dense conv's weight gradient sums over every position of its map (70,400
+# products an element for the car's BEV at batch 2): cuDNN's float32 sums
+# there lie farther from the exact sum, up to 8.2e-5 of the sum of
+# |products| at the car's shapes
+BF16_WGRAD_RTOL = 1e-4
+BF16_TIE_RTOL = 1e-5
+BF16_BOX_ATOL = 5e-2
+BF16_SCORE_ATOL = 1e-2
+BF16_MODULES = ("vxnet", "bevnet", "head", "pswarp", "aux")
+BF16_LOSS_RTOL = 1e-2
+BF16_GNORM_RTOL = 2e-2
 # an estimate, printed beside K15's times and kept out of the kernel rows:
 # float32 instructions issued one by one at 128 lanes x 132 SMs x 1.98 GHz
 # (the clock at which 67 TFLOP/s counts an FMA as two operations)
@@ -548,21 +624,22 @@ def measured(fn, what: str, iters: int = 20) -> dict:
                 kernel_split=split, host_us=host_us)
 
 
-def bound(nbytes: float, ops: float) -> dict:
+def bound(nbytes: float, ops: float, flops: float = FP32_FLOPS) -> dict:
     """The least time the card could take for the work: bytes over the
-    memory rate or operations over the float32 rate, whichever is longer."""
+    memory rate or operations over the rate of their type (float32 unless
+    `flops` says otherwise), whichever is longer."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_FLOPS * 1e3
+    t_ops = ops / flops * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bound_bytes=float(nbytes), bound_ops=float(ops))
 
 
-def add_bounds(rows) -> dict:
+def add_bounds(rows, flops: float = FP32_FLOPS) -> dict:
     """Sum of the bounds of several calls timed as one row."""
     nbytes = sum(r["bound_bytes"] for r in rows)
     ops = sum(r["bound_ops"] for r in rows)
-    out = bound(nbytes, ops)
+    out = bound(nbytes, ops, flops)
     out["bound_ms"] = sum(r["bound_ms"] for r in rows)
     return out
 
@@ -2331,7 +2408,8 @@ def run_serving(torch, np, device, cfg, model_dev, model_cpu, root: str):
 def run_training(torch, np, device, cfg, root: str):
     """Phase 7: car-config training on a synthetic KITTI train split.
     Returns (launches of the run, launches of one step, ms/step list,
-    host leg ms/step, losses of the card step)."""
+    host leg ms/step, losses of the card step, and for phase 13 the batch,
+    the anchors and the float64 CPU and float32 card steps' gradients)."""
     import dataclasses
     import logging
     from sassd_tpu_torch import weights
@@ -2486,7 +2564,8 @@ def run_training(torch, np, device, cfg, root: str):
     step(model, batch)
     torch.cuda.synchronize()
     per_step = read_launches()
-    return launches, per_step, ms, host_ms, gl
+    ref = dict(batch=batch, anchors=anchors, g64=g64, card32=ggr)
+    return launches, per_step, ms, host_ms, gl, ref
 
 
 def three_nn_diagnostic(torch, np, cfg, query, qvalid, coords, level):
@@ -3217,8 +3296,629 @@ def run_long_range(torch, np, device, root: str):
                 check_once(sp, per_step, "long range, banded training", kid,
                            1)
     refs = dict(dets=dets, steps={k: res[k] for k in ("banded",
-                                                       "replicated")})
+                                                       "replicated")},
+                inputs=dict(cfg_b=cfg_b, cfg_r=cfg_r, samples=samples,
+                            anchors=ds.anchors))
     return rows, launches, per_step, ms, train_ms, refs
+
+
+# ------------------------------------------------------------ phase 13
+
+def bf16_cfg(cfg):
+    """cfg with model.compute_dtype="bfloat16"."""
+    import dataclasses
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, compute_dtype="bfloat16"))
+
+
+def bf16_err(torch, got, plain, args):
+    """A bfloat16 kernel's result against its plain version
+    (`plain(*args, compute_dtype)`) summed in float64 on the same inputs:
+    the largest |got - plain| over that element's sum of |products| (inf
+    where the sum is 0 and got is not), and the largest |got - plain|."""
+    from sassd_tpu_torch.ops import sparse as sp
+    bf = torch.bfloat16
+    ref = plain(*[a.double() if a.is_floating_point() else a for a in args],
+                bf)
+    scale = plain(*[sp.rounded(a, bf).abs().double()
+                    if a.is_floating_point() else a for a in args],
+                  torch.float32)
+    diff = (got.double() - ref).abs()
+    if bool((diff[scale == 0] != 0).any()):
+        return float("inf"), float(diff.max())
+    return (float((diff / scale.clamp(min=1e-300)).max()),
+            float(diff.max()))
+
+
+def bf16_timed(torch, fn, f32_fn, plain_fn, lib_fn) -> dict:
+    """A bfloat16 kernel call by CUDA events (ms; 3 warm-ups, the mean of
+    20 calls) and by torch.profiler's kernel time (profiler_ms; None when
+    three tries saw fewer than the 10 calls of each kernel: the profiler
+    can drop some calls' kernels), beside the float32 kernel at the same
+    shape (f32_ms), the plain version (plain_ms) and the one-call
+    yardstick (library_ms)."""
+    profiler_ms = None
+    for _ in range(3):
+        counts = {}
+        split = kernel_split(fn, counts=counts)
+        if split and min(counts.values()) >= 10:
+            profiler_ms = sum(split.values())
+            break
+    return dict(ms=cuda_ms(fn), profiler_ms=profiler_ms,
+                f32_ms=cuda_ms(f32_fn), plain_ms=cuda_ms(plain_fn),
+                library_ms=cuda_ms(lib_fn))
+
+
+def fmt_opt(ms) -> str:
+    """A reading in ms, or "not measured"."""
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
+def bf16_row(parts: list) -> dict:
+    """The per-scan (or per-step) sums of bf16_timed's shapes, each
+    (name, convs, err, abs err, timed, found fraction, bound); a sum with
+    a reading not measured is None."""
+    out = {k: (None if any(t[k] is None for _, _, _, _, t, _, _ in parts)
+               else sum(n * t[k] for _, n, _, _, t, _, _ in parts))
+           for k in ("ms", "profiler_ms", "f32_ms", "plain_ms",
+                     "library_ms")}
+    out.update(add_bounds([bd for _, n, *_, bd in parts for _ in range(n)],
+                          BF16_FLOPS))
+    out["max_sum_rel_err"] = max(e for _, _, e, *_ in parts)
+    out["max_abs_err"] = max(e for _, _, _, e, *_ in parts)
+    out["per_shape"] = {name: dict(convs=n, sum_rel_err=e, **t,
+                                   found_frac=ff, **bd)
+                        for name, n, e, _, t, ff, bd in parts}
+    return out
+
+
+def check_bf16_kernels(torch, np, device, cfg, samples, train_samples):
+    """Phase 13a: K4-bf16 at batch 1 on scan 0's host plans (the ladder's
+    10 convs), its input gradients at batch 2 on the train plans (9 convs
+    and the PointNet VFE's 4-wide input), K10-bf16 at batch 2 (10 convs),
+    each against its plain version summed in float64 (BF16_SUM_RTOL of
+    each element's sum of |products|), K10-bf16 also bitwise over two
+    calls; timed beside K4 / K10 at the same shapes, the plain versions
+    and one torch.matmul of the gathered bfloat16 im2col (not timed)."""
+    from sassd_tpu_torch.ops import sparse as sp
+    bf = torch.bfloat16
+    rng = np.random.default_rng(SEED + 13)
+    caps = (cfg.voxel.max_voxels,) + tuple(cfg.caps.level_caps[1:])
+    s0 = {k: torch.from_numpy(v[None]).to(device)
+          for k, v in samples[0].items() if k != "meta"}
+    batch = {k: torch.from_numpy(np.stack([s[k] for s in train_samples[:2]]))
+             .to(device) for k in train_samples[0] if k != "meta"}
+
+    def randn(*shape, scale=1.0):
+        return torch.from_numpy((rng.normal(size=shape) * scale).astype(
+            np.float32)).to(device)
+
+    def col_of(x, plan):
+        b, m_in, c = x.shape
+        return sp.gather_im2col(x.reshape(b * m_in, c), sp.flatten_plan(
+            sp.host_plan(plan), m_in)).to(bf)
+
+    def check(name, what, err):
+        if not err[0] <= BF16_SUM_RTOL:
+            fail(f"{what} disagrees with its plain version on {name}: "
+                 f"{err[0]:.3g} of the sum of |products|")
+
+    fwd, dx, dw = [], [], []
+    for name, plan_key, level_in, cin, cout, mult in LADDER:
+        # K4-bf16, batch 1, the forward
+        plan = s0[plan_key]
+        x = randn(1, caps[level_in], cin)
+        w = randn(27, cin, cout, scale=1 / np.sqrt(27 * cin))
+        got = sp.subm_conv_batched(x, w, plan, bf)
+        err = bf16_err(torch, got, sp.subm_conv_batched_plain, (x, w, plan))
+        check(name, "K4-bf16", err)
+        col, w2 = col_of(x, plan), w.reshape(27 * cin, cout).to(bf)
+        t = bf16_timed(
+            torch, lambda: sp.subm_conv_batched(x, w, plan, bf),
+            lambda: sp.subm_conv_batched(x, w, plan),
+            lambda: sp.subm_conv_batched_plain(x, w, plan, bf),
+            lambda: torch.matmul(col, w2))
+        found = int((plan >= 0).sum())
+        bd = bound(x.numel() * 4 + plan.numel() * plan.element_size()
+                   + w.numel() * 4 + plan.shape[2] * cout * 4,
+                   2 * found * cin * cout, BF16_FLOPS)
+        print(f"K4-bf16 sparse_conv {name} x{mult} {cin}->{cout}: "
+              f"|kernel-plain| <= {err[0]:.3g} of the sum of |products| "
+              f"(tol {BF16_SUM_RTOL}), max abs {err[1]:.3g}; kernel "
+              f"{t['ms']:.4f} ms (profiler {fmt_opt(t['profiler_ms'])}), K4 "
+              f"float32 {t['f32_ms']:.4f}, plain {t['plain_ms']:.4f}, "
+              f"matmul of the bf16 im2col {t['library_ms']:.4f}, bound "
+              f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+        fwd.append((name, mult, err[0], err[1], t, found / plan.numel(), bd))
+
+        # batch 2 on the train plans: K10-bf16 and K4-bf16's input gradient
+        plan = batch[plan_key]
+        x = randn(2, caps[level_in], cin)
+        cot = randn(2, plan.shape[2], cout)
+        got = sp.conv_weight_grad(x, plan, cot, bf)
+        again = sp.conv_weight_grad(x, plan, cot, bf)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            fail(f"K10-bf16 gives two different weight gradients on {name}")
+        err = bf16_err(torch, got, sp.conv_weight_grad_plain, (x, plan, cot))
+        check(name, "K10-bf16", err)
+        col, d2 = col_of(x, plan), cot.reshape(-1, cout).to(bf)
+        t = bf16_timed(
+            torch, lambda: sp.conv_weight_grad(x, plan, cot, bf),
+            lambda: sp.conv_weight_grad(x, plan, cot),
+            lambda: sp.conv_weight_grad_plain(x, plan, cot, bf),
+            lambda: torch.matmul(col.T, d2))
+        found = int((plan >= 0).sum())
+        bd = bound(x.numel() * 4 + cot.numel() * 4
+                   + plan.numel() * plan.element_size() + got.numel() * 4,
+                   2 * found * cin * cout, BF16_FLOPS)
+        print(f"K10-bf16 conv_weight_grad {name} x{mult} {cin}->{cout}: "
+              f"{err[0]:.3g} of the sum of |products| (tol "
+              f"{BF16_SUM_RTOL}), two calls bitwise equal; kernel "
+              f"{t['ms']:.4f} ms (profiler {fmt_opt(t['profiler_ms'])}), K10 "
+              f"float32 {t['f32_ms']:.4f}, plain {t['plain_ms']:.4f}, "
+              f"matmul of the bf16 im2col {t['library_ms']:.4f}, bound "
+              f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+        dw.append((name, mult, err[0], err[1], t, found / plan.numel(), bd))
+
+        # the input gradient: the subm plan with the taps reversed and the
+        # weight transposed (the 4-wide input padded to 16 columns), or the
+        # stride conv's transpose plan with the weight transposed
+        if plan_key.startswith("plan_subm"):
+            dx_plan, w_dx = plan, w.flip(0).transpose(1, 2)
+        else:
+            dx_plan = batch["plan_strideT" + plan_key[-1]]
+            w_dx = w.transpose(1, 2)
+        w_dx = torch.nn.functional.pad(w_dx, (0, max(0, 16 - cin)))
+        w_dx = w_dx.contiguous()
+        if plan_key.startswith("plan_subm"):
+            got = sp._subm_input_grad(cot, w, plan, bf)
+        else:
+            got = sp.subm_conv_batched(cot, w_dx, dx_plan, bf)
+        err = bf16_err(torch, got, lambda c, ww, p, cd: (
+            sp.subm_conv_batched_plain(c, ww, p, cd)[..., :cin]),
+            (cot, w_dx, dx_plan))
+        check(name, "K4-bf16's input gradient", err)
+        col, w2 = col_of(cot, dx_plan), w_dx.reshape(-1, w_dx.shape[2]).to(bf)
+        t = bf16_timed(
+            torch, lambda: sp.subm_conv_batched(cot, w_dx, dx_plan, bf),
+            lambda: sp.subm_conv_batched(cot, w_dx, dx_plan),
+            lambda: sp.subm_conv_batched_plain(cot, w_dx, dx_plan, bf),
+            lambda: torch.matmul(col, w2))
+        found = int((dx_plan >= 0).sum())
+        bd = bound(cot.numel() * 4 + dx_plan.numel() * dx_plan.element_size()
+                   + w_dx.numel() * 4 + x.numel() * 4,
+                   2 * found * cout * w_dx.shape[2], BF16_FLOPS)
+        what = ("the PointNet VFE's 4-wide input, 16 columns" if cin == 4
+                else "the subm plan" if dx_plan is plan else "strideT")
+        print(f"  K4-bf16 input gradient {name} x{mult} on {what} "
+              f"{cout}->{cin}: {err[0]:.3g} of the sum of |products|; "
+              f"kernel {t['ms']:.4f} ms (profiler {fmt_opt(t['profiler_ms'])}), "
+              f"K4 float32 {t['f32_ms']:.4f}, plain {t['plain_ms']:.4f}, "
+              f"matmul {t['library_ms']:.4f}, bound {bd['bound_ms']:.4f} "
+              f"ms ({bd['bound_by']})")
+        dx.append((name, mult, err[0], err[1], t, found / dx_plan.numel(),
+                   bd))
+    lib = ("torch.matmul of the gathered bfloat16 im2col by the bfloat16 "
+           "weight (the gather not timed)")
+    fwd_row, dw_row = bf16_row(fwd), bf16_row(dw)
+    dx_row = bf16_row([p for p in dx if p[0] != "conv0.0"])
+    return [
+        dict(name="K4-bf16 sparse_conv", route="cuda",
+             source="sassd_tpu_torch/csrc/sparse_conv.cu",
+             replaces="sassd_tpu/ops/sparse.py:511",
+             err_kind="abs; each element within BF16_SUM_RTOL of its sum "
+                      "of |products| (max_sum_rel_err)",
+             library_what=lib,
+             at="batch 1, one scan's forward: the ladder's 10 convs, "
+                "launches x ms summed; f32_ms is K4 at the same shapes",
+             input_grad=dict(
+                 dx_row, pointnet_4wide=dict(
+                     sum_rel_err=dx[0][2], **dx[0][4], **dx[0][6]),
+                 at="batch 2, the 9 convs whose input takes a gradient, "
+                    "launches x ms summed; pointnet_4wide: the PointNet "
+                    "VFE's input gradient at subm0 (not in the sums)"),
+             **fwd_row),
+        dict(name="K10-bf16 conv_weight_grad", route="cuda",
+             source="sassd_tpu_torch/csrc/sparse_conv_bwd.cu",
+             replaces="sassd_tpu/ops/sparse.py:541",
+             err_kind="abs; each element within BF16_SUM_RTOL of its sum "
+                      "of |products| (max_sum_rel_err); two calls bitwise "
+                      "equal",
+             library_what=lib.replace("by the bfloat16 weight",
+                                      "transposed by the bfloat16 d_out"),
+             at="batch 2, one train step's weight gradients: the ladder's "
+                "10 convs, launches x ms summed; f32_ms is K10 at the same "
+                "shapes",
+             **dw_row)]
+
+
+def bf16_match(a, b):
+    """Two detection sets (dicts of numpy, one sample) matched greedily
+    within BF16_BOX_ATOL and BF16_SCORE_ATOL: (matched, unmatched, the
+    largest box and score gaps of the matched pairs); a detection of
+    either set without a partner counts as unmatched."""
+    import numpy as np
+    va, vb = a["valid"], b["valid"]
+    ba, sa = a["boxes"][va], a["scores"][va]
+    bb, sb = b["boxes"][vb], b["scores"][vb]
+    used = np.zeros(len(bb), bool)
+    gaps = [0.0, 0.0]
+    for i in range(len(ba)):
+        d = np.abs(bb - ba[i]).max(1)
+        ds = np.abs(sb - sa[i])
+        ok = (d <= BF16_BOX_ATOL) & (ds <= BF16_SCORE_ATOL) & ~used
+        if ok.any():
+            j = int(np.argmax(np.where(ok, -(d + ds), -np.inf)))
+            used[j] = True
+            gaps = [max(gaps[0], float(d[j])), max(gaps[1], float(ds[j]))]
+    n = int(used.sum())
+    return n, max(len(ba), len(bb)) - n, gaps[0], gaps[1]
+
+
+def bf16_dets_gate(got, ref, control, what: str) -> str:
+    """A bfloat16 run's detections against a reference run's: the same
+    set, each within BF16_BOX_ATOL and BF16_SCORE_ATOL (bf16_match, none
+    unmatched), where a float32 run's (`control`) must not be. Fails
+    otherwise; returns the printed numbers."""
+    m, u, gb, gs = bf16_match(got, ref)
+    _, uc, _, _ = bf16_match(control, ref)
+    text = (f"{m} detections matched (boxes {BF16_BOX_ATOL}, scores "
+            f"{BF16_SCORE_ATOL}; largest gaps {gb:.3g}, {gs:.3g}), {u} "
+            f"unmatched; the float32 run leaves {uc} unmatched")
+    if u or not uc:
+        fail(f"{what}: {text}")
+    return text
+
+
+def bf16_points():
+    """tests/torch_bf16_points.py: the port's bfloat16 rounding points."""
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import torch_bf16_points
+    return torch_bf16_points
+
+
+BF16_BACKWARD = (".g", ".dx", ".dw")      # points of the backward pass
+
+
+def bf16_forced(torch, what: str, card_run, cpu_run):
+    """A bfloat16 run on the card with its rounding points recorded (the
+    port's own convs: K4-bf16, K10-bf16, cuDNN), then the same run on the
+    CPU with every tie set to the card's neighbour (tests/
+    torch_bf16_points.py; a tie lies within BF16_SUM_RTOL of its sum of
+    |products| from the midpoint at a dense conv's own outputs, within
+    BF16_TIE_RTOL of its tensor's largest magnitude elsewhere): fed the
+    card's rounded values wherever the float32 sums' order alone splits
+    them, each forward point must round every other value as the card
+    did (fails otherwise). The backward's points are forced at ties too,
+    but the float32 differences reaching them pass train-mode BatchNorm's
+    backward, which amplifies them past any tie (as between a float32
+    card step and a float64 one): their values apart are printed.
+    Returns (card result, CPU result, the card's points)."""
+    bp = bf16_points()
+    card = bp.Points()
+    with bp.patch(card, twin=False):
+        got = card_run()
+    torch.cuda.synchronize()
+    cpu = bp.Points(ref=card.seen, tol=BF16_TIE_RTOL, sum_tol=BF16_SUM_RTOL)
+    t = time.perf_counter()
+    with bp.patch(cpu, twin=True):
+        ref = cpu_run()
+    cpu_s = time.perf_counter() - t
+    if cpu.seen.keys() != card.seen.keys():
+        fail(f"{what}: the card and the CPU took different rounding points")
+    total = sum(v.numel() for v in card.seen.values())
+    forced = sum(int(m.sum()) for m in cpu.forced.values())
+    apart = {k: v for k, v in cpu.apart.items() if v[0]}
+    fwd = {k: v for k, v in apart.items() if not k.endswith(BF16_BACKWARD)}
+    bwd = {k: v for k, v in apart.items() if k.endswith(BF16_BACKWARD)}
+    print(f"{what}: {len(card.seen)} rounding points, {total} values; the "
+          f"CPU's run ({cpu_s:.1f} s) forced to the card's neighbour at "
+          f"{forced} ties; rounded apart and no tie: forward "
+          f"{sum(n for n, _ in fwd.values())} values, backward "
+          f"{sum(n for n, _ in bwd.values())} at {len(bwd)} points (gap up "
+          f"to {max([g for _, g in bwd.values()], default=0.0):.3g})")
+    if fwd:
+        for k, (n, gap) in fwd.items():
+            print(f"  {what}: {k}: {n} of {card.seen[k].numel()} values "
+                  f"apart, gap up to {gap:.3g}")
+        fail(f"{what}: forward values rounded apart from the card's with "
+             f"no tie at {sorted(fwd)}")
+    return got, ref, card
+
+
+def bf16_dense_check(torch, device, card) -> str:
+    """Each bfloat16 dense conv of a card run recorded by bf16_forced, fed
+    its own recorded operands (input, weight, output gradient): its
+    output, input gradient and weight gradient as cuDNN gave them must
+    each be the exact conv of the rounded operands (float64 on the card)
+    rounded to bfloat16, or the other neighbour within BF16_SUM_RTOL of
+    the sum of |products| from the midpoint (BF16_WGRAD_RTOL for the
+    weight gradient); the same convs in float32 (TF32 off) must fail.
+    Returns the printed numbers."""
+    import torch.nn.functional as F
+    from sassd_tpu_torch.models import layers
+    bp = bf16_points()
+    grad = torch.nn.grad
+
+    def back(name, perm):
+        return card.seen[name].permute(*perm).contiguous().to(device)
+
+    def apart(got, exact, sums, tol):
+        """The values not bfloat16 or rounded apart from the exact value
+        with no tie, and the largest such gap (`tie_gap`)."""
+        gap = bp.tie_gap(exact.float(), got, sums.float())
+        far = (gap > tol) & torch.isfinite(gap)
+        return (int(((got != bp.rne(got)) | far).sum()),
+                float(gap[far].max()) if bool(far.any()) else 0.0)
+    n16 = n32 = values = 0
+    nchw, oihw = (0, 3, 1, 2), (3, 2, 0, 1)
+    for name, (w, pad) in card.convs.items():
+        x, g = back(name + ".x", nchw), back(name + ".g", nchw)
+        xr, wr, gr = (bp.rne(v).double() for v in (x, w, g))
+        exact = (F.conv2d(xr, wr, padding=pad),
+                 grad.conv2d_input(xr.shape, wr, gr, padding=pad),
+                 grad.conv2d_weight(xr, wr.shape, gr, padding=pad))
+        sums = (F.conv2d(xr.abs(), wr.abs(), padding=pad),
+                grad.conv2d_input(xr.shape, wr.abs(), gr.abs(), padding=pad),
+                grad.conv2d_weight(xr.abs(), wr.shape, gr.abs(),
+                                   padding=pad))
+        got = (back(name + ".y", nchw), back(name + ".dx", nchw),
+               back(name + ".dw", oihw))
+        x32, w32 = x.clone().requires_grad_(), w.clone().requires_grad_()
+        y32 = layers.conv2d_oihw(x32, w32, None, pad)
+        y32.backward(g)
+        for what, v16, v32, e, sm, tol in zip(
+                (".y", ".dx", ".dw"), got, (y32.detach(), x32.grad, w32.grad),
+                exact, sums, (BF16_SUM_RTOL,) * 2 + (BF16_WGRAD_RTOL,)):
+            (a16, gap), (a32, _) = (apart(v16, e, sm, tol),
+                                    apart(v32, e, sm, tol))
+            if a16:
+                print(f"  bf16 dense convs: {name}{what} {tuple(v16.shape)}: "
+                      f"{a16} values apart, gap up to {gap:.3g}")
+            n16, n32, values = n16 + a16, n32 + a32, values + v16.numel()
+    text = (f"{len(card.convs)} bfloat16 dense convs fed the card's own "
+            f"operands: {n16} of {values} outputs and gradients apart from "
+            f"the exact conv rounded (tie {BF16_SUM_RTOL} of the sum of "
+            f"|products|, {BF16_WGRAD_RTOL} for weight gradients); the "
+            f"float32 convs {n32} apart")
+    if n16 or not n32:
+        fail(f"bf16 dense convs: {text}")
+    return text
+
+
+BF16_SERVE_IDS = "K1 K2 K3 K4-bf16 K5 K6 K7 K8 K9"
+BF16_TRAIN_IDS = "K1 K3 K3b K4-bf16 K5 K5b K6 K7 K10-bf16 K11 K12 K13 K14"
+
+
+def run_bf16(torch, np, device, cfg, root: str, samples, train_ref: dict,
+             lr_ref: dict):
+    """Phase 13 b-e (see the module docstring): returns (launches of each
+    bfloat16 run, launches of one serving and one train step, the
+    timings)."""
+    import dataclasses
+    from sassd_tpu_torch import serve
+    from sassd_tpu_torch.data import kitti
+    from sassd_tpu_torch.inference import make_test_step, to_device
+    from sassd_tpu_torch.models.detector import parse_losses
+    from sassd_tpu_torch.ops import sparse as sp
+    from sassd_tpu_torch.train import loop, optim
+    from sassd_tpu_torch.weights import seeded_detector
+    t0 = time.perf_counter()
+    cfg16 = bf16_cfg(cfg)
+    launches, per_step = {}, {}
+    f32_symbols = sp.KERNEL_SYMBOLS["K4"] + sp.KERNEL_SYMBOLS["K10"]
+
+    def counted(what, ids):
+        launches[what] = read_launches()
+        check_launched(launches[what], ids, f"bf16 {what}")
+        used = {s: launches[what][s] for s in f32_symbols
+                if launches[what][s]}
+        if used:
+            fail(f"bf16 {what}: a float32 sparse conv kernel launched: "
+                 f"{used}")
+
+    def host(d):
+        return {k: v.cpu().numpy() for k, v in d.items()}
+
+    def nonzero(counts):
+        return {k: v for k, v in counts.items() if v}
+
+    def finite(dets, what):
+        for d in dets:
+            if not (np.isfinite(d["boxes"]).all()
+                    and np.isfinite(d["scores"]).all()):
+                fail(f"bf16 {what}: non-finite detections")
+
+    # (b) forward_test on host plans, and serving raw points: the card
+    # against the CPU forced to its ties, a float32 card run as control
+    model = seeded_detector(cfg16, SEED, device)
+    model_cpu = seeded_detector(cfg16, SEED, "cpu")
+    model32 = seeded_detector(cfg, SEED, device)
+    anchors = kitti.build_anchors(cfg16)[0]
+    step = make_test_step(cfg16, anchors, device)
+    cpu_step = make_test_step(cfg16, anchors, "cpu")
+    batch1 = [kitti.collate([s])[0] for s in samples[:2]]
+    step(model, batch1[0])
+    torch.cuda.synchronize()
+    reset_launches()
+    dets = [host(step(model, b)) for b in batch1]
+    torch.cuda.synchronize()
+    counted("host plans", "K1 K2 K3 K4-bf16 K5")
+    finite(dets, "host plans")
+    got, cpu, _ = bf16_forced(
+        torch, "bf16 host plans, scan 0",
+        lambda: host(step(model, batch1[0])),
+        lambda: host(cpu_step(model_cpu, batch1[0])))
+    control = host(make_test_step(cfg, anchors, device)(model32, batch1[0]))
+    text = bf16_dets_gate(got, cpu, control, "bf16 host plans, scan 0: "
+                                             "card vs CPU")
+    print(f"bf16 host plans, scan 0: card vs CPU bfloat16 forced to its "
+          f"ties: {text}; launches {nonzero(launches['host plans'])}")
+
+    cfg_pts, ds, sstep, sb1, _ = serving_split(torch, np, device, cfg16,
+                                               os.path.join(root, "val"))
+    sstep(model, sb1[0])
+    torch.cuda.synchronize()
+    reset_launches()
+    sdets = [host(sstep(model, b)) for b in sb1]
+    torch.cuda.synchronize()
+    counted("serving", BF16_SERVE_IDS)
+    finite(sdets, "serving")
+    reset_launches()
+    sstep(model, sb1[0])
+    torch.cuda.synchronize()
+    per_step["serving"] = read_launches()
+    cpu_sstep = serve.make_serving_step(cfg_pts, ds.anchors, ds.anchors_bv,
+                                        "cpu")
+    sstep32 = serve.make_serving_step(
+        dataclasses.replace(cfg_pts, model=cfg.model), ds.anchors,
+        ds.anchors_bv, device)
+    got, cpu, _ = bf16_forced(
+        torch, "bf16 serving, scan 0",
+        lambda: host(sstep(model, sb1[0])),
+        lambda: host(cpu_sstep(model_cpu, sb1[0])))
+    text = bf16_dets_gate(got, cpu, host(sstep32(model32, sb1[0])),
+                          "bf16 serving, scan 0: card vs CPU")
+    print(f"bf16 serving (device_input=\"points\"), scan 0: card vs CPU "
+          f"bfloat16 forced to its ties: {text}; launches "
+          f"{nonzero(launches['serving'])}")
+
+    # (c) one train step at batch 2 on device plans (ring aux), card vs
+    # the CPU forced to its ties, a float32 card step as control; each
+    # module's distance from phase 7's float64 step
+    cfg_d = dataclasses.replace(cfg16, model=dataclasses.replace(
+        cfg16.model, host_plans=False))
+    batch = {k: v for k, v in train_ref["batch"].items()
+             if not k.startswith("plan_")}
+    at = train_ref["anchors"]
+
+    def train_step(c, where):
+        m = seeded_detector(c, SEED, where)
+        m.train()
+        losses = m.forward_train(to_device(batch, where), at.to(where))
+        parse_losses(losses).backward()
+        return ({k: float(v.detach()) for k, v in losses.items()},
+                {k: p.grad.detach().cpu().double()
+                 for k, p in m.named_parameters()})
+    torch.cuda.synchronize()
+    reset_launches()
+    res = {}
+    res["card"], res["cpu"], card_pts = bf16_forced(
+        torch, "bf16 training", lambda: train_step(cfg_d, device),
+        lambda: train_step(cfg_d, "cpu"))
+    counted("training", BF16_TRAIN_IDS)
+    per_step["training"] = launches["training"]
+    print(f"bf16 training: launches {nonzero(launches['training'])}")
+    print(f"bf16 training: {bf16_dense_check(torch, device, card_pts)}")
+    del card_pts
+    res["card32"] = train_step(dataclasses.replace(cfg_d, model=cfg.model),
+                               device)
+    g64 = train_ref["g64"]
+    keys = list(res["cpu"][1])
+
+    def gnorm(g, ks):
+        return sum(float(torch.sum(g[k] ** 2)) for k in ks) ** 0.5
+
+    def gdist(g, ref, ks):
+        return (sum(float(torch.sum((g[k] - ref[k]) ** 2)) for k in ks)
+                ** 0.5 / max(gnorm(ref, ks), 1e-300))
+
+    def gates(name):
+        """The card step `name` against the CPU's bfloat16 step: the
+        losses that fail BF16_LOSS_RTOL, the gradient norm and the modules
+        that fail BF16_GNORM_RTOL (relative L2)."""
+        (gl, ggr), (cl, cgr) = res[name], res["cpu"]
+        bad = [k for k, v in cl.items() if "loss" in k and not (
+            np.isfinite(gl[k]) and abs(gl[k] - v) <= BF16_LOSS_RTOL * abs(v))]
+        if (abs(gnorm(ggr, keys) - gnorm(cgr, keys))
+                > BF16_GNORM_RTOL * gnorm(cgr, keys)):
+            bad.append("the gradient norm")
+        for mod in BF16_MODULES:
+            mk = [k for k in keys if k.startswith(mod + ".")]
+            if gdist(ggr, cgr, mk) > BF16_GNORM_RTOL:
+                bad.append(f"the {mod} gradients")
+        return bad
+    for k, v in sorted(res["cpu"][0].items()):
+        print(f"bf16 training, card vs CPU bfloat16: {k} "
+              f"{res['card'][0][k]:.7g} vs {v:.7g} (float32 card "
+              f"{res['card32'][0][k]:.7g})")
+    print(f"bf16 training: grad norm card {gnorm(res['card'][1], keys):.7g}, "
+          f"CPU {gnorm(res['cpu'][1], keys):.7g}, float32 card "
+          f"{gnorm(res['card32'][1], keys):.7g}, float64 CPU "
+          f"{gnorm(g64, keys):.7g}")
+    dist64 = {}
+    for mod in BF16_MODULES:
+        mk = [k for k in keys if k.startswith(mod + ".")]
+        dist64[mod] = tuple(gdist(res[n][1], g64, mk)
+                            for n in ("card", "cpu", "card32"))
+        print(f"bf16 training: {mod} gradients, card vs CPU rel L2 "
+              f"{gdist(res['card'][1], res['cpu'][1], mk):.3g} (float32 "
+              f"card {gdist(res['card32'][1], res['cpu'][1], mk):.3g}); "
+              f"rel L2 from the float64 step: bfloat16 card "
+              f"{dist64[mod][0]:.3g}, bfloat16 CPU {dist64[mod][1]:.3g}, "
+              f"float32 card {dist64[mod][2]:.3g}")
+    bad = gates("card")
+    if bad:
+        fail(f"bf16 training: card and CPU disagree on {bad}")
+    if not gates("card32"):
+        fail("bf16 training: the float32 card step passes the bfloat16 "
+             "gates")
+
+    # (d) the long-range banded config, one forward_test at batch 1 on
+    # each of phase 9's comparison scans against replicated (both on the
+    # card), a float32 replicated run as control
+    cfg_b, cfg_r = bf16_cfg(lr_ref["cfg_b"]), bf16_cfg(lr_ref["cfg_r"])
+    model_b = seeded_detector(cfg_b, SEED, device)
+    model_r = seeded_detector(cfg_r, SEED, device)
+    model_r.load_state_dict(model_b.state_dict())
+    model_r32 = seeded_detector(lr_ref["cfg_r"], SEED, device)
+    model_r32.load_state_dict(model_b.state_dict())
+    lb = [kitti.collate([s])[0] for s in lr_ref["samples"][:2]]
+    step_b = make_test_step(cfg_b, lr_ref["anchors"], device)
+    step_r = make_test_step(cfg_r, lr_ref["anchors"], device)
+    step_r32 = make_test_step(lr_ref["cfg_r"], lr_ref["anchors"], device)
+    step_b(model_b, lb[0])
+    torch.cuda.synchronize()
+    reset_launches()
+    bdets = [host(step_b(model_b, b)) for b in lb]
+    torch.cuda.synchronize()
+    counted("long range, banded", "K1 K2 K3 K4-bf16 K5 K6 K16 K7'")
+    rdets = [host(step_r(model_r, b)) for b in lb]
+    finite(bdets + rdets, "long range")
+    for i in range(len(lb)):
+        text = bf16_dets_gate(bdets[i], rdets[i],
+                              host(step_r32(model_r32, lb[i])),
+                              f"bf16 long range, scan {i}: banded vs "
+                              f"replicated")
+        print(f"bf16 long range, scan {i}: banded vs replicated: {text}")
+    print(f"bf16 long range: banded launches "
+          f"{nonzero(launches['long range, banded'])}")
+
+    # (e) steps in both dtypes, in turns: serving at batch 1 (raw points
+    # uploaded in the step) and the train step at batch 2 (host plans)
+    serve_ms = {"float32": [], "bfloat16": []}
+    for what in ("float32", "bfloat16", "bfloat16", "float32"):
+        st, m = (sstep32, model32) if what == "float32" else (sstep, model)
+        st(m, sb1[0])
+        torch.cuda.synchronize()
+        for b in sb1[:2]:
+            t = time.perf_counter()
+            st(m, b)
+            torch.cuda.synchronize()
+            serve_ms[what].append((time.perf_counter() - t) * 1e3)
+    train_ms = {"float32": [], "bfloat16": []}
+    for what in ("float32", "bfloat16", "bfloat16", "float32"):
+        c = cfg if what == "float32" else cfg16
+        m = seeded_detector(c, SEED, device)
+        st = loop.make_train_step(c, anchors, optim.make_optimizer(
+            m, c.train, 1000), device)
+        train_ms[what] += train_step_ms(torch, st, m, train_ref["batch"],
+                                        n=2)
+    wall = time.perf_counter() - t0
+    print(f"bf16: phase 13 b-e took {wall:.1f} s")
+    return launches, per_step, dict(serve_ms=serve_ms, train_ms=train_ms,
+                                    dist64=dist64, wall_s=wall)
 
 
 TRAIN_PHASE_IDS = "K1 K3 K3b K4 K5 K5b K10 K11 K12"
@@ -4384,6 +5084,19 @@ def main() -> int:
         gts[0][i, :len(bx)] = bx[:g]
         gts[1][i, :len(bx)] = True
 
+    if "--bf16-only" in sys.argv[1:]:
+        # phase 13 alone, on phase 7's train step and phase 9's scans
+        rows = check_bf16_kernels(torch, np, device, cfg, samples,
+                                  train_samples)
+        with tempfile.TemporaryDirectory() as root:
+            training = run_training(torch, np, device, cfg, root)
+            lr = long_range_inputs(np, root, timing=False)
+            run_bf16(torch, np, device, cfg, root, samples, training[5],
+                     dict(cfg_b=lr["cfg_b"], cfg_r=lr["cfg_r"],
+                          samples=lr["samples"], anchors=lr["ds"].anchors))
+        print(json.dumps({"bf16_only": rows}))
+        print(card)
+        return 0
     rows = check_kernels(torch, np, device)
     rows += check_sparse_kernels(torch, np, device, cfg, samples)
     rows += check_train_kernels(torch, np, device, cfg, train_samples, gts)
@@ -4410,6 +5123,8 @@ def main() -> int:
             rows += check_banded_kernels(torch, np, device, lr["cfg_b"],
                                          lr["spec"], lr["batch"],
                                          lr["t_batch"])
+        rows += check_bf16_kernels(torch, np, device, cfg, samples,
+                                   train_samples)
         for r in rows:
             print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain "
                   f"{r['plain_ms']:.4f} ms")
@@ -4486,6 +5201,14 @@ def main() -> int:
         cli = run_cli(torch, np, device, root)
     with tempfile.TemporaryDirectory() as root:
         spatial = run_spatial(torch, np, device, root, lr_refs)
+    t = time.perf_counter()
+    rows += check_bf16_kernels(torch, np, device, cfg, samples,
+                               train_samples)
+    with tempfile.TemporaryDirectory() as root:
+        bf16_launches, bf16_step, bf16 = run_bf16(
+            torch, np, device, cfg, root, samples, training[5],
+            lr_refs["inputs"])
+    print(f"bf16: phase 13 took {time.perf_counter() - t:.1f} s")
 
     for what, (_, _, ms1, ms2, _) in (("host plans", host),
                                       ("device plans", dev)):
@@ -4497,7 +5220,7 @@ def main() -> int:
           f"{name} [{card}]: batch 1 {', '.join(f'{m:.2f}' for m in ms1)} "
           f"ms/scan; batch 2 {', '.join(f'{m:.2f}' for m in ms2)} ms/scan; "
           f"host leg (prepare_points) {serve_host_ms:.2f} ms/scan")
-    _, _, train_ms, train_leg_ms, _ = training
+    _, _, train_ms, train_leg_ms, _, _ = training
     print(f"car config, training at batch 2, on {name} [{card}]: "
           f"{', '.join(f'{m:.2f}' for m in train_ms)} ms/step (host clock, "
           f"synchronised, loader excluded); host leg (read + voxelize + "
@@ -4517,20 +5240,38 @@ def main() -> int:
               f"ms/scan; train step at batch 2 (comparison scans): "
               f"{', '.join(f'{m:.2f}' for m in lr_train_ms[what])} ms/step "
               f"(host clock, synchronised, loader excluded)")
+    for what, key, unit in (("serving at batch 1 (raw points uploaded in "
+                             "the step)", "serve_ms", "ms/scan"),
+                            ("training at batch 2 (host plans, loader "
+                             "excluded)", "train_ms", "ms/step")):
+        print(f"car config, {what}, float32 and bfloat16 in turns, on "
+              f"{name} [{card}]: " + "; ".join(
+                  f"{dt} {', '.join(f'{m:.2f}' for m in v)}"
+                  for dt, v in bf16[key].items())
+              + f" {unit} (host clock, synchronised)")
     banded_phases = (("long range, banded inference", lr_runs["banded"]),
-                     ("long range, banded training", lr_runs["training"]))
+                     ("long range, banded training", lr_runs["training"]),
+                     ("bf16 long range, banded inference",
+                      bf16_launches["long range, banded"]))
     all_phases = (("host plans", host[4]), ("device plans", dev[4]),
                   ("serving", serving[0]), ("training", training[0]),
                   ("three-class training, ring", multi_runs["ring"]),
                   ("three-class training, exact", multi_runs["exact"]),
                   ("long range, replicated inference",
-                   lr_runs["replicated"])) + banded_phases
+                   lr_runs["replicated"]),
+                  ("bf16 host plans", bf16_launches["host plans"]),
+                  ("bf16 serving", bf16_launches["serving"]),
+                  ("bf16 training", bf16_launches["training"])
+                  ) + banded_phases
     banded_step = (("long range banded training, batch 2", lr_step),)
     all_steps = (("serving, batch 1", serving[4]),
                  ("training, batch 2", training[1]),
                  ("three-class training, ring, batch 1", multi_step["ring"]),
                  ("three-class training, exact, batch 1",
-                  multi_step["exact"])) + banded_step
+                  multi_step["exact"]),
+                 ("bf16 serving, batch 1", bf16_step["serving"]),
+                 ("bf16 training, batch 2", bf16_step["training"])
+                 ) + banded_step
     for r in rows:
         kid = r["name"].split()[0]
         primed = kid.endswith("'")

@@ -20,6 +20,7 @@ import types
 from typing import Dict, Optional, Tuple
 
 import numpy as np
+import torch
 
 from sassd_tpu_torch.parallel import mesh
 
@@ -231,6 +232,17 @@ def banded(cfg: SASSDConfig) -> bool:
     return cfg.parallel.strategy == "banded" and cfg.parallel.spatial > 1
 
 
+COMPUTE_DTYPES = ("float32", "bfloat16")
+
+
+def compute_dtype(cfg: SASSDConfig):
+    """The torch dtype of model.compute_dtype (the JAX package's
+    detector._compute_dtype): with bfloat16 the sparse convs take
+    bfloat16-rounded operands and sum in float32, the dense convs run in
+    bfloat16 with a bfloat16 output, and everything else stays float32."""
+    return getattr(torch, cfg.model.compute_dtype)
+
+
 def check_supported(cfg: SASSDConfig, train: bool = False) -> None:
     """Raise NotImplementedError for options the port does not run.
 
@@ -248,7 +260,8 @@ def check_supported(cfg: SASSDConfig, train: bool = False) -> None:
     package's make_mesh raises), whose data rows must split the BEV
     canvas's rows evenly ("spatial"). The PointNet VFE runs on the
     replicated spine only (the JAX package's banded stage ignores it and
-    encodes by the mean).
+    encodes by the mean). ``model.compute_dtype`` is "float32" or
+    "bfloat16" (:func:`compute_dtype`).
     """
     m, t, p = cfg.model, cfg.test, cfg.parallel
     if train and banded(cfg) and m.aux_interp != "ring":
@@ -268,7 +281,7 @@ def check_supported(cfg: SASSDConfig, train: bool = False) -> None:
         "model.vfe_type='pointnet' with the banded sparse stage":
             m.vfe_type == "pointnet" and banded(cfg),
         f"model.compute_dtype={m.compute_dtype!r}":
-            m.compute_dtype != "float32",
+            m.compute_dtype not in COMPUTE_DTYPES,
         f"test.device_input={t.device_input!r}":
             t.device_input not in ("voxels", "points"),
         "test.serve_persistent_plans=True": t.serve_persistent_plans,

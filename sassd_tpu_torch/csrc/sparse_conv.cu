@@ -380,3 +380,341 @@ extern "C" int sassd_sparse_conv(const float* feats, int m_in, int cin,
   return launch(feats, m_in, cin, static_cast<const int*>(plan), batch,
                 m_out, weight, cout, out, s);
 }
+
+// K4-bf16: the same gather-GEMM with bfloat16 operands on the tensor cores
+// (model.compute_dtype="bfloat16").
+//
+// Replaces: sassd_tpu/ops/sparse.py _subm_conv_raw + gather_im2col_triple
+// with compute_dtype=bfloat16 (and the input-gradient products of
+// _subm_conv_sym_bwd / _stride_hostT_bwd): the gathered rows and W rounded
+// to bfloat16 (to nearest even), jnp.dot(..., preferred_element_type=
+// float32). out[b, m] = sum_t sum_c bf16(X[b, plan[b, t, m], c]) *
+// bf16(W[t, c, :]); every product is exact in float32, the sums are
+// float32 (in the tensor cores' order, not K4's one fma chain a row).
+//
+// Bound on the H100: the found slots' 2 * found * Cin * Cout operations at
+// 989 TFLOP/s (dense bf16) take well under a microsecond at every car
+// shape, so the bytes bound it (the inputs and the plan read once, the
+// output written once), and below that the latency of each stage's row
+// gathers.
+//
+// Design (output-stationary, no atomics, 8 warps): a block owns 64 output
+// rows of one sample and every output channel. It loads the tile's 27 x 64
+// plan entries into shared memory and marks, for each 16-row group, the
+// taps that find a row there (a warp ballot per 32 rows). The taps found in
+// the tile, in order t = 0..26, are the K dimension (tap-major, Cin
+// columns each); stages of up to 256 columns (4 taps at Cin 64, all 27 at
+// Cin 4, padded with zeros to a multiple of 16) are staged into shared
+// memory as bfloat16: each found row converted with __float2bfloat16_rn
+// as it is copied (zeros where a tap is missing; no cast pass over the
+// features) and W[t] transposed to [Cout][K] so that each B fragment is
+// one 32-bit load. Warp w takes rows 16 (w % 4) .. + 15 and half of the
+// output columns, holds its sums in registers (mma.sync.m16n8k16 bf16 ->
+// f32 fragments) and skips every k step whose taps find no row of its 16.
+// Cin 4 (subm0 under the mean VFE) thus packs 4 taps into each k step on
+// the same path. Rows are padded by 8 bfloat16 in shared memory, so the
+// fragment loads of a warp hit 32 different banks. Staging: a thread
+// issues all its 16 float4 row loads of a stage before the barrier that
+// frees the buffers (under the other warps' products), then converts and
+// stores them; W follows in batches of 8 column pairs, one bfloat162
+// store a pair. With Cin a template constant the staging's index
+// arithmetic is shifts (a first design with runtime divisions and one
+// load at a time ran 1.6x slower than K4 on a car scan; this one runs at
+// 189 registers, one block an SM: bounding it to two blocks spilled and
+// ran 1.5x slower again, measured on the H100). The k order and
+// the skips depend on the plan alone: two calls on the same inputs give
+// the same bits. Shared memory: 74.5 KB at Cout 64.
+#include <cuda_bf16.h>
+
+namespace {
+
+constexpr int kB16Threads = 256;            // 8 warps
+constexpr int kB16KMax = 256;               // K columns a stage
+constexpr int kB16Ld = kB16KMax + 8;        // bf16 a shared row (padded)
+
+__device__ __forceinline__ void mma_bf16(float* c, const unsigned* a,
+                                         const unsigned* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ unsigned ld_bf16x2(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const unsigned*>(p);
+}
+
+constexpr int smem_bytes_bf16(int cout) {
+  return (kTile + cout) * kB16Ld * 2 + kTaps * kTile * 4;
+}
+
+// CIN > 0: the input width as a constant (the staging's index arithmetic
+// becomes shifts and its loads unroll); 0: cin, any multiple of 4 up to 64
+template <typename IdxT, int COUT, int CIN>
+__global__ void __launch_bounds__(kB16Threads)
+sparse_conv_bf16_kernel(const float* __restrict__ feats, int m_in, int cin_arg,
+                        const IdxT* __restrict__ plan, int m_out,
+                        const float* __restrict__ weight,
+                        float* __restrict__ out) {
+  const int cin = CIN > 0 ? CIN : cin_arg;
+  constexpr int kGroups = kTile / 16;                  // 16-row groups
+  constexpr int kWarpTiles = COUT / 8 / (kB16Threads / 32 / kGroups);
+  // a thread's share of a stage: float4 pieces of the found rows, and
+  // pairs of W entries (kB16KMax columns of 64 rows / of COUT rows)
+  constexpr int kRowPieces = kTile * kB16KMax / 4 / kB16Threads;      // 16
+  constexpr int kWPairs = COUT * kB16KMax / 2 / kB16Threads;    // 8..32
+  constexpr int kWChunk = kWPairs < 8 ? kWPairs : 8;
+  extern __shared__ float4 smem4[];
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem4);  // [64][Ld]
+  __nv_bfloat16* ws = xs + kTile * kB16Ld;                       // [COUT][Ld]
+  int* src = reinterpret_cast<int*>(ws + COUT * kB16Ld);         // [27][64]
+  __shared__ unsigned found[kGroups];   // taps found in each 16-row group
+  __shared__ int taps[kTaps];           // the taps found in the tile
+  __shared__ int n_taps;
+
+  const int b = blockIdx.y;
+  const int m0 = blockIdx.x * kTile;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const float* fb = feats + static_cast<long long>(b) * m_in * cin;
+  const IdxT* pb = plan + static_cast<long long>(b) * kTaps * m_out;
+  if (tid < kGroups) found[tid] = 0u;
+  __syncthreads();
+  // the tile's plan entries; a warp's 32 entries are one tap's (kTile and
+  // the block are multiples of 32), so the loop and the ballot are uniform
+  for (int i = tid; i < kTaps * kTile; i += kB16Threads) {
+    const int t = i / kTile;
+    const int r = i - t * kTile;
+    const int m = m0 + r;
+    const int v = m < m_out
+        ? static_cast<int>(pb[static_cast<long long>(t) * m_out + m]) : -1;
+    src[i] = v;
+    const unsigned hit = __ballot_sync(0xffffffffu, v >= 0);
+    if (lane == 0) {
+      if (hit & 0xffffu) atomicOr(&found[r >> 4], 1u << t);
+      if (hit >> 16) atomicOr(&found[(r >> 4) + 1], 1u << t);
+    }
+  }
+  __syncthreads();
+  if (tid == 0) {
+    unsigned any = 0u;
+    for (int g = 0; g < kGroups; ++g) any |= found[g];
+    int n = 0;
+    for (int t = 0; t < kTaps; ++t) {
+      if (any >> t & 1u) taps[n++] = t;
+    }
+    n_taps = n;
+  }
+  __syncthreads();
+
+  const int g = lane >> 2;              // the fragments' row (col) group
+  const int tig = lane & 3;
+  const int rows0 = (warp % kGroups) * 16;
+  const int tile0 = (warp / kGroups) * kWarpTiles;
+  const unsigned mine = found[warp % kGroups];
+  const int nt = n_taps;
+  const int per_stage = kB16KMax / cin;
+  const int c4 = cin >> 2;
+  const int c2 = cin >> 1;
+  const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f);
+  float acc[kWarpTiles][4];
+#pragma unroll
+  for (int j = 0; j < kWarpTiles; ++j) {
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
+  }
+  for (int j0 = 0; j0 < nt; j0 += per_stage) {
+    const int ng = min(per_stage, nt - j0);
+    const int kk = ng * cin;             // K columns of the stage
+    const int kpad = (kk + 15) & ~15;
+    // the found rows of the stage's taps, piece i = (tap j, row r, q):
+    // all of a thread's loads first, so they are in flight together
+    float4 v[kRowPieces];
+#pragma unroll
+    for (int k = 0; k < kRowPieces; ++k) {
+      const int i = tid + k * kB16Threads;
+      const int q = i % c4;
+      const int r = (i / c4) % kTile;
+      const int j = i / c4 / kTile;
+      v[k] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (j < ng) {
+        const int s = src[taps[j0 + j] * kTile + r];
+        if (s >= 0) {
+          v[k] = *reinterpret_cast<const float4*>(
+              fb + static_cast<long long>(s) * cin + 4 * q);
+        }
+      }
+    }
+    __syncthreads();                     // the last stage's fragments read
+#pragma unroll
+    for (int k = 0; k < kRowPieces; ++k) {
+      const int i = tid + k * kB16Threads;
+      const int q = i % c4;
+      const int r = (i / c4) % kTile;
+      const int j = i / c4 / kTile;
+      if (j < ng) {
+        __nv_bfloat162* d = reinterpret_cast<__nv_bfloat162*>(
+            xs + r * kB16Ld + j * cin + 4 * q);
+        d[0] = __floats2bfloat162_rn(v[k].x, v[k].y);
+        d[1] = __floats2bfloat162_rn(v[k].z, v[k].w);
+      }
+    }
+    // W[t] of the stage's taps as [COUT][K], a pair (c, c + 1) of one
+    // output column n a thread, kWChunk pairs in flight at a time
+#pragma unroll
+    for (int k0 = 0; k0 < kWPairs; k0 += kWChunk) {
+      float2 w[kWChunk];
+#pragma unroll
+      for (int k = 0; k < kWChunk; ++k) {
+        const int i = tid + (k0 + k) * kB16Threads;
+        const int n = i % COUT;
+        const int c = 2 * ((i / COUT) % c2);
+        const int j = i / COUT / c2;
+        w[k] = make_float2(0.0f, 0.0f);
+        if (j < ng) {
+          const float* wt = weight +
+              (static_cast<long long>(taps[j0 + j]) * cin + c) * COUT + n;
+          w[k] = make_float2(wt[0], wt[COUT]);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kWChunk; ++k) {
+        const int i = tid + (k0 + k) * kB16Threads;
+        const int n = i % COUT;
+        const int c = 2 * ((i / COUT) % c2);
+        const int j = i / COUT / c2;
+        if (j < ng) {
+          *reinterpret_cast<__nv_bfloat162*>(ws + n * kB16Ld + j * cin + c) =
+              __floats2bfloat162_rn(w[k].x, w[k].y);
+        }
+      }
+    }
+    // the zero columns up to a multiple of 16
+    const int pad = kpad - kk;
+    for (int i = tid; i < (kTile + COUT) * pad; i += kB16Threads) {
+      const int r = i / pad;
+      const int c = kk + (i - r * pad);
+      if (r < kTile) {
+        xs[r * kB16Ld + c] = zero;
+      } else {
+        ws[(r - kTile) * kB16Ld + c] = zero;
+      }
+    }
+    __syncthreads();
+    const __nv_bfloat16* xa = xs + (rows0 + g) * kB16Ld + 2 * tig;
+    for (int k0 = 0; k0 < kpad; k0 += 16) {
+      // skip a k step whose taps find no row of this warp's 16
+      const int ja = k0 / cin;
+      const int jb = min(k0 + 15, kk - 1) / cin;
+      unsigned cover = 0u;
+      for (int j = ja; j <= jb; ++j) cover |= 1u << taps[j0 + j];
+      if (!(mine & cover)) continue;
+      unsigned a[4];
+      a[0] = ld_bf16x2(xa + k0);
+      a[1] = ld_bf16x2(xa + 8 * kB16Ld + k0);
+      a[2] = ld_bf16x2(xa + k0 + 8);
+      a[3] = ld_bf16x2(xa + 8 * kB16Ld + k0 + 8);
+#pragma unroll
+      for (int j = 0; j < kWarpTiles; ++j) {
+        const __nv_bfloat16* wb =
+            ws + ((tile0 + j) * 8 + g) * kB16Ld + k0 + 2 * tig;
+        const unsigned bw[2] = {ld_bf16x2(wb), ld_bf16x2(wb + 8)};
+        mma_bf16(acc[j], a, bw);
+      }
+    }
+  }
+  float* ob = out + static_cast<long long>(b) * m_out * COUT;
+  const int r0 = m0 + rows0 + g;
+#pragma unroll
+  for (int j = 0; j < kWarpTiles; ++j) {
+    const int col = (tile0 + j) * 8 + 2 * tig;
+    if (r0 < m_out) {
+      *reinterpret_cast<float2*>(ob + static_cast<long long>(r0) * COUT +
+                                 col) = make_float2(acc[j][0], acc[j][1]);
+    }
+    if (r0 + 8 < m_out) {
+      *reinterpret_cast<float2*>(ob + static_cast<long long>(r0 + 8) * COUT +
+                                 col) = make_float2(acc[j][2], acc[j][3]);
+    }
+  }
+}
+
+template <typename IdxT, int COUT, int CIN>
+int launch_bf16_cin(const float* feats, int m_in, int cin, const IdxT* plan,
+                    int batch, int m_out, const float* weight, float* out,
+                    cudaStream_t s) {
+  static bool done[64] = {};
+  auto kernel = sparse_conv_bf16_kernel<IdxT, COUT, CIN>;
+  const int bytes = smem_bytes_bf16(COUT);
+  const int err = allow_smem(kernel, bytes, done);
+  if (err != 0) return err;
+  const dim3 grid((m_out + kTile - 1) / kTile, batch);
+  kernel<<<grid, kB16Threads, bytes, s>>>(feats, m_in, cin, plan, m_out,
+                                          weight, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename IdxT, int COUT>
+int launch_bf16_cout(const float* feats, int m_in, int cin, const IdxT* plan,
+                     int batch, int m_out, const float* weight, float* out,
+                     cudaStream_t s) {
+  switch (cin) {
+    case 4:
+      return launch_bf16_cin<IdxT, COUT, 4>(feats, m_in, cin, plan, batch,
+                                            m_out, weight, out, s);
+    case 16:
+      return launch_bf16_cin<IdxT, COUT, 16>(feats, m_in, cin, plan, batch,
+                                             m_out, weight, out, s);
+    case 32:
+      return launch_bf16_cin<IdxT, COUT, 32>(feats, m_in, cin, plan, batch,
+                                             m_out, weight, out, s);
+    case 64:
+      return launch_bf16_cin<IdxT, COUT, 64>(feats, m_in, cin, plan, batch,
+                                             m_out, weight, out, s);
+    default:
+      return launch_bf16_cin<IdxT, COUT, 0>(feats, m_in, cin, plan, batch,
+                                            m_out, weight, out, s);
+  }
+}
+
+template <typename IdxT>
+int launch_bf16(const float* feats, int m_in, int cin, const IdxT* plan,
+                int batch, int m_out, const float* weight, int cout,
+                float* out, cudaStream_t s) {
+  switch (cout) {
+    case 16:
+      return launch_bf16_cout<IdxT, 16>(feats, m_in, cin, plan, batch, m_out,
+                                        weight, out, s);
+    case 32:
+      return launch_bf16_cout<IdxT, 32>(feats, m_in, cin, plan, batch, m_out,
+                                        weight, out, s);
+    case 64:
+      return launch_bf16_cout<IdxT, 64>(feats, m_in, cin, plan, batch, m_out,
+                                        weight, out, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace
+
+// sassd_sparse_conv's arguments and constraints, computed in bfloat16
+// (K4-bf16): out [batch * m_out, cout] float32.
+extern "C" int sassd_sparse_conv_bf16(const float* feats, int m_in, int cin,
+                                      const void* plan, int plan_is_i16,
+                                      int batch, int m_out,
+                                      const float* weight, int cout,
+                                      float* out, void* stream) {
+  if (cin <= 0 || cin > kMaxCin || cin % 4 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (batch == 0 || m_out == 0) return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (plan_is_i16) {
+    return launch_bf16(feats, m_in, cin, static_cast<const short*>(plan),
+                       batch, m_out, weight, cout, out, s);
+  }
+  return launch_bf16(feats, m_in, cin, static_cast<const int*>(plan), batch,
+                     m_out, weight, cout, out, s);
+}

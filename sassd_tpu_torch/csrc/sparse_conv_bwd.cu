@@ -41,6 +41,17 @@
 // written only at found slots) and [264 + 27, Cin, Cout] partials whatever
 // the rows. At 64 -> 64 the products take most of the time; the count,
 // compact and sum passes a few us each.
+//
+// K10-bf16 (sassd_sparse_conv_dw_bf16, model.compute_dtype="bfloat16"):
+// the dW half of _subm_conv_sym_bwd / _stride_hostT_bwd with
+// compute_dtype=bfloat16, dW = bf16(col)^T . bf16(d_out) with float32 sums
+// (jnp.dot(..., preferred_element_type=float32)). The same four passes and
+// scratch; pass 3 is products_bf16_kernel (tensor-core mma.sync, below),
+// which writes the same partial slots, so dW keeps the fixed summation
+// order across blocks and is bitwise equal over calls. Bound: the bytes,
+// as its 2 * found * Cin * Cout operations at 989 TFLOP/s (dense bf16)
+// take about 1 us at the largest car shape.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -360,11 +371,234 @@ int buffer_floats(int cin, int cout) {
   return stage > kThreads * 16 ? stage : kThreads * 16;
 }
 
+// K10-bf16's products: pass 3 with bfloat16 operands on the tensor cores.
+// A step's 64 staged pairs are the K dimension of dW[t] += X^T . d_out
+// ([Cin x Cout], mma.sync.m16n8k16, bf16 -> f32): X and d_out rows are
+// rounded with __float2bfloat16_rn as they are staged, transposed
+// ([channel][pair], so every fragment is one 32-bit shared load), Cin
+// padded with zero rows to a multiple of 16 (Cin 4 of subm0 under the mean
+// VFE takes the same path at a quarter of the mma's rows) and Cout to a
+// multiple of 8. The next step's rows are loaded into registers under
+// this step's products and stored into the other of two buffers. Warps
+// own 16 x 8 tiles of dW; where there are fewer tiles than the 8 warps,
+// groups of warps take every G-th k step and are summed in group order.
+constexpr int kB16Ld = kRows + 8;         // bf16 a staged channel (padded)
+constexpr int kB16MaxTiles = 4;           // tiles of a warp (64 x 64 / 8)
+constexpr int kB16RedFloats = 1024;       // group partial sums (G > 1)
+
+__device__ __forceinline__ void mma_bf16(float* c, const unsigned* a,
+                                         const unsigned* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ unsigned ld_bf16x2(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const unsigned*>(p);
+}
+
+int padded_in(int cin) { return (cin + 15) & ~15; }
+int padded_out(int cout) { return (cout + 7) & ~7; }
+
+int buffer_bytes_bf16(int cin, int cout) {
+  return (padded_in(cin) + padded_out(cout)) * kB16Ld * 2;
+}
+
+__global__ void __launch_bounds__(kThreads)
+products_bf16_kernel(const float* __restrict__ feats, int cin,
+                     const float* __restrict__ d_out, int cout,
+                     const int2* __restrict__ pairs, int rows,
+                     const int* __restrict__ totals, int buf_bytes,
+                     float* __restrict__ partial) {
+  extern __shared__ float4 smem4[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem4);
+  float* red = reinterpret_cast<float*>(smem + 2 * buf_bytes);
+  __shared__ int prefix[kTaps + 1];
+  const int blk = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int tig = lane & 3;
+  tap_prefix(totals, prefix);
+  const int total = prefix[kTaps];
+  const int lo = share_start(total, blk, gridDim.x);
+  const int hi = share_start(total, blk + 1, gridDim.x);
+  const int cpad = (cin + 15) & ~15;
+  const int opad = (cout + 7) & ~7;
+  const int c4 = cin / 4;
+  const int o4 = cout / 4;
+  const int nb = opad / 8;
+  const int tiles = (cpad / 16) * nb;
+  constexpr int kWarps = kThreads / 32;
+  // warps of group grp take tiles tile0 .. tile1 - 1 and the k steps
+  // ks with ks % groups == grp
+  const int groups = tiles >= kWarps ? 1 : kWarps / tiles;
+  const int per = tiles >= kWarps ? (tiles + kWarps - 1) / kWarps : 1;
+  const int grp = tiles >= kWarps ? 0 : warp / tiles;
+  const int tile0 = tiles >= kWarps ? warp * per : warp % tiles;
+  const int tile1 = grp < groups ? min(tiles, tile0 + per) : tile0;
+
+  // a thread's pieces of a step: X (pair r, channels 4q..4q+3) for i =
+  // tid + k * 256 of kRows * c4, pair-fastest, so that a warp's transposed
+  // bfloat16 stores fill consecutive words of one channel row
+  float4 xv[kPieces], dv[kPieces];
+  auto load = [&](const Step& st) {
+    const int2* pt = pairs + static_cast<long long>(st.t) * rows +
+                     (st.q - prefix[st.t]);
+#pragma unroll
+    for (int k = 0; k < kPieces; ++k) {
+      const int i = tid + k * kThreads;
+      const int r = i % kRows;
+      const int q = i / kRows;
+      xv[k] = dv[k] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (r < st.n && q < c4) {
+        xv[k] = *reinterpret_cast<const float4*>(
+            feats + static_cast<long long>(pt[r].x) * cin + 4 * q);
+      }
+      if (r < st.n && q < o4) {
+        dv[k] = *reinterpret_cast<const float4*>(
+            d_out + static_cast<long long>(pt[r].y) * cout + 4 * q);
+      }
+    }
+  };
+  auto store = [&](int j) {
+    __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(
+        smem + (j & 1) * buf_bytes);                       // [cpad][Ld]
+    __nv_bfloat16* ds = xs + cpad * kB16Ld;                 // [opad][Ld]
+#pragma unroll
+    for (int k = 0; k < kPieces; ++k) {
+      const int i = tid + k * kThreads;
+      const int r = i % kRows;
+      const int q = i / kRows;
+      if (q < c4) {
+        __nv_bfloat16* x = xs + 4 * q * kB16Ld + r;
+        x[0] = __float2bfloat16_rn(xv[k].x);
+        x[kB16Ld] = __float2bfloat16_rn(xv[k].y);
+        x[2 * kB16Ld] = __float2bfloat16_rn(xv[k].z);
+        x[3 * kB16Ld] = __float2bfloat16_rn(xv[k].w);
+      }
+      if (q < o4) {
+        __nv_bfloat16* d = ds + 4 * q * kB16Ld + r;
+        d[0] = __float2bfloat16_rn(dv[k].x);
+        d[kB16Ld] = __float2bfloat16_rn(dv[k].y);
+        d[2 * kB16Ld] = __float2bfloat16_rn(dv[k].z);
+        d[3 * kB16Ld] = __float2bfloat16_rn(dv[k].w);
+      }
+    }
+  };
+  // the padding channels of both buffers, zero once
+  {
+    const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f);
+    const int nx = (cpad - cin) * kRows;
+    const int nd = (opad - cout) * kRows;
+    for (int i = tid; i < 2 * (nx + nd); i += kThreads) {
+      const int h = i / (nx + nd);
+      const int e = i - h * (nx + nd);
+      __nv_bfloat16* xs =
+          reinterpret_cast<__nv_bfloat16*>(smem + h * buf_bytes);
+      if (e < nx) {
+        xs[(cin + e / kRows) * kB16Ld + e % kRows] = zero;
+      } else {
+        xs[(cpad + cout + (e - nx) / kRows) * kB16Ld + (e - nx) % kRows] =
+            zero;
+      }
+    }
+  }
+
+  float acc[kB16MaxTiles][4];
+#pragma unroll
+  for (int a = 0; a < kB16MaxTiles; ++a) {
+    acc[a][0] = acc[a][1] = acc[a][2] = acc[a][3] = 0.0f;
+  }
+  Step cur = next_step(prefix, lo, 0, hi);
+  if (cur.n > 0) {
+    load(cur);
+    store(0);
+  }
+  __syncthreads();
+  for (int j = 0; cur.n > 0; ++j) {
+    const Step nxt = next_step(prefix, cur.q + cur.n, cur.t, hi);
+    if (nxt.n > 0) load(nxt);
+    const __nv_bfloat16* xs = reinterpret_cast<const __nv_bfloat16*>(
+        smem + (j & 1) * buf_bytes);
+    const __nv_bfloat16* ds = xs + cpad * kB16Ld;
+    for (int ks = grp; ks * 16 < cur.n && tile0 < tile1; ks += groups) {
+      const int k0 = ks * 16 + 2 * tig;
+      int mb = -1;
+      unsigned a[4];
+#pragma unroll
+      for (int u = 0; u < kB16MaxTiles; ++u) {
+        const int tile = tile0 + u;
+        if (tile >= tile1) break;
+        if (tile / nb != mb) {
+          mb = tile / nb;
+          const __nv_bfloat16* xa = xs + (mb * 16 + g) * kB16Ld + k0;
+          a[0] = ld_bf16x2(xa);
+          a[1] = ld_bf16x2(xa + 8 * kB16Ld);
+          a[2] = ld_bf16x2(xa + 8);
+          a[3] = ld_bf16x2(xa + 8 * kB16Ld + 8);
+        }
+        const __nv_bfloat16* db = ds + ((tile % nb) * 8 + g) * kB16Ld + k0;
+        const unsigned bw[2] = {ld_bf16x2(db), ld_bf16x2(db + 8)};
+        mma_bf16(acc[u], a, bw);
+      }
+    }
+    if (nxt.n == 0 || nxt.t != cur.t) {
+      // the block's last step of tap cur.t: its sums go to partial slot
+      // blk + cur.t (see products_kernel), the groups' added in order
+      float* dst = partial + static_cast<long long>(blk + cur.t) * cin * cout;
+      if (groups == 1) {
+#pragma unroll
+        for (int u = 0; u < kB16MaxTiles; ++u) {
+          const int tile = tile0 + u;
+          if (tile < tile1) {
+            const int ci = (tile / nb) * 16 + g;
+            const int co = (tile % nb) * 8 + 2 * tig;
+#pragma unroll
+            for (int h = 0; h < 4; ++h) {
+              const int c = ci + (h >> 1) * 8;
+              const int o = co + (h & 1);
+              if (c < cin && o < cout) dst[c * cout + o] = acc[u][h];
+            }
+          }
+          acc[u][0] = acc[u][1] = acc[u][2] = acc[u][3] = 0.0f;
+        }
+      } else {
+        if (tile0 < tile1) {
+          const int ci = (tile0 / nb) * 16 + g;
+          const int co = (tile0 % nb) * 8 + 2 * tig;
+#pragma unroll
+          for (int h = 0; h < 4; ++h) {
+            const int c = ci + (h >> 1) * 8;
+            const int o = co + (h & 1);
+            red[(grp * cpad + c) * opad + o] = acc[0][h];
+          }
+          acc[0][0] = acc[0][1] = acc[0][2] = acc[0][3] = 0.0f;
+        }
+        __syncthreads();
+        for (int e = tid; e < cin * cout; e += kThreads) {
+          const int c = e / cout;
+          const int o = e - c * cout;
+          float sum = red[c * opad + o];
+          for (int q = 1; q < groups; ++q) sum += red[(q * cpad + c) * opad + o];
+          dst[e] = sum;
+        }
+      }
+    }
+    if (nxt.n > 0) store(j + 1);
+    __syncthreads();
+    cur = nxt;
+  }
+}
+
 template <typename IdxT>
 int launch(const float* feats, int m_in, int cin, const IdxT* plan,
            int batch, int m_out, const float* d_out, int cout, int blocks,
            int* counts, int2* pairs, int* totals, float* partial, float* dw,
-           cudaStream_t s) {
+           bool bf16, cudaStream_t s) {
   const int m_chunks = (m_out + kScan - 1) / kScan;
   const dim3 scan_grid(batch * m_chunks, kTaps);
   count_kernel<IdxT><<<scan_grid, kScan, 0, s>>>(plan, m_out, m_chunks,
@@ -375,9 +609,13 @@ int launch(const float* feats, int m_in, int cin, const IdxT* plan,
       plan, m_in, m_out, m_chunks, batch * m_out, counts, pairs, totals);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int buf = buffer_floats(cin, cout);
-  const int bytes = 2 * buf * 4;
-  {
+  if (bf16) {
+    const int buf = buffer_bytes_bf16(cin, cout);
+    products_bf16_kernel<<<blocks, kThreads,
+                           2 * buf + kB16RedFloats * 4, s>>>(
+        feats, cin, d_out, cout, pairs, batch * m_out, totals, buf, partial);
+  } else {
+    const int buf = buffer_floats(cin, cout);
     static bool done[64] = {};
     int dev = 0;
     err = cudaGetDevice(&dev);
@@ -390,9 +628,9 @@ int launch(const float* feats, int m_in, int cin, const IdxT* plan,
       if (err != cudaSuccess) return static_cast<int>(err);
       done[dev] = true;
     }
+    products_kernel<<<blocks, kThreads, 2 * buf * 4, s>>>(
+        feats, cin, d_out, cout, pairs, batch * m_out, totals, buf, partial);
   }
-  products_kernel<<<blocks, kThreads, bytes, s>>>(
-      feats, cin, d_out, cout, pairs, batch * m_out, totals, buf, partial);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_out = cin * cout;
@@ -400,6 +638,30 @@ int launch(const float* feats, int m_in, int cin, const IdxT* plan,
                kSumOuts * kSumParts, 0, s>>>(totals, partial, n_out, blocks,
                                              dw);
   return static_cast<int>(cudaGetLastError());
+}
+
+int dw_entry(const float* feats, int m_in, int cin, const void* plan,
+             int plan_is_i16, int batch, int m_out, const float* d_out,
+             int cout, int blocks, int* counts, int* totals, void* pairs,
+             float* partial, float* dw, bool bf16, void* stream) {
+  if (cin <= 0 || cin > kMaxC || cin % 4 || cout <= 0 || cout > kMaxC ||
+      cout % 4 || blocks <= 0 || blocks > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (batch == 0 || m_out == 0) {
+    cudaMemsetAsync(dw, 0, sizeof(float) * kTaps * cin * cout, s);
+    return static_cast<int>(cudaGetLastError());
+  }
+  int2* p2 = static_cast<int2*>(pairs);
+  if (plan_is_i16) {
+    return launch(feats, m_in, cin, static_cast<const short*>(plan), batch,
+                  m_out, d_out, cout, blocks, counts, p2, totals, partial, dw,
+                  bf16, s);
+  }
+  return launch(feats, m_in, cin, static_cast<const int*>(plan), batch, m_out,
+                d_out, cout, blocks, counts, p2, totals, partial, dw, bf16,
+                s);
 }
 
 }  // namespace
@@ -416,21 +678,22 @@ extern "C" int sassd_sparse_conv_dw(const float* feats, int m_in, int cin,
                                     int cout, int blocks, int* counts,
                                     int* totals, void* pairs, float* partial,
                                     float* dw, void* stream) {
-  if (cin <= 0 || cin > kMaxC || cin % 4 || cout <= 0 || cout > kMaxC ||
-      cout % 4 || blocks <= 0 || blocks > 65535) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (batch == 0 || m_out == 0) {
-    cudaMemsetAsync(dw, 0, sizeof(float) * kTaps * cin * cout, s);
-    return static_cast<int>(cudaGetLastError());
-  }
-  int2* p2 = static_cast<int2*>(pairs);
-  if (plan_is_i16) {
-    return launch(feats, m_in, cin, static_cast<const short*>(plan), batch,
-                  m_out, d_out, cout, blocks, counts, p2, totals, partial, dw,
-                  s);
-  }
-  return launch(feats, m_in, cin, static_cast<const int*>(plan), batch, m_out,
-                d_out, cout, blocks, counts, p2, totals, partial, dw, s);
+  return dw_entry(feats, m_in, cin, plan, plan_is_i16, batch, m_out, d_out,
+                  cout, blocks, counts, totals, pairs, partial, dw, false,
+                  stream);
+}
+
+// K10-bf16: sassd_sparse_conv_dw's arguments and scratch, with X and d_out
+// rounded to bfloat16 and the products on the tensor cores (float32 sums).
+extern "C" int sassd_sparse_conv_dw_bf16(const float* feats, int m_in,
+                                         int cin, const void* plan,
+                                         int plan_is_i16, int batch,
+                                         int m_out, const float* d_out,
+                                         int cout, int blocks, int* counts,
+                                         int* totals, void* pairs,
+                                         float* partial, float* dw,
+                                         void* stream) {
+  return dw_entry(feats, m_in, cin, plan, plan_is_i16, batch, m_out, d_out,
+                  cout, blocks, counts, totals, pairs, partial, dw, true,
+                  stream);
 }

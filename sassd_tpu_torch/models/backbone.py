@@ -18,6 +18,13 @@ depth (its weights do not depend on H or W): the banded sparse stage runs
 it on band grids, with ``owned_y`` restricting the BatchNorm statistics
 to the band-owned rows.
 
+With model.compute_dtype="bfloat16" (``compute_dtype``) the sparse convs
+take bfloat16-rounded operands and sum in float32 (K4-bf16, K10-bf16), the
+tail's z-banded convs run in bfloat16 with bfloat16 outputs
+(layers.conv2d_oihw), and the 1x1x1 conv multiplies bfloat16-rounded
+operands into a float32 output (no output rounding), as in the JAX
+package; the VFEs and every BatchNorm stay float32.
+
 In train mode every BatchNorm takes masked batch statistics (the level's
 valid rows, or the occupied cells of the dense tail), the convs are
 differentiable (sparse.subm_conv_sym, sparse.stride_conv_hostT with the
@@ -30,7 +37,6 @@ from __future__ import annotations
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from sassd_tpu_torch.ops import sparse as sp
@@ -110,9 +116,11 @@ class PointNetVFE(nn.Module):
 class SubmBlock(nn.Module):
     """n x (3x3x3 sparse conv + BN + ReLU); child names conv{i}, bn{i}."""
 
-    def __init__(self, gen: torch.Generator, cins, couts):
+    def __init__(self, gen: torch.Generator, cins, couts,
+                 compute_dtype=torch.float32):
         super().__init__()
         self.n = len(cins)
+        self.compute_dtype = compute_dtype
         for i, (ci, co) in enumerate(zip(cins, couts)):
             setattr(self, f"conv{i}", L.SparseConv3(gen, ci, co))
             setattr(self, f"bn{i}", L.BatchNorm(co))
@@ -123,7 +131,8 @@ class SubmBlock(nn.Module):
         valid-row mask (BatchNorm statistics; train mode) -> [B, M, Cout]."""
         bn_mask = None if mask is None else mask[..., None]
         for i in range(self.n):
-            x = sp.subm_conv_sym(x, getattr(self, f"conv{i}").w, plan)
+            x = sp.subm_conv_sym(x, getattr(self, f"conv{i}").w, plan,
+                                 self.compute_dtype)
             x = L.relu(getattr(self, f"bn{i}")(x, mask=bn_mask))
         return x
 
@@ -174,17 +183,19 @@ class Middle(NamedTuple):
 class VxNet(nn.Module):
 
     def __init__(self, gen: torch.Generator, num_input_features: int,
-                 sparse_shape: Tuple[int, int, int]):
+                 sparse_shape: Tuple[int, int, int],
+                 compute_dtype=torch.float32):
         super().__init__()
         self.level_shapes = level_shapes(sparse_shape)        # L0..L3 (zyx)
         self.shape3 = self.level_shapes[3]
-        self.conv0 = SubmBlock(gen, (num_input_features, 16), (16, 16))
-        self.down0 = SubmBlock(gen, (16,), (32,))
-        self.conv1 = SubmBlock(gen, (32, 32), (32, 32))
-        self.down1 = SubmBlock(gen, (32,), (64,))
-        self.conv2 = SubmBlock(gen, (64, 64, 64), (64, 64, 64))
-        self.down2 = SubmBlock(gen, (64,), (64,))
-        self.conv3 = SubmBlock(gen, (64, 64, 64), (64, 64, 64))
+        self.compute_dtype = cd = compute_dtype
+        self.conv0 = SubmBlock(gen, (num_input_features, 16), (16, 16), cd)
+        self.down0 = SubmBlock(gen, (16,), (32,), cd)
+        self.conv1 = SubmBlock(gen, (32, 32), (32, 32), cd)
+        self.down1 = SubmBlock(gen, (32,), (64,), cd)
+        self.conv2 = SubmBlock(gen, (64, 64, 64), (64, 64, 64), cd)
+        self.down2 = SubmBlock(gen, (64,), (64,), cd)
+        self.conv3 = SubmBlock(gen, (64, 64, 64), (64, 64, 64), cd)
         self.extra = nn.Module()
         self.extra.conv0 = Linear(gen, 64, 64)
         self.extra.bn0 = L.BatchNorm(64)
@@ -217,10 +228,12 @@ class VxNet(nn.Module):
         out_keys = sp.coords_to_keys(plans[f"coords{level}"], shapes[level])
         if f"strideT{level}" in plans:
             y = sp.stride_conv_hostT(x, block.conv0.w, plans[f"stride{level}"],
-                                     plans[f"strideT{level}"])
+                                     plans[f"strideT{level}"],
+                                     self.compute_dtype)
         else:
             y = sp.subm_conv_batched(x, block.conv0.w,
-                                     plans[f"stride{level}"])
+                                     plans[f"stride{level}"],
+                                     self.compute_dtype)
         omask = (out_keys != sp.INVALID_KEY)[..., None]
         bn_mask = _owned_rows(out_keys, shapes[level], level, owned_y)
         y = block.bn0(y, mask=bn_mask[..., None])
@@ -273,6 +286,7 @@ class VxNet(nn.Module):
         """-> ([B, D, H, W, C] output, [B, D, C, H, W] conv3-block output)."""
         d, h, w = shape3
         b, _, c = x.shape
+        cd = self.compute_dtype
         xf, occ = sp.densify_nchw(keys3, x, shape3)       # ch = z*C + c
         bn_mask = occ > 0                                  # [B, D, 1, H, W]
         if owned_y is not None:
@@ -282,15 +296,16 @@ class VxNet(nn.Module):
         for i in range(self.conv3.n):
             wt = (zbanded_oihw(getattr(self.conv3, f"conv{i}").w, d)
                   if self.training else getattr(self, f"tail_w{i}"))
-            xf = F.conv2d(xf, wt, padding=1)
+            xf = L.conv2d_oihw(xf, wt, padding=1, compute_dtype=cd)
             x5 = xf.reshape(b, d, c, h, w) * occ
             x5 = L.relu(getattr(self.conv3, f"bn{i}")(
                 x5, dim=2, mask=bn_mask)) * occ
             xf = x5.reshape(b, d * c, h, w)
         conv3 = x5
-        # 1x1x1 conv: one [C, C] matmul per z slice, as a 1x1 conv
-        x5 = L.conv2d_nchw(xf.reshape(b * d, c, h, w),
-                           self.extra.conv0.w[None, None])
+        # 1x1x1 conv: one [C, C] matmul per z slice, as a 1x1 conv (in
+        # bfloat16: of rounded operands, into float32 without rounding)
+        x5 = L.conv2d_nchw(sp.rounded(xf, cd).reshape(b * d, c, h, w),
+                           sp.rounded(self.extra.conv0.w, cd)[None, None])
         x5 = x5.reshape(b, d, c, h, w) * occ
         x5 = L.relu(self.extra.bn0(x5, dim=2, mask=bn_mask)) * occ
         return x5.permute(0, 1, 3, 4, 2), conv3                 # [B,D,H,W,C]

@@ -59,7 +59,8 @@ import torch
 from torch import nn
 from torch.profiler import record_function
 
-from sassd_tpu_torch.config import SASSDConfig, banded, check_supported
+from sassd_tpu_torch.config import (SASSDConfig, banded, check_supported,
+                                    compute_dtype)
 from sassd_tpu_torch.core import boxes as box_ops
 from sassd_tpu_torch.core import losses as loss_ops
 from sassd_tpu_torch.core import targets as target_ops
@@ -101,14 +102,19 @@ class Detector(nn.Module):
         self.cfg = cfg
         gen = generator if generator is not None else torch.Generator()
         m = cfg.model
+        # the convs of VxNet, BEVNet and PSWarp run in model.compute_dtype
+        # (the JAX package's forward_spine, forward_train, forward_test);
+        # the head, the VFEs and the aux branch in float32
+        cd = compute_dtype(cfg)
         self.vxnet = backbone.VxNet(gen, m.num_input_features,
-                                    cfg.sparse_shape)
+                                    cfg.sparse_shape, cd)
         bev_in = self.vxnet.shape3[0] * 64
-        self.bevnet = bev.BEVNet(gen, bev_in, m.bev_channels)
+        self.bevnet = bev.BEVNet(gen, bev_in, m.bev_channels, cd)
         self.head = ssd_head.SSDHead(gen, m.bev_channels, m.num_class,
                                      m.num_anchor_per_loc, m.box_code_size)
         # rescoring is class-agnostic even for multi-class models
-        self.pswarp = pswarp.PSWarpHead(gen, m.bev_channels, 1, m.num_parts)
+        self.pswarp = pswarp.PSWarpHead(gen, m.bev_channels, 1, m.num_parts,
+                                        cd)
         # aux point branch (training only), bias-free
         self.aux = nn.Module()
         self.aux.point_fc = backbone.Linear(gen, 160, 64)

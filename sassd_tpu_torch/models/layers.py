@@ -49,20 +49,22 @@ def uniform_fan_in(gen: torch.Generator, shape: Tuple[int, ...],
 
 
 class Conv2d(nn.Module):
-    """SAME-padded, stride-1 conv with an HWIO weight (and optional bias)."""
+    """SAME-padded, stride-1 conv with an HWIO weight (and optional bias),
+    run in `compute_dtype` (see conv2d_oihw)."""
 
     def __init__(self, gen: torch.Generator, ksize: int, cin: int, cout: int,
-                 bias: bool = False):
+                 bias: bool = False, compute_dtype=torch.float32):
         super().__init__()
         fan_in = cin * ksize * ksize
         self.w = nn.Parameter(uniform_fan_in(gen, (ksize, ksize, cin, cout),
                                              fan_in))
         self.b = (nn.Parameter(uniform_fan_in(gen, (cout,), fan_in))
                   if bias else None)
+        self.compute_dtype = compute_dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """NCHW in, NCHW out."""
-        return conv2d_nchw(x, self.w, self.b)
+    def forward(self, x: torch.Tensor, padding=None) -> torch.Tensor:
+        """NCHW in, NCHW out; `padding` as conv2d_nchw takes it."""
+        return conv2d_nchw(x, self.w, self.b, padding, self.compute_dtype)
 
 
 class SparseConv3(nn.Module):
@@ -144,18 +146,34 @@ def masked_moments(x: torch.Tensor, dim: int,
                                       group) / n, n)
 
 
+def conv2d_oihw(x: torch.Tensor, w: torch.Tensor, b=None, padding=0,
+                compute_dtype=torch.float32) -> torch.Tensor:
+    """F.conv2d, in float32 or, with another compute_dtype, the JAX
+    package's "mixed" conv (layers.conv2d): the operands rounded to
+    compute_dtype, the conv run in it with an output rounded to it, that
+    output back in x's dtype, then the bias added there."""
+    if compute_dtype == torch.float32:
+        return F.conv2d(x, w, b, padding=padding)
+    y = F.conv2d(x.to(compute_dtype), w.to(compute_dtype),
+                 padding=padding).to(x.dtype)
+    return y if b is None else y + b.reshape(-1, 1, 1)
+
+
 def conv2d_nchw(x: torch.Tensor, w_hwio: torch.Tensor, b=None,
-                padding=None) -> torch.Tensor:
+                padding=None, compute_dtype=torch.float32) -> torch.Tensor:
     """NCHW conv with an HWIO weight, SAME padding for odd kernels unless
-    `padding` is given (as F.conv2d takes it)."""
+    `padding` is given (as F.conv2d takes it), in compute_dtype."""
     k = w_hwio.shape[0]
-    return F.conv2d(x, w_hwio.permute(3, 2, 0, 1), b,
-                    padding=k // 2 if padding is None else padding)
+    return conv2d_oihw(x, w_hwio.permute(3, 2, 0, 1), b,
+                       k // 2 if padding is None else padding, compute_dtype)
 
 
-def conv2d(x: torch.Tensor, w_hwio: torch.Tensor, b=None) -> torch.Tensor:
-    """NHWC conv with an HWIO weight, SAME padding, stride 1."""
-    return conv2d_nchw(x.permute(0, 3, 1, 2), w_hwio, b).permute(0, 2, 3, 1)
+def conv2d(x: torch.Tensor, w_hwio: torch.Tensor, b=None,
+           compute_dtype=torch.float32) -> torch.Tensor:
+    """NHWC conv with an HWIO weight, SAME padding, stride 1, in
+    compute_dtype (the JAX package's layers.conv2d)."""
+    return conv2d_nchw(x.permute(0, 3, 1, 2), w_hwio, b,
+                       compute_dtype=compute_dtype).permute(0, 2, 3, 1)
 
 
 def batch_norm(x: torch.Tensor, scale, bias, mean, var,

@@ -26,11 +26,14 @@ from .ssd_head import top_k_stable
 class PSWarpHead(nn.Module):
 
     def __init__(self, gen: torch.Generator, in_channels: int,
-                 num_class: int = 1, num_parts: int = 28):
+                 num_class: int = 1, num_parts: int = 28,
+                 compute_dtype=torch.float32):
         super().__init__()
         out_channels = num_class * num_parts
-        self.conv0 = L.Conv2d(gen, 3, in_channels, out_channels)
-        self.conv1 = L.Conv2d(gen, 1, out_channels, out_channels)
+        self.conv0 = L.Conv2d(gen, 3, in_channels, out_channels,
+                              compute_dtype=compute_dtype)
+        self.conv1 = L.Conv2d(gen, 1, out_channels, out_channels,
+                              compute_dtype=compute_dtype)
         self.bn0 = L.BatchNorm(out_channels)
 
     def forward(self, conv6: torch.Tensor, boxes: torch.Tensor,

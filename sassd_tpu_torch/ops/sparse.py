@@ -20,6 +20,11 @@ which a wrapper takes only for CPU tensors:
 - K4 ``subm_conv_batched``: the gather-GEMM (``sparse_conv.cu``), which
   also computes the input gradients of the trained convs;
 - K10 ``conv_weight_grad``: their weight gradients (``sparse_conv_bwd.cu``);
+- K4-bf16 and K10-bf16: the same two in ``compute_dtype=torch.bfloat16``
+  (model.compute_dtype="bfloat16"): the gathered rows and the weights (or
+  the output gradients) rounded to bfloat16, the products on the tensor
+  cores (mma.sync) summed in float32, as the JAX package's
+  ``jnp.dot(..., preferred_element_type=float32)`` of bfloat16 operands;
 - K5 ``densify_nchw``: the last level into the dense tail's NCHW canvas,
   and K5b its backward (``densify.cu``);
 - K6 ``build_index_map`` + ``window_plan``: the device rulebook's dense
@@ -35,7 +40,10 @@ Training differentiates the convs through :func:`subm_conv_sym` and
 :func:`stride_conv_hostT` (autograd Functions whose forward is K4 and whose
 backward is K4 for the input gradient and K10 for the weight gradient) and
 the dense tail's entry through :func:`densify_nchw` (K5, K5b). On CPU
-tensors each is its plain forward under ordinary autograd.
+tensors each is its plain forward under ordinary autograd; in bfloat16 the
+convs' Functions run there too, over the plain versions, so their
+backward rounds the output gradients and the weights to bfloat16 and not
+the gradients it returns, as the JAX package's custom VJPs do.
 """
 from __future__ import annotations
 
@@ -60,6 +68,9 @@ _K10 = cuda.Kernel("sassd_sparse_conv_dw",
                    [cuda.P, cuda.I, cuda.I, cuda.P, cuda.I, cuda.I, cuda.I,
                     cuda.P, cuda.I, cuda.I, cuda.P, cuda.P, cuda.P, cuda.P,
                     cuda.P])
+# their bfloat16 entry points take the same arguments
+_K4B = cuda.Kernel("sassd_sparse_conv_bf16", _K4.argtypes)
+_K10B = cuda.Kernel("sassd_sparse_conv_dw_bf16", _K10.argtypes)
 # K10's blocks: each multiplies an equal share of all taps' found rows and
 # writes a [Cin, Cout] partial per tap it touches, which a last pass sums
 # in block order (two blocks an SM of the H100's 132)
@@ -86,6 +97,8 @@ KERNEL_SYMBOLS = {
     "K5": ("sassd_densify",),
     "K5b": ("sassd_densify_bwd",),
     "K10": ("sassd_sparse_conv_dw",),
+    "K4-bf16": ("sassd_sparse_conv_bf16",),
+    "K10-bf16": ("sassd_sparse_conv_dw_bf16",),
     "K6": ("sassd_index_map", "sassd_window_plan"),
     "K7": ("sassd_downsample",),
     "K13": ("sassd_stride_plans_t",),
@@ -140,6 +153,24 @@ def flatten_plan(plan: SubmPlan, rows_in: int) -> SubmPlan:
     return SubmPlan(idx, found)
 
 
+def rounded(t: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """t's values rounded to compute_dtype (to nearest, ties to even) and
+    kept in t's dtype: a product's operand as the card takes it in that
+    type. Float32 leaves t as it is."""
+    if compute_dtype == torch.float32:
+        return t
+    return t.to(compute_dtype).to(t.dtype)
+
+
+def _by_dtype(compute_dtype, f32_kernel, bf16_kernel):
+    """The kernel of a compute dtype (float32 or bfloat16)."""
+    if compute_dtype == torch.float32:
+        return f32_kernel
+    if compute_dtype == torch.bfloat16:
+        return bf16_kernel
+    raise TypeError(f"no sparse conv kernel computes in {compute_dtype}")
+
+
 def gather_im2col(feats: torch.Tensor, plan: SubmPlan) -> torch.Tensor:
     """[M_in, C] features + [K, M] plan -> [M, K*C] im2col (missing -> 0)."""
     k, m = plan.idx.shape
@@ -149,33 +180,39 @@ def gather_im2col(feats: torch.Tensor, plan: SubmPlan) -> torch.Tensor:
 
 
 def subm_conv(feats: torch.Tensor, weight: torch.Tensor,
-              plan: SubmPlan) -> torch.Tensor:
-    """Gather-GEMM sparse conv: [M_in, Cin] x [K, Cin, Cout] -> [M, Cout]."""
+              plan: SubmPlan, compute_dtype=torch.float32) -> torch.Tensor:
+    """Gather-GEMM sparse conv: [M_in, Cin] x [K, Cin, Cout] -> [M, Cout],
+    the operands rounded to compute_dtype, the sums in feats' dtype."""
     k, cin, cout = weight.shape
-    return gather_im2col(feats, plan) @ weight.reshape(k * cin, cout)
+    return (gather_im2col(rounded(feats, compute_dtype), plan)
+            @ rounded(weight, compute_dtype).reshape(k * cin, cout))
 
 
 def subm_conv_batched_plain(feats: torch.Tensor, weight: torch.Tensor,
-                            plan: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of K4 (see subm_conv_batched)."""
+                            plan: torch.Tensor,
+                            compute_dtype=torch.float32) -> torch.Tensor:
+    """Plain PyTorch version of K4 and K4-bf16 (see subm_conv_batched)."""
     b, m_in, c = feats.shape
     m_out = plan.shape[-1]
     out = subm_conv(feats.reshape(b * m_in, c), weight,
-                    flatten_plan(host_plan(plan), m_in))
+                    flatten_plan(host_plan(plan), m_in), compute_dtype)
     return out.reshape(b, m_out, -1)
 
 
 def subm_conv_batched(feats: torch.Tensor, weight: torch.Tensor,
-                      plan: torch.Tensor) -> torch.Tensor:
-    """Sparse conv over a batch as one flat gather-GEMM (K4 on the card).
+                      plan: torch.Tensor,
+                      compute_dtype=torch.float32) -> torch.Tensor:
+    """Sparse conv over a batch as one flat gather-GEMM (K4 on the card;
+    K4-bf16 with compute_dtype=torch.bfloat16).
 
     feats: [B, M_in, Cin] float32; weight: [27, Cin, Cout]; plan: the
     wire-format [B, 27, M_out] int16/int32 plan (-1 = missing) with rows
     into each sample's M_in input rows (a subm plan, or a stride plan into
-    the previous level). Returns [B, M_out, Cout].
+    the previous level). Returns [B, M_out, Cout] float32.
     """
     if feats.device.type == "cpu":
-        return subm_conv_batched_plain(feats, weight, plan)
+        return subm_conv_batched_plain(feats, weight, plan, compute_dtype)
+    kernel = _by_dtype(compute_dtype, _K4, _K4B)
     cuda.check_cuda("feats", feats, torch.float32, 3)
     cuda.check_cuda("weight", weight, torch.float32, 3)
     if plan.dtype not in (torch.int16, torch.int32):
@@ -197,32 +234,36 @@ def subm_conv_batched(feats: torch.Tensor, weight: torch.Tensor,
     with torch.cuda.device(feats.device):
         out = torch.empty((b, m_out, cout), dtype=torch.float32,
                           device=feats.device)
-        _K4.launch(feats.data_ptr(), m_in, cin, plan.data_ptr(),
-                   int(plan.dtype == torch.int16), b, m_out,
-                   weight.data_ptr(), cout, out.data_ptr())
+        kernel.launch(feats.data_ptr(), m_in, cin, plan.data_ptr(),
+                      int(plan.dtype == torch.int16), b, m_out,
+                      weight.data_ptr(), cout, out.data_ptr())
     return out
 
 
 def conv_weight_grad_plain(feats: torch.Tensor, plan: torch.Tensor,
-                           d_out: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of K10 (see conv_weight_grad)."""
+                           d_out: torch.Tensor,
+                           compute_dtype=torch.float32) -> torch.Tensor:
+    """Plain PyTorch version of K10 and K10-bf16 (see conv_weight_grad)."""
     b, m_in, cin = feats.shape
-    col = gather_im2col(feats.reshape(b * m_in, cin),
+    col = gather_im2col(rounded(feats, compute_dtype).reshape(b * m_in, cin),
                         flatten_plan(host_plan(plan), m_in))
-    dw = col.T @ d_out.reshape(-1, d_out.shape[-1])
+    dw = col.T @ rounded(d_out, compute_dtype).reshape(-1, d_out.shape[-1])
     return dw.reshape(27, cin, -1)
 
 
 def conv_weight_grad(feats: torch.Tensor, plan: torch.Tensor,
-                     d_out: torch.Tensor) -> torch.Tensor:
+                     d_out: torch.Tensor,
+                     compute_dtype=torch.float32) -> torch.Tensor:
     """dW = im2col(feats, plan)^T . d_out of a sparse conv (K10 on the
-    card; the im2col is never built there).
+    card, K10-bf16 with compute_dtype=torch.bfloat16: both operands
+    rounded to bfloat16, float32 sums; the im2col is never built there).
 
     feats: [B, M_in, Cin] float32, the conv's input; plan: its wire-format
     [B, 27, M_out] plan; d_out: [B, M_out, Cout]. Returns [27, Cin, Cout].
     """
     if feats.device.type == "cpu":
-        return conv_weight_grad_plain(feats, plan, d_out)
+        return conv_weight_grad_plain(feats, plan, d_out, compute_dtype)
+    kernel = _by_dtype(compute_dtype, _K10, _K10B)
     cuda.check_cuda("feats", feats, torch.float32, 3)
     cuda.check_cuda("d_out", d_out, torch.float32, 3)
     if plan.dtype not in (torch.int16, torch.int32):
@@ -252,16 +293,16 @@ def conv_weight_grad(feats: torch.Tensor, plan: torch.Tensor,
         dw = torch.empty((27, cin, cout), dtype=torch.float32,
                          device=feats.device)
         base = work.data_ptr()
-        _K10.launch(feats.data_ptr(), m_in, cin, plan.data_ptr(),
-                    int(plan.dtype == torch.int16), b, m_out,
-                    d_out.data_ptr(), cout, K10_BLOCKS, *(base + o for o in
-                                                          offs),
-                    dw.data_ptr())
+        kernel.launch(feats.data_ptr(), m_in, cin, plan.data_ptr(),
+                      int(plan.dtype == torch.int16), b, m_out,
+                      d_out.data_ptr(), cout, K10_BLOCKS,
+                      *(base + o for o in offs), dw.data_ptr())
     return dw
 
 
 def _subm_input_grad(d_out: torch.Tensor, weight: torch.Tensor,
-                     plan: torch.Tensor) -> torch.Tensor:
+                     plan: torch.Tensor,
+                     compute_dtype=torch.float32) -> torch.Tensor:
     """d_feats of a submanifold conv: K4 on the same (symmetric) plan with
     the taps reversed and the weight transposed, [27, Cout, Cin]. K4
     writes 16, 32 or 64 channels; an input narrower than 16 (the point
@@ -273,74 +314,82 @@ def _subm_input_grad(d_out: torch.Tensor, weight: torch.Tensor,
     pad = 16 - cin if cin < 16 else 0
     if pad:
         w_rev = torch.nn.functional.pad(w_rev, (0, pad))
-    d_feats = subm_conv_batched(d_out, w_rev.contiguous(), plan)
+    d_feats = subm_conv_batched(d_out, w_rev.contiguous(), plan,
+                                compute_dtype)
     return d_feats[..., :cin] if pad else d_feats
 
 
 class _SubmConvFn(torch.autograd.Function):
-    """Submanifold conv on the card: forward K4; backward K4 for d_feats
-    (the same plan, taps reversed, weights transposed: the plan is
-    symmetric; see _subm_input_grad) and K10 for d_weight."""
+    """Submanifold conv: forward K4; backward K4 for d_feats (the same
+    plan, taps reversed, weights transposed: the plan is symmetric; see
+    _subm_input_grad) and K10 for d_weight; each in the compute dtype."""
 
     @staticmethod
-    def forward(ctx, feats, weight, plan):
+    def forward(ctx, feats, weight, plan, compute_dtype):
         ctx.save_for_backward(feats, weight, plan)
-        return subm_conv_batched(feats, weight, plan)
+        ctx.compute_dtype = compute_dtype
+        return subm_conv_batched(feats, weight, plan, compute_dtype)
 
     @staticmethod
     def backward(ctx, d_out):
         feats, weight, plan = ctx.saved_tensors
+        cd = ctx.compute_dtype
         d_out = d_out.contiguous()
         d_feats = d_w = None
         if ctx.needs_input_grad[0]:
-            d_feats = _subm_input_grad(d_out, weight, plan)
+            d_feats = _subm_input_grad(d_out, weight, plan, cd)
         if ctx.needs_input_grad[1]:
-            d_w = conv_weight_grad(feats, plan, d_out)
-        return d_feats, d_w, None
+            d_w = conv_weight_grad(feats, plan, d_out, cd)
+        return d_feats, d_w, None, None
 
 
 class _StrideConvTFn(torch.autograd.Function):
-    """Stride-2 conv on the card: forward K4 on the stride plan; backward
-    K4 on the transpose plan with the transposed weights for d_feats, K10
-    on the stride plan for d_weight."""
+    """Stride-2 conv: forward K4 on the stride plan; backward K4 on the
+    transpose plan with the transposed weights for d_feats, K10 on the
+    stride plan for d_weight; each in the compute dtype."""
 
     @staticmethod
-    def forward(ctx, feats, weight, plan, plan_t):
+    def forward(ctx, feats, weight, plan, plan_t, compute_dtype):
         ctx.save_for_backward(feats, weight, plan, plan_t)
-        return subm_conv_batched(feats, weight, plan)
+        ctx.compute_dtype = compute_dtype
+        return subm_conv_batched(feats, weight, plan, compute_dtype)
 
     @staticmethod
     def backward(ctx, d_out):
         feats, weight, plan, plan_t = ctx.saved_tensors
+        cd = ctx.compute_dtype
         d_out = d_out.contiguous()
         d_feats = d_w = None
         if ctx.needs_input_grad[0]:
             d_feats = subm_conv_batched(
-                d_out, weight.transpose(1, 2).contiguous(), plan_t)
+                d_out, weight.transpose(1, 2).contiguous(), plan_t, cd)
         if ctx.needs_input_grad[1]:
-            d_w = conv_weight_grad(feats, plan, d_out)
-        return d_feats, d_w, None, None
+            d_w = conv_weight_grad(feats, plan, d_out, cd)
+        return d_feats, d_w, None, None, None
 
 
 def subm_conv_sym(feats: torch.Tensor, weight: torch.Tensor,
-                  plan: torch.Tensor) -> torch.Tensor:
+                  plan: torch.Tensor,
+                  compute_dtype=torch.float32) -> torch.Tensor:
     """Differentiable submanifold conv over a batch: [B, M, Cin] features,
     [27, Cin, Cout] weight and the level's [B, 27, M] subm plan ->
-    [B, M, Cout]. The plan must be symmetric (input set = output set)."""
-    if feats.device.type == "cpu":
+    [B, M, Cout], in compute_dtype. The plan must be symmetric (input set
+    = output set)."""
+    if feats.device.type == "cpu" and compute_dtype == torch.float32:
         return subm_conv_batched_plain(feats, weight, plan)
-    return _SubmConvFn.apply(feats, weight, plan)
+    return _SubmConvFn.apply(feats, weight, plan, compute_dtype)
 
 
 def stride_conv_hostT(feats: torch.Tensor, weight: torch.Tensor,
-                      plan: torch.Tensor, plan_t: torch.Tensor) -> torch.Tensor:
+                      plan: torch.Tensor, plan_t: torch.Tensor,
+                      compute_dtype=torch.float32) -> torch.Tensor:
     """Differentiable stride-2 conv over a batch: [B, M_in, Cin] features,
     the [B, 27, M_out] stride plan into the input level and its [B, 27,
     M_in] transpose plan into the output level (the host rulebook's
-    strideT) -> [B, M_out, Cout]."""
-    if feats.device.type == "cpu":
+    strideT) -> [B, M_out, Cout], in compute_dtype."""
+    if feats.device.type == "cpu" and compute_dtype == torch.float32:
         return subm_conv_batched_plain(feats, weight, plan)
-    return _StrideConvTFn.apply(feats, weight, plan, plan_t)
+    return _StrideConvTFn.apply(feats, weight, plan, plan_t, compute_dtype)
 
 
 def to_dense(keys: torch.Tensor, feats: torch.Tensor,

@@ -14,9 +14,11 @@ versions of the kernels).
 
 
 def full_float32() -> None:
-    """Run the card's convolutions and matmuls in full float32, as
-    model.compute_dtype="float32" (the only one check_supported accepts)
-    asks: PyTorch lets cuDNN use TF32 by default."""
+    """Run the card's float32 convolutions and matmuls in full float32
+    (PyTorch lets cuDNN use TF32 by default): model.compute_dtype
+    "float32" asks for it, and under "bfloat16" the float32 parts (the
+    head, the VFEs, the aux branch, the tail's 1x1x1 conv) stay float32
+    as in the JAX package. TF32 is a setting the JAX package lacks."""
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

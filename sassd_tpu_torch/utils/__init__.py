@@ -1,1 +1,1 @@
-"""Small host-side helpers (logging)."""
+"""Small host-side helpers (logging, timing and tracing)."""

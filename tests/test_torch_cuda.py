@@ -13,7 +13,10 @@ order than cuBLAS), K5-K9 exact (integer results, a scatter of unique
 keys, copies of points, float32 sums of integer counts). The training
 kernels, relative to the largest magnitude of the plain result: K10 and
 K4's input gradients 1e-5 (float32 sums over thousands of rows in another
-order; K10 also bitwise equal over two calls), K11's forward, K12 and K5b exact (the same float32 operations,
+order; K10 also bitwise equal over two calls), K4-bf16 and K10-bf16
+1e-5 of each output's sum of |products| against their plain versions in
+float64 (bfloat16 operands: exact products, float32 sums in another
+order; both bitwise equal over two calls), K11's forward, K12 and K5b exact (the same float32 operations,
 copies), K11's backward 1e-5 (atomicAdd order), K3b 1e-5 (each d_map cell
 summed in box order, where autograd sums each tap apart; bitwise equal over
 two calls). The train-only rulebook
@@ -300,6 +303,133 @@ def test_k4_matches_plain(dev, kind, level_in, cin, cout, dtype, case):
     if case == "empty_tile":
         assert not got[:, 64:128].any()
     assert (plan >= 0).any() and ref.abs().max() > 0.1
+
+
+def bf16_gate(got, plain, *args):
+    """|got - plain in float64| <= 1e-5 * sum |product| per element, the
+    operands rounded to bfloat16: the products are exact in float32, so
+    only the order of the float32 sums differs. `plain(*args, dtype)` is
+    the kernel's plain version; args are CPU float32 tensors or plans."""
+    from sassd_tpu_torch.ops import sparse as sp
+    bf = torch.bfloat16
+    ref = plain(*[a.double() if a.is_floating_point() else a for a in args],
+                bf)
+    scale = plain(*[sp.rounded(a, bf).abs().double()
+                    if a.is_floating_point() else a for a in args],
+                  torch.float32)
+    err = (got.cpu().double() - ref).abs()
+    assert bool((err <= 1e-5 * scale).all()), float((err - 1e-5 * scale)
+                                                    .max())
+    return ref
+
+
+@pytest.mark.parametrize("kind,level_in,cin,cout,dtype,case", K4_CASES)
+def test_k4_bf16_matches_plain(dev, kind, level_in, cin, cout, dtype, case):
+    """K4-bf16 against its plain version in float64 (bfloat16 operands)
+    within 1e-5 of each output's sum of |products|, bitwise equal over two
+    calls, one launch of K4-bf16 a call and none of K4; the result differs
+    from the float32 kernel's."""
+    from sassd_tpu_torch.ops import sparse as sp
+    cfg, batch, _ = tiny_rulebook(1)
+    plan = edge_plan(torch.from_numpy(batch[f"plan_{kind}"]).to(dtype), case)
+    caps = (cfg.voxel.max_voxels,) + tuple(cfg.caps.level_caps[1:])
+    rng = np.random.default_rng(cin + cout)
+    feats = torch.from_numpy(
+        rng.normal(size=(2, caps[level_in], cin)).astype(np.float32))
+    w = torch.from_numpy((rng.normal(size=(27, cin, cout))
+                          / np.sqrt(27 * cin)).astype(np.float32))
+    args = (feats.to(dev), w.to(dev), plan.to(dev))
+    before, before32 = sp._K4B.launches, sp._K4.launches
+    got = sp.subm_conv_batched(*args, torch.bfloat16)
+    again = sp.subm_conv_batched(*args, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert sp._K4B.launches == before + 2 and sp._K4.launches == before32
+    assert same_bits(got, again)
+    ref = bf16_gate(got, sp.subm_conv_batched_plain, feats, w, plan)
+    assert ref.abs().max() > 0.1
+    assert not torch.equal(got.cpu(), sp.subm_conv_batched_plain(feats, w,
+                                                                 plan))
+    if case == "padded_sample":
+        assert not got[1].any()
+    if case == "empty_tile":
+        assert not got[:, 64:128].any()
+
+
+@pytest.mark.parametrize("kind,level_in,cin,cout,dtype,case", [
+    ("subm0", 0, 4, 16, torch.int16, None),
+    ("subm0", 0, 16, 16, torch.int32, None),
+    ("stride1", 0, 16, 32, torch.int16, None),
+    ("subm1", 1, 32, 32, torch.int32, None),
+    ("stride2", 1, 32, 64, torch.int16, None),
+    ("subm2", 2, 64, 64, torch.int16, None),
+    ("stride3", 2, 64, 64, torch.int32, None),
+    ("subm0", 0, 4, 16, torch.int16, "tap_never_found"),
+    ("subm1", 1, 32, 32, torch.int32, "empty_tile"),
+    ("stride3", 2, 64, 64, torch.int16, "padded_sample")])
+def test_k10_bf16_matches_plain_and_repeats_bitwise(
+        dev, kind, level_in, cin, cout, dtype, case):
+    """K10-bf16 against its plain version in float64 within 1e-5 of each
+    entry's sum of |products|, bitwise equal over two calls, one launch
+    a call and none of K10; a tap found for no row gets a zero gradient."""
+    from sassd_tpu_torch.ops import sparse as sp
+    cfg, batch, _ = tiny_rulebook(6)
+    caps = (cfg.voxel.max_voxels,) + tuple(cfg.caps.level_caps[1:])
+    plan = edge_plan(torch.from_numpy(batch[f"plan_{kind}"]).to(dtype), case)
+    rng = np.random.default_rng(cin * cout + 2)
+    x = torch.from_numpy(rng.normal(
+        size=(2, caps[level_in], cin)).astype(np.float32))
+    cot = torch.from_numpy(rng.normal(
+        size=(2, plan.shape[2], cout)).astype(np.float32))
+    args = [a.to(dev) for a in (x, plan, cot)]
+    before, before32 = sp._K10B.launches, sp._K10.launches
+    got = sp.conv_weight_grad(*args, torch.bfloat16)
+    again = sp.conv_weight_grad(*args, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert sp._K10B.launches == before + 2 and sp._K10.launches == before32
+    assert torch.equal(got, again)
+    bf16_gate(got, sp.conv_weight_grad_plain, x, plan, cot)
+    if case == "tap_never_found":
+        assert not got[13].any()
+
+
+@pytest.mark.parametrize("kind,level_in,cin,cout", [
+    ("subm0", 0, 4, 16), ("subm0", 0, 16, 16), ("stride1", 0, 16, 32),
+    ("subm1", 1, 32, 32), ("stride2", 1, 32, 64), ("subm2", 2, 64, 64),
+    ("stride3", 2, 64, 64)])
+def test_bf16_conv_backward_matches_cpu(dev, kind, level_in, cin, cout):
+    """The conv Functions in bfloat16 on the card (K4-bf16 for d_feats,
+    K10-bf16 for d_weight) against the same Functions on the CPU (their
+    plain versions): 1e-5 of the largest magnitude; d_feats also at the
+    4-wide input (K4-bf16 on weight columns zero-padded to 16)."""
+    from sassd_tpu_torch.ops import sparse as sp
+    cfg, batch, _ = tiny_rulebook(6)
+    caps = (cfg.voxel.max_voxels,) + tuple(cfg.caps.level_caps[1:])
+    plan = torch.from_numpy(batch[f"plan_{kind}"])
+    level = int(kind[-1])
+    rng = np.random.default_rng(cin * cout)
+    x = torch.from_numpy(rng.normal(
+        size=(2, caps[level_in], cin)).astype(np.float32))
+    w = torch.from_numpy((rng.normal(size=(27, cin, cout))
+                          / np.sqrt(27 * cin)).astype(np.float32))
+    cot = torch.from_numpy(rng.normal(
+        size=(2, plan.shape[2], cout)).astype(np.float32))
+    if kind.startswith("subm"):
+        fn, args = sp.subm_conv_sym, [plan]
+    else:
+        fn = sp.stride_conv_hostT
+        args = [plan, torch.from_numpy(batch[f"plan_strideT{level}"])]
+    xc, wc = x.clone().requires_grad_(), w.clone().requires_grad_()
+    fn(xc, wc, *args, torch.bfloat16).backward(cot)
+    xd = x.to(dev).requires_grad_()
+    wd = w.to(dev).requires_grad_()
+    launches = (sp._K4.launches, sp._K10.launches, sp._K10B.launches)
+    fn(xd, wd, *[a.to(dev) for a in args], torch.bfloat16).backward(
+        cot.to(dev))
+    torch.cuda.synchronize()
+    assert (sp._K4.launches, sp._K10.launches, sp._K10B.launches) == (
+        launches[0], launches[1], launches[2] + 1)
+    assert rel_err(wd.grad, wc.grad) <= 1e-5
+    assert rel_err(xd.grad, xc.grad) <= 1e-5
 
 
 INVALID = np.iinfo(np.int32).max

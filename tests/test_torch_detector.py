@@ -89,7 +89,9 @@ def test_config_fields_match_jax(name):
     ("model", dict(plan_lookup="sorted")),
     ("model", dict(sorted_device_levels=False)),
     ("model", dict(dense_tail=False)),
-    ("model", dict(compute_dtype="bfloat16")),
+    # "bfloat16" runs (ROADMAP A.7); a dtype the JAX package does not have
+    # is still refused
+    ("model", dict(compute_dtype="float16")),
     ("test", dict(serve_persistent_plans=True)),
     # "spatial" runs (ROADMAP A.3); a strategy the JAX package does not
     # have is still refused

@@ -29,7 +29,10 @@ launch runs every job, in two rounds:
    step with some choice of its near-zero pre-activations crossed, and
    the ranks' directly to JAX's at 1e-3 but 2e-2 for vxnet and bevnet
    (test_torch_banded.py's tolerances). Then two ranks run tools.test
-   with a "spatial" config file, against evaluate in one process;
+   with a "spatial" config file, against evaluate in one process. The
+   spatial pair also runs forward_test and one train step with
+   model.compute_dtype="bfloat16", held to the same in one process
+   (detections as sets, boxes 1e-2 and scores 1e-3; losses 1e-2);
 2. one group of four ranks, a 2 x 2 banded layout: one float64 train
    step on a global batch of 2 whose samples have different positive
    counts, held to the port's single-process banded step within 1e-6
@@ -179,8 +182,29 @@ def port_step(cfg, params, state, batch, pre=None, cross=(), f64=True):
 
 # ---------------------------------------------------------------- worker
 
+def bf16_jobs(cfg, params, state, test_batch, train_batch):
+    """forward_test and the metrics of one train step of `cfg` with
+    model.compute_dtype="bfloat16" (the spatial pair runs it on two
+    ranks, the fixture in one process)."""
+    from sassd_tpu_torch import inference, weights
+    from sassd_tpu_torch.data import kitti
+    from sassd_tpu_torch.train import loop, optim
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, compute_dtype="bfloat16"))
+    anchors = kitti.build_anchors(cfg)[0]
+    model = weights.from_jax(cfg, params, state, "cpu")
+    dets = inference.make_test_step(cfg, anchors, "cpu")(model, test_batch)
+    model = weights.from_jax(cfg, params, state, "cpu")
+    opt = optim.make_optimizer(model, cfg.train, 100)
+    metrics = loop.make_train_step(cfg, anchors, opt, "cpu")(model,
+                                                             train_batch)
+    return dict(dets={k: v.numpy() for k, v in dets.items()},
+                metrics={k: float(v) for k, v in metrics.items()})
+
+
 def pair_jobs(strategy, job):
-    """forward_test and one float32 train step of a 1 x 2 layout."""
+    """forward_test and one float32 train step of a 1 x 2 layout (the
+    spatial pair also in bfloat16, bf16_jobs)."""
     from sassd_tpu_torch import inference, weights
     from sassd_tpu_torch.data import kitti
     from sassd_tpu_torch.parallel import mesh
@@ -198,12 +222,16 @@ def pair_jobs(strategy, job):
     opt = optim.make_optimizer(model, cfg.train, 100)
     metrics = loop.make_train_step(cfg, anchors, opt, "cpu")(
         model, job["train_batch"])
-    return dict(dets={k: v.numpy() for k, v in dets.items()},
-                metrics={k: float(v) for k, v in metrics.items()},
-                grads=weights.grads_to_jax(model),
-                state=weights.to_jax(model)[1], pre=pre,
-                f64=port_step(cfg, job["params"], job["state"],
+    out = dict(dets={k: v.numpy() for k, v in dets.items()},
+               metrics={k: float(v) for k, v in metrics.items()},
+               grads=weights.grads_to_jax(model),
+               state=weights.to_jax(model)[1], pre=pre,
+               f64=port_step(cfg, job["params"], job["state"],
                              job["train_batch"]))
+    if strategy == "spatial":
+        out["bf16"] = bf16_jobs(cfg, job["params"], job["state"],
+                                job["test_batch"], job["train_batch"])
+    return out
 
 
 def collective_jobs(rank: int):
@@ -440,6 +468,9 @@ def ranks(tmp_path_factory):
             cross=r["crossed"])[1]
     ref["spatial"]["f32"] = port_step(tall("spatial"), params, state,
                                       job["train_batch"], f64=False)[1]
+    ref["spatial"]["bf16"] = bf16_jobs(tall("spatial"), params, state,
+                                       job["test_batch"],
+                                       job["train_batch"])
 
     # tools.test over two ranks against evaluate in one process
     cli = config.load_config(str(out / "cli.py"))
@@ -602,6 +633,37 @@ def test_pair_step_grads_match_jax(ranks, strategy, module):
         assert np.linalg.norm(v) > 0, k
         err = rel_l2(a[k], v)
         assert err <= tol, (k, err)
+
+
+def test_spatial_pair_bf16_matches_single_process(ranks):
+    """model.compute_dtype="bfloat16" over one data row of two spatial
+    ranks against one process: forward_test's detections as sets (boxes
+    1e-2, scores 1e-3, tests/test_torch_detector.py's), and the reduced
+    losses of one train step within 1e-2 relative (two bfloat16 steps
+    that differ only in their float32 sums' order; see
+    tests/test_torch_bf16.py); the two ranks bitwise equal."""
+    ref = ranks["ref"]["spatial"]["bf16"]
+    a, b = (r["bf16"] for r in pair_results(ranks, "spatial"))
+    for k in a["dets"]:
+        np.testing.assert_array_equal(a["dets"][k], b["dets"][k], err_msg=k)
+    assert a["metrics"] == b["metrics"]
+    got, want = a["dets"], ref["dets"]
+    for i in range(2):
+        gv, rv = got["valid"][i], want["valid"][i]
+        assert gv.sum() == rv.sum() > 0
+        rb, rs = want["boxes"][i][rv], want["scores"][i][rv]
+        used = np.zeros(len(rb), bool)
+        for bx, sc in zip(got["boxes"][i][gv], got["scores"][i][gv]):
+            ok = ((np.abs(rb - bx).max(1) <= 1e-2)
+                  & (np.abs(rs - sc) <= 1e-3) & ~used)
+            assert ok.any(), (bx, sc)
+            used[np.argmax(ok)] = True
+    for k, v in ref["metrics"].items():
+        if "loss" in k:
+            assert np.isfinite(v) and v != 0.0, k
+            np.testing.assert_allclose(a["metrics"][k], v, rtol=1e-2,
+                                       err_msg=k)
+    assert a["metrics"]["nonfinite_skips"] == 0.0
 
 
 def dotted(key: str) -> str:

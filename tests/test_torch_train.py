@@ -342,15 +342,15 @@ def test_train_model_on_a_synthetic_split(tmp_path, caplog):
 
 def test_train_checks_the_config():
     """Options training does not run raise; device plans, the exact aux
-    3-NN, the GT database, the PointNet VFE and weight decay on every
-    parameter pass, alone and together, and so does the three-class
-    config."""
+    3-NN, the GT database, the PointNet VFE, weight decay on every
+    parameter and compute_dtype="bfloat16" pass, alone and together, and
+    so does the three-class config."""
     cfg = config.tiny_config()
 
     def with_(section, **override):
         return dataclasses.replace(cfg, **{section: dataclasses.replace(
             getattr(cfg, section), **override)})
-    for bad in (with_("model", compute_dtype="bfloat16"),
+    for bad in (with_("model", compute_dtype="float16"),
                 with_("model", aux_interp="nearest")):
         with pytest.raises(NotImplementedError):
             config.check_supported(bad, train=True)
@@ -359,7 +359,10 @@ def test_train_checks_the_config():
                  with_("data", db_info_path="db.pkl"),
                  with_("model", host_plans=False, aux_interp="exact"),
                  with_("model", vfe_type="pointnet"),
-                 with_("train", weight_decay_mode="all")):
+                 with_("train", weight_decay_mode="all"),
+                 with_("model", compute_dtype="bfloat16"),
+                 with_("model", compute_dtype="bfloat16", host_plans=False,
+                       aux_interp="exact")):
         config.check_supported(good, train=True)
     multi = config.multi_config()
     for aux in ("ring", "exact"):
