@@ -170,18 +170,23 @@ Phases, each of which fails the run (nonzero exit, no result line):
    sparse ladder's 10 convs at batch 1 (scan 0's host plans), its input
    gradients at batch 2 (the train plans' 9 convs and the PointNet VFE's
    4-wide input, zero-padded to 16 columns) and K10-bf16 at batch 2 (10
-   convs, also bitwise equal over two calls), against the plain
-   version summed in float64: each element within 1e-5 times its sum of
-   |products|;
-   each timed (CUDA events, 3 warm-ups, the mean of 20 calls, and
-   torch.profiler's kernel time) beside K4 / K10 at the same shapes, the
-   plain version and one torch.matmul of the gathered bfloat16 im2col
-   (the gather not timed), with its bound (bytes at 3.35 TB/s or the
-   found slots' operations at 989 TFLOP/s). 13b-d hold the card's
-   bfloat16 runs to runs that take the same rounding points: two runs
-   that sum in float32 in different orders round a value that lies
-   within that difference of a bfloat16 rounding boundary to different
-   neighbours, and the BEV trunk and train-mode BatchNorm's backward
+   convs), against the plain version summed in float64: each element
+   within 1e-5 times its sum of |products|, and bitwise equal over two
+   calls; each whole wrapper call (the bfloat16 copies of its operands
+   included) timed (CUDA events, 3 warm-ups, the mean of 20 calls, and
+   torch.profiler's kernel time, with its split by kernel) beside K4 /
+   K10 at the same shapes, the plain version and one torch.matmul of the
+   gathered im2col (the gather not timed) in bfloat16 and in float32
+   (K4's and K10's yardstick), with its bound (bytes at 3.35 TB/s or the
+   found slots' operations at 989 TFLOP/s); then K4-bf16 at car shapes
+   on the edge cases of its compaction, on int16 and int32 plans (a tile
+   with no found row, a tap found in one row, every tap found in every
+   row, a ragged last tile, Cin 4 and the PointNet VFE's input gradient),
+   each at the same gate and bitwise equal over two calls. 13b-d hold
+   the card's bfloat16 runs to runs that take the same rounding points:
+   two runs that sum in float32 in different orders round a value that
+   lies within that difference of a bfloat16 rounding boundary to
+   different neighbours, and the BEV trunk and train-mode BatchNorm's backward
    amplify that one-ulp step, so the CPU's run is forced to the card's
    neighbour at exactly those ties (tests/torch_bf16_points.py records
    every rounding point of the card's run: each sparse conv's input and
@@ -3330,23 +3335,41 @@ def bf16_err(torch, got, plain, args):
             float(diff.max()))
 
 
-def bf16_timed(torch, fn, f32_fn, plain_fn, lib_fn) -> dict:
-    """A bfloat16 kernel call by CUDA events (ms; 3 warm-ups, the mean of
-    20 calls) and by torch.profiler's kernel time (profiler_ms; None when
-    three tries saw fewer than the 10 calls of each kernel: the profiler
-    can drop some calls' kernels), beside the float32 kernel at the same
-    shape (f32_ms), the plain version (plain_ms) and the one-call
-    yardstick (library_ms)."""
-    profiler_ms = None
-    for _ in range(3):
-        counts = {}
-        split = kernel_split(fn, counts=counts)
-        if split and min(counts.values()) >= 10:
-            profiler_ms = sum(split.values())
-            break
-    return dict(ms=cuda_ms(fn), profiler_ms=profiler_ms,
-                f32_ms=cuda_ms(f32_fn), plain_ms=cuda_ms(plain_fn),
-                library_ms=cuda_ms(lib_fn))
+def bf16_timed(torch, fn, f32_fn, plain_fn, lib_fn, f32_lib_fn) -> dict:
+    """A bfloat16 kernel's whole wrapper call (the rounding of its
+    operands included) beside the float32 kernel at the same shape: by CUDA
+    events (ms and f32_ms; 3 warm-ups, the mean of 20 calls, in turns
+    bfloat16, float32, float32, bfloat16, each the mean of its two
+    readings, before any profiling) and by torch.profiler's kernel time
+    (profiler_ms and f32_profiler_ms, its parts by kernel name in split and
+    f32_split; None when three tries saw fewer than the 10 calls of each
+    kernel: the profiler can drop some calls' kernels); the plain version
+    (plain_ms) and the one-call yardsticks in bfloat16 (library_ms) and
+    float32 (f32_library_ms) by events."""
+    turns = [cuda_ms(f) for f in (fn, f32_fn, f32_fn, fn)]
+
+    def profiled(f):
+        for _ in range(3):
+            counts = {}
+            split = kernel_split(f, counts=counts)
+            if split and min(counts.values()) >= 10:
+                return sum(split.values()), split
+        return None, None
+    profiler_ms, parts = profiled(fn)
+    f32_profiler_ms, f32_parts = profiled(f32_fn)
+    return dict(ms=(turns[0] + turns[3]) / 2, profiler_ms=profiler_ms,
+                split=parts, f32_ms=(turns[1] + turns[2]) / 2,
+                f32_profiler_ms=f32_profiler_ms, f32_split=f32_parts,
+                plain_ms=cuda_ms(plain_fn), library_ms=cuda_ms(lib_fn),
+                f32_library_ms=cuda_ms(f32_lib_fn))
+
+
+def fmt_parts(t: dict) -> str:
+    """bf16_timed's profiler split, as text."""
+    if t["split"] is None:
+        return "profiler split not measured"
+    return "profiler split " + ", ".join(f"{k} {v:.4f}"
+                                         for k, v in t["split"].items())
 
 
 def fmt_opt(ms) -> str:
@@ -3360,8 +3383,8 @@ def bf16_row(parts: list) -> dict:
     a reading not measured is None."""
     out = {k: (None if any(t[k] is None for _, _, _, _, t, _, _ in parts)
                else sum(n * t[k] for _, n, _, _, t, _, _ in parts))
-           for k in ("ms", "profiler_ms", "f32_ms", "plain_ms",
-                     "library_ms")}
+           for k in ("ms", "profiler_ms", "f32_ms", "f32_profiler_ms",
+                     "plain_ms", "library_ms", "f32_library_ms")}
     out.update(add_bounds([bd for _, n, *_, bd in parts for _ in range(n)],
                           BF16_FLOPS))
     out["max_sum_rel_err"] = max(e for _, _, e, *_ in parts)
@@ -3377,9 +3400,11 @@ def check_bf16_kernels(torch, np, device, cfg, samples, train_samples):
     10 convs), its input gradients at batch 2 on the train plans (9 convs
     and the PointNet VFE's 4-wide input), K10-bf16 at batch 2 (10 convs),
     each against its plain version summed in float64 (BF16_SUM_RTOL of
-    each element's sum of |products|), K10-bf16 also bitwise over two
-    calls; timed beside K4 / K10 at the same shapes, the plain versions
-    and one torch.matmul of the gathered bfloat16 im2col (not timed)."""
+    each element's sum of |products|) and bitwise equal over two calls;
+    timed beside K4 / K10 at the same shapes, the plain versions and one
+    torch.matmul of the gathered im2col (not timed) in bfloat16 and in
+    float32; then K4-bf16 on the edge cases of its compaction at car
+    shapes (bf16_edge_cases)."""
     from sassd_tpu_torch.ops import sparse as sp
     bf = torch.bfloat16
     rng = np.random.default_rng(SEED + 13)
@@ -3396,12 +3421,25 @@ def check_bf16_kernels(torch, np, device, cfg, samples, train_samples):
     def col_of(x, plan):
         b, m_in, c = x.shape
         return sp.gather_im2col(x.reshape(b * m_in, c), sp.flatten_plan(
-            sp.host_plan(plan), m_in)).to(bf)
+            sp.host_plan(plan), m_in))
 
     def check(name, what, err):
         if not err[0] <= BF16_SUM_RTOL:
             fail(f"{what} disagrees with its plain version on {name}: "
                  f"{err[0]:.3g} of the sum of |products|")
+
+    def repeats(name, what, got, again):
+        torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+            fail(f"{what} gives two different results on {name}")
+
+    def fmt_t(t, f32_name):
+        return (f"kernel {t['ms']:.4f} ms (profiler "
+                f"{fmt_opt(t['profiler_ms'])}; {fmt_parts(t)}), {f32_name} "
+                f"float32 {t['f32_ms']:.4f} (profiler "
+                f"{fmt_opt(t['f32_profiler_ms'])}), plain "
+                f"{t['plain_ms']:.4f}, matmul of the im2col bf16 "
+                f"{t['library_ms']:.4f}, float32 {t['f32_library_ms']:.4f}")
 
     fwd, dx, dw = [], [], []
     for name, plan_key, level_in, cin, cout, mult in LADDER:
@@ -3410,24 +3448,24 @@ def check_bf16_kernels(torch, np, device, cfg, samples, train_samples):
         x = randn(1, caps[level_in], cin)
         w = randn(27, cin, cout, scale=1 / np.sqrt(27 * cin))
         got = sp.subm_conv_batched(x, w, plan, bf)
+        repeats(name, "K4-bf16", got, sp.subm_conv_batched(x, w, plan, bf))
         err = bf16_err(torch, got, sp.subm_conv_batched_plain, (x, w, plan))
         check(name, "K4-bf16", err)
-        col, w2 = col_of(x, plan), w.reshape(27 * cin, cout).to(bf)
+        col, w2 = col_of(x, plan), w.reshape(27 * cin, cout)
+        col16, w16 = col.to(bf), w2.to(bf)
         t = bf16_timed(
             torch, lambda: sp.subm_conv_batched(x, w, plan, bf),
             lambda: sp.subm_conv_batched(x, w, plan),
             lambda: sp.subm_conv_batched_plain(x, w, plan, bf),
-            lambda: torch.matmul(col, w2))
+            lambda: torch.matmul(col16, w16), lambda: torch.matmul(col, w2))
         found = int((plan >= 0).sum())
         bd = bound(x.numel() * 4 + plan.numel() * plan.element_size()
                    + w.numel() * 4 + plan.shape[2] * cout * 4,
                    2 * found * cin * cout, BF16_FLOPS)
         print(f"K4-bf16 sparse_conv {name} x{mult} {cin}->{cout}: "
               f"|kernel-plain| <= {err[0]:.3g} of the sum of |products| "
-              f"(tol {BF16_SUM_RTOL}), max abs {err[1]:.3g}; kernel "
-              f"{t['ms']:.4f} ms (profiler {fmt_opt(t['profiler_ms'])}), K4 "
-              f"float32 {t['f32_ms']:.4f}, plain {t['plain_ms']:.4f}, "
-              f"matmul of the bf16 im2col {t['library_ms']:.4f}, bound "
+              f"(tol {BF16_SUM_RTOL}), max abs {err[1]:.3g}, two calls "
+              f"bitwise equal; {fmt_t(t, 'K4')}, bound "
               f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
         fwd.append((name, mult, err[0], err[1], t, found / plan.numel(), bd))
 
@@ -3436,17 +3474,16 @@ def check_bf16_kernels(torch, np, device, cfg, samples, train_samples):
         x = randn(2, caps[level_in], cin)
         cot = randn(2, plan.shape[2], cout)
         got = sp.conv_weight_grad(x, plan, cot, bf)
-        again = sp.conv_weight_grad(x, plan, cot, bf)
-        torch.cuda.synchronize()
-        if not torch.equal(got, again):
-            fail(f"K10-bf16 gives two different weight gradients on {name}")
+        repeats(name, "K10-bf16", got, sp.conv_weight_grad(x, plan, cot, bf))
         err = bf16_err(torch, got, sp.conv_weight_grad_plain, (x, plan, cot))
         check(name, "K10-bf16", err)
-        col, d2 = col_of(x, plan), cot.reshape(-1, cout).to(bf)
+        col, d2 = col_of(x, plan), cot.reshape(-1, cout)
+        col16, d16 = col.to(bf), d2.to(bf)
         t = bf16_timed(
             torch, lambda: sp.conv_weight_grad(x, plan, cot, bf),
             lambda: sp.conv_weight_grad(x, plan, cot),
             lambda: sp.conv_weight_grad_plain(x, plan, cot, bf),
+            lambda: torch.matmul(col16.T, d16),
             lambda: torch.matmul(col.T, d2))
         found = int((plan >= 0).sum())
         bd = bound(x.numel() * 4 + cot.numel() * 4
@@ -3454,37 +3491,38 @@ def check_bf16_kernels(torch, np, device, cfg, samples, train_samples):
                    2 * found * cin * cout, BF16_FLOPS)
         print(f"K10-bf16 conv_weight_grad {name} x{mult} {cin}->{cout}: "
               f"{err[0]:.3g} of the sum of |products| (tol "
-              f"{BF16_SUM_RTOL}), two calls bitwise equal; kernel "
-              f"{t['ms']:.4f} ms (profiler {fmt_opt(t['profiler_ms'])}), K10 "
-              f"float32 {t['f32_ms']:.4f}, plain {t['plain_ms']:.4f}, "
-              f"matmul of the bf16 im2col {t['library_ms']:.4f}, bound "
-              f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+              f"{BF16_SUM_RTOL}), two calls bitwise equal; "
+              f"{fmt_t(t, 'K10')}, bound {bd['bound_ms']:.4f} ms "
+              f"({bd['bound_by']})")
         dw.append((name, mult, err[0], err[1], t, found / plan.numel(), bd))
 
         # the input gradient: the subm plan with the taps reversed and the
         # weight transposed (the 4-wide input padded to 16 columns), or the
         # stride conv's transpose plan with the weight transposed
         if plan_key.startswith("plan_subm"):
-            dx_plan, w_dx = plan, w.flip(0).transpose(1, 2)
+            dx_plan, w_dx = plan, sp.input_grad_weight(w)
         else:
             dx_plan = batch["plan_strideT" + plan_key[-1]]
             w_dx = w.transpose(1, 2)
-        w_dx = torch.nn.functional.pad(w_dx, (0, max(0, 16 - cin)))
         w_dx = w_dx.contiguous()
         if plan_key.startswith("plan_subm"):
-            got = sp._subm_input_grad(cot, w, plan, bf)
+            fn = lambda: sp._subm_input_grad(cot, w, plan, bf)  # noqa: E731
         else:
-            got = sp.subm_conv_batched(cot, w_dx, dx_plan, bf)
+            fn = lambda: sp.subm_conv_batched(  # noqa: E731
+                cot, w.transpose(1, 2), dx_plan, bf)
+        got = fn()
+        repeats(name, "K4-bf16's input gradient", got, fn())
         err = bf16_err(torch, got, lambda c, ww, p, cd: (
             sp.subm_conv_batched_plain(c, ww, p, cd)[..., :cin]),
             (cot, w_dx, dx_plan))
         check(name, "K4-bf16's input gradient", err)
-        col, w2 = col_of(cot, dx_plan), w_dx.reshape(-1, w_dx.shape[2]).to(bf)
+        col, w2 = col_of(cot, dx_plan), w_dx.reshape(-1, w_dx.shape[2])
+        col16, w16 = col.to(bf), w2.to(bf)
         t = bf16_timed(
-            torch, lambda: sp.subm_conv_batched(cot, w_dx, dx_plan, bf),
+            torch, fn,
             lambda: sp.subm_conv_batched(cot, w_dx, dx_plan),
             lambda: sp.subm_conv_batched_plain(cot, w_dx, dx_plan, bf),
-            lambda: torch.matmul(col, w2))
+            lambda: torch.matmul(col16, w16), lambda: torch.matmul(col, w2))
         found = int((dx_plan >= 0).sum())
         bd = bound(cot.numel() * 4 + dx_plan.numel() * dx_plan.element_size()
                    + w_dx.numel() * 4 + x.numel() * 4,
@@ -3492,15 +3530,15 @@ def check_bf16_kernels(torch, np, device, cfg, samples, train_samples):
         what = ("the PointNet VFE's 4-wide input, 16 columns" if cin == 4
                 else "the subm plan" if dx_plan is plan else "strideT")
         print(f"  K4-bf16 input gradient {name} x{mult} on {what} "
-              f"{cout}->{cin}: {err[0]:.3g} of the sum of |products|; "
-              f"kernel {t['ms']:.4f} ms (profiler {fmt_opt(t['profiler_ms'])}), "
-              f"K4 float32 {t['f32_ms']:.4f}, plain {t['plain_ms']:.4f}, "
-              f"matmul {t['library_ms']:.4f}, bound {bd['bound_ms']:.4f} "
-              f"ms ({bd['bound_by']})")
+              f"{cout}->{cin}: {err[0]:.3g} of the sum of |products|, two "
+              f"calls bitwise equal; {fmt_t(t, 'K4')}, bound "
+              f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
         dx.append((name, mult, err[0], err[1], t, found / dx_plan.numel(),
                    bd))
+    edge = bf16_edge_cases(torch, np, device, caps, s0, batch, rng)
     lib = ("torch.matmul of the gathered bfloat16 im2col by the bfloat16 "
-           "weight (the gather not timed)")
+           "weight (the gather not timed); f32_library_ms: the same in "
+           "float32, TF32 off, K4's yardstick")
     fwd_row, dw_row = bf16_row(fwd), bf16_row(dw)
     dx_row = bf16_row([p for p in dx if p[0] != "conv0.0"])
     return [
@@ -3508,16 +3546,20 @@ def check_bf16_kernels(torch, np, device, cfg, samples, train_samples):
              source="sassd_tpu_torch/csrc/sparse_conv.cu",
              replaces="sassd_tpu/ops/sparse.py:511",
              err_kind="abs; each element within BF16_SUM_RTOL of its sum "
-                      "of |products| (max_sum_rel_err)",
+                      "of |products| (max_sum_rel_err); two calls bitwise "
+                      "equal",
              library_what=lib,
              at="batch 1, one scan's forward: the ladder's 10 convs, "
-                "launches x ms summed; f32_ms is K4 at the same shapes",
+                "launches x ms summed, each the whole wrapper call (the "
+                "bfloat16 copy and panel included); f32_ms is K4 at the "
+                "same shapes",
              input_grad=dict(
                  dx_row, pointnet_4wide=dict(
                      sum_rel_err=dx[0][2], **dx[0][4], **dx[0][6]),
                  at="batch 2, the 9 convs whose input takes a gradient, "
                     "launches x ms summed; pointnet_4wide: the PointNet "
                     "VFE's input gradient at subm0 (not in the sums)"),
+             edge_cases=edge,
              **fwd_row),
         dict(name="K10-bf16 conv_weight_grad", route="cuda",
              source="sassd_tpu_torch/csrc/sparse_conv_bwd.cu",
@@ -3526,11 +3568,85 @@ def check_bf16_kernels(torch, np, device, cfg, samples, train_samples):
                       "of |products| (max_sum_rel_err); two calls bitwise "
                       "equal",
              library_what=lib.replace("by the bfloat16 weight",
-                                      "transposed by the bfloat16 d_out"),
+                                      "transposed by the bfloat16 d_out")
+                             .replace("K4's", "K10's"),
              at="batch 2, one train step's weight gradients: the ladder's "
-                "10 convs, launches x ms summed; f32_ms is K10 at the same "
-                "shapes",
+                "10 convs, launches x ms summed, each the whole wrapper "
+                "call (the bfloat16 copies included); f32_ms is K10 at the "
+                "same shapes",
              **dw_row)]
+
+
+def bf16_edge_cases(torch, np, device, caps, s0, batch, rng) -> dict:
+    """K4-bf16 at car shapes on the edge cases of its compaction into
+    16-row groups of one tap, on int16 and int32 plans: rows 64..127
+    finding nothing (tiles of no found row), tap 5 found in one row only,
+    every tap found in every row (random input rows), M cut by 27 rows (a
+    ragged last tile); Cin 4 (the mean VFE's input) and the PointNet VFE's 4-wide input
+    gradient among them. Each within BF16_SUM_RTOL of the sum of
+    |products| of its plain version in float64 and bitwise equal over two
+    calls, or the run fails. Returns each case's largest error."""
+    from sassd_tpu_torch.ops import sparse as sp
+    bf = torch.bfloat16
+    out = {}
+    for case, plan_key, level_in, cin, cout, src in (
+            ("empty_tile", "plan_subm0", 0, 4, 16, s0),
+            ("tap_in_one_row", "plan_subm1", 1, 32, 32, s0),
+            ("every_tap_every_row", "plan_subm2", 2, 64, 64, s0),
+            ("every_tap_every_row", "plan_subm0", 0, 4, 16, batch),
+            ("ragged_m_out", "plan_stride2", 1, 32, 64, batch),
+            ("ragged_m_out", "plan_strideT3", 3, 64, 64, batch),
+            ("pointnet_dx", "plan_subm0", 0, 16, 4, batch)):
+        for dtype in (torch.int16, torch.int32):
+            plan = src[plan_key].to(dtype).clone()
+            b = plan.shape[0]
+            if case == "empty_tile":
+                plan[..., 64:128] = -1
+            elif case == "tap_in_one_row":
+                plan[:, 5] = -1
+                plan[0, 5, 70] = 3
+            elif case == "every_tap_every_row":
+                plan = torch.from_numpy(rng.integers(
+                    0, caps[level_in], size=tuple(plan.shape))).to(
+                    device=device, dtype=dtype)
+            elif case == "ragged_m_out":
+                plan = plan[..., :plan.shape[2] - 64 + 37].contiguous()
+            x = torch.from_numpy(rng.normal(size=(b, caps[level_in], cin))
+                                 .astype(np.float32)).to(device)
+            w = torch.from_numpy((rng.normal(size=(27, cin, cout))
+                                  / np.sqrt(27 * cin)).astype(np.float32)
+                                 ).to(device)
+            if case == "pointnet_dx":
+                # d_out [B, M, 16] -> d_feats [B, M, 4]: x is d_out here
+                w = w.transpose(1, 2).contiguous()         # [27, 4, 16]
+                fn = lambda: sp._subm_input_grad(x, w, plan, bf)  # noqa
+                args = (x, sp.input_grad_weight(w).contiguous(), plan)
+
+                def plain(c, ww, p, cd):
+                    return sp.subm_conv_batched_plain(c, ww, p, cd)[..., :4]
+            else:
+                fn = lambda: sp.subm_conv_batched(x, w, plan, bf)  # noqa
+                args, plain = (x, w, plan), sp.subm_conv_batched_plain
+            before = read_launches()["sassd_sparse_conv_bf16"]
+            got, again = fn(), fn()
+            torch.cuda.synchronize()
+            if read_launches()["sassd_sparse_conv_bf16"] != before + 2:
+                fail(f"K4-bf16 on {case}: not one launch a call")
+            if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+                fail(f"K4-bf16 gives two different results on {case}")
+            err = bf16_err(torch, got, plain, args)
+            if not err[0] <= BF16_SUM_RTOL:
+                fail(f"K4-bf16 disagrees with its plain version on {case} "
+                     f"({plan_key}, {dtype}): {err[0]:.3g} of the sum of "
+                     f"|products|")
+            if case == "empty_tile" and bool(got[:, 64:128].any()):
+                fail("K4-bf16 writes a nonzero row in a tile of no found row")
+            key = f"{case} {plan_key[5:]} {str(dtype)[6:]}"
+            out[key] = err[0]
+            print(f"  K4-bf16 edge case {key} {tuple(plan.shape)}: "
+                  f"{err[0]:.3g} of the sum of |products|, two calls bitwise "
+                  f"equal")
+    return out
 
 
 def bf16_match(a, b):

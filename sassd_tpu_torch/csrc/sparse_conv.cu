@@ -392,45 +392,86 @@ extern "C" int sassd_sparse_conv(const float* feats, int m_in, int cin,
 // bf16(W[t, c, :]); every product is exact in float32, the sums are
 // float32 (in the tensor cores' order, not K4's one fma chain a row).
 //
-// Bound on the H100: the found slots' 2 * found * Cin * Cout operations at
-// 989 TFLOP/s (dense bf16) take well under a microsecond at every car
-// shape, so the bytes bound it (the inputs and the plan read once, the
-// output written once), and below that the latency of each stage's row
-// gathers.
+// Operands: rounded once a call, before any product, as JAX's astype
+// does (rounding is elementwise, so rounding before the gather gives the
+// same bits): the features to a bfloat16 copy [B * M_in, Cin] and W to a
+// bfloat16 panel [27][Cout][Kp], Kp = Cin rounded up to 16 with zeros past
+// Cin, each 16 input channels in the order of an mma B fragment (0 1 8 9 2
+// 3 10 11 4 5 12 13 6 7 14 15), so a lane's two B registers of a k step
+// are one 8-byte load. W is read through its strides, its taps reversed
+// for a submanifold conv's input gradient, its columns past the real ones
+// zero (the 4-wide input gradient's 16): the transposes and the padding
+// of the input gradients' weights cost no copy. The rounding is the first
+// phase of the one cooperative launch (every block resident): the whole
+// grid rounds, grid-stride (each element once, not once a block), then
+// waits at a grid barrier, and only then does any block gather or
+// multiply. (As torch ops, or as a launch of its own, the rounding cost
+// more host time a call than the conv's device time at most shapes;
+// measured on the H100.)
 //
-// Design (output-stationary, no atomics, 8 warps): a block owns 64 output
-// rows of one sample and every output channel. It loads the tile's 27 x 64
-// plan entries into shared memory and marks, for each 16-row group, the
-// taps that find a row there (a warp ballot per 32 rows). The taps found in
-// the tile, in order t = 0..26, are the K dimension (tap-major, Cin
-// columns each); stages of up to 256 columns (4 taps at Cin 64, all 27 at
-// Cin 4, padded with zeros to a multiple of 16) are staged into shared
-// memory as bfloat16: each found row converted with __float2bfloat16_rn
-// as it is copied (zeros where a tap is missing; no cast pass over the
-// features) and W[t] transposed to [Cout][K] so that each B fragment is
-// one 32-bit load. Warp w takes rows 16 (w % 4) .. + 15 and half of the
-// output columns, holds its sums in registers (mma.sync.m16n8k16 bf16 ->
-// f32 fragments) and skips every k step whose taps find no row of its 16.
-// Cin 4 (subm0 under the mean VFE) thus packs 4 taps into each k step on
-// the same path. Rows are padded by 8 bfloat16 in shared memory, so the
-// fragment loads of a warp hit 32 different banks. Staging: a thread
-// issues all its 16 float4 row loads of a stage before the barrier that
-// frees the buffers (under the other warps' products), then converts and
-// stores them; W follows in batches of 8 column pairs, one bfloat162
-// store a pair. With Cin a template constant the staging's index
-// arithmetic is shifts (a first design with runtime divisions and one
-// load at a time ran 1.6x slower than K4 on a car scan; this one runs at
-// 189 registers, one block an SM: bounding it to two blocks spilled and
-// ran 1.5x slower again, measured on the H100). The k order and
-// the skips depend on the plan alone: two calls on the same inputs give
-// the same bits. Shared memory: 74.5 KB at Cout 64.
+// Bound on the H100: the bytes (the features, the plan and the panel read
+// once, the output written once); the found slots' 2 * found * Cin * Cout
+// operations at 989 TFLOP/s (dense bf16) take well under a microsecond at
+// every car shape. Below the bytes, the latency of the row gathers.
+//
+// Design (output-stationary, no atomics): after the rounding, a block
+// takes 32-row tiles (blockIdx.x, + gridDim.x, ... of the batch's tiles);
+// for each it owns the 32 output rows and every output channel, their
+// float32 sums in shared memory, with one warp per 8 output columns (Cout
+// / 8 warps). It compacts
+// the tile's plan as K4 does (a warp ballot and prefix count per tap: the
+// found rows and their input rows) and cuts each tap's found rows into
+// 16-row mma groups, a tap's last group short; a tile of padding rows has
+// no group and writes zeros. The groups run in tap order, 8 a stage. A
+// stage copies only its groups' found rows, straight from the bfloat16
+// copy with 16-byte (Cin 4: 8-byte) cp.async, into a ring of three
+// shared-memory buffers, two stages ahead of the products, one barrier a
+// stage; the unused rows of a short group are never loaded or zeroed (an
+// mma's output row depends on its input row alone, and those outputs are
+// dropped). For each group of a stage a warp loads its 8 columns of W[t]
+// from the panel (issued before the stage's wait, so they arrive under
+// it), reads the group's rows' sums as the mma's C, runs ceil(Cin / 16)
+// mma.sync.m16n8k16 steps on A fragments read from the staged rows by
+// ldmatrix, and stores the sums back. A warp owns its columns of every
+// row and takes the groups in order, so no two warps touch one sum and
+// every output element is one chain over its found taps t = 0..26 (each
+// tap's products summed by the tensor core): the order depends on the
+// plan alone, and two calls on the same inputs give the same bits. Cin 4
+// (subm0 under the mean VFE) runs one k step with zero channels 4..15
+// (zeroed once in the buffers, zero in the panel). What bounds it
+// (measured on the H100 by switching parts off, L2 64 -> 64): the wait
+// for each stage's gathered rows and each warp's chain of groups (its
+// sums read, multiplied and stored group after group), not the panel's
+// reads; 32-row tiles halve that chain against 64 and the ring keeps two
+// stages of rows in flight. The first design (PR 20) staged all 64 rows
+// of the tile for every tap found in it, converted W[t] in every block
+// and ran at 189 registers, one block an SM. Shared memory at Cin 64,
+// Cout 64: 67.2 KB.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 
 namespace {
 
-constexpr int kB16Threads = 256;            // 8 warps
-constexpr int kB16KMax = 256;               // K columns a stage
-constexpr int kB16Ld = kB16KMax + 8;        // bf16 a shared row (padded)
+constexpr int kB16Tile = 32;                       // output rows a block
+constexpr int kB16StageGroups = 8;                 // 16-row groups a stage
+constexpr int kB16Slots = 16 * kB16StageGroups;    // staged rows a stage
+constexpr int kB16Ring = 3;                        // stages in shared memory
+constexpr int kB16MaxGroups = kTaps * (kB16Tile / 16);
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned* r, const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s)
+      : "memory");
+}
 
 __device__ __forceinline__ void mma_bf16(float* c, const unsigned* a,
                                          const unsigned* b) {
@@ -441,280 +482,397 @@ __device__ __forceinline__ void mma_bf16(float* c, const unsigned* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-__device__ __forceinline__ unsigned ld_bf16x2(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const unsigned*>(p);
+// a row of the sums, floats: 8 past Cout, so that the 8 rows of a
+// fragment spread over the banks
+__host__ __device__ constexpr int acc_ld(int cout) { return cout + 8; }
+
+// dynamic shared memory: the sums, a ring of stage buffers of rows of Kp
+// + 8 bfloat16 (the pad spreads ldmatrix's rows over the banks) and the
+// compacted lists (input row, tile row) of every tap
+constexpr int smem_bytes_bf16(int ks, int cout) {
+  return kB16Tile * acc_ld(cout) * 4 +
+         kB16Ring * kB16Slots * (16 * ks + 8) * 2 + kTaps * kB16Tile * 4 +
+         kTaps * kB16Tile;
 }
 
-constexpr int smem_bytes_bf16(int cout) {
-  return (kTile + cout) * kB16Ld * 2 + kTaps * kTile * 4;
+// The operands' pass, grid-stride over the whole grid (i: this thread's
+// rank in it, step: the grid's threads): the features rounded to the
+// bfloat16 copy, 4 values a thread, then the panel. Panel tap t is W's
+// tap t (26 - t where the taps are reversed), element (n, k) at W + t s_t
+// + k s_k + n s_n; zero past the input channels and n_real columns.
+__device__ void round_operands(const float* __restrict__ feats, long long n4,
+                               const float* __restrict__ weight, int s_t,
+                               int s_k, int s_n, int reversed, int cin,
+                               int n_real, int n_cols, int kp, long long i,
+                               long long step,
+                               __nv_bfloat16* __restrict__ feats16,
+                               __nv_bfloat16* __restrict__ panel) {
+  for (long long j = i; j < n4; j += step) {
+    const float4 v = reinterpret_cast<const float4*>(feats)[j];
+    __nv_bfloat162* d = reinterpret_cast<__nv_bfloat162*>(feats16) + 2 * j;
+    d[0] = __floats2bfloat162_rn(v.x, v.y);
+    d[1] = __floats2bfloat162_rn(v.z, v.w);
+  }
+  for (long long j = i; j < static_cast<long long>(kTaps) * n_cols * kp;
+       j += step) {
+    const int e = static_cast<int>(j);
+    const int t = e / (n_cols * kp);
+    const int n = (e / kp) % n_cols;
+    const int pos = e % kp;
+    // position 16 s + 4 q + 2 h + p holds channel 16 s + 8 h + 2 q + p
+    const int k = (pos & ~15) + 8 * ((pos >> 1) & 1) + 2 * ((pos >> 2) & 3) +
+                  (pos & 1);
+    float v = 0.0f;
+    if (k < cin && n < n_real) {
+      v = weight[static_cast<long long>(reversed ? kTaps - 1 - t : t) * s_t +
+                 static_cast<long long>(k) * s_k +
+                 static_cast<long long>(n) * s_n];
+    }
+    panel[e] = __float2bfloat16_rn(v);
+  }
 }
 
-// CIN > 0: the input width as a constant (the staging's index arithmetic
-// becomes shifts and its loads unroll); 0: cin, any multiple of 4 up to 64
-template <typename IdxT, int COUT, int CIN>
-__global__ void __launch_bounds__(kB16Threads)
-sparse_conv_bf16_kernel(const float* __restrict__ feats, int m_in, int cin_arg,
+// KS: k steps of 16 input channels, ceil(cin / 16)
+template <typename IdxT, int COUT, int KS>
+__global__ void __launch_bounds__(COUT * 4)
+sparse_conv_bf16_kernel(const float* __restrict__ feats32, long long n4,
+                        const float* __restrict__ weight, int s_t, int s_k,
+                        int s_n, int reversed, int n_real,
+                        __nv_bfloat16* __restrict__ feats,
+                        __nv_bfloat16* __restrict__ panel, int m_in, int cin,
                         const IdxT* __restrict__ plan, int m_out,
-                        const float* __restrict__ weight,
-                        float* __restrict__ out) {
-  const int cin = CIN > 0 ? CIN : cin_arg;
-  constexpr int kGroups = kTile / 16;                  // 16-row groups
-  constexpr int kWarpTiles = COUT / 8 / (kB16Threads / 32 / kGroups);
-  // a thread's share of a stage: float4 pieces of the found rows, and
-  // pairs of W entries (kB16KMax columns of 64 rows / of COUT rows)
-  constexpr int kRowPieces = kTile * kB16KMax / 4 / kB16Threads;      // 16
-  constexpr int kWPairs = COUT * kB16KMax / 2 / kB16Threads;    // 8..32
-  constexpr int kWChunk = kWPairs < 8 ? kWPairs : 8;
+                        int tiles, int batch, float* __restrict__ out) {
+  constexpr int kThr = COUT * 4;
+  constexpr int kWarps = COUT / 8;
+  constexpr int kKp = 16 * KS;             // a panel row, input channels
+  constexpr int kLd = kKp + 8;             // a staged row, bfloat16
+  constexpr int kAcc = acc_ld(COUT);
   extern __shared__ float4 smem4[];
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem4);  // [64][Ld]
-  __nv_bfloat16* ws = xs + kTile * kB16Ld;                       // [COUT][Ld]
-  int* src = reinterpret_cast<int*>(ws + COUT * kB16Ld);         // [27][64]
-  __shared__ unsigned found[kGroups];   // taps found in each 16-row group
-  __shared__ int taps[kTaps];           // the taps found in the tile
-  __shared__ int n_taps;
+  float* acc = reinterpret_cast<float*>(smem4);                 // [32][kAcc]
+  __nv_bfloat16* xs =
+      reinterpret_cast<__nv_bfloat16*>(acc + kB16Tile * kAcc);  // [3][128][kLd]
+  int* lsrc = reinterpret_cast<int*>(xs + kB16Ring * kB16Slots * kLd);
+  unsigned char* lrow =
+      reinterpret_cast<unsigned char*>(lsrc + kTaps * kB16Tile);
+  __shared__ int cnt[kTaps];
+  __shared__ unsigned char gtap[kB16MaxGroups];  // a group's tap
+  __shared__ unsigned char gi0[kB16MaxGroups];   // its first row in the list
+  __shared__ int n_groups;
 
-  const int b = blockIdx.y;
-  const int m0 = blockIdx.x * kTile;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const float* fb = feats + static_cast<long long>(b) * m_in * cin;
-  const IdxT* pb = plan + static_cast<long long>(b) * kTaps * m_out;
-  if (tid < kGroups) found[tid] = 0u;
-  __syncthreads();
-  // the tile's plan entries; a warp's 32 entries are one tap's (kTile and
-  // the block are multiples of 32), so the loop and the ballot are uniform
-  for (int i = tid; i < kTaps * kTile; i += kB16Threads) {
-    const int t = i / kTile;
-    const int r = i - t * kTile;
-    const int m = m0 + r;
-    const int v = m < m_out
-        ? static_cast<int>(pb[static_cast<long long>(t) * m_out + m]) : -1;
-    src[i] = v;
-    const unsigned hit = __ballot_sync(0xffffffffu, v >= 0);
-    if (lane == 0) {
-      if (hit & 0xffffu) atomicOr(&found[r >> 4], 1u << t);
-      if (hit >> 16) atomicOr(&found[(r >> 4) + 1], 1u << t);
-    }
-  }
-  __syncthreads();
-  if (tid == 0) {
-    unsigned any = 0u;
-    for (int g = 0; g < kGroups; ++g) any |= found[g];
-    int n = 0;
-    for (int t = 0; t < kTaps; ++t) {
-      if (any >> t & 1u) taps[n++] = t;
-    }
-    n_taps = n;
-  }
-  __syncthreads();
-
-  const int g = lane >> 2;              // the fragments' row (col) group
-  const int tig = lane & 3;
-  const int rows0 = (warp % kGroups) * 16;
-  const int tile0 = (warp / kGroups) * kWarpTiles;
-  const unsigned mine = found[warp % kGroups];
-  const int nt = n_taps;
-  const int per_stage = kB16KMax / cin;
-  const int c4 = cin >> 2;
-  const int c2 = cin >> 1;
-  const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f);
-  float acc[kWarpTiles][4];
-#pragma unroll
-  for (int j = 0; j < kWarpTiles; ++j) {
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
-  }
-  for (int j0 = 0; j0 < nt; j0 += per_stage) {
-    const int ng = min(per_stage, nt - j0);
-    const int kk = ng * cin;             // K columns of the stage
-    const int kpad = (kk + 15) & ~15;
-    // the found rows of the stage's taps, piece i = (tap j, row r, q):
-    // all of a thread's loads first, so they are in flight together
-    float4 v[kRowPieces];
-#pragma unroll
-    for (int k = 0; k < kRowPieces; ++k) {
-      const int i = tid + k * kB16Threads;
-      const int q = i % c4;
-      const int r = (i / c4) % kTile;
-      const int j = i / c4 / kTile;
-      v[k] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (j < ng) {
-        const int s = src[taps[j0 + j] * kTile + r];
-        if (s >= 0) {
-          v[k] = *reinterpret_cast<const float4*>(
-              fb + static_cast<long long>(s) * cin + 4 * q);
-        }
-      }
-    }
-    __syncthreads();                     // the last stage's fragments read
-#pragma unroll
-    for (int k = 0; k < kRowPieces; ++k) {
-      const int i = tid + k * kB16Threads;
-      const int q = i % c4;
-      const int r = (i / c4) % kTile;
-      const int j = i / c4 / kTile;
-      if (j < ng) {
-        __nv_bfloat162* d = reinterpret_cast<__nv_bfloat162*>(
-            xs + r * kB16Ld + j * cin + 4 * q);
-        d[0] = __floats2bfloat162_rn(v[k].x, v[k].y);
-        d[1] = __floats2bfloat162_rn(v[k].z, v[k].w);
-      }
-    }
-    // W[t] of the stage's taps as [COUT][K], a pair (c, c + 1) of one
-    // output column n a thread, kWChunk pairs in flight at a time
-#pragma unroll
-    for (int k0 = 0; k0 < kWPairs; k0 += kWChunk) {
-      float2 w[kWChunk];
-#pragma unroll
-      for (int k = 0; k < kWChunk; ++k) {
-        const int i = tid + (k0 + k) * kB16Threads;
-        const int n = i % COUT;
-        const int c = 2 * ((i / COUT) % c2);
-        const int j = i / COUT / c2;
-        w[k] = make_float2(0.0f, 0.0f);
-        if (j < ng) {
-          const float* wt = weight +
-              (static_cast<long long>(taps[j0 + j]) * cin + c) * COUT + n;
-          w[k] = make_float2(wt[0], wt[COUT]);
-        }
-      }
-#pragma unroll
-      for (int k = 0; k < kWChunk; ++k) {
-        const int i = tid + (k0 + k) * kB16Threads;
-        const int n = i % COUT;
-        const int c = 2 * ((i / COUT) % c2);
-        const int j = i / COUT / c2;
-        if (j < ng) {
-          *reinterpret_cast<__nv_bfloat162*>(ws + n * kB16Ld + j * cin + c) =
-              __floats2bfloat162_rn(w[k].x, w[k].y);
-        }
-      }
-    }
-    // the zero columns up to a multiple of 16
-    const int pad = kpad - kk;
-    for (int i = tid; i < (kTile + COUT) * pad; i += kB16Threads) {
+  // the operands, rounded once by the whole grid, then a grid barrier (the
+  // launch is cooperative: every block is resident)
+  round_operands(feats32, n4, weight, s_t, s_k, s_n, reversed, cin, n_real,
+                 COUT, kKp, blockIdx.x * static_cast<long long>(kThr) + tid,
+                 static_cast<long long>(gridDim.x) * kThr, feats, panel);
+  // the channels past cin of every staged row: zero once (no copy writes
+  // them)
+  const int pad = kKp - cin;
+  if (pad > 0) {
+    const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f);
+    for (int i = tid; i < kB16Ring * kB16Slots * pad; i += kThr) {
       const int r = i / pad;
-      const int c = kk + (i - r * pad);
-      if (r < kTile) {
-        xs[r * kB16Ld + c] = zero;
-      } else {
-        ws[(r - kTile) * kB16Ld + c] = zero;
+      xs[r * kLd + cin + (i - r * pad)] = zero;
+    }
+  }
+  cooperative_groups::this_grid().sync();
+
+  // the tiles, blockIdx.x, + gridDim.x, ... of batch x tiles
+  for (int tile = blockIdx.x; tile < batch * tiles; tile += gridDim.x) {
+    const int b = tile / tiles;
+    const int m0 = (tile - b * tiles) * kB16Tile;
+    const __nv_bfloat16* fb = feats + static_cast<long long>(b) * m_in * cin;
+    const IdxT* pb = plan + static_cast<long long>(b) * kTaps * m_out;
+
+    // compaction: warp w lists the found rows of taps w, w + kWarps, ...
+    // (its plan entries are loaded first, all at once)
+    constexpr int kWarpTaps = (kTaps + kWarps - 1) / kWarps;
+    int src[kWarpTaps][kB16Tile / 32];
+#pragma unroll
+    for (int k = 0; k < kWarpTaps; ++k) {
+      const int t = warp + k * kWarps;
+#pragma unroll
+      for (int h = 0; h < kB16Tile / 32; ++h) {
+        const int m = m0 + h * 32 + lane;
+        src[k][h] = t < kTaps && m < m_out
+            ? static_cast<int>(pb[static_cast<long long>(t) * m_out + m]) : -1;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kWarpTaps; ++k) {
+      const int t = warp + k * kWarps;
+      if (t >= kTaps) break;
+      int base = 0;
+#pragma unroll
+      for (int h = 0; h < kB16Tile / 32; ++h) {
+        const unsigned found = __ballot_sync(0xffffffffu, src[k][h] >= 0);
+        if (src[k][h] >= 0) {
+          const int at = base + __popc(found & ((1u << lane) - 1u));
+          lsrc[t * kB16Tile + at] = src[k][h];
+          lrow[t * kB16Tile + at] = static_cast<unsigned char>(h * 32 + lane);
+        }
+        base += __popc(found);
+      }
+      if (lane == 0) cnt[t] = base;
+    }
+    for (int i = tid; i < kB16Tile * kAcc / 4; i += kThr) {
+      smem4[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+    __syncthreads();
+    // the groups in tap order: lane t of warp 0 places tap t's
+    if (warp == 0) {
+      const int c = lane < kTaps ? cnt[lane] : 0;
+      const int ng = (c + 15) >> 4;
+      int x = ng;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, x, o);
+        if (lane >= o) x += y;
+      }
+      for (int q = 0; q < ng; ++q) {
+        gtap[x - ng + q] = static_cast<unsigned char>(lane);
+        gi0[x - ng + q] = static_cast<unsigned char>(16 * q);
+      }
+      if (lane == 31) n_groups = x;
+    }
+    __syncthreads();
+
+    const int ng = n_groups;
+    const int n_stages = (ng + kB16StageGroups - 1) / kB16StageGroups;
+    const bool wide = (cin & 7) == 0;           // 16-byte copies, else 8-byte
+    const int pieces = wide ? cin >> 3 : cin >> 2;
+    // stage s: the found rows of groups 8s .. 8s + 7 into buffer s % 3,
+    // group j's row i at slot 16 (j - 8s) + i (none past the last group:
+    // an empty commit group keeps the waits' count)
+    auto stage = [&](int s) {
+      __nv_bfloat16* xd = xs + (s % kB16Ring) * kB16Slots * kLd;
+      const int g0 = s * kB16StageGroups;
+      const int slots = max(0, min(kB16StageGroups, ng - g0)) * 16;
+      for (int i = tid; i < slots * pieces; i += kThr) {
+        const int slot = i / pieces;
+        const int q = i - slot * pieces;
+        const int j = g0 + (slot >> 4);
+        const int t = gtap[j];
+        const int r = gi0[j] + (slot & 15);
+        if (r < cnt[t]) {
+          const long long row = lsrc[t * kB16Tile + r];
+          if (wide) {
+            cp_async16(xd + slot * kLd + 8 * q, fb + row * cin + 8 * q);
+          } else {
+            cp_async8(xd + slot * kLd + 4 * q, fb + row * cin + 4 * q);
+          }
+        }
+      }
+      cp_async_commit();
+    };
+
+    const int g = lane >> 2;
+    const int tig = lane & 3;
+    const int n0 = warp * 8;
+    // ldmatrix.x4 of a group's 16 x 16 A tile: lane l names row l % 16 at
+    // column 8 (l / 16): the four 8 x 8 matrices are a0..a3
+    const int a_off = (lane & 15) * kLd + (lane >> 4) * 8;
+    // stages s + 1 .. s + 2 copy while stage s multiplies
+    for (int s = 0; s < kB16Ring - 1; ++s) stage(s);
+    for (int s = 0; s < n_stages; ++s) {
+      const int g0 = s * kB16StageGroups;
+      const int n_here = min(kB16StageGroups, ng - g0);
+      // this warp's B fragments of the stage's groups: lane (g, tig) holds
+      // column n0 + g, channels 16k + {2tig, 2tig + 1, 2tig + 8, 2tig + 9}
+      uint2 bw[kB16StageGroups][KS];
+#pragma unroll
+      for (int jj = 0; jj < kB16StageGroups; ++jj) {
+        if (jj < n_here) {
+          const uint2* wp = reinterpret_cast<const uint2*>(
+              panel + (static_cast<long long>(gtap[g0 + jj]) * COUT + n0 + g) *
+                          kKp + 4 * tig);
+#pragma unroll
+          for (int k = 0; k < KS; ++k) bw[jj][k] = wp[4 * k];
+        } else {
+#pragma unroll
+          for (int k = 0; k < KS; ++k) bw[jj][k] = make_uint2(0u, 0u);
+        }
+      }
+      cp_async_wait<kB16Ring - 2>();
+      __syncthreads();      // stage s is in; every warp is done with s - 1
+      stage(s + kB16Ring - 1);        // into s - 1's buffer
+      // the tile rows of this lane's two fragment rows in each group, -1
+      // past the group's found rows
+      int ra[kB16StageGroups], rb[kB16StageGroups];
+#pragma unroll
+      for (int jj = 0; jj < kB16StageGroups; ++jj) {
+        ra[jj] = rb[jj] = -1;
+        if (jj < n_here) {
+          const int t = gtap[g0 + jj];
+          const int i0 = gi0[g0 + jj];
+          const int n = cnt[t] - i0;
+          const unsigned char* lr = lrow + t * kB16Tile + i0;
+          if (g < n) ra[jj] = lr[g];
+          if (g + 8 < n) rb[jj] = lr[g + 8];
+        }
+      }
+      const __nv_bfloat16* xb =
+          xs + (s % kB16Ring) * kB16Slots * kLd + a_off;
+#pragma unroll
+      for (int jj = 0; jj < kB16StageGroups; ++jj) {
+        if (jj >= n_here) break;
+        float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        float2* pa = reinterpret_cast<float2*>(acc + max(ra[jj], 0) * kAcc +
+                                               n0 + 2 * tig);
+        float2* pc = reinterpret_cast<float2*>(acc + max(rb[jj], 0) * kAcc +
+                                               n0 + 2 * tig);
+        if (ra[jj] >= 0) {
+          const float2 v = *pa;
+          c[0] = v.x;
+          c[1] = v.y;
+        }
+        if (rb[jj] >= 0) {
+          const float2 v = *pc;
+          c[2] = v.x;
+          c[3] = v.y;
+        }
+#pragma unroll
+        for (int k = 0; k < KS; ++k) {
+          unsigned a[4];
+          ldmatrix_x4(a, xb + jj * 16 * kLd + 16 * k);
+          const unsigned bb[2] = {bw[jj][k].x, bw[jj][k].y};
+          mma_bf16(c, a, bb);
+        }
+        if (ra[jj] >= 0) *pa = make_float2(c[0], c[1]);
+        if (rb[jj] >= 0) *pc = make_float2(c[2], c[3]);
+        __syncwarp();       // the next group's rows may be this one's
       }
     }
     __syncthreads();
-    const __nv_bfloat16* xa = xs + (rows0 + g) * kB16Ld + 2 * tig;
-    for (int k0 = 0; k0 < kpad; k0 += 16) {
-      // skip a k step whose taps find no row of this warp's 16
-      const int ja = k0 / cin;
-      const int jb = min(k0 + 15, kk - 1) / cin;
-      unsigned cover = 0u;
-      for (int j = ja; j <= jb; ++j) cover |= 1u << taps[j0 + j];
-      if (!(mine & cover)) continue;
-      unsigned a[4];
-      a[0] = ld_bf16x2(xa + k0);
-      a[1] = ld_bf16x2(xa + 8 * kB16Ld + k0);
-      a[2] = ld_bf16x2(xa + k0 + 8);
-      a[3] = ld_bf16x2(xa + 8 * kB16Ld + k0 + 8);
-#pragma unroll
-      for (int j = 0; j < kWarpTiles; ++j) {
-        const __nv_bfloat16* wb =
-            ws + ((tile0 + j) * 8 + g) * kB16Ld + k0 + 2 * tig;
-        const unsigned bw[2] = {ld_bf16x2(wb), ld_bf16x2(wb + 8)};
-        mma_bf16(acc[j], a, bw);
-      }
+    const int rows = min(kB16Tile, m_out - m0);
+    float4* ob = reinterpret_cast<float4*>(
+        out + (static_cast<long long>(b) * m_out + m0) * COUT);
+    for (int i = tid; i < rows * COUT / 4; i += kThr) {
+      const int r = i / (COUT / 4);
+      ob[i] = smem4[r * (kAcc / 4) + (i - r * (COUT / 4))];
     }
-  }
-  float* ob = out + static_cast<long long>(b) * m_out * COUT;
-  const int r0 = m0 + rows0 + g;
-#pragma unroll
-  for (int j = 0; j < kWarpTiles; ++j) {
-    const int col = (tile0 + j) * 8 + 2 * tig;
-    if (r0 < m_out) {
-      *reinterpret_cast<float2*>(ob + static_cast<long long>(r0) * COUT +
-                                 col) = make_float2(acc[j][0], acc[j][1]);
-    }
-    if (r0 + 8 < m_out) {
-      *reinterpret_cast<float2*>(ob + static_cast<long long>(r0 + 8) * COUT +
-                                 col) = make_float2(acc[j][2], acc[j][3]);
-    }
+    __syncthreads();      // the sums and lists are free for the next tile
   }
 }
 
-template <typename IdxT, int COUT, int CIN>
-int launch_bf16_cin(const float* feats, int m_in, int cin, const IdxT* plan,
-                    int batch, int m_out, const float* weight, float* out,
-                    cudaStream_t s) {
+// the arguments of one K4-bf16 launch
+struct Bf16Args {
+  const float* feats32;
+  long long n4;
+  const float* weight;
+  int s_t, s_k, s_n, reversed, n_real;
+  __nv_bfloat16* feats;
+  __nv_bfloat16* panel;
+  int m_in, cin;
+  const void* plan;
+  int m_out, tiles, batch;
+  float* out;
+};
+
+// one cooperative launch of a grid of every block the card holds at once
+// (at most one a tile), sized once per device
+template <typename IdxT, int COUT, int KS>
+int launch_bf16_ks(Bf16Args a, cudaStream_t s) {
   static bool done[64] = {};
-  auto kernel = sparse_conv_bf16_kernel<IdxT, COUT, CIN>;
-  const int bytes = smem_bytes_bf16(COUT);
-  const int err = allow_smem(kernel, bytes, done);
+  static int resident[64] = {};
+  auto kernel = sparse_conv_bf16_kernel<IdxT, COUT, KS>;
+  const int bytes = smem_bytes_bf16(KS, COUT);
+  int err = allow_smem(kernel, bytes, done);
   if (err != 0) return err;
-  const dim3 grid((m_out + kTile - 1) / kTile, batch);
-  kernel<<<grid, kB16Threads, bytes, s>>>(feats, m_in, cin, plan, m_out,
-                                          weight, out);
-  return static_cast<int>(cudaGetLastError());
+  int dev = 0;
+  cudaGetDevice(&dev);       // allow_smem checked it
+  if (resident[dev] == 0) {
+    int per_sm = 0, sms = 0;
+    cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, COUT * 4, bytes);
+    if (e == cudaSuccess) {
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    }
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    resident[dev] = per_sm * sms;
+  }
+  const int work = a.batch * a.tiles;
+  const int grid = work < resident[dev] ? work : resident[dev];
+  const IdxT* plan = static_cast<const IdxT*>(a.plan);
+  void* args[] = {&a.feats32, &a.n4,     &a.weight, &a.s_t,   &a.s_k,
+                  &a.s_n,     &a.reversed, &a.n_real, &a.feats, &a.panel,
+                  &a.m_in,    &a.cin,    &plan,     &a.m_out, &a.tiles,
+                  &a.batch,   &a.out};
+  return static_cast<int>(cudaLaunchCooperativeKernel(
+      (void*)kernel, dim3(grid), dim3(COUT * 4), args, bytes, s));
 }
 
 template <typename IdxT, int COUT>
-int launch_bf16_cout(const float* feats, int m_in, int cin, const IdxT* plan,
-                     int batch, int m_out, const float* weight, float* out,
-                     cudaStream_t s) {
-  switch (cin) {
-    case 4:
-      return launch_bf16_cin<IdxT, COUT, 4>(feats, m_in, cin, plan, batch,
-                                            m_out, weight, out, s);
-    case 16:
-      return launch_bf16_cin<IdxT, COUT, 16>(feats, m_in, cin, plan, batch,
-                                             m_out, weight, out, s);
-    case 32:
-      return launch_bf16_cin<IdxT, COUT, 32>(feats, m_in, cin, plan, batch,
-                                             m_out, weight, out, s);
-    case 64:
-      return launch_bf16_cin<IdxT, COUT, 64>(feats, m_in, cin, plan, batch,
-                                             m_out, weight, out, s);
+int launch_bf16_cout(const Bf16Args& a, cudaStream_t s) {
+  switch ((a.cin + 15) / 16) {
+    case 1:
+      return launch_bf16_ks<IdxT, COUT, 1>(a, s);
+    case 2:
+      return launch_bf16_ks<IdxT, COUT, 2>(a, s);
+    case 3:
+      return launch_bf16_ks<IdxT, COUT, 3>(a, s);
     default:
-      return launch_bf16_cin<IdxT, COUT, 0>(feats, m_in, cin, plan, batch,
-                                            m_out, weight, out, s);
+      return launch_bf16_ks<IdxT, COUT, 4>(a, s);
   }
 }
 
 template <typename IdxT>
-int launch_bf16(const float* feats, int m_in, int cin, const IdxT* plan,
-                int batch, int m_out, const float* weight, int cout,
-                float* out, cudaStream_t s) {
+int launch_bf16(const Bf16Args& a, int cout, cudaStream_t s) {
   switch (cout) {
     case 16:
-      return launch_bf16_cout<IdxT, 16>(feats, m_in, cin, plan, batch, m_out,
-                                        weight, out, s);
+      return launch_bf16_cout<IdxT, 16>(a, s);
     case 32:
-      return launch_bf16_cout<IdxT, 32>(feats, m_in, cin, plan, batch, m_out,
-                                        weight, out, s);
-    case 64:
-      return launch_bf16_cout<IdxT, 64>(feats, m_in, cin, plan, batch, m_out,
-                                        weight, out, s);
+      return launch_bf16_cout<IdxT, 32>(a, s);
     default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      return launch_bf16_cout<IdxT, 64>(a, s);
   }
 }
 
 }  // namespace
 
-// sassd_sparse_conv's arguments and constraints, computed in bfloat16
-// (K4-bf16): out [batch * m_out, cout] float32.
+// K4-bf16: sassd_sparse_conv's feats, plan and out, with W [27, cin,
+// n_real] float32 read through its strides (in elements; taps_reversed:
+// panel tap t is W's tap 26 - t) into cout in {16, 32, 64} >= n_real
+// output columns (zero past n_real). work (16-byte aligned): the rounded
+// features, batch * m_in * cin bfloat16 rounded up to 16 bytes, then the
+// panel, 27 * cout * ceil(cin / 16) * 16 bfloat16.
 extern "C" int sassd_sparse_conv_bf16(const float* feats, int m_in, int cin,
                                       const void* plan, int plan_is_i16,
                                       int batch, int m_out,
-                                      const float* weight, int cout,
-                                      float* out, void* stream) {
-  if (cin <= 0 || cin > kMaxCin || cin % 4 != 0) {
+                                      const float* weight, int w_tap_stride,
+                                      int w_k_stride, int w_n_stride,
+                                      int taps_reversed, int n_real,
+                                      int cout, void* work, float* out,
+                                      void* stream) {
+  if (cin <= 0 || cin > kMaxCin || cin % 4 != 0 || n_real <= 0 ||
+      n_real > cout || (cout != 16 && cout != 32 && cout != 64)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (batch == 0 || m_out == 0) return static_cast<int>(cudaGetLastError());
+  const long long rows = static_cast<long long>(batch) * m_in;
+  Bf16Args a;
+  a.feats32 = feats;
+  a.n4 = rows * cin / 4;
+  a.weight = weight;
+  a.s_t = w_tap_stride;
+  a.s_k = w_k_stride;
+  a.s_n = w_n_stride;
+  a.reversed = taps_reversed;
+  a.n_real = n_real;
+  a.feats = static_cast<__nv_bfloat16*>(work);
+  a.panel = reinterpret_cast<__nv_bfloat16*>(
+      static_cast<char*>(work) + (rows * cin * 2 + 15) / 16 * 16);
+  a.m_in = m_in;
+  a.cin = cin;
+  a.plan = plan;
+  a.m_out = m_out;
+  a.tiles = (m_out + kB16Tile - 1) / kB16Tile;
+  a.batch = batch;
+  a.out = out;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (plan_is_i16) {
-    return launch_bf16(feats, m_in, cin, static_cast<const short*>(plan),
-                       batch, m_out, weight, cout, out, s);
-  }
-  return launch_bf16(feats, m_in, cin, static_cast<const int*>(plan), batch,
-                     m_out, weight, cout, out, s);
+  if (plan_is_i16) return launch_bf16<short>(a, cout, s);
+  return launch_bf16<int>(a, cout, s);
 }

@@ -45,12 +45,14 @@
 // K10-bf16 (sassd_sparse_conv_dw_bf16, model.compute_dtype="bfloat16"):
 // the dW half of _subm_conv_sym_bwd / _stride_hostT_bwd with
 // compute_dtype=bfloat16, dW = bf16(col)^T . bf16(d_out) with float32 sums
-// (jnp.dot(..., preferred_element_type=float32)). The same four passes and
-// scratch; pass 3 is products_bf16_kernel (tensor-core mma.sync, below),
-// which writes the same partial slots, so dW keeps the fixed summation
-// order across blocks and is bitwise equal over calls. Bound: the bytes,
-// as its 2 * found * Cin * Cout operations at 989 TFLOP/s (dense bf16)
-// take about 1 us at the largest car shape.
+// (jnp.dot(..., preferred_element_type=float32)). The same four passes
+// and scratch, with X and d_out rounded to bfloat16 copies once a call in
+// pass 1 (JAX's astype; the rounding commutes with the gather), pass 3
+// being products_bf16_kernel (tensor-core mma.sync on rows staged as they
+// lie, below), which writes the same partial slots, so dW keeps the fixed
+// summation order across blocks and is bitwise equal over calls. Bound:
+// the bytes, as its 2 * found * Cin * Cout operations at 989 TFLOP/s
+// (dense bf16) take about 1 us at the largest car shape.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -164,17 +166,18 @@ __device__ __forceinline__ int share_start(long long total, int b,
   return static_cast<int>(total * b / blocks);
 }
 
-// one step of a block: up to kRows consecutive pairs of one tap, starting
+// one step of a block: up to R consecutive pairs of one tap, starting
 // at position q of the taps' pairs laid end to end (n = 0: none left)
 struct Step {
   int t, q, n;
 };
 
+template <int R = kRows>
 __device__ __forceinline__ Step next_step(const int* prefix, int q, int t,
                                           int hi) {
   while (t < kTaps && prefix[t + 1] <= q) ++t;
   if (q >= hi || t >= kTaps) return Step{t, q, 0};
-  return Step{t, q, min(kRows, min(hi, prefix[t + 1]) - q)};
+  return Step{t, q, min(R, min(hi, prefix[t + 1]) - q)};
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -372,19 +375,53 @@ int buffer_floats(int cin, int cout) {
 }
 
 // K10-bf16's products: pass 3 with bfloat16 operands on the tensor cores.
-// A step's 64 staged pairs are the K dimension of dW[t] += X^T . d_out
-// ([Cin x Cout], mma.sync.m16n8k16, bf16 -> f32): X and d_out rows are
-// rounded with __float2bfloat16_rn as they are staged, transposed
-// ([channel][pair], so every fragment is one 32-bit shared load), Cin
-// padded with zero rows to a multiple of 16 (Cin 4 of subm0 under the mean
-// VFE takes the same path at a quarter of the mma's rows) and Cout to a
-// multiple of 8. The next step's rows are loaded into registers under
-// this step's products and stored into the other of two buffers. Warps
-// own 16 x 8 tiles of dW; where there are fewer tiles than the 8 warps,
-// groups of warps take every G-th k step and are summed in group order.
-constexpr int kB16Ld = kRows + 8;         // bf16 a staged channel (padded)
-constexpr int kB16MaxTiles = 4;           // tiles of a warp (64 x 64 / 8)
-constexpr int kB16RedFloats = 1024;       // group partial sums (G > 1)
+// X and d_out are rounded to bfloat16 once a call, before the products,
+// by the count pass's grid (count_bf16_kernel; the rounding is elementwise,
+// so it gives the bits of JAX's astype after the gather). A step is up to 64
+// consecutive pairs of one tap, the K dimension of dW[t] += X^T . d_out
+// ([Cin x Cout], mma.sync.m16n8k16, bf16 -> f32). Its X and d_out rows
+// are copied as they lie, [pair][channel], with 16-byte (a width of 4:
+// 8-byte) cp.async into a ring of three shared-memory stages, two steps
+// ahead of the products, one barrier a step, and the fragments come from
+// ldmatrix.trans (the pair index is k in both operands). Each step's pairs
+// (input row, output row) are copied into shared memory two steps before
+// its rows, so no copy waits on a load from the pair list. The pairs past a
+// step's last up to a multiple of 16 are zeroed rows, the channels past
+// Cin and Cout up to multiples of 16 zero from the start. Warps own 16 x
+// 16 tiles of dW (two accumulators of 16 x 8); where there are fewer
+// tiles than the 8 warps, groups of warps take every G-th k step and are
+// summed in group order. The blocks' shares and partial slots are
+// products_kernel's, so pass 4 sums them in the same fixed order. What
+// bounds it (measured on the H100, by clock64 per phase of a block and by
+// switching parts off): issuing each step's copies, which waited on the
+// pairs loaded one step before until the pairs were staged too; 64-pair
+// steps ran faster than 128, and twice the blocks slower. The first design
+// (PR 20) staged 64 pairs a step as float32 in registers, rounded them and
+// stored them transposed, 2 bytes a store.
+constexpr int kB16Rows = 64;              // pairs a step
+constexpr int kB16Ring = 3;               // steps in shared memory
+constexpr int kB16IdxSlots = 4;           // steps' pairs in shared memory
+constexpr int kB16RedFloats = 2048;       // group partial sums (G > 1)
+// a thread's copies of a step: 64 rows of X and of d_out, each up to 16
+// 8-byte pieces (a width that is not a multiple of 8)
+constexpr int kB16Pieces = kB16Rows * 2 * 16 / kThreads;
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned* r,
+                                                  const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s)
+      : "memory");
+}
 
 __device__ __forceinline__ void mma_bf16(float* c, const unsigned* a,
                                          const unsigned* b) {
@@ -395,26 +432,71 @@ __device__ __forceinline__ void mma_bf16(float* c, const unsigned* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-__device__ __forceinline__ unsigned ld_bf16x2(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const unsigned*>(p);
+__host__ __device__ inline int pad16(int c) { return (c + 15) & ~15; }
+
+// a stage's bytes: kB16Rows rows of X and of d_out, each padded by 8
+// bfloat16 (the pad spreads ldmatrix's rows over the banks)
+int stage_bytes_bf16(int cin, int cout) {
+  return kB16Rows * (pad16(cin) + 8 + pad16(cout) + 8) * 2;
 }
 
-int padded_in(int cin) { return (cin + 15) & ~15; }
-int padded_out(int cout) { return (cout + 7) & ~7; }
-
-int buffer_bytes_bf16(int cin, int cout) {
-  return (padded_in(cin) + padded_out(cout)) * kB16Ld * 2;
+// tap_prefix by one warp's scan (lane t loads totals[t]): the same
+// integers, without thread 0's 27 loads in a row
+__device__ void tap_prefix_scan(const int* __restrict__ totals,
+                                int* prefix) {
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    const int v = lane < kTaps ? totals[lane] : 0;
+    int x = v;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, x, o);
+      if (lane >= o) x += y;
+    }
+    if (lane < kTaps) prefix[lane] = x - v;
+    if (lane == kTaps - 1) prefix[kTaps] = x;
+  }
+  __syncthreads();
 }
 
-__global__ void __launch_bounds__(kThreads)
-products_bf16_kernel(const float* __restrict__ feats, int cin,
-                     const float* __restrict__ d_out, int cout,
+// K10-bf16's pass 1: count_kernel's counts, and X and d_out rounded to
+// bfloat16 copies by the same grid, grid-stride, 4 values a thread (both
+// widths are multiples of 4)
+template <typename IdxT>
+__global__ void __launch_bounds__(kScan)
+count_bf16_kernel(const IdxT* __restrict__ plan, int m_out, int m_chunks,
+                  int* __restrict__ counts, const float4* __restrict__ a,
+                  long long na, const float4* __restrict__ b, long long nb,
+                  __nv_bfloat162* __restrict__ a16,
+                  __nv_bfloat162* __restrict__ b16) {
+  int g;
+  const bool found = plan_entry(plan, blockIdx.y, m_out, m_chunks, &g) >= 0;
+  const int n = __syncthreads_count(found);
+  if (threadIdx.x == 0) counts[blockIdx.y * gridDim.x + blockIdx.x] = n;
+  const long long step =
+      static_cast<long long>(gridDim.x) * gridDim.y * kScan;
+  for (long long i =
+           (static_cast<long long>(blockIdx.y) * gridDim.x + blockIdx.x) *
+               kScan + threadIdx.x;
+       i < na + nb; i += step) {
+    const bool in_a = i < na;
+    const long long j = in_a ? i : i - na;
+    const float4 v = in_a ? a[j] : b[j];
+    __nv_bfloat162* d = (in_a ? a16 : b16) + 2 * j;
+    d[0] = __floats2bfloat162_rn(v.x, v.y);
+    d[1] = __floats2bfloat162_rn(v.z, v.w);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+products_bf16_kernel(const __nv_bfloat16* __restrict__ feats, int cin,
+                     const __nv_bfloat16* __restrict__ d_out, int cout,
                      const int2* __restrict__ pairs, int rows,
-                     const int* __restrict__ totals, int buf_bytes,
+                     const int* __restrict__ totals, int stage_bytes,
                      float* __restrict__ partial) {
   extern __shared__ float4 smem4[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(smem4);
-  float* red = reinterpret_cast<float*>(smem + 2 * buf_bytes);
+  float* red = reinterpret_cast<float*>(smem + kB16Ring * stage_bytes);
   __shared__ int prefix[kTaps + 1];
   const int blk = blockIdx.x;
   const int tid = threadIdx.x;
@@ -422,16 +504,16 @@ products_bf16_kernel(const float* __restrict__ feats, int cin,
   const int warp = tid >> 5;
   const int g = lane >> 2;
   const int tig = lane & 3;
-  tap_prefix(totals, prefix);
+  tap_prefix_scan(totals, prefix);
   const int total = prefix[kTaps];
   const int lo = share_start(total, blk, gridDim.x);
   const int hi = share_start(total, blk + 1, gridDim.x);
-  const int cpad = (cin + 15) & ~15;
-  const int opad = (cout + 7) & ~7;
-  const int c4 = cin / 4;
-  const int o4 = cout / 4;
-  const int nb = opad / 8;
-  const int tiles = (cpad / 16) * nb;
+  const int cpad = pad16(cin);
+  const int opad = pad16(cout);
+  const int ldx = cpad + 8;                 // bfloat16 a staged X row
+  const int ldd = opad + 8;                 // and d_out row
+  const int nb = opad / 16;
+  const int tiles = (cpad / 16) * nb;       // 16 x 16 tiles of dW
   constexpr int kWarps = kThreads / 32;
   // warps of group grp take tiles tile0 .. tile1 - 1 and the k steps
   // ks with ks % groups == grp
@@ -440,110 +522,146 @@ products_bf16_kernel(const float* __restrict__ feats, int cin,
   const int grp = tiles >= kWarps ? 0 : warp / tiles;
   const int tile0 = tiles >= kWarps ? warp * per : warp % tiles;
   const int tile1 = grp < groups ? min(tiles, tile0 + per) : tile0;
+  // copies: 16 bytes (8 channels) where the width allows, else 8 bytes
+  const bool xw = (cin & 7) == 0;
+  const bool dwide = (cout & 7) == 0;
+  const int px = xw ? cin >> 3 : cin >> 2;     // pieces a row
+  const int pd = dwide ? cout >> 3 : cout >> 2;
+  const int n_pieces = kB16Rows * (px + pd);
 
-  // a thread's pieces of a step: X (pair r, channels 4q..4q+3) for i =
-  // tid + k * 256 of kRows * c4, pair-fastest, so that a warp's transposed
-  // bfloat16 stores fill consecutive words of one channel row
-  float4 xv[kPieces], dv[kPieces];
-  auto load = [&](const Step& st) {
+  // step s's pairs in index slot s % 4 (int2: input row, output row)
+  int2* sidx = reinterpret_cast<int2*>(red + kB16RedFloats);
+  auto fetch_idx = [&](int s, const Step& st) {
     const int2* pt = pairs + static_cast<long long>(st.t) * rows +
                      (st.q - prefix[st.t]);
+    if (tid < st.n) cp_async8(sidx + (s % kB16IdxSlots) * kB16Rows + tid,
+                              pt + tid);
+  };
+  // step s's X and d_out rows into stage s % 3: a thread's pieces i = tid
+  // + k * 256, X (pair r, piece q) for i < 64 px, then d_out, their rows
+  // read from the step's index slot
+  auto issue = [&](int s, const Step& st) {
+    unsigned char* base = smem + (s % kB16Ring) * stage_bytes;
+    __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(base);
+    __nv_bfloat16* ds = xs + kB16Rows * ldx;
+    const int2* si = sidx + (s % kB16IdxSlots) * kB16Rows;
 #pragma unroll
-    for (int k = 0; k < kPieces; ++k) {
+    for (int k = 0; k < kB16Pieces; ++k) {
       const int i = tid + k * kThreads;
-      const int r = i % kRows;
-      const int q = i / kRows;
-      xv[k] = dv[k] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (r < st.n && q < c4) {
-        xv[k] = *reinterpret_cast<const float4*>(
-            feats + static_cast<long long>(pt[r].x) * cin + 4 * q);
-      }
-      if (r < st.n && q < o4) {
-        dv[k] = *reinterpret_cast<const float4*>(
-            d_out + static_cast<long long>(pt[r].y) * cout + 4 * q);
+      if (i < kB16Rows * px) {
+        const int r = i / px;
+        const int q = i - r * px;
+        if (r >= st.n) continue;
+        const long long row = si[r].x;
+        if (xw) {
+          cp_async16(xs + r * ldx + 8 * q, feats + row * cin + 8 * q);
+        } else {
+          cp_async8(xs + r * ldx + 4 * q, feats + row * cin + 4 * q);
+        }
+      } else if (i < n_pieces) {
+        const int e = i - kB16Rows * px;
+        const int r = e / pd;
+        const int q = e - r * pd;
+        if (r >= st.n) continue;
+        const long long row = si[r].y;
+        if (dwide) {
+          cp_async16(ds + r * ldd + 8 * q, d_out + row * cout + 8 * q);
+        } else {
+          cp_async8(ds + r * ldd + 4 * q, d_out + row * cout + 4 * q);
+        }
       }
     }
-  };
-  auto store = [&](int j) {
-    __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(
-        smem + (j & 1) * buf_bytes);                       // [cpad][Ld]
-    __nv_bfloat16* ds = xs + cpad * kB16Ld;                 // [opad][Ld]
-#pragma unroll
-    for (int k = 0; k < kPieces; ++k) {
-      const int i = tid + k * kThreads;
-      const int r = i % kRows;
-      const int q = i / kRows;
-      if (q < c4) {
-        __nv_bfloat16* x = xs + 4 * q * kB16Ld + r;
-        x[0] = __float2bfloat16_rn(xv[k].x);
-        x[kB16Ld] = __float2bfloat16_rn(xv[k].y);
-        x[2 * kB16Ld] = __float2bfloat16_rn(xv[k].z);
-        x[3 * kB16Ld] = __float2bfloat16_rn(xv[k].w);
-      }
-      if (q < o4) {
-        __nv_bfloat16* d = ds + 4 * q * kB16Ld + r;
-        d[0] = __float2bfloat16_rn(dv[k].x);
-        d[kB16Ld] = __float2bfloat16_rn(dv[k].y);
-        d[2 * kB16Ld] = __float2bfloat16_rn(dv[k].z);
-        d[3 * kB16Ld] = __float2bfloat16_rn(dv[k].w);
-      }
+    // the rows past the step's last pair up to a multiple of 16: zero
+    // (both operands: an unwritten row may hold any bits)
+    const int n16 = (st.n + 15) & ~15;
+    const int wx = cpad / 8, wd = opad / 8;      // 16-byte words a row
+    for (int i = tid; i < (n16 - st.n) * (wx + wd); i += kThreads) {
+      const int r = st.n + i / (wx + wd);
+      const int w = i % (wx + wd);
+      uint4* d = w < wx
+          ? reinterpret_cast<uint4*>(xs + r * ldx) + w
+          : reinterpret_cast<uint4*>(ds + r * ldd) + (w - wx);
+      *d = make_uint4(0u, 0u, 0u, 0u);
     }
   };
-  // the padding channels of both buffers, zero once
+  // the padding channels of both stages, zero once
   {
     const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f);
-    const int nx = (cpad - cin) * kRows;
-    const int nd = (opad - cout) * kRows;
-    for (int i = tid; i < 2 * (nx + nd); i += kThreads) {
-      const int h = i / (nx + nd);
-      const int e = i - h * (nx + nd);
+    const int nx = cpad - cin, nd = opad - cout;
+    for (int i = tid; i < kB16Ring * kB16Rows * (nx + nd); i += kThreads) {
+      const int h = i / (kB16Rows * (nx + nd));
+      const int e = i - h * kB16Rows * (nx + nd);
+      const int r = e / (nx + nd);
+      const int c = e - r * (nx + nd);
       __nv_bfloat16* xs =
-          reinterpret_cast<__nv_bfloat16*>(smem + h * buf_bytes);
-      if (e < nx) {
-        xs[(cin + e / kRows) * kB16Ld + e % kRows] = zero;
+          reinterpret_cast<__nv_bfloat16*>(smem + h * stage_bytes);
+      if (c < nx) {
+        xs[r * ldx + cin + c] = zero;
       } else {
-        xs[(cpad + cout + (e - nx) / kRows) * kB16Ld + (e - nx) % kRows] =
-            zero;
+        xs[kB16Rows * ldx + r * ldd + cout + (c - nx)] = zero;
       }
     }
   }
 
-  float acc[kB16MaxTiles][4];
+  float acc[2][2][4];
 #pragma unroll
-  for (int a = 0; a < kB16MaxTiles; ++a) {
-    acc[a][0] = acc[a][1] = acc[a][2] = acc[a][3] = 0.0f;
+  for (int u = 0; u < 2; ++u) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      acc[u][h][0] = acc[u][h][1] = acc[u][h][2] = acc[u][h][3] = 0.0f;
+    }
   }
-  Step cur = next_step(prefix, lo, 0, hi);
-  if (cur.n > 0) {
-    load(cur);
-    store(0);
+  // ldmatrix.x4.trans lanes: matrix mi = lane / 8, its row lane % 8. X^T's
+  // A tile (k0, ci0): pair k0 + lane % 8 + 8 (mi / 2), channel ci0 +
+  // 8 (mi % 2); d_out's two B tiles (k0, co0): pair k0 + lane % 8 +
+  // 8 (mi % 2), channel co0 + 8 (mi / 2)
+  const int mi = lane >> 3;
+  const int a_off = ((lane & 7) + 8 * (mi >> 1)) * ldx + 8 * (mi & 1);
+  const int b_off = ((lane & 7) + 8 * (mi & 1)) * ldd + 8 * (mi >> 1);
+  // steps j + 1 and j + 2 copy while step j multiplies, and the pairs of
+  // steps j + 3 and j + 4 with them; a commit group g holds step g's rows
+  // and step g + 2's pairs (a step of no pairs copies nothing: its empty
+  // group keeps the waits' count)
+  Step cur = next_step<kB16Rows>(prefix, lo, 0, hi);
+  Step nxt = next_step<kB16Rows>(prefix, cur.q + cur.n, cur.t, hi);
+  Step nx2 = next_step<kB16Rows>(prefix, nxt.q + nxt.n, nxt.t, hi);
+  Step nx3 = next_step<kB16Rows>(prefix, nx2.q + nx2.n, nx2.t, hi);
+  Step nx4 = next_step<kB16Rows>(prefix, nx3.q + nx3.n, nx3.t, hi);
+  for (int i = tid; i < 2 * kB16Rows; i += kThreads) {
+    const Step& st = i < kB16Rows ? cur : nxt;
+    const int r = i % kB16Rows;
+    if (r < st.n) {
+      sidx[i] = pairs[static_cast<long long>(st.t) * rows +
+                      (st.q - prefix[st.t]) + r];
+    }
   }
   __syncthreads();
+  issue(0, cur);
+  fetch_idx(2, nx2);
+  cp_async_commit();
+  issue(1, nxt);
+  fetch_idx(3, nx3);
+  cp_async_commit();
   for (int j = 0; cur.n > 0; ++j) {
-    const Step nxt = next_step(prefix, cur.q + cur.n, cur.t, hi);
-    if (nxt.n > 0) load(nxt);
+    cp_async_wait<kB16Ring - 2>();
+    __syncthreads();      // step j arrived; every warp is done with j - 1
+    issue(j + 2, nx2);    // into j - 1's stage
+    fetch_idx(j + 4, nx4);
+    cp_async_commit();
     const __nv_bfloat16* xs = reinterpret_cast<const __nv_bfloat16*>(
-        smem + (j & 1) * buf_bytes);
-    const __nv_bfloat16* ds = xs + cpad * kB16Ld;
-    for (int ks = grp; ks * 16 < cur.n && tile0 < tile1; ks += groups) {
-      const int k0 = ks * 16 + 2 * tig;
-      int mb = -1;
-      unsigned a[4];
+        smem + (j % kB16Ring) * stage_bytes);
+    const __nv_bfloat16* ds = xs + kB16Rows * ldx;
+    const int nks = (cur.n + 15) >> 4;
+    for (int ks = grp; ks < nks && tile0 < tile1; ks += groups) {
 #pragma unroll
-      for (int u = 0; u < kB16MaxTiles; ++u) {
+      for (int u = 0; u < 2; ++u) {
         const int tile = tile0 + u;
-        if (tile >= tile1) break;
-        if (tile / nb != mb) {
-          mb = tile / nb;
-          const __nv_bfloat16* xa = xs + (mb * 16 + g) * kB16Ld + k0;
-          a[0] = ld_bf16x2(xa);
-          a[1] = ld_bf16x2(xa + 8 * kB16Ld);
-          a[2] = ld_bf16x2(xa + 8);
-          a[3] = ld_bf16x2(xa + 8 * kB16Ld + 8);
-        }
-        const __nv_bfloat16* db = ds + ((tile % nb) * 8 + g) * kB16Ld + k0;
-        const unsigned bw[2] = {ld_bf16x2(db), ld_bf16x2(db + 8)};
-        mma_bf16(acc[u], a, bw);
+        if (u >= per || tile >= tile1) break;
+        unsigned a[4], bq[4];
+        ldmatrix_x4_trans(a, xs + 16 * ks * ldx + a_off + 16 * (tile / nb));
+        ldmatrix_x4_trans(bq, ds + 16 * ks * ldd + b_off + 16 * (tile % nb));
+        mma_bf16(acc[u][0], a, bq);
+        mma_bf16(acc[u][1], a, bq + 2);
       }
     }
     if (nxt.n == 0 || nxt.t != cur.t) {
@@ -552,75 +670,107 @@ products_bf16_kernel(const float* __restrict__ feats, int cin,
       float* dst = partial + static_cast<long long>(blk + cur.t) * cin * cout;
       if (groups == 1) {
 #pragma unroll
-        for (int u = 0; u < kB16MaxTiles; ++u) {
+        for (int u = 0; u < 2; ++u) {
           const int tile = tile0 + u;
-          if (tile < tile1) {
-            const int ci = (tile / nb) * 16 + g;
-            const int co = (tile % nb) * 8 + 2 * tig;
+          if (u < per && tile < tile1) {
 #pragma unroll
-            for (int h = 0; h < 4; ++h) {
-              const int c = ci + (h >> 1) * 8;
-              const int o = co + (h & 1);
-              if (c < cin && o < cout) dst[c * cout + o] = acc[u][h];
+            for (int h = 0; h < 2; ++h) {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int c = (tile / nb) * 16 + g + (e >> 1) * 8;
+                const int o = (tile % nb) * 16 + h * 8 + 2 * tig + (e & 1);
+                if (c < cin && o < cout) dst[c * cout + o] = acc[u][h][e];
+                acc[u][h][e] = 0.0f;
+              }
             }
           }
-          acc[u][0] = acc[u][1] = acc[u][2] = acc[u][3] = 0.0f;
         }
       } else {
         if (tile0 < tile1) {
-          const int ci = (tile0 / nb) * 16 + g;
-          const int co = (tile0 % nb) * 8 + 2 * tig;
 #pragma unroll
-          for (int h = 0; h < 4; ++h) {
-            const int c = ci + (h >> 1) * 8;
-            const int o = co + (h & 1);
-            red[(grp * cpad + c) * opad + o] = acc[0][h];
+          for (int h = 0; h < 2; ++h) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int c = (tile0 / nb) * 16 + g + (e >> 1) * 8;
+              const int o = (tile0 % nb) * 16 + h * 8 + 2 * tig + (e & 1);
+              red[(grp * cpad + c) * opad + o] = acc[0][h][e];
+              acc[0][h][e] = 0.0f;
+            }
           }
-          acc[0][0] = acc[0][1] = acc[0][2] = acc[0][3] = 0.0f;
         }
         __syncthreads();
         for (int e = tid; e < cin * cout; e += kThreads) {
           const int c = e / cout;
           const int o = e - c * cout;
           float sum = red[c * opad + o];
-          for (int q = 1; q < groups; ++q) sum += red[(q * cpad + c) * opad + o];
+          for (int q = 1; q < groups; ++q) {
+            sum += red[(q * cpad + c) * opad + o];
+          }
           dst[e] = sum;
         }
       }
     }
-    if (nxt.n > 0) store(j + 1);
-    __syncthreads();
     cur = nxt;
+    nxt = nx2;
+    nx2 = nx3;
+    nx3 = nx4;
+    nx4 = next_step<kB16Rows>(prefix, nx4.q + nx4.n, nx4.t, hi);
   }
 }
 
+// operands: null for K10; for K10-bf16 the bfloat16 copies of feats and
+// d_out (16-byte aligned), made by count_bf16_kernel
 template <typename IdxT>
 int launch(const float* feats, int m_in, int cin, const IdxT* plan,
            int batch, int m_out, const float* d_out, int cout, int blocks,
            int* counts, int2* pairs, int* totals, float* partial, float* dw,
-           bool bf16, cudaStream_t s) {
+           void* operands, cudaStream_t s) {
+  const bool bf16 = operands != nullptr;
+  __nv_bfloat16* x16 = static_cast<__nv_bfloat16*>(operands);
+  const long long nx = static_cast<long long>(batch) * m_in * cin;
+  __nv_bfloat16* d16 = x16 + (nx + 7) / 8 * 8;
   const int m_chunks = (m_out + kScan - 1) / kScan;
   const dim3 scan_grid(batch * m_chunks, kTaps);
-  count_kernel<IdxT><<<scan_grid, kScan, 0, s>>>(plan, m_out, m_chunks,
-                                                 counts);
+  if (bf16) {
+    count_bf16_kernel<IdxT><<<scan_grid, kScan, 0, s>>>(
+        plan, m_out, m_chunks, counts, reinterpret_cast<const float4*>(feats),
+        nx / 4, reinterpret_cast<const float4*>(d_out),
+        static_cast<long long>(batch) * m_out * cout / 4,
+        reinterpret_cast<__nv_bfloat162*>(x16),
+        reinterpret_cast<__nv_bfloat162*>(d16));
+  } else {
+    count_kernel<IdxT><<<scan_grid, kScan, 0, s>>>(plan, m_out, m_chunks,
+                                                   counts);
+  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   compact_kernel<IdxT><<<scan_grid, kScan, 0, s>>>(
       plan, m_in, m_out, m_chunks, batch * m_out, counts, pairs, totals);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
+  int dev = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
   if (bf16) {
-    const int buf = buffer_bytes_bf16(cin, cout);
+    static bool done[64] = {};
+    if (!done[dev]) {
+      err = cudaFuncSetAttribute(
+          products_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          kB16Ring * stage_bytes_bf16(kMaxC, kMaxC) + kB16RedFloats * 4 +
+              kB16IdxSlots * kB16Rows * 8);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      done[dev] = true;
+    }
+    const int stage = stage_bytes_bf16(cin, cout);
     products_bf16_kernel<<<blocks, kThreads,
-                           2 * buf + kB16RedFloats * 4, s>>>(
-        feats, cin, d_out, cout, pairs, batch * m_out, totals, buf, partial);
+                           kB16Ring * stage + kB16RedFloats * 4 +
+                               kB16IdxSlots * kB16Rows * 8,
+                           s>>>(
+        x16, cin, d16, cout, pairs, batch * m_out, totals, stage, partial);
   } else {
     const int buf = buffer_floats(cin, cout);
     static bool done[64] = {};
-    int dev = 0;
-    err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
     if (!done[dev]) {
       err = cudaFuncSetAttribute(products_kernel,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -643,7 +793,7 @@ int launch(const float* feats, int m_in, int cin, const IdxT* plan,
 int dw_entry(const float* feats, int m_in, int cin, const void* plan,
              int plan_is_i16, int batch, int m_out, const float* d_out,
              int cout, int blocks, int* counts, int* totals, void* pairs,
-             float* partial, float* dw, bool bf16, void* stream) {
+             float* partial, float* dw, void* operands, void* stream) {
   if (cin <= 0 || cin > kMaxC || cin % 4 || cout <= 0 || cout > kMaxC ||
       cout % 4 || blocks <= 0 || blocks > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -657,10 +807,10 @@ int dw_entry(const float* feats, int m_in, int cin, const void* plan,
   if (plan_is_i16) {
     return launch(feats, m_in, cin, static_cast<const short*>(plan), batch,
                   m_out, d_out, cout, blocks, counts, p2, totals, partial, dw,
-                  bf16, s);
+                  operands, s);
   }
   return launch(feats, m_in, cin, static_cast<const int*>(plan), batch, m_out,
-                d_out, cout, blocks, counts, p2, totals, partial, dw, bf16,
+                d_out, cout, blocks, counts, p2, totals, partial, dw, operands,
                 s);
 }
 
@@ -679,12 +829,14 @@ extern "C" int sassd_sparse_conv_dw(const float* feats, int m_in, int cin,
                                     int* totals, void* pairs, float* partial,
                                     float* dw, void* stream) {
   return dw_entry(feats, m_in, cin, plan, plan_is_i16, batch, m_out, d_out,
-                  cout, blocks, counts, totals, pairs, partial, dw, false,
+                  cout, blocks, counts, totals, pairs, partial, dw, nullptr,
                   stream);
 }
 
-// K10-bf16: sassd_sparse_conv_dw's arguments and scratch, with X and d_out
-// rounded to bfloat16 and the products on the tensor cores (float32 sums).
+// K10-bf16: sassd_sparse_conv_dw's arguments and scratch, and operands:
+// scratch for X and d_out rounded to bfloat16 (16-byte aligned; batch *
+// m_in * cin bfloat16 rounded up to 16 bytes, then batch * m_out * cout),
+// the products on the tensor cores (float32 sums).
 extern "C" int sassd_sparse_conv_dw_bf16(const float* feats, int m_in,
                                          int cin, const void* plan,
                                          int plan_is_i16, int batch,
@@ -692,8 +844,9 @@ extern "C" int sassd_sparse_conv_dw_bf16(const float* feats, int m_in,
                                          int cout, int blocks, int* counts,
                                          int* totals, void* pairs,
                                          float* partial, float* dw,
-                                         void* stream) {
+                                         void* operands, void* stream) {
+  if (operands == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return dw_entry(feats, m_in, cin, plan, plan_is_i16, batch, m_out, d_out,
-                  cout, blocks, counts, totals, pairs, partial, dw, true,
+                  cout, blocks, counts, totals, pairs, partial, dw, operands,
                   stream);
 }

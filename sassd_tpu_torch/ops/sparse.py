@@ -21,10 +21,11 @@ which a wrapper takes only for CPU tensors:
   also computes the input gradients of the trained convs;
 - K10 ``conv_weight_grad``: their weight gradients (``sparse_conv_bwd.cu``);
 - K4-bf16 and K10-bf16: the same two in ``compute_dtype=torch.bfloat16``
-  (model.compute_dtype="bfloat16"): the gathered rows and the weights (or
-  the output gradients) rounded to bfloat16, the products on the tensor
-  cores (mma.sync) summed in float32, as the JAX package's
-  ``jnp.dot(..., preferred_element_type=float32)`` of bfloat16 operands;
+  (model.compute_dtype="bfloat16"): the features and the weights (or the
+  output gradients) rounded to bfloat16 once a call, before the gather, as
+  the JAX package's astype after it (the same bits), the products on the
+  tensor cores (mma.sync) summed in float32, as its ``jnp.dot(...,
+  preferred_element_type=float32)`` of bfloat16 operands;
 - K5 ``densify_nchw``: the last level into the dense tail's NCHW canvas,
   and K5b its backward (``densify.cu``);
 - K6 ``build_index_map`` + ``window_plan``: the device rulebook's dense
@@ -68,9 +69,12 @@ _K10 = cuda.Kernel("sassd_sparse_conv_dw",
                    [cuda.P, cuda.I, cuda.I, cuda.P, cuda.I, cuda.I, cuda.I,
                     cuda.P, cuda.I, cuda.I, cuda.P, cuda.P, cuda.P, cuda.P,
                     cuda.P])
-# their bfloat16 entry points take the same arguments
-_K4B = cuda.Kernel("sassd_sparse_conv_bf16", _K4.argtypes)
-_K10B = cuda.Kernel("sassd_sparse_conv_dw_bf16", _K10.argtypes)
+# their bfloat16 entry points: K4-bf16 reads W through its strides and
+# takes scratch for the rounded operands, K10-bf16 takes that scratch too
+_K4B = cuda.Kernel("sassd_sparse_conv_bf16",
+                   _K4.argtypes[:7] + [cuda.P] + [cuda.I] * 6
+                   + [cuda.P, cuda.P])
+_K10B = cuda.Kernel("sassd_sparse_conv_dw_bf16", _K10.argtypes + [cuda.P])
 # K10's blocks: each multiplies an equal share of all taps' found rows and
 # writes a [Cin, Cout] partial per tap it touches, which a last pass sums
 # in block order (two blocks an SM of the H100's 132)
@@ -162,12 +166,13 @@ def rounded(t: torch.Tensor, compute_dtype) -> torch.Tensor:
     return t.to(compute_dtype).to(t.dtype)
 
 
-def _by_dtype(compute_dtype, f32_kernel, bf16_kernel):
-    """The kernel of a compute dtype (float32 or bfloat16)."""
+def _is_bf16(compute_dtype) -> bool:
+    """Whether a sparse conv kernel computes in bfloat16 (K4-bf16,
+    K10-bf16) rather than float32 (K4, K10); any other dtype raises."""
     if compute_dtype == torch.float32:
-        return f32_kernel
+        return False
     if compute_dtype == torch.bfloat16:
-        return bf16_kernel
+        return True
     raise TypeError(f"no sparse conv kernel computes in {compute_dtype}")
 
 
@@ -199,28 +204,68 @@ def subm_conv_batched_plain(feats: torch.Tensor, weight: torch.Tensor,
     return out.reshape(b, m_out, -1)
 
 
+def bf16_panel(weight: torch.Tensor, n_cols: Optional[int] = None,
+               taps_reversed: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of K4-bf16's weight operand, which its first
+    phase writes once a call: a conv's [27, K, N] weight (any view) rounded
+    to bfloat16 (JAX's ``weight.reshape(27 * K, N).astype(bfloat16)``,
+    rearranged) as a [27, n_cols, Kp] panel (n_cols >= N, default N; Kp =
+    K rounded up to 16; zeros past K and N), each 16 input channels in the
+    order of an mma B fragment (0 1 8 9 2 3 10 11 4 5 12 13 6 7 14 15), so a
+    lane's two B registers of a k step are one 8-byte load; its tap t is
+    the weight's 26 - t where `taps_reversed`."""
+    taps, k, n = weight.shape
+    kp = -(-k // 16) * 16
+    n_cols = n if n_cols is None else n_cols
+    if taps_reversed:
+        weight = weight.flip(0)
+    weight = torch.nn.functional.pad(weight, (0, n_cols - n, 0, kp - k))
+    # channel 16 s + 8 h + 2 q + p -> position 16 s + 4 q + 2 h + p
+    return (weight.reshape(taps, kp // 16, 2, 4, 2, n_cols)
+            .permute(0, 5, 1, 3, 2, 4)
+            .to(torch.bfloat16, memory_format=torch.contiguous_format)
+            .reshape(taps, n_cols, kp))
+
+
 def subm_conv_batched(feats: torch.Tensor, weight: torch.Tensor,
                       plan: torch.Tensor,
                       compute_dtype=torch.float32) -> torch.Tensor:
     """Sparse conv over a batch as one flat gather-GEMM (K4 on the card;
     K4-bf16 with compute_dtype=torch.bfloat16).
 
-    feats: [B, M_in, Cin] float32; weight: [27, Cin, Cout]; plan: the
-    wire-format [B, 27, M_out] int16/int32 plan (-1 = missing) with rows
-    into each sample's M_in input rows (a subm plan, or a stride plan into
-    the previous level). Returns [B, M_out, Cout] float32.
+    feats: [B, M_in, Cin] float32; weight: [27, Cin, Cout] float32
+    (contiguous for K4; any view for K4-bf16, which reads it through its
+    strides); plan: the wire-format [B, 27, M_out] int16/int32 plan (-1 =
+    missing) with rows into each sample's M_in input rows (a subm plan, or
+    a stride plan into the previous level). Returns [B, M_out, Cout]
+    float32.
     """
     if feats.device.type == "cpu":
         return subm_conv_batched_plain(feats, weight, plan, compute_dtype)
-    kernel = _by_dtype(compute_dtype, _K4, _K4B)
+    if _is_bf16(compute_dtype):
+        return _k4_bf16(feats, weight, plan, False, weight.shape[2])
+    _k4_checks(feats, weight, plan, weight.shape[2])
+    b, m_in, cin = feats.shape
+    m_out, cout = plan.shape[2], weight.shape[2]
+    out = torch.empty((b, m_out, cout), dtype=torch.float32,
+                      device=feats.device)
+    _K4.launch_on(feats, feats.data_ptr(), m_in, cin, plan.data_ptr(),
+                  int(plan.dtype == torch.int16), b, m_out, weight.data_ptr(),
+                  cout, out.data_ptr())
+    return out
+
+
+def _k4_checks(feats: torch.Tensor, weight: torch.Tensor, plan: torch.Tensor,
+              cout: int, dense_weight: bool = True) -> None:
+    """Raise unless K4 / K4-bf16 take these inputs for `cout` output
+    columns (the weight contiguous unless not `dense_weight`)."""
     cuda.check_cuda("feats", feats, torch.float32, 3)
-    cuda.check_cuda("weight", weight, torch.float32, 3)
+    cuda.check_cuda("weight", weight, torch.float32, 3,
+                    contiguous=dense_weight)
     if plan.dtype not in (torch.int16, torch.int32):
         raise TypeError(f"plan must be int16 or int32, got {plan.dtype}")
     cuda.check_cuda("plan", plan, plan.dtype, 3)
     b, m_in, cin = feats.shape
-    m_out = plan.shape[2]
-    cout = weight.shape[2]
     if plan.shape[:2] != (b, 27) or weight.shape[:2] != (27, cin):
         raise ValueError(f"plan {tuple(plan.shape)} / weight "
                          f"{tuple(weight.shape)} do not fit feats "
@@ -228,15 +273,31 @@ def subm_conv_batched(feats: torch.Tensor, weight: torch.Tensor,
     if cin % 4 or cin > 64 or cout not in (16, 32, 64):
         raise ValueError(f"K4 takes Cin a multiple of 4 up to 64 and Cout "
                          f"16, 32 or 64, got {cin} -> {cout}")
-    if feats.data_ptr() % 16 or weight.data_ptr() % 16:
+    if feats.data_ptr() % 16 or (dense_weight and weight.data_ptr() % 16):
         raise ValueError("feats and weight must be 16-byte aligned "
-                         "(16-byte cp.async copies)")
-    with torch.cuda.device(feats.device):
-        out = torch.empty((b, m_out, cout), dtype=torch.float32,
-                          device=feats.device)
-        kernel.launch(feats.data_ptr(), m_in, cin, plan.data_ptr(),
-                      int(plan.dtype == torch.int16), b, m_out,
-                      weight.data_ptr(), cout, out.data_ptr())
+                         "(16-byte copies)")
+
+
+def _k4_bf16(feats: torch.Tensor, weight: torch.Tensor, plan: torch.Tensor,
+             taps_reversed: bool, cout: int) -> torch.Tensor:
+    """K4-bf16 on the card: [B, M_in, Cin] features, a [27, Cin, N] weight
+    view (its tap t read from 26 - t where `taps_reversed`) and the wire
+    plan -> [B, M_out, cout] float32, columns past N zero (cout >= N). One
+    launch: it rounds the features and the weight once (the bfloat16 copy
+    and bf16_panel's panel, into scratch), then runs the conv."""
+    _k4_checks(feats, weight, plan, cout, dense_weight=False)
+    b, m_in, cin = feats.shape
+    m_out = plan.shape[2]
+    rows16 = -(-b * m_in * cin // 8) * 8
+    work = torch.empty(2 * (rows16 + 27 * cout * (-(-cin // 16) * 16)),
+                       dtype=torch.uint8, device=feats.device)
+    out = torch.empty((b, m_out, cout), dtype=torch.float32,
+                      device=feats.device)
+    st, sk, sn = weight.stride()
+    _K4B.launch_on(feats, feats.data_ptr(), m_in, cin, plan.data_ptr(),
+                   int(plan.dtype == torch.int16), b, m_out,
+                   weight.data_ptr(), st, sk, sn, int(taps_reversed),
+                   weight.shape[2], cout, work.data_ptr(), out.data_ptr())
     return out
 
 
@@ -263,7 +324,7 @@ def conv_weight_grad(feats: torch.Tensor, plan: torch.Tensor,
     """
     if feats.device.type == "cpu":
         return conv_weight_grad_plain(feats, plan, d_out, compute_dtype)
-    kernel = _by_dtype(compute_dtype, _K10, _K10B)
+    bf16 = _is_bf16(compute_dtype)
     cuda.check_cuda("feats", feats, torch.float32, 3)
     cuda.check_cuda("d_out", d_out, torch.float32, 3)
     if plan.dtype not in (torch.int16, torch.int32):
@@ -282,21 +343,25 @@ def conv_weight_grad(feats: torch.Tensor, plan: torch.Tensor,
         raise ValueError("feats and d_out must be 16-byte aligned")
     rows = b * m_out
     n_counts = 27 * b * -(-m_out // 1024)
-    # one scratch buffer: counts, totals, the (input, output) row pairs
-    # and the partials, each at a 16-byte offset
+    # one scratch buffer: counts, totals, the (input, output) row pairs,
+    # the partials and (K10-bf16) the bfloat16 copies of feats and d_out,
+    # each at a 16-byte offset
+    sizes = [4 * n_counts, 4 * 27, 8 * 27 * rows,
+             4 * (K10_BLOCKS + 27) * cin * cout]
+    if bf16:
+        sizes.append(2 * (-(-b * m_in * cin // 8) * 8 + rows * cout))
     offs = [0]
-    for n in (4 * n_counts, 4 * 27, 8 * 27 * rows):
+    for n in sizes:
         offs.append(offs[-1] + -(-n // 16) * 16)
-    size = offs[-1] + 4 * (K10_BLOCKS + 27) * cin * cout
-    with torch.cuda.device(feats.device):
-        work = torch.empty(size, dtype=torch.uint8, device=feats.device)
-        dw = torch.empty((27, cin, cout), dtype=torch.float32,
-                         device=feats.device)
-        base = work.data_ptr()
-        kernel.launch(feats.data_ptr(), m_in, cin, plan.data_ptr(),
-                      int(plan.dtype == torch.int16), b, m_out,
-                      d_out.data_ptr(), cout, K10_BLOCKS,
-                      *(base + o for o in offs), dw.data_ptr())
+    work = torch.empty(offs[-1], dtype=torch.uint8, device=feats.device)
+    dw = torch.empty((27, cin, cout), dtype=torch.float32,
+                     device=feats.device)
+    base = work.data_ptr()
+    ptrs = [base + o for o in offs[:len(sizes)]]
+    (_K10B if bf16 else _K10).launch_on(
+        feats, feats.data_ptr(), m_in, cin, plan.data_ptr(),
+        int(plan.dtype == torch.int16), b, m_out, d_out.data_ptr(), cout,
+        K10_BLOCKS, *ptrs[:4], dw.data_ptr(), *ptrs[4:])
     return dw
 
 
@@ -309,14 +374,26 @@ def _subm_input_grad(d_out: torch.Tensor, weight: torch.Tensor,
     features under the PointNet VFE, whose parameters need this
     gradient) gets zero weight columns up to 16, and its first Cin
     output channels are kept."""
+    cin = weight.shape[1]
+    if d_out.device.type != "cpu" and _is_bf16(compute_dtype):
+        # K4-bf16 reads the transposed view with its taps reversed
+        d_feats = _k4_bf16(d_out, weight.transpose(1, 2), plan, True,
+                           max(cin, 16))
+    else:
+        d_feats = subm_conv_batched(d_out, input_grad_weight(weight)
+                                    .contiguous(), plan, compute_dtype)
+    return d_feats[..., :cin] if cin < 16 else d_feats
+
+
+def input_grad_weight(weight: torch.Tensor) -> torch.Tensor:
+    """The [27, Cout, max(Cin, 16)] weight of a submanifold conv's input
+    gradient (see _subm_input_grad): the taps reversed, each tap's [Cin,
+    Cout] transposed, zero columns past a Cin under 16."""
     w_rev = weight.flip(0).transpose(1, 2)
     cin = w_rev.shape[2]
-    pad = 16 - cin if cin < 16 else 0
-    if pad:
-        w_rev = torch.nn.functional.pad(w_rev, (0, pad))
-    d_feats = subm_conv_batched(d_out, w_rev.contiguous(), plan,
-                                compute_dtype)
-    return d_feats[..., :cin] if pad else d_feats
+    if cin < 16:
+        w_rev = torch.nn.functional.pad(w_rev, (0, 16 - cin))
+    return w_rev
 
 
 class _SubmConvFn(torch.autograd.Function):
@@ -361,8 +438,10 @@ class _StrideConvTFn(torch.autograd.Function):
         d_out = d_out.contiguous()
         d_feats = d_w = None
         if ctx.needs_input_grad[0]:
+            w_t = weight.transpose(1, 2)
             d_feats = subm_conv_batched(
-                d_out, weight.transpose(1, 2).contiguous(), plan_t, cd)
+                d_out, w_t.contiguous() if cd == torch.float32 else w_t,
+                plan_t, cd)
         if ctx.needs_input_grad[1]:
             d_w = conv_weight_grad(feats, plan, d_out, cd)
         return d_feats, d_w, None, None, None

@@ -16,10 +16,12 @@ K4's input gradients 1e-5 (float32 sums over thousands of rows in another
 order; K10 also bitwise equal over two calls), K4-bf16 and K10-bf16
 1e-5 of each output's sum of |products| against their plain versions in
 float64 (bfloat16 operands: exact products, float32 sums in another
-order; both bitwise equal over two calls), K11's forward, K12 and K5b exact (the same float32 operations,
-copies), K11's backward 1e-5 (atomicAdd order), K3b 1e-5 (each d_map cell
-summed in box order, where autograd sums each tap apart; bitwise equal over
-two calls). The train-only rulebook
+order; both bitwise equal over two calls, K4-bf16 also on the edge
+cases of its compaction into 16-row groups), K11's forward, K12 and K5b
+exact (the same float32 operations, copies), K11's backward 1e-5
+(atomicAdd order), K3b 1e-5 (each d_map cell summed in box order,
+where autograd sums each tap apart; bitwise equal over two calls). The
+train-only rulebook
 plans (K13, K14) are integers and exact; K15's selections, weights and
 output are exact (the plain version's float32 operations in its order),
 its backward (K11's) 1e-5. The banded stage's kernels: K16 (band
@@ -353,6 +355,95 @@ def test_k4_bf16_matches_plain(dev, kind, level_in, cin, cout, dtype, case):
         assert not got[1].any()
     if case == "empty_tile":
         assert not got[:, 64:128].any()
+
+
+def compaction_plan(plan, case, m_in, rng):
+    """A wire plan [B, 27, M] made into one of the edge cases of K4-bf16's
+    compaction into 16-row groups of one tap: tap 5 found in one row only
+    (a group of one row), every tap found in every row (full groups of
+    every tap in every tile), or M cut by 27 rows (a ragged last tile)."""
+    p = plan.clone()
+    if case == "tap_in_one_row":
+        p[:, 5] = -1
+        p[0, 5, 70] = 3
+    elif case == "every_tap_every_row":
+        p = torch.from_numpy(rng.integers(0, m_in, size=p.shape)).to(p.dtype)
+    elif case == "ragged_m_out":
+        p = p[..., :p.shape[2] - 64 + 37].contiguous()
+    return p
+
+
+@pytest.mark.parametrize("kind,level_in,cin,cout,dtype,case", [
+    ("subm0", 0, 4, 16, torch.int16, "tap_in_one_row"),
+    ("subm1", 1, 32, 32, torch.int32, "tap_in_one_row"),
+    ("subm0", 0, 4, 16, torch.int32, "every_tap_every_row"),
+    ("subm0", 0, 16, 16, torch.int16, "every_tap_every_row"),
+    ("stride2", 1, 32, 64, torch.int32, "every_tap_every_row"),
+    ("subm2", 2, 64, 64, torch.int16, "every_tap_every_row"),
+    ("subm0", 0, 4, 16, torch.int16, "ragged_m_out"),
+    ("stride3", 2, 64, 64, torch.int32, "ragged_m_out"),
+    ("subm1", 1, 32, 32, torch.int16, "empty_tile"),
+    ("strideT2", 2, 64, 32, torch.int32, "ragged_m_out")])
+def test_k4_bf16_compaction_edge_cases(dev, kind, level_in, cin, cout, dtype,
+                                       case):
+    """K4-bf16 on the edge cases of its compaction, int16 and int32 plans,
+    Cin 4 (the mean VFE's input) among them: within 1e-5 of each output's
+    sum of |products| of its plain version in float64, bitwise equal over
+    two calls, one launch a call and none of K4; an empty tile writes
+    zeros."""
+    from sassd_tpu_torch.ops import sparse as sp
+    cfg, batch, _ = tiny_rulebook(3)
+    caps = (cfg.voxel.max_voxels,) + tuple(cfg.caps.level_caps[1:])
+    rng = np.random.default_rng(cin * cout + 5)
+    plan = torch.from_numpy(batch[f"plan_{kind}"]).to(dtype)
+    plan = (edge_plan(plan, case) if case == "empty_tile"
+            else compaction_plan(plan, case, caps[level_in], rng))
+    feats = torch.from_numpy(
+        rng.normal(size=(2, caps[level_in], cin)).astype(np.float32))
+    w = torch.from_numpy((rng.normal(size=(27, cin, cout))
+                          / np.sqrt(27 * cin)).astype(np.float32))
+    args = (feats.to(dev), w.to(dev), plan.to(dev))
+    before, before32 = sp._K4B.launches, sp._K4.launches
+    got = sp.subm_conv_batched(*args, torch.bfloat16)
+    again = sp.subm_conv_batched(*args, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert sp._K4B.launches == before + 2 and sp._K4.launches == before32
+    assert got.shape == (2, plan.shape[2], cout)
+    assert same_bits(got, again)
+    ref = bf16_gate(got, sp.subm_conv_batched_plain, feats, w, plan)
+    assert ref.abs().max() > 0.1
+    if case == "empty_tile":
+        assert not got[:, 64:128].any()
+    if case == "tap_in_one_row":
+        assert (plan[:, 5] >= 0).sum() == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.int16, torch.int32])
+def test_k4_bf16_pointnet_input_grad(dev, dtype):
+    """The PointNet VFE's 4-wide input gradient through K4-bf16 (the
+    reversed, transposed weight zero-padded to 16 columns) against its
+    plain version: 1e-5 of each element's sum of |products|, bitwise equal
+    over two calls, one launch a call."""
+    from sassd_tpu_torch.ops import sparse as sp
+    cfg, batch, _ = tiny_rulebook(4)
+    plan = torch.from_numpy(batch["plan_subm0"]).to(dtype)
+    rng = np.random.default_rng(7)
+    w = torch.from_numpy((rng.normal(size=(27, 4, 16)) / np.sqrt(108))
+                         .astype(np.float32))
+    cot = torch.from_numpy(rng.normal(
+        size=(2, plan.shape[2], 16)).astype(np.float32))
+    before = sp._K4B.launches
+    got = sp._subm_input_grad(cot.to(dev), w.to(dev), plan.to(dev),
+                              torch.bfloat16)
+    again = sp._subm_input_grad(cot.to(dev), w.to(dev), plan.to(dev),
+                                torch.bfloat16)
+    torch.cuda.synchronize()
+    assert sp._K4B.launches == before + 2
+    assert got.shape == (2, plan.shape[2], 4) and same_bits(got, again)
+    w_dx = sp.input_grad_weight(w).contiguous()
+    ref = bf16_gate(got, lambda c, ww, p, cd: sp.subm_conv_batched_plain(
+        c, ww, p, cd)[..., :4], cot, w_dx, plan)
+    assert ref.abs().max() > 0.1
 
 
 @pytest.mark.parametrize("kind,level_in,cin,cout,dtype,case", [
