@@ -224,6 +224,31 @@ Phases, each of which fails the run (nonzero exit, no result line):
    ``--bf16-only`` runs phase 13 alone (after phase 7 and phase 9's
    inputs, which it needs); ``--kernels-only`` includes 13a.
 
+14. persistent-plan serving (test.serve_persistent_plans) and the two RPN
+   similarities (train.rpn_similarity "RotateIou2dSimilarity" and
+   "DistanceSimilarity"). 14a: K17 (the index-map delta update) carries
+   one map a level through phase 6's 4 car scans in sequence at the three
+   plan-building levels' full shapes, and through the edge cases (the
+   first scan with no previous keys, the last scan twice, an empty scan,
+   a scan at the level's cap, the first scan again): after every update
+   the map must equal its plain version's and K6's fresh map bit for bit.
+   K17 is timed at each level (events, replay, torch.profiler's kernel
+   time, host clock) beside K6's map entry point (memset + scatter) and two
+   index_put_ calls. 14b: run_inference at batch 1 with the flag over
+   phase 6's split, launch counters reset just before and read just
+   after: K17 3 launches a scan, K6's map 0, K6's plans 6; the plans bit
+   for bit those of the per-scan run, the annotations bitwise or the same
+   sets; both serving steps timed in turns on the host clock
+   (synchronised, upload inside) and the rulebook stage by the profiler.
+   14c: one car forward_train + backward at batch 2 (phase 7's batch)
+   with RotateIou2dSimilarity on the card, the CPU and the CPU in float64
+   at phase 7's gates, with equal RPN positive and negative counts and K1
+   launched once in each similarity call (a sample and class slice); a
+   DistanceSimilarity forward_train on the card and the CPU (equal
+   assignment counts, finite losses); K1 at the targets shape (70,400
+   anchors x 64 GT slots, criterion -1) against its plain version and
+   timed. The kernel rows gain K17's and that K1 row.
+
 Phase 3 holds K1 (rotated overlap) in all four criteria within K1_ATOL
 of its plain version and at exactly +0.0 on every pair that its
 separation cull rejects, on the 2008-box set and on phase 6's NMS input
@@ -322,6 +347,12 @@ builds the kernels and runs phase 11 alone, with no result line.
 
 builds the kernels and runs phase 12 alone (its references made as
 phase 9 makes them), with no result line.
+
+    python3 chip_smoke.py --phase14-only
+
+builds the kernels and runs phase 14 alone (14c on a train split written
+as phase 7 writes it), printing its kernel rows under the key
+phase14_only, with no result line.
 
     python3 chip_smoke.py --gloo-probe
 
@@ -2410,6 +2441,46 @@ def run_serving(torch, np, device, cfg, model_dev, model_cpu, root: str):
     return launches, ms1, ms2, host_ms, per_step
 
 
+def step_gates(torch, res: dict, what: str) -> None:
+    """Phase 7's gates on one train step run three ways, res[name] =
+    (losses, seconds, gradients by parameter name) for "card", "cpu" and
+    "cpu64": every loss card vs CPU within TRAIN_LOSS_RTOL, equal guided
+    counts, and the card's gradients against the float64 step's (the
+    global norm within TRAIN_GNORM_RTOL, each module within
+    TRAIN_GRAD_L2 relative L2)."""
+    (l64, s64, g64), (cl, cs, cgr), (gl, _, ggr) = (
+        res[k][:3] for k in ("cpu64", "cpu", "card"))
+    for k, v in cl.items():
+        print(f"{what}, card vs CPU: {k} {gl[k]:.7g} vs {v:.7g} "
+              f"(float64 {l64[k]:.7g})")
+
+    def gnorm(g, keys):
+        return sum(float(torch.sum(g[k] ** 2)) for k in keys) ** 0.5
+
+    def gerr(g, keys):
+        return (sum(float(torch.sum((g[k] - g64[k]) ** 2)) for k in keys)
+                ** 0.5 / max(gnorm(g64, keys), 1e-300))
+    keys = list(g64)
+    norm_err = abs(gnorm(ggr, keys) - gnorm(g64, keys)) / gnorm(g64, keys)
+    print(f"{what}: grad norm card {gnorm(ggr, keys):.7g}, CPU "
+          f"{gnorm(cgr, keys):.7g}, float64 CPU {gnorm(g64, keys):.7g} "
+          f"(CPU steps {cs:.1f} s, {s64:.1f} s in float64)")
+    mod_err = {}
+    for mod in ("vxnet", "bevnet", "head", "pswarp", "aux"):
+        mk = [k for k in keys if k.startswith(mod + ".")]
+        mod_err[mod] = gerr(ggr, mk)
+        print(f"{what}: {mod} gradients, rel L2 error against float64: "
+              f"card {mod_err[mod]:.3g}, CPU {gerr(cgr, mk):.3g}")
+    for k in ("guided_valid", "guided_pos"):
+        if gl[k] != cl[k]:
+            fail(f"{what}: {k} {gl[k]} on the card vs {cl[k]} on the CPU")
+    bad = [k for k, v in cl.items() if "loss" in k
+           and not abs(gl[k] - v) <= TRAIN_LOSS_RTOL * abs(v)]
+    if (bad or norm_err > TRAIN_GNORM_RTOL
+            or max(mod_err.values()) > TRAIN_GRAD_L2):
+        fail(f"{what}: card and CPU disagree on {bad or 'the gradients'}")
+
+
 def run_training(torch, np, device, cfg, root: str):
     """Phase 7: car-config training on a synthetic KITTI train split.
     Returns (launches of the run, launches of one step, ms/step list,
@@ -2483,37 +2554,9 @@ def run_training(torch, np, device, cfg, root: str):
                      time.perf_counter() - t,
                      {k: p.grad.detach().cpu().double()
                       for k, p in model.named_parameters()})
-    (l64, s64, g64), (cl, cs, cgr), (gl, _, ggr) = (
-        res["cpu64"], res["cpu"], res["card"])
-    for k, v in cl.items():
-        print(f"training, card vs CPU: {k} {gl[k]:.7g} vs {v:.7g} "
-              f"(float64 {l64[k]:.7g})")
-
-    def gnorm(g, keys):
-        return sum(float(torch.sum(g[k] ** 2)) for k in keys) ** 0.5
-
-    def gerr(g, keys):
-        return (sum(float(torch.sum((g[k] - g64[k]) ** 2)) for k in keys)
-                ** 0.5 / max(gnorm(g64, keys), 1e-300))
-    keys = list(g64)
-    norm_err = abs(gnorm(ggr, keys) - gnorm(g64, keys)) / gnorm(g64, keys)
-    print(f"training: grad norm card {gnorm(ggr, keys):.7g}, CPU "
-          f"{gnorm(cgr, keys):.7g}, float64 CPU {gnorm(g64, keys):.7g} "
-          f"(CPU steps {cs:.1f} s, {s64:.1f} s in float64)")
-    mod_err = {}
-    for mod in ("vxnet", "bevnet", "head", "pswarp", "aux"):
-        mk = [k for k in keys if k.startswith(mod + ".")]
-        mod_err[mod] = gerr(ggr, mk)
-        print(f"training: {mod} gradients, rel L2 error against float64: "
-              f"card {mod_err[mod]:.3g}, CPU {gerr(cgr, mk):.3g}")
-    for k in ("guided_valid", "guided_pos"):
-        if gl[k] != cl[k]:
-            fail(f"training: {k} {gl[k]} on the card vs {cl[k]} on the CPU")
-    bad = [k for k, v in cl.items() if "loss" in k
-           and not abs(gl[k] - v) <= TRAIN_LOSS_RTOL * abs(v)]
-    if (bad or norm_err > TRAIN_GNORM_RTOL
-            or max(mod_err.values()) > TRAIN_GRAD_L2):
-        fail(f"training: card and CPU disagree on {bad or 'the gradients'}")
+    step_gates(torch, res, "training")
+    g64, ggr = res["cpu64"][2], res["card"][2]
+    gl = res["card"][0]
     part_map, boxes3, valid, args, d_score = k3_in[0]
     k3b_check(torch, "phase 7's first train step", part_map, boxes3, valid,
               d_score.contiguous(), args)
@@ -4037,6 +4080,458 @@ def run_bf16(torch, np, device, cfg, root: str, samples, train_ref: dict,
                                     dist64=dist64, wall_s=wall)
 
 
+# ------------------------------------------------------------ phase 14
+
+def level_keys(cfg, coords):
+    """The keys of the three plan-building levels of [1, cap0, 3] coords,
+    on their device (K7 between levels), as the persistent rulebook makes
+    them."""
+    from sassd_tpu_torch.models.backbone import level_shapes
+    from sassd_tpu_torch.ops import sparse as sp
+    shapes = level_shapes(cfg.sparse_shape)
+    keys = [sp.coords_to_keys(coords, shapes[0])]
+    for lvl in (1, 2):
+        keys.append(sp.downsample_keys(keys[-1], shapes[lvl - 1],
+                                       cfg.caps.level_caps[lvl]))
+    return keys
+
+
+def k17_bound(torch, prev, keys) -> dict:
+    """K17's bound: both key arrays read once and one 32-byte sector
+    written for each valid key cleared or set."""
+    from sassd_tpu_torch.ops import sparse as sp
+    n = int((prev != sp.INVALID_KEY).sum()) + int((keys != sp.INVALID_KEY)
+                                                  .sum())
+    return bound(4 * (prev.numel() + keys.numel()) + 32 * n, 0)
+
+
+def check_k17(torch, np, device, cfg, root: str) -> dict:
+    """Phase 14a: K17 on phase 6's synthetic car scans in sequence, at the
+    three levels' full shapes, and on the edge cases: the first scan (no
+    previous keys), the last scan twice, an empty scan, a scan at the
+    level's cap, then the first scan again. After every update the
+    carried map must equal its plain version's (run on the card) and K6's
+    fresh map bit for bit. Timed at each level on the update from scan 0
+    to scan 1: events, replay, torch.profiler's kernel time and the host
+    clock, beside K6's map entry point (memset + scatter) and two
+    index_put_ calls (the clear and the set). Returns K17's row."""
+    from sassd_tpu_torch import serve
+    from sassd_tpu_torch.models.backbone import level_shapes
+    from sassd_tpu_torch.ops import sparse as sp
+    from sassd_tpu_torch.ops.cuda import same_bits
+    cfg_pts, ds, _, batch1, _ = serving_split(torch, np, device, cfg, root)
+    lattice = serve.serving_lattice(cfg_pts, ds.anchors_bv).to(device)
+    scans = []
+    for b in batch1:
+        pts, n = (torch.from_numpy(b[k]).to(device)
+                  for k in ("points", "n_points"))
+        scans.append(level_keys(cfg, serve.batch_from_points(
+            pts, n, lattice, cfg_pts)["coords"]))
+    shapes = level_shapes(cfg.sparse_shape)
+    caps = cfg.caps.level_caps
+    rng = np.random.default_rng(SEED + 14)
+    levels = []
+    for lvl in range(3):
+        shape, cap = shapes[lvl], caps[lvl]
+        total = int(np.prod(shape))
+        empty = torch.full((1, cap), sp.INVALID_KEY, dtype=torch.int32,
+                           device=device)
+        full = empty.clone()
+        n_full = min(cap, total)        # cap on the car grids; all at tiny
+        full[0, :n_full] = torch.from_numpy(np.sort(rng.choice(
+            total, n_full, replace=False)).astype(np.int32))
+        seq = [("scan 0, no previous keys", scans[0][lvl])]
+        seq += [(f"scan {i}", s[lvl]) for i, s in enumerate(scans)][1:]
+        seq += [(f"scan {N_SCANS - 1} again", scans[-1][lvl]),
+                ("an empty scan", empty), ("a scan at the cap", full),
+                ("scan 0 after the cap", scans[0][lvl])]
+        imap = torch.full((1, total), -1, dtype=torch.int32, device=device)
+        plain = imap.clone()
+        prev = empty
+        counts = []
+        for what, keys in seq:
+            sp.update_index_map(imap, prev, keys, shape)
+            sp.update_index_map_plain(plain, prev, keys)
+            fresh = sp.build_index_map(keys, shape)
+            torch.cuda.synchronize()
+            if not (same_bits(imap, plain) and same_bits(imap, fresh)):
+                fail(f"K17 at level {lvl}, {what}: the carried map differs "
+                     f"from its plain version's or K6's fresh map")
+            counts.append(int((keys != sp.INVALID_KEY).sum()))
+            prev = keys
+        del fresh, plain
+        print(f"K17 level {lvl} {tuple(shape)} (cap {cap}): {len(seq)} "
+              f"updates bitwise equal to the plain version and to K6's "
+              f"fresh map; valid keys {counts}")
+        # timing: the update from scan 0 to scan 1, repeated (each call
+        # clears scan 0's cells and sets scan 1's: the same work)
+        k0, k1 = scans[0][lvl], scans[1][lvl]
+        imap.copy_(sp.build_index_map(k0, shape))
+
+        def k17():
+            return sp.update_index_map(imap, k0, k1, shape)
+        t = measured(k17, f"K17 level {lvl}")
+        plain_ms = cuda_ms(lambda: sp.update_index_map_plain(imap, k0, k1),
+                           iters=5)
+        k6 = measured(lambda: sp.build_index_map(k1, shape),
+                      f"K6 map level {lvl} (memset + scatter)")
+        flat = imap.view(-1)
+        idx0 = k0[k0 != sp.INVALID_KEY].long()
+        ok1 = k1 != sp.INVALID_KEY
+        idx1 = k1[ok1].long()
+        rows1 = torch.arange(k1.shape[1], dtype=torch.int32,
+                             device=device)[ok1[0]]
+        minus = torch.full_like(rows1[:1], -1)
+
+        def index_put():
+            flat.index_put_((idx0,), minus.expand(idx0.shape[0]))
+            flat.index_put_((idx1,), rows1)
+        lib = measured(index_put, f"two index_put_ calls level {lvl}")
+        if not same_bits(imap, sp.build_index_map(k1, shape)):
+            fail(f"K17 level {lvl}: the timed updates left another map")
+        levels.append(dict(level=lvl, shape=list(shape), n_prev=counts[0],
+                           n_keys=counts[1], valid_keys=counts, **t,
+                           plain_ms=plain_ms, k6_map_ms=k6["ms"],
+                           k6_map_graph_ms=k6["graph_ms"],
+                           k6_map_profiler_ms=k6["profiler_ms"],
+                           index_put_ms=lib["ms"],
+                           index_put_graph_ms=lib["graph_ms"],
+                           index_put_profiler_ms=lib["profiler_ms"],
+                           **k17_bound(torch, k0, k1)))
+        del imap, flat
+        torch.cuda.synchronize()
+    for r in levels:
+        print(f"  K17 level {r['level']}: kernel {r['ms']:.4f} ms "
+              f"({r['graph_ms']:.4f} replayed, profiler "
+              f"{r['profiler_ms'] or 0:.4f}), plain {r['plain_ms']:.4f}; "
+              f"K6 map {r['k6_map_ms']:.4f} (profiler "
+              f"{r['k6_map_profiler_ms'] or 0:.4f}); two index_put_ "
+              f"{r['index_put_ms']:.4f} (profiler "
+              f"{r['index_put_profiler_ms'] or 0:.4f}); bound "
+              f"{r['bound_ms']:.5f} ms")
+    prof = [r["profiler_ms"] for r in levels]
+    return dict(name="K17 update_index_map", route="cuda",
+                source="sassd_tpu_torch/csrc/device_plans.cu",
+                replaces="sassd_tpu/serve.py:262",
+                max_abs_err=0.0,
+                ms=sum(r["ms"] for r in levels),
+                graph_ms=sum(r["graph_ms"] for r in levels),
+                profiler_ms=(sum(prof) if None not in prof else None),
+                plain_ms=sum(r["plain_ms"] for r in levels),
+                library_ms=None,
+                library_what="none: no one call clears one key set and "
+                             "scatters another; two index_put_ calls (clear, "
+                             "set) timed beside it as index_put_ms",
+                index_put_ms=sum(r["index_put_ms"] for r in levels),
+                k6_map_ms=sum(r["k6_map_ms"] for r in levels),
+                at="the three levels' update from phase 6's scan 0 to scan "
+                   "1, batch 1", levels=levels, **add_bounds(levels))
+
+
+def run_persistent_serving(torch, np, device, cfg, model_dev,
+                           root: str) -> dict:
+    """Phase 14b: run_inference at batch 1 with
+    test.serve_persistent_plans over phase 6's 4-scan split, launch
+    counters reset just before and read just after: K17 3 times a scan,
+    K6's map entry point never, K6's plan entry point 6 times a scan. Its
+    plans must be bitwise those of the per-scan run (captured from
+    sp.device_rulebook and serve.plans_from_carry), its annotations
+    bitwise or at least the same sets. Then both steps are timed in turns
+    on the host clock (upload inside, synchronised), and the rulebook
+    stage by torch.profiler."""
+    import dataclasses
+    from torch.profiler import ProfilerActivity, profile
+    from sassd_tpu_torch import inference, serve
+    from sassd_tpu_torch.ops import sparse as sp
+    from sassd_tpu_torch.ops.cuda import same_bits
+    from sassd_tpu_torch.profile_slice import stage_times
+    cfg_pts, ds, step, batch1, _ = serving_split(torch, np, device, cfg,
+                                                 root)
+    cfg_p = dataclasses.replace(cfg_pts, test=dataclasses.replace(
+        cfg_pts.test, serve_persistent_plans=True))
+    step_p = serve.make_serving_step(cfg_p, ds.anchors, ds.anchors_bv,
+                                     device, persistent_plans=True)
+    warm = serve.init_plan_carry(cfg_p, device)
+    step(model_dev, batch1[0])
+    step_p(model_dev, warm, batch1[0])
+    del warm
+    torch.cuda.synchronize()
+    got_plans, ref_plans = [], []
+    orig_rb, orig_pc = sp.device_rulebook, serve.plans_from_carry
+
+    def rulebook(*args, **kw):
+        out = orig_rb(*args, **kw)
+        ref_plans.append({k: v.clone() for k, v in out.items()})
+        return out
+
+    def from_carry(*args):
+        plans, carry = orig_pc(*args)
+        got_plans.append({k: v.clone() for k, v in plans.items()})
+        return plans, carry
+    sp.device_rulebook = rulebook
+    try:
+        ref = inference.run_inference(cfg_pts, ds, model_dev, 1, device)
+    finally:
+        sp.device_rulebook = orig_rb
+    torch.cuda.synchronize()
+    serve.plans_from_carry = from_carry
+    try:
+        reset_launches()
+        got = inference.run_inference(cfg_p, ds, model_dev, 1, device)
+        torch.cuda.synchronize()
+        launches = read_launches()
+    finally:
+        serve.plans_from_carry = orig_pc
+    n = len(got[1])
+    want = {"sassd_index_map_update": 3 * n, "sassd_index_map": 0,
+            "sassd_window_plan": 6 * n}
+    seen = {k: launches[k] for k in want}
+    print(f"persistent serving: {n} scans; launches {seen} (want {want}); "
+          f"all {launches}")
+    if seen != want:
+        fail(f"persistent serving launched {seen}, not {want}")
+    check_launched(launches, "K1 K2 K3 K4 K5 K7 K8 K9 K17",
+                   "persistent serving")
+    if len(got_plans) != n or len(ref_plans) != n:
+        fail(f"persistent serving: {len(got_plans)} and {len(ref_plans)} "
+             f"rulebooks captured for {n} scans")
+    for i, (g, r) in enumerate(zip(got_plans, ref_plans)):
+        if sorted(g) != sorted(r) or not all(same_bits(g[k], r[k])
+                                             for k in g):
+            fail(f"persistent serving, scan {i}: its plans differ from the "
+                 f"per-scan rulebook's")
+    bitwise = all(a.keys() == b.keys() and all(
+        np.array_equal(a[k], b[k]) for k in a) for a, b in zip(got[0], ref[0]))
+    counts = [match_annos(np, a, b, f"persistent serving, scan {i}")
+              for i, (a, b) in enumerate(zip(got[0], ref[0]))]
+    print(f"persistent serving: plans bitwise the per-scan rulebook's on all "
+          f"{n} scans; annotations {'bitwise equal' if bitwise else 'the same sets'}"
+          f" ({counts} detections)")
+
+    reset_launches()
+    carry = serve.init_plan_carry(cfg_p, device)
+    step_p(model_dev, carry, batch1[0])
+    torch.cuda.synchronize()
+    per_step = read_launches()
+
+    def per_scan(b):
+        step(model_dev, b)
+
+    def persistent(b):
+        nonlocal carry
+        _, carry = step_p(model_dev, carry, b)
+    modes = {"per-scan": per_scan, "persistent": persistent}
+    ms = {k: [] for k in modes}
+    for mode in ("per-scan", "persistent", "persistent", "per-scan"):
+        for b in batch1:
+            t = time.perf_counter()
+            modes[mode](b)
+            torch.cuda.synchronize()
+            ms[mode].append((time.perf_counter() - t) * 1e3)
+    rulebook_ms = {}
+    for mode, fn in modes.items():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for b in batch1:
+                fn(b)
+            torch.cuda.synchronize()
+        rulebook_ms[mode] = stage_times(prof, len(batch1)).get("rulebook")
+    for mode in modes:
+        kern, span = rulebook_ms[mode] or (None, None)
+        print(f"persistent serving: {mode} step "
+              f"{', '.join(f'{m:.2f}' for m in ms[mode])} ms/scan (host "
+              f"clock, synchronised, upload inside; in turns); rulebook "
+              f"stage by the profiler: kernels "
+              f"{'not measured' if kern is None else f'{kern:.4f}'}, span "
+              f"{'not measured' if span is None else f'{span:.4f}'} "
+              f"ms/scan")
+    return dict(launches=launches, per_step=per_step, ms=ms,
+                rulebook_ms=rulebook_ms, bitwise=bitwise)
+
+
+def train_split_batch(np, cfg, root: str):
+    """Phase 7's batch: the first two scans of its 4-scan train split
+    (written under root, phase 7's seed), and the anchors."""
+    import torch
+    from sassd_tpu_torch.data import kitti, synthetic
+    synthetic.write_synthetic_kitti(root, n_train=N_SCANS, n_val=0,
+                                    seed=SEED + 3)
+    ds = kitti.KittiDataset(cfg, os.path.join(root, "training"),
+                            os.path.join(root, "ImageSets", "train.txt"),
+                            train=True)
+    return kitti.collate([ds[0], ds[1]])[0], torch.from_numpy(ds.anchors)
+
+
+def similarity_steps(torch, cfg, batch, anchors, runs,
+                     backward: bool = True) -> dict:
+    """forward_train (and, with `backward`, its backward) of cfg's seeded
+    car model on `batch` for each (name, device, dtype) of `runs`. Returns
+    res[name] = (losses, seconds, gradients by parameter name or None,
+    (positives, negatives) of each RPN target assignment, K1's launches
+    inside each call of the RPN similarity)."""
+    from sassd_tpu_torch import weights
+    from sassd_tpu_torch.core import targets as target_ops
+    from sassd_tpu_torch.inference import to_device
+    from sassd_tpu_torch.models.detector import parse_losses
+    from sassd_tpu_torch.ops import cuda
+    name = cfg.train.rpn_similarity
+    sim, orig_ct = target_ops.SIMILARITY_FNS[name], target_ops.create_targets
+    k1 = cuda.KERNELS["sassd_riou_overlap"]
+    res = {}
+    for run, where, dtype in runs:
+        k1_in, assign = [], []
+
+        def counted(a, g):
+            before = k1.launches
+            out = sim(a, g)
+            k1_in.append(k1.launches - before)
+            return out
+
+        def create_targets(a, g, gv, fn, *args, **kw):
+            out = orig_ct(a, g, gv, fn, *args, **kw)
+            if fn is counted:
+                assign.append((int((out.labels > 0).sum()),
+                               int((out.labels == 0).sum())))
+            return out
+        model = weights.seeded_detector(cfg, SEED, where).to(dtype)
+        model.train()
+        b = {k: v.to(dtype) if v.is_floating_point() else v
+             for k, v in to_device(batch, where).items()}
+        t = time.perf_counter()
+        target_ops.SIMILARITY_FNS[name] = counted
+        target_ops.create_targets = create_targets
+        try:
+            losses = model.forward_train(b, anchors.to(where, dtype))
+        finally:
+            target_ops.SIMILARITY_FNS[name] = sim
+            target_ops.create_targets = orig_ct
+        grads = None
+        if backward:
+            parse_losses(losses).backward()
+            grads = {k: p.grad.detach().cpu().double()
+                     for k, p in model.named_parameters()}
+        if where != "cpu":
+            torch.cuda.synchronize()
+        res[run] = ({k: float(v.detach()) for k, v in losses.items()},
+                    time.perf_counter() - t, grads, assign, k1_in)
+    return res
+
+
+def run_similarity_training(torch, np, device, cfg, batch, anchors) -> dict:
+    """Phase 14c: one car batch-2 forward_train + backward with
+    train.rpn_similarity="RotateIou2dSimilarity" on the card, the CPU and
+    the CPU in float64, at phase 7's gates (step_gates), with equal RPN
+    positive and negative counts and K1 launched once in each call of the
+    similarity (a sample and class slice), launch counters reset just
+    before the card step and read just after; then a DistanceSimilarity
+    forward_train on the card and the CPU: equal assignment counts,
+    finite losses. K1 at the targets shape (the anchors x sample 0's 64
+    GT slots, criterion -1) is held to its plain version and timed.
+    Returns its row and the card step's launches."""
+    import dataclasses
+    from sassd_tpu_torch.core import riou
+    from sassd_tpu_torch.ops import riou_kernel
+    out = {}
+    for sim in ("RotateIou2dSimilarity", "DistanceSimilarity"):
+        c = dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, rpn_similarity=sim))
+        rotated = sim == "RotateIou2dSimilarity"
+        runs = [("cpu", "cpu", torch.float32)]
+        if rotated:
+            runs.insert(0, ("cpu64", "cpu", torch.float64))
+        res = similarity_steps(torch, c, batch, anchors, runs,
+                               backward=rotated)
+        reset_launches()
+        res.update(similarity_steps(torch, c, batch, anchors,
+                                    [("card", device, torch.float32)],
+                                    backward=rotated))
+        out[sim] = read_launches()
+        what = f"{sim} training"
+        assign = {k: v[3] for k, v in res.items()}
+        print(f"{what}: RPN (positives, negatives) a sample and class "
+              f"slice: {assign}; K1 launches inside each similarity call "
+              f"on the card: {res['card'][4]}")
+        if len({tuple(v) for v in assign.values()}) != 1:
+            fail(f"{what}: the card's RPN assignment counts differ from the "
+                 f"CPU's")
+        if not all(np.isfinite(list(v[0].values())).all()
+                   for v in res.values()):
+            fail(f"{what}: a loss is not finite")
+        n_slices = batch["gt_boxes"].shape[0] * cfg.model.num_class
+        if rotated:
+            if res["card"][4] != [1] * n_slices:
+                fail(f"{what}: K1 launched {res['card'][4]} times in the "
+                     f"similarity calls, not once in each of {n_slices}")
+            step_gates(torch, res, what)
+        else:
+            cl, gl = res["cpu"][0], res["card"][0]
+            print(f"{what}: losses card {gl}, CPU {cl}")
+    check_launched(out["RotateIou2dSimilarity"],
+                   "K1 K3 K3b K4 K5 K5b K10 K11 K12", "RotateIou2d training")
+
+    # K1 at the targets shape
+    a5 = riou.boxes3d_to_bev5(anchors[:anchors.shape[0]
+                                      // cfg.model.num_class]).to(device)
+    g5 = riou.boxes3d_to_bev5(torch.from_numpy(batch["gt_boxes"][0])).to(
+        device)
+    got = riou_kernel.rotate_overlap(a5, g5, -1)
+    ref = riou_kernel.rotate_overlap_plain(a5, g5, -1)
+    near = riou_kernel.near_pairs_plain(a5, g5)
+    err = float((got - ref).abs().max())
+    culled = int((got.view(torch.int32)[~near] != 0).sum())
+    n, m, n_near = a5.shape[0], g5.shape[0], int(near.sum())
+    print(f"K1 at the targets shape {n} x {m}, criterion -1: "
+          f"max|kernel-plain| {err:.3g} (tol {K1_ATOL}); near pairs "
+          f"{n_near} ({n_near / n / m:.4%}); culled pairs not +0.0: "
+          f"{culled}")
+    if not err <= K1_ATOL or culled:
+        fail("K1 disagrees with its plain version at the targets shape")
+    t = measured(lambda: riou_kernel.rotate_overlap(a5, g5, -1),
+                 f"K1 at the targets shape {n} x {m}")
+    plain_ms = cuda_ms(lambda: riou_kernel.rotate_overlap_plain(a5, g5, -1),
+                       iters=5)
+    print(f"  K1 targets shape: plain {plain_ms:.4f} ms; bound "
+          f"{k1_bound(n, m, n_near)['bound_ms']:.5f} ms")
+    row = dict(name="K1 rotate_overlap, targets shape", route="cuda",
+               source="sassd_tpu_torch/csrc/riou_overlap.cu",
+               replaces="sassd_tpu/core/targets.py:43",
+               max_abs_err=err, **t, plain_ms=plain_ms, library_ms=None,
+               library_what="none: torch has no rotated-box overlap",
+               at=f"{n} anchors x {m} GT slots (sample 0 of phase 7's "
+                  f"batch), criterion -1",
+               n_near=n_near, **k1_bound(n, m, n_near))
+    return dict(row=row, launches=out["RotateIou2dSimilarity"],
+                distance_launches=out["DistanceSimilarity"])
+
+
+def run_phase14(torch, np, device, cfg, model_dev, train_ref=None) -> dict:
+    """Phase 14: persistent-plan serving (14a K17, 14b run_inference) and
+    the two RPN similarities (14c), on phase 7's batch when `train_ref` is
+    given, else on a train split written here. Returns the kernel rows,
+    14b's results and 14c's launches."""
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        k17 = check_k17(torch, np, device, cfg, root)
+    t_a = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        persistent = run_persistent_serving(torch, np, device, cfg,
+                                            model_dev, root)
+    t_b = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        if train_ref is None:
+            batch, anchors = train_split_batch(np, cfg, root)
+        else:
+            batch, anchors = train_ref["batch"], train_ref["anchors"]
+        sim = run_similarity_training(torch, np, device, cfg, batch,
+                                      anchors)
+    wall = time.perf_counter() - t
+    print(f"persistent serving and similarities: phase 14 took {wall:.1f} s "
+          f"(14a {t_a - t:.1f}, 14b {t_b - t_a:.1f}, 14c "
+          f"{t + wall - t_b:.1f}; 14c's CPU steps are most of it)")
+    return dict(rows=[k17, sim["row"]], persistent=persistent,
+                similarity=sim, wall_s=wall)
+
+
 TRAIN_PHASE_IDS = "K1 K3 K3b K4 K5 K5b K10 K11 K12"
 SERVE_PHASE_IDS = "K1 K2 K3 K4 K5 K6 K7 K8 K9"
 
@@ -5168,6 +5663,12 @@ def main() -> int:
             run_spatial(torch, np, device, root)
         print(card)
         return 0
+    if "--phase14-only" in sys.argv[1:]:
+        p14 = run_phase14(torch, np, device, cfg,
+                          seeded_detector(cfg, SEED, device))
+        print(json.dumps({"phase14_only": p14["rows"]}))
+        print(card)
+        return 0
     cfg_dev = dataclasses.replace(cfg, model=dataclasses.replace(
         cfg.model, host_plans=False))
     anchors, anchors_bv = kitti.build_anchors(cfg)
@@ -5325,6 +5826,9 @@ def main() -> int:
             torch, np, device, cfg, root, samples, training[5],
             lr_refs["inputs"])
     print(f"bf16: phase 13 took {time.perf_counter() - t:.1f} s")
+    p14 = run_phase14(torch, np, device, cfg, model_dev, training[5])
+    rows += p14["rows"]
+    persistent = p14["persistent"]
 
     for what, (_, _, ms1, ms2, _) in (("host plans", host),
                                       ("device plans", dev)):
@@ -5365,6 +5869,16 @@ def main() -> int:
                   f"{dt} {', '.join(f'{m:.2f}' for m in v)}"
                   for dt, v in bf16[key].items())
               + f" {unit} (host clock, synchronised)")
+    print(f"car config, serving at batch 1, per-scan and persistent plans "
+          f"in turns, on {name} [{card}]: " + "; ".join(
+              f"{mode} {', '.join(f'{m:.2f}' for m in v)}"
+              for mode, v in persistent["ms"].items())
+          + " ms/scan (host clock, synchronised, upload inside); rulebook "
+          "stage kernels / span by the profiler: " + "; ".join(
+              f"{mode} " + ("not measured" if v is None else
+                            f"{v[0]:.4f} / {v[1]:.4f}")
+              for mode, v in persistent["rulebook_ms"].items())
+          + " ms/scan")
     banded_phases = (("long range, banded inference", lr_runs["banded"]),
                      ("long range, banded training", lr_runs["training"]),
                      ("bf16 long range, banded inference",
@@ -5377,7 +5891,12 @@ def main() -> int:
                    lr_runs["replicated"]),
                   ("bf16 host plans", bf16_launches["host plans"]),
                   ("bf16 serving", bf16_launches["serving"]),
-                  ("bf16 training", bf16_launches["training"])
+                  ("bf16 training", bf16_launches["training"]),
+                  ("persistent serving", persistent["launches"]),
+                  ("RotateIou2d training step",
+                   p14["similarity"]["launches"]),
+                  ("DistanceSimilarity forward",
+                   p14["similarity"]["distance_launches"])
                   ) + banded_phases
     banded_step = (("long range banded training, batch 2", lr_step),)
     all_steps = (("serving, batch 1", serving[4]),
@@ -5386,7 +5905,10 @@ def main() -> int:
                  ("three-class training, exact, batch 1",
                   multi_step["exact"]),
                  ("bf16 serving, batch 1", bf16_step["serving"]),
-                 ("bf16 training, batch 2", bf16_step["training"])
+                 ("bf16 training, batch 2", bf16_step["training"]),
+                 ("persistent serving, batch 1", persistent["per_step"]),
+                 ("RotateIou2d training, batch 2",
+                  p14["similarity"]["launches"])
                  ) + banded_step
     for r in rows:
         kid = r["name"].split()[0]

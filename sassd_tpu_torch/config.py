@@ -22,6 +22,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from sassd_tpu_torch.core.targets import SIMILARITY_FNS
 from sassd_tpu_torch.parallel import mesh
 
 
@@ -105,6 +106,8 @@ class TestConfig:
     max_per_img: int = 100             # not read (caps.max_det bounds it)
     anchor_thr: float = 0.1
     nms_pre: int = 2000
+    # "points" at batch 1: the rulebook's index maps live across scans and
+    # each scan updates them (serve.plans_from_carry, K17); the same plans
     serve_persistent_plans: bool = False
     # "voxels": the loader voxelizes and masks on the host; "points": only
     # raw padded points are uploaded and the card voxelizes, masks and
@@ -261,7 +264,10 @@ def check_supported(cfg: SASSDConfig, train: bool = False) -> None:
     canvas's rows evenly ("spatial"). The PointNet VFE runs on the
     replicated spine only (the JAX package's banded stage ignores it and
     encodes by the mean). ``model.compute_dtype`` is "float32" or
-    "bfloat16" (:func:`compute_dtype`).
+    "bfloat16" (:func:`compute_dtype`). ``test.serve_persistent_plans``
+    carries the serving rulebook's index maps across scans at batch 1
+    (serve.py). ``train.rpn_similarity`` is any of the JAX package's four
+    (core/targets.py ``SIMILARITY_FNS``).
     """
     m, t, p = cfg.model, cfg.test, cfg.parallel
     if train and banded(cfg) and m.aux_interp != "ring":
@@ -284,7 +290,6 @@ def check_supported(cfg: SASSDConfig, train: bool = False) -> None:
             m.compute_dtype not in COMPUTE_DTYPES,
         f"test.device_input={t.device_input!r}":
             t.device_input not in ("voxels", "points"),
-        "test.serve_persistent_plans=True": t.serve_persistent_plans,
         f"parallel.strategy={p.strategy!r} with spatial={p.spatial}":
             p.strategy not in ("data", "spatial", "banded")
             and p.spatial > 1,
@@ -296,8 +301,7 @@ def check_supported(cfg: SASSDConfig, train: bool = False) -> None:
             f"train.weight_decay_mode={cfg.train.weight_decay_mode!r}":
                 cfg.train.weight_decay_mode not in ("exclude_bn_bias", "all"),
             f"train.rpn_similarity={cfg.train.rpn_similarity!r}":
-                cfg.train.rpn_similarity not in (
-                    "NearestIouSimilarity", "RotateIou3dSimilarity"),
+                cfg.train.rpn_similarity not in SIMILARITY_FNS,
         })
     bad = [k for k, v in unsupported.items() if v]
     if bad:

@@ -32,9 +32,45 @@ def rotate_iou3d_similarity(anchors, gt_boxes):
     return riou.rotate_iou_3d(anchors, gt_boxes)
 
 
+def rotate_iou2d_similarity(anchors, gt_boxes):
+    """Rotated BEV IoU (RotateIou2dSimilarity): K1 at criterion -1."""
+    return riou.rotate_iou_bev(riou.boxes3d_to_bev5(anchors),
+                               riou.boxes3d_to_bev5(gt_boxes))
+
+
+def make_distance_similarity(dist_norm: float, with_rotation: bool = False,
+                             rot_alpha: float = 0.5) -> Callable:
+    """Negated-distance similarity (DistanceSimilarity):
+
+        1 - min(d^2/dist_norm, dist_norm)                 (no rotation)
+        1 - (1-a)*min(d^2/dist_norm, dist_norm) - a*|sin(dth)|   (rotated)
+
+    gated to 0 outside the |dx|,|dy| <= dist_norm window.
+    """
+    def similarity(anchors, gt_boxes):
+        dx = anchors[:, None, 0] - gt_boxes[None, :, 0]
+        dy = anchors[:, None, 1] - gt_boxes[None, :, 1]
+        inside = (torch.abs(dx) <= dist_norm) & (torch.abs(dy) <= dist_norm)
+        dn = torch.clamp(
+            (dx * dx + dy * dy) / dist_norm, max=dist_norm)
+        if with_rotation:
+            dr = torch.abs(torch.sin(anchors[:, None, 6]
+                                     - gt_boxes[None, :, 6]))
+            sim = 1.0 - (1.0 - rot_alpha) * dn - rot_alpha * dr
+        else:
+            sim = 1.0 - dn
+        return torch.where(inside, sim, 0.0)
+
+    return similarity
+
+
 SIMILARITY_FNS = {
     "NearestIouSimilarity": nearest_iou_similarity,
     "RotateIou3dSimilarity": rotate_iou3d_similarity,
+    "RotateIou2dSimilarity": rotate_iou2d_similarity,
+    # the JAX package's default dist_norm (second.pytorch's pedestrian and
+    # cyclist recipe)
+    "DistanceSimilarity": make_distance_similarity(dist_norm=1.0),
 }
 
 

@@ -53,8 +53,11 @@ def run_inference(cfg: SASSDConfig, dataset, model: Detector,
 
     `model` lives on `device`. With ``test.device_input="points"`` the
     loader only crops and pads raw points (serve.PointsView) and the device
-    voxelizes, masks and builds the rulebook (serve.make_serving_step);
-    with "voxels" the dataset's samples are uploaded as they are. The
+    voxelizes, masks and builds the rulebook (serve.make_serving_step),
+    at batch 1 with ``test.serve_persistent_plans`` through index maps
+    carried from scan to scan for the run (serve.init_plan_carry; at a
+    larger batch the flag is ignored, as in the JAX package); with
+    "voxels" the dataset's samples are uploaded as they are. The
     samples are padded, by repeating them, to a multiple of num_shards x
     batch_size; the duplicates are kept, as the JAX runner keeps them, and
     :func:`evaluate` drops them.
@@ -62,8 +65,18 @@ def run_inference(cfg: SASSDConfig, dataset, model: Detector,
     check_supported(cfg)
     if cfg.test.device_input == "points":
         src = serve.PointsView(dataset, cfg)
+        persistent = cfg.test.serve_persistent_plans and batch_size == 1
         step = serve.make_serving_step(cfg, dataset.anchors,
-                                       dataset.anchors_bv, device)
+                                       dataset.anchors_bv, device,
+                                       persistent_plans=persistent)
+        if persistent:
+            # one scan stream: the carry lives for the run (this rank's)
+            carry = serve.init_plan_carry(cfg, device)
+
+            def step(model, batch, _step=step):
+                nonlocal carry
+                dets, carry = _step(model, carry, batch)
+                return dets
     else:
         src = dataset
         step = make_test_step(cfg, dataset.anchors, device)

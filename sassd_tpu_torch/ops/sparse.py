@@ -31,6 +31,9 @@ which a wrapper takes only for CPU tensors:
 - K6 ``build_index_map`` + ``window_plan``: the device rulebook's dense
   key -> row maps and the plans resolved through them
   (``device_plans.cu``);
+- K17 ``update_index_map``: persistent-plan serving's delta update of a
+  map that lives across scans, the previous scan's rows cleared and this
+  scan's set (``device_plans.cu``);
 - K7 ``downsample_keys``: the sorted, capped active set of a stride-2
   level, optionally with a per-row output-y limit (``downsample.cu``);
 - K13 ``stride_plans_T`` and K14 ``aux_plans``: the rulebook's train-only
@@ -81,6 +84,8 @@ _K10B = cuda.Kernel("sassd_sparse_conv_dw_bf16", _K10.argtypes + [cuda.P])
 K10_BLOCKS = 264
 _K6_MAP = cuda.Kernel("sassd_index_map",
                       [cuda.P, cuda.I, cuda.I, cuda.L, cuda.P])
+_K17 = cuda.Kernel("sassd_index_map_update",
+                   [cuda.P, cuda.I, cuda.P, cuda.I, cuda.I, cuda.L, cuda.P])
 _K6_PLAN = cuda.Kernel("sassd_window_plan",
                        [cuda.P, cuda.I, cuda.I, cuda.I, cuda.I, cuda.I,
                         cuda.P, cuda.I, cuda.I, cuda.I, cuda.P])
@@ -104,6 +109,7 @@ KERNEL_SYMBOLS = {
     "K4-bf16": ("sassd_sparse_conv_bf16",),
     "K10-bf16": ("sassd_sparse_conv_dw_bf16",),
     "K6": ("sassd_index_map", "sassd_window_plan"),
+    "K17": ("sassd_index_map_update",),
     "K7": ("sassd_downsample",),
     "K13": ("sassd_stride_plans_t",),
     "K14": ("sassd_aux_plans",),
@@ -646,6 +652,56 @@ def build_index_map(keys: torch.Tensor,
         out = torch.empty((b, total), dtype=torch.int32, device=keys.device)
         _K6_MAP.launch(keys.data_ptr(), b, m, total, out.data_ptr())
     return out
+
+
+def update_index_map_plain(index_map: torch.Tensor, prev_keys: torch.Tensor,
+                           keys: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K17 (see update_index_map), in place."""
+    b, total = index_map.shape
+    flat = index_map.view(-1)
+    base = torch.arange(b, device=keys.device)[:, None] * total
+    for k, value in ((prev_keys, None), (keys, keys)):
+        ok = (k >= 0) & (k < total)
+        idx = (base + k.to(torch.int64))[ok]
+        if value is None:
+            flat[idx] = -1
+        else:
+            rows = torch.arange(k.shape[1], dtype=torch.int32,
+                                device=k.device).expand(b, -1)
+            flat[idx] = rows[ok]
+    return index_map
+
+
+def update_index_map(index_map: torch.Tensor, prev_keys: torch.Tensor,
+                     keys: torch.Tensor,
+                     shape_zyx: Tuple[int, int, int]) -> torch.Tensor:
+    """Delta update of a [B, D*H*W] int32 index map, in place: the map of
+    `prev_keys` becomes the map of `keys` ([B, M_prev] and [B, M] unique
+    keys, INVALID_KEY padded; keys off the grid are ignored). Every valid
+    previous key's cell is set to -1, then every valid key's cell to its
+    row, so a key in both ends set. Returns the map, which then equals
+    build_index_map(keys, shape_zyx) bit for bit. K17 on the card: it
+    writes only the cells of the two key sets, where a fresh map writes
+    the whole grid (360 MB a sample at the car config's level 0)."""
+    total = shape_zyx[0] * shape_zyx[1] * shape_zyx[2]
+    b = index_map.shape[0]
+    if (index_map.dim() != 2 or index_map.shape[1] != total
+            or prev_keys.shape[0] != b or keys.shape[0] != b):
+        raise ValueError(f"index_map {tuple(index_map.shape)}, prev_keys "
+                         f"{tuple(prev_keys.shape)} and keys "
+                         f"{tuple(keys.shape)} are not [B, {total}], "
+                         f"[B, M_prev] and [B, M]")
+    if index_map.device.type == "cpu":
+        return update_index_map_plain(index_map, prev_keys, keys)
+    cuda.check_cuda("index_map", index_map, torch.int32, 2)
+    cuda.check_cuda("prev_keys", prev_keys, torch.int32, 2)
+    cuda.check_cuda("keys", keys, torch.int32, 2)
+    if not prev_keys.device == keys.device == index_map.device:
+        raise ValueError("index_map, prev_keys and keys must be on one card")
+    _K17.launch_on(index_map, prev_keys.data_ptr(), prev_keys.shape[1],
+                   keys.data_ptr(), keys.shape[1], b, total,
+                   index_map.data_ptr())
+    return index_map
 
 
 def _window_lookup_plain(c: torch.Tensor, index_map: torch.Tensor,

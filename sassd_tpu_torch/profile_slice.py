@@ -30,6 +30,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import time
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -51,11 +52,11 @@ RUNS = 8
 SEED = 0
 
 
-def _stage_table(prof, runs: int) -> str:
-    """Per stage: its span on the device timeline (first kernel start to
-    last kernel end) and the device time of the kernels and copies that
-    start inside it, ms/step. Kernels are matched by time, not by the
-    CPU-side range: the hand kernels launch through ctypes, outside any
+def stage_times(prof, runs: int) -> Dict[str, Tuple[float, float]]:
+    """Per stage that ran: (the device time of the kernels and copies that
+    start inside its span, its span on the device timeline: first kernel
+    start to last kernel end), ms/step. Kernels are matched by time, not by
+    the CPU-side range: the hand kernels launch through ctypes, outside any
     torch op, so the profiler does not attribute them to a range. The
     autograd engine runs the backward on its own thread, outside the
     "backward" range, so that stage is the window from the end of each
@@ -69,7 +70,7 @@ def _stage_table(prof, runs: int) -> str:
     if spans["pswarp"] and len(spans["pswarp"]) == len(spans["optimizer"]):
         spans["backward"] = [(p[1], o[0]) for p, o in
                              zip(spans["pswarp"], spans["optimizer"])]
-    out = []
+    out = {}
     for stage in STAGES:
         ranges = spans[stage]
         if not ranges:
@@ -77,9 +78,15 @@ def _stage_table(prof, runs: int) -> str:
         span = sum(t - s for s, t in ranges)
         busy = sum(t - s for s, t in work for r in ranges
                    if r[0] <= s < r[1])
-        out.append(f"{stage} kernels {busy / runs / 1e3:.3f} / span "
-                   f"{span / runs / 1e3:.3f}")
-    return "; ".join(out)
+        out[stage] = (busy / runs / 1e3, span / runs / 1e3)
+    return out
+
+
+def _stage_table(prof, runs: int) -> str:
+    """stage_times as one line."""
+    return "; ".join(f"{stage} kernels {busy:.3f} / span {span:.3f}"
+                     for stage, (busy, span) in stage_times(prof,
+                                                            runs).items())
 
 
 def _busy_us(prof) -> float:

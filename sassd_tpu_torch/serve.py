@@ -13,6 +13,14 @@ Select it with ``TestConfig.device_input = "points"``
 (``inference.run_inference`` honours it). The sparse path always runs on
 the device rulebook here: there is no loader to build host plans.
 
+With ``TestConfig.serve_persistent_plans`` at batch 1, one stream of
+scans: the index maps of levels 0-2 live across scans in a carry
+(:func:`init_plan_carry`), and each scan's rulebook
+(:func:`plans_from_carry`) clears the previous scan's rows and sets its
+own (K17, ``ops/sparse.update_index_map``) where the per-scan rulebook
+fills each map afresh (K6's memset and scatter): the same plans, bit for
+bit.
+
 Kernels (``sassd_tpu_torch/csrc``), each beside its plain PyTorch version,
 which a wrapper takes only for CPU tensors: K8 ``voxelize.cu`` and K9
 ``anchors_mask.cu`` (:func:`anchors_mask`, on the tables of
@@ -20,7 +28,7 @@ which a wrapper takes only for CPU tensors: K8 ``voxelize.cu`` and K9
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,7 +36,9 @@ from torch.profiler import record_function
 
 from sassd_tpu_torch.config import SASSDConfig, check_supported
 from sassd_tpu_torch.models.detector import Detector
+from sassd_tpu_torch.models.backbone import level_shapes
 from sassd_tpu_torch.ops import cuda
+from sassd_tpu_torch.ops import sparse as sp
 from sassd_tpu_torch.ops.voxelize import voxelize
 
 _K9 = cuda.Kernel("sassd_anchors_mask",
@@ -264,27 +274,103 @@ def batch_from_points(points: torch.Tensor, n_points: torch.Tensor,
                 anchors_mask=mask)
 
 
+def init_plan_carry(cfg: SASSDConfig, device) -> Dict[str, torch.Tensor]:
+    """The carry of persistent-plan serving on `device`: the [1, D*H*W]
+    int32 index map of each plan-building level (0-2), filled with -1
+    once, and the level's previous keys, [1, cap] INVALID_KEY (no previous
+    scan). The maps are updated in place by each scan's
+    :func:`plans_from_carry`."""
+    shapes = level_shapes(cfg.sparse_shape)
+    caps = cfg.caps.level_caps
+    carry = {}
+    for lvl in range(3):
+        total = int(np.prod(shapes[lvl]))
+        carry[f"map{lvl}"] = torch.full((1, total), -1, dtype=torch.int32,
+                                        device=device)
+        carry[f"keys{lvl}"] = torch.full((1, caps[lvl]), sp.INVALID_KEY,
+                                         dtype=torch.int32, device=device)
+    return carry
+
+
+def plans_from_carry(coords0: torch.Tensor, carry: Dict[str, torch.Tensor],
+                     cfg: SASSDConfig
+                     ) -> Tuple[Dict[str, torch.Tensor],
+                                Dict[str, torch.Tensor]]:
+    """One scan's rulebook through the carried index maps.
+
+    coords0: [cap0, 3] int32 zyx level-0 coords of one sample (-1 rows =
+    padding). Each level updates its carried map from the previous scan's
+    keys to its own (K17), then resolves its submanifold plan (scale 1)
+    and the next level's stride plan (scale 2) through it (K6's window
+    plan), with K7's downsample between levels. Returns (plans, carry):
+    subm0..2, stride1..3 [1, 27, capL] int32 and coords1..3 [1, capL, 3]
+    int32, the per-scan device rulebook's plans bit for bit, and the
+    carry with the same maps, now updated in place, and this scan's
+    keys."""
+    shapes = level_shapes(cfg.sparse_shape)
+    caps = cfg.caps.level_caps
+    plans, new_carry = {}, {}
+    keys = sp.coords_to_keys(coords0[None], shapes[0])
+    for lvl in range(3):
+        shp, out_shape = shapes[lvl], shapes[lvl + 1]
+        imap = sp.update_index_map(carry[f"map{lvl}"], carry[f"keys{lvl}"],
+                                   keys, shp)
+        new_carry[f"map{lvl}"] = imap
+        new_carry[f"keys{lvl}"] = keys
+        plans[f"subm{lvl}"] = sp.window_plan(keys, shp, imap, shp, 1)
+        out_keys = sp.downsample_keys(keys, shp, caps[lvl + 1])
+        plans[f"stride{lvl + 1}"] = sp.window_plan(out_keys, out_shape, imap,
+                                                   shp, 2)
+        plans[f"coords{lvl + 1}"] = sp.keys_to_coords(out_keys, out_shape)
+        keys = out_keys
+    return plans, new_carry
+
+
 def make_serving_step(cfg: SASSDConfig, anchors: np.ndarray,
-                      anchors_bv: np.ndarray, device
-                      ) -> Callable[[Detector, Dict[str, np.ndarray]],
-                                    Dict[str, torch.Tensor]]:
+                      anchors_bv: np.ndarray, device,
+                      persistent_plans: bool = False) -> Callable:
     """Returns step(model, batch) -> detections on `device` (not synced),
     where batch is dict(points [B, P, F] f32, n_points [B] int32) in
     numpy; the upload is inside the step. The mask's lattice tables and the
     anchors are built and uploaded once, here. The step puts the model in
-    eval mode and runs without autograd."""
+    eval mode and runs without autograd.
+
+    persistent_plans (batch 1 only, one scan stream): the step is
+    step(model, carry, batch) -> (detections, carry), with the carry from
+    :func:`init_plan_carry`, whose maps it updates in place; the rulebook
+    is :func:`plans_from_carry`'s, handed to the model as the batch's
+    ``plan_*`` keys. Detections are those of the per-scan step. A batch
+    of other than one scan raises ValueError."""
     check_supported(cfg)
     lattice = serving_lattice(cfg, anchors_bv).to(device)
     anchors_t = torch.from_numpy(np.asarray(anchors, np.float32)).to(device)
 
-    def step(model: Detector, batch: Dict[str, np.ndarray]):
+    def forward(model: Detector, batch: Dict[str, np.ndarray],
+                carry: Optional[Dict[str, torch.Tensor]] = None):
         model.eval()
         with torch.inference_mode():
             points, n_points = (torch.from_numpy(np.ascontiguousarray(
                 batch[k])).to(device) for k in ("points", "n_points"))
             full = batch_from_points(points, n_points, lattice, cfg)
+            if carry is not None:
+                with record_function("rulebook"):
+                    plans, carry = plans_from_carry(full["coords"][0], carry,
+                                                    cfg)
+                full.update({f"plan_{k}": v for k, v in plans.items()})
             # serving ignores the parallel strategy, as in the JAX package
-            return model.forward_test(full, anchors_t, replicated=True)
+            return model.forward_test(full, anchors_t, replicated=True), carry
+
+    if persistent_plans:
+        def step_p(model: Detector, carry: Dict[str, torch.Tensor],
+                   batch: Dict[str, np.ndarray]):
+            if np.shape(batch["points"])[0] != 1:
+                raise ValueError("persistent_plans serving is batch_size=1 "
+                                 "only (one carry per scan stream)")
+            return forward(model, batch, carry)
+        return step_p
+
+    def step(model: Detector, batch: Dict[str, np.ndarray]):
+        return forward(model, batch)[0]
     return step
 
 

@@ -258,3 +258,63 @@ def invert_stride_plan(plan, m_in):
     o = torch.arange(m_out, dtype=torch.int32, device=plan.device)
     out[flat.reshape(-1)] = o.repeat(b * k)
     return out[:b * k * m_in].view(b, k, m_in)
+
+
+# K17's cases: a sequence of key sets that one carried index map is
+# updated through, from the all -1 map (the previous keys all INVALID).
+# "no_previous": a first scan; "empty_scan": a scan with no valid key
+# after one with keys, then keys again; "overlap": scans that share half
+# their keys; "identical": the same keys twice in a row; "at_cap": every
+# row of the key array valid; "invalid_between": INVALID rows between
+# valid ones and keys past the grid, which are ignored; "batch2": two
+# samples with their own counts, one of them empty
+K17_CASES = ["no_previous", "empty_scan", "overlap", "identical", "at_cap",
+             "invalid_between", "batch2"]
+K17_SHAPE = (5, 12, 13)
+K17_INVALID = np.iinfo(np.int32).max
+
+
+def k17_keys(rng, counts, m, total=None):
+    """[len(counts), m] int32 rows of distinct ascending random keys on
+    K17_SHAPE's grid, counts[i] valid in row i, INVALID padded."""
+    total = total or int(np.prod(K17_SHAPE))
+    out = np.full((len(counts), m), K17_INVALID, np.int32)
+    for i, n in enumerate(counts):
+        out[i, :n] = np.sort(rng.choice(total, n, replace=False))
+    return out
+
+
+def k17_case(case):
+    """(shape_zyx, [[B, M] int32 keys of each scan in turn]) of a K17
+    case; the index map after each update must equal the fresh map of
+    that scan's keys."""
+    rng = np.random.default_rng(K17_CASES.index(case))
+    total = int(np.prod(K17_SHAPE))
+    if case == "no_previous":
+        seq = [k17_keys(rng, [90], 128)]
+    elif case == "empty_scan":
+        seq = [k17_keys(rng, [90], 128), k17_keys(rng, [0], 128),
+               k17_keys(rng, [40], 128)]
+    elif case == "overlap":
+        a = k17_keys(rng, [120], 128)
+        b = a.copy()
+        b[0, 60:120] = np.sort(rng.choice(
+            np.setdiff1d(np.arange(total), a[0, :120]), 60, replace=False))
+        b[0, :120] = np.sort(b[0, :120])
+        seq = [a, b, a]
+    elif case == "identical":
+        a = k17_keys(rng, [100], 128)
+        seq = [a, a.copy(), k17_keys(rng, [30], 128)]
+    elif case == "at_cap":
+        seq = [k17_keys(rng, [128], 128), k17_keys(rng, [128], 128)]
+    elif case == "invalid_between":
+        seq = []
+        for n in (70, 50):
+            k = k17_keys(rng, [n], 128)
+            k[0, 5:n:9] = K17_INVALID
+            k[0, n:n + 3] = [total, total + 7, K17_INVALID - 1]
+            seq.append(k)
+    else:
+        seq = [k17_keys(rng, [80, 0], 96), k17_keys(rng, [0, 60], 96),
+               k17_keys(rng, [96, 50], 96)]
+    return K17_SHAPE, seq

@@ -27,7 +27,9 @@ output are exact (the plain version's float32 operations in its order),
 its backward (K11's) 1e-5. The banded stage's kernels: K16 (band
 partition, integer coords and copied rows) and K7 with a y limit are
 exact, K11 with per-row origins as K11; a banded train step card vs CPU
-1e-4 (losses) and 1e-3 (grad norm), as the three-class one.
+1e-4 (losses) and 1e-3 (grad norm), as the three-class one. K17 (the
+index-map delta update of persistent-plan serving) is exact against its
+plain version and against K6's fresh map of the same keys.
 """
 import dataclasses
 
@@ -38,9 +40,10 @@ torch = pytest.importorskip("torch")
 
 from sassd_tpu_torch.ops.cuda import same_bits  # noqa: E402
 from test_torch_cases import (K9_CASES, K12_CASES, K13_CASES,  # noqa: E402
-                              K16_TILE, PARTITION_CASES,
+                              K16_TILE, K17_CASES, PARTITION_CASES,
                               invert_stride_plan, k9_case, k12_case,
-                              k13_case, partition_case, partition_rows)
+                              k13_case, k17_case, partition_case,
+                              partition_rows)
 
 pytestmark = pytest.mark.cuda
 
@@ -1980,3 +1983,93 @@ def test_tiny_banded_step_card_matches_cpu(dev):
         assert gv.sum() == rv.sum() and gv.sum() > 0
         for box in gd["boxes"][i][gv]:
             assert (np.abs(cd["boxes"][i][rv] - box).max(1) <= 1e-2).any()
+
+
+@pytest.mark.parametrize("case", K17_CASES)
+def test_k17_cases_match_plain_and_fresh_map(dev, case):
+    """One map carried through each case's scans on the card: after each
+    update equal bit for bit to the plain version's map and to K6's fresh
+    map of the scan's keys."""
+    from sassd_tpu_torch.ops import sparse as sp
+    shape, seq = k17_case(case)
+    b, total = seq[0].shape[0], int(np.prod(shape))
+    got = torch.full((b, total), -1, dtype=torch.int32, device=dev)
+    ref = got.cpu()
+    prev = torch.full((b, seq[0].shape[1]), sp.INVALID_KEY,
+                      dtype=torch.int32)
+    before = sp._K17.launches
+    for keys in map(torch.from_numpy, seq):
+        out = sp.update_index_map(got, prev.to(dev), keys.to(dev), shape)
+        sp.update_index_map_plain(ref, prev, keys)
+        fresh = sp.build_index_map(keys.to(dev), shape)
+        torch.cuda.synchronize()
+        assert out is got
+        assert torch.equal(got.cpu(), ref) and torch.equal(got, fresh)
+        prev = keys
+    assert sp._K17.launches == before + len(seq)
+
+
+def test_k17_car_levels_match_fresh_maps(dev):
+    """K17 at the car config's three plan-building levels, each at its
+    cap: a scan, one sharing half its keys, the same again, an empty one
+    and a scan at the cap; the carried map equals K6's fresh map after
+    every update."""
+    from sassd_tpu_torch.config import car_config
+    from sassd_tpu_torch.models.backbone import level_shapes
+    from sassd_tpu_torch.ops import sparse as sp
+    cfg = car_config()
+    rng = np.random.default_rng(17)
+    for lvl, shape in enumerate(level_shapes(cfg.sparse_shape)[:3]):
+        cap = cfg.caps.level_caps[lvl]
+        total = int(np.prod(shape))
+        a = sorted_keys(rng, shape, [cap // 2], cap)
+        new = rng.choice(total, cap // 2, replace=False)
+        new = new[~np.isin(new, a[0, :cap // 2])][:cap // 4]
+        b = np.full((1, cap), INVALID, np.int32)
+        b[0, :cap // 4 + len(new)] = np.sort(np.concatenate(
+            [a[0, :cap // 4], new]))
+        seq = [a, b, b.copy(), np.full((1, cap), INVALID, np.int32),
+               sorted_keys(rng, shape, [cap], cap)]
+        imap = torch.full((1, total), -1, dtype=torch.int32, device=dev)
+        prev = torch.full((1, cap), sp.INVALID_KEY, dtype=torch.int32,
+                          device=dev)
+        for keys in (torch.from_numpy(k).to(dev) for k in seq):
+            sp.update_index_map(imap, prev, keys, shape)
+            assert torch.equal(imap, sp.build_index_map(keys, shape)), lvl
+            prev = keys
+        del imap
+
+
+def test_k1_at_the_targets_shape(dev):
+    """RotateIou2dSimilarity at the car config's anchors x 64 GT slots
+    (70,400 x 64, K1 at criterion -1): within 1e-4 of the plain version,
+    +0.0 on every culled pair, and the same target labels as the CPU."""
+    from sassd_tpu_torch.config import car_config
+    from sassd_tpu_torch.core import riou, targets
+    from sassd_tpu_torch.data import kitti
+    from sassd_tpu_torch.ops import riou_kernel
+    cfg = car_config()
+    anchors = torch.from_numpy(kitti.build_anchors(cfg)[0])
+    rng = np.random.default_rng(3)
+    gt = np.zeros((cfg.caps.max_gt, 7), np.float32)
+    pick = anchors.numpy()[rng.choice(len(anchors), 24, replace=False)]
+    gt[:24] = pick + rng.normal(0, 0.3, pick.shape).astype(np.float32) * [
+        1, 1, 0.2, 0.1, 0.1, 0.1, 0.5]
+    gt = torch.from_numpy(gt)
+    got = targets.rotate_iou2d_similarity(anchors.to(dev), gt.to(dev))
+    torch.cuda.synchronize()
+    ref = targets.rotate_iou2d_similarity(anchors, gt)
+    assert got.shape == (len(anchors), cfg.caps.max_gt)
+    np.testing.assert_allclose(got.cpu().numpy(), ref.numpy(), atol=1e-4)
+    near = riou_kernel.near_pairs_plain(riou.boxes3d_to_bev5(anchors),
+                                        riou.boxes3d_to_bev5(gt))
+    assert (got.cpu().view(torch.int32)[~near] == 0).all()
+    assert near.any() and not near.all()
+    gv = torch.arange(cfg.caps.max_gt) < 24
+    t_card = targets.create_targets(anchors.to(dev), gt.to(dev), gv.to(dev),
+                                    targets.rotate_iou2d_similarity, 0.6,
+                                    0.45)
+    t_cpu = targets.create_targets(anchors, gt, gv,
+                                   targets.rotate_iou2d_similarity, 0.6, 0.45)
+    assert torch.equal(t_card.labels.cpu(), t_cpu.labels)
+    assert (t_cpu.labels > 0).sum() >= 24

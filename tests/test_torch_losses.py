@@ -85,10 +85,13 @@ def test_box_encode_and_nearest_iou_match_jax():
 
 
 @pytest.mark.parametrize("sim", ["NearestIouSimilarity",
-                                 "RotateIou3dSimilarity"])
+                                 "RotateIou3dSimilarity",
+                                 "RotateIou2dSimilarity",
+                                 "DistanceSimilarity"])
 def test_create_targets_matches_jax(green_overlap, sim):
     """Labels exactly (force matches, negatives, ignored anchors) and the
-    residual targets of the positives."""
+    residual targets of the positives. The rotated IoUs run on both
+    packages' Green's-theorem overlap (the green_overlap fixture)."""
     cfg = config.tiny_config()
     anchors = kitti.build_anchors(cfg)[0]
     rng = np.random.default_rng(2)

@@ -316,10 +316,13 @@ def test_points_mode_config_checks():
     pts = dataclasses.replace(cfg, test=dataclasses.replace(
         cfg.test, device_input="points"))
     config.check_supported(pts)
+    # persistent-plan serving runs (tests/test_torch_persistent_serving.py)
+    config.check_supported(dataclasses.replace(
+        pts, test=dataclasses.replace(pts.test, serve_persistent_plans=True)))
     with pytest.raises(NotImplementedError):
         config.check_supported(dataclasses.replace(
             pts, test=dataclasses.replace(pts.test,
-                                          serve_persistent_plans=True)))
+                                          device_input="range_image")))
     assert cfg.class_names == ("Car",) == cfg.data.class_names
     assert config.car_config().caps.max_points_per_scan == 65536
 
