@@ -13,9 +13,9 @@ Phases, each of which fails the run (nonzero exit, no result line):
    and both timed with CUDA events. K4 (sparse conv, at the sparse
    ladder's 10 convs, each with its found-slot fraction and bound) and K5
    (dense-tail scatter) run on the host plans of synthetic car scans; K6
-   (index maps + window plans) and K7 (downsample) build the device
-   rulebook of those scans, which must equal both the plain versions and
-   the C++ host rulebook bit for bit;
+   (index maps + window plans, a scan's six plans in one call) and K7
+   (downsample) build the device rulebook of those scans, which must
+   equal both the plain versions and the C++ host rulebook bit for bit;
 4. host plans: car-config inference (full widths, random weights from a
    seed) over 4 synthetic scans at batch 1 and once at batch 2, with the
    launch counters reset just before and read just after; K1-K5 must have
@@ -227,16 +227,18 @@ Phases, each of which fails the run (nonzero exit, no result line):
 14. persistent-plan serving (test.serve_persistent_plans) and the two RPN
    similarities (train.rpn_similarity "RotateIou2dSimilarity" and
    "DistanceSimilarity"). 14a: K17 (the index-map delta update) carries
-   one map a level through phase 6's 4 car scans in sequence at the three
-   plan-building levels' full shapes, and through the edge cases (the
-   first scan with no previous keys, the last scan twice, an empty scan,
-   a scan at the level's cap, the first scan again): after every update
-   the map must equal its plain version's and K6's fresh map bit for bit.
-   K17 is timed at each level (events, replay, torch.profiler's kernel
-   time, host clock) beside K6's map entry point (memset + scatter) and two
-   index_put_ calls. 14b: run_inference at batch 1 with the flag over
-   phase 6's split, launch counters reset just before and read just
-   after: K17 3 launches a scan, K6's map 0, K6's plans 6; the plans bit
+   the three plan-building levels' maps at their full shapes, one call (one
+   launch) a scan for the three, through phase 6's 4 car scans in
+   sequence and through the edge cases (the first scan with no previous
+   keys, the last scan twice, an empty scan, a scan at each level's cap,
+   the first scan again): after every call each map must equal its plain
+   version's and K6's fresh map bit for bit. K17 is timed for the three
+   levels in one call and at each level alone (events, replay,
+   torch.profiler's kernel time, host clock) beside K6's map entry point
+   (memset + scatter) and two index_put_ calls a level. 14b:
+   run_inference at batch 1 with the flag over phase 6's split, launch
+   counters reset just before and read just after: K17 1 launch a scan,
+   K6's map 0, K6's plans 1 (as in one persistent step); the plans bit
    for bit those of the per-scan run, the annotations bitwise or the same
    sets; both serving steps timed in turns on the host clock
    (synchronised, upload inside) and the rulebook stage by the profiler.
@@ -284,8 +286,11 @@ rows) and K13 are also timed beside one PyTorch call that computes their
 work (library_ms), a yardstick the port never calls; no single call
 computes K1's, K2's, K4's, K8's, K9's, K10's or K15's function (each row
 says why). K6's other launches of a train step at batch 1 (the maps of
-levels 1-3, the subm and stride plans) print torch.profiler's time beside
-their bounds. K6's map and its yardstick are also replayed in turns
+levels 1-3, each plan alone) print torch.profiler's time beside their
+bounds; the six plans in one call are read four ways (as K12-K14 below)
+beside their plain version; no one call computes them (the window's tap
+cells and edge masks take several calls before a gather). K6's map and
+its yardstick are also replayed in turns
 (map, yardstick, yardstick, map). K8's rows carry the parent design's
 torch.sort of the same keys alone (sort_ms). K3 (at 2 x 2048 boxes and
 at the serving shape: phase 6's first scan's part map and guided boxes,
@@ -334,6 +339,12 @@ runs phases 1-3 and phase 9's kernel checks and prints the kernel rows
 under the key kernels_only (without launch counts) and the card, and no
 result line: the kernels of two checkouts can be timed in one call, each
 from its own root.
+
+The device rulebook's C calls a step are checked in the full run: K6's
+maps 3 and its plans 1 a serving or inference rulebook, 4 and 1 a train
+rulebook (phases 6, 8, 9 and each rank of 12a), K17 1 and the plans 1 a
+persistent scan (14b); the full run also prints the peak device memory
+(torch.cuda.max_memory_allocated) of phases 6, 8 and 9.
 
     python3 chip_smoke.py --data-parallel-only
 
@@ -1158,41 +1169,39 @@ def check_sparse_kernels(torch, np, device, cfg, samples):
                              + canvas.numel() * 4 + occ.numel() * 4, 0)))
 
     # K6 + K7: the device rulebook of all scans as one batch, level by
-    # level against the plain versions on the same inputs, then the whole
-    # rulebook against the C++ host rulebook
+    # level against the plain versions on the same inputs (the six plans in
+    # one call of K6's plans), then the whole rulebook against the C++ host
+    # rulebook
     coords0 = torch.from_numpy(np.stack([s["coords"] for s in samples]))
-    keys = sp.coords_to_keys(coords0.to(device), shapes[0])
+    keys = [sp.coords_to_keys(coords0.to(device), shapes[0])]
     err6 = err7 = 0.0
     dev_plans = {}
-    for lvl in range(4):
-        if lvl > 0:
-            out = sp.downsample_keys(keys, shapes[lvl - 1], caps[lvl])
-            ref = sp.downsample_keys_plain(keys, shapes[lvl - 1], caps[lvl])
-            err7 = max(err7, float((out - ref).abs().max()))
-            plan = sp.window_plan(out, shapes[lvl], imap, shapes[lvl - 1], 2)
-            ref = sp.window_plan_plain(out, shapes[lvl], imap,
-                                       shapes[lvl - 1], 2)
-            err6 = max(err6, float((plan - ref).abs().max()))
-            dev_plans[f"stride{lvl}"] = plan
-            dev_plans[f"coords{lvl}"] = sp.keys_to_coords(out, shapes[lvl])
-            keys = out
-        if lvl < 3:
-            imap = sp.build_index_map(keys, shapes[lvl])
-            ref = sp.build_index_map_plain(keys, shapes[lvl])
-            err6 = max(err6, float((imap - ref).abs().max()))
-            plan = sp.window_plan(keys, shapes[lvl], imap, shapes[lvl], 1)
-            ref = sp.window_plan_plain(keys, shapes[lvl], imap, shapes[lvl],
-                                       1)
-            err6 = max(err6, float((plan - ref).abs().max()))
-            dev_plans[f"subm{lvl}"] = plan
-    del imap, ref
+    for lvl in (1, 2, 3):
+        out = sp.downsample_keys(keys[-1], shapes[lvl - 1], caps[lvl])
+        ref = sp.downsample_keys_plain(keys[-1], shapes[lvl - 1], caps[lvl])
+        err7 = max(err7, float((out - ref).abs().max()))
+        dev_plans[f"coords{lvl}"] = sp.keys_to_coords(out, shapes[lvl])
+        keys.append(out)
+    maps = []
+    for lvl in range(3):
+        maps.append(sp.build_index_map(keys[lvl], shapes[lvl]))
+        ref = sp.build_index_map_plain(keys[lvl], shapes[lvl])
+        err6 = max(err6, float((maps[-1] - ref).abs().max()))
+    del ref
+    specs = sp.rulebook_specs(keys, shapes, maps)
+    for name, plan, ref in zip(sp.RULEBOOK_PLANS, sp.window_plans(specs),
+                               sp.window_plans_plain(specs)):
+        err6 = max(err6, float((plan - ref).abs().max()))
+        dev_plans[name] = plan
+    del maps, specs
     host_diff = {}
     for k, v in dev_plans.items():
         host = np.stack([s[f"plan_{k}"] for s in samples]).astype(np.int32)
         n = int((v.cpu().numpy() != host).sum())
         if n:
             host_diff[k] = n
-    print(f"K6 index maps + window plans, K7 downsample, {len(samples)} "
+    print(f"K6 index maps + window plans (the six in one call), K7 "
+          f"downsample, {len(samples)} "
           f"scans: max|kernel-plain| K6 {err6:g}, K7 {err7:g}; entries "
           f"differing from the C++ host rulebook (subm0-2, stride1-3, "
           f"coords1-3): {host_diff or 'none'}")
@@ -1237,33 +1246,26 @@ def check_sparse_kernels(torch, np, device, cfg, samples):
     print("  K6 L0 map against its yardstick in turns, replayed: "
           + "; ".join(f"{w} {', '.join(f'{t:.4f}' for t in ts)}"
                       for w, ts in turns))
-    # K6's other launches of a train step at batch 1 (the maps of levels
-    # 1-3, the subm and stride plans), each by torch.profiler's device time
-    # a call (its map's memset included) beside its bound: keys in, a map
-    # written whole, a plan written whole with 27 map reads a valid row
+    # K6's other launches of a train step at batch 1: the maps of levels
+    # 1-3 and each plan alone (a window_plan call, one launch), each by
+    # torch.profiler's device time a call (its map's memset included)
+    # beside its bound: keys in, a map written whole, a plan written whole
+    # with 27 map reads a valid row
     lk = [keys0]
     for lvl in (1, 2, 3):
         lk.append(sp.downsample_keys(lk[-1], shapes[lvl - 1], caps[lvl]))
     lmaps = [sp.build_index_map(k, sh) for k, sh in zip(lk, shapes)]
+    specs = sp.rulebook_specs(lk, shapes, lmaps)
+    plan_bds = [k6_plan_bound(spec[0]) for spec in specs]
     parts = {}
-    for lvl in range(4):
+    for lvl in (1, 2, 3):
         m = lk[lvl].shape[1]
-        n = int((lk[lvl] != sp.INVALID_KEY).sum())
-        plan_bd = bound(m * 4 + 27 * m * 4 + 27 * n * 4, 0)
-        if lvl:
-            total = shapes[lvl][0] * shapes[lvl][1] * shapes[lvl][2]
-            parts[f"L{lvl} map"] = (
-                lambda lvl=lvl: sp.build_index_map(lk[lvl], shapes[lvl]),
-                bound(m * 4 + total * 4, 0))
-            parts[f"stride{lvl} plan"] = (
-                lambda lvl=lvl: sp.window_plan(lk[lvl], shapes[lvl],
-                                               lmaps[lvl - 1],
-                                               shapes[lvl - 1], 2), plan_bd)
-        if lvl < 3:
-            parts[f"subm{lvl} plan"] = (
-                lambda lvl=lvl: sp.window_plan(lk[lvl], shapes[lvl],
-                                               lmaps[lvl], shapes[lvl], 1),
-                plan_bd)
+        total = shapes[lvl][0] * shapes[lvl][1] * shapes[lvl][2]
+        parts[f"L{lvl} map"] = (
+            lambda lvl=lvl: sp.build_index_map(lk[lvl], shapes[lvl]),
+            bound(m * 4 + total * 4, 0))
+    for name, spec, bd in zip(sp.RULEBOOK_PLANS, specs, plan_bds):
+        parts[f"{name} plan"] = (lambda spec=spec: sp.window_plan(*spec), bd)
     k6_parts = {}
     for what, (fn, bd) in parts.items():
         split = kernel_split(fn)
@@ -1271,28 +1273,60 @@ def check_sparse_kernels(torch, np, device, cfg, samples):
         k6_parts[what] = dict(profiler_ms=prof, kernel_split=split,
                               bound_ms=bd["bound_ms"],
                               bound_bytes=bd["bound_bytes"])
-    del lmaps
-    print("  K6's other launches, batch 1 (profiler ms a call / bound ms): "
+    print("  K6's other launches, batch 1, each plan alone (profiler ms a "
+          "call / bound ms): "
           + "; ".join(f"{w} " + ("not measured" if v["profiler_ms"] is None
                                  else f"{v['profiler_ms']:.4f}")
                       + f" / {v['bound_ms']:.4f}"
                       for w, v in k6_parts.items()))
+    plans = k6_plans_timed(torch, sp, specs, plan_bds)
+    del lmaps, specs
     rows.append(dict(name="K6 device_plans", route="cuda",
                      source="sassd_tpu_torch/csrc/device_plans.cu",
                      replaces="sassd_tpu/ops/sparse.py:84",
                      max_abs_err=err6, ms=ms, plain_ms=plain_ms,
                      map_ms=map_ms, map_graph_ms=map_graph_ms,
                      map_turns_graph_ms=turns, other_launches=k6_parts,
+                     plans=plans,
                      library_ms=lib6_ms, library_graph_ms=lib6_graph_ms,
                      library_what="torch.full(-1) + index_put_ of the valid "
-                                  "rows: the L0 map alone, against map_ms",
-                     at="L0 index map + subm0 plan, batch 1",
+                                  "rows: the L0 map alone, against map_ms; "
+                                  "the six plans (plans) have none: the "
+                                  "window's tap cells and edge masks take "
+                                  "several calls before a torch.take",
+                     at="L0 index map + subm0 plan, batch 1; plans: the "
+                        "six plans of a scan in one call, batch 1",
                      # keys in, the whole map written, 27 map reads and
                      # one plan entry out per row and tap
                      **bound(m0 * 4 + total0 * 4 + 2 * 27 * m0 * 4, 0)))
     rows.append(k7_row(torch, sp, keys0, shapes[0], caps[1], err7,
                        "K7 downsample", "L0 -> L1, batch 1, the car scan"))
     return rows
+
+
+def k6_plan_bound(out_keys) -> dict:
+    """A plan's bound: its keys read, the [B, 27, M_out] plan written, and
+    27 map reads of 4 bytes a valid row."""
+    from sassd_tpu_torch.ops import sparse as sp
+    m = out_keys.numel()
+    n = int((out_keys != sp.INVALID_KEY).sum())
+    return bound(m * 4 + 27 * m * 4 + 27 * n * 4, 0)
+
+
+def k6_plans_timed(torch, sp, specs, plan_bds) -> dict:
+    """K6's plans of a scan in one window_plans call, read four ways
+    (measured), beside the plain version; their bound is the six plans'
+    summed."""
+    t = measured(lambda: sp.window_plans(specs), "K6's six plans, one call")
+    plain_ms = cuda_ms(lambda: sp.window_plans_plain(specs), iters=5)
+    bd = add_bounds(plan_bds)
+    print(f"  K6's six plans, one call: kernel {t['ms']:.4f} ms "
+          f"({t['graph_ms']:.4f} replayed, profiler "
+          + ("not measured" if t["profiler_ms"] is None
+             else f"{t['profiler_ms']:.4f}")
+          + f", host {t['host_us']:.1f} us), plain {plain_ms:.4f} ms; bound "
+          f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+    return dict(**t, plain_ms=plain_ms, library_ms=None, **bd)
 
 
 def k7_row(torch, sp, keys, shape, cap, err, name, at, y_limit=None):
@@ -4106,15 +4140,17 @@ def k17_bound(torch, prev, keys) -> dict:
 
 
 def check_k17(torch, np, device, cfg, root: str) -> dict:
-    """Phase 14a: K17 on phase 6's synthetic car scans in sequence, at the
-    three levels' full shapes, and on the edge cases: the first scan (no
-    previous keys), the last scan twice, an empty scan, a scan at the
-    level's cap, then the first scan again. After every update the
-    carried map must equal its plain version's (run on the card) and K6's
-    fresh map bit for bit. Timed at each level on the update from scan 0
-    to scan 1: events, replay, torch.profiler's kernel time and the host
-    clock, beside K6's map entry point (memset + scatter) and two
-    index_put_ calls (the clear and the set). Returns K17's row."""
+    """Phase 14a: K17 on phase 6's synthetic car scans in sequence, the
+    three levels at their full shapes in one update_index_maps call a
+    scan, and on the edge cases: the first scan (no previous keys), the
+    last scan twice, an empty scan, a scan at each level's cap, then the
+    first scan again. After every call each carried map must equal its
+    plain version's (run on the card) and K6's fresh map bit for bit.
+    Timed on the update from scan 0 to scan 1: the three levels in one
+    call, and each level alone (a one-level call), each read four ways
+    (events, replay, torch.profiler's kernel time, host clock), beside
+    K6's map entry point (memset + scatter) and two index_put_ calls (the
+    clear and the set) a level. Returns K17's row."""
     from sassd_tpu_torch import serve
     from sassd_tpu_torch.models.backbone import level_shapes
     from sassd_tpu_torch.ops import sparse as sp
@@ -4127,59 +4163,72 @@ def check_k17(torch, np, device, cfg, root: str) -> dict:
                   for k in ("points", "n_points"))
         scans.append(level_keys(cfg, serve.batch_from_points(
             pts, n, lattice, cfg_pts)["coords"]))
-    shapes = level_shapes(cfg.sparse_shape)
-    caps = cfg.caps.level_caps
+    shapes = level_shapes(cfg.sparse_shape)[:3]
+    caps = cfg.caps.level_caps[:3]
     rng = np.random.default_rng(SEED + 14)
-    levels = []
-    for lvl in range(3):
-        shape, cap = shapes[lvl], caps[lvl]
+    empty, full = [], []
+    for shape, cap in zip(shapes, caps):
         total = int(np.prod(shape))
-        empty = torch.full((1, cap), sp.INVALID_KEY, dtype=torch.int32,
-                           device=device)
-        full = empty.clone()
+        empty.append(torch.full((1, cap), sp.INVALID_KEY, dtype=torch.int32,
+                                device=device))
+        full.append(empty[-1].clone())
         n_full = min(cap, total)        # cap on the car grids; all at tiny
-        full[0, :n_full] = torch.from_numpy(np.sort(rng.choice(
+        full[-1][0, :n_full] = torch.from_numpy(np.sort(rng.choice(
             total, n_full, replace=False)).astype(np.int32))
-        seq = [("scan 0, no previous keys", scans[0][lvl])]
-        seq += [(f"scan {i}", s[lvl]) for i, s in enumerate(scans)][1:]
-        seq += [(f"scan {N_SCANS - 1} again", scans[-1][lvl]),
-                ("an empty scan", empty), ("a scan at the cap", full),
-                ("scan 0 after the cap", scans[0][lvl])]
-        imap = torch.full((1, total), -1, dtype=torch.int32, device=device)
-        plain = imap.clone()
-        prev = empty
-        counts = []
-        for what, keys in seq:
-            sp.update_index_map(imap, prev, keys, shape)
-            sp.update_index_map_plain(plain, prev, keys)
-            fresh = sp.build_index_map(keys, shape)
+    seq = [("scan 0, no previous keys", scans[0])]
+    seq += [(f"scan {i}", s) for i, s in enumerate(scans)][1:]
+    seq += [(f"scan {N_SCANS - 1} again", scans[-1]), ("an empty scan", empty),
+            ("a scan at the cap", full), ("scan 0 after the cap", scans[0])]
+    maps = [torch.full((1, int(np.prod(s))), -1, dtype=torch.int32,
+                       device=device) for s in shapes]
+    plain = [m.clone() for m in maps]
+    prev = empty
+    counts = []
+    for what, keys in seq:
+        before = sp._K17.launches
+        sp.update_index_maps(maps, prev, keys, shapes)
+        if sp._K17.launches != before + maps[0].is_cuda:
+            fail(f"K17, {what}: {sp._K17.launches - before} launches for "
+                 f"the three levels' update, not 1")
+        sp.update_index_maps_plain(plain, prev, keys)
+        for lvl in range(3):
+            fresh = sp.build_index_map(keys[lvl], shapes[lvl])
             torch.cuda.synchronize()
-            if not (same_bits(imap, plain) and same_bits(imap, fresh)):
+            if not (same_bits(maps[lvl], plain[lvl])
+                    and same_bits(maps[lvl], fresh)):
                 fail(f"K17 at level {lvl}, {what}: the carried map differs "
                      f"from its plain version's or K6's fresh map")
-            counts.append(int((keys != sp.INVALID_KEY).sum()))
-            prev = keys
-        del fresh, plain
-        print(f"K17 level {lvl} {tuple(shape)} (cap {cap}): {len(seq)} "
-              f"updates bitwise equal to the plain version and to K6's "
-              f"fresh map; valid keys {counts}")
-        # timing: the update from scan 0 to scan 1, repeated (each call
-        # clears scan 0's cells and sets scan 1's: the same work)
-        k0, k1 = scans[0][lvl], scans[1][lvl]
-        imap.copy_(sp.build_index_map(k0, shape))
+        counts.append([int((k != sp.INVALID_KEY).sum()) for k in keys])
+        prev = keys
+    del fresh, plain
+    print(f"K17, the three levels {[tuple(s) for s in shapes]} (caps "
+          f"{list(caps)}) in one call a scan: {len(seq)} updates, each one "
+          f"launch, bitwise equal to the plain version and to K6's fresh "
+          f"maps; valid keys {counts}")
+    # timing: the update from scan 0 to scan 1, repeated (each call clears
+    # scan 0's cells and sets scan 1's: the same work)
+    k0, k1 = scans[0], scans[1]
+    for lvl in range(3):
+        maps[lvl].copy_(sp.build_index_map(k0[lvl], shapes[lvl]))
 
-        def k17():
-            return sp.update_index_map(imap, k0, k1, shape)
-        t = measured(k17, f"K17 level {lvl}")
-        plain_ms = cuda_ms(lambda: sp.update_index_map_plain(imap, k0, k1),
-                           iters=5)
-        k6 = measured(lambda: sp.build_index_map(k1, shape),
+    def k17():
+        return sp.update_index_maps(maps, k0, k1, shapes)
+    t = measured(k17, "K17, the three levels in one call")
+    plain_ms = cuda_ms(lambda: sp.update_index_maps_plain(maps, k0, k1),
+                       iters=5)
+    levels = []
+    for lvl, shape in enumerate(shapes):
+        imap = maps[lvl]
+        one = measured(lambda: sp.update_index_map(imap, k0[lvl], k1[lvl],
+                                                   shape),
+                       f"K17 level {lvl} alone")
+        k6 = measured(lambda: sp.build_index_map(k1[lvl], shape),
                       f"K6 map level {lvl} (memset + scatter)")
         flat = imap.view(-1)
-        idx0 = k0[k0 != sp.INVALID_KEY].long()
-        ok1 = k1 != sp.INVALID_KEY
-        idx1 = k1[ok1].long()
-        rows1 = torch.arange(k1.shape[1], dtype=torch.int32,
+        idx0 = k0[lvl][k0[lvl] != sp.INVALID_KEY].long()
+        ok1 = k1[lvl] != sp.INVALID_KEY
+        idx1 = k1[lvl][ok1].long()
+        rows1 = torch.arange(k1[lvl].shape[1], dtype=torch.int32,
                              device=device)[ok1[0]]
         minus = torch.full_like(rows1[:1], -1)
 
@@ -4187,64 +4236,68 @@ def check_k17(torch, np, device, cfg, root: str) -> dict:
             flat.index_put_((idx0,), minus.expand(idx0.shape[0]))
             flat.index_put_((idx1,), rows1)
         lib = measured(index_put, f"two index_put_ calls level {lvl}")
-        if not same_bits(imap, sp.build_index_map(k1, shape)):
+        if not same_bits(imap, sp.build_index_map(k1[lvl], shape)):
             fail(f"K17 level {lvl}: the timed updates left another map")
-        levels.append(dict(level=lvl, shape=list(shape), n_prev=counts[0],
-                           n_keys=counts[1], valid_keys=counts, **t,
-                           plain_ms=plain_ms, k6_map_ms=k6["ms"],
+        levels.append(dict(level=lvl, shape=list(shape),
+                           n_prev=counts[0][lvl], n_keys=counts[1][lvl],
+                           valid_keys=[c[lvl] for c in counts],
+                           alone=one, k6_map_ms=k6["ms"],
                            k6_map_graph_ms=k6["graph_ms"],
                            k6_map_profiler_ms=k6["profiler_ms"],
                            index_put_ms=lib["ms"],
                            index_put_graph_ms=lib["graph_ms"],
                            index_put_profiler_ms=lib["profiler_ms"],
-                           **k17_bound(torch, k0, k1)))
-        del imap, flat
-        torch.cuda.synchronize()
+                           **k17_bound(torch, k0[lvl], k1[lvl])))
+        del flat
+    del maps, imap
+    torch.cuda.synchronize()
     for r in levels:
-        print(f"  K17 level {r['level']}: kernel {r['ms']:.4f} ms "
-              f"({r['graph_ms']:.4f} replayed, profiler "
-              f"{r['profiler_ms'] or 0:.4f}), plain {r['plain_ms']:.4f}; "
-              f"K6 map {r['k6_map_ms']:.4f} (profiler "
-              f"{r['k6_map_profiler_ms'] or 0:.4f}); two index_put_ "
-              f"{r['index_put_ms']:.4f} (profiler "
+        one = r["alone"]
+        print(f"  K17 level {r['level']} alone: kernel {one['ms']:.4f} ms "
+              f"({one['graph_ms']:.4f} replayed, profiler "
+              f"{one['profiler_ms'] or 0:.4f}); K6 map {r['k6_map_ms']:.4f} "
+              f"(profiler {r['k6_map_profiler_ms'] or 0:.4f}); two "
+              f"index_put_ {r['index_put_ms']:.4f} (profiler "
               f"{r['index_put_profiler_ms'] or 0:.4f}); bound "
               f"{r['bound_ms']:.5f} ms")
-    prof = [r["profiler_ms"] for r in levels]
-    return dict(name="K17 update_index_map", route="cuda",
+    bd = add_bounds(levels)
+    print(f"  K17, the three levels in one call: kernel {t['ms']:.4f} ms "
+          f"({t['graph_ms']:.4f} replayed, profiler "
+          + ("not measured" if t["profiler_ms"] is None
+             else f"{t['profiler_ms']:.4f}")
+          + f", host {t['host_us']:.1f} us), plain {plain_ms:.4f} ms; bound "
+          f"{bd['bound_ms']:.5f} ms")
+    return dict(name="K17 update_index_maps", route="cuda",
                 source="sassd_tpu_torch/csrc/device_plans.cu",
                 replaces="sassd_tpu/serve.py:262",
-                max_abs_err=0.0,
-                ms=sum(r["ms"] for r in levels),
-                graph_ms=sum(r["graph_ms"] for r in levels),
-                profiler_ms=(sum(prof) if None not in prof else None),
-                plain_ms=sum(r["plain_ms"] for r in levels),
+                max_abs_err=0.0, **t, plain_ms=plain_ms,
                 library_ms=None,
                 library_what="none: no one call clears one key set and "
                              "scatters another; two index_put_ calls (clear, "
-                             "set) timed beside it as index_put_ms",
+                             "set) a level timed beside it as index_put_ms",
                 index_put_ms=sum(r["index_put_ms"] for r in levels),
+                index_put_profiler_ms=sum(r["index_put_profiler_ms"] or 0.0
+                                          for r in levels),
                 k6_map_ms=sum(r["k6_map_ms"] for r in levels),
                 at="the three levels' update from phase 6's scan 0 to scan "
-                   "1, batch 1", levels=levels, **add_bounds(levels))
+                   "1 in one call, batch 1", levels=levels, **bd)
 
 
 def run_persistent_serving(torch, np, device, cfg, model_dev,
                            root: str) -> dict:
     """Phase 14b: run_inference at batch 1 with
     test.serve_persistent_plans over phase 6's 4-scan split, launch
-    counters reset just before and read just after: K17 3 times a scan,
-    K6's map entry point never, K6's plan entry point 6 times a scan. Its
+    counters reset just before and read just after: K17 once a scan (the
+    three levels), K6's map entry point never, K6's plans once a scan. Its
     plans must be bitwise those of the per-scan run (captured from
     sp.device_rulebook and serve.plans_from_carry), its annotations
     bitwise or at least the same sets. Then both steps are timed in turns
     on the host clock (upload inside, synchronised), and the rulebook
     stage by torch.profiler."""
     import dataclasses
-    from torch.profiler import ProfilerActivity, profile
     from sassd_tpu_torch import inference, serve
     from sassd_tpu_torch.ops import sparse as sp
     from sassd_tpu_torch.ops.cuda import same_bits
-    from sassd_tpu_torch.profile_slice import stage_times
     cfg_pts, ds, step, batch1, _ = serving_split(torch, np, device, cfg,
                                                  root)
     cfg_p = dataclasses.replace(cfg_pts, test=dataclasses.replace(
@@ -4283,8 +4336,8 @@ def run_persistent_serving(torch, np, device, cfg, model_dev,
     finally:
         serve.plans_from_carry = orig_pc
     n = len(got[1])
-    want = {"sassd_index_map_update": 3 * n, "sassd_index_map": 0,
-            "sassd_window_plan": 6 * n}
+    want = {"sassd_index_maps_update": n, "sassd_index_map": 0,
+            "sassd_window_plans": n}
     seen = {k: launches[k] for k in want}
     print(f"persistent serving: {n} scans; launches {seen} (want {want}); "
           f"all {launches}")
@@ -4313,6 +4366,22 @@ def run_persistent_serving(torch, np, device, cfg, model_dev,
     step_p(model_dev, carry, batch1[0])
     torch.cuda.synchronize()
     per_step = read_launches()
+    check_counts(per_step, RULEBOOK_CALLS["persistent"],
+                 "persistent serving, one step")
+
+    ms, rulebook_ms = serving_modes_timed(torch, model_dev, step, step_p,
+                                          carry, batch1)
+    return dict(launches=launches, per_step=per_step, ms=ms,
+                rulebook_ms=rulebook_ms, bitwise=bitwise)
+
+
+def serving_modes_timed(torch, model_dev, step, step_p, carry, batch1):
+    """The per-scan and the persistent serving step over the scans of
+    batch1: on the host clock in turns (per-scan, persistent, persistent,
+    per-scan; synchronised, upload inside), then the rulebook stage of
+    each by torch.profiler (its kernels and its span, ms/scan)."""
+    from torch.profiler import ProfilerActivity, profile
+    from sassd_tpu_torch.profile_slice import stage_times
 
     def per_scan(b):
         step(model_dev, b)
@@ -4345,8 +4414,7 @@ def run_persistent_serving(torch, np, device, cfg, model_dev,
               f"{'not measured' if kern is None else f'{kern:.4f}'}, span "
               f"{'not measured' if span is None else f'{span:.4f}'} "
               f"ms/scan")
-    return dict(launches=launches, per_step=per_step, ms=ms,
-                rulebook_ms=rulebook_ms, bitwise=bitwise)
+    return ms, rulebook_ms
 
 
 def train_split_batch(np, cfg, root: str):
@@ -4532,6 +4600,26 @@ def run_phase14(torch, np, device, cfg, model_dev, train_ref=None) -> dict:
                 similarity=sim, wall_s=wall)
 
 
+def peak_phases(torch, np, device, cfg, model_dev, model_cpu, root: str,
+                phase: str, host_step_ms=()):
+    """Phase 6 (serving), 8 (three-class training on device plans) or 9
+    (long range) under peak_mib: its results and {phase: its memory}. The
+    device rulebook's maps live together while its plans are built, so
+    these phases' peaks can move with it."""
+    if phase == "6":
+        fn = lambda: run_serving(torch, np, device, cfg, model_dev,  # noqa
+                                 model_cpu, root)
+    elif phase == "8":
+        fn = lambda: run_multi_training(torch, np, device, root,  # noqa
+                                        list(host_step_ms))
+    else:
+        fn = lambda: run_long_range(torch, np, device, root)  # noqa
+    out, peak = peak_mib(torch, fn)
+    print(f"phase {phase}: peak device memory {peak['peak_mib']:.1f} MiB "
+          f"(allocated at its start {peak['start_mib']:.1f} MiB)")
+    return out, {phase: peak}
+
+
 TRAIN_PHASE_IDS = "K1 K3 K3b K4 K5 K5b K10 K11 K12"
 SERVE_PHASE_IDS = "K1 K2 K3 K4 K5 K6 K7 K8 K9"
 
@@ -4551,6 +4639,38 @@ def kernel_symbols() -> dict:
             **itp.KERNEL_SYMBOLS, **boxes.KERNEL_SYMBOLS,
             **ss.KERNEL_SYMBOLS, "K7'": sp.KERNEL_SYMBOLS["K7"],
             "K11'": itp.KERNEL_SYMBOLS["K11"]}
+
+
+# the device rulebook's C calls on a path: K6's maps (levels 0-2, and
+# level 3 when training) and one call of K6's plans a rulebook; persistent
+# serving one K17 call (the three levels) and one plans call a scan
+RULEBOOK_CALLS = {
+    "inference": {"sassd_index_map": 3, "sassd_window_plans": 1},
+    "training": {"sassd_index_map": 4, "sassd_window_plans": 1},
+    "persistent": {"sassd_index_maps_update": 1, "sassd_index_map": 0,
+                   "sassd_window_plans": 1},
+    "12a": {"sassd_index_map": 10, "sassd_window_plans": 3}}
+
+
+def check_counts(launches: dict, want: dict, what: str) -> None:
+    """Print the launches of the entry points in `want` and fail unless
+    each launched exactly as often as `want` says."""
+    seen = {k: launches[k] for k in want}
+    print(f"{what}: rulebook launches {seen} (want {want})")
+    if seen != want:
+        fail(f"{what}: the rulebook launched {seen}, not {want}")
+
+
+def peak_mib(torch, fn):
+    """fn()'s result and the card's memory around it: allocated at the
+    start, torch.cuda.max_memory_allocated over the call (MiB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated() / 2**20
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(start_mib=start,
+                     peak_mib=torch.cuda.max_memory_allocated() / 2**20)
 
 
 def check_launched(launches: dict, ids: str, what: str) -> None:
@@ -5486,6 +5606,11 @@ def run_spatial(torch, np, device, root: str, refs=None) -> dict:
             if run["layout"] != lay + (0, r):
                 fail(f"{what}: rank {r} laid out as {run['layout']}")
             check_launched(run["launches"], ids, f"{what}, rank {r}")
+            if name == "12a":
+                # two forward_test rulebooks (three maps each) and one
+                # train rulebook (four), each with one call of K6's plans
+                check_counts(run["launches"], RULEBOOK_CALLS["12a"],
+                             f"{what}, rank {r}")
         counts = [match_detections(d, e, f"{what}, rank {r}, scan {i}")
                   for r, run in enumerate(runs)
                   for i, (d, e) in enumerate(zip(run["dets"],
@@ -5755,17 +5880,19 @@ def main() -> int:
     dev = run_phase(torch, np, device, cfg_dev, model_dev, anchors,
                     samples_dev, "device plans")
     with tempfile.TemporaryDirectory() as root:
-        serving = run_serving(torch, np, device, cfg, model_dev, model,
-                              root)
+        serving, peaks = peak_phases(torch, np, device, cfg, model_dev, model,
+                                     root, "6")
     with tempfile.TemporaryDirectory() as root:
         training = run_training(torch, np, device, cfg, root)
     with tempfile.TemporaryDirectory() as root:
-        multi_runs, multi_step = run_multi_training(torch, np, device, root,
-                                                    training[2])
+        (multi_runs, multi_step), peak = peak_phases(
+            torch, np, device, cfg, model_dev, model, root, "8", training[2])
+    peaks.update(peak)
     t = time.perf_counter()
     with tempfile.TemporaryDirectory() as root:
-        lr_rows, lr_runs, lr_step, lr_ms, lr_train_ms, lr_refs = (
-            run_long_range(torch, np, device, root))
+        (lr_rows, lr_runs, lr_step, lr_ms, lr_train_ms, lr_refs), peak = (
+            peak_phases(torch, np, device, cfg, model_dev, model, root, "9"))
+    peaks.update(peak)
     print(f"long range: phase 9 took {time.perf_counter() - t:.1f} s")
     rows += lr_rows
     for r in rows:
@@ -5797,6 +5924,14 @@ def main() -> int:
                                  lr_runs["training"], "K1 K3 K3b K4 K5 K5b "
                                  "K6 K10 K12 K13 K14 K16 K7' K11'")):
         check_launched(launches, ids, what)
+    for what, launches, kind in (
+            ("serving, batch 1", serving[4], "inference"),
+            ("three-class training, ring, batch 1", multi_step["ring"],
+             "training"),
+            ("three-class training, exact, batch 1", multi_step["exact"],
+             "training"),
+            ("long range, banded training, batch 2", lr_step, "training")):
+        check_counts(launches, RULEBOOK_CALLS[kind], what)
     exact = multi_runs["exact"]
     if exact["sassd_ring_interp_bwd"] == 0:
         fail("three-class training, exact: K11's backward was not launched")
@@ -5879,6 +6014,9 @@ def main() -> int:
                             f"{v[0]:.4f} / {v[1]:.4f}")
               for mode, v in persistent["rulebook_ms"].items())
           + " ms/scan")
+    print(f"peak device memory by phase, on {name} [{card}]: " + "; ".join(
+        f"phase {k} {v['peak_mib']:.1f} MiB (allocated at its start "
+        f"{v['start_mib']:.1f})" for k, v in peaks.items()))
     banded_phases = (("long range, banded inference", lr_runs["banded"]),
                      ("long range, banded training", lr_runs["training"]),
                      ("bf16 long range, banded inference",

@@ -23,12 +23,21 @@
 // Bound on the H100: bytes. The L0 map is 40 x 1600 x 1408 = 90.1M cells
 // (360 MB per sample): the memset writes it once at ~3.35 TB/s (~0.1 ms);
 // the scatter and the lookups touch only ~20000 rows x 27 taps of it.
-// Design: a cudaMemsetAsync and one thread per valid row for the map; one
-// thread per (sample, tap group (dz, dy), output row) for the plan, which
-// reads the three x-consecutive cells of its group directly from the map.
-// That is the TPU version's SASSD_WINDOW_TABLE=0 form, identical in result
-// to its window-table form; the [total + 1, 3] table (~1 GB at L0) is never
-// built.
+// Design: a cudaMemsetAsync and one thread per valid row for the map. The
+// plans of a scan (subm0-2, stride1-3: up to six) in one launch, one
+// thread a (plan, sample, output row): it decodes its key once, issues its
+// 27 map loads together (the 9 tap groups' three x-consecutive cells, read
+// directly from the map), then writes its 27 entries, each store coalesced
+// along M_out; a padding row writes -1 and reads no map. A block finds its
+// plan from a prefix of block counts. That is the TPU version's
+// SASSD_WINDOW_TABLE=0 form, identical in result to its window-table form;
+// the [total + 1, 3] table (~1 GB at L0) is never built. A plan alone is
+// 0.3-2 MB of writes, which as a launch of its own is mostly ramp-up and
+// tail (2.2-3.6 us at car b1), hence one launch for the six; a thread a
+// tap group of a row instead was no faster at car b1 (PERF.md, row B8).
+// Bound on the H100: bytes, the plans' write once (27 x 4 B a row slot,
+// 10.3 MB for the six plans at the car caps), the keys and the map cells
+// read.
 //
 // K13, transpose plans of levels 1-3: for input row i of level L - 1
 // (cell c on its grid) and tap k (offset off_k), the row of the output
@@ -75,9 +84,17 @@
 // update_map (two scatters with mode="drop"). Bound on the H100: bytes,
 // the two key arrays read once and one 32-byte sector written for each
 // cleared or set key (~0.0004 ms for 20,000 + 20,000 keys at L0), where a
-// fresh map writes the whole grid (360 MB at L0). Design: one thread a
-// key, for the clear and for the scatter; no memset.
+// fresh map writes the whole grid (360 MB at L0). Design: the three
+// levels of a scan in one entry point of two kernels, the clear of every
+// level's previous keys, then the set of every level's keys; each kernel
+// one grid of a thread a key over the levels' keys concatenated, a block
+// finding its level from a prefix of block counts; no memset. A level
+// alone is under one block an SM (79, 72 and 56 blocks of 256 on 132 SMs
+// at the car caps), hence the shared grid. No grid barrier: the stream
+// orders the two kernels.
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
@@ -93,15 +110,51 @@ __global__ void index_map_kernel(const int* __restrict__ keys, int m,
   map[static_cast<long long>(b) * total + key] = row;
 }
 
-// K17's clear: map[b, key] = -1 for every valid key of the previous scan.
-__global__ void index_map_clear_kernel(const int* __restrict__ keys, int m,
-                                       long long total, int* __restrict__ map) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+// One level of K17's update: its keys (the previous scan's for the
+// clear, this scan's for the set), its map and grid size; its blocks
+// start at block first of the grid's x.
+struct KeyLevel {
+  const int* keys;
+  int* map;
+  long long total;
+  int m, first;
+};
+
+// K17's levels, passed by value.
+struct KeyLevels {
+  KeyLevel l[3];
+  int n;
+};
+
+constexpr int kMapThreads = 256;
+
+// K17's write for this thread's row of level k in block blk, sample b:
+// map[b, key] = -1 (kClear) or the row, with index_map_kernel's rules
+// (INVALID_KEY, negative keys and keys off the grid are skipped).
+template <bool kClear>
+__device__ __forceinline__ void update_key(const KeyLevel& k, int blk,
+                                           int b) {
+  const int row = (blk - k.first) * kMapThreads + threadIdx.x;
+  if (row >= k.m) return;
+  const int key = k.keys[static_cast<long long>(b) * k.m + row];
+  if (key == kInvalidKey || key < 0 || key >= k.total) return;
+  k.map[static_cast<long long>(b) * k.total + key] = kClear ? -1 : row;
+}
+
+// K17: update_key over every valid key of every level. The level is
+// chosen by three branches of constant index (uniform in a block), so
+// the parameters are read in place, not copied to a stack frame.
+template <bool kClear>
+__global__ void __launch_bounds__(kMapThreads)
+    index_maps_update_kernel(KeyLevels lv) {
+  const int blk = blockIdx.x;
   const int b = blockIdx.y;
-  if (row >= m) return;
-  const int key = keys[static_cast<long long>(b) * m + row];
-  if (key == kInvalidKey || key < 0 || key >= total) return;
-  map[static_cast<long long>(b) * total + key] = -1;
+  if (lv.n > 2 && blk >= lv.l[2].first)
+    update_key<kClear>(lv.l[2], blk, b);
+  else if (lv.n > 1 && blk >= lv.l[1].first)
+    update_key<kClear>(lv.l[1], blk, b);
+  else
+    update_key<kClear>(lv.l[0], blk, b);
 }
 
 // The rows r[0..2] of the three x-consecutive taps of tap group g (dz, dy)
@@ -120,36 +173,58 @@ __device__ __forceinline__ void window_rows(const int* __restrict__ mb, int z,
   }
 }
 
-// The three x-consecutive taps of tap group g (dz, dy) around the base
-// cell (z, y, x) of sample b, written to plan rows 3g..3g+2 at column m.
-__device__ void window_taps(const int* __restrict__ map, int b, int z, int y,
-                           int x, int g, int d, int h, int w,
-                           int* __restrict__ plan, int m, int m_out) {
-  int r[3];
-  window_rows(map + static_cast<long long>(b) * d * h * w, z, y, x, g, d, h,
-              w, r);
-  int* pb = plan + (static_cast<long long>(b) * 27 + 3 * g) * m_out + m;
-  pb[0] = r[0];
-  pb[m_out] = r[1];
-  pb[2 * m_out] = r[2];
-}
+// One plan of K6's window plans: its output keys on the output grid
+// (oh, ow), the input level's map on the input grid (d, h, w), the base
+// cell's scale and the plan; its blocks start at block first of the
+// grid's x.
+struct PlanSpec {
+  const int* out_keys;
+  const int* map;
+  int* plan;
+  int m_out, oh, ow, scale, d, h, w, first;
+};
 
-__global__ void window_plan_kernel(const int* __restrict__ out_keys,
-                                   int m_out, int oh, int ow, int scale,
-                                   const int* __restrict__ map, int d, int h,
-                                   int w, int* __restrict__ plan) {
-  const int m = blockIdx.x * blockDim.x + threadIdx.x;
-  const int g = blockIdx.y;                       // tap group (dz, dy)
-  const int b = blockIdx.z;
+constexpr int kMaxPlans = 6;
+
+struct PlanSpecs {
+  PlanSpec p[kMaxPlans];
+  int n;
+};
+
+constexpr int kPlanThreads = 128;
+
+// K6's window plans: a thread resolves one output row of one plan and
+// sample. It decodes its key once, issues its 27 map loads, then writes
+// them, each store coalesced along M_out.
+__global__ void __launch_bounds__(kPlanThreads)
+    window_plans_kernel(PlanSpecs ps) {
+  const int blk = blockIdx.x;
+  int p = 0;
+#pragma unroll
+  for (int j = 1; j < kMaxPlans; ++j)
+    if (j < ps.n && blk >= ps.p[j].first) p = j;
+  const PlanSpec& s = ps.p[p];
+  const int m = (blk - s.first) * kPlanThreads + threadIdx.x;
+  const int b = blockIdx.y;
+  const int m_out = s.m_out;
   if (m >= m_out) return;
-  const int key = out_keys[static_cast<long long>(b) * m_out + m];
+  const int key = s.out_keys[static_cast<long long>(b) * m_out + m];
   int x = -1, y = -1, z = -1;
   if (key != kInvalidKey) {
-    x = scale * (key % ow);
-    y = scale * ((key / ow) % oh);
-    z = scale * (key / (ow * oh));
+    x = s.scale * (key % s.ow);
+    y = s.scale * ((key / s.ow) % s.oh);
+    z = s.scale * (key / (s.ow * s.oh));
   }
-  window_taps(map, b, z, y, x, g, d, h, w, plan, m, m_out);
+  const int d = s.d, h = s.h, w = s.w;
+  const int* mb = s.map + static_cast<long long>(b) * d * h * w;
+  int r[27];
+#pragma unroll
+  for (int g = 0; g < 9; ++g)
+    window_rows(mb, z, y, x, g, d, h, w, r + 3 * g);
+  int* pb = s.plan + static_cast<long long>(b) * 27 * m_out + m;
+#pragma unroll
+  for (int k = 0; k < 27; ++k)
+    pb[static_cast<long long>(k) * m_out] = r[k];
 }
 
 // The three levels' index maps and grids, passed by value.
@@ -263,44 +338,83 @@ extern "C" int sassd_index_map(const int* keys, int batch, int m,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K17. prev_keys [batch, m_prev] and keys [batch, m] int32 (INVALID_KEY
-// padded); map [batch, total] int32, the index map of prev_keys, updated
-// in place to that of keys.
-extern "C" int sassd_index_map_update(const int* prev_keys, int m_prev,
-                                      const int* keys, int m, int batch,
-                                      long long total, int* map,
-                                      void* stream) {
+// A device pointer passed in an int64 descriptor.
+template <typename T>
+T* as_ptr(long long v) {
+  return reinterpret_cast<T*>(static_cast<uintptr_t>(v));
+}
+
+// K17. desc: n_levels (1-3) rows of 6 int64, (prev_keys, m_prev, keys, m,
+// total, map) of a level: prev_keys [batch, m_prev] and keys [batch, m]
+// int32 (INVALID_KEY padded), map [batch, total] int32, the index map of
+// prev_keys, updated in place to that of keys. The descriptors are copied
+// into the two kernels' parameters; the clears of all levels run before
+// the sets.
+extern "C" int sassd_index_maps_update(const long long* desc, int n_levels,
+                                       int batch, void* stream) {
+  if (n_levels < 1 || n_levels > 3 || batch < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int threads = 256;
-  if (batch > 0 && total > 0) {
-    if (m_prev > 0) {
-      const dim3 grid((m_prev + threads - 1) / threads, batch);
-      index_map_clear_kernel<<<grid, threads, 0, s>>>(prev_keys, m_prev,
-                                                      total, map);
-      cudaError_t err = cudaGetLastError();
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    if (m > 0) {
-      const dim3 grid((m + threads - 1) / threads, batch);
-      index_map_kernel<<<grid, threads, 0, s>>>(keys, m, total, map);
-    }
+  KeyLevels clear = {}, set = {};
+  int clear_blocks = 0, set_blocks = 0;
+  for (int l = 0; l < n_levels; ++l) {
+    const long long* d = desc + 6 * l;
+    KeyLevel& c = clear.l[l];
+    KeyLevel& t = set.l[l];
+    c.keys = as_ptr<const int>(d[0]);
+    c.m = static_cast<int>(d[1]);
+    t.keys = as_ptr<const int>(d[2]);
+    t.m = static_cast<int>(d[3]);
+    c.total = t.total = d[4];
+    c.map = t.map = as_ptr<int>(d[5]);
+    c.first = clear_blocks;
+    t.first = set_blocks;
+    clear_blocks += (c.m + kMapThreads - 1) / kMapThreads;
+    set_blocks += (t.m + kMapThreads - 1) / kMapThreads;
   }
+  clear.n = set.n = n_levels;
+  if (batch > 0 && clear_blocks > 0) {
+    index_maps_update_kernel<true>
+        <<<dim3(clear_blocks, batch), kMapThreads, 0, s>>>(clear);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (batch > 0 && set_blocks > 0)
+    index_maps_update_kernel<false>
+        <<<dim3(set_blocks, batch), kMapThreads, 0, s>>>(set);
   return static_cast<int>(cudaGetLastError());
 }
 
-// out_keys [batch, m_out] int32 on the output grid (od, oh, ow); map
-// [batch, d * h * w] int32 of the input grid; plan [batch, 27, m_out].
-extern "C" int sassd_window_plan(const int* out_keys, int batch, int m_out,
-                                 int oh, int ow, int scale, const int* map,
-                                 int d, int h, int w, int* plan,
-                                 void* stream) {
-  if (batch > 0 && m_out > 0) {
-    const int threads = 256;
-    const dim3 grid((m_out + threads - 1) / threads, 9, batch);
-    window_plan_kernel<<<grid, threads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-        out_keys, m_out, oh, ow, scale, map, d, h, w, plan);
+// K6's plans. desc: n_plans (1-6) rows of 10 int64, (out_keys, m_out, oh,
+// ow, scale, map, d, h, w, plan) of a plan: out_keys [batch, m_out] int32
+// on the output grid (., oh, ow); map [batch, d * h * w] int32 of the
+// input grid; plan [batch, 27, m_out] int32. One launch for all.
+extern "C" int sassd_window_plans(const long long* desc, int n_plans,
+                                  int batch, void* stream) {
+  if (n_plans < 1 || n_plans > kMaxPlans || batch < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  PlanSpecs ps = {};
+  int blocks = 0;
+  for (int p = 0; p < n_plans; ++p) {
+    const long long* d = desc + 10 * p;
+    PlanSpec& sp = ps.p[p];
+    sp.out_keys = as_ptr<const int>(d[0]);
+    sp.m_out = static_cast<int>(d[1]);
+    sp.oh = static_cast<int>(d[2]);
+    sp.ow = static_cast<int>(d[3]);
+    sp.scale = static_cast<int>(d[4]);
+    sp.map = as_ptr<const int>(d[5]);
+    sp.d = static_cast<int>(d[6]);
+    sp.h = static_cast<int>(d[7]);
+    sp.w = static_cast<int>(d[8]);
+    sp.plan = as_ptr<int>(d[9]);
+    sp.first = blocks;
+    blocks += (sp.m_out + kPlanThreads - 1) / kPlanThreads;
   }
+  ps.n = n_plans;
+  if (batch > 0 && blocks > 0)
+    window_plans_kernel<<<dim3(blocks, batch), kPlanThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(ps);
   return static_cast<int>(cudaGetLastError());
 }
 

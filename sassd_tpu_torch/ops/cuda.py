@@ -9,6 +9,7 @@ counts the launch, and :meth:`Kernel.launch_on` does so on a tensor's card.
 """
 from __future__ import annotations
 
+import array
 import ctypes
 import os
 import shutil
@@ -83,16 +84,27 @@ class Kernel:
     def launch_on(self, t: torch.Tensor, *args) -> None:
         """launch(*args) with t's card as the current device, entered only
         when it is not the current one already."""
-        if t.device.index == torch._C._cuda_getDevice():
+        if t.get_device() == torch._C._cuda_getDevice():
             self.launch(*args)
         else:
             with torch.cuda.device(t.device):
                 self.launch(*args)
 
 
+def descriptors(values: Sequence[int]) -> array.array:
+    """A host array of int64 for an entry point that takes its levels' or
+    plans' pointers and sizes as descriptors: pass its address,
+    ``.buffer_info()[0]``, while holding the array; the entry point copies
+    them into its kernels' parameters."""
+    return array.array("q", values)
+
+
 def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype,
                ndim: int, contiguous: bool = True) -> None:
     """Raise unless `t` is a CUDA tensor of the given dtype and rank."""
+    if (t.is_cuda and t.dtype == dtype and t.dim() == ndim
+            and (not contiguous or t.is_contiguous())):
+        return
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if t.dtype != dtype:

@@ -28,12 +28,12 @@ which a wrapper takes only for CPU tensors:
   preferred_element_type=float32)`` of bfloat16 operands;
 - K5 ``densify_nchw``: the last level into the dense tail's NCHW canvas,
   and K5b its backward (``densify.cu``);
-- K6 ``build_index_map`` + ``window_plan``: the device rulebook's dense
-  key -> row maps and the plans resolved through them
-  (``device_plans.cu``);
-- K17 ``update_index_map``: persistent-plan serving's delta update of a
-  map that lives across scans, the previous scan's rows cleared and this
-  scan's set (``device_plans.cu``);
+- K6 ``build_index_map`` + ``window_plans``: the device rulebook's dense
+  key -> row maps and the plans resolved through them, a scan's six plans
+  in one launch (``device_plans.cu``);
+- K17 ``update_index_maps``: persistent-plan serving's delta update of
+  maps that live across scans, the previous scan's rows cleared and this
+  scan's set, the three levels in one call (``device_plans.cu``);
 - K7 ``downsample_keys``: the sorted, capped active set of a stride-2
   level, optionally with a per-row output-y limit (``downsample.cu``);
 - K13 ``stride_plans_T`` and K14 ``aux_plans``: the rulebook's train-only
@@ -51,7 +51,7 @@ the gradients it returns, as the JAX package's custom VJPs do.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -84,11 +84,10 @@ _K10B = cuda.Kernel("sassd_sparse_conv_dw_bf16", _K10.argtypes + [cuda.P])
 K10_BLOCKS = 264
 _K6_MAP = cuda.Kernel("sassd_index_map",
                       [cuda.P, cuda.I, cuda.I, cuda.L, cuda.P])
-_K17 = cuda.Kernel("sassd_index_map_update",
-                   [cuda.P, cuda.I, cuda.P, cuda.I, cuda.I, cuda.L, cuda.P])
-_K6_PLAN = cuda.Kernel("sassd_window_plan",
-                       [cuda.P, cuda.I, cuda.I, cuda.I, cuda.I, cuda.I,
-                        cuda.P, cuda.I, cuda.I, cuda.I, cuda.P])
+# K17 and K6's plans take their levels' and plans' descriptors as a host
+# array of int64 (cuda.descriptors)
+_K17 = cuda.Kernel("sassd_index_maps_update", [cuda.P, cuda.I, cuda.I])
+_K6_PLANS = cuda.Kernel("sassd_window_plans", [cuda.P, cuda.I, cuda.I])
 _K7 = cuda.Kernel("sassd_downsample",
                   [cuda.P, cuda.I, cuda.I, cuda.I, cuda.I, cuda.I, cuda.I,
                    cuda.I, cuda.I, cuda.P, cuda.I, cuda.P, cuda.P, cuda.I,
@@ -108,8 +107,8 @@ KERNEL_SYMBOLS = {
     "K10": ("sassd_sparse_conv_dw",),
     "K4-bf16": ("sassd_sparse_conv_bf16",),
     "K10-bf16": ("sassd_sparse_conv_dw_bf16",),
-    "K6": ("sassd_index_map", "sassd_window_plan"),
-    "K17": ("sassd_index_map_update",),
+    "K6": ("sassd_index_map", "sassd_window_plans"),
+    "K17": ("sassd_index_maps_update",),
     "K7": ("sassd_downsample",),
     "K13": ("sassd_stride_plans_t",),
     "K14": ("sassd_aux_plans",),
@@ -648,60 +647,91 @@ def build_index_map(keys: torch.Tensor,
     cuda.check_cuda("keys", keys, torch.int32, 2)
     b, m = keys.shape
     total = shape_zyx[0] * shape_zyx[1] * shape_zyx[2]
-    with torch.cuda.device(keys.device):
-        out = torch.empty((b, total), dtype=torch.int32, device=keys.device)
-        _K6_MAP.launch(keys.data_ptr(), b, m, total, out.data_ptr())
+    out = keys.new_empty((b, total))
+    _K6_MAP.launch_on(keys, keys.data_ptr(), b, m, total, out.data_ptr())
     return out
+
+
+def update_index_maps_plain(maps: Sequence[torch.Tensor],
+                            prev_keys: Sequence[torch.Tensor],
+                            keys: Sequence[torch.Tensor]
+                            ) -> List[torch.Tensor]:
+    """Plain PyTorch version of K17 (see update_index_maps), in place."""
+    for index_map, prev, k in zip(maps, prev_keys, keys):
+        b, total = index_map.shape
+        flat = index_map.view(-1)
+        base = torch.arange(b, device=k.device)[:, None] * total
+        for kk, clear in ((prev, True), (k, False)):
+            ok = (kk >= 0) & (kk < total)
+            idx = (base + kk.to(torch.int64))[ok]
+            if clear:
+                flat[idx] = -1
+            else:
+                rows = torch.arange(kk.shape[1], dtype=torch.int32,
+                                    device=kk.device).expand(b, -1)
+                flat[idx] = rows[ok]
+    return list(maps)
+
+
+def update_index_maps(maps: Sequence[torch.Tensor],
+                      prev_keys: Sequence[torch.Tensor],
+                      keys: Sequence[torch.Tensor],
+                      shapes: Sequence[Tuple[int, int, int]]
+                      ) -> List[torch.Tensor]:
+    """Delta update of up to three levels' [B, D*H*W] int32 index maps, in
+    place: level l's map of `prev_keys[l]` becomes the map of `keys[l]`
+    ([B, M_prev] and [B, M] unique keys on `shapes[l]`, INVALID_KEY
+    padded; keys off the grid are ignored). Every valid previous key's
+    cell is set to -1, then every valid key's cell to its row, so a key in
+    both ends set. Returns the maps, each then equal to
+    build_index_map(keys[l], shapes[l]) bit for bit. K17 on the card: one
+    call for the levels, the clears of all levels before the sets; it
+    writes only the cells of the key sets, where a fresh map writes the
+    whole grid (360 MB a sample at the car config's level 0)."""
+    n = len(maps)
+    if not 1 <= n <= 3 or not len(prev_keys) == len(keys) == len(shapes) == n:
+        raise ValueError(f"{n} maps, {len(prev_keys)} previous keys, "
+                         f"{len(keys)} keys and {len(shapes)} grids: want "
+                         f"one to three of each")
+    b = maps[0].shape[0]
+    for lvl, (imap, prev, k, (d, h, w)) in enumerate(
+            zip(maps, prev_keys, keys, shapes)):
+        if (imap.dim() != 2 or imap.shape != (b, d * h * w)
+                or prev.shape[0] != b or k.shape[0] != b):
+            raise ValueError(f"level {lvl}: index_map {tuple(imap.shape)}, "
+                             f"prev_keys {tuple(prev.shape)} and keys "
+                             f"{tuple(k.shape)} are not [{b}, {d * h * w}], "
+                             f"[{b}, M_prev] and [{b}, M]")
+    if maps[0].is_cpu:
+        return update_index_maps_plain(maps, prev_keys, keys)
+    card = maps[0].get_device()
+    desc = []
+    for lvl, (imap, prev, k) in enumerate(zip(maps, prev_keys, keys)):
+        cuda.check_cuda(f"maps[{lvl}]", imap, torch.int32, 2)
+        cuda.check_cuda(f"prev_keys[{lvl}]", prev, torch.int32, 2)
+        cuda.check_cuda(f"keys[{lvl}]", k, torch.int32, 2)
+        if not prev.get_device() == k.get_device() == imap.get_device() == card:
+            raise ValueError("the maps and keys must be on one card")
+        desc += (prev.data_ptr(), prev.shape[1], k.data_ptr(), k.shape[1],
+                 imap.shape[1], imap.data_ptr())
+    desc = cuda.descriptors(desc)
+    _K17.launch_on(maps[0], desc.buffer_info()[0], n, b)
+    return list(maps)
 
 
 def update_index_map_plain(index_map: torch.Tensor, prev_keys: torch.Tensor,
                            keys: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of K17 (see update_index_map), in place."""
-    b, total = index_map.shape
-    flat = index_map.view(-1)
-    base = torch.arange(b, device=keys.device)[:, None] * total
-    for k, value in ((prev_keys, None), (keys, keys)):
-        ok = (k >= 0) & (k < total)
-        idx = (base + k.to(torch.int64))[ok]
-        if value is None:
-            flat[idx] = -1
-        else:
-            rows = torch.arange(k.shape[1], dtype=torch.int32,
-                                device=k.device).expand(b, -1)
-            flat[idx] = rows[ok]
-    return index_map
+    """update_index_maps_plain of one level (see update_index_map)."""
+    return update_index_maps_plain([index_map], [prev_keys], [keys])[0]
 
 
 def update_index_map(index_map: torch.Tensor, prev_keys: torch.Tensor,
                      keys: torch.Tensor,
                      shape_zyx: Tuple[int, int, int]) -> torch.Tensor:
-    """Delta update of a [B, D*H*W] int32 index map, in place: the map of
-    `prev_keys` becomes the map of `keys` ([B, M_prev] and [B, M] unique
-    keys, INVALID_KEY padded; keys off the grid are ignored). Every valid
-    previous key's cell is set to -1, then every valid key's cell to its
-    row, so a key in both ends set. Returns the map, which then equals
-    build_index_map(keys, shape_zyx) bit for bit. K17 on the card: it
-    writes only the cells of the two key sets, where a fresh map writes
-    the whole grid (360 MB a sample at the car config's level 0)."""
-    total = shape_zyx[0] * shape_zyx[1] * shape_zyx[2]
-    b = index_map.shape[0]
-    if (index_map.dim() != 2 or index_map.shape[1] != total
-            or prev_keys.shape[0] != b or keys.shape[0] != b):
-        raise ValueError(f"index_map {tuple(index_map.shape)}, prev_keys "
-                         f"{tuple(prev_keys.shape)} and keys "
-                         f"{tuple(keys.shape)} are not [B, {total}], "
-                         f"[B, M_prev] and [B, M]")
-    if index_map.device.type == "cpu":
-        return update_index_map_plain(index_map, prev_keys, keys)
-    cuda.check_cuda("index_map", index_map, torch.int32, 2)
-    cuda.check_cuda("prev_keys", prev_keys, torch.int32, 2)
-    cuda.check_cuda("keys", keys, torch.int32, 2)
-    if not prev_keys.device == keys.device == index_map.device:
-        raise ValueError("index_map, prev_keys and keys must be on one card")
-    _K17.launch_on(index_map, prev_keys.data_ptr(), prev_keys.shape[1],
-                   keys.data_ptr(), keys.shape[1], b, total,
-                   index_map.data_ptr())
-    return index_map
+    """update_index_maps of one level: the [B, D*H*W] int32 map of
+    `prev_keys` updated in place to that of `keys`, and returned."""
+    return update_index_maps([index_map], [prev_keys], [keys],
+                             [shape_zyx])[0]
 
 
 def _window_lookup_plain(c: torch.Tensor, index_map: torch.Tensor,
@@ -738,35 +768,93 @@ def window_plan_plain(out_keys: torch.Tensor,
     return _window_lookup_plain(c, index_map, in_shape)
 
 
-def window_plan(out_keys: torch.Tensor, out_shape: Tuple[int, int, int],
-                index_map: torch.Tensor, in_shape: Tuple[int, int, int],
-                scale: int) -> torch.Tensor:
-    """27-tap plans of the output rows through the input level's map.
+# the plans of a scan in the order rulebook_plans makes them
+RULEBOOK_PLANS = ("subm0", "stride1", "subm1", "stride2", "subm2", "stride3")
+# K6's plans share one buffer; each starts at a multiple of this many
+# int32 (512 bytes, the caching allocator's alignment)
+_PLAN_ALIGN = 128
+
+
+def window_plans_plain(specs: Sequence[tuple]) -> List[torch.Tensor]:
+    """Plain PyTorch version of K6's plans (see window_plans)."""
+    return [window_plan_plain(*spec) for spec in specs]
+
+
+def window_plans(specs: Sequence[tuple]) -> List[torch.Tensor]:
+    """27-tap plans of output rows through input levels' maps, for up to
+    six specs (out_keys, out_shape, index_map, in_shape, scale).
 
     out_keys: [B, M_out] keys on `out_shape`; index_map: [B, D*H*W] of the
     input level on `in_shape`. Output row m's base cell is scale * its
     coords (scale 1: submanifold plan, out_shape == in_shape; scale 2:
-    stride-2 plan into the previous level). Returns the wire-format
-    [B, 27, M_out] int32 plan, -1 = missing or off the input grid. K6 on
-    the card.
+    stride-2 plan into the previous level). Returns each spec's
+    wire-format [B, 27, M_out] int32 plan, -1 = missing or off the input
+    grid. K6 on the card: one launch for all the specs (views of one
+    buffer), a thread an output row of a plan.
     """
-    if out_keys.device.type == "cpu":
-        return window_plan_plain(out_keys, out_shape, index_map, in_shape,
-                                 scale)
-    cuda.check_cuda("out_keys", out_keys, torch.int32, 2)
-    cuda.check_cuda("index_map", index_map, torch.int32, 2)
-    b, m = out_keys.shape
-    d, h, w = in_shape
-    if index_map.shape != (b, d * h * w):
-        raise ValueError(f"index_map {tuple(index_map.shape)} is not "
-                         f"[{b}, {d * h * w}]")
-    with torch.cuda.device(out_keys.device):
-        plan = torch.empty((b, 27, m), dtype=torch.int32,
-                           device=out_keys.device)
-        _K6_PLAN.launch(out_keys.data_ptr(), b, m, out_shape[1],
-                        out_shape[2], scale, index_map.data_ptr(), d, h, w,
-                        plan.data_ptr())
-    return plan
+    n = len(specs)
+    if not 1 <= n <= 6:
+        raise ValueError(f"{n} plan specs: want one to six")
+    keys0 = specs[0][0]
+    if keys0.is_cpu:
+        return window_plans_plain(specs)
+    b, card = keys0.shape[0], keys0.get_device()
+    desc, offsets, size = [], [], 0
+    for i, (out_keys, out_shape, index_map, (d, h, w), scale) in enumerate(
+            specs):
+        cuda.check_cuda(f"specs[{i}] out_keys", out_keys, torch.int32, 2)
+        cuda.check_cuda(f"specs[{i}] index_map", index_map, torch.int32, 2)
+        if out_keys.shape[0] != b or index_map.shape != (b, d * h * w):
+            raise ValueError(f"specs[{i}]: out_keys {tuple(out_keys.shape)} "
+                             f"and index_map {tuple(index_map.shape)} are not "
+                             f"[{b}, M_out] and [{b}, {d * h * w}]")
+        if not out_keys.get_device() == index_map.get_device() == card:
+            raise ValueError("the plans' keys and maps must be on one card")
+        m = out_keys.shape[1]
+        desc += (out_keys.data_ptr(), m, out_shape[1], out_shape[2], scale,
+                 index_map.data_ptr(), d, h, w, 0)
+        offsets.append((size, m))
+        size += -(-b * 27 * m // _PLAN_ALIGN) * _PLAN_ALIGN
+    buf = keys0.new_empty(size)
+    plans = []
+    for i, (off, m) in enumerate(offsets):
+        plans.append(buf.as_strided((b, 27, m), (27 * m, m, 1), off))
+        desc[10 * i + 9] = plans[-1].data_ptr()
+    desc = cuda.descriptors(desc)
+    _K6_PLANS.launch_on(keys0, desc.buffer_info()[0], n, b)
+    return plans
+
+
+def window_plan(out_keys: torch.Tensor, out_shape: Tuple[int, int, int],
+                index_map: torch.Tensor, in_shape: Tuple[int, int, int],
+                scale: int) -> torch.Tensor:
+    """window_plans of one spec: the [B, 27, M_out] int32 plan."""
+    return window_plans([(out_keys, out_shape, index_map, in_shape,
+                          scale)])[0]
+
+
+def rulebook_specs(keys: Sequence[torch.Tensor],
+                   shapes: Sequence[Tuple[int, int, int]],
+                   maps: Sequence[torch.Tensor]) -> List[tuple]:
+    """The window_plans specs of a scan's plans (RULEBOOK_PLANS' order):
+    subm{L} of level L's keys through its map and stride{L+1} of level
+    L+1's keys through level L's map, for the [B, M_L] keys of levels 0-3,
+    their grids and the index maps of levels 0-2."""
+    specs = []
+    for lvl in range(3):
+        specs += [(keys[lvl], shapes[lvl], maps[lvl], shapes[lvl], 1),
+                  (keys[lvl + 1], shapes[lvl + 1], maps[lvl], shapes[lvl],
+                   2)]
+    return specs
+
+
+def rulebook_plans(keys: Sequence[torch.Tensor],
+                   shapes: Sequence[Tuple[int, int, int]],
+                   maps: Sequence[torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A scan's window plans (see rulebook_specs) in one window_plans
+    call, by name."""
+    return dict(zip(RULEBOOK_PLANS,
+                    window_plans(rulebook_specs(keys, shapes, maps))))
 
 
 def _stride_T_plain(keys: torch.Tensor, index_map: torch.Tensor,
@@ -982,32 +1070,26 @@ def device_rulebook(keys0: torch.Tensor,
     grids; level_caps: the caps of levels 1..3; y_top: optional [B] int32
     exclusive level-0 y bound of each row, which clips level L's
     downsample at y_top >> L (the banded stage). Level 3 gets no subm plan:
-    the dense tail runs it. The level-0 map (360 MB a sample at the car
-    grid) is freed once its plans are built, each later map once its
-    plans are built unless `train` still needs it.
+    the dense tail runs it. K7 makes levels 1-3 first, then K6 the maps
+    of levels 0-2 (and 3 with `train`) and the six plans in one call; the
+    maps are freed once the plans are built (the level-0 map, 360 MB a
+    sample at the car grid, with them), those of levels 1-3 after the
+    train plans when `train` needs them.
     """
-    plans, maps = {}, {}
-    keys, shape = keys0, level_shapes[0]
+    plans = {}
     level_keys = [keys0]
-    imap = build_index_map(keys, shape)
-    plans["subm0"] = window_plan(keys, shape, imap, shape, 1)
     for lvl in (1, 2, 3):
-        out_shape = level_shapes[lvl]
-        out = downsample_keys(keys, shape, level_caps[lvl - 1],
-                              None if y_top is None else y_top >> lvl)
-        plans[f"stride{lvl}"] = window_plan(out, out_shape, imap, shape, 2)
-        plans[f"coords{lvl}"] = keys_to_coords(out, out_shape)
-        keys, shape = out, out_shape
-        level_keys.append(keys)
-        imap = None
-        if lvl < 3 or train:
-            imap = build_index_map(keys, shape)
-        if train:
-            maps[lvl] = imap
-        if lvl < 3:
-            plans[f"subm{lvl}"] = window_plan(keys, shape, imap, shape, 1)
+        level_keys.append(downsample_keys(
+            level_keys[-1], level_shapes[lvl - 1], level_caps[lvl - 1],
+            None if y_top is None else y_top >> lvl))
+        plans[f"coords{lvl}"] = keys_to_coords(level_keys[lvl],
+                                               level_shapes[lvl])
+    maps = [build_index_map(k, shape) for k, shape in zip(
+        level_keys[:4 if train else 3], level_shapes)]
+    plans.update(rulebook_plans(level_keys, level_shapes, maps))
     if train:
-        levels = [maps[lvl] for lvl in (1, 2, 3)]
+        levels = maps[1:]
+        del maps                         # frees the level-0 map
         for lvl, plan in zip((1, 2, 3), stride_plans_T(
                 level_keys[:3], levels, level_shapes)):
             plans[f"strideT{lvl}"] = plan

@@ -17,9 +17,9 @@ With ``TestConfig.serve_persistent_plans`` at batch 1, one stream of
 scans: the index maps of levels 0-2 live across scans in a carry
 (:func:`init_plan_carry`), and each scan's rulebook
 (:func:`plans_from_carry`) clears the previous scan's rows and sets its
-own (K17, ``ops/sparse.update_index_map``) where the per-scan rulebook
-fills each map afresh (K6's memset and scatter): the same plans, bit for
-bit.
+own (K17, ``ops/sparse.update_index_maps``, the three levels in one call)
+where the per-scan rulebook fills each map afresh (K6's memset and
+scatter): the same plans, bit for bit.
 
 Kernels (``sassd_tpu_torch/csrc``), each beside its plain PyTorch version,
 which a wrapper takes only for CPU tensors: K8 ``voxelize.cu`` and K9
@@ -299,30 +299,29 @@ def plans_from_carry(coords0: torch.Tensor, carry: Dict[str, torch.Tensor],
     """One scan's rulebook through the carried index maps.
 
     coords0: [cap0, 3] int32 zyx level-0 coords of one sample (-1 rows =
-    padding). Each level updates its carried map from the previous scan's
-    keys to its own (K17), then resolves its submanifold plan (scale 1)
-    and the next level's stride plan (scale 2) through it (K6's window
-    plan), with K7's downsample between levels. Returns (plans, carry):
-    subm0..2, stride1..3 [1, 27, capL] int32 and coords1..3 [1, capL, 3]
-    int32, the per-scan device rulebook's plans bit for bit, and the
-    carry with the same maps, now updated in place, and this scan's
-    keys."""
+    padding). K7 makes levels 1-3 (the downsample reads keys only); then
+    one K17 call updates the three carried maps from the previous scan's
+    keys to this scan's, and one call of K6's plans resolves the
+    submanifold plans (scale 1) and the stride plans (scale 2) through
+    them: five C calls a scan. Returns (plans, carry): subm0..2,
+    stride1..3 [1, 27, capL] int32 and coords1..3 [1, capL, 3] int32, the
+    per-scan device rulebook's plans bit for bit, and the carry with the
+    same maps, now updated in place, and this scan's keys."""
     shapes = level_shapes(cfg.sparse_shape)
     caps = cfg.caps.level_caps
-    plans, new_carry = {}, {}
-    keys = sp.coords_to_keys(coords0[None], shapes[0])
+    keys = [sp.coords_to_keys(coords0[None], shapes[0])]
+    plans = {}
+    for lvl in (1, 2, 3):
+        keys.append(sp.downsample_keys(keys[-1], shapes[lvl - 1], caps[lvl]))
+        plans[f"coords{lvl}"] = sp.keys_to_coords(keys[lvl], shapes[lvl])
+    maps = sp.update_index_maps([carry[f"map{lvl}"] for lvl in range(3)],
+                                [carry[f"keys{lvl}"] for lvl in range(3)],
+                                keys[:3], shapes[:3])
+    plans.update(sp.rulebook_plans(keys, shapes, maps))
+    new_carry = {}
     for lvl in range(3):
-        shp, out_shape = shapes[lvl], shapes[lvl + 1]
-        imap = sp.update_index_map(carry[f"map{lvl}"], carry[f"keys{lvl}"],
-                                   keys, shp)
-        new_carry[f"map{lvl}"] = imap
-        new_carry[f"keys{lvl}"] = keys
-        plans[f"subm{lvl}"] = sp.window_plan(keys, shp, imap, shp, 1)
-        out_keys = sp.downsample_keys(keys, shp, caps[lvl + 1])
-        plans[f"stride{lvl + 1}"] = sp.window_plan(out_keys, out_shape, imap,
-                                                   shp, 2)
-        plans[f"coords{lvl + 1}"] = sp.keys_to_coords(out_keys, out_shape)
-        keys = out_keys
+        new_carry[f"map{lvl}"] = maps[lvl]
+        new_carry[f"keys{lvl}"] = keys[lvl]
     return plans, new_carry
 
 

@@ -28,8 +28,9 @@ its backward (K11's) 1e-5. The banded stage's kernels: K16 (band
 partition, integer coords and copied rows) and K7 with a y limit are
 exact, K11 with per-row origins as K11; a banded train step card vs CPU
 1e-4 (losses) and 1e-3 (grad norm), as the three-class one. K17 (the
-index-map delta update of persistent-plan serving) is exact against its
-plain version and against K6's fresh map of the same keys.
+index-map delta update of persistent-plan serving, the three levels in
+one call) is exact against its plain version and against K6's fresh map
+of the same keys; K6's plans (a scan's six in one call) against theirs.
 """
 import dataclasses
 
@@ -715,6 +716,16 @@ def test_new_wrappers_reject_bad_inputs(dev):
                        (2, 3, 4), 1)
     with pytest.raises(TypeError):
         sp.downsample_keys(keys.float(), (2, 3, 4), 8)
+    imap = torch.zeros((1, 24), dtype=torch.int32, device=dev)
+    spec = (keys, (2, 3, 4), imap, (2, 3, 4), 1)
+    with pytest.raises(ValueError):                      # seven plans
+        sp.window_plans([spec] * 7)
+    with pytest.raises(ValueError):                      # batch 2 keys
+        sp.window_plans([spec, (keys.expand(2, 8).contiguous(), (2, 3, 4),
+                                imap, (2, 3, 4), 1)])
+    with pytest.raises(ValueError):                      # keys on the host
+        sp.update_index_maps([imap, imap], [keys, keys.cpu()], [keys, keys],
+                             [(2, 3, 4)] * 2)
 
 
 @pytest.mark.parametrize("host_plans", [True, False])
@@ -2011,15 +2022,18 @@ def test_k17_cases_match_plain_and_fresh_map(dev, case):
 
 def test_k17_car_levels_match_fresh_maps(dev):
     """K17 at the car config's three plan-building levels, each at its
-    cap: a scan, one sharing half its keys, the same again, an empty one
-    and a scan at the cap; the carried map equals K6's fresh map after
-    every update."""
+    cap, the three levels in one call a scan: a scan, one sharing half its
+    keys, the same again, an empty one and a scan at the cap; every
+    carried map equals its plain version's and K6's fresh map after every
+    call, one launch a call."""
     from sassd_tpu_torch.config import car_config
     from sassd_tpu_torch.models.backbone import level_shapes
     from sassd_tpu_torch.ops import sparse as sp
     cfg = car_config()
     rng = np.random.default_rng(17)
-    for lvl, shape in enumerate(level_shapes(cfg.sparse_shape)[:3]):
+    shapes = level_shapes(cfg.sparse_shape)[:3]
+    seqs = []
+    for lvl, shape in enumerate(shapes):
         cap = cfg.caps.level_caps[lvl]
         total = int(np.prod(shape))
         a = sorted_keys(rng, shape, [cap // 2], cap)
@@ -2028,16 +2042,120 @@ def test_k17_car_levels_match_fresh_maps(dev):
         b = np.full((1, cap), INVALID, np.int32)
         b[0, :cap // 4 + len(new)] = np.sort(np.concatenate(
             [a[0, :cap // 4], new]))
-        seq = [a, b, b.copy(), np.full((1, cap), INVALID, np.int32),
-               sorted_keys(rng, shape, [cap], cap)]
-        imap = torch.full((1, total), -1, dtype=torch.int32, device=dev)
-        prev = torch.full((1, cap), sp.INVALID_KEY, dtype=torch.int32,
-                          device=dev)
-        for keys in (torch.from_numpy(k).to(dev) for k in seq):
-            sp.update_index_map(imap, prev, keys, shape)
-            assert torch.equal(imap, sp.build_index_map(keys, shape)), lvl
-            prev = keys
-        del imap
+        seqs.append([a, b, b.copy(), np.full((1, cap), INVALID, np.int32),
+                     sorted_keys(rng, shape, [cap], cap)])
+    maps = [torch.full((1, int(np.prod(s))), -1, dtype=torch.int32,
+                       device=dev) for s in shapes]
+    plain = [m.clone() for m in maps]
+    prev = [torch.full((1, c), sp.INVALID_KEY, dtype=torch.int32,
+                       device=dev) for c in cfg.caps.level_caps[:3]]
+    for scan in range(5):
+        keys = [torch.from_numpy(seq[scan]).to(dev) for seq in seqs]
+        before = sp._K17.launches
+        out = sp.update_index_maps(maps, prev, keys, shapes)
+        assert sp._K17.launches == before + 1
+        assert all(o is m for o, m in zip(out, maps))
+        sp.update_index_maps_plain(plain, prev, keys)
+        for lvl in range(3):
+            assert torch.equal(maps[lvl], plain[lvl]), (scan, lvl)
+            assert torch.equal(maps[lvl], sp.build_index_map(
+                keys[lvl], shapes[lvl])), (scan, lvl)
+        prev = keys
+    del maps, plain
+
+
+@pytest.mark.parametrize("case", K17_CASES)
+def test_k17_three_levels_match_plain_and_fresh_maps(dev, case):
+    """Each case's scans as the level-0 keys of a stream, levels 1 and 2
+    their downsamples: one update_index_maps call a scan for the three
+    levels (one launch) leaves every map equal bit for bit to the plain
+    version's and to K6's fresh map of the level's keys."""
+    from sassd_tpu_torch.models.backbone import level_shapes
+    from sassd_tpu_torch.ops import sparse as sp
+    shape, seq = k17_case(case)
+    b, m = seq[0].shape
+    shapes = level_shapes(shape)[:3]
+    maps = [torch.full((b, int(np.prod(s))), -1, dtype=torch.int32,
+                       device=dev) for s in shapes]
+    plain = [g.cpu() for g in maps]
+    prev = [torch.full((b, m), sp.INVALID_KEY, dtype=torch.int32)] * 3
+    for keys in map(torch.from_numpy, seq):
+        lk = [keys]
+        for lvl in (1, 2):
+            lk.append(sp.downsample_keys_plain(lk[-1], shapes[lvl - 1], m))
+        before = sp._K17.launches
+        sp.update_index_maps(maps, [p.to(dev) for p in prev],
+                             [k.to(dev) for k in lk], shapes)
+        assert sp._K17.launches == before + 1
+        sp.update_index_maps_plain(plain, prev, lk)
+        torch.cuda.synchronize()
+        for lvl in range(3):
+            assert torch.equal(maps[lvl].cpu(), plain[lvl]), lvl
+            assert torch.equal(maps[lvl], sp.build_index_map(
+                lk[lvl].to(dev), shapes[lvl])), lvl
+        prev = lk
+
+
+def car_clustered_keys(rng, shape, n, cap, y_range):
+    """[1, cap] sorted unique car-grid keys, n valid, INVALID padded: cells
+    of every z in the y rows y_range and the x columns [0, 160) and
+    [w - 160, w), dense enough for most windows to find neighbours, the
+    grid's x faces among them."""
+    d, h, w = shape
+    ys = np.arange(*y_range)
+    xs = np.concatenate([np.arange(160), np.arange(w - 160, w)])
+    cells = ((np.arange(d)[:, None, None] * h + ys[None, :, None]) * w
+             + xs[None, None, :]).reshape(-1)
+    out = np.full((1, cap), INVALID, np.int32)
+    out[0, :n] = np.sort(rng.choice(cells, n, replace=False))
+    return out
+
+
+# K6's plans at the car caps: batch 1, batch 2, and batch 2 with a y limit
+# on each row's downsample (the banded stage's band rows)
+K6_PLAN_CASES = ("b1", "b2", "banded")
+
+
+@pytest.mark.parametrize("case", K6_PLAN_CASES)
+def test_k6_window_plans_match_plain(dev, case):
+    """A scan's six plans (subm0-2, stride1-3) in one window_plans call on
+    the card (one launch) == window_plans_plain on the same card tensors,
+    bit for bit, at the car caps."""
+    from sassd_tpu_torch.config import car_config
+    from sassd_tpu_torch.models.backbone import level_shapes
+    from sassd_tpu_torch.ops import sparse as sp
+    cfg = car_config()
+    shapes = level_shapes(cfg.sparse_shape)
+    caps = cfg.caps.level_caps
+    rng = np.random.default_rng(23)
+    rows = [car_clustered_keys(rng, shapes[0], caps[0] - 700 * i, caps[0],
+                               (700 + 40 * i, 760 + 40 * i))
+            for i in range(1 if case == "b1" else 2)]
+    keys = [torch.from_numpy(np.concatenate(rows)).to(dev)]
+    y_top = (torch.tensor([730, 790], dtype=torch.int32, device=dev)
+             if case == "banded" else None)
+    for lvl in (1, 2, 3):
+        keys.append(sp.downsample_keys(
+            keys[-1], shapes[lvl - 1], caps[lvl],
+            None if y_top is None else y_top >> lvl))
+    if y_top is not None:
+        for lvl in (1, 2, 3):
+            y = sp.keys_to_coords(keys[lvl], shapes[lvl])[..., 1]
+            assert (y < (y_top >> lvl)[:, None]).all()
+    maps = [sp.build_index_map(k, s) for k, s in zip(keys[:3], shapes)]
+    specs = sp.rulebook_specs(keys, shapes, maps)
+    before = sp._K6_PLANS.launches
+    got = sp.window_plans(specs)
+    assert sp._K6_PLANS.launches == before + 1
+    ref = sp.window_plans_plain(specs)
+    torch.cuda.synchronize()
+    for name, g, r in zip(sp.RULEBOOK_PLANS, got, ref):
+        assert g.is_contiguous() and g.data_ptr() % 512 == 0, name
+        assert torch.equal(g, r), name
+        assert (r >= 0).any(), name
+    one = sp.window_plan(*specs[3])
+    assert sp._K6_PLANS.launches == before + 2
+    assert torch.equal(one, ref[3])
 
 
 def test_k1_at_the_targets_shape(dev):

@@ -1,5 +1,6 @@
 """Port parity for the device-built rulebook (model.host_plans=False):
-index maps and window plans (K6), the sort-based downsample (K7),
+index maps and window plans (K6; a scan's six plans in one call), the
+sort-based downsample (K7),
 keys_to_coords, the whole rulebook against the C++ host rulebook, the
 backbone on device plans against the JAX package's vxnet_apply, and
 forward_test with host_plans=False against a live JAX forward_test and
@@ -105,6 +106,57 @@ def test_window_plans_match_jax(kind):
                 k, jsp.downsample_keys(k, SHAPE, 48), SHAPE, index_map=jmap)
         np.testing.assert_array_equal(got[b], jax_plan(ref))
     assert got.dtype == np.int32 and (got >= 0).sum() > 100
+
+
+# a scan's six plans (window_plans over rulebook_plans' specs): batch 1,
+# batch 2, and level caps that cut every level
+SCAN_PLAN_CASES = {"b1": ((0,), (64, 40, 24)), "b2": ((0, 1), (64, 40, 24)),
+                   "cap_cut": ((0, 1), (30, 12, 6))}
+
+
+@pytest.mark.parametrize("case", sorted(SCAN_PLAN_CASES))
+def test_scan_window_plans_match_jax(case):
+    """window_plans over a scan's six specs (subm0-2 through the maps of
+    levels 0-2, stride1-3 through the level below's) == window_plans_plain
+    == JAX's build_subm_plan / build_stride_plan with index_map=, sample
+    by sample, exactly."""
+    rows, caps = SCAN_PLAN_CASES[case]
+    keys = batch_keys(6)[list(rows)]
+    shapes = [SHAPE]
+    for _ in range(3):
+        shapes.append(sp.out_shape_stride2(shapes[-1]))
+    lk = [torch.from_numpy(keys)]
+    for lvl in (1, 2, 3):
+        lk.append(sp.downsample_keys(lk[-1], shapes[lvl - 1], caps[lvl - 1]))
+    maps = [sp.build_index_map(k, s) for k, s in zip(lk[:3], shapes)]
+    got = sp.rulebook_plans(lk, shapes, maps)
+    specs = sp.rulebook_specs(lk, shapes, maps)
+    assert [spec[4] for spec in specs] == [1, 2] * 3
+    assert [spec[2] is maps[i // 2] for i, spec in enumerate(specs)] == (
+        [True] * 6)
+    plain = sp.window_plans_plain(specs)
+    assert list(got) == list(sp.RULEBOOK_PLANS)
+    for name, ref in zip(sp.RULEBOOK_PLANS, plain):
+        assert torch.equal(got[name], ref), name
+    for b in range(len(rows)):
+        jk = [jnp.asarray(keys[b])]
+        for lvl in (1, 2, 3):
+            jk.append(jsp.downsample_keys(jk[-1], shapes[lvl - 1],
+                                          caps[lvl - 1]))
+        for lvl in range(3):
+            np.testing.assert_array_equal(lk[lvl + 1][b].numpy(),
+                                          np.asarray(jk[lvl + 1]))
+            jmap = jsp.build_index_map(jk[lvl], shapes[lvl],
+                                       keys_sorted=True)
+            subm = jsp.build_subm_plan(jk[lvl], shapes[lvl], index_map=jmap)
+            stride = jsp.build_stride_plan(jk[lvl], jk[lvl + 1],
+                                           shapes[lvl], index_map=jmap)
+            np.testing.assert_array_equal(got[f"subm{lvl}"][b].numpy(),
+                                          jax_plan(subm))
+            np.testing.assert_array_equal(got[f"stride{lvl + 1}"][b].numpy(),
+                                          jax_plan(stride))
+    assert all(v.dtype == torch.int32 for v in got.values())
+    assert (got["subm0"] >= 0).sum() > 100 and (got["stride3"] >= 0).any()
 
 
 @pytest.mark.parametrize("cap", [120, 40])

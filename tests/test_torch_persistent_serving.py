@@ -1,6 +1,7 @@
 """Port parity for persistent-plan serving (test.serve_persistent_plans):
 the carried index maps (K17's plain version, ops/sparse.py
-update_index_map_plain), serve.plans_from_carry, the persistent serving
+update_index_maps_plain, the three levels in one call),
+serve.plans_from_carry, the persistent serving
 step and run_inference with the flag, against the JAX package's
 sassd_tpu/serve.py init_plan_carry / _plans_from_carry / make_serving_step
 (persistent_plans=True) and against the port's per-scan path.
@@ -12,6 +13,7 @@ within the golden-test tolerances (tests/test_golden.py), as the
 per-scan serving parity test does (tests/test_torch_serve.py).
 """
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -26,7 +28,7 @@ from sassd_tpu_torch import config, inference, serve, weights  # noqa: E402
 from sassd_tpu_torch.data import kitti, synthetic  # noqa: E402
 from sassd_tpu_torch.models.backbone import level_shapes  # noqa: E402
 from sassd_tpu_torch.ops import sparse as sp  # noqa: E402
-from test_torch_cases import K17_CASES, k17_case  # noqa: E402
+from test_torch_cases import K17_CASES, K17_SHAPE, k17_case  # noqa: E402
 from test_torch_detector import jax_weights, matched  # noqa: E402
 from test_torch_eval import split_config  # noqa: E402
 from test_torch_serve import scene_points  # noqa: E402
@@ -199,6 +201,64 @@ def test_update_index_map_plain_cases(case):
         prev = keys
 
 
+def k17_config(m):
+    """The fields of a config that both packages' init_plan_carry and
+    _plans_from_carry / plans_from_carry read: K17_SHAPE's grid, every
+    level capped at m rows."""
+    return types.SimpleNamespace(sparse_shape=K17_SHAPE,
+                                 caps=types.SimpleNamespace(
+                                     level_caps=(m,) * 4))
+
+
+@pytest.mark.parametrize("case", K17_CASES)
+def test_three_level_updates_match_jax(case):
+    """Each case's scans as level-0 keys of a stream: the three levels'
+    maps carried by update_index_maps_plain (the whole batch, one call a
+    scan) and by serve.plans_from_carry (a sample at a time) equal JAX's
+    _plans_from_carry maps of each sample and the fresh map of each
+    level's keys after every scan, and plans_from_carry's plans equal
+    JAX's, bit for bit."""
+    shape, seq = k17_case(case)
+    b, m = seq[0].shape
+    cfg = k17_config(m)
+    shapes = level_shapes(shape)[:3]
+    inv = torch.full((b, m), sp.INVALID_KEY, dtype=torch.int32)
+    maps = [torch.full((b, int(np.prod(s))), -1, dtype=torch.int32)
+            for s in shapes]
+    prev = [inv] * 3
+    carries = [serve.init_plan_carry(cfg, "cpu") for _ in range(b)]
+    jcarries = [jserve.init_plan_carry(cfg) for _ in range(b)]
+    for keys in map(torch.from_numpy, seq):
+        lk = [keys]
+        for lvl in (1, 2):
+            lk.append(sp.downsample_keys(lk[-1], shapes[lvl - 1], m))
+        out = sp.update_index_maps_plain(maps, prev, lk)
+        assert all(o is g for o, g in zip(out, maps))
+        for lvl in range(3):
+            assert torch.equal(maps[lvl], sp.build_index_map_plain(
+                lk[lvl], shapes[lvl])), lvl
+        for i in range(b):
+            coords = sp.keys_to_coords(keys[i], shape)
+            plans, carries[i] = serve.plans_from_carry(coords, carries[i],
+                                                       cfg)
+            jplans, jcarries[i] = jserve._plans_from_carry(
+                jnp.asarray(coords.numpy()), jcarries[i], cfg)
+            for lvl in range(3):
+                jmap = np.asarray(jcarries[i][f"map{lvl}"])
+                np.testing.assert_array_equal(maps[lvl][i].numpy(), jmap)
+                np.testing.assert_array_equal(
+                    carries[i][f"map{lvl}"][0].numpy(), jmap)
+                np.testing.assert_array_equal(
+                    carries[i][f"keys{lvl}"][0].numpy(),
+                    np.asarray(jcarries[i][f"keys{lvl}"]))
+            assert sorted(plans) == sorted(jplans)
+            for k, v in plans.items():
+                np.testing.assert_array_equal(v.numpy(),
+                                              np.asarray(jplans[k]),
+                                              err_msg=k)
+        prev = lk
+
+
 def test_update_index_map_rejects_bad_shapes():
     imap = torch.full((1, 10), -1, dtype=torch.int32)
     keys = torch.zeros((1, 4), dtype=torch.int32)
@@ -206,3 +266,8 @@ def test_update_index_map_rejects_bad_shapes():
         sp.update_index_map(imap, keys, keys, (1, 2, 4))
     with pytest.raises(ValueError):
         sp.update_index_map(imap, keys, keys.repeat(2, 1), (1, 2, 5))
+    with pytest.raises(ValueError):                  # four levels
+        sp.update_index_maps([imap] * 4, [keys] * 4, [keys] * 4,
+                             [(1, 2, 5)] * 4)
+    with pytest.raises(ValueError):                  # a grid missing
+        sp.update_index_maps([imap] * 2, [keys] * 2, [keys] * 2, [(1, 2, 5)])
