@@ -250,6 +250,26 @@ Phases, each of which fails the run (nonzero exit, no result line):
    assignment counts, finite losses); K1 at the targets shape (70,400
    anchors x 64 GT slots, criterion -1) against its plain version and
    timed. The kernel rows gain K17's and that K1 row.
+15. model.plan_lookup="sorted", the device rulebook resolved by binary
+   search over each level's sorted keys with no index map. 15a: K18 (a
+   scan's six plans in one call), K19 (transpose plans) and K20 (aux
+   plans) bitwise against their plain versions and against K6's plans,
+   K13 and K14 through the maps, on phase 6's 4 car scans at batch 1,
+   phase 7's train batch of 2, phase 9's long-range timing scan and its
+   comparison batch's 8 band rows; K18 timed at phase 6's scan 0 (and at
+   the long-range scan) beside K6's six plans, K19 and K20 at phase 7's
+   batch, each read four ways beside its plain version and its yardstick
+   (torch.searchsorted of the same window starts: the search alone), its
+   bound (bytes) and the search's dependent-load chain as an estimate.
+   15b: run_inference of phase 6's split at batch 1 and 2, dense then
+   sorted: the same detection sets at phase 6's gates, K18 once a step
+   and K6 never, and the rulebook stage's kernels a scan by the profiler
+   in turns. 15c: phase 7's car train step at batch 2 on device plans and
+   15d: phase 9's banded long-range train step at batch 2, sorted against
+   dense at the device-vs-host-plans gates, K18, K19 and K20 once a step
+   and K6, K13 and K14 never. 15b-d print the peak device memory of the
+   dense and the sorted run. The kernel rows gain K18's, K19's and
+   K20's.
 
 Phase 3 holds K1 (rotated overlap) in all four criteria within K1_ATOL
 of its plain version and at exactly +0.0 on every pair that its
@@ -364,6 +384,12 @@ phase 9 makes them), with no result line.
 builds the kernels and runs phase 14 alone (14c on a train split written
 as phase 7 writes it), printing its kernel rows under the key
 phase14_only, with no result line.
+
+    python3 chip_smoke.py --phase15-only
+
+builds the kernels and runs phase 15 alone (its train batch and
+long-range split written as phases 7 and 9 write them), printing its
+kernel rows under the key phase15_only, with no result line.
 
     python3 chip_smoke.py --gloo-probe
 
@@ -4600,6 +4626,430 @@ def run_phase14(torch, np, device, cfg, model_dev, train_ref=None) -> dict:
                 similarity=sim, wall_s=wall)
 
 
+# ------------------------------------------------------------ phase 15
+
+# an estimate, printed beside K18-K20's bounds and kept out of their
+# rows: one dependent load that hits the H100's L2, ~260 cycles at 1.98
+# GHz in published microbenchmarks (not measured here)
+L2_HIT_US = 0.13
+
+
+def sorted_cfg(cfg):
+    """cfg with model.plan_lookup="sorted"."""
+    import dataclasses
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, plan_lookup="sorted"))
+
+
+def sorted_levels(sp, keys0, shapes, caps, y_top=None) -> list:
+    """The keys of levels 0-3 as device_rulebook makes them (K7; level
+    L's downsample clipped at y_top >> L where the limits are given)."""
+    keys = [keys0]
+    for lvl in (1, 2, 3):
+        keys.append(sp.downsample_keys(
+            keys[-1], shapes[lvl - 1], caps[lvl - 1],
+            None if y_top is None else y_top >> lvl))
+    return keys
+
+
+def sorted_check(torch, sp, what: str, keys, shapes) -> dict:
+    """15a: K18 (a scan's six plans), K19 and K20, each one call on the
+    keys of levels 0-3, against their plain versions on the same card
+    tensors and against K6's plans, K13 and K14 through the levels' index
+    maps, bitwise. Returns the entries differing, the found fractions and
+    the levels' valid keys; fails on any difference."""
+    maps = [sp.build_index_map(k, s) for k, s in zip(keys, shapes)]
+    cell0 = sp.keys_to_coords(keys[0], shapes[0])
+    specs = sp.rulebook_specs(keys, shapes, keys[:3])
+    runs = {
+        "K18": (sp.sorted_window_plans(specs),
+                sp.sorted_window_plans_plain(specs),
+                sp.window_plans(sp.rulebook_specs(keys, shapes, maps[:3]))),
+        "K19": (sp.sorted_stride_plans_T(keys[:3], keys[1:], shapes),
+                sp.sorted_stride_plans_T_plain(keys[:3], keys[1:], shapes),
+                sp.stride_plans_T(keys[:3], maps[1:], shapes)),
+        "K20": (sp.sorted_aux_plans(cell0, keys[1:], shapes[1:]),
+                sp.sorted_aux_plans_plain(cell0, keys[1:], shapes[1:]),
+                sp.aux_plans(cell0, maps[1:], shapes[1:]))}
+    del maps
+    torch.cuda.synchronize()
+    diff, found = {}, {}
+    for kid, (got, plain, dense) in runs.items():
+        diff[kid] = (sum(int((g != p).sum()) for g, p in zip(got, plain)),
+                     sum(int((g != d).sum()) for g, d in zip(got, dense)))
+        found[kid] = round(sum(int((g >= 0).sum()) for g in got)
+                           / sum(g.numel() for g in got), 4)
+    n = [int((k != sp.INVALID_KEY).sum()) for k in keys]
+    print(f"15a, {what}: valid keys by level {n}; entries differing (from "
+          f"plain, from K6/K13/K14 through the maps): {diff}; found "
+          f"fractions {found}")
+    if any(a or b for a, b in diff.values()):
+        fail(f"15a, {what}: K18-K20 differ from their plain versions or "
+             f"from the dense-map plans")
+    return dict(diff=diff, found=found, valid_keys=n)
+
+
+def distinct_bytes(tensors) -> int:
+    """The bytes of the distinct tensors among `tensors` (a key array
+    that several plans search is read once)."""
+    seen = {t.data_ptr(): t.numel() * t.element_size() for t in tensors}
+    return sum(seen.values())
+
+
+def sorted_timed(torch, kid: str, name: str, what: str, fn, plain_fn,
+                 starts, nbytes: float, m_in: int, replaces: str,
+                 extra: dict) -> dict:
+    """K18-K20's row: the kernel's call read four ways (measured), its
+    plain version, and its yardstick, torch.searchsorted of the same
+    window starts over the same keys (`starts`: (keys, starts) int32
+    pairs, one call each, every start searched where the kernel skips the
+    groups off the grid): the search alone, a component (the window
+    compare and the plans' write are not timed), as B6's torch.sort. The
+    bound is bytes; the search's dependent-load chain over m_in keys is
+    printed beside it as an estimate (L2_HIT_US a load), not as the
+    bound."""
+    t = measured(fn, f"{kid} {name}, {what}", iters=100)
+    plain_ms = cuda_ms(plain_fn, iters=5)
+    lib = measured(lambda: [torch.searchsorted(k, s) for k, s in starts],
+                   f"{kid}'s yardstick (torch.searchsorted of the same "
+                   f"starts), {what}", iters=100)
+    bd = bound(nbytes, 0)
+    # the thread's key, ceil(log2 m) search steps, the last compare's
+    # load and the window's three (issued together)
+    depth = (max(m_in, 2) - 1).bit_length() + 3
+    print(f"  {kid} {name}, {what}: bound {bd['bound_ms']:.4f} ms (bytes: "
+          f"plans written, keys read once); the search's dependent-load "
+          f"chain {depth} loads, ~{depth * L2_HIT_US:.2f} us a thread at "
+          f"~{L2_HIT_US} us an L2 hit (an estimate, not the bound); plain "
+          f"{plain_ms:.4f} ms; yardstick {lib['ms']:.4f} ms")
+    return dict(name=f"{kid} {name}", route="cuda",
+                source="sassd_tpu_torch/csrc/device_plans.cu",
+                replaces=replaces, max_abs_err=0.0, **t, plain_ms=plain_ms,
+                library_ms=lib["ms"], library_graph_ms=lib["graph_ms"],
+                library_profiler_ms=lib["profiler_ms"],
+                library_host_us=lib["host_us"],
+                library_what="torch.searchsorted of the kernel's window "
+                             "starts over the same keys, one call an "
+                             "input level: the search alone, a component "
+                             "(no window compare, no plan written)",
+                at=what, chain_loads=depth,
+                chain_estimate_us=depth * L2_HIT_US, **bd, **extra)
+
+
+def k18_timed(torch, sp, keys, shapes, what: str) -> dict:
+    """K18's row on the keys of levels 0-3 (a scan's six plans in one
+    call), beside K6's six plans through the levels' maps (dense_plans,
+    maps built outside the timing)."""
+    specs = sp.rulebook_specs(keys, shapes, keys[:3])
+    starts = []
+    for lvl in range(3):
+        s = [sp.window_starts(sp.keys_to_coords(k, shp).long() * scale,
+                              shapes[lvl])[0].flatten(1)
+             for k, shp, scale in ((keys[lvl], shapes[lvl], 1),
+                                   (keys[lvl + 1], shapes[lvl + 1], 2))]
+        starts.append((keys[lvl], torch.cat(s, 1).to(torch.int32)))
+    plans = sp.sorted_window_plans(specs)
+    maps = [sp.build_index_map(k, s) for k, s in zip(keys[:3], shapes)]
+    dspecs = sp.rulebook_specs(keys, shapes, maps)
+    dense = measured(lambda: sp.window_plans(dspecs),
+                     f"K6's six plans through the maps, {what}", iters=100)
+    del maps, dspecs
+    nbytes = (sum(p.numel() * 4 for p in plans)
+              + distinct_bytes([t for spec in specs for t in (spec[0],
+                                                              spec[2])]))
+    return sorted_timed(torch, "K18", "sorted_window_plans", what,
+                        lambda: sp.sorted_window_plans(specs),
+                        lambda: sp.sorted_window_plans_plain(specs), starts,
+                        nbytes, keys[0].shape[1], "sassd_tpu/ops/sparse.py:129",
+                        dict(dense_plans=dense))
+
+
+def k19_timed(torch, sp, keys, shapes, what: str) -> dict:
+    """K19's row on the keys of levels 0-3 (the three levels in one
+    call)."""
+    starts = [(keys[lvl], sp.stride_T_starts(
+        keys[lvl - 1], shapes[lvl - 1], shapes[lvl])[0].flatten(1).to(
+            torch.int32)) for lvl in (1, 2, 3)]
+    plans = sp.sorted_stride_plans_T(keys[:3], keys[1:], shapes)
+    nbytes = sum(p.numel() * 4 for p in plans) + distinct_bytes(keys)
+    return sorted_timed(torch, "K19", "sorted_stride_plans_T", what,
+                        lambda: sp.sorted_stride_plans_T(keys[:3], keys[1:],
+                                                         shapes),
+                        lambda: sp.sorted_stride_plans_T_plain(
+                            keys[:3], keys[1:], shapes), starts, nbytes,
+                        keys[1].shape[1], "sassd_tpu/ops/sparse.py:732", {})
+
+
+def k20_timed(torch, sp, keys, shapes, what: str) -> dict:
+    """K20's row on the keys of levels 0-3 (the aux plans of levels 1-3
+    in one call)."""
+    cell0 = sp.keys_to_coords(keys[0], shapes[0])
+    starts = [(keys[lvl], sp.window_starts(cell0.long() >> lvl,
+                                           shapes[lvl])[0].flatten(1).to(
+        torch.int32)) for lvl in (1, 2, 3)]
+    plans = sp.sorted_aux_plans(cell0, keys[1:], shapes[1:])
+    nbytes = (plans.numel() * 4 + cell0.numel() * 4
+              + distinct_bytes(keys[1:]))
+    return sorted_timed(torch, "K20", "sorted_aux_plans", what,
+                        lambda: sp.sorted_aux_plans(cell0, keys[1:],
+                                                    shapes[1:]),
+                        lambda: sp.sorted_aux_plans_plain(cell0, keys[1:],
+                                                          shapes[1:]),
+                        starts, nbytes, keys[1].shape[1],
+                        "sassd_tpu/ops/sparse.py:785", {})
+
+
+# the sorted rulebook's C calls on a path: K7 for levels 1-3 and one K18
+# call; in training one K19 call and, with the ring aux, one K20 call; no
+# map and none of K6's, K13's or K14's entry points
+SORTED_CALLS = {
+    "inference": {"sassd_downsample": 3, "sassd_sorted_window_plans": 1,
+                  "sassd_sorted_stride_plans_t": 0,
+                  "sassd_sorted_aux_plans": 0, "sassd_index_map": 0,
+                  "sassd_window_plans": 0},
+    "training": {"sassd_downsample": 3, "sassd_sorted_window_plans": 1,
+                 "sassd_sorted_stride_plans_t": 1,
+                 "sassd_sorted_aux_plans": 1, "sassd_index_map": 0,
+                 "sassd_window_plans": 0, "sassd_stride_plans_t": 0,
+                 "sassd_aux_plans": 0}}
+
+
+def sorted_serving(torch, np, device, cfg_pts, ds, step, batch1, model_dev,
+                   keys0) -> dict:
+    """15b: run_inference over phase 6's 4-scan split at batch 1 and 2,
+    model.plan_lookup "dense" then "sorted" (the same weights), each
+    under peak_mib with the launch counts reset just before and read just
+    after: the same detection sets at phase 6's gates; one sorted step's
+    rulebook calls; the rulebook stage's kernels of scan 0 at batch 1 by
+    torch.profiler, dense and sorted in turns."""
+    from sassd_tpu_torch import inference, serve
+    from sassd_tpu_torch.models.backbone import level_shapes
+    from sassd_tpu_torch.models.detector import Detector
+    from sassd_tpu_torch.ops import sparse as sp
+    cfg_s = sorted_cfg(cfg_pts)
+    model_s = Detector(cfg_s).to(device)
+    model_s.load_state_dict(model_dev.state_dict())
+    step_s = serve.make_serving_step(cfg_s, ds.anchors, ds.anchors_bv,
+                                     device)
+    step(model_dev, batch1[0])                          # warm-up
+    step_s(model_s, batch1[0])
+    torch.cuda.synchronize()
+    runs, peaks, launches = {}, {}, {}
+    for mode, c, m in (("dense", cfg_pts, model_dev),
+                       ("sorted", cfg_s, model_s)):
+        reset_launches()
+        runs[mode], peaks[mode] = peak_mib(torch, lambda: {
+            bs: inference.run_inference(c, ds, m, bs, device)
+            for bs in (1, 2)})
+        launches[mode] = read_launches()
+    n = len(runs["dense"][1][1])
+    bitwise, counts = True, []
+    for bs in (1, 2):
+        for i, (a, b) in enumerate(zip(runs["sorted"][bs][0],
+                                       runs["dense"][bs][0])):
+            counts.append(match_annos(np, a, b, f"15b, batch {bs}, scan {i}:"
+                                      f" sorted vs dense"))
+            bitwise &= a.keys() == b.keys() and all(
+                np.array_equal(a[k], b[k]) for k in a)
+    steps = n + -(-n // 2)
+    want = {"sassd_sorted_window_plans": steps, "sassd_index_map": 0,
+            "sassd_window_plans": 0}
+    seen = {k: launches["sorted"][k] for k in want}
+    print(f"15b, sorted serving over {n} scans at batch 1 and 2: rulebook "
+          f"launches {seen} (want {want}); all {launches['sorted']}")
+    if seen != want or any(launches["dense"][k] for k in (
+            "sassd_sorted_window_plans", "sassd_sorted_stride_plans_t",
+            "sassd_sorted_aux_plans")):
+        fail(f"15b: the sorted serving run launched {seen}, not {want}, or "
+             f"the dense one a sorted kernel")
+    check_launched(launches["sorted"], "K1 K2 K3 K4 K5 K7 K8 K9 K18",
+                   "15b, sorted serving")
+    print(f"15b: sorted detections match dense ones at phase 6's gates "
+          f"({counts} detections, "
+          f"{'bitwise equal' if bitwise else 'the same sets'}); peak device "
+          f"memory dense {peaks['dense']['peak_mib']:.1f} MiB, sorted "
+          f"{peaks['sorted']['peak_mib']:.1f} MiB (allocated at the start "
+          f"{peaks['dense']['start_mib']:.1f} / "
+          f"{peaks['sorted']['start_mib']:.1f})")
+    reset_launches()
+    step_s(model_s, batch1[0])
+    torch.cuda.synchronize()
+    per_step = read_launches()
+    check_counts(per_step, SORTED_CALLS["inference"],
+                 "15b, sorted serving, one step")
+    shapes = level_shapes(cfg_pts.sparse_shape)
+    caps = cfg_pts.caps.level_caps[1:]
+    rulebook = {"dense": [], "sorted": []}
+    for mode in ("dense", "sorted", "sorted", "dense"):
+        split = kernel_split(lambda: sp.device_rulebook(
+            keys0, shapes, caps, plan_lookup=mode))
+        rulebook[mode].append(dict(ms=sum(split.values()) if split else None,
+                                   split=split))
+    print("15b: the rulebook stage's kernels of scan 0 at batch 1 "
+          "(torch.profiler ms a call, in turns): " + "; ".join(
+              f"{mode} " + ", ".join("not measured" if r["ms"] is None
+                                     else f"{r['ms']:.4f}" for r in v)
+              for mode, v in rulebook.items()))
+    for mode, v in rulebook.items():
+        print(f"  {mode} rulebook kernels: {v[0]['split']}")
+    return dict(launches=launches["sorted"], per_step=per_step, peaks=peaks,
+                bitwise=bitwise, rulebook=rulebook)
+
+
+def sorted_train_steps(torch, device, cfg, batch, anchors, what: str,
+                       ids: str) -> dict:
+    """15c and 15d: one forward_train + backward of cfg's seeded weights
+    (lr_train_step: the gradients of two objectives, so two backward
+    passes) on device plans, model.plan_lookup "dense" then "sorted", each
+    under peak_mib with the launch counts reset just before and read just
+    after; the sorted step held to the dense one at the device-vs-host-
+    plans gates (every loss within PLANS_LOSS_RTOL, the other outputs
+    equal, the gradients' norm within PLANS_GNORM_RTOL, each module's and
+    the BatchNorm updates within PLANS_GRAD_L2)."""
+    from sassd_tpu_torch.weights import seeded_detector
+    state = seeded_detector(cfg, SEED, device).state_dict()
+    res, peaks, launches = {}, {}, {}
+    for mode, c in (("dense", cfg), ("sorted", sorted_cfg(cfg))):
+        torch.cuda.synchronize()
+        reset_launches()
+        res[mode], peaks[mode] = peak_mib(torch, lambda: lr_train_step(
+            torch, device, c, state, batch, anchors))
+        launches[mode] = read_launches()
+    check_counts(launches["sorted"], SORTED_CALLS["training"],
+                 f"{what}, sorted step")
+    check_launched(launches["sorted"], ids, f"{what}, sorted step")
+    la, lb = res["dense"]["losses"], res["sorted"]["losses"]
+    loss_err = max(abs(lb[k] - v) / max(abs(v), 1e-12)
+                   for k, v in la.items() if "loss" in k)
+    other = {k: (v, lb[k]) for k, v in la.items()
+             if "loss" not in k and lb[k] != v}
+    norm, mods = grad_diff(res, "dense", "sorted", "full")
+    bn = bn_update_err(res, "dense", "sorted")
+    print(f"{what}, sorted vs dense: largest loss rel diff {loss_err:.3g} "
+          f"(tol {PLANS_LOSS_RTOL}); other outputs differing {other or 'none'};"
+          f" grad norm rel diff {norm:.3g} (tol {PLANS_GNORM_RTOL}); module "
+          f"rel L2 { {k: float(f'{v:.3g}') for k, v in mods.items()} } (tol "
+          f"{PLANS_GRAD_L2}); BN update diff {bn:.3g}; peak device memory "
+          f"dense {peaks['dense']['peak_mib']:.1f} MiB, sorted "
+          f"{peaks['sorted']['peak_mib']:.1f} MiB (allocated at the start "
+          f"{peaks['dense']['start_mib']:.1f} / "
+          f"{peaks['sorted']['start_mib']:.1f})")
+    if (other or loss_err > PLANS_LOSS_RTOL or norm > PLANS_GNORM_RTOL
+            or max(mods.values()) > PLANS_GRAD_L2 or bn > PLANS_GRAD_L2):
+        fail(f"{what}: the sorted and dense train steps disagree")
+    return dict(launches=launches, peaks=peaks, loss_err=loss_err,
+                grad_norm=norm, modules=mods, bn_update=bn)
+
+
+def run_phase15(torch, np, device, cfg, model_dev, train_ref=None,
+                lr_inputs=None) -> dict:
+    """Phase 15: model.plan_lookup="sorted", the rulebook with no index
+    map. 15a K18-K20 bitwise against their plain versions and the dense
+    maps' plans on phase 6's 4 car scans at batch 1, phase 7's train
+    batch of 2, phase 9's long-range timing scan and its comparison
+    batch's 8 band rows (with their y limits), and their rows (K18 at
+    phase 6's scan 0, K19 and K20 at phase 7's batch); 15b serving
+    (sorted_serving); 15c phase 7's car train step and 15d phase 9's
+    banded long-range train step at batch 2, sorted against dense
+    (sorted_train_steps). `train_ref` (phase 7's batch and anchors) and
+    `lr_inputs` (phase 9's banded config, samples and anchors) are made
+    here when not given. Returns the rows and 15b-d's results."""
+    import dataclasses
+    from sassd_tpu_torch import serve
+    from sassd_tpu_torch.data import kitti, synthetic
+    from sassd_tpu_torch.models.backbone import level_shapes
+    from sassd_tpu_torch.ops import sparse as sp
+    from sassd_tpu_torch.parallel import sparse_spatial as ss
+    t = time.perf_counter()
+    shapes = level_shapes(cfg.sparse_shape)
+    caps = cfg.caps.level_caps[1:]
+    rows = []
+    with tempfile.TemporaryDirectory() as root:
+        cfg_pts, ds, step, batch1, _ = serving_split(torch, np, device, cfg,
+                                                     root)
+        lattice = serve.serving_lattice(cfg_pts, ds.anchors_bv).to(device)
+        scans = []
+        for i, b in enumerate(batch1):
+            pts, n = (torch.from_numpy(b[k]).to(device)
+                      for k in ("points", "n_points"))
+            scans.append(sp.coords_to_keys(serve.batch_from_points(
+                pts, n, lattice, cfg_pts)["coords"], shapes[0]))
+            sorted_check(torch, sp, f"phase 6's scan {i}, batch 1",
+                         sorted_levels(sp, scans[-1], shapes, caps), shapes)
+        rows.append(k18_timed(torch, sp, sorted_levels(
+            sp, scans[0], shapes, caps), shapes,
+            "phase 6's scan 0, batch 1: a scan's six plans in one call"))
+        t_a = time.perf_counter()
+        serving = sorted_serving(torch, np, device, cfg_pts, ds, step,
+                                 batch1, model_dev, scans[0])
+    t_b = time.perf_counter()
+    if train_ref is None:
+        with tempfile.TemporaryDirectory() as root:
+            batch, anchors = train_split_batch(np, cfg, root)
+    else:
+        batch, anchors = train_ref["batch"], train_ref["anchors"]
+    batch = {k: v for k, v in batch.items() if not k.startswith("plan_")}
+    keys = sorted_levels(sp, sp.coords_to_keys(torch.from_numpy(
+        batch["coords"]).to(device), shapes[0]), shapes, caps)
+    sorted_check(torch, sp, "phase 7's train batch of 2", keys, shapes)
+    what = "phase 7's train batch of 2, the three levels in one call"
+    rows.append(k19_timed(torch, sp, keys, shapes, what))
+    rows.append(k20_timed(torch, sp, keys, shapes, what))
+    del keys
+    t_c = time.perf_counter()
+    cfg_dev = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, host_plans=False))
+    train = sorted_train_steps(torch, device, cfg_dev, batch,
+                               anchors.to(device),
+                               "15c, car training, batch 2",
+                               "K1 K3 K3b K4 K5 K5b K7 K10 K11 K12 K18 K19 "
+                               "K20")
+    t_d = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        if lr_inputs is None:
+            lr = long_range_inputs(np, root, timing=False)
+            lr_inputs = dict(cfg_b=lr["cfg_b"], samples=lr["samples"],
+                             anchors=lr["ds"].anchors)
+    cfg_b = lr_inputs["cfg_b"]
+    spec = ss.config_band_spec(cfg_b)
+    lshapes = level_shapes(cfg_b.sparse_shape)
+    t_scan = kitti.prepare_scan(cfg_b, synthetic.long_range_scene(
+        np.random.default_rng(SEED + 10))[0], kitti.build_anchors(cfg_b)[1])
+    keys = sorted_levels(sp, sp.coords_to_keys(torch.from_numpy(
+        t_scan["coords"][None]).to(device), lshapes[0]), lshapes,
+        cfg_b.caps.level_caps[1:])
+    lr_scan = sorted_check(torch, sp, "phase 9's long-range timing scan",
+                           keys, lshapes)
+    lr_k18 = measured(lambda: sp.sorted_window_plans(sp.rulebook_specs(
+        keys, lshapes, keys[:3])), "K18, phase 9's long-range timing scan",
+        iters=100)
+    rows[0]["long_range"] = dict(lr_k18, valid_keys=lr_scan["valid_keys"])
+    lr_batch = kitti.collate(lr_inputs["samples"])[0]
+    coords = torch.from_numpy(lr_batch["coords"]).to(device)
+    bc, _, _ = ss.partition(coords, torch.zeros(
+        coords.shape[:2] + (4,), device=device), spec)
+    bshapes = level_shapes(ss.band_shape(cfg_b, spec))
+    keys = sorted_levels(
+        sp, sp.coords_to_keys(bc.reshape(-1, bc.shape[2], 3), bshapes[0]),
+        bshapes, spec.caps[1:],
+        ss.y_top_rows(cfg_b, spec, coords.shape[0], device))
+    sorted_check(torch, sp, f"phase 9's {keys[0].shape[0]} band rows",
+                 keys, bshapes)
+    del keys
+    banded = sorted_train_steps(
+        torch, device, cfg_b, lr_batch,
+        torch.from_numpy(lr_inputs["anchors"]).to(device),
+        "15d, long range banded training, batch 2",
+        "K1 K3 K3b K4 K5 K5b K7 K10 K11 K12 K16 K18 K19 K20")
+    wall = time.perf_counter() - t
+    print(f"sorted plan lookups: phase 15 took {wall:.1f} s (15a serving "
+          f"scans {t_a - t:.1f}, 15b {t_b - t_a:.1f}, 15a train batch "
+          f"{t_c - t_b:.1f}, 15c {t_d - t_c:.1f}, 15a long range and 15d "
+          f"{t + wall - t_d:.1f})")
+    return dict(rows=rows, serving=serving, train=train, banded=banded,
+                wall_s=wall)
+
+
 def peak_phases(torch, np, device, cfg, model_dev, model_cpu, root: str,
                 phase: str, host_step_ms=()):
     """Phase 6 (serving), 8 (three-class training on device plans) or 9
@@ -5794,6 +6244,12 @@ def main() -> int:
         print(json.dumps({"phase14_only": p14["rows"]}))
         print(card)
         return 0
+    if "--phase15-only" in sys.argv[1:]:
+        p15 = run_phase15(torch, np, device, cfg,
+                          seeded_detector(cfg, SEED, device))
+        print(json.dumps({"phase15_only": p15["rows"]}))
+        print(card)
+        return 0
     cfg_dev = dataclasses.replace(cfg, model=dataclasses.replace(
         cfg.model, host_plans=False))
     anchors, anchors_bv = kitti.build_anchors(cfg)
@@ -5964,6 +6420,9 @@ def main() -> int:
     p14 = run_phase14(torch, np, device, cfg, model_dev, training[5])
     rows += p14["rows"]
     persistent = p14["persistent"]
+    p15 = run_phase15(torch, np, device, cfg, model_dev, training[5],
+                      lr_refs["inputs"])
+    rows += p15["rows"]
 
     for what, (_, _, ms1, ms2, _) in (("host plans", host),
                                       ("device plans", dev)):
@@ -6014,13 +6473,32 @@ def main() -> int:
                             f"{v[0]:.4f} / {v[1]:.4f}")
               for mode, v in persistent["rulebook_ms"].items())
           + " ms/scan")
+    sv = p15["serving"]
+    print(f"car config, serving at batch 1, the rulebook stage's kernels a "
+          f"scan by the profiler, dense and sorted plan lookups in turns, on "
+          f"{name} [{card}]: " + "; ".join(
+              f"{mode} " + ", ".join("not measured" if r["ms"] is None
+                                     else f"{r['ms']:.4f}" for r in v)
+              for mode, v in sv["rulebook"].items()) + " ms")
+    for what, peak in (("15b serving, 4 scans at batch 1 and 2",
+                        sv["peaks"]),
+                       ("15c car training, batch 2", p15["train"]["peaks"]),
+                       ("15d long range banded training, batch 2",
+                        p15["banded"]["peaks"])):
+        print(f"peak device memory, {what}, on {name} [{card}]: dense "
+              f"{peak['dense']['peak_mib']:.1f} MiB, sorted "
+              f"{peak['sorted']['peak_mib']:.1f} MiB (allocated at the "
+              f"start {peak['dense']['start_mib']:.1f} / "
+              f"{peak['sorted']['start_mib']:.1f})")
     print(f"peak device memory by phase, on {name} [{card}]: " + "; ".join(
         f"phase {k} {v['peak_mib']:.1f} MiB (allocated at its start "
         f"{v['start_mib']:.1f})" for k, v in peaks.items()))
     banded_phases = (("long range, banded inference", lr_runs["banded"]),
                      ("long range, banded training", lr_runs["training"]),
                      ("bf16 long range, banded inference",
-                      bf16_launches["long range, banded"]))
+                      bf16_launches["long range, banded"]),
+                     ("sorted long range banded training step",
+                      p15["banded"]["launches"]["sorted"]))
     all_phases = (("host plans", host[4]), ("device plans", dev[4]),
                   ("serving", serving[0]), ("training", training[0]),
                   ("three-class training, ring", multi_runs["ring"]),
@@ -6034,9 +6512,14 @@ def main() -> int:
                   ("RotateIou2d training step",
                    p14["similarity"]["launches"]),
                   ("DistanceSimilarity forward",
-                   p14["similarity"]["distance_launches"])
+                   p14["similarity"]["distance_launches"]),
+                  ("sorted serving", sv["launches"]),
+                  ("sorted car training step",
+                   p15["train"]["launches"]["sorted"])
                   ) + banded_phases
-    banded_step = (("long range banded training, batch 2", lr_step),)
+    banded_step = (("long range banded training, batch 2", lr_step),
+                   ("sorted long range banded training, batch 2 (two "
+                    "backward passes)", p15["banded"]["launches"]["sorted"]))
     all_steps = (("serving, batch 1", serving[4]),
                  ("training, batch 2", training[1]),
                  ("three-class training, ring, batch 1", multi_step["ring"]),
@@ -6046,7 +6529,10 @@ def main() -> int:
                  ("bf16 training, batch 2", bf16_step["training"]),
                  ("persistent serving, batch 1", persistent["per_step"]),
                  ("RotateIou2d training, batch 2",
-                  p14["similarity"]["launches"])
+                  p14["similarity"]["launches"]),
+                 ("sorted serving, batch 1", sv["per_step"]),
+                 ("sorted car training, batch 2 (two backward passes)",
+                  p15["train"]["launches"]["sorted"])
                  ) + banded_step
     for r in rows:
         kid = r["name"].split()[0]

@@ -92,6 +92,8 @@ class ModelConfig:
     host_plans: bool = True
     dense_tail: bool = True
     sorted_device_levels: bool = True
+    # the device rulebook's plan lookups: "dense" index maps, or "sorted"
+    # binary search over each level's sorted keys (no [D*H*W] map)
     plan_lookup: str = "dense"
     # aux-branch 3-NN candidates: "ring" = the 3x3x3 neighbourhood of the
     # query's parent cell (the rulebook's aux plans); "exact" = every
@@ -250,9 +252,11 @@ def check_supported(cfg: SASSDConfig, train: bool = False) -> None:
     """Raise NotImplementedError for options the port does not run.
 
     Without host plans, and always with ``test.device_input="points"``,
-    the port builds the rulebook on the device the one way the JAX package
-    does by default: dense index maps, key-sorted levels, windowed plan
-    lookups; in training also the transpose and aux plans. Training
+    the port builds the rulebook on the device as the JAX package does:
+    key-sorted levels and windowed plan lookups, through dense index maps
+    (``model.plan_lookup="dense"``) or by binary search over each level's
+    sorted keys with no map (``"sorted"``); in training also the
+    transpose and aux plans. Training
     (`train=True`) runs on either rulebook, with either aux interpolation,
     the GT-sampling augmentor and the one-cycle AdamW. The banded sparse
     stage always builds its rulebook on the device; its training takes
@@ -280,7 +284,8 @@ def check_supported(cfg: SASSDConfig, train: bool = False) -> None:
     unsupported = {
         "model.dense_index=False": not m.dense_index,
         "model.sorted_device_levels=False": not m.sorted_device_levels,
-        f"model.plan_lookup={m.plan_lookup!r}": m.plan_lookup != "dense",
+        f"model.plan_lookup={m.plan_lookup!r}":
+            m.plan_lookup not in ("dense", "sorted"),
         "model.dense_tail=False": not m.dense_tail,
         f"model.vfe_type={m.vfe_type!r}":
             m.vfe_type not in ("mean", "pointnet"),

@@ -71,6 +71,27 @@
 // reads no map. (Issuing all 81 loads before any store took 96 registers
 // and was no faster on the H100.)
 //
+// K18, K19 and K20: K6's plans, K13 and K14 resolved with no index map
+// (model.plan_lookup="sorted"): each tap group's window of three
+// consecutive keys is found by one binary search over the input (K19:
+// output) level's sorted keys, and the window's keys are compared with
+// the three cells. Replaces: sassd_tpu/ops/sparse.py lookup_sorted3 with
+// _window_plan(sorted_keys=...) through build_subm_plan and
+// build_stride_plan (sorted_lookup=True), build_stride_plan_T
+// (out_sorted_keys=...) and build_aux_plan (level_sorted_keys=...).
+// Same threads, tap order and masks as K6's plans and K14 (the lookup is
+// their kernels' template parameter); K19 is a kernel of its own, since
+// K13 reads each live tap's cell from the map and K19 reads windows.
+// Bound on the H100: bytes, the plans' write (10.3 MB for the six plans
+// at the car caps, ~0.0031 ms) and the keys read once (80 KB at the car's
+// level-0 cap: the L2 holds every level's). The searches are the real
+// cost: about 15 dependent L2 loads deep at 20,000 keys. Design: a thread
+// an output row of a plan (K20: a row, the three levels in turn); its
+// nine groups' searches take the same steps, so they advance together,
+// nine independent loads a step; a padding row or a group off the grid
+// does no search. The whole capped row is searched, INVALID_KEY tail
+// included, as the JAX package does.
+//
 // K17, the index-map delta update of persistent-plan serving: a map that
 // lives across scans holds the previous scan's rows; the update sets
 // map[prev_key] = -1 for every valid key of the previous scan, then
@@ -173,15 +194,94 @@ __device__ __forceinline__ void window_rows(const int* __restrict__ mb, int z,
   }
 }
 
-// One plan of K6's window plans: its output keys on the output grid
-// (oh, ow), the input level's map on the input grid (d, h, w), the base
-// cell's scale and the plan; its blocks start at block first of the
-// grid's x.
+// K18-K20's search: the lower bounds p[g] (the first row whose key is >=
+// v[g]) of the searches set in `on` over one sample's ascending keys
+// kb[0..m), the INVALID_KEY tail included (it sorts last; JAX searches the
+// whole capped row too). A search's steps depend only on m, so the
+// searches advance together: each step issues up to n independent loads,
+// and the dependent chain is ceil(log2 m) + 1 loads deep, not n times that.
+// The keys (80 KB at the car's level-0 cap) stay in the L2.
+template <int n>
+__device__ __forceinline__ void lower_bounds(const int* __restrict__ kb,
+                                             int m, const int* v,
+                                             unsigned on, int* p) {
+#pragma unroll
+  for (int g = 0; g < n; ++g) p[g] = 0;
+  if (on == 0 || m <= 0) return;
+  for (int len = m; len > 1;) {
+    const int half = len >> 1;
+#pragma unroll
+    for (int g = 0; g < n; ++g)
+      if (((on >> g) & 1u) && kb[p[g] + half] < v[g]) p[g] += half;
+    len -= half;
+  }
+#pragma unroll
+  for (int g = 0; g < n; ++g)
+    if (((on >> g) & 1u) && kb[p[g]] < v[g]) ++p[g];
+}
+
+// The rows r[0..2] of the keys v, v + 1 and v + 2 in kb[p..p+2], p being
+// v's lower bound, -1 where absent (lookup_sorted3's window: the keys are
+// unique, so each present one lies there; the first match wins, as its
+// argmax). v + 2 stays below 2^31: the wrappers refuse larger grids.
+__device__ __forceinline__ void window3(const int* __restrict__ kb, int m,
+                                        int p, int v, int* r) {
+  r[0] = r[1] = r[2] = -1;
+#pragma unroll
+  for (int s = 0; s < 3; ++s) {
+    if (p + s < m) {
+      const int k = kb[p + s];
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+        if (k == v + j && r[j] < 0) r[j] = p + s;
+    }
+  }
+}
+
+// K18's and K20's lookup, window_rows of the nine tap groups resolved in
+// one sample's sorted keys kb[0..m) instead of its map: per group the
+// window of the three x-consecutive cells from (zq, yq, x - 1), searched
+// from its first cell, with window_rows's grid and per-tap x masks. A
+// group off the grid does no search.
+__device__ __forceinline__ void sorted_window_rows(const int* __restrict__ kb,
+                                                   int m, int z, int y, int x,
+                                                   int d, int h, int w,
+                                                   int* r) {
+  int v[9], p[9];
+  unsigned on = 0;
+#pragma unroll
+  for (int g = 0; g < 9; ++g) {
+    const int zq = z + g / 3 - 1;
+    const int yq = y + g % 3 - 1;
+    v[g] = 0;
+    if (z >= 0 && x >= 0 && x < w && zq >= 0 && zq < d && yq >= 0 &&
+        yq < h) {
+      v[g] = (zq * h + yq) * w + x - 1;
+      on |= 1u << g;
+    }
+  }
+  lower_bounds<9>(kb, m, v, on, p);
+#pragma unroll
+  for (int g = 0; g < 9; ++g) {
+    int* rg = r + 3 * g;
+    rg[0] = rg[1] = rg[2] = -1;
+    if ((on >> g) & 1u) {
+      window3(kb, m, p[g], v[g], rg);
+      if (x < 1) rg[0] = -1;
+      if (x + 1 >= w) rg[2] = -1;
+    }
+  }
+}
+
+// One plan of K6's (K18's) window plans: its output keys on the output
+// grid (oh, ow), the input level's map (its m_in sorted keys) on the
+// input grid (d, h, w), the base cell's scale and the plan; its blocks
+// start at block first of the grid's x.
 struct PlanSpec {
   const int* out_keys;
-  const int* map;
+  const int* in;
   int* plan;
-  int m_out, oh, ow, scale, d, h, w, first;
+  int m_out, oh, ow, scale, d, h, w, first, m_in;
 };
 
 constexpr int kMaxPlans = 6;
@@ -193,9 +293,11 @@ struct PlanSpecs {
 
 constexpr int kPlanThreads = 128;
 
-// K6's window plans: a thread resolves one output row of one plan and
-// sample. It decodes its key once, issues its 27 map loads, then writes
-// them, each store coalesced along M_out.
+// K6's (kSorted: K18's) window plans: a thread resolves one output row of
+// one plan and sample. It decodes its key once, issues its 27 map loads
+// (K18: its nine searches, advanced together, and their windows), then
+// writes them, each store coalesced along M_out.
+template <bool kSorted>
 __global__ void __launch_bounds__(kPlanThreads)
     window_plans_kernel(PlanSpecs ps) {
   const int blk = blockIdx.x;
@@ -216,25 +318,33 @@ __global__ void __launch_bounds__(kPlanThreads)
     z = s.scale * (key / (s.ow * s.oh));
   }
   const int d = s.d, h = s.h, w = s.w;
-  const int* mb = s.map + static_cast<long long>(b) * d * h * w;
   int r[27];
+  if constexpr (kSorted) {
+    sorted_window_rows(s.in + static_cast<long long>(b) * s.m_in, s.m_in, z,
+                       y, x, d, h, w, r);
+  } else {
+    const int* mb = s.in + static_cast<long long>(b) * d * h * w;
 #pragma unroll
-  for (int g = 0; g < 9; ++g)
-    window_rows(mb, z, y, x, g, d, h, w, r + 3 * g);
+    for (int g = 0; g < 9; ++g)
+      window_rows(mb, z, y, x, g, d, h, w, r + 3 * g);
+  }
   int* pb = s.plan + static_cast<long long>(b) * 27 * m_out + m;
 #pragma unroll
   for (int k = 0; k < 27; ++k)
     pb[static_cast<long long>(k) * m_out] = r[k];
 }
 
-// The three levels' index maps and grids, passed by value.
+// The three levels' index maps (K20: their m sorted keys) and grids,
+// passed by value.
 struct AuxLevels {
-  const int* map[3];
-  int d[3], h[3], w[3];
+  const int* in[3];
+  int d[3], h[3], w[3], m[3];
 };
 
 constexpr int kAuxThreads = 128;
 
+// K14 (kSorted: K20): the window plans of cell0 >> L at the three levels.
+template <bool kSorted>
 __global__ void __launch_bounds__(kAuxThreads)
     aux_plans_kernel(const int* __restrict__ cell0, int batch, int m0,
                      AuxLevels lv, int* __restrict__ plan) {
@@ -246,20 +356,27 @@ __global__ void __launch_bounds__(kAuxThreads)
 #pragma unroll
   for (int l = 0; l < 3; ++l) {
     const int d = lv.d[l], h = lv.h[l], w = lv.w[l];
-    const int* mb = lv.map[l] + static_cast<long long>(b) * d * h * w;
     int r[27];
+    if constexpr (kSorted) {
+      sorted_window_rows(lv.in[l] + static_cast<long long>(b) * lv.m[l],
+                         lv.m[l], z0 >> (l + 1), y0 >> (l + 1), x0 >> (l + 1),
+                         d, h, w, r);
+    } else {
+      const int* mb = lv.in[l] + static_cast<long long>(b) * d * h * w;
 #pragma unroll
-    for (int g = 0; g < 9; ++g)
-      window_rows(mb, z0 >> (l + 1), y0 >> (l + 1), x0 >> (l + 1), g, d, h,
-                  w, r + 3 * g);
+      for (int g = 0; g < 9; ++g)
+        window_rows(mb, z0 >> (l + 1), y0 >> (l + 1), x0 >> (l + 1), g, d,
+                    h, w, r + 3 * g);
+    }
     int* pb = plan + (static_cast<long long>(l) * batch + b) * 27 * m0 + m;
 #pragma unroll
     for (int k = 0; k < 27; ++k) pb[static_cast<long long>(k) * m0] = r[k];
   }
 }
 
-// The three levels' input keys, output maps and grids, passed by value;
-// level l's blocks start at block first[l] of the grid's x.
+// The three levels' input keys, output maps (K19: the output levels'
+// m_out sorted keys) and grids, passed by value; level l's blocks start
+// at block first[l] of the grid's x.
 struct StrideTLevels {
   const int* keys[3];
   const int* map[3];
@@ -267,6 +384,7 @@ struct StrideTLevels {
   int d[3], h[3], w[3];
   int od[3], oh[3], ow[3];
   int* out[3];
+  int m_out[3];
 };
 
 constexpr int kStrideTThreads = 128;
@@ -313,6 +431,63 @@ __global__ void __launch_bounds__(kStrideTThreads)
     if ((lz >> jz) & (ly >> jy) & (lx >> jx) & 1u)
       r[k] = mb[(static_cast<long long>(pz[jz]) * oh + py[jy]) * ow +
                 px[jx]];
+  }
+  int* pb = lv.out[l] + static_cast<long long>(b) * 27 * m + i;
+#pragma unroll
+  for (int k = 0; k < 27; ++k) pb[static_cast<long long>(k) * m] = r[k];
+}
+
+// K19: K13's plans resolved in the output levels' sorted keys. Tap group
+// (jz, jy) is live where both axes have a live parent and some x parent
+// is live; its x parents lie in the window of output cells from
+// sx = floor((x - 1) / 2) (each live one at sx or sx + 1), searched from
+// that cell. Written explicitly: C++'s / truncates toward zero, so x = 0
+// takes sx = -1 by hand, the cell before the row, which no live tap reads.
+__global__ void __launch_bounds__(kStrideTThreads)
+    sorted_stride_plans_t_kernel(StrideTLevels lv) {
+  const int blk = blockIdx.x;
+  const int l = blk >= lv.first[2] ? 2 : (blk >= lv.first[1] ? 1 : 0);
+  const int i = (blk - lv.first[l]) * kStrideTThreads + threadIdx.x;
+  const int b = blockIdx.y;
+  const int m = lv.m[l];
+  if (i >= m) return;
+  const int d = lv.d[l], h = lv.h[l], w = lv.w[l];
+  const int oh = lv.oh[l], ow = lv.ow[l];
+  const int key = lv.keys[l][static_cast<long long>(b) * m + i];
+  unsigned lz = 0, ly = 0, lx = 0;
+  int pz[3], py[3], px[3], x = 0;
+  if (key >= 0 && static_cast<long long>(key) <
+                      static_cast<long long>(d) * h * w) {
+    x = key % w;
+    lz = parents(key / (w * h), lv.od[l], pz);
+    ly = parents((key / w) % h, oh, py);
+    lx = parents(x, ow, px);
+  }
+  const int sx = x > 0 ? (x - 1) / 2 : -1;
+  const int mo = lv.m_out[l];
+  const int* kb = lv.map[l] + static_cast<long long>(b) * mo;
+  int v[9], p[9];
+  unsigned on = 0;
+#pragma unroll
+  for (int g = 0; g < 9; ++g) {
+    const int jz = g / 3, jy = g % 3;
+    v[g] = 0;
+    if (lx && ((lz >> jz) & (ly >> jy) & 1u)) {
+      v[g] = (pz[jz] * oh + py[jy]) * ow + sx;
+      on |= 1u << g;
+    }
+  }
+  lower_bounds<9>(kb, mo, v, on, p);
+  int r[27];
+#pragma unroll
+  for (int g = 0; g < 9; ++g) {
+    int win[3] = {-1, -1, -1};
+    const bool live = (on >> g) & 1u;
+    if (live) window3(kb, mo, p[g], v[g], win);
+#pragma unroll
+    for (int jx = 0; jx < 3; ++jx)
+      r[3 * g + jx] =
+          live && ((lx >> jx) & 1u) ? win[px[jx] - sx] : -1;
   }
   int* pb = lv.out[l] + static_cast<long long>(b) * 27 * m + i;
 #pragma unroll
@@ -403,7 +578,7 @@ extern "C" int sassd_window_plans(const long long* desc, int n_plans,
     sp.oh = static_cast<int>(d[2]);
     sp.ow = static_cast<int>(d[3]);
     sp.scale = static_cast<int>(d[4]);
-    sp.map = as_ptr<const int>(d[5]);
+    sp.in = as_ptr<const int>(d[5]);
     sp.d = static_cast<int>(d[6]);
     sp.h = static_cast<int>(d[7]);
     sp.w = static_cast<int>(d[8]);
@@ -413,8 +588,44 @@ extern "C" int sassd_window_plans(const long long* desc, int n_plans,
   }
   ps.n = n_plans;
   if (batch > 0 && blocks > 0)
-    window_plans_kernel<<<dim3(blocks, batch), kPlanThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(ps);
+    window_plans_kernel<false><<<dim3(blocks, batch), kPlanThreads, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(ps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K18. desc: n_plans (1-6) rows of 11 int64, (out_keys, m_out, oh, ow,
+// scale, in_keys, m_in, d, h, w, plan) of a plan: out_keys [batch, m_out]
+// int32 on the output grid (., oh, ow); in_keys [batch, m_in] int32, the
+// input level's keys, ascending and unique with an INVALID_KEY tail, on
+// the grid (d, h, w) of at most 2^31 - 4 cells; plan [batch, 27, m_out]
+// int32. One launch for all.
+extern "C" int sassd_sorted_window_plans(const long long* desc, int n_plans,
+                                         int batch, void* stream) {
+  if (n_plans < 1 || n_plans > kMaxPlans || batch < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  PlanSpecs ps = {};
+  int blocks = 0;
+  for (int p = 0; p < n_plans; ++p) {
+    const long long* d = desc + 11 * p;
+    PlanSpec& sp = ps.p[p];
+    sp.out_keys = as_ptr<const int>(d[0]);
+    sp.m_out = static_cast<int>(d[1]);
+    sp.oh = static_cast<int>(d[2]);
+    sp.ow = static_cast<int>(d[3]);
+    sp.scale = static_cast<int>(d[4]);
+    sp.in = as_ptr<const int>(d[5]);
+    sp.m_in = static_cast<int>(d[6]);
+    sp.d = static_cast<int>(d[7]);
+    sp.h = static_cast<int>(d[8]);
+    sp.w = static_cast<int>(d[9]);
+    sp.plan = as_ptr<int>(d[10]);
+    sp.first = blocks;
+    blocks += (sp.m_out + kPlanThreads - 1) / kPlanThreads;
+  }
+  ps.n = n_plans;
+  if (batch > 0 && blocks > 0)
+    window_plans_kernel<true><<<dim3(blocks, batch), kPlanThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(ps);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -446,6 +657,32 @@ extern "C" int sassd_stride_plans_t(const int* keys0, const int* keys1,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K19. keys0..2 [batch, mL] int32 input keys of levels 0-2 (INVALID_KEY
+// padded) on the grids (dL, hL, wL); out1..3 [batch, mo_L] int32 sorted
+// keys of levels 1-3; plan_t1..3 [batch, 27, m_{L-1}] int32.
+extern "C" int sassd_sorted_stride_plans_t(
+    const int* keys0, const int* keys1, const int* keys2, const int* out1,
+    const int* out2, const int* out3, int batch, int m0, int m1, int m2,
+    int mo1, int mo2, int mo3, int d0, int h0, int w0, int d1, int h1,
+    int w1, int d2, int h2, int w2, int d3, int h3, int w3, int* plan_t1,
+    int* plan_t2, int* plan_t3, void* stream) {
+  StrideTLevels lv = {{keys0, keys1, keys2}, {out1, out2, out3}, {m0, m1, m2},
+                      {0, 0, 0}, {d0, d1, d2}, {h0, h1, h2}, {w0, w1, w2},
+                      {d1, d2, d3}, {h1, h2, h3}, {w1, w2, w3},
+                      {plan_t1, plan_t2, plan_t3}, {mo1, mo2, mo3}};
+  int blocks = 0;
+  for (int l = 0; l < 3; ++l) {
+    lv.first[l] = blocks;
+    blocks += (lv.m[l] + kStrideTThreads - 1) / kStrideTThreads;
+  }
+  if (batch > 0 && blocks > 0) {
+    const dim3 grid(blocks, batch);
+    sorted_stride_plans_t_kernel<<<grid, kStrideTThreads, 0,
+                                   static_cast<cudaStream_t>(stream)>>>(lv);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 // cell0 [batch, m0, 3] int32 level-0 zyx cells (-1 padding); map1..map3
 // [batch, dL * hL * wL] int32 of levels 1-3; plan [3, batch, 27, m0].
 extern "C" int sassd_aux_plans(const int* cell0, int batch, int m0,
@@ -455,11 +692,31 @@ extern "C" int sassd_aux_plans(const int* cell0, int batch, int m0,
                                int* plan, void* stream) {
   if (batch > 0 && m0 > 0) {
     const AuxLevels lv = {{map1, map2, map3}, {d1, d2, d3}, {h1, h2, h3},
-                          {w1, w2, w3}};
+                          {w1, w2, w3}, {0, 0, 0}};
     const dim3 grid((m0 + kAuxThreads - 1) / kAuxThreads, batch);
-    aux_plans_kernel<<<grid, kAuxThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(cell0, batch, m0,
-                                                            lv, plan);
+    aux_plans_kernel<false><<<grid, kAuxThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+        cell0, batch, m0, lv, plan);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K20. cell0 [batch, m0, 3] int32 level-0 zyx cells (-1 padding);
+// keys1..keys3 [batch, mL] int32 sorted keys of levels 1-3; plan [3,
+// batch, 27, m0].
+extern "C" int sassd_sorted_aux_plans(const int* cell0, int batch, int m0,
+                                      const int* keys1, const int* keys2,
+                                      const int* keys3, int m1, int m2,
+                                      int m3, int d1, int h1, int w1, int d2,
+                                      int h2, int w2, int d3, int h3, int w3,
+                                      int* plan, void* stream) {
+  if (batch > 0 && m0 > 0) {
+    const AuxLevels lv = {{keys1, keys2, keys3}, {d1, d2, d3}, {h1, h2, h3},
+                          {w1, w2, w3}, {m1, m2, m3}};
+    const dim3 grid((m0 + kAuxThreads - 1) / kAuxThreads, batch);
+    aux_plans_kernel<true><<<grid, kAuxThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+        cell0, batch, m0, lv, plan);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -148,7 +148,8 @@ class Detector(nn.Module):
                 plans = sp.device_rulebook(
                     keys0, self.vxnet.level_shapes,
                     self.cfg.caps.level_caps[1:], train=self.training,
-                    aux=self.cfg.model.aux_interp == "ring")
+                    aux=self.cfg.model.aux_interp == "ring",
+                    plan_lookup=self.cfg.model.plan_lookup)
         keys0 = None
         with record_function("vxnet"), layers.stats_group(lay.data_group):
             vfe = backbone.vfe_mean(batch["voxels"], batch["num_points"])
@@ -208,7 +209,8 @@ class Detector(nn.Module):
             keys0 = sp.coords_to_keys(cell0, shapes[0])
             plans = sp.device_rulebook(
                 keys0, shapes, spec.caps[1:], train=self.training,
-                y_top=ss.y_top_rows(cfg, spec, b, keys0.device, band))
+                y_top=ss.y_top_rows(cfg, spec, b, keys0.device, band),
+                plan_lookup=cfg.model.plan_lookup)
         with record_function("vxnet"):
             if self.training:
                 out_dense, middles = self.vxnet.forward_train(

@@ -38,7 +38,11 @@ which a wrapper takes only for CPU tensors:
   level, optionally with a per-row output-y limit (``downsample.cu``);
 - K13 ``stride_plans_T`` and K14 ``aux_plans``: the rulebook's train-only
   plans, the stride convs' transpose plans and the aux branch's ring
-  plans, each of its three levels in one launch (``device_plans.cu``).
+  plans, each of its three levels in one launch (``device_plans.cu``);
+- K18 ``sorted_window_plans``, K19 ``sorted_stride_plans_T`` and K20
+  ``sorted_aux_plans``: the same plans as K6's, K13's and K14's, resolved
+  by binary search over each level's sorted keys with no index map
+  (model.plan_lookup="sorted", ``device_plans.cu``).
 
 Training differentiates the convs through :func:`subm_conv_sym` and
 :func:`stride_conv_hostT` (autograd Functions whose forward is K4 and whose
@@ -99,6 +103,14 @@ _K13 = cuda.Kernel("sassd_stride_plans_t",
 _K14 = cuda.Kernel("sassd_aux_plans",
                    [cuda.P, cuda.I, cuda.I, cuda.P, cuda.P, cuda.P]
                    + [cuda.I] * 9 + [cuda.P])
+# the sorted-key rulebook: K18 takes its plans' descriptors as K6's plans
+# do, K19 and K20 their levels' keys, counts and grids as arguments
+_K18 = cuda.Kernel("sassd_sorted_window_plans", [cuda.P, cuda.I, cuda.I])
+_K19 = cuda.Kernel("sassd_sorted_stride_plans_t",
+                   [cuda.P] * 6 + [cuda.I] * 19 + [cuda.P] * 3)
+_K20 = cuda.Kernel("sassd_sorted_aux_plans",
+                   [cuda.P, cuda.I, cuda.I] + [cuda.P] * 3 + [cuda.I] * 12
+                   + [cuda.P])
 # the C entry points of each kernel id, for launch counts
 KERNEL_SYMBOLS = {
     "K4": ("sassd_sparse_conv",),
@@ -112,6 +124,9 @@ KERNEL_SYMBOLS = {
     "K7": ("sassd_downsample",),
     "K13": ("sassd_stride_plans_t",),
     "K14": ("sassd_aux_plans",),
+    "K18": ("sassd_sorted_window_plans",),
+    "K19": ("sassd_sorted_stride_plans_t",),
+    "K20": ("sassd_sorted_aux_plans",),
 }
 
 # tap groups (dz, dy) of the 27-tap order, each covering dx = -1, 0, 1
@@ -799,7 +814,7 @@ def window_plans(specs: Sequence[tuple]) -> List[torch.Tensor]:
     if keys0.is_cpu:
         return window_plans_plain(specs)
     b, card = keys0.shape[0], keys0.get_device()
-    desc, offsets, size = [], [], 0
+    rows = []
     for i, (out_keys, out_shape, index_map, (d, h, w), scale) in enumerate(
             specs):
         cuda.check_cuda(f"specs[{i}] out_keys", out_keys, torch.int32, 2)
@@ -810,18 +825,30 @@ def window_plans(specs: Sequence[tuple]) -> List[torch.Tensor]:
                              f"[{b}, M_out] and [{b}, {d * h * w}]")
         if not out_keys.get_device() == index_map.get_device() == card:
             raise ValueError("the plans' keys and maps must be on one card")
-        m = out_keys.shape[1]
-        desc += (out_keys.data_ptr(), m, out_shape[1], out_shape[2], scale,
-                 index_map.data_ptr(), d, h, w, 0)
-        offsets.append((size, m))
-        size += -(-b * 27 * m // _PLAN_ALIGN) * _PLAN_ALIGN
+        rows.append((out_keys.data_ptr(), out_keys.shape[1], out_shape[1],
+                     out_shape[2], scale, index_map.data_ptr(), d, h, w))
+    return _launch_plans(_K6_PLANS, keys0, rows)
+
+
+def _launch_plans(kernel: cuda.Kernel, keys0: torch.Tensor,
+                  rows: Sequence[tuple]) -> List[torch.Tensor]:
+    """K6's or K18's one launch for the plans of `rows` (each a plan's
+    descriptor without its plan pointer, m_out second): their [B, 27,
+    m_out] int32 plans, views of one buffer, each at a multiple of
+    _PLAN_ALIGN, whose pointers end the descriptors."""
+    b = keys0.shape[0]
+    offsets, size = [], 0
+    for row in rows:
+        offsets.append(size)
+        size += -(-b * 27 * row[1] // _PLAN_ALIGN) * _PLAN_ALIGN
     buf = keys0.new_empty(size)
-    plans = []
-    for i, (off, m) in enumerate(offsets):
+    plans, desc = [], []
+    for row, off in zip(rows, offsets):
+        m = row[1]
         plans.append(buf.as_strided((b, 27, m), (27 * m, m, 1), off))
-        desc[10 * i + 9] = plans[-1].data_ptr()
+        desc += row + (plans[-1].data_ptr(),)
     desc = cuda.descriptors(desc)
-    _K6_PLANS.launch_on(keys0, desc.buffer_info()[0], n, b)
+    kernel.launch_on(keys0, desc.buffer_info()[0], len(rows), b)
     return plans
 
 
@@ -976,6 +1003,262 @@ def aux_plans(cell0: torch.Tensor, maps: Sequence[torch.Tensor],
     return plan
 
 
+# ---------------------------------------------------------------------------
+# the sorted-key rulebook (model.plan_lookup="sorted"): the same plans
+# resolved by binary search over each level's sorted keys, no index map
+# ---------------------------------------------------------------------------
+
+def lookup_sorted3_plain(keys: torch.Tensor, start: torch.Tensor):
+    """Rows of the three consecutive keys start + j, j = 0..2, in each
+    sample's ascending keys, by one binary search a group (the JAX
+    package's lookup_sorted3, batched): [B, M] keys (INVALID_KEY tail) and
+    [B, ...] starts -> (rows [B, ..., 3] int64 clipped to the row range,
+    found [B, ..., 3] bool). The keys are unique, so every present query
+    lies in the three rows from the first key >= start."""
+    b, m = keys.shape
+    k = keys.to(torch.int64)
+    s = start.reshape(b, -1).to(torch.int64)
+    p = torch.searchsorted(k, s)                            # [B, N], left
+    pad = torch.cat([k, torch.full((b, 2), INVALID_KEY, dtype=torch.int64,
+                                   device=k.device)], 1)
+    pc = torch.clamp(p, 0, m - 1)
+    j = torch.arange(3, device=k.device)
+    win = torch.gather(pad, 1, (pc[..., None] + j).reshape(b, -1)).reshape(
+        b, -1, 3)                                           # [B, N, slot]
+    vals = s[..., None] + j                                 # [B, N, tap]
+    cmp = win[..., :, None] == vals[..., None, :]           # [B, N, slot, tap]
+    found = cmp.any(-2) & (vals != INVALID_KEY)
+    slot = cmp.to(torch.uint8).argmax(-2)
+    rows = torch.clamp(pc[..., None] + slot, max=m - 1)
+    shape = tuple(start.shape) + (3,)
+    return rows.reshape(shape), found.reshape(shape)
+
+
+def window_starts(c: torch.Tensor, in_shape: Tuple[int, int, int]):
+    """The searches of a window plan: [B, M, 3] int64 zyx base cells
+    (negative = padding) -> ([B, 9, M] int64 first keys of the nine tap
+    groups' windows, the cell before the base's x; INVALID_KEY - 3 for a
+    group off the grid, as the JAX package pads them), and the [B, 9, M,
+    3] masks of the groups' taps on the grid."""
+    d, h, w = in_shape
+    dev = c.device
+    z, y, x = (c[..., i].unsqueeze(1) for i in range(3))     # [B, 1, M]
+    zq = z + torch.tensor(_DZ, device=dev)[None, :, None]    # [B, 9, M]
+    yq = y + torch.tensor(_DY, device=dev)[None, :, None]
+    gok = ((z >= 0) & (x >= 0) & (x < w) & (zq >= 0) & (zq < d)
+           & (yq >= 0) & (yq < h))
+    q = (zq * h + yq) * w + x
+    ok = torch.stack([gok & (x >= 1), gok, gok & (x + 1 < w)], -1)
+    return torch.where(gok, q - 1, INVALID_KEY - 3), ok
+
+
+def _window_sorted_plain(c: torch.Tensor, keys: torch.Tensor,
+                         in_shape: Tuple[int, int, int]) -> torch.Tensor:
+    """_window_lookup_plain resolved through the input level's [B, M_in]
+    sorted keys instead of its map (the JAX package's _window_plan with
+    sorted_keys): one lookup_sorted3 a tap group, the per-tap x masks
+    after it."""
+    b, m = c.shape[:2]
+    start, ok = window_starts(c, in_shape)
+    rows, found = lookup_sorted3_plain(keys, start)          # [B, 9, M, 3]
+    plan = torch.where(found & ok, rows, -1)
+    return plan.transpose(2, 3).reshape(b, 27, m).to(torch.int32)
+
+
+def sorted_window_plans_plain(specs: Sequence[tuple]) -> List[torch.Tensor]:
+    """Plain PyTorch version of K18 (see sorted_window_plans)."""
+    return [_window_sorted_plain(
+        keys_to_coords(out_keys, out_shape).to(torch.int64) * scale,
+        in_keys, in_shape)
+        for out_keys, out_shape, in_keys, in_shape, scale in specs]
+
+
+def _check_sorted_grid(what: str, shape: Tuple[int, int, int]) -> None:
+    """The searches' key arithmetic runs in int32 (start + 2 < 2^31)."""
+    if shape[0] * shape[1] * shape[2] > INVALID_KEY - 3:
+        raise ValueError(f"{what} grid {tuple(shape)} has more than "
+                         f"{INVALID_KEY - 3} cells")
+
+
+def sorted_window_plans(specs: Sequence[tuple]) -> List[torch.Tensor]:
+    """window_plans resolved by binary search: up to six specs (out_keys,
+    out_shape, in_keys, in_shape, scale), where in_keys is the input
+    level's [B, M_in] int32 keys, ascending and unique with an INVALID_KEY
+    tail (what the voxelizers and K7 make), in place of its map. Returns
+    the same wire-format [B, 27, M_out] int32 plans. K18 on the card: one
+    launch for all the specs, a thread an output row of a plan, its nine
+    tap groups' searches advanced together; no index map is read or made.
+    """
+    n = len(specs)
+    if not 1 <= n <= 6:
+        raise ValueError(f"{n} plan specs: want one to six")
+    keys0 = specs[0][0]
+    if keys0.is_cpu:
+        return sorted_window_plans_plain(specs)
+    b, card = keys0.shape[0], keys0.get_device()
+    rows = []
+    for i, (out_keys, out_shape, in_keys, (d, h, w), scale) in enumerate(
+            specs):
+        cuda.check_cuda(f"specs[{i}] out_keys", out_keys, torch.int32, 2)
+        cuda.check_cuda(f"specs[{i}] in_keys", in_keys, torch.int32, 2)
+        _check_sorted_grid(f"specs[{i}] input", (d, h, w))
+        if (out_keys.shape[0] != b or in_keys.shape[0] != b
+                or in_keys.shape[1] < 1):
+            raise ValueError(f"specs[{i}]: out_keys {tuple(out_keys.shape)} "
+                             f"and in_keys {tuple(in_keys.shape)} are not "
+                             f"[{b}, M_out] and [{b}, M_in >= 1]")
+        if not out_keys.get_device() == in_keys.get_device() == card:
+            raise ValueError("the plans' keys must be on one card")
+        rows.append((out_keys.data_ptr(), out_keys.shape[1], out_shape[1],
+                     out_shape[2], scale, in_keys.data_ptr(),
+                     in_keys.shape[1], d, h, w))
+    return _launch_plans(_K18, keys0, rows)
+
+
+def sorted_rulebook_plans(keys: Sequence[torch.Tensor],
+                          shapes: Sequence[Tuple[int, int, int]]
+                          ) -> Dict[str, torch.Tensor]:
+    """rulebook_plans through the levels' sorted keys: a scan's six plans
+    in one sorted_window_plans call, by name (the specs of rulebook_specs
+    with each level's keys where it takes that level's map)."""
+    return dict(zip(RULEBOOK_PLANS, sorted_window_plans(
+        rulebook_specs(keys, shapes, keys[:3]))))
+
+
+def stride_T_starts(keys: torch.Tensor, in_shape: Tuple[int, int, int],
+                    out_shape: Tuple[int, int, int]):
+    """The searches of a transpose plan: [B, M] input keys -> ([B, 9, M]
+    int64 first keys of the nine tap groups' windows on the output grid,
+    from x parent (x - 1) // 2 (floor division; INVALID_KEY - 3 for a
+    group with no live z and y parent), the [B, 9, M] group masks, and
+    the [B, 1, M] x coords and window starts)."""
+    od, oh, ow = out_shape
+    dev = keys.device
+    c = keys_to_coords(keys, in_shape).to(torch.int64)
+    z, y, x = (c[..., i].unsqueeze(1) for i in range(3))     # [B, 1, M]
+    cz = z - torch.tensor(_DZ, device=dev)[None, :, None]    # [B, 9, M]
+    cy = y - torch.tensor(_DY, device=dev)[None, :, None]
+    gok = ((z >= 0) & (cz % 2 == 0) & (cz >= 0) & (cz // 2 < od)
+           & (cy % 2 == 0) & (cy >= 0) & (cy // 2 < oh))
+    s = (x - 1) // 2                                         # window start
+    qstart = ((cz // 2) * oh + cy // 2) * ow + s
+    return torch.where(gok, qstart, INVALID_KEY - 3), gok, x, s
+
+
+def _stride_T_sorted_plain(keys: torch.Tensor, out_keys: torch.Tensor,
+                           in_shape: Tuple[int, int, int],
+                           out_shape: Tuple[int, int, int]) -> torch.Tensor:
+    """One level of sorted_stride_plans_T_plain (the JAX package's
+    build_stride_plan_T with out_sorted_keys): [B, M] input keys ->
+    [B, 27, M]. A tap group's x taps read coarse cells inside its window,
+    one lookup_sorted3 a group."""
+    ow = out_shape[2]
+    b, m = keys.shape
+    start, gok, x, s = stride_T_starts(keys, in_shape, out_shape)
+    rows, found = lookup_sorted3_plain(out_keys, start)      # [B, 9, M, 3]
+    taps = []
+    for dx in (-1, 0, 1):
+        cx = x - dx
+        okx = (cx % 2 == 0) & (cx >= 0) & (cx // 2 < ow)
+        rel = torch.clamp(cx // 2 - s, 0, 2).expand(b, 9, m)[..., None]
+        r = torch.gather(rows, 3, rel)[..., 0]
+        f = torch.gather(found, 3, rel)[..., 0] & gok & okx
+        taps.append(torch.where(f, r, -1))
+    return torch.stack(taps, 2).reshape(b, 27, m).to(torch.int32)
+
+
+def sorted_stride_plans_T_plain(keys: Sequence[torch.Tensor],
+                                out_keys: Sequence[torch.Tensor],
+                                shapes: Sequence[Tuple[int, int, int]]
+                                ) -> Tuple[torch.Tensor, ...]:
+    """Plain PyTorch version of K19 (see sorted_stride_plans_T)."""
+    return tuple(_stride_T_sorted_plain(keys[lvl], out_keys[lvl],
+                                        shapes[lvl], shapes[lvl + 1])
+                 for lvl in range(3))
+
+
+def sorted_stride_plans_T(keys: Sequence[torch.Tensor],
+                          out_keys: Sequence[torch.Tensor],
+                          shapes: Sequence[Tuple[int, int, int]]
+                          ) -> Tuple[torch.Tensor, ...]:
+    """stride_plans_T resolved by binary search: the [B, M_L] int32 keys
+    of levels 0-2, the sorted keys of levels 1-3 in place of their maps,
+    and the four grids -> (strideT1, strideT2, strideT3), bit for bit
+    stride_plans_T's. K19 on the card, one launch for the three levels, a
+    thread an input row, its live tap groups' searches advanced
+    together."""
+    if keys[0].device.type == "cpu":
+        return sorted_stride_plans_T_plain(keys, out_keys, shapes)
+    if len(keys) != 3 or len(out_keys) != 3 or len(shapes) != 4:
+        raise ValueError(f"{len(keys)} keys, {len(out_keys)} output keys "
+                         f"and {len(shapes)} grids: want 3, 3 and 4")
+    b, card = keys[0].shape[0], keys[0].get_device()
+    outs = []
+    for lvl, key, okey, (d, h, w), oshape in zip(
+            range(3), keys, out_keys, shapes, shapes[1:]):
+        cuda.check_cuda(f"keys[{lvl}]", key, torch.int32, 2)
+        cuda.check_cuda(f"out_keys[{lvl}]", okey, torch.int32, 2)
+        _check_sorted_grid(f"level {lvl + 1}", oshape)
+        if tuple(oshape) != out_shape_stride2((d, h, w)):
+            raise ValueError(f"grid {tuple(oshape)} is not the stride-2 "
+                             f"output of {(d, h, w)}")
+        if key.shape[0] != b or okey.shape[0] != b or okey.shape[1] < 1:
+            raise ValueError(f"keys[{lvl}] {tuple(key.shape)} and out_keys"
+                             f"[{lvl}] {tuple(okey.shape)} are not [{b}, M] "
+                             f"and [{b}, M_out >= 1]")
+        if key.get_device() != card or okey.get_device() != card:
+            raise ValueError("keys must be on one card")
+        outs.append(key.new_empty((b, 27, key.shape[1])))
+    _K19.launch_on(keys[0], *(k.data_ptr() for k in keys),
+                   *(k.data_ptr() for k in out_keys), b,
+                   *(k.shape[1] for k in keys),
+                   *(k.shape[1] for k in out_keys),
+                   *(s for shape in shapes for s in shape),
+                   *(o.data_ptr() for o in outs))
+    return tuple(outs)
+
+
+def sorted_aux_plans_plain(cell0: torch.Tensor,
+                           keys: Sequence[torch.Tensor],
+                           shapes: Sequence[Tuple[int, int, int]]
+                           ) -> torch.Tensor:
+    """Plain PyTorch version of K20 (see sorted_aux_plans)."""
+    c = cell0.to(torch.int64)
+    return torch.stack([_window_sorted_plain(c >> lvl, k, shape)
+                        for lvl, k, shape in zip((1, 2, 3), keys, shapes)])
+
+
+def sorted_aux_plans(cell0: torch.Tensor, keys: Sequence[torch.Tensor],
+                     shapes: Sequence[Tuple[int, int, int]]) -> torch.Tensor:
+    """aux_plans resolved by binary search: [B, M0, 3] int32 level-0 zyx
+    cells (-1 = padding), the sorted [B, M_L] int32 keys of levels 1-3 in
+    place of their maps and their grids -> the [3, B, 27, M0] int32 plans
+    aux_plans makes, bit for bit. K20 on the card, one launch for the
+    three levels."""
+    if cell0.device.type == "cpu":
+        return sorted_aux_plans_plain(cell0, keys, shapes)
+    cuda.check_cuda("cell0", cell0, torch.int32, 3)
+    b, m0, k = cell0.shape
+    if k != 3 or len(keys) != 3 or len(shapes) != 3:
+        raise ValueError(f"cell0 {tuple(cell0.shape)} with {len(keys)} "
+                         f"keys and {len(shapes)} shapes: want [B, M0, 3] "
+                         f"and 3")
+    for lvl, key, shape in zip((1, 2, 3), keys, shapes):
+        cuda.check_cuda(f"keys[{lvl - 1}]", key, torch.int32, 2)
+        _check_sorted_grid(f"level {lvl}", shape)
+        if key.shape[0] != b or key.shape[1] < 1:
+            raise ValueError(f"level {lvl}'s keys {tuple(key.shape)} are "
+                             f"not [{b}, M >= 1]")
+        if key.get_device() != cell0.get_device():
+            raise ValueError("cell0 and the keys must be on one card")
+    plan = cell0.new_empty((3, b, 27, m0))
+    _K20.launch_on(cell0, cell0.data_ptr(), b, m0,
+                   *(key.data_ptr() for key in keys),
+                   *(key.shape[1] for key in keys),
+                   *(s for shape in shapes for s in shape), plan.data_ptr())
+    return plan
+
+
 def downsample_candidates(keys: torch.Tensor,
                           shape_zyx: Tuple[int, int, int],
                           y_limit: Optional[torch.Tensor] = None
@@ -1056,7 +1339,8 @@ def device_rulebook(keys0: torch.Tensor,
                     level_shapes: Sequence[Tuple[int, int, int]],
                     level_caps: Sequence[int], train: bool = False,
                     aux: bool = True,
-                    y_top: Optional[torch.Tensor] = None
+                    y_top: Optional[torch.Tensor] = None,
+                    plan_lookup: str = "dense"
                     ) -> Dict[str, torch.Tensor]:
     """The backbone's rulebook built on the keys' device, in the host
     rulebook's format (data.kitti.build_host_plans without the plan_
@@ -1075,7 +1359,17 @@ def device_rulebook(keys0: torch.Tensor,
     maps are freed once the plans are built (the level-0 map, 360 MB a
     sample at the car grid, with them), those of levels 1-3 after the
     train plans when `train` needs them.
+
+    plan_lookup="sorted" (model.plan_lookup) resolves the same plans by
+    binary search over each level's sorted keys and builds no index map:
+    after K7, one K18 call for the six plans and, with `train`, one K19
+    call for the transpose plans and, with `aux`, one K20 call. keys0
+    must then be ascending within each row, as the voxelizers, K8 and the
+    band partition (K16) make it; that is assumed, not checked.
     """
+    if plan_lookup not in ("dense", "sorted"):
+        raise ValueError(f"plan_lookup={plan_lookup!r}: want 'dense' or "
+                         f"'sorted'")
     plans = {}
     level_keys = [keys0]
     for lvl in (1, 2, 3):
@@ -1084,6 +1378,18 @@ def device_rulebook(keys0: torch.Tensor,
             None if y_top is None else y_top >> lvl))
         plans[f"coords{lvl}"] = keys_to_coords(level_keys[lvl],
                                                level_shapes[lvl])
+    if plan_lookup == "sorted":
+        plans.update(sorted_rulebook_plans(level_keys, level_shapes))
+        if train:
+            for lvl, plan in zip((1, 2, 3), sorted_stride_plans_T(
+                    level_keys[:3], level_keys[1:], level_shapes)):
+                plans[f"strideT{lvl}"] = plan
+            if aux:
+                cell0 = keys_to_coords(keys0, level_shapes[0])
+                for lvl, plan in zip((1, 2, 3), sorted_aux_plans(
+                        cell0, level_keys[1:], level_shapes[1:])):
+                    plans[f"aux{lvl}"] = plan
+        return plans
     maps = [build_index_map(k, shape) for k, shape in zip(
         level_keys[:4 if train else 3], level_shapes)]
     plans.update(rulebook_plans(level_keys, level_shapes, maps))

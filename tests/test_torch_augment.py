@@ -187,6 +187,36 @@ def test_kitti_train_samples_match_jax(augmented_split):
     assert n_pasted > 3 * len(ds) and labels.min() >= 1 and labels.max() <= 3
 
 
+def test_augmented_samples_keep_level0_sorted(augmented_split):
+    """The loader's level 0 with GT sampling (objects pasted from the
+    database before the C++ voxelizer) ascends in key order, as
+    model.plan_lookup="sorted" assumes, and the sorted train rulebook of
+    a batch of them is the dense one."""
+    from sassd_tpu_torch.models.backbone import level_shapes
+    from sassd_tpu_torch.ops import sparse as sp
+    root = augmented_split
+    cfg = augmented_config(config, root)
+    ds = kitti.KittiDataset(cfg, str(root / "training"),
+                            str(root / "ImageSets" / "train.txt"),
+                            train=True)
+    assert ds.augmentor is not None
+    coords = np.stack([ds[i]["coords"] for i in range(len(ds))])
+    keys = sp.coords_to_keys(torch.from_numpy(coords), cfg.sparse_shape)
+    k = keys.to(torch.int64)
+    valid = keys != sp.INVALID_KEY
+    assert (valid[:, 1:] <= valid[:, :-1]).all()
+    assert ((k[:, 1:] - k[:, :-1])[valid[:, 1:]] > 0).all()
+    assert int(valid.sum(1).min()) > 50
+    shapes = level_shapes(cfg.sparse_shape)
+    caps = cfg.caps.level_caps[1:]
+    dense = sp.device_rulebook(keys, shapes, caps, train=True)
+    got = sp.device_rulebook(keys, shapes, caps, train=True,
+                             plan_lookup="sorted")
+    assert list(got) == list(dense)
+    for name, v in dense.items():
+        assert torch.equal(got[name], v), name
+
+
 @pytest.mark.parametrize("aux", ["ring", "exact"])
 def test_train_model_three_class_device_plans(tmp_path, monkeypatch,
                                               augmented_split, aux):

@@ -31,6 +31,10 @@ exact, K11 with per-row origins as K11; a banded train step card vs CPU
 index-map delta update of persistent-plan serving, the three levels in
 one call) is exact against its plain version and against K6's fresh map
 of the same keys; K6's plans (a scan's six in one call) against theirs.
+The sorted-key rulebook's plans (model.plan_lookup="sorted": K18 the six
+window plans, K19 the transpose plans, K20 the aux plans) are exact
+against their plain versions and against K6's, K13's and K14's plans
+through the dense maps of the same keys.
 """
 import dataclasses
 
@@ -2191,3 +2195,231 @@ def test_k1_at_the_targets_shape(dev):
                                    targets.rotate_iou2d_similarity, 0.6, 0.45)
     assert torch.equal(t_card.labels.cpu(), t_cpu.labels)
     assert (t_cpu.labels > 0).sum() >= 24
+
+
+# K18's plans at the car caps: K6's cases, and batch 2 with the second
+# sample empty
+K18_PLAN_CASES = K6_PLAN_CASES + ("empty_sample",)
+
+
+def car_levels(dev, case):
+    """The keys of levels 0-3 of a K18 case on the card (K7 downsampling
+    each into the next) and the four car grids."""
+    from sassd_tpu_torch.config import car_config
+    from sassd_tpu_torch.models.backbone import level_shapes
+    from sassd_tpu_torch.ops import sparse as sp
+    cfg = car_config()
+    shapes = level_shapes(cfg.sparse_shape)
+    caps = cfg.caps.level_caps
+    rng = np.random.default_rng(23)
+    rows = [car_clustered_keys(rng, shapes[0], caps[0] - 700 * i, caps[0],
+                               (700 + 40 * i, 760 + 40 * i))
+            for i in range(1 if case == "b1" else 2)]
+    keys0 = np.concatenate(rows)
+    if case == "empty_sample":
+        keys0[1] = INVALID
+    keys = [torch.from_numpy(keys0).to(dev)]
+    y_top = (torch.tensor([730, 790], dtype=torch.int32, device=dev)
+             if case == "banded" else None)
+    for lvl in (1, 2, 3):
+        keys.append(sp.downsample_keys(
+            keys[-1], shapes[lvl - 1], caps[lvl],
+            None if y_top is None else y_top >> lvl))
+    return keys, shapes
+
+
+@pytest.mark.parametrize("case", K18_PLAN_CASES)
+def test_k18_sorted_plans_match_plain_and_k6(dev, case):
+    """A scan's six plans in one sorted_window_plans call (one K18 launch,
+    no map) == sorted_window_plans_plain on the same card tensors == K6's
+    plans through the levels' maps, bit for bit, at the car caps; an
+    empty sample's plans are all -1."""
+    from sassd_tpu_torch.ops import sparse as sp
+    keys, shapes = car_levels(dev, case)
+    specs = sp.rulebook_specs(keys, shapes, keys[:3])
+    before = sp._K18.launches
+    got = sp.sorted_window_plans(specs)
+    assert sp._K18.launches == before + 1
+    ref = sp.sorted_window_plans_plain(specs)
+    maps = [sp.build_index_map(k, s) for k, s in zip(keys[:3], shapes)]
+    dense = sp.window_plans(sp.rulebook_specs(keys, shapes, maps))
+    torch.cuda.synchronize()
+    for name, g, r, d in zip(sp.RULEBOOK_PLANS, got, ref, dense):
+        assert g.is_contiguous() and g.data_ptr() % 512 == 0, name
+        assert torch.equal(g, r), name
+        assert torch.equal(g, d), name
+        assert (r >= 0).any(), name
+        if case == "empty_sample":
+            assert (g[1] == -1).all(), name
+
+
+def sorted_edge_keys():
+    """Level-0 keys on a small grid for K18's search edge cases: sample 0
+    holds the grid's first and last cells and both x faces, sample 1 one
+    key, sample 2 none, sample 3 every cell (the row at its cap)."""
+    from sassd_tpu_torch.ops import sparse as sp
+    shape = (4, 6, 7)
+    d, h, w = shape
+    total = d * h * w
+    rng = np.random.default_rng(5)
+    keys = np.full((4, total), INVALID, np.int32)
+    lin = np.unique(np.concatenate([
+        rng.choice(total, 60, replace=False), [0, total - 1],
+        (np.arange(d * h) * w)[::3], (np.arange(d * h) * w + w - 1)[1::3]]))
+    keys[0, :len(lin)] = lin
+    keys[1, 0] = 37
+    keys[3] = np.arange(total)
+    shapes = [shape]
+    levels = [torch.from_numpy(keys)]
+    for lvl in (1, 2, 3):
+        levels.append(sp.downsample_keys_plain(levels[-1], shapes[-1],
+                                               levels[-1].shape[1]))
+        shapes.append(sp.out_shape_stride2(shapes[-1]))
+    return levels, shapes
+
+
+def test_k18_k19_k20_search_edges(dev):
+    """K18, K19 and K20 on sorted_edge_keys (a key at the grid's first and
+    last cells, one key, no key, every cell) == their plain versions ==
+    K6's, K13's and K14's plain versions, bit for bit."""
+    from sassd_tpu_torch.ops import sparse as sp
+    keys, shapes = sorted_edge_keys()
+    kd = [k.to(dev) for k in keys]
+    maps = [sp.build_index_map(k, s) for k, s in zip(keys, shapes)]
+    got = sp.sorted_window_plans(sp.rulebook_specs(kd, shapes, kd[:3]))
+    dense = sp.window_plans_plain(sp.rulebook_specs(keys, shapes, maps[:3]))
+    for name, g, r in zip(sp.RULEBOOK_PLANS, got, dense):
+        assert torch.equal(g.cpu(), r), name
+    got_t = sp.sorted_stride_plans_T(kd[:3], kd[1:], shapes)
+    dense_t = sp.stride_plans_T_plain(keys[:3], maps[1:], shapes)
+    cell0 = sp.keys_to_coords(keys[0], shapes[0])
+    got_a = sp.sorted_aux_plans(cell0.to(dev), kd[1:], shapes[1:])
+    dense_a = sp.aux_plans_plain(cell0, maps[1:], shapes[1:])
+    torch.cuda.synchronize()
+    for lvl in range(3):
+        assert torch.equal(got_t[lvl].cpu(), dense_t[lvl]), lvl
+        assert torch.equal(got_t[lvl], sp.sorted_stride_plans_T_plain(
+            kd[:3], kd[1:], shapes)[lvl]), lvl
+    assert torch.equal(got_a.cpu(), dense_a)
+    assert torch.equal(got_a, sp.sorted_aux_plans_plain(cell0.to(dev), kd[1:],
+                                                        shapes[1:]))
+    assert (got[0][0] >= 0).sum() > 100 and (got[0][2] == -1).all()
+    assert (got[0][3] >= 0).all(dim=0).any()        # an interior cell
+
+
+@pytest.mark.parametrize("case", K13_CASES)
+def test_k19_edge_cases_bitwise(dev, case):
+    """K19 on K13's cases: one launch for the three levels, bitwise equal
+    to its plain version, to K13's plain version through the output
+    levels' maps and to itself over two calls."""
+    from sassd_tpu_torch.ops import sparse as sp
+    keys, shapes, _ = k13_case(case)
+    maps = [sp.build_index_map(k, s) for k, s in zip(keys[1:], shapes[1:])]
+    dense = sp.stride_plans_T_plain(keys[:3], maps, shapes)
+    kd = [k.to(dev) for k in keys]
+    before = sp._K19.launches
+    got = sp.sorted_stride_plans_T(kd[:3], kd[1:], shapes)
+    again = sp.sorted_stride_plans_T(kd[:3], kd[1:], shapes)
+    ref = sp.sorted_stride_plans_T_plain(kd[:3], kd[1:], shapes)
+    torch.cuda.synchronize()
+    assert sp._K19.launches == before + 2
+    for lvl in range(3):
+        assert got[lvl].is_contiguous()
+        assert torch.equal(got[lvl], ref[lvl]), lvl
+        assert torch.equal(got[lvl].cpu(), dense[lvl]), lvl
+        assert torch.equal(again[lvl], got[lvl]), lvl
+
+
+def test_k20_padded_rows_and_empty_sample(dev):
+    """K20 (one launch) on tiny scans with padding between the queried
+    rows and an all-padded sample == its plain version == K14's plain
+    version, bitwise; padded rows are -1 on all 27 taps."""
+    from sassd_tpu_torch.ops import sparse as sp
+    cfg, batch, shapes = tiny_rulebook(12, batch_size=3)
+    coords = batch["coords"].copy()
+    coords[2] = -1
+    keys = [sp.coords_to_keys(torch.from_numpy(coords), shapes[0])]
+    for lvl in (1, 2, 3):
+        keys.append(sp.downsample_keys_plain(keys[-1], shapes[lvl - 1],
+                                             cfg.caps.level_caps[lvl]))
+    maps = [sp.build_index_map(k, s) for k, s in zip(keys[1:], shapes[1:])]
+    cell0 = torch.from_numpy(coords)
+    cell0[:, ::3] = -1
+    kd = [k.to(dev) for k in keys[1:]]
+    before = sp._K20.launches
+    got = sp.sorted_aux_plans(cell0.to(dev), kd, shapes[1:])
+    assert sp._K20.launches == before + 1
+    ref = sp.sorted_aux_plans_plain(cell0.to(dev), kd, shapes[1:])
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    assert torch.equal(got.cpu(), sp.aux_plans_plain(cell0, maps, shapes[1:]))
+    taps = got.cpu().permute(0, 1, 3, 2)
+    assert (taps[:, cell0[..., 0] < 0] == -1).all()
+    assert (taps[:, 2] == -1).all() and (taps[:, :2] >= 0).any()
+
+
+def test_sorted_rulebook_launches_no_map(dev):
+    """device_rulebook(plan_lookup="sorted", train=True) on the card
+    launches K18, K19 and K20 once each and no K6, K13 or K14, allocates
+    no index map (its peak stays under the L0 map's size), and equals the
+    dense rulebook of the CPU."""
+    from sassd_tpu_torch.config import car_config
+    from sassd_tpu_torch.ops import sparse as sp
+    cfg = car_config()
+    keys, shapes = car_levels(dev, "b2")
+    caps = cfg.caps.level_caps[1:]
+    syms = [s for k in ("K6", "K13", "K14", "K18", "K19", "K20")
+            for s in sp.KERNEL_SYMBOLS[k]]
+    from sassd_tpu_torch.ops import cuda
+    before = {s: cuda.KERNELS[s].launches for s in syms}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    got = sp.device_rulebook(keys[0], shapes, caps, train=True,
+                             plan_lookup="sorted")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - start
+    runs = {s: cuda.KERNELS[s].launches - before[s] for s in syms}
+    assert runs == {"sassd_index_map": 0, "sassd_window_plans": 0,
+                    "sassd_stride_plans_t": 0, "sassd_aux_plans": 0,
+                    "sassd_sorted_window_plans": 1,
+                    "sassd_sorted_stride_plans_t": 1,
+                    "sassd_sorted_aux_plans": 1}, runs
+    d, h, w = shapes[0]
+    assert peak < 2 * d * h * w * 4          # two samples' L0 maps
+    ref = sp.device_rulebook(keys[0].cpu(), shapes, caps, train=True)
+    assert list(got) == list(ref)
+    for k, v in ref.items():
+        assert torch.equal(got[k].cpu(), v), k
+
+
+def test_sorted_plan_wrappers_reject_bad_inputs(dev):
+    from sassd_tpu_torch.ops import sparse as sp
+    grids = [(4, 6, 8), (2, 3, 4), (1, 2, 2), (1, 1, 1)]
+    keys = [torch.zeros((1, 8), dtype=torch.int32, device=dev)] * 4
+    sp.sorted_stride_plans_T(keys[:3], keys[1:], grids)     # fits
+    with pytest.raises(TypeError):                          # int16 keys
+        sp.sorted_stride_plans_T([keys[0].short()] + keys[1:3], keys[1:],
+                                 grids)
+    with pytest.raises(ValueError):                         # a wrong grid
+        sp.sorted_stride_plans_T(keys[:3], keys[1:],
+                                 grids[:2] + [(1, 2, 3), (1, 1, 2)])
+    with pytest.raises(ValueError):                         # keys on the host
+        sp.sorted_stride_plans_T(keys[:3], [keys[1].cpu()] + keys[2:],
+                                 grids)
+    with pytest.raises(ValueError):                         # no output row
+        sp.sorted_stride_plans_T(keys[:3], [keys[1][:, :0]] + keys[2:],
+                                 grids)
+    spec = (keys[0], grids[0], keys[0], grids[0], 1)
+    sp.sorted_window_plans([spec])                          # fits
+    with pytest.raises(ValueError):                         # seven specs
+        sp.sorted_window_plans([spec] * 7)
+    with pytest.raises(ValueError):                         # over 2^31 cells
+        sp.sorted_window_plans([(keys[0], grids[0], keys[0],
+                                 (2048, 1024, 1024), 1)])
+    cell0 = torch.zeros((1, 8, 3), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):                         # keys on the host
+        sp.sorted_aux_plans(cell0, [keys[1], keys[2].cpu(), keys[3]],
+                            grids[1:])
+    with pytest.raises(ValueError):                         # two levels
+        sp.sorted_aux_plans(cell0, keys[1:3], grids[1:])

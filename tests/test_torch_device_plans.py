@@ -260,10 +260,12 @@ def test_vxnet_device_plans_matches_jax():
     np.testing.assert_allclose(got, ref, atol=1e-4)
 
 
-def test_forward_test_device_plans_matches_jax_and_host_plans():
-    """forward_test with host_plans=False: the port == a live JAX
-    forward_test with host_plans=False, and == the port's host-plans
-    detections on the same scans, as matched sets."""
+@pytest.fixture(scope="module")
+def forward_test_runs():
+    """Two tiny scans through a live JAX forward_test with
+    host_plans=False, the port's with host_plans=False and the port's on
+    host plans, with the same weights: (the port's config, the JAX
+    weights, the batch, the anchors, the three detection sets)."""
     cfg, jcfg = config.tiny_config(), jconfig.tiny_config()
     cfg_d = dataclasses.replace(
         cfg, model=dataclasses.replace(cfg.model, host_plans=False))
@@ -289,9 +291,47 @@ def test_forward_test_device_plans_matches_jax_and_host_plans():
     host = inference.make_test_step(cfg, anchors, "cpu")(
         weights.from_jax(cfg, params, state, "cpu"), host_batch)
     host = {k: v.numpy() for k, v in host.items()}
+    return cfg_d, (params, state), batch, anchors, ref, got, host
+
+
+def test_forward_test_device_plans_matches_jax_and_host_plans(
+        forward_test_runs):
+    """forward_test with host_plans=False: the port == a live JAX
+    forward_test with host_plans=False, and == the port's host-plans
+    detections on the same scans, as matched sets."""
+    *_, ref, got, host = forward_test_runs
     counts = [matched(got, ref, i) for i in range(2)]
     assert min(counts) >= 3
     for i in range(2):
         matched(got, host, i)
+    np.testing.assert_array_equal(got["guided_truncated"],
+                                  ref["guided_truncated"])
+
+
+def test_forward_test_sorted_plans_matches_jax_and_dense(forward_test_runs,
+                                                         monkeypatch):
+    """forward_test with model.plan_lookup="sorted" (no index map, K18's
+    plain version): the port == the live JAX forward_test as matched sets,
+    and == the port's dense-map run bit for bit (the same plans, the same
+    operations). JAX's own sorted and dense plans are equal
+    (tests/test_device_plans.py); its sorted forward_test takes ~50 s to
+    trace on the CPU, so its dense run is the reference here, and the
+    sorted plans are held to its sorted builders in
+    test_torch_sorted_plans.py."""
+    cfg_d, (params, state), batch, anchors, ref, dense, _ = forward_test_runs
+    cfg_s = dataclasses.replace(cfg_d, model=dataclasses.replace(
+        cfg_d.model, plan_lookup="sorted"))
+    model = weights.from_jax(cfg_s, params, state, "cpu")
+
+    def no_map(*args):
+        raise AssertionError("the sorted path built an index map")
+    monkeypatch.setattr(sp, "build_index_map", no_map)
+    got = inference.make_test_step(cfg_s, anchors, "cpu")(model, batch)
+    got = {k: v.numpy() for k, v in got.items()}
+    assert got.keys() == dense.keys()
+    for k in got:
+        np.testing.assert_array_equal(got[k], dense[k], err_msg=k)
+    counts = [matched(got, ref, i) for i in range(2)]
+    assert min(counts) >= 3
     np.testing.assert_array_equal(got["guided_truncated"],
                                   ref["guided_truncated"])

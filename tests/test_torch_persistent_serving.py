@@ -137,6 +137,45 @@ def test_persistent_step_matches_per_scan_and_jax(stream):
     assert min(counts) >= 1
 
 
+def test_persistent_serving_ignores_plan_lookup(stream, monkeypatch):
+    """With model.plan_lookup="sorted" persistent-plan serving still
+    resolves its plans through the carried index maps (K17's and K6's
+    plain versions), as the JAX package's _plans_from_carry does whatever
+    plan_lookup says: the three scans' detections equal the dense
+    persistent run's bit for bit. The per-scan step of the same config
+    takes the sorted path (K18's plain version, no index map) and equals
+    the dense per-scan step."""
+    from sassd_tpu_torch.models.detector import Detector
+    cfg, model, anchors, anchors_bv, _, out = stream
+    cfg_s = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, plan_lookup="sorted"))
+    model_s = Detector(cfg_s)
+    model_s.load_state_dict(model.state_dict())
+    calls = []
+    for name in ("build_index_map", "update_index_maps", "window_plans",
+                 "sorted_window_plans"):
+        def spy(*args, _fn=getattr(sp, name), _name=name, **kwargs):
+            calls.append(_name)
+            return _fn(*args, **kwargs)
+        monkeypatch.setattr(sp, name, spy)
+    step = serve.make_serving_step(cfg_s, anchors, anchors_bv, "cpu")
+    step_p = serve.make_serving_step(cfg_s, anchors, anchors_bv, "cpu",
+                                     persistent_plans=True)
+    carry = serve.init_plan_carry(cfg_s, "cpu")
+    for raw, (per, got, _) in zip(scan_stream(cfg), out):
+        batch = batch_of(cfg, raw)
+        calls.clear()
+        res, carry = step_p(model_s, carry, batch)
+        assert calls == ["update_index_maps", "window_plans"], calls
+        for k in got:
+            np.testing.assert_array_equal(res[k].numpy(), got[k], err_msg=k)
+        calls.clear()
+        res = step(model_s, batch)
+        assert calls == ["sorted_window_plans"], calls
+        for k in per:
+            np.testing.assert_array_equal(res[k].numpy(), per[k], err_msg=k)
+
+
 def test_persistent_step_refuses_batch_two(stream):
     cfg, model, _, _, step_p, _ = stream
     raws = scan_stream(cfg)[:2]

@@ -297,6 +297,34 @@ def test_serving_step_matches_jax(served):
                                   ref["guided_truncated"])
 
 
+def test_serving_step_sorted_plans_matches_jax(served, monkeypatch):
+    """The serving step with model.plan_lookup="sorted" (its rulebook
+    resolved in the levels' sorted keys, no index map) == the dense
+    step's detections bit for bit, and matches JAX's serving step (its
+    dense-map graph, whose plans its own tests hold equal to its sorted
+    ones) at the same gate."""
+    from sassd_tpu_torch.models.detector import Detector
+    from sassd_tpu_torch.ops import sparse as sp
+    cfg, model, anchors, anchors_bv, raws, dense, ref = served
+
+    def no_map(*args):
+        raise AssertionError("the sorted path built an index map")
+    monkeypatch.setattr(sp, "build_index_map", no_map)
+    cfg_s = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, plan_lookup="sorted"))
+    model_s = Detector(cfg_s)
+    model_s.load_state_dict(model.state_dict())
+    scans = [serve.prepare_points(r, cfg) for r in raws]
+    batch = dict(points=np.stack([p for p, _ in scans]),
+                 n_points=np.asarray([k for _, k in scans], np.int32))
+    got = serve.make_serving_step(cfg_s, anchors, anchors_bv, "cpu")(
+        model_s, batch)
+    got = {k: v.numpy() for k, v in got.items()}
+    for k in dense:
+        np.testing.assert_array_equal(got[k], dense[k], err_msg=k)
+    assert min(matched(got, ref, i) for i in range(2)) >= 3
+
+
 def test_serving_step_matches_host_pipeline(served):
     """Points mode == the port's host pipeline (C++ voxelize, mask and
     rulebook in the loader) on under-cap scans."""

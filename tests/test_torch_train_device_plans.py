@@ -586,7 +586,9 @@ def step_pair(request):
     model.train()
     losses = model.forward_train(tb, at)
     parse_losses(losses).backward()
-    return dict(jlosses={k: float(v) for k, v in jlosses.items()},
+    return dict(cfg=cfg, params=params, jax_state=state, batch=batch,
+                anchors=anchors,
+                jlosses={k: float(v) for k, v in jlosses.items()},
                 jgrads=leaves(grads), jstate=leaves(jstate),
                 jassign=jassign,
                 assign=[torch.cat(rpn, 1).numpy(), ga.valid.numpy(),
@@ -635,4 +637,40 @@ def test_three_class_bn_state_matches_jax(step_pair):
     assert ref.keys() == got.keys()
     for k in ref:
         np.testing.assert_allclose(got[k], ref[k], rtol=1e-4, atol=1e-5,
+                                   err_msg=k)
+
+
+def test_three_class_sorted_plans_step_matches_jax(step_pair, monkeypatch):
+    """One forward_train + backward with model.plan_lookup="sorted" (the
+    train rulebook resolved in the levels' sorted keys: K18's and K19's
+    plain versions and, with the ring aux, K20's; no index map) against
+    jax.grad of the JAX forward_train at the gates above: every loss,
+    every gradient leaf, the BatchNorm state. The JAX reference is its
+    dense-map step: its own tests hold its sorted plans equal to its dense
+    ones, and its sorted step takes ~30 s to compile on the CPU."""
+    cfg = step_pair["cfg"]
+    cfg_s = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, plan_lookup="sorted"))
+    config.check_supported(cfg_s, train=True)
+
+    def no_map(*args):
+        raise AssertionError("the sorted path built an index map")
+    monkeypatch.setattr(sp, "build_index_map", no_map)
+    model = weights.from_jax(cfg_s, step_pair["params"],
+                             step_pair["jax_state"], "cpu")
+    model.train()
+    losses = model.forward_train(inference.to_device(step_pair["batch"],
+                                                     "cpu"),
+                                 torch.from_numpy(step_pair["anchors"]))
+    parse_losses(losses).backward()
+    got = {k: float(v.detach()) for k, v in losses.items()}
+    for k, v in step_pair["jlosses"].items():
+        np.testing.assert_allclose(got[k], v, rtol=LOSS_RTOL, err_msg=k)
+    grads = leaves(weights.grads_to_jax(model))
+    for k, r in step_pair["jgrads"].items():
+        err = np.linalg.norm(grads[k] - r) / np.linalg.norm(r)
+        assert err <= GRAD_RTOL, (k, err)
+    state = leaves(weights.to_jax(model)[1])
+    for k, r in step_pair["jstate"].items():
+        np.testing.assert_allclose(state[k], r, rtol=1e-4, atol=1e-5,
                                    err_msg=k)
