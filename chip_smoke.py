@@ -4656,8 +4656,9 @@ def sorted_check(torch, sp, what: str, keys, shapes) -> dict:
     """15a: K18 (a scan's six plans), K19 and K20, each one call on the
     keys of levels 0-3, against their plain versions on the same card
     tensors and against K6's plans, K13 and K14 through the levels' index
-    maps, bitwise. Returns the entries differing, the found fractions and
-    the levels' valid keys; fails on any difference."""
+    maps, bitwise. Returns the entries differing, the largest absolute
+    difference from the plain version (err), the found fractions and the
+    levels' valid keys; fails on any difference."""
     maps = [sp.build_index_map(k, s) for k, s in zip(keys, shapes)]
     cell0 = sp.keys_to_coords(keys[0], shapes[0])
     specs = sp.rulebook_specs(keys, shapes, keys[:3])
@@ -4673,10 +4674,12 @@ def sorted_check(torch, sp, what: str, keys, shapes) -> dict:
                 sp.aux_plans(cell0, maps[1:], shapes[1:]))}
     del maps
     torch.cuda.synchronize()
-    diff, found = {}, {}
+    diff, found, err = {}, {}, {}
     for kid, (got, plain, dense) in runs.items():
         diff[kid] = (sum(int((g != p).sum()) for g, p in zip(got, plain)),
                      sum(int((g != d).sum()) for g, d in zip(got, dense)))
+        err[kid] = max(float((g.long() - p.long()).abs().max())
+                       for g, p in zip(got, plain))
         found[kid] = round(sum(int((g >= 0).sum()) for g in got)
                            / sum(g.numel() for g in got), 4)
     n = [int((k != sp.INVALID_KEY).sum()) for k in keys]
@@ -4686,7 +4689,7 @@ def sorted_check(torch, sp, what: str, keys, shapes) -> dict:
     if any(a or b for a, b in diff.values()):
         fail(f"15a, {what}: K18-K20 differ from their plain versions or "
              f"from the dense-map plans")
-    return dict(diff=diff, found=found, valid_keys=n)
+    return dict(diff=diff, err=err, found=found, valid_keys=n)
 
 
 def distinct_bytes(tensors) -> int:
@@ -4707,7 +4710,8 @@ def sorted_timed(torch, kid: str, name: str, what: str, fn, plain_fn,
     compare and the plans' write are not timed), as B6's torch.sort. The
     bound is bytes; the search's dependent-load chain over m_in keys is
     printed beside it as an estimate (L2_HIT_US a load), not as the
-    bound."""
+    bound, and kept out of the row. The row's max_abs_err is set by
+    run_phase15 from 15a's checks of the same kernel."""
     t = measured(fn, f"{kid} {name}, {what}", iters=100)
     plain_ms = cuda_ms(plain_fn, iters=5)
     lib = measured(lambda: [torch.searchsorted(k, s) for k, s in starts],
@@ -4724,7 +4728,7 @@ def sorted_timed(torch, kid: str, name: str, what: str, fn, plain_fn,
           f"{plain_ms:.4f} ms; yardstick {lib['ms']:.4f} ms")
     return dict(name=f"{kid} {name}", route="cuda",
                 source="sassd_tpu_torch/csrc/device_plans.cu",
-                replaces=replaces, max_abs_err=0.0, **t, plain_ms=plain_ms,
+                replaces=replaces, **t, plain_ms=plain_ms,
                 library_ms=lib["ms"], library_graph_ms=lib["graph_ms"],
                 library_profiler_ms=lib["profiler_ms"],
                 library_host_us=lib["host_us"],
@@ -4732,8 +4736,7 @@ def sorted_timed(torch, kid: str, name: str, what: str, fn, plain_fn,
                              "starts over the same keys, one call an "
                              "input level: the search alone, a component "
                              "(no window compare, no plan written)",
-                at=what, chain_loads=depth,
-                chain_estimate_us=depth * L2_HIT_US, **bd, **extra)
+                at=what, **bd, **extra)
 
 
 def k18_timed(torch, sp, keys, shapes, what: str) -> dict:
@@ -4814,6 +4817,75 @@ SORTED_CALLS = {
                  "sassd_aux_plans": 0}}
 
 
+def rulebook_turns(sp, what: str, keys0, shapes, caps, **kw) -> dict:
+    """The rulebook stage's kernels (device_rulebook(keys0, shapes, caps,
+    **kw)) by torch.profiler, ms a call, plan_lookup dense and sorted in
+    turns (dense, sorted, sorted, dense), each printed with its kernels."""
+    out = {"dense": [], "sorted": []}
+    for mode in ("dense", "sorted", "sorted", "dense"):
+        split = kernel_split(lambda: sp.device_rulebook(
+            keys0, shapes, caps, plan_lookup=mode, **kw))
+        out[mode].append(dict(ms=sum(split.values()) if split else None,
+                              split=split))
+    print(f"{what}: the rulebook stage's kernels (torch.profiler ms a call, "
+          f"in turns): " + "; ".join(
+              f"{mode} " + ", ".join("not measured" if r["ms"] is None
+                                     else f"{r['ms']:.4f}" for r in v)
+              for mode, v in out.items()))
+    for mode, v in out.items():
+        print(f"  {mode} rulebook kernels: {v[0]['split']}")
+    return out
+
+
+def peak_owners(torch, fn, what: str, top: int = 8) -> dict:
+    """The device memory live at fn()'s peak, by the innermost frame of
+    the port's code that allocated it: torch.cuda.memory's allocation
+    history over the call (Python stacks), replayed to the event at which
+    the allocated bytes were highest. Memory allocated before the call
+    (start_mib) has no frame in it. Prints the `top` owners; returns them
+    with the start and the peak (MiB)."""
+    mem = torch.cuda.memory
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
+    mem._record_memory_history(max_entries=2_000_000, stacks="python")
+    try:
+        fn()
+        torch.cuda.synchronize()
+        trace = mem._snapshot()["device_traces"][torch.cuda.current_device()]
+    finally:
+        mem._record_memory_history(enabled=None)
+    live, cur, best, at = {}, 0, 0, -1
+    for i, e in enumerate(trace):           # first pass: where the peak is
+        if e["action"] == "alloc":
+            live[e["addr"]] = e["size"]
+            cur += e["size"]
+            if cur > best:
+                best, at = cur, i
+        elif e["action"] in ("free_requested", "free_completed"):
+            cur -= live.pop(e["addr"], 0)
+    live = {}
+    for e in trace[:at + 1]:                # second: what is live there
+        if e["action"] == "alloc":
+            live[e["addr"]] = e
+        elif e["action"] in ("free_requested", "free_completed"):
+            live.pop(e["addr"], None)
+    owners = {}
+    for e in live.values():
+        frame = next((f for f in e.get("frames", ())
+                      if "sassd_tpu_torch" in f["filename"]), None)
+        name = ("no frame of the port" if frame is None else
+                f"{frame['filename'].split('sassd_tpu_torch/')[-1]}:"
+                f"{frame['line']} {frame['name']}")
+        owners[name] = owners.get(name, 0) + e["size"] / 2**20
+    ranked = sorted(owners.items(), key=lambda kv: -kv[1])[:top]
+    print(f"{what}: live at its peak, by the port's allocating frame "
+          f"(MiB, {len(trace)} events): allocated at the start "
+          f"{start / 2**20:.1f}, over it at the peak {best / 2**20:.1f}; "
+          + "; ".join(f"{k} {v:.1f}" for k, v in ranked))
+    return dict(start_mib=start / 2**20, over_start_mib=best / 2**20,
+                owners=dict(ranked), events=len(trace))
+
+
 def sorted_serving(torch, np, device, cfg_pts, ds, step, batch1, model_dev,
                    keys0) -> dict:
     """15b: run_inference over phase 6's 4-scan split at batch 1 and 2,
@@ -4879,21 +4951,14 @@ def sorted_serving(torch, np, device, cfg_pts, ds, step, batch1, model_dev,
                  "15b, sorted serving, one step")
     shapes = level_shapes(cfg_pts.sparse_shape)
     caps = cfg_pts.caps.level_caps[1:]
-    rulebook = {"dense": [], "sorted": []}
-    for mode in ("dense", "sorted", "sorted", "dense"):
-        split = kernel_split(lambda: sp.device_rulebook(
-            keys0, shapes, caps, plan_lookup=mode))
-        rulebook[mode].append(dict(ms=sum(split.values()) if split else None,
-                                   split=split))
-    print("15b: the rulebook stage's kernels of scan 0 at batch 1 "
-          "(torch.profiler ms a call, in turns): " + "; ".join(
-              f"{mode} " + ", ".join("not measured" if r["ms"] is None
-                                     else f"{r['ms']:.4f}" for r in v)
-              for mode, v in rulebook.items()))
-    for mode, v in rulebook.items():
-        print(f"  {mode} rulebook kernels: {v[0]['split']}")
+    rulebook = rulebook_turns(sp, "15b: scan 0 at batch 1", keys0, shapes,
+                              caps)
+    owners = {mode: peak_owners(torch, lambda: inference.run_inference(
+        c, ds, m, 2, device), f"15b, {mode} run_inference at batch 2")
+        for mode, c, m in (("dense", cfg_pts, model_dev),
+                           ("sorted", cfg_s, model_s))}
     return dict(launches=launches["sorted"], per_step=per_step, peaks=peaks,
-                bitwise=bitwise, rulebook=rulebook)
+                bitwise=bitwise, rulebook=rulebook, peak_owners=owners)
 
 
 def sorted_train_steps(torch, device, cfg, batch, anchors, what: str,
@@ -4963,7 +5028,7 @@ def run_phase15(torch, np, device, cfg, model_dev, train_ref=None,
     t = time.perf_counter()
     shapes = level_shapes(cfg.sparse_shape)
     caps = cfg.caps.level_caps[1:]
-    rows = []
+    rows, checks = [], []
     with tempfile.TemporaryDirectory() as root:
         cfg_pts, ds, step, batch1, _ = serving_split(torch, np, device, cfg,
                                                      root)
@@ -4974,8 +5039,9 @@ def run_phase15(torch, np, device, cfg, model_dev, train_ref=None,
                       for k in ("points", "n_points"))
             scans.append(sp.coords_to_keys(serve.batch_from_points(
                 pts, n, lattice, cfg_pts)["coords"], shapes[0]))
-            sorted_check(torch, sp, f"phase 6's scan {i}, batch 1",
-                         sorted_levels(sp, scans[-1], shapes, caps), shapes)
+            checks.append(sorted_check(
+                torch, sp, f"phase 6's scan {i}, batch 1",
+                sorted_levels(sp, scans[-1], shapes, caps), shapes))
         rows.append(k18_timed(torch, sp, sorted_levels(
             sp, scans[0], shapes, caps), shapes,
             "phase 6's scan 0, batch 1: a scan's six plans in one call"))
@@ -4991,10 +5057,14 @@ def run_phase15(torch, np, device, cfg, model_dev, train_ref=None,
     batch = {k: v for k, v in batch.items() if not k.startswith("plan_")}
     keys = sorted_levels(sp, sp.coords_to_keys(torch.from_numpy(
         batch["coords"]).to(device), shapes[0]), shapes, caps)
-    sorted_check(torch, sp, "phase 7's train batch of 2", keys, shapes)
+    checks.append(sorted_check(torch, sp, "phase 7's train batch of 2",
+                               keys, shapes))
     what = "phase 7's train batch of 2, the three levels in one call"
     rows.append(k19_timed(torch, sp, keys, shapes, what))
     rows.append(k20_timed(torch, sp, keys, shapes, what))
+    train_rulebook = {"car": rulebook_turns(
+        sp, "15c: phase 7's train batch of 2, train=True with the aux plans",
+        keys[0], shapes, caps, train=True)}
     del keys
     t_c = time.perf_counter()
     cfg_dev = dataclasses.replace(cfg, model=dataclasses.replace(
@@ -5020,6 +5090,7 @@ def run_phase15(torch, np, device, cfg, model_dev, train_ref=None,
         cfg_b.caps.level_caps[1:])
     lr_scan = sorted_check(torch, sp, "phase 9's long-range timing scan",
                            keys, lshapes)
+    checks.append(lr_scan)
     lr_k18 = measured(lambda: sp.sorted_window_plans(sp.rulebook_specs(
         keys, lshapes, keys[:3])), "K18, phase 9's long-range timing scan",
         iters=100)
@@ -5033,21 +5104,29 @@ def run_phase15(torch, np, device, cfg, model_dev, train_ref=None,
         sp, sp.coords_to_keys(bc.reshape(-1, bc.shape[2], 3), bshapes[0]),
         bshapes, spec.caps[1:],
         ss.y_top_rows(cfg_b, spec, coords.shape[0], device))
-    sorted_check(torch, sp, f"phase 9's {keys[0].shape[0]} band rows",
-                 keys, bshapes)
+    checks.append(sorted_check(
+        torch, sp, f"phase 9's {keys[0].shape[0]} band rows", keys,
+        bshapes))
+    train_rulebook["banded"] = rulebook_turns(
+        sp, f"15d: phase 9's {keys[0].shape[0]} band rows, train=True with "
+        f"the aux plans", keys[0], bshapes, spec.caps[1:], train=True,
+        y_top=ss.y_top_rows(cfg_b, spec, coords.shape[0], device))
     del keys
     banded = sorted_train_steps(
         torch, device, cfg_b, lr_batch,
         torch.from_numpy(lr_inputs["anchors"]).to(device),
         "15d, long range banded training, batch 2",
         "K1 K3 K3b K4 K5 K5b K7 K10 K11 K12 K16 K18 K19 K20")
+    for row in rows:            # every check of the kernel, not a constant
+        kid = row["name"].split()[0]
+        row["max_abs_err"] = max(c["err"][kid] for c in checks)
     wall = time.perf_counter() - t
     print(f"sorted plan lookups: phase 15 took {wall:.1f} s (15a serving "
           f"scans {t_a - t:.1f}, 15b {t_b - t_a:.1f}, 15a train batch "
           f"{t_c - t_b:.1f}, 15c {t_d - t_c:.1f}, 15a long range and 15d "
           f"{t + wall - t_d:.1f})")
     return dict(rows=rows, serving=serving, train=train, banded=banded,
-                wall_s=wall)
+                train_rulebook=train_rulebook, wall_s=wall)
 
 
 def peak_phases(torch, np, device, cfg, model_dev, model_cpu, root: str,
@@ -6480,6 +6559,15 @@ def main() -> int:
               f"{mode} " + ", ".join("not measured" if r["ms"] is None
                                      else f"{r['ms']:.4f}" for r in v)
               for mode, v in sv["rulebook"].items()) + " ms")
+    for what, turns in (("car training, batch 2",
+                         p15["train_rulebook"]["car"]),
+                        ("long range banded training, 8 band rows",
+                         p15["train_rulebook"]["banded"])):
+        print(f"{what}, the rulebook stage's kernels (train=True, aux) by "
+              f"the profiler, dense and sorted in turns, on {name} [{card}]: "
+              + "; ".join(f"{mode} " + ", ".join(
+                  "not measured" if r["ms"] is None else f"{r['ms']:.4f}"
+                  for r in v) for mode, v in turns.items()) + " ms")
     for what, peak in (("15b serving, 4 scans at batch 1 and 2",
                         sv["peaks"]),
                        ("15c car training, batch 2", p15["train"]["peaks"]),
