@@ -4699,36 +4699,252 @@ def distinct_bytes(tensors) -> int:
     return sum(seen.values())
 
 
-def sorted_timed(torch, kid: str, name: str, what: str, fn, plain_fn,
-                 starts, nbytes: float, m_in: int, replaces: str,
-                 extra: dict) -> dict:
-    """K18-K20's row: the kernel's call read four ways (measured), its
-    plain version, and its yardstick, torch.searchsorted of the same
-    window starts over the same keys (`starts`: (keys, starts) int32
-    pairs, one call each, every start searched where the kernel skips the
-    groups off the grid): the search alone, a component (the window
-    compare and the plans' write are not timed), as B6's torch.sort. The
-    bound is bytes; the search's dependent-load chain over m_in keys is
-    printed beside it as an estimate (L2_HIT_US a load), not as the
-    bound, and kept out of the row. The row's max_abs_err is set by
-    run_phase15 from 15a's checks of the same kernel."""
-    t = measured(fn, f"{kid} {name}, {what}", iters=100)
-    plain_ms = cuda_ms(plain_fn, iters=5)
-    lib = measured(lambda: [torch.searchsorted(k, s) for k, s in starts],
+# K18's and K20's shared-memory settings, each read by the profiler at
+# every shape phase 15 times, beside the wrappers' (sp.SPLITTER_ENTRIES,
+# sp.SEGMENT_POOL, sp.SORTED_THREADS): (table budget, int32 entries a
+# level; segment pool, int32; block rows)
+SPLITTERS_TRIED = ((256, 4096, 128), (1024, 4096, 128), (512, 2048, 128),
+                   (512, 8192, 128), (512, 4096, 64), (512, 4096, 256),
+                   (1024, 4096, 256))
+
+# 15a's search edge cases on the grid EDGE_GRID: (table budget, segment
+# pool, the keys a level holds m_in, valid keys by sample); the budget sets
+# S = 2^splitter_shift (SPLITTER_ENTRIES and SEGMENT_POOL for the case).
+# m_in = 1; S - 1 (S = 8, one splitter); S with a sample all padding; S +
+# 1 (two splitters) with a sample's valid keys ending on the segment edge;
+# a row that is not a multiple of 4 whose last valid key is a splitter;
+# a budget of 1024 at 2051 keys (S = 4), the valid keys ending on and one
+# past an edge; every cell of the grid under a budget of 64 (S = 64);
+# no pool (every segment read in the L2); a pool too small for some of a
+# block's segments
+EDGE_GRID = (8, 24, 20)
+SPLITTER_EDGES = ((1024, 4096, 1, (1, 0)), (2, 4096, 7, (7, 5)),
+                  (2, 4096, 8, (8, 0)), (3, 4096, 9, (9, 8)),
+                  (5, 4096, 30, (30, 17)), (1024, 4096, 2051, (2048, 1025)),
+                  (64, 4096, 3840, (3840, 3839, 0)),
+                  (64, 0, 3840, (3840, 2000)), (8, 40, 2051, (2048, 1500)))
+
+
+def splitter_edges(torch, np, sp, device) -> list:
+    """15a's search edge cases (SPLITTER_EDGES): each case's keys of levels
+    0-3 (K7 downsampling at the case's m_in as every level's cap) through
+    sorted_check under its budget and pool; the wrappers' settings
+    restored after. Returns the checks, each with its S by level."""
+    d, h, w = EDGE_GRID
+    shapes = [EDGE_GRID]
+    for _ in range(3):
+        shapes.append(sp.out_shape_stride2(shapes[-1]))
+    rng = np.random.default_rng(SEED + 25)
+    checks, saved = [], (sp.SPLITTER_ENTRIES, sp.SEGMENT_POOL)
+    try:
+        for entries, pool, m, valid in SPLITTER_EDGES:
+            keys0 = np.full((len(valid), m), sp.INVALID_KEY, np.int32)
+            for i, n in enumerate(valid):
+                keys0[i, :n] = np.sort(rng.choice(d * h * w, n,
+                                                  replace=False))
+            sp.SPLITTER_ENTRIES, sp.SEGMENT_POOL = entries, pool
+            keys = sorted_levels(sp, torch.from_numpy(keys0).to(device),
+                                 shapes, (m, m, m))
+            s = [1 << sp.splitter_shift(k.shape[1]) for k in keys]
+            c = sorted_check(torch, sp, f"edge case: budget {entries}, pool "
+                             f"{pool}, m_in {m} (S by level {s}), valid "
+                             f"keys {valid}", keys, shapes)
+            checks.append(dict(c, budget=entries, pool=pool, m_in=m, S=s))
+    finally:
+        sp.SPLITTER_ENTRIES, sp.SEGMENT_POOL = saved
+    return checks
+
+
+def splitter_tables(sp, kid: str, keys) -> dict:
+    """K18's (a scan's six plans) or K20's (the aux plans, a level a
+    block) splitter tables at the wrappers' settings on the keys of levels
+    0-3: the block's rows, each table's S, splitters and padded size, the
+    block's shared bytes (the largest padded table, the segment pool and
+    21 ints of counts), and the L2 bytes the tables' staging reads in one
+    call, counted from this run's keys (a block stages only when it holds
+    a valid row; a 32-byte sector a splitter where S >= 8)."""
+    t = sp.SORTED_THREADS
+
+    def table(k):
+        m = k.shape[1]
+        shift = sp.splitter_shift(m)
+        nt = -(-m >> shift)
+        sectors = nt if shift >= 3 else -(-nt * (1 << shift) // 8)
+        return dict(m_in=m, S=1 << shift, entries=nt,
+                    padded=1 << nt.bit_length()), sectors
+
+    def blocks(valid):        # [B] valid rows -> blocks holding one
+        return int(((valid + t - 1) // t).sum())
+
+    if kid == "K18":          # each plan: (output keys, searched keys)
+        pairs = [(keys[lvl + o] != sp.INVALID_KEY, keys[lvl])
+                 for lvl in range(3) for o in (0, 1)]
+    else:                     # each level: the valid level-0 rows
+        pairs = [(keys[0] != sp.INVALID_KEY, k) for k in keys[1:]]
+    tables, nbytes = [], 0
+    for valid, k in pairs:
+        tb, sectors = table(k)
+        tables.append(tb)
+        nbytes += 32 * sectors * blocks(valid.sum(1).cpu())
+    shared = 4 * ((max(tb["padded"] for tb in tables) + 3) // 4 * 4
+                  + sp.SEGMENT_POOL + 21)
+    return dict(threads=t, tables=tables, pool=sp.SEGMENT_POOL,
+                shared_bytes=shared, staging_l2_bytes=nbytes)
+
+
+def sorted_calls(torch, sp, kid: str, keys, shapes) -> dict:
+    """K18's, K19's or K20's call on the keys of levels 0-3 (a scan's six
+    plans, the transpose plans or the aux plans, the three levels in one
+    call), its plain version, its map-reading twin (K6's six plans, K13 or
+    K14, through maps built here, outside any timing), the bytes of its
+    bound (plans written, cell0 and the distinct key arrays read once),
+    the m_in of its deepest search, and its yardstick's window starts
+    ((keys, starts) int32 pairs, a torch.searchsorted call each)."""
+    maps = {lvl: sp.build_index_map(keys[lvl], shapes[lvl])
+            for lvl in ((0, 1, 2) if kid == "K18" else (1, 2, 3))}
+    if kid == "K18":
+        specs = sp.rulebook_specs(keys, shapes, keys[:3])
+        dspecs = sp.rulebook_specs(keys, shapes, [maps[0], maps[1], maps[2]])
+        fn = lambda: sp.sorted_window_plans(specs)  # noqa: E731
+        plain = lambda: sp.sorted_window_plans_plain(specs)  # noqa: E731
+        dense = lambda: sp.window_plans(dspecs)  # noqa: E731
+        starts = []
+        for lvl in range(3):
+            st = [sp.window_starts(sp.keys_to_coords(k, shp).long() * scale,
+                                   shapes[lvl])[0].flatten(1)
+                  for k, shp, scale in ((keys[lvl], shapes[lvl], 1),
+                                        (keys[lvl + 1], shapes[lvl + 1], 2))]
+            starts.append((keys[lvl], torch.cat(st, 1).to(torch.int32)))
+        read = [t for spec in specs for t in (spec[0], spec[2])]
+        m_in = keys[0].shape[1]
+    elif kid == "K19":
+        fn = lambda: sp.sorted_stride_plans_T(  # noqa: E731
+            keys[:3], keys[1:], shapes)
+        plain = lambda: sp.sorted_stride_plans_T_plain(  # noqa: E731
+            keys[:3], keys[1:], shapes)
+        dense = lambda: sp.stride_plans_T(  # noqa: E731
+            keys[:3], [maps[1], maps[2], maps[3]], shapes)
+        starts = [(keys[lvl], sp.stride_T_starts(
+            keys[lvl - 1], shapes[lvl - 1], shapes[lvl])[0].flatten(1).to(
+                torch.int32)) for lvl in (1, 2, 3)]
+        read = list(keys)
+        m_in = keys[1].shape[1]
+    else:
+        cell0 = sp.keys_to_coords(keys[0], shapes[0])
+        fn = lambda: sp.sorted_aux_plans(  # noqa: E731
+            cell0, keys[1:], shapes[1:])
+        plain = lambda: sp.sorted_aux_plans_plain(  # noqa: E731
+            cell0, keys[1:], shapes[1:])
+        dense = lambda: sp.aux_plans(  # noqa: E731
+            cell0, [maps[1], maps[2], maps[3]], shapes[1:])
+        starts = [(keys[lvl], sp.window_starts(
+            cell0.long() >> lvl, shapes[lvl])[0].flatten(1).to(torch.int32))
+            for lvl in (1, 2, 3)]
+        read = [cell0] + list(keys[1:])
+        m_in = keys[1].shape[1]
+    out = fn()
+    out = out if isinstance(out, (list, tuple)) else [out]
+    nbytes = sum(p.numel() * 4 for p in out) + distinct_bytes(read)
+    return dict(fn=fn, plain=plain, dense=dense, starts=starts,
+                nbytes=nbytes, m_in=m_in)
+
+
+def splitter_sweep(torch, sp, kid: str, fn, what: str) -> list:
+    """fn() (K18's or K20's call) by the profiler under each setting of
+    SPLITTERS_TRIED, its plans held bitwise to the wrappers' settings'
+    under each; the settings restored after."""
+    ref = fn()
+    ref = ref if isinstance(ref, (list, tuple)) else [ref]
+    saved = sp.SPLITTER_ENTRIES, sp.SEGMENT_POOL, sp.SORTED_THREADS
+    out = []
+    try:
+        for entries, pool, t in SPLITTERS_TRIED:
+            sp.SPLITTER_ENTRIES, sp.SEGMENT_POOL, sp.SORTED_THREADS = (
+                entries, pool, t)
+            got = fn()
+            got = got if isinstance(got, (list, tuple)) else [got]
+            if not all(torch.equal(g, r) for g, r in zip(got, ref)):
+                fail(f"{kid}, {what}: the plans under table budget "
+                     f"{entries}, pool {pool} and {t}-row blocks differ "
+                     f"from the wrappers' settings'")
+            split = kernel_split(fn)
+            out.append(dict(entries=entries, pool=pool, threads=t,
+                            profiler_ms=sum(split.values()) if split
+                            else None))
+    finally:
+        sp.SPLITTER_ENTRIES, sp.SEGMENT_POOL, sp.SORTED_THREADS = saved
+    print(f"  {kid}, {what}: profiler ms a call by table budget / pool / "
+          f"block rows: " + ", ".join(
+              f"{r['entries']}/{r['pool']}/{r['threads']} "
+              + ("not measured" if r["profiler_ms"] is None
+                 else f"{r['profiler_ms']:.4f}") for r in out))
+    return out
+
+
+# the map-reading twin of each sorted kernel, timed beside it
+SORTED_TWINS = {"K18": "K6's six plans", "K19": "K13", "K20": "K14"}
+
+
+def sorted_at(torch, sp, kid: str, keys, shapes, what: str,
+              calls: bool = False) -> dict:
+    """K18's, K19's or K20's call at one shape (sorted_calls), read four
+    ways (measured), beside its map-reading twin read the same way and
+    its bound (bytes); K18 and K20 also with their splitter tables and
+    the budgets tried (splitter_sweep). The dependent-load chain of a
+    full binary search over m_in keys is printed beside the bound as an
+    estimate (L2_HIT_US a load), not as the bound, and kept out of the
+    row. `calls` keeps sorted_calls' result (and its maps) under "calls",
+    for sorted_row."""
+    c = sorted_calls(torch, sp, kid, keys, shapes)
+    t = measured(c["fn"], f"{kid}, {what}", iters=100)
+    twin = measured(c["dense"], f"{SORTED_TWINS[kid]} through the maps, "
+                                f"{what}", iters=100)
+    bd = bound(c["nbytes"], 0)
+    depth = (max(c["m_in"], 2) - 1).bit_length() + 3
+    out = dict(at=what, **t, **bd, dense=twin)
+    text = ""
+    if kid != "K19":
+        tb = splitter_tables(sp, kid, keys)
+        out.update(tb, tried=splitter_sweep(torch, sp, kid, c["fn"], what))
+        text = (f"; block {tb['threads']} rows, S by table "
+                f"{[x['S'] for x in tb['tables']]}, tables "
+                f"{[4 * x['padded'] for x in tb['tables']]} B, staging "
+                f"{tb['staging_l2_bytes']} B from the L2 a call; shared "
+                f"{tb['shared_bytes']} B a block (segment pool "
+                f"{4 * tb['pool']} B)")
+    print(f"  {kid}, {what}: bound {bd['bound_ms']:.4f} ms (bytes: plans "
+          f"written, keys read once){text}; profiler "
+          + ("not measured" if t["profiler_ms"] is None
+             else f"{t['profiler_ms']:.4f}")
+          + f" ms, {SORTED_TWINS[kid]} "
+          + ("not measured" if twin["profiler_ms"] is None
+             else f"{twin['profiler_ms']:.4f}")
+          + f" ms; a full binary search's dependent-load chain {depth} "
+          f"loads, ~{depth * L2_HIT_US:.2f} us a thread at ~{L2_HIT_US} us "
+          f"an L2 hit (an estimate, not the bound)")
+    return dict(out, calls=c) if calls else out
+
+
+def sorted_row(torch, kid: str, name: str, at: dict, replaces: str,
+               shapes: dict) -> dict:
+    """K18-K20's row: its reading at its main shape (sorted_at), its plain
+    version, and its yardstick, torch.searchsorted of the same window
+    starts over the same keys, one call an input level, every start
+    searched where the kernel skips the groups off the grid: the search
+    alone, a component (the window compare and the plans' write are not
+    timed), as B6's torch.sort. `shapes` holds its readings at the other
+    shapes. The row's max_abs_err is set by run_phase15 from 15a's checks
+    of the same kernel."""
+    c = at.pop("calls")
+    plain_ms = cuda_ms(c["plain"], iters=5)
+    lib = measured(lambda: [torch.searchsorted(k, s) for k, s in c["starts"]],
                    f"{kid}'s yardstick (torch.searchsorted of the same "
-                   f"starts), {what}", iters=100)
-    bd = bound(nbytes, 0)
-    # the thread's key, ceil(log2 m) search steps, the last compare's
-    # load and the window's three (issued together)
-    depth = (max(m_in, 2) - 1).bit_length() + 3
-    print(f"  {kid} {name}, {what}: bound {bd['bound_ms']:.4f} ms (bytes: "
-          f"plans written, keys read once); the search's dependent-load "
-          f"chain {depth} loads, ~{depth * L2_HIT_US:.2f} us a thread at "
-          f"~{L2_HIT_US} us an L2 hit (an estimate, not the bound); plain "
-          f"{plain_ms:.4f} ms; yardstick {lib['ms']:.4f} ms")
+                   f"starts), {at['at']}", iters=100)
+    print(f"  {kid} {name}, {at['at']}: plain {plain_ms:.4f} ms; yardstick "
+          f"{lib['ms']:.4f} ms")
     return dict(name=f"{kid} {name}", route="cuda",
                 source="sassd_tpu_torch/csrc/device_plans.cu",
-                replaces=replaces, **t, plain_ms=plain_ms,
+                replaces=replaces, **at, plain_ms=plain_ms,
                 library_ms=lib["ms"], library_graph_ms=lib["graph_ms"],
                 library_profiler_ms=lib["profiler_ms"],
                 library_host_us=lib["host_us"],
@@ -4736,70 +4952,7 @@ def sorted_timed(torch, kid: str, name: str, what: str, fn, plain_fn,
                              "starts over the same keys, one call an "
                              "input level: the search alone, a component "
                              "(no window compare, no plan written)",
-                at=what, **bd, **extra)
-
-
-def k18_timed(torch, sp, keys, shapes, what: str) -> dict:
-    """K18's row on the keys of levels 0-3 (a scan's six plans in one
-    call), beside K6's six plans through the levels' maps (dense_plans,
-    maps built outside the timing)."""
-    specs = sp.rulebook_specs(keys, shapes, keys[:3])
-    starts = []
-    for lvl in range(3):
-        s = [sp.window_starts(sp.keys_to_coords(k, shp).long() * scale,
-                              shapes[lvl])[0].flatten(1)
-             for k, shp, scale in ((keys[lvl], shapes[lvl], 1),
-                                   (keys[lvl + 1], shapes[lvl + 1], 2))]
-        starts.append((keys[lvl], torch.cat(s, 1).to(torch.int32)))
-    plans = sp.sorted_window_plans(specs)
-    maps = [sp.build_index_map(k, s) for k, s in zip(keys[:3], shapes)]
-    dspecs = sp.rulebook_specs(keys, shapes, maps)
-    dense = measured(lambda: sp.window_plans(dspecs),
-                     f"K6's six plans through the maps, {what}", iters=100)
-    del maps, dspecs
-    nbytes = (sum(p.numel() * 4 for p in plans)
-              + distinct_bytes([t for spec in specs for t in (spec[0],
-                                                              spec[2])]))
-    return sorted_timed(torch, "K18", "sorted_window_plans", what,
-                        lambda: sp.sorted_window_plans(specs),
-                        lambda: sp.sorted_window_plans_plain(specs), starts,
-                        nbytes, keys[0].shape[1], "sassd_tpu/ops/sparse.py:129",
-                        dict(dense_plans=dense))
-
-
-def k19_timed(torch, sp, keys, shapes, what: str) -> dict:
-    """K19's row on the keys of levels 0-3 (the three levels in one
-    call)."""
-    starts = [(keys[lvl], sp.stride_T_starts(
-        keys[lvl - 1], shapes[lvl - 1], shapes[lvl])[0].flatten(1).to(
-            torch.int32)) for lvl in (1, 2, 3)]
-    plans = sp.sorted_stride_plans_T(keys[:3], keys[1:], shapes)
-    nbytes = sum(p.numel() * 4 for p in plans) + distinct_bytes(keys)
-    return sorted_timed(torch, "K19", "sorted_stride_plans_T", what,
-                        lambda: sp.sorted_stride_plans_T(keys[:3], keys[1:],
-                                                         shapes),
-                        lambda: sp.sorted_stride_plans_T_plain(
-                            keys[:3], keys[1:], shapes), starts, nbytes,
-                        keys[1].shape[1], "sassd_tpu/ops/sparse.py:732", {})
-
-
-def k20_timed(torch, sp, keys, shapes, what: str) -> dict:
-    """K20's row on the keys of levels 0-3 (the aux plans of levels 1-3
-    in one call)."""
-    cell0 = sp.keys_to_coords(keys[0], shapes[0])
-    starts = [(keys[lvl], sp.window_starts(cell0.long() >> lvl,
-                                           shapes[lvl])[0].flatten(1).to(
-        torch.int32)) for lvl in (1, 2, 3)]
-    plans = sp.sorted_aux_plans(cell0, keys[1:], shapes[1:])
-    nbytes = (plans.numel() * 4 + cell0.numel() * 4
-              + distinct_bytes(keys[1:]))
-    return sorted_timed(torch, "K20", "sorted_aux_plans", what,
-                        lambda: sp.sorted_aux_plans(cell0, keys[1:],
-                                                    shapes[1:]),
-                        lambda: sp.sorted_aux_plans_plain(cell0, keys[1:],
-                                                          shapes[1:]),
-                        starts, nbytes, keys[1].shape[1],
-                        "sassd_tpu/ops/sparse.py:785", {})
+                shapes=shapes)
 
 
 # the sorted rulebook's C calls on a path: K7 for levels 1-3 and one K18
@@ -5012,8 +5165,11 @@ def run_phase15(torch, np, device, cfg, model_dev, train_ref=None,
     map. 15a K18-K20 bitwise against their plain versions and the dense
     maps' plans on phase 6's 4 car scans at batch 1, phase 7's train
     batch of 2, phase 9's long-range timing scan and its comparison
-    batch's 8 band rows (with their y limits), and their rows (K18 at
-    phase 6's scan 0, K19 and K20 at phase 7's batch); 15b serving
+    batch's 8 band rows (with their y limits), and on the search edge
+    cases (splitter_edges); their rows (K18 at phase 6's scan 0, K19 and
+    K20 at phase 7's batch), each with its readings at the other shapes
+    under "shapes" (K18 at phase 7's batch, the timing scan and the band
+    rows, K19 and K20 at the band rows; sorted_at); 15b serving
     (sorted_serving); 15c phase 7's car train step and 15d phase 9's
     banded long-range train step at batch 2, sorted against dense
     (sorted_train_steps). `train_ref` (phase 7's batch and anchors) and
@@ -5042,9 +5198,13 @@ def run_phase15(torch, np, device, cfg, model_dev, train_ref=None,
             checks.append(sorted_check(
                 torch, sp, f"phase 6's scan {i}, batch 1",
                 sorted_levels(sp, scans[-1], shapes, caps), shapes))
-        rows.append(k18_timed(torch, sp, sorted_levels(
-            sp, scans[0], shapes, caps), shapes,
-            "phase 6's scan 0, batch 1: a scan's six plans in one call"))
+        extra = {"K18": {}, "K19": {}, "K20": {}}
+        rows.append(sorted_row(torch, "K18", "sorted_window_plans", sorted_at(
+            torch, sp, "K18", sorted_levels(sp, scans[0], shapes, caps),
+            shapes, "phase 6's scan 0, batch 1: a scan's six plans in one "
+            "call", calls=True), "sassd_tpu/ops/sparse.py:129",
+            extra["K18"]))
+        checks += splitter_edges(torch, np, sp, device)
         t_a = time.perf_counter()
         serving = sorted_serving(torch, np, device, cfg_pts, ds, step,
                                  batch1, model_dev, scans[0])
@@ -5059,9 +5219,15 @@ def run_phase15(torch, np, device, cfg, model_dev, train_ref=None,
         batch["coords"]).to(device), shapes[0]), shapes, caps)
     checks.append(sorted_check(torch, sp, "phase 7's train batch of 2",
                                keys, shapes))
+    extra["K18"]["car b2"] = sorted_at(
+        torch, sp, "K18", keys, shapes,
+        "phase 7's train batch of 2, a scan's six plans in one call")
     what = "phase 7's train batch of 2, the three levels in one call"
-    rows.append(k19_timed(torch, sp, keys, shapes, what))
-    rows.append(k20_timed(torch, sp, keys, shapes, what))
+    for kid, name, line in (("K19", "sorted_stride_plans_T", 732),
+                            ("K20", "sorted_aux_plans", 785)):
+        rows.append(sorted_row(torch, kid, name, sorted_at(
+            torch, sp, kid, keys, shapes, what, calls=True),
+            f"sassd_tpu/ops/sparse.py:{line}", extra[kid]))
     train_rulebook = {"car": rulebook_turns(
         sp, "15c: phase 7's train batch of 2, train=True with the aux plans",
         keys[0], shapes, caps, train=True)}
@@ -5091,10 +5257,9 @@ def run_phase15(torch, np, device, cfg, model_dev, train_ref=None,
     lr_scan = sorted_check(torch, sp, "phase 9's long-range timing scan",
                            keys, lshapes)
     checks.append(lr_scan)
-    lr_k18 = measured(lambda: sp.sorted_window_plans(sp.rulebook_specs(
-        keys, lshapes, keys[:3])), "K18, phase 9's long-range timing scan",
-        iters=100)
-    rows[0]["long_range"] = dict(lr_k18, valid_keys=lr_scan["valid_keys"])
+    extra["K18"]["long range"] = dict(sorted_at(
+        torch, sp, "K18", keys, lshapes, "phase 9's long-range timing scan"),
+        valid_keys=lr_scan["valid_keys"])
     lr_batch = kitti.collate(lr_inputs["samples"])[0]
     coords = torch.from_numpy(lr_batch["coords"]).to(device)
     bc, _, _ = ss.partition(coords, torch.zeros(
@@ -5104,9 +5269,11 @@ def run_phase15(torch, np, device, cfg, model_dev, train_ref=None,
         sp, sp.coords_to_keys(bc.reshape(-1, bc.shape[2], 3), bshapes[0]),
         bshapes, spec.caps[1:],
         ss.y_top_rows(cfg_b, spec, coords.shape[0], device))
-    checks.append(sorted_check(
-        torch, sp, f"phase 9's {keys[0].shape[0]} band rows", keys,
-        bshapes))
+    band = f"phase 9's {keys[0].shape[0]} band rows"
+    checks.append(sorted_check(torch, sp, band, keys, bshapes))
+    for kid in ("K18", "K19", "K20"):
+        extra[kid]["band rows"] = sorted_at(torch, sp, kid, keys, bshapes,
+                                            band)
     train_rulebook["banded"] = rulebook_turns(
         sp, f"15d: phase 9's {keys[0].shape[0]} band rows, train=True with "
         f"the aux plans", keys[0], bshapes, spec.caps[1:], train=True,

@@ -2307,6 +2307,114 @@ def test_k18_k19_k20_search_edges(dev):
     assert (got[0][3] >= 0).all(dim=0).any()        # an interior cell
 
 
+# K18's and K20's splitter-table edge cases on an (8, 24, 20) grid, as
+# chip_smoke.py's SPLITTER_EDGES: (table budget, segment pool, the keys
+# each level holds m_in, valid level-0 keys by sample); the budget sets S.
+# m_in = 1; S - 1 (S = 8, one splitter); S with a sample all padding; S +
+# 1 with a sample's valid keys ending on the segment edge; a row not a
+# multiple of 4 whose last valid key is a splitter; a budget of 1024 at
+# 2051 keys (S = 4), valid keys ending on and one past an edge; every
+# cell under a budget of 64 (S = 64); no pool (every segment read in the
+# L2); a pool too small for some of a block's segments
+SPLITTER_EDGES = ((1024, 4096, 1, (1, 0)), (2, 4096, 7, (7, 5)),
+                  (2, 4096, 8, (8, 0)), (3, 4096, 9, (9, 8)),
+                  (5, 4096, 30, (30, 17)), (1024, 4096, 2051, (2048, 1025)),
+                  (64, 4096, 3840, (3840, 3839, 0)),
+                  (64, 0, 3840, (3840, 2000)), (8, 40, 2051, (2048, 1500)))
+
+
+def splitter_edge_keys(m, valid):
+    """The keys of levels 0-3 of a SPLITTER_EDGES case (each level's row
+    m_in long, K7's plain version downsampling) and the four grids."""
+    from sassd_tpu_torch.ops import sparse as sp
+    shapes = [(8, 24, 20)]
+    for _ in range(3):
+        shapes.append(sp.out_shape_stride2(shapes[-1]))
+    d, h, w = shapes[0]
+    rng = np.random.default_rng(m)
+    keys0 = np.full((len(valid), m), INVALID, np.int32)
+    for i, n in enumerate(valid):
+        keys0[i, :n] = np.sort(rng.choice(d * h * w, n, replace=False))
+    keys = [torch.from_numpy(keys0)]
+    for lvl in (1, 2, 3):
+        keys.append(sp.downsample_keys_plain(keys[-1], shapes[lvl - 1], m))
+    return keys, shapes
+
+
+@pytest.mark.parametrize("threads", (128, 256))
+@pytest.mark.parametrize("case", SPLITTER_EDGES, ids=str)
+def test_k18_k20_splitter_edges(dev, case, threads, monkeypatch):
+    """K18 and K20 under each case's budget, pool and block: == their
+    plain versions on the card == K6's and K14's plain versions through
+    the levels' maps, bit for bit; a sample all padding is -1
+    throughout."""
+    from sassd_tpu_torch.ops import sparse as sp
+    entries, pool, m, valid = case
+    monkeypatch.setattr(sp, "SPLITTER_ENTRIES", entries)
+    monkeypatch.setattr(sp, "SEGMENT_POOL", pool)
+    monkeypatch.setattr(sp, "SORTED_THREADS", threads)
+    keys, shapes = splitter_edge_keys(m, valid)
+    kd = [k.to(dev) for k in keys]
+    maps = [sp.build_index_map(k, s) for k, s in zip(keys, shapes)]
+    specs = sp.rulebook_specs(kd, shapes, kd[:3])
+    got = sp.sorted_window_plans(specs)
+    ref = sp.sorted_window_plans_plain(specs)
+    dense = sp.window_plans_plain(sp.rulebook_specs(keys, shapes, maps[:3]))
+    cell0 = sp.keys_to_coords(keys[0], shapes[0])
+    got_a = sp.sorted_aux_plans(cell0.to(dev), kd[1:], shapes[1:])
+    ref_a = sp.sorted_aux_plans_plain(cell0.to(dev), kd[1:], shapes[1:])
+    dense_a = sp.aux_plans_plain(cell0, maps[1:], shapes[1:])
+    torch.cuda.synchronize()
+    for name, g, r, dn in zip(sp.RULEBOOK_PLANS, got, ref, dense):
+        assert torch.equal(g, r), name
+        assert torch.equal(g.cpu(), dn), name
+    assert torch.equal(got_a, ref_a)
+    assert torch.equal(got_a.cpu(), dense_a)
+    for b, n in enumerate(valid):
+        if n == 0:
+            assert all((g[b] == -1).all() for g in got)
+            assert (got_a[:, b] == -1).all()
+
+
+def test_k18_k20_long_range_caps(dev):
+    """K18 and K20 at the long-range caps (80000, 73728, 57344, 40960 keys
+    a level), the longest rows the wrappers search (S >= 128, every
+    level's table over half its budget), on a batch of two clustered samples,
+    one near the cap: == their plain versions == K6's plans and K14
+    through the levels' maps, bitwise."""
+    from sassd_tpu_torch.config import long_range_config
+    from sassd_tpu_torch.models.backbone import level_shapes
+    from sassd_tpu_torch.ops import sparse as sp
+    cfg = long_range_config()
+    shapes = level_shapes(cfg.sparse_shape)
+    caps = cfg.caps.level_caps
+    rng = np.random.default_rng(29)
+    keys0 = np.concatenate([
+        car_clustered_keys(rng, shapes[0], 78001, caps[0], (600, 900)),
+        car_clustered_keys(rng, shapes[0], 30000, caps[0], (100, 300))])
+    keys = [torch.from_numpy(keys0).to(dev)]
+    for lvl in (1, 2, 3):
+        keys.append(sp.downsample_keys(keys[-1], shapes[lvl - 1],
+                                       caps[lvl]))
+    for k in keys:
+        shift = sp.splitter_shift(k.shape[1])
+        assert shift >= 7 and 2 * -(-k.shape[1] >> shift) > sp.SPLITTER_ENTRIES
+    specs = sp.rulebook_specs(keys, shapes, keys[:3])
+    got = sp.sorted_window_plans(specs)
+    ref = sp.sorted_window_plans_plain(specs)
+    maps = [sp.build_index_map(k, s) for k, s in zip(keys, shapes)]
+    dense = sp.window_plans(sp.rulebook_specs(keys, shapes, maps[:3]))
+    for name, g, r, dn in zip(sp.RULEBOOK_PLANS, got, ref, dense):
+        assert torch.equal(g, r), name
+        assert torch.equal(g, dn), name
+        assert (g >= 0).any(), name
+    cell0 = sp.keys_to_coords(keys[0], shapes[0])
+    got_a = sp.sorted_aux_plans(cell0, keys[1:], shapes[1:])
+    assert torch.equal(got_a, sp.sorted_aux_plans_plain(cell0, keys[1:],
+                                                        shapes[1:]))
+    assert torch.equal(got_a, sp.aux_plans(cell0, maps[1:], shapes[1:]))
+
+
 @pytest.mark.parametrize("case", K13_CASES)
 def test_k19_edge_cases_bitwise(dev, case):
     """K19 on K13's cases: one launch for the three levels, bitwise equal

@@ -14,6 +14,7 @@ JAX package beside their dense-map tests, on the same fixtures
 test_torch_train_device_plans.py, test_torch_persistent_serving.py).
 """
 import functools
+import pathlib
 
 import numpy as np
 import pytest
@@ -310,3 +311,35 @@ def test_band_partition_keys_ascend():
     keys0, _, _, _ = banded_keys()
     assert_ascending(keys0, "K16 plain")
     assert int((keys0 != INVALID).sum(1).min()) > 0
+
+
+CONFIG_FILES = sorted(
+    (pathlib.Path(__file__).resolve().parent.parent / "configs").glob("*.py"))
+
+
+@pytest.mark.parametrize("path", CONFIG_FILES, ids=lambda p: p.name)
+def test_splitter_tables_fit_their_budget(path):
+    """K18's and K20's splitter tables at every level size a config in
+    configs/ gives the sorted rulebook (its level caps, its voxel cap and,
+    when banded, its bands' caps): S is the smallest power of two that
+    keeps a level's table, padded to the power of two above its size,
+    within SPLITTER_ENTRIES, and a block's shared memory (K18's one table
+    or K20's three, levels 1-3, the segment pool and the counts) stays
+    under 48 KB, which the kernels take without a launch attribute."""
+    cfg = config.load_config(str(path))
+    sizes = [tuple(cfg.caps.level_caps)]
+    sizes[0] = (max(sizes[0][0], cfg.voxel.max_voxels),) + sizes[0][1:]
+    if cfg.parallel.strategy == "banded":
+        sizes.append(tuple(ss.config_band_spec(cfg).caps))
+    for caps in sizes:
+        entries = []
+        for m in caps:
+            shift = sp.splitter_shift(m)
+            nt = -(-m >> shift)
+            padded = 1 << nt.bit_length()      # the power of two above
+            assert padded <= sp.SPLITTER_ENTRIES, (m, shift)
+            assert shift == 0 or -(-m >> (shift - 1)) >= sp.SPLITTER_ENTRIES
+            entries.append(padded)
+        pool, counts = sp.SEGMENT_POOL, 2 * 9
+        assert 4 * (max(entries[:3]) + pool + counts) < 48 << 10, caps
+        assert 4 * (sum(entries[1:]) + pool + 3 * counts) < 48 << 10, caps
