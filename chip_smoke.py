@@ -4699,97 +4699,38 @@ def distinct_bytes(tensors) -> int:
     return sum(seen.values())
 
 
-# K18's and K20's shared-memory settings, each read by the profiler at
-# every shape phase 15 times, beside the wrappers' (sp.SPLITTER_ENTRIES,
-# sp.SEGMENT_POOL, sp.SORTED_THREADS): (table budget, int32 entries a
-# level; segment pool, int32; block rows)
-SPLITTERS_TRIED = ((256, 4096, 128), (1024, 4096, 128), (512, 2048, 128),
-                   (512, 8192, 128), (512, 4096, 64), (512, 4096, 256),
-                   (1024, 4096, 256))
-
-# 15a's search edge cases on the grid EDGE_GRID: (table budget, segment
-# pool, the keys a level holds m_in, valid keys by sample); the budget sets
-# S = 2^splitter_shift (SPLITTER_ENTRIES and SEGMENT_POOL for the case).
-# m_in = 1; S - 1 (S = 8, one splitter); S with a sample all padding; S +
-# 1 (two splitters) with a sample's valid keys ending on the segment edge;
-# a row that is not a multiple of 4 whose last valid key is a splitter;
-# a budget of 1024 at 2051 keys (S = 4), the valid keys ending on and one
-# past an edge; every cell of the grid under a budget of 64 (S = 64);
-# no pool (every segment read in the L2); a pool too small for some of a
-# block's segments
+# 15a's search edge cases on the grid EDGE_GRID: (the keys a level holds
+# m_in, valid level-0 keys by sample). m_in = 1; 7, 8 (a sample all
+# padding) and 9 keys; 30 (not a multiple of 4); 2051 with the valid keys
+# ending on and one past a multiple of 1024; every cell of the grid
+# (3840), once beside an empty sample
 EDGE_GRID = (8, 24, 20)
-SPLITTER_EDGES = ((1024, 4096, 1, (1, 0)), (2, 4096, 7, (7, 5)),
-                  (2, 4096, 8, (8, 0)), (3, 4096, 9, (9, 8)),
-                  (5, 4096, 30, (30, 17)), (1024, 4096, 2051, (2048, 1025)),
-                  (64, 4096, 3840, (3840, 3839, 0)),
-                  (64, 0, 3840, (3840, 2000)), (8, 40, 2051, (2048, 1500)))
+SEARCH_EDGES = ((1, (1, 0)), (7, (7, 5)), (8, (8, 0)), (9, (9, 8)),
+                (30, (30, 17)), (2051, (2048, 1025)),
+                (3840, (3840, 3839, 0)), (3840, (3840, 2000)),
+                (2051, (2048, 1500)))
 
 
-def splitter_edges(torch, np, sp, device) -> list:
-    """15a's search edge cases (SPLITTER_EDGES): each case's keys of levels
+def search_edges(torch, np, sp, device) -> list:
+    """15a's search edge cases (SEARCH_EDGES): each case's keys of levels
     0-3 (K7 downsampling at the case's m_in as every level's cap) through
-    sorted_check under its budget and pool; the wrappers' settings
-    restored after. Returns the checks, each with its S by level."""
+    sorted_check. Returns the checks."""
     d, h, w = EDGE_GRID
     shapes = [EDGE_GRID]
     for _ in range(3):
         shapes.append(sp.out_shape_stride2(shapes[-1]))
     rng = np.random.default_rng(SEED + 25)
-    checks, saved = [], (sp.SPLITTER_ENTRIES, sp.SEGMENT_POOL)
-    try:
-        for entries, pool, m, valid in SPLITTER_EDGES:
-            keys0 = np.full((len(valid), m), sp.INVALID_KEY, np.int32)
-            for i, n in enumerate(valid):
-                keys0[i, :n] = np.sort(rng.choice(d * h * w, n,
-                                                  replace=False))
-            sp.SPLITTER_ENTRIES, sp.SEGMENT_POOL = entries, pool
-            keys = sorted_levels(sp, torch.from_numpy(keys0).to(device),
-                                 shapes, (m, m, m))
-            s = [1 << sp.splitter_shift(k.shape[1]) for k in keys]
-            c = sorted_check(torch, sp, f"edge case: budget {entries}, pool "
-                             f"{pool}, m_in {m} (S by level {s}), valid "
-                             f"keys {valid}", keys, shapes)
-            checks.append(dict(c, budget=entries, pool=pool, m_in=m, S=s))
-    finally:
-        sp.SPLITTER_ENTRIES, sp.SEGMENT_POOL = saved
+    checks = []
+    for m, valid in SEARCH_EDGES:
+        keys0 = np.full((len(valid), m), sp.INVALID_KEY, np.int32)
+        for i, n in enumerate(valid):
+            keys0[i, :n] = np.sort(rng.choice(d * h * w, n, replace=False))
+        keys = sorted_levels(sp, torch.from_numpy(keys0).to(device), shapes,
+                             (m, m, m))
+        c = sorted_check(torch, sp, f"edge case: m_in {m}, valid keys "
+                         f"{valid}", keys, shapes)
+        checks.append(dict(c, m_in=m))
     return checks
-
-
-def splitter_tables(sp, kid: str, keys) -> dict:
-    """K18's (a scan's six plans) or K20's (the aux plans, a level a
-    block) splitter tables at the wrappers' settings on the keys of levels
-    0-3: the block's rows, each table's S, splitters and padded size, the
-    block's shared bytes (the largest padded table, the segment pool and
-    21 ints of counts), and the L2 bytes the tables' staging reads in one
-    call, counted from this run's keys (a block stages only when it holds
-    a valid row; a 32-byte sector a splitter where S >= 8)."""
-    t = sp.SORTED_THREADS
-
-    def table(k):
-        m = k.shape[1]
-        shift = sp.splitter_shift(m)
-        nt = -(-m >> shift)
-        sectors = nt if shift >= 3 else -(-nt * (1 << shift) // 8)
-        return dict(m_in=m, S=1 << shift, entries=nt,
-                    padded=1 << nt.bit_length()), sectors
-
-    def blocks(valid):        # [B] valid rows -> blocks holding one
-        return int(((valid + t - 1) // t).sum())
-
-    if kid == "K18":          # each plan: (output keys, searched keys)
-        pairs = [(keys[lvl + o] != sp.INVALID_KEY, keys[lvl])
-                 for lvl in range(3) for o in (0, 1)]
-    else:                     # each level: the valid level-0 rows
-        pairs = [(keys[0] != sp.INVALID_KEY, k) for k in keys[1:]]
-    tables, nbytes = [], 0
-    for valid, k in pairs:
-        tb, sectors = table(k)
-        tables.append(tb)
-        nbytes += 32 * sectors * blocks(valid.sum(1).cpu())
-    shared = 4 * ((max(tb["padded"] for tb in tables) + 3) // 4 * 4
-                  + sp.SEGMENT_POOL + 21)
-    return dict(threads=t, tables=tables, pool=sp.SEGMENT_POOL,
-                shared_bytes=shared, staging_l2_bytes=nbytes)
 
 
 def sorted_calls(torch, sp, kid: str, keys, shapes) -> dict:
@@ -4849,71 +4790,34 @@ def sorted_calls(torch, sp, kid: str, keys, shapes) -> dict:
                 nbytes=nbytes, m_in=m_in)
 
 
-def splitter_sweep(torch, sp, kid: str, fn, what: str) -> list:
-    """fn() (K18's or K20's call) by the profiler under each setting of
-    SPLITTERS_TRIED, its plans held bitwise to the wrappers' settings'
-    under each; the settings restored after."""
-    ref = fn()
-    ref = ref if isinstance(ref, (list, tuple)) else [ref]
-    saved = sp.SPLITTER_ENTRIES, sp.SEGMENT_POOL, sp.SORTED_THREADS
-    out = []
-    try:
-        for entries, pool, t in SPLITTERS_TRIED:
-            sp.SPLITTER_ENTRIES, sp.SEGMENT_POOL, sp.SORTED_THREADS = (
-                entries, pool, t)
-            got = fn()
-            got = got if isinstance(got, (list, tuple)) else [got]
-            if not all(torch.equal(g, r) for g, r in zip(got, ref)):
-                fail(f"{kid}, {what}: the plans under table budget "
-                     f"{entries}, pool {pool} and {t}-row blocks differ "
-                     f"from the wrappers' settings'")
-            split = kernel_split(fn)
-            out.append(dict(entries=entries, pool=pool, threads=t,
-                            profiler_ms=sum(split.values()) if split
-                            else None))
-    finally:
-        sp.SPLITTER_ENTRIES, sp.SEGMENT_POOL, sp.SORTED_THREADS = saved
-    print(f"  {kid}, {what}: profiler ms a call by table budget / pool / "
-          f"block rows: " + ", ".join(
-              f"{r['entries']}/{r['pool']}/{r['threads']} "
-              + ("not measured" if r["profiler_ms"] is None
-                 else f"{r['profiler_ms']:.4f}") for r in out))
-    return out
-
-
 # the map-reading twin of each sorted kernel, timed beside it
 SORTED_TWINS = {"K18": "K6's six plans", "K19": "K13", "K20": "K14"}
+# K18's, K19's and K20's block, threads (kSortedThreads, kStrideTThreads
+# in csrc/device_plans.cu)
+SORTED_BLOCK = 128
 
 
 def sorted_at(torch, sp, kid: str, keys, shapes, what: str,
               calls: bool = False) -> dict:
     """K18's, K19's or K20's call at one shape (sorted_calls), read four
     ways (measured), beside its map-reading twin read the same way and
-    its bound (bytes); K18 and K20 also with their splitter tables and
-    the budgets tried (splitter_sweep). The dependent-load chain of a
-    full binary search over m_in keys is printed beside the bound as an
-    estimate (L2_HIT_US a load), not as the bound, and kept out of the
-    row. `calls` keeps sorted_calls' result (and its maps) under "calls",
-    for sorted_row."""
+    its bound (bytes), with its block (SORTED_BLOCK threads) and the
+    kernel the profiler saw (K18 and K20: sorted_plans_kernel<., 9>, a
+    thread a row, or <., 3>, a thread a row's z plane of taps). The
+    dependent-load chain of a full binary search over m_in keys is
+    printed beside the bound as an estimate (L2_HIT_US a load), not as
+    the bound, and kept out of the row. `calls` keeps sorted_calls' result
+    (and its maps) under "calls", for sorted_row."""
     c = sorted_calls(torch, sp, kid, keys, shapes)
     t = measured(c["fn"], f"{kid}, {what}", iters=100)
     twin = measured(c["dense"], f"{SORTED_TWINS[kid]} through the maps, "
                                 f"{what}", iters=100)
     bd = bound(c["nbytes"], 0)
     depth = (max(c["m_in"], 2) - 1).bit_length() + 3
-    out = dict(at=what, **t, **bd, dense=twin)
-    text = ""
-    if kid != "K19":
-        tb = splitter_tables(sp, kid, keys)
-        out.update(tb, tried=splitter_sweep(torch, sp, kid, c["fn"], what))
-        text = (f"; block {tb['threads']} rows, S by table "
-                f"{[x['S'] for x in tb['tables']]}, tables "
-                f"{[4 * x['padded'] for x in tb['tables']]} B, staging "
-                f"{tb['staging_l2_bytes']} B from the L2 a call; shared "
-                f"{tb['shared_bytes']} B a block (segment pool "
-                f"{4 * tb['pool']} B)")
+    out = dict(at=what, **t, **bd, dense=twin, block=SORTED_BLOCK)
     print(f"  {kid}, {what}: bound {bd['bound_ms']:.4f} ms (bytes: plans "
-          f"written, keys read once){text}; profiler "
+          f"written, keys read once); block {SORTED_BLOCK} threads, kernel "
+          f"{', '.join(t['kernel_split']) or 'not seen'}; profiler "
           + ("not measured" if t["profiler_ms"] is None
              else f"{t['profiler_ms']:.4f}")
           + f" ms, {SORTED_TWINS[kid]} "
@@ -5166,7 +5070,7 @@ def run_phase15(torch, np, device, cfg, model_dev, train_ref=None,
     maps' plans on phase 6's 4 car scans at batch 1, phase 7's train
     batch of 2, phase 9's long-range timing scan and its comparison
     batch's 8 band rows (with their y limits), and on the search edge
-    cases (splitter_edges); their rows (K18 at phase 6's scan 0, K19 and
+    cases (search_edges); their rows (K18 at phase 6's scan 0, K19 and
     K20 at phase 7's batch), each with its readings at the other shapes
     under "shapes" (K18 at phase 7's batch, the timing scan and the band
     rows, K19 and K20 at the band rows; sorted_at); 15b serving
@@ -5204,7 +5108,7 @@ def run_phase15(torch, np, device, cfg, model_dev, train_ref=None,
             shapes, "phase 6's scan 0, batch 1: a scan's six plans in one "
             "call", calls=True), "sassd_tpu/ops/sparse.py:129",
             extra["K18"]))
-        checks += splitter_edges(torch, np, sp, device)
+        checks += search_edges(torch, np, sp, device)
         t_a = time.perf_counter()
         serving = sorted_serving(torch, np, device, cfg_pts, ds, step,
                                  batch1, model_dev, scans[0])

@@ -83,32 +83,26 @@
 // Bound on the H100: bytes, the plans' write (10.3 MB for the six plans
 // at the car caps, ~0.0031 ms) and the keys read once (80 KB at the car's
 // level-0 cap: the L2 holds every level's). What stands between: a row's
-// nine searches, ~16 dependent steps each at 20,000 keys, whose issue and
-// latency set the time at the ~5 warps a scheduler these grids give. K19:
-// a thread an input row, its live groups' full binary searches in the L2
-// advanced together (lower_bounds, window3).
-// K18 and K20, one kernel (sorted_plans_kernel; K20's three levels are
-// its plans, a row's base cell cell0 >> L): a block of 128 rows of one
-// plan and sample, the plans' chunks interleaved so that padding blocks
-// come last, (1) stages a splitter table of the level it searches, every
-// S-th key, S the smallest power of two keeping it within the wrapper's
-// 512 ints padded (S = 64 at the car's level-0 cap, 256 at the long
-// range's), by cp.async, a 32-byte sector a splitter: the staging's
-// cost; meanwhile its threads reduce the least and greatest cell key of
-// its rows, from which each group's queries are a fixed offset; (2) 18
-// threads find in the table the splitter counts of each group's least
-// and greatest query, so the keys any of its rows reads lie in one
-// segment a group, (c_lo - 1) S + 1 to c_hi S + 3; (3) it copies those
-// nine segments to shared memory (16-byte cp.async where the sample's
-// keys are aligned; a segment the pool cannot hold stays in the L2)
-// while each thread finds its own counts between the block's two, a few
-// steps; (4) each search ends with log2 S steps in its segment and the
-// window compared there. Every step reads shared memory; the table spares
-// the top steps, the range the rest of a per-thread table search. The
-// whole capped row is searched, INVALID_KEY tail included, as the JAX
-// package does, and the result is the same lower bound on ascending keys
-// (every producer's are; not checked here). Scalar copies where a
-// sample's row of keys is not 16-byte aligned (m % 4 != 0).
+// nine searches, ~16 dependent steps each at 20,000 keys, and too few
+// of them in flight where the rows leave the SMs part empty. Design: a
+// thread a row (K19: an input row); its groups' searches take the same
+// steps, so they advance together, an independent load each a step
+// (lower_bounds, then window3); a padding row or a group off the grid
+// does no search. The whole capped row is searched, INVALID_KEY tail
+// included, as the JAX package does. K18 and K20 are one kernel
+// (sorted_plans_kernel): K20's three levels are its plans, a row's base
+// cell cell0 >> L, so each level takes blocks of its own and the three
+// run side by side, where a thread once searched them in turn. Where a
+// launch's rows are fewer than the card's resident threads (the car's
+// caps at batch 1 and 2), three threads take a row, a z plane of taps
+// each, so three times the chains are in flight; where the rows fill the
+// card (the long-range caps, the band rows), the split's extra decode
+// and its fewer loads a step cost more than that, and a thread takes the
+// row. Measured on the H100 and slower: a thread a tap group; a splitter
+// table of every S-th key in shared memory for the top steps (those are
+// L1 hits already: a block's threads visit the same midpoints), with a
+// block's key segments staged there for the rest (a step costs as much
+// issued to shared memory as to the L1).
 //
 // K17, the index-map delta update of persistent-plan serving: a map that
 // lives across scans holds the previous scan's rows; the update sets
@@ -133,7 +127,6 @@
 // orders the two kernels.
 #include <cuda_runtime.h>
 
-#include <climits>
 #include <cstdint>
 
 namespace {
@@ -213,14 +206,13 @@ __device__ __forceinline__ void window_rows(const int* __restrict__ mb, int z,
   }
 }
 
-// K19's search: the lower bounds p[g] (the first row whose key is >=
+// K18-K20's search: the lower bounds p[g] (the first row whose key is >=
 // v[g]) of the searches set in `on` over one sample's ascending keys
 // kb[0..m), the INVALID_KEY tail included (it sorts last; JAX searches the
 // whole capped row too). A search's steps depend only on m, so the
 // searches advance together: each step issues up to n independent loads,
 // and the dependent chain is ceil(log2 m) + 1 loads deep, not n times that.
-// The keys (80 KB at the car's level-0 cap) stay in the L2. K18 and K20
-// take the top steps from a table in shared memory (sorted_plans_kernel).
+// The keys (80 KB at the car's level-0 cap) stay in the L2.
 template <int n>
 __device__ __forceinline__ void lower_bounds(const int* __restrict__ kb,
                                              int m, const int* v,
@@ -258,277 +250,41 @@ __device__ __forceinline__ void window3(const int* __restrict__ kb, int m,
   }
 }
 
-// One int copied from global to shared memory by cp.async: no register
-// holds it, so a thread's copies are all in flight at once; cp_async_wait
-// waits for the thread's copies (a barrier then publishes them).
-__device__ __forceinline__ void cp_async4(int* dst, const int* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
-               "l"(src));
-}
-
-// Four ints by one 16-byte cp.async: both addresses 16-byte aligned.
-__device__ __forceinline__ void cp_async16(int* dst, const int* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// K18's and K20's splitter table: t[j] = kb[j << shift] for j < nt =
-// ceil(m / 2^shift), every 2^shift-th key of one sample's sorted keys
-// kb[0..m) (a sector a splitter), then INT_MAX up to np, the power of two
-// above nt; the copies are issued by all the block's threads, not awaited.
-__device__ __forceinline__ void stage_splitters(const int* __restrict__ kb,
-                                                int shift, int nt, int np,
-                                                int* t) {
-  for (int j = threadIdx.x; j < np; j += blockDim.x) {
-    if (j < nt)
-      cp_async4(t + j, kb + (j << shift));
-    else
-      t[j] = INT_MAX;
-  }
-}
-
-// A K18 or K20 block's search of one level, in shared memory: the table
-// t[0..np) of every 2^shift-th of the level's m sorted keys kb
-// (stage_splitters), the pool of pool_n ints the groups' key segments are
-// staged in, and ctl (kCtl ints): the least and greatest cell key of the
-// block's rows with a group on the grid, the mask of such groups, and the
-// splitter counts of each group's least and greatest query.
-constexpr int kCtl = 21;
-
-struct LevelSearch {
-  const int* kb;
-  const int* t;
-  int* pool;
-  int* ctl;
-  int m, np, shift, pool_n;
-};
-
-// ctl's starting values: no row seen.
-__device__ __forceinline__ void init_ctl(int* ctl) {
-  if (threadIdx.x < kCtl)
-    ctl[threadIdx.x] =
-        threadIdx.x == 0 ? INT_MAX : (threadIdx.x == 1 ? INT_MIN : 0);
-}
-
-// The nine queries of a row (window_rows's groups: the window of three
-// x-consecutive cells from (zq, yq, x - 1) starts at key v[g]) and the
-// mask of those on the grid.
-__device__ __forceinline__ unsigned row_queries(int z, int y, int x, int d,
-                                                int h, int w, int* v) {
+// K18's and K20's lookup, window_rows of the n tap groups (9, or 3: one
+// z plane) from group 3 gz resolved in one sample's sorted keys kb[0..m)
+// instead of its map: per group the window of the three x-consecutive
+// cells from (zq, yq, x - 1), searched from its first cell, with
+// window_rows's grid and per-tap x masks, into r[3 (g - 3 gz) ..]. A
+// group off the grid does no search.
+template <int n>
+__device__ __forceinline__ void sorted_window_rows(const int* __restrict__ kb,
+                                                   int m, int z, int y, int x,
+                                                   int d, int h, int w,
+                                                   int gz, int* r) {
+  int v[n], p[n];
   unsigned on = 0;
 #pragma unroll
-  for (int g = 0; g < 9; ++g) {
-    const int zq = z + g / 3 - 1;
-    const int yq = y + g % 3 - 1;
-    v[g] = 0;
+  for (int i = 0; i < n; ++i) {
+    const int zq = z + gz + i / 3 - 1;
+    const int yq = y + i % 3 - 1;
+    v[i] = 0;
     if (z >= 0 && x >= 0 && x < w && zq >= 0 && zq < d && yq >= 0 &&
         yq < h) {
-      v[g] = (zq * h + yq) * w + x - 1;
-      on |= 1u << g;
+      v[i] = (zq * h + yq) * w + x - 1;
+      on |= 1u << i;
     }
   }
-  return on;
-}
-
-// The row's cell key (z h + y) w + x, from which each query is a fixed
-// offset, folded into the block's range in ctl, with its groups' mask
-// (warp reductions, then shared atomics).
-__device__ __forceinline__ void fold_range(int* ctl, unsigned on, int key) {
-  const int lo = __reduce_min_sync(0xffffffffu, on ? key : INT_MAX);
-  const int hi = __reduce_max_sync(0xffffffffu, on ? key : INT_MIN);
-  const unsigned any = __reduce_or_sync(0xffffffffu, on);
-  if ((threadIdx.x & 31) == 0 && any) {
-    atomicMin(ctl, lo);
-    atomicMax(ctl + 1, hi);
-    atomicOr(reinterpret_cast<unsigned*>(ctl) + 2, any);
-  }
-}
-
-// Thread i < 18 of the block: the splitters below the block's least (i <
-// 9) or greatest query of group i % 9, by binary lifting over the padded
-// table, into ctl[3 + i]. A query past the keys' range is clamped to it.
-__device__ __forceinline__ void range_counts(const LevelSearch& ls, int h,
-                                             int w, int i) {
-  if (i >= 18 || !((ls.ctl[2] >> (i % 9)) & 1u)) return;
-  const int g = i % 9;
-  long long q = static_cast<long long>(ls.ctl[i < 9 ? 0 : 1]) +
-                (static_cast<long long>(g / 3 - 1) * h + (g % 3 - 1)) * w - 1;
-  q = q < -1 ? -1 : (q > INT_MAX - 1 ? INT_MAX - 1 : q);
-  int c = 0;
-  for (int step = ls.np >> 1; step > 0; step >>= 1)
-    if (ls.t[c + step - 1] < q) c += step;
-  ls.ctl[3 + i] = c;
-}
-
-// The splitters below each of the row's queries, c[g], by binary lifting
-// from the block's least count of the group up to its greatest (ctl): a
-// few steps where a full search of the table takes log2 np. Past the
-// greatest count every splitter is at least the group's greatest query,
-// so no step moves there; reads past the table take its INT_MAX end.
-__device__ __forceinline__ void row_counts(const LevelSearch& ls,
-                                           const int* v, unsigned on,
-                                           int* c) {
-  int span = 0;
+  lower_bounds<n>(kb, m, v, on, p);
 #pragma unroll
-  for (int g = 0; g < 9; ++g) {
-    c[g] = ls.ctl[3 + g];
-    const int d = ls.ctl[12 + g] - c[g];
-    if (((ls.ctl[2] >> g) & 1u) && d > span) span = d;
-  }
-  for (int step = span ? 1 << (31 - __clz(span)) : 0; step > 0; step >>= 1) {
-#pragma unroll
-    for (int g = 0; g < 9; ++g) {
-      const int i = min(c[g] + step - 1, ls.np - 1);
-      if (((on >> g) & 1u) && ls.t[i] < v[g]) c[g] += step;
-    }
-  }
-}
-
-// A block's segments of one level: group g's queries lie in [lo, hi) of
-// the keys, lo = (c_lo - 1) S + 1 (0 when c_lo = 0) and hi = c_hi S + 3,
-// c_lo and c_hi the splitter counts of its least and greatest query
-// (their lower bounds lie in ((c - 1) S, c S], a window ends 2 rows past
-// one). Each is staged from lo rounded down to a multiple of 4, at a
-// multiple of 4 ints in the pool, where the pool holds it (bit g of
-// staged): group g's key row k is pool[at[g] - lo[g] + k], lo[g] the
-// rounded start. Each thread computes them alike.
-struct Segments {
-  int lo[9], at[9], len[9];
-  unsigned staged, searched;
-};
-
-__device__ __forceinline__ void plan_segments(const LevelSearch& ls,
-                                              Segments& sg) {
-  sg.staged = sg.searched = 0;
-  const unsigned any = ls.ctl[2];
-  int used = 0;
-#pragma unroll
-  for (int g = 0; g < 9; ++g) {
-    sg.lo[g] = sg.at[g] = sg.len[g] = 0;
-    if ((any >> g) & 1u) {
-      const int c0 = ls.ctl[3 + g], c1 = ls.ctl[12 + g];
-      sg.searched |= 1u << g;
-      sg.lo[g] = (c0 > 0 ? ((c0 - 1) << ls.shift) + 1 : 0) & ~3;
-      const int len = ((c1 << ls.shift) + 3 - sg.lo[g] + 3) & ~3;
-      if (len <= ls.pool_n - used) {
-        sg.at[g] = used;
-        sg.len[g] = len;
-        sg.staged |= 1u << g;
-        used += len;
-      }
-    }
-  }
-}
-
-// The staged segments copied to the pool by cp.async, 16 bytes a copy
-// where the sample's keys are 16-byte aligned (m a multiple of 4, so a
-// copy lies wholly below row m or wholly past it), else 4; INT_MAX past
-// row m. Not awaited.
-__device__ __forceinline__ void stage_segments(const LevelSearch& ls,
-                                               const Segments& sg) {
-  const bool wide =
-      (reinterpret_cast<uintptr_t>(ls.kb) & 15) == 0 && (ls.m & 3) == 0;
-#pragma unroll
-  for (int g = 0; g < 9; ++g) {
-    if (!((sg.staged >> g) & 1u)) continue;
-    int* dst = ls.pool + sg.at[g];
-    const int lo = sg.lo[g], len = sg.len[g];
-    if (wide) {
-      for (int i = 4 * threadIdx.x; i < len; i += 4 * blockDim.x) {
-        if (lo + i < ls.m)
-          cp_async16(dst + i, ls.kb + lo + i);
-        else
-          dst[i] = dst[i + 1] = dst[i + 2] = dst[i + 3] = INT_MAX;
-      }
-    } else {
-      for (int i = threadIdx.x; i < len; i += blockDim.x) {
-        if (lo + i < ls.m)
-          cp_async4(dst + i, ls.kb + lo + i);
-        else
-          dst[i] = INT_MAX;
-      }
-    }
-  }
-}
-
-// The row's windows from its counts c[g]: shift steps of binary lifting
-// after row (c - 1) S (none when c = 0: no key lies below v[g]) give
-// v[g]'s lower bound, then its three keys are compared with v[g], v[g] +
-// 1 and v[g] + 2 (window3's compare), rows r[3g..3g+2] (-1 where absent),
-// with window_rows's x masks. Key row k of group g is read in the pool
-// where staged, else in kb. kAll: every segment is staged, with INT_MAX
-// past row m, so no read is checked against m.
-template <bool kAll>
-__device__ __forceinline__ void segment_windows(const LevelSearch& ls,
-                                                const Segments& sg,
-                                                const int* v, unsigned on,
-                                                const int* c, int x, int w,
-                                                int* r) {
-  int p[9], base[9];
-  unsigned below = 0;
-#pragma unroll
-  for (int g = 0; g < 9; ++g) {
-    p[g] = c[g] > 0 ? (c[g] - 1) << ls.shift : -1;
-    base[g] = sg.at[g] - sg.lo[g];
-    if (((on >> g) & 1u) && c[g] > 0) below |= 1u << g;
-  }
-#define SEG_KEY(g, k)                                          \
-  (kAll || ((sg.staged >> (g)) & 1u) ? ls.pool[base[g] + (k)] \
-                                     : (k) < ls.m ? ls.kb[(k)] : INT_MAX)
-  for (int step = (1 << ls.shift) >> 1; step > 0; step >>= 1) {
-#pragma unroll
-    for (int g = 0; g < 9; ++g)
-      if (((below >> g) & 1u) && SEG_KEY(g, p[g] + step) < v[g])
-        p[g] += step;
-  }
-#pragma unroll
-  for (int g = 0; g < 9; ++g) {
-    int* rg = r + 3 * g;
+  for (int i = 0; i < n; ++i) {
+    int* rg = r + 3 * i;
     rg[0] = rg[1] = rg[2] = -1;
-    if ((on >> g) & 1u) {
-#pragma unroll
-      for (int s = 0; s < 3; ++s) {
-        const int k = p[g] + 1 + s;
-        const int key = SEG_KEY(g, k);
-#pragma unroll
-        for (int j = 0; j < 3; ++j)
-          if (key == v[g] + j && rg[j] < 0) rg[j] = k;
-      }
+    if ((on >> i) & 1u) {
+      window3(kb, m, p[i], v[i], rg);
       if (x < 1) rg[0] = -1;
       if (x + 1 >= w) rg[2] = -1;
     }
   }
-#undef SEG_KEY
-}
-
-// One level's windows once its table is staged and the block's range
-// folded (both published by a barrier): the 18 range counts, a barrier,
-// the segments' copies issued while each thread finds its counts
-// (row_counts), a barrier, then each row's windows. Every thread of the
-// block calls it (two barriers). The same windows as lower_bounds and
-// window3 over the whole row of keys, on ascending keys.
-__device__ __forceinline__ void level_windows(const LevelSearch& ls,
-                                              const int* v, unsigned on,
-                                              int x, int h, int w, int* r) {
-  range_counts(ls, h, w, threadIdx.x);
-  __syncthreads();
-  Segments sg;
-  plan_segments(ls, sg);
-  stage_segments(ls, sg);
-  int c[9];
-  row_counts(ls, v, on, c);
-  cp_async_wait();
-  __syncthreads();
-  if (sg.staged == sg.searched)
-    segment_windows<true>(ls, sg, v, on, c, x, w, r);
-  else
-    segment_windows<false>(ls, sg, v, on, c, x, w, r);
 }
 
 // One plan of K6's window plans: its output keys on the output grid (oh,
@@ -616,104 +372,68 @@ __global__ void __launch_bounds__(kAuxThreads)
   }
 }
 
-// The most shared memory a K18 or K20 block takes (dynamic shared memory
-// up to it needs no launch attribute).
-constexpr int kSharedBytes = 48 << 10;
-// K18's and K20's largest block
-constexpr int kSortedMaxThreads = 256;
-
 // One plan of K18 or one level of K20, resolved in the input level's m_in
-// sorted keys (keys) on the grid (d, h, w), searched through a splitter
-// table of every 2^shift-th key (nt of them, padded to np). Its rows: K18
-// output keys on the grid (., oh, ow), the base cell scale times the key's
-// cell; K20 level-0 zyx cells, the base cell each >> cell_shift (-1 on
-// padding). Its plan [batch, 27, m_out].
+// sorted keys (keys) on the grid (d, h, w). Its rows: K18 output keys on
+// the grid (., oh, ow), the base cell scale times the key's cell; K20
+// level-0 zyx cells, the base cell each >> cell_shift (-1 on padding).
+// Its plan [batch, 27, m_out]; its blocks start at block first of the
+// grid's x.
 struct SortedPlanSpec {
   const int* out_keys;
   const int* cells;
   const int* keys;
   int* plan;
-  int m_out, oh, ow, scale, cell_shift, d, h, w, m_in, shift, nt, np;
+  int m_out, oh, ow, scale, cell_shift, d, h, w, m_in, first;
 };
 
-// A K18 or K20 launch's plans and its blocks' shared memory: the largest
-// padded table (table ints), the segment pool (pool ints), then ctl
-// (kCtl ints). The blocks take the plans' chunks of rows chunk by chunk
-// (chunk j of every plan, then chunk j + 1), so that the padding rows at
-// each plan's end, whose blocks do no search, come last and are spread
-// over the SMs: rounds [round[k], round[k + 1]) of chunks, from block
-// first[k], take the first active[k] plans of order (the plans by their
-// chunks, most first).
 struct SortedPlanSpecs {
   SortedPlanSpec p[kMaxPlans];
-  int n, table, pool;
-  int order[kMaxPlans], round[kMaxPlans + 1], first[kMaxPlans],
-      active[kMaxPlans];
+  int n;
 };
 
-// K18 (kCells false) and K20 (kCells true): a block resolves blockDim.x
-// rows of one plan and sample. It stages the sample's splitter table of
-// the input level while its threads find their base cells and reduce the
-// block's range (row_queries, fold_range), then level_windows finds each
-// row's nine windows in the segments the block stages, and each thread
-// writes its row's 27 entries, each store coalesced along m_out. A block
-// of padding rows writes -1 and searches nothing.
-template <bool kCells>
-__global__ void __launch_bounds__(kSortedMaxThreads)
+constexpr int kSortedThreads = 128;
+
+// K18 (kCells false) and K20 (kCells true): a thread resolves kGroups tap
+// groups (9: all of a row's; 3: a z plane of taps, blockIdx.z) of one row
+// of one plan and sample. It finds its base cell, its groups' searches
+// advanced together and their windows (sorted_window_rows), then writes
+// their 3 kGroups entries, each store coalesced along m_out.
+template <bool kCells, int kGroups>
+__global__ void __launch_bounds__(kSortedThreads)
     sorted_plans_kernel(SortedPlanSpecs ps) {
-  extern __shared__ int shared[];
   const int blk = blockIdx.x;
-  int k = 0;
+  int p = 0;
 #pragma unroll
   for (int j = 1; j < kMaxPlans; ++j)
-    if (j < ps.n && ps.active[j] > 0 && blk >= ps.first[j]) k = j;
-  const int q = blk - ps.first[k];
-  const SortedPlanSpec& s = ps.p[ps.order[q % ps.active[k]]];
-  const int m = (ps.round[k] + q / ps.active[k]) * blockDim.x + threadIdx.x;
+    if (j < ps.n && blk >= ps.p[j].first) p = j;
+  const SortedPlanSpec& s = ps.p[p];
+  const int m = (blk - s.first) * kSortedThreads + threadIdx.x;
   const int b = blockIdx.y;
   const int m_out = s.m_out;
-  int x = -1, y = -1, z = -1;
-  if (m < m_out) {
-    if constexpr (kCells) {
-      const int* c = s.cells + 3 * (static_cast<long long>(b) * m_out + m);
-      if (c[0] >= 0) {
-        z = c[0] >> s.cell_shift;
-        y = c[1] >> s.cell_shift;
-        x = c[2] >> s.cell_shift;
-      }
-    } else {
-      const int key = s.out_keys[static_cast<long long>(b) * m_out + m];
-      if (key != kInvalidKey) {
-        x = s.scale * (key % s.ow);
-        y = s.scale * ((key / s.ow) % s.oh);
-        z = s.scale * (key / (s.ow * s.oh));
-      }
-    }
-  }
-  int* pb = s.plan + static_cast<long long>(b) * 27 * m_out + m;
-  int* ctl = shared + ps.table + ps.pool;
-  init_ctl(ctl);
-  if (!__syncthreads_or(z >= 0)) {
-    if (m < m_out) {
-#pragma unroll
-      for (int k = 0; k < 27; ++k) pb[static_cast<long long>(k) * m_out] = -1;
-    }
-    return;
-  }
-  const int* kb = s.keys + static_cast<long long>(b) * s.m_in;
-  stage_splitters(kb, s.shift, s.nt, s.np, shared);
-  int v[9];
-  const unsigned on = row_queries(z, y, x, s.d, s.h, s.w, v);
-  fold_range(ctl, on, (z * s.h + y) * s.w + x);
-  cp_async_wait();
-  __syncthreads();
-  const LevelSearch ls = {kb,     shared, shared + ps.table, ctl,
-                          s.m_in, s.np,   s.shift,           ps.pool};
-  int r[27];
-  level_windows(ls, v, on, x, s.h, s.w, r);
   if (m >= m_out) return;
+  int x = -1, y = -1, z = -1;
+  if constexpr (kCells) {
+    const int* c = s.cells + 3 * (static_cast<long long>(b) * m_out + m);
+    if (c[0] >= 0) {
+      z = c[0] >> s.cell_shift;
+      y = c[1] >> s.cell_shift;
+      x = c[2] >> s.cell_shift;
+    }
+  } else {
+    const int key = s.out_keys[static_cast<long long>(b) * m_out + m];
+    if (key != kInvalidKey) {
+      x = s.scale * (key % s.ow);
+      y = s.scale * ((key / s.ow) % s.oh);
+      z = s.scale * (key / (s.ow * s.oh));
+    }
+  }
+  const int gz = kGroups == 9 ? 0 : blockIdx.z;
+  int r[3 * kGroups];
+  sorted_window_rows<kGroups>(s.keys + static_cast<long long>(b) * s.m_in,
+                              s.m_in, z, y, x, s.d, s.h, s.w, gz, r);
+  int* pb = s.plan + (static_cast<long long>(b) * 27 + 9 * gz) * m_out + m;
 #pragma unroll
-  for (int k = 0; k < 27; ++k)
+  for (int k = 0; k < 3 * kGroups; ++k)
     pb[static_cast<long long>(k) * m_out] = r[k];
 }
 
@@ -936,101 +656,59 @@ extern "C" int sassd_window_plans(const long long* desc, int n_plans,
   return static_cast<int>(cudaGetLastError());
 }
 
-// A splitter table's size: every 2^shift-th of m keys, -1 when the
-// shift is out of range.
-static int table_size(int m, long long shift) {
-  if (shift < 0 || shift > 30 || m < 1) return -1;
-  return static_cast<int>((static_cast<long long>(m) + (1LL << shift) - 1) >>
-                          shift);
+// The threads the current card holds resident at once (0 if unknown).
+static long long resident_threads() {
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxThreadsPerMultiProcessor,
+                             dev) != cudaSuccess)
+    return 0;
+  return static_cast<long long>(sms) * per_sm;
 }
 
-// The power of two above nt, the padded table's size.
-static int table_pad(int nt) {
-  int np = 1;
-  while (np <= nt) np <<= 1;
-  return np;
-}
-
-// K18 and K20's block: a multiple of the warp up to kSortedMaxThreads.
-static bool bad_threads(int threads) {
-  return threads < 32 || threads > kSortedMaxThreads || threads % 32 != 0;
-}
-
-// K18's and K20's shared ints: the tables, the pool and the counts, at
-// most kSharedBytes.
-static bool bad_shared(long long table, int pool, int counts) {
-  return pool < 0 || 4 * (table + pool + counts) > kSharedBytes;
-}
-
-// K18's and K20's launch of the plans in ps (pointers, sizes, grids and
-// shifts set): their tables' sizes, the chunk-major block order, the
-// checks, one kernel.
+// K18's and K20's launch of the plans in ps (pointers, sizes and grids
+// set): their blocks' offsets, one kernel. A thread a row while the rows
+// fill the card's resident threads; below that a thread a row's z plane
+// of taps (three a row), which fills more of it (the search chains'
+// latency, not their issue, then sets the time).
 template <bool kCells>
-static int launch_sorted(SortedPlanSpecs& ps, int n, int batch, int threads,
-                         int pool, cudaStream_t stream) {
-  if (n < 1 || n > kMaxPlans || batch < 0 || bad_threads(threads))
+static int launch_sorted(SortedPlanSpecs& ps, int n, int batch,
+                         cudaStream_t stream) {
+  if (n < 1 || n > kMaxPlans || batch < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  int chunks[kMaxPlans], blocks = 0;
-  ps.n = n;
-  ps.pool = pool;
-  ps.table = 0;
+  int blocks = 0;
+  long long rows = 0;
   for (int p = 0; p < n; ++p) {
-    SortedPlanSpec& sp = ps.p[p];
-    sp.nt = table_size(sp.m_in, sp.shift);
-    if (sp.nt < 1 || sp.nt >= kSharedBytes / 4)
-      return static_cast<int>(cudaErrorInvalidValue);
-    sp.np = table_pad(sp.nt);
-    if (sp.np > ps.table) ps.table = sp.np;
-    chunks[p] = (sp.m_out + threads - 1) / threads;
-    blocks += chunks[p];
-    ps.order[p] = p;
+    ps.p[p].first = blocks;
+    blocks += (ps.p[p].m_out + kSortedThreads - 1) / kSortedThreads;
+    rows += ps.p[p].m_out;
   }
-  ps.table = (ps.table + 3) & ~3;     // the pool 16-byte aligned
-  if (bad_shared(ps.table, pool, kCtl))
-    return static_cast<int>(cudaErrorInvalidValue);
-  // the plans by their chunks, most first; round k ends at the chunks of
-  // the (n - 1 - k)-th
-  for (int i = 1; i < n; ++i)
-    for (int j = i; j > 0 && chunks[ps.order[j]] > chunks[ps.order[j - 1]];
-         --j) {
-      const int t = ps.order[j];
-      ps.order[j] = ps.order[j - 1];
-      ps.order[j - 1] = t;
-    }
-  int done = 0, at = 0;
-  for (int k = 0; k < n; ++k) {
-    const int upto = chunks[ps.order[n - 1 - k]];
-    ps.round[k] = done;
-    ps.first[k] = at;
-    ps.active[k] = n - k;
-    at += (upto - done) * (n - k);
-    done = upto > done ? upto : done;
-  }
-  ps.round[n] = done;
-  if (batch > 0 && blocks > 0)
-    sorted_plans_kernel<kCells><<<dim3(blocks, batch), threads,
-                                  sizeof(int) * (ps.table + pool + kCtl),
-                                  stream>>>(ps);
+  ps.n = n;
+  if (batch <= 0 || blocks <= 0) return static_cast<int>(cudaGetLastError());
+  if (rows * batch < resident_threads())
+    sorted_plans_kernel<kCells, 3>
+        <<<dim3(blocks, batch, 3), kSortedThreads, 0, stream>>>(ps);
+  else
+    sorted_plans_kernel<kCells, 9>
+        <<<dim3(blocks, batch, 1), kSortedThreads, 0, stream>>>(ps);
   return static_cast<int>(cudaGetLastError());
 }
 
-// K18. desc: n_plans (1-6) rows of 12 int64, (out_keys, m_out, oh, ow,
-// scale, in_keys, m_in, shift, d, h, w, plan) of a plan: out_keys [batch,
-// m_out] int32 on the output grid (., oh, ow); in_keys [batch, m_in]
-// int32, the input level's keys, ascending and unique with an INVALID_KEY
-// tail, on the grid (d, h, w) of at most 2^31 - 4 cells, searched through
-// a table of every 2^shift-th of them; plan [batch, 27, m_out] int32.
-// threads rows a block, a segment pool of pool ints. One launch for all;
-// a block's shared memory, the largest table padded to a power of two,
-// the pool and ctl, is at most 48 KB.
+// K18. desc: n_plans (1-6) rows of 11 int64, (out_keys, m_out, oh, ow,
+// scale, in_keys, m_in, d, h, w, plan) of a plan: out_keys [batch, m_out]
+// int32 on the output grid (., oh, ow); in_keys [batch, m_in] int32, the
+// input level's keys, ascending and unique with an INVALID_KEY tail, on
+// the grid (d, h, w) of at most 2^31 - 4 cells; plan [batch, 27, m_out]
+// int32. One launch for all.
 extern "C" int sassd_sorted_window_plans(const long long* desc, int n_plans,
-                                         int batch, int threads, int pool,
-                                         void* stream) {
+                                         int batch, void* stream) {
   if (n_plans < 1 || n_plans > kMaxPlans)
     return static_cast<int>(cudaErrorInvalidValue);
   SortedPlanSpecs ps = {};
   for (int p = 0; p < n_plans; ++p) {
-    const long long* d = desc + 12 * p;
+    const long long* d = desc + 11 * p;
     SortedPlanSpec& sp = ps.p[p];
     sp.out_keys = as_ptr<const int>(d[0]);
     sp.m_out = static_cast<int>(d[1]);
@@ -1039,13 +717,12 @@ extern "C" int sassd_sorted_window_plans(const long long* desc, int n_plans,
     sp.scale = static_cast<int>(d[4]);
     sp.keys = as_ptr<const int>(d[5]);
     sp.m_in = static_cast<int>(d[6]);
-    sp.shift = static_cast<int>(d[7]);
-    sp.d = static_cast<int>(d[8]);
-    sp.h = static_cast<int>(d[9]);
-    sp.w = static_cast<int>(d[10]);
-    sp.plan = as_ptr<int>(d[11]);
+    sp.d = static_cast<int>(d[7]);
+    sp.h = static_cast<int>(d[8]);
+    sp.w = static_cast<int>(d[9]);
+    sp.plan = as_ptr<int>(d[10]);
   }
-  return launch_sorted<false>(ps, n_plans, batch, threads, pool,
+  return launch_sorted<false>(ps, n_plans, batch,
                               static_cast<cudaStream_t>(stream));
 }
 
@@ -1122,23 +799,17 @@ extern "C" int sassd_aux_plans(const int* cell0, int batch, int m0,
 }
 
 // K20. cell0 [batch, m0, 3] int32 level-0 zyx cells (-1 padding);
-// keys1..keys3 [batch, mL] int32 sorted keys of levels 1-3, searched
-// through tables of every 2^shiftL-th of them; plan [3, batch, 27, m0];
-// threads rows a block, a segment pool of pool ints. One launch, K18's
-// kernel with the three levels as its plans; a block's shared memory, a
-// level's table padded to a power of two, the pool and ctl, is at most
-// 48 KB.
+// keys1..keys3 [batch, mL] int32 sorted keys of levels 1-3; plan [3,
+// batch, 27, m0]. One launch, K18's kernel with the three levels as its
+// plans.
 extern "C" int sassd_sorted_aux_plans(const int* cell0, int batch, int m0,
                                       const int* keys1, const int* keys2,
                                       const int* keys3, int m1, int m2,
-                                      int m3, int shift1, int shift2,
-                                      int shift3, int d1, int h1, int w1,
-                                      int d2, int h2, int w2, int d3, int h3,
-                                      int w3, int threads, int pool,
+                                      int m3, int d1, int h1, int w1, int d2,
+                                      int h2, int w2, int d3, int h3, int w3,
                                       int* plan, void* stream) {
-  if (m0 <= 0) return static_cast<int>(cudaGetLastError());
   const int* keys[3] = {keys1, keys2, keys3};
-  const int m[3] = {m1, m2, m3}, shift[3] = {shift1, shift2, shift3};
+  const int m[3] = {m1, m2, m3};
   const int d[3] = {d1, d2, d3}, h[3] = {h1, h2, h3}, w[3] = {w1, w2, w3};
   SortedPlanSpecs ps = {};
   for (int l = 0; l < 3; ++l) {
@@ -1148,12 +819,11 @@ extern "C" int sassd_sorted_aux_plans(const int* cell0, int batch, int m0,
     sp.keys = keys[l];
     sp.m_out = m0;
     sp.m_in = m[l];
-    sp.shift = shift[l];
     sp.d = d[l];
     sp.h = h[l];
     sp.w = w[l];
     sp.plan = plan + static_cast<long long>(l) * batch * 27 * m0;
   }
-  return launch_sorted<true>(ps, 3, batch, threads, pool,
+  return launch_sorted<true>(ps, 3, batch,
                              static_cast<cudaStream_t>(stream));
 }

@@ -104,25 +104,13 @@ _K14 = cuda.Kernel("sassd_aux_plans",
                    [cuda.P, cuda.I, cuda.I, cuda.P, cuda.P, cuda.P]
                    + [cuda.I] * 9 + [cuda.P])
 # the sorted-key rulebook: K18 takes its plans' descriptors as K6's plans
-# do and its block's rows, K19 and K20 their levels' keys, counts and
-# grids as arguments (K20 also its tables' shifts and its block's rows)
-_K18 = cuda.Kernel("sassd_sorted_window_plans",
-                   [cuda.P, cuda.I, cuda.I, cuda.I, cuda.I])
+# do, K19 and K20 their levels' keys, counts and grids as arguments
+_K18 = cuda.Kernel("sassd_sorted_window_plans", [cuda.P, cuda.I, cuda.I])
 _K19 = cuda.Kernel("sassd_sorted_stride_plans_t",
                    [cuda.P] * 6 + [cuda.I] * 19 + [cuda.P] * 3)
 _K20 = cuda.Kernel("sassd_sorted_aux_plans",
-                   [cuda.P, cuda.I, cuda.I] + [cuda.P] * 3 + [cuda.I] * 17
+                   [cuda.P, cuda.I, cuda.I] + [cuda.P] * 3 + [cuda.I] * 12
                    + [cuda.P])
-# K18's and K20's shared memory (csrc/device_plans.cu): a block stages a
-# splitter table of every S-th key of the level it searches, S the
-# smallest power of two that keeps it within SPLITTER_ENTRIES int32 once
-# padded to a power of two (splitter_shift; K20 stages three levels'
-# tables), then its rows' key segments, in a pool of SEGMENT_POOL int32;
-# a block resolves SORTED_THREADS rows. A block's tables, pool and counts
-# stay within 48 KB.
-SPLITTER_ENTRIES = 512
-SEGMENT_POOL = 4096
-SORTED_THREADS = 128
 # the C entry points of each kernel id, for launch counts
 KERNEL_SYMBOLS = {
     "K4": ("sassd_sparse_conv",),
@@ -843,12 +831,11 @@ def window_plans(specs: Sequence[tuple]) -> List[torch.Tensor]:
 
 
 def _launch_plans(kernel: cuda.Kernel, keys0: torch.Tensor,
-                  rows: Sequence[tuple], *extra) -> List[torch.Tensor]:
+                  rows: Sequence[tuple]) -> List[torch.Tensor]:
     """K6's or K18's one launch for the plans of `rows` (each a plan's
     descriptor without its plan pointer, m_out second): their [B, 27,
     m_out] int32 plans, views of one buffer, each at a multiple of
-    _PLAN_ALIGN, whose pointers end the descriptors. `extra` follows the
-    batch among the entry point's arguments."""
+    _PLAN_ALIGN, whose pointers end the descriptors."""
     b = keys0.shape[0]
     offsets, size = [], 0
     for row in rows:
@@ -861,7 +848,7 @@ def _launch_plans(kernel: cuda.Kernel, keys0: torch.Tensor,
         plans.append(buf.as_strided((b, 27, m), (27 * m, m, 1), off))
         desc += row + (plans[-1].data_ptr(),)
     desc = cuda.descriptors(desc)
-    kernel.launch_on(keys0, desc.buffer_info()[0], len(rows), b, *extra)
+    kernel.launch_on(keys0, desc.buffer_info()[0], len(rows), b)
     return plans
 
 
@@ -1093,31 +1080,16 @@ def _check_sorted_grid(what: str, shape: Tuple[int, int, int]) -> None:
                          f"{INVALID_KEY - 3} cells")
 
 
-def splitter_shift(m: int) -> int:
-    """log2 of the splitter stride S of K18's and K20's table over a level
-    of m keys: the smallest power of two with ceil(m / S) below
-    SPLITTER_ENTRIES (at least 2), so that the table, padded to the power
-    of two above its size, holds at most SPLITTER_ENTRIES ints when that
-    is a power of two."""
-    if SPLITTER_ENTRIES < 2:
-        raise ValueError(f"SPLITTER_ENTRIES {SPLITTER_ENTRIES}: want >= 2")
-    shift = 0
-    while (m + (1 << shift) - 1) >> shift >= SPLITTER_ENTRIES:
-        shift += 1
-    return shift
-
-
 def sorted_window_plans(specs: Sequence[tuple]) -> List[torch.Tensor]:
     """window_plans resolved by binary search: up to six specs (out_keys,
     out_shape, in_keys, in_shape, scale), where in_keys is the input
     level's [B, M_in] int32 keys, ascending and unique with an INVALID_KEY
     tail (what the voxelizers and K7 make), in place of its map. Returns
     the same wire-format [B, 27, M_out] int32 plans. K18 on the card: one
-    launch for all the specs, a block SORTED_THREADS output rows of a plan
-    and sample that stages the input level's splitter table
-    (splitter_shift) and then the key segments its rows' searches read
-    (SEGMENT_POOL), a thread a row, its nine tap groups' searches
-    advanced together in shared memory; no index map is read or made.
+    launch for all the specs, a thread an output row of a plan, its nine
+    tap groups' searches advanced together (three threads a row, a z
+    plane of taps each, where the rows are fewer than the card's resident
+    threads); no index map is read or made.
     """
     n = len(specs)
     if not 1 <= n <= 6:
@@ -1141,9 +1113,8 @@ def sorted_window_plans(specs: Sequence[tuple]) -> List[torch.Tensor]:
             raise ValueError("the plans' keys must be on one card")
         rows.append((out_keys.data_ptr(), out_keys.shape[1], out_shape[1],
                      out_shape[2], scale, in_keys.data_ptr(),
-                     in_keys.shape[1], splitter_shift(in_keys.shape[1]), d,
-                     h, w))
-    return _launch_plans(_K18, keys0, rows, SORTED_THREADS, SEGMENT_POOL)
+                     in_keys.shape[1], d, h, w))
+    return _launch_plans(_K18, keys0, rows)
 
 
 def sorted_rulebook_plans(keys: Sequence[torch.Tensor],
@@ -1266,8 +1237,8 @@ def sorted_aux_plans(cell0: torch.Tensor, keys: Sequence[torch.Tensor],
     place of their maps and their grids -> the [3, B, 27, M0] int32 plans
     aux_plans makes, bit for bit. K20 on the card, one launch for the
     three levels: K18's kernel with the three levels as its plans, a
-    block SORTED_THREADS rows of one level and sample, each row's base
-    cell cell0 >> L."""
+    row of one level and sample (its base cell cell0 >> L) to a thread or
+    three."""
     if cell0.device.type == "cpu":
         return sorted_aux_plans_plain(cell0, keys, shapes)
     cuda.check_cuda("cell0", cell0, torch.int32, 3)
@@ -1288,9 +1259,7 @@ def sorted_aux_plans(cell0: torch.Tensor, keys: Sequence[torch.Tensor],
     _K20.launch_on(cell0, cell0.data_ptr(), b, m0,
                    *(key.data_ptr() for key in keys),
                    *(key.shape[1] for key in keys),
-                   *(splitter_shift(key.shape[1]) for key in keys),
-                   *(s for shape in shapes for s in shape), SORTED_THREADS,
-                   SEGMENT_POOL, plan.data_ptr())
+                   *(s for shape in shapes for s in shape), plan.data_ptr())
     return plan
 
 

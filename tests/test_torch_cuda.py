@@ -2307,24 +2307,20 @@ def test_k18_k19_k20_search_edges(dev):
     assert (got[0][3] >= 0).all(dim=0).any()        # an interior cell
 
 
-# K18's and K20's splitter-table edge cases on an (8, 24, 20) grid, as
-# chip_smoke.py's SPLITTER_EDGES: (table budget, segment pool, the keys
-# each level holds m_in, valid level-0 keys by sample); the budget sets S.
-# m_in = 1; S - 1 (S = 8, one splitter); S with a sample all padding; S +
-# 1 with a sample's valid keys ending on the segment edge; a row not a
-# multiple of 4 whose last valid key is a splitter; a budget of 1024 at
-# 2051 keys (S = 4), valid keys ending on and one past an edge; every
-# cell under a budget of 64 (S = 64); no pool (every segment read in the
-# L2); a pool too small for some of a block's segments
-SPLITTER_EDGES = ((1024, 4096, 1, (1, 0)), (2, 4096, 7, (7, 5)),
-                  (2, 4096, 8, (8, 0)), (3, 4096, 9, (9, 8)),
-                  (5, 4096, 30, (30, 17)), (1024, 4096, 2051, (2048, 1025)),
-                  (64, 4096, 3840, (3840, 3839, 0)),
-                  (64, 0, 3840, (3840, 2000)), (8, 40, 2051, (2048, 1500)))
+# K18's and K20's search edge cases on an (8, 24, 20) grid, as
+# chip_smoke.py's SEARCH_EDGES: (the keys each level holds m_in, valid
+# level-0 keys by sample). m_in = 1; 7, 8 (a sample all padding) and 9
+# keys; 30 (not a multiple of 4); 2051 with the valid keys ending on and
+# one past a multiple of 1024; every cell of the grid (3840), once beside
+# an empty sample
+SEARCH_EDGES = ((1, (1, 0)), (7, (7, 5)), (8, (8, 0)), (9, (9, 8)),
+                (30, (30, 17)), (2051, (2048, 1025)),
+                (3840, (3840, 3839, 0)), (3840, (3840, 2000)),
+                (2051, (2048, 1500)))
 
 
-def splitter_edge_keys(m, valid):
-    """The keys of levels 0-3 of a SPLITTER_EDGES case (each level's row
+def search_edge_keys(m, valid):
+    """The keys of levels 0-3 of a SEARCH_EDGES case (each level's row
     m_in long, K7's plain version downsampling) and the four grids."""
     from sassd_tpu_torch.ops import sparse as sp
     shapes = [(8, 24, 20)]
@@ -2341,19 +2337,14 @@ def splitter_edge_keys(m, valid):
     return keys, shapes
 
 
-@pytest.mark.parametrize("threads", (128, 256))
-@pytest.mark.parametrize("case", SPLITTER_EDGES, ids=str)
-def test_k18_k20_splitter_edges(dev, case, threads, monkeypatch):
-    """K18 and K20 under each case's budget, pool and block: == their
-    plain versions on the card == K6's and K14's plain versions through
-    the levels' maps, bit for bit; a sample all padding is -1
-    throughout."""
+@pytest.mark.parametrize("case", SEARCH_EDGES, ids=str)
+def test_k18_k20_search_edge_cases(dev, case):
+    """K18 and K20 on each case: == their plain versions on the card ==
+    K6's and K14's plain versions through the levels' maps, bit for bit;
+    a sample all padding is -1 throughout."""
     from sassd_tpu_torch.ops import sparse as sp
-    entries, pool, m, valid = case
-    monkeypatch.setattr(sp, "SPLITTER_ENTRIES", entries)
-    monkeypatch.setattr(sp, "SEGMENT_POOL", pool)
-    monkeypatch.setattr(sp, "SORTED_THREADS", threads)
-    keys, shapes = splitter_edge_keys(m, valid)
+    m, valid = case
+    keys, shapes = search_edge_keys(m, valid)
     kd = [k.to(dev) for k in keys]
     maps = [sp.build_index_map(k, s) for k, s in zip(keys, shapes)]
     specs = sp.rulebook_specs(kd, shapes, kd[:3])
@@ -2378,10 +2369,9 @@ def test_k18_k20_splitter_edges(dev, case, threads, monkeypatch):
 
 def test_k18_k20_long_range_caps(dev):
     """K18 and K20 at the long-range caps (80000, 73728, 57344, 40960 keys
-    a level), the longest rows the wrappers search (S >= 128, every
-    level's table over half its budget), on a batch of two clustered samples,
-    one near the cap: == their plain versions == K6's plans and K14
-    through the levels' maps, bitwise."""
+    a level), the longest rows the wrappers search, on a batch of two
+    clustered samples, one near the cap: == their plain versions == K6's
+    plans and K14 through the levels' maps, bitwise."""
     from sassd_tpu_torch.config import long_range_config
     from sassd_tpu_torch.models.backbone import level_shapes
     from sassd_tpu_torch.ops import sparse as sp
@@ -2396,9 +2386,7 @@ def test_k18_k20_long_range_caps(dev):
     for lvl in (1, 2, 3):
         keys.append(sp.downsample_keys(keys[-1], shapes[lvl - 1],
                                        caps[lvl]))
-    for k in keys:
-        shift = sp.splitter_shift(k.shape[1])
-        assert shift >= 7 and 2 * -(-k.shape[1] >> shift) > sp.SPLITTER_ENTRIES
+    assert [k.shape[1] for k in keys] == list(caps)
     specs = sp.rulebook_specs(keys, shapes, keys[:3])
     got = sp.sorted_window_plans(specs)
     ref = sp.sorted_window_plans_plain(specs)

@@ -318,28 +318,19 @@ CONFIG_FILES = sorted(
 
 
 @pytest.mark.parametrize("path", CONFIG_FILES, ids=lambda p: p.name)
-def test_splitter_tables_fit_their_budget(path):
-    """K18's and K20's splitter tables at every level size a config in
-    configs/ gives the sorted rulebook (its level caps, its voxel cap and,
-    when banded, its bands' caps): S is the smallest power of two that
-    keeps a level's table, padded to the power of two above its size,
-    within SPLITTER_ENTRIES, and a block's shared memory (K18's one table
-    or K20's three, levels 1-3, the segment pool and the counts) stays
-    under 48 KB, which the kernels take without a launch attribute."""
+def test_sorted_grids_fit_int32_keys(path):
+    """Every grid a config in configs/ gives the sorted rulebook (its four
+    levels and, when banded, its bands' four) passes the wrappers' grid
+    check: K18-K20 compute a window's keys, up to the last cell + 2, in
+    int32, below INVALID_KEY. A grid one cell over the limit is refused."""
     cfg = config.load_config(str(path))
-    sizes = [tuple(cfg.caps.level_caps)]
-    sizes[0] = (max(sizes[0][0], cfg.voxel.max_voxels),) + sizes[0][1:]
+    grids = [backbone.level_shapes(cfg.sparse_shape)]
     if cfg.parallel.strategy == "banded":
-        sizes.append(tuple(ss.config_band_spec(cfg).caps))
-    for caps in sizes:
-        entries = []
-        for m in caps:
-            shift = sp.splitter_shift(m)
-            nt = -(-m >> shift)
-            padded = 1 << nt.bit_length()      # the power of two above
-            assert padded <= sp.SPLITTER_ENTRIES, (m, shift)
-            assert shift == 0 or -(-m >> (shift - 1)) >= sp.SPLITTER_ENTRIES
-            entries.append(padded)
-        pool, counts = sp.SEGMENT_POOL, 2 * 9
-        assert 4 * (max(entries[:3]) + pool + counts) < 48 << 10, caps
-        assert 4 * (sum(entries[1:]) + pool + 3 * counts) < 48 << 10, caps
+        grids.append(backbone.level_shapes(
+            ss.band_shape(cfg, ss.config_band_spec(cfg))))
+    for shapes in grids:
+        for shape in shapes:
+            sp._check_sorted_grid("level", shape)
+            assert shape[0] * shape[1] * shape[2] + 2 < INVALID, shape
+    with pytest.raises(ValueError, match="cells"):
+        sp._check_sorted_grid("level", (1, 1, INVALID - 2))
