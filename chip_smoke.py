@@ -4802,8 +4802,10 @@ def sorted_at(torch, sp, kid: str, keys, shapes, what: str,
     """K18's, K19's or K20's call at one shape (sorted_calls), read four
     ways (measured), beside its map-reading twin read the same way and
     its bound (bytes), with its block (SORTED_BLOCK threads) and the
-    kernel the profiler saw (K18 and K20: sorted_plans_kernel<., 9>, a
-    thread a row, or <., 3>, a thread a row's z plane of taps). The
+    kernel the profiler saw, which names its launch form (K18 and K20:
+    sorted_plans_kernel<., 9>, a thread a row, or <., 3>, a thread a
+    row's z plane of taps; K19: sorted_stride_plans_t_kernel, a thread a
+    row at every shape). The
     dependent-load chain of a full binary search over m_in keys is
     printed beside the bound as an estimate (L2_HIT_US a load), not as
     the bound, and kept out of the row. `calls` keeps sorted_calls' result

@@ -72,37 +72,43 @@
 // and was no faster on the H100.)
 //
 // K18, K19 and K20: K6's plans, K13 and K14 resolved with no index map
-// (model.plan_lookup="sorted"): each tap group's window of three
-// consecutive keys is found by a lower-bound search over the input (K19:
-// output) level's sorted keys, and the window's keys are compared with
-// the three cells. Replaces: sassd_tpu/ops/sparse.py lookup_sorted3 with
+// (model.plan_lookup="sorted"): each tap group's window of consecutive
+// keys is found by a lower-bound search over the input (K19: output)
+// level's sorted keys, and the window's keys are compared with the cells.
+// Replaces: sassd_tpu/ops/sparse.py lookup_sorted3 with
 // _window_plan(sorted_keys=...) through build_subm_plan and
 // build_stride_plan (sorted_lookup=True), build_stride_plan_T
 // (out_sorted_keys=...) and build_aux_plan (level_sorted_keys=...).
-// Same tap order and masks as K6's plans and K14, in kernels of their own.
-// Bound on the H100: bytes, the plans' write (10.3 MB for the six plans
-// at the car caps, ~0.0031 ms) and the keys read once (80 KB at the car's
-// level-0 cap: the L2 holds every level's). What stands between: a row's
-// nine searches, ~16 dependent steps each at 20,000 keys, and too few
-// of them in flight where the rows leave the SMs part empty. Design: a
-// thread a row (K19: an input row); its groups' searches take the same
-// steps, so they advance together, an independent load each a step
-// (lower_bounds, then window3); a padding row or a group off the grid
-// does no search. The whole capped row is searched, INVALID_KEY tail
-// included, as the JAX package does. K18 and K20 are one kernel
-// (sorted_plans_kernel): K20's three levels are its plans, a row's base
-// cell cell0 >> L, so each level takes blocks of its own and the three
-// run side by side, where a thread once searched them in turn. Where a
-// launch's rows are fewer than the card's resident threads (the car's
-// caps at batch 1 and 2), three threads take a row, a z plane of taps
-// each, so three times the chains are in flight; where the rows fill the
-// card (the long-range caps, the band rows), the split's extra decode
-// and its fewer loads a step cost more than that, and a thread takes the
-// row. Measured on the H100 and slower: a thread a tap group; a splitter
-// table of every S-th key in shared memory for the top steps (those are
-// L1 hits already: a block's threads visit the same midpoints), with a
-// block's key segments staged there for the rest (a step costs as much
-// issued to shared memory as to the L1).
+// Same tap order and masks as K6's plans, K13 and K14, in kernels of their
+// own. Bound on the H100: bytes, the plans' write (10.3 MB for the six
+// plans at the car caps, ~0.0031 ms) and the keys read once (80 KB at the
+// car's level-0 cap: the L2 holds every level's). What stands between: a
+// row's searches, ~16 dependent steps each at 20,000 keys, and too few of
+// them in flight where the rows leave the SMs part empty. Design: a
+// thread's searches take the same steps, so they advance together, an
+// independent load each a step (lower_bounds, then window); a padding row
+// or a group off the grid does no search. The whole capped row is
+// searched, INVALID_KEY tail included, as the JAX package does. K18 and
+// K20 are one kernel (sorted_plans_kernel): K20's three levels are its
+// plans, a row's base cell cell0 >> L, so each level takes blocks of its
+// own and the three run side by side. Where a launch's rows x batch are
+// fewer than the card's resident threads (the car's caps at batch 1 and
+// 2), three threads take a row, a z plane of taps each, so three times the
+// chains are in flight; where the rows fill the card (the long-range caps,
+// the band rows), the split's extra decode costs more than that, and a
+// thread takes the row. K19 (sorted_stride_plans_t_kernel), a thread an
+// input row, searches only the row's live tap groups, at most four of
+// nine, each a pair of parent slots whose window cell a tap reads at a
+// compile-time index (no dynamically indexed registers, no stack).
+// Measured on the H100 and not kept: a thread a tap group
+// (slower); K19's row split where the card is part idle, once the row
+// searched four slots: over two threads, a z parent each, 1-4% faster at
+// car b2 by the profiler and no faster replayed, so one form stays; over
+// three, a z plane each, up to 5% slower; a splitter table of every S-th
+// key in shared memory for the top steps (slower: those are L1 hits
+// already, a block's threads visit the same midpoints), with a block's
+// key segments staged there for the rest (a step costs as much issued to
+// shared memory as to the L1).
 //
 // K17, the index-map delta update of persistent-plan serving: a map that
 // lives across scans holds the previous scan's rows; the update sets
@@ -232,19 +238,22 @@ __device__ __forceinline__ void lower_bounds(const int* __restrict__ kb,
     if (((on >> g) & 1u) && kb[p[g]] < v[g]) ++p[g];
 }
 
-// The rows r[0..2] of the keys v, v + 1 and v + 2 in kb[p..p+2], p being
-// v's lower bound, -1 where absent (lookup_sorted3's window: the keys are
-// unique, so each present one lies there; the first match wins, as its
-// argmax). v + 2 stays below 2^31: the wrappers refuse larger grids.
-__device__ __forceinline__ void window3(const int* __restrict__ kb, int m,
-                                        int p, int v, int* r) {
-  r[0] = r[1] = r[2] = -1;
+// The rows r[0..n) of the keys v, ..., v + n - 1 in kb[p..p+n), p being
+// v's lower bound, -1 where absent (lookup_sorted3's window, n = 3: the
+// keys are unique, so each present one lies there; the first match wins,
+// as its argmax). v + 2 stays below 2^31: the wrappers refuse larger
+// grids.
+template <int n>
+__device__ __forceinline__ void window(const int* __restrict__ kb, int m,
+                                       int p, int v, int* r) {
 #pragma unroll
-  for (int s = 0; s < 3; ++s) {
+  for (int j = 0; j < n; ++j) r[j] = -1;
+#pragma unroll
+  for (int s = 0; s < n; ++s) {
     if (p + s < m) {
       const int k = kb[p + s];
 #pragma unroll
-      for (int j = 0; j < 3; ++j)
+      for (int j = 0; j < n; ++j)
         if (k == v + j && r[j] < 0) r[j] = p + s;
     }
   }
@@ -280,7 +289,7 @@ __device__ __forceinline__ void sorted_window_rows(const int* __restrict__ kb,
     int* rg = r + 3 * i;
     rg[0] = rg[1] = rg[2] = -1;
     if ((on >> i) & 1u) {
-      window3(kb, m, p[i], v[i], rg);
+      window<3>(kb, m, p[i], v[i], rg);
       if (x < 1) rg[0] = -1;
       if (x + 1 >= w) rg[2] = -1;
     }
@@ -452,17 +461,23 @@ struct StrideTLevels {
 
 constexpr int kStrideTThreads = 128;
 
-// The parents (c - off) / 2 of axis coordinate c for off = -1, 0, 1, and
-// a 3-bit mask of the live ones: even, non-negative, under n.
-__device__ __forceinline__ unsigned parents(int c, int n, int* p) {
+// A 3-bit mask of the live parents (c - off) / 2 of axis coordinate c for
+// off = -1, 0, 1: even, non-negative, under n.
+__device__ __forceinline__ unsigned parents(int c, int n) {
   unsigned live = 0;
 #pragma unroll
   for (int j = 0; j < 3; ++j) {
     const int q = c - (j - 1);
-    p[j] = q >> 1;
     if (q >= 0 && (q & 1) == 0 && (q >> 1) < n) live |= 1u << j;
   }
   return live;
+}
+
+// The same mask, and the parents in p[0..2].
+__device__ __forceinline__ unsigned parents(int c, int n, int* p) {
+#pragma unroll
+  for (int j = 0; j < 3; ++j) p[j] = (c - (j - 1)) >> 1;
+  return parents(c, n);
 }
 
 __global__ void __launch_bounds__(kStrideTThreads)
@@ -500,12 +515,17 @@ __global__ void __launch_bounds__(kStrideTThreads)
   for (int k = 0; k < 27; ++k) pb[static_cast<long long>(k) * m] = r[k];
 }
 
-// K19: K13's plans resolved in the output levels' sorted keys. Tap group
-// (jz, jy) is live where both axes have a live parent and some x parent
-// is live; its x parents lie in the window of output cells from
-// sx = floor((x - 1) / 2) (each live one at sx or sx + 1), searched from
-// that cell. Written explicitly: C++'s / truncates toward zero, so x = 0
-// takes sx = -1 by hand, the cell before the row, which no live tap reads.
+// K19: K13's plans resolved in the output levels' sorted keys, a thread
+// an input row. Per axis a coordinate c has parent slot 0, (c + 1) >> 1
+// (tap j = 1 when c is even, j = 0 when odd), and slot 1, (c - 1) >> 1
+// (j = 2, c odd), so tap group (jz, jy) reads slot pair (jz == 2, jy ==
+// 2): at most four groups are live, one pair each, and only those four
+// pairs are searched. A live pair's x parents lie in the window of output
+// cells from sx = floor((x - 1) / 2), searched from that cell: tap jx = 2
+// reads its first cell, jx = 0 and 1 its second, so every tap's pair and
+// window cell is a compile-time index. Written explicitly: C++'s /
+// truncates toward zero, so x = 0 takes sx = -1 by hand, the cell before
+// the row, which no live tap reads.
 __global__ void __launch_bounds__(kStrideTThreads)
     sorted_stride_plans_t_kernel(StrideTLevels lv) {
   const int blk = blockIdx.x;
@@ -518,43 +538,49 @@ __global__ void __launch_bounds__(kStrideTThreads)
   const int oh = lv.oh[l], ow = lv.ow[l];
   const int key = lv.keys[l][static_cast<long long>(b) * m + i];
   unsigned lz = 0, ly = 0, lx = 0;
-  int pz[3], py[3], px[3], x = 0;
+  int z = 0, y = 0, x = 0;
   if (key >= 0 && static_cast<long long>(key) <
                       static_cast<long long>(d) * h * w) {
     x = key % w;
-    lz = parents(key / (w * h), lv.od[l], pz);
-    ly = parents((key / w) % h, oh, py);
-    lx = parents(x, ow, px);
+    y = (key / w) % h;
+    z = key / (w * h);
+    lz = parents(z, lv.od[l]);
+    ly = parents(y, oh);
+    lx = parents(x, ow);
   }
   const int sx = x > 0 ? (x - 1) / 2 : -1;
   const int mo = lv.m_out[l];
   const int* kb = lv.map[l] + static_cast<long long>(b) * mo;
-  int v[9], p[9];
+  int v[4], p[4];
   unsigned on = 0;
 #pragma unroll
-  for (int g = 0; g < 9; ++g) {
-    const int jz = g / 3, jy = g % 3;
-    v[g] = 0;
-    if (lx && ((lz >> jz) & (ly >> jy) & 1u)) {
-      v[g] = (pz[jz] * oh + py[jy]) * ow + sx;
-      on |= 1u << g;
+  for (int s = 0; s < 4; ++s) {
+    const int az = s >> 1, ay = s & 1;
+    const bool zon = az ? (lz >> 2) & 1u : (lz & 3u) != 0;
+    const bool yon = ay ? (ly >> 2) & 1u : (ly & 3u) != 0;
+    v[s] = 0;
+    if (lx && zon && yon) {
+      v[s] = (((z + 1 - 2 * az) >> 1) * oh + ((y + 1 - 2 * ay) >> 1)) * ow +
+             sx;
+      on |= 1u << s;
     }
   }
-  lower_bounds<9>(kb, mo, v, on, p);
-  int r[27];
+  lower_bounds<4>(kb, mo, v, on, p);
+  int r[4][2];  // a slot pair's rows of cells sx and sx + 1
 #pragma unroll
-  for (int g = 0; g < 9; ++g) {
-    int win[3] = {-1, -1, -1};
-    const bool live = (on >> g) & 1u;
-    if (live) window3(kb, mo, p[g], v[g], win);
-#pragma unroll
-    for (int jx = 0; jx < 3; ++jx)
-      r[3 * g + jx] =
-          live && ((lx >> jx) & 1u) ? win[px[jx] - sx] : -1;
+  for (int s = 0; s < 4; ++s) {
+    r[s][0] = r[s][1] = -1;
+    if ((on >> s) & 1u) window<2>(kb, mo, p[s], v[s], r[s]);
   }
   int* pb = lv.out[l] + static_cast<long long>(b) * 27 * m + i;
 #pragma unroll
-  for (int k = 0; k < 27; ++k) pb[static_cast<long long>(k) * m] = r[k];
+  for (int k = 0; k < 27; ++k) {
+    const int jz = k / 9, jy = (k / 3) % 3, jx = k % 3;
+    const int s = (jz == 2 ? 2 : 0) + (jy == 2 ? 1 : 0);
+    pb[static_cast<long long>(k) * m] =
+        (lz >> jz) & (ly >> jy) & (lx >> jx) & 1u ? r[s][jx == 2 ? 0 : 1]
+                                                  : -1;
+  }
 }
 
 }  // namespace

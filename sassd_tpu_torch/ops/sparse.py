@@ -1187,8 +1187,8 @@ def sorted_stride_plans_T(keys: Sequence[torch.Tensor],
     of levels 0-2, the sorted keys of levels 1-3 in place of their maps,
     and the four grids -> (strideT1, strideT2, strideT3), bit for bit
     stride_plans_T's. K19 on the card, one launch for the three levels, a
-    thread an input row, its live tap groups' searches advanced
-    together."""
+    thread an input row: only its live tap groups (at most four) are
+    searched, advanced together."""
     if keys[0].device.type == "cpu":
         return sorted_stride_plans_T_plain(keys, out_keys, shapes)
     if len(keys) != 3 or len(out_keys) != 3 or len(shapes) != 4:

@@ -244,6 +244,33 @@ def k13_case(case):
     return levels, shapes, y_top
 
 
+# K19's full grids: every cell of a grid with odd extents and of one with
+# even extents, so that every z, y and x parity and every grid face meets
+# each level's search
+FULL_GRIDS = {"full_odd": (5, 7, 9), "full_even": (4, 6, 8)}
+
+
+def full_grid_levels(case, m=None):
+    """(the [2, M] int32 keys of levels 0-3 on the CPU, K7's plain version
+    downsampling each into the next, the four level grids) of a FULL_GRIDS
+    case: sample 0 holds every cell, sample 1 every other one. Every
+    level's row is m long (default: the grid's cells), INVALID_KEY
+    padded."""
+    import torch
+    from sassd_tpu_torch.ops import sparse as sp
+    shape = FULL_GRIDS[case]
+    total = int(np.prod(shape))
+    m = m or total
+    keys = np.full((2, m), sp.INVALID_KEY, np.int32)
+    keys[0, :total] = np.arange(total)
+    keys[1, :(total + 1) // 2] = np.arange(0, total, 2)
+    levels, shapes = [torch.from_numpy(keys)], [shape]
+    for _ in range(3):
+        levels.append(sp.downsample_keys_plain(levels[-1], shapes[-1], m))
+        shapes.append(sp.out_shape_stride2(shapes[-1]))
+    return levels, shapes
+
+
 def invert_stride_plan(plan, m_in):
     """The transpose plan as the forward stride plan [B, 27, M_out]
     inverted, planT[k, plan[k, o]] = o, [B, 27, m_in] int32: an oracle for

@@ -44,8 +44,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from sassd_tpu_torch.ops.cuda import same_bits  # noqa: E402
-from test_torch_cases import (K9_CASES, K12_CASES, K13_CASES,  # noqa: E402
-                              K16_TILE, K17_CASES, PARTITION_CASES,
+from test_torch_cases import (FULL_GRIDS, K9_CASES, K12_CASES,  # noqa: E402
+                              K13_CASES, K16_TILE, K17_CASES,
+                              PARTITION_CASES, full_grid_levels,
                               invert_stride_plan, k9_case, k12_case,
                               k13_case, k17_case, partition_case,
                               partition_rows)
@@ -2424,6 +2425,81 @@ def test_k19_edge_cases_bitwise(dev, case):
         assert torch.equal(got[lvl], ref[lvl]), lvl
         assert torch.equal(got[lvl].cpu(), dense[lvl]), lvl
         assert torch.equal(again[lvl], got[lvl]), lvl
+
+
+def resident_threads():
+    """The threads the card holds resident at once: K18 and K20 split a
+    row over threads where their launch's rows x batch fall below it."""
+    props = torch.cuda.get_device_properties(0)
+    return props.multi_processor_count * props.max_threads_per_multi_processor
+
+
+def launch_form_levels(dev, case, form):
+    """The keys of levels 0-3 on the card and the four grids of a
+    launch-form case: "car" clustered car-grid samples at the car caps,
+    one sample ("below") or enough that K19's input rows x batch reach the
+    card's resident threads ("above"); a FULL_GRIDS case with each level's
+    row as long as the grid ("below") or padded to a third of the resident
+    threads ("above")."""
+    from sassd_tpu_torch.config import car_config
+    from sassd_tpu_torch.models.backbone import level_shapes
+    from sassd_tpu_torch.ops import sparse as sp
+    if case in FULL_GRIDS:
+        m = resident_threads() // 3 + 1 if form == "above" else None
+        keys, shapes = full_grid_levels(case, m)
+        return [k.to(dev) for k in keys], shapes
+    cfg = car_config()
+    shapes = level_shapes(cfg.sparse_shape)
+    caps = cfg.caps.level_caps
+    batch = 1 if form == "below" else resident_threads() // sum(caps[:3]) + 1
+    rng = np.random.default_rng(31)
+    keys0 = np.concatenate([
+        car_clustered_keys(rng, shapes[0], caps[0] - 300 * (i % 5), caps[0],
+                           (600 + 37 * i, 660 + 37 * i))
+        for i in range(batch)])
+    keys = [torch.from_numpy(keys0).to(dev)]
+    for lvl in (1, 2, 3):
+        keys.append(sp.downsample_keys(keys[-1], shapes[lvl - 1], caps[lvl]))
+    return keys, shapes
+
+
+@pytest.mark.parametrize("form", ["below", "above"])
+@pytest.mark.parametrize("case", ["car"] + list(FULL_GRIDS))
+def test_k18_k19_k20_both_launch_forms(dev, case, form):
+    """K18, K19 and K20 where their launch's input rows x batch fall below
+    the card's resident threads (K18 and K20 split a row over threads, K19
+    keeps a thread a row) and where they reach it (a thread a row): each
+    == its plain version on the same card tensors == K6's plans, K13 and
+    K14 through the levels' maps, bit for bit; at the car caps and on
+    every cell of an odd and an even grid (every z, y and x parity and
+    every grid face)."""
+    from sassd_tpu_torch.ops import sparse as sp
+    keys, shapes = launch_form_levels(dev, case, form)
+    b = keys[0].shape[0]
+    m = [k.shape[1] for k in keys]
+    rows = {"K18": m[0] + 2 * m[1] + 2 * m[2] + m[3],
+            "K19": m[0] + m[1] + m[2], "K20": 3 * m[0]}
+    for kid, n in rows.items():
+        assert (n * b < resident_threads()) == (form == "below"), kid
+    maps = [sp.build_index_map(k, s) for k, s in zip(keys, shapes)]
+    cell0 = sp.keys_to_coords(keys[0], shapes[0])
+    specs = sp.rulebook_specs(keys, shapes, keys[:3])
+    runs = {
+        "K18": (sp.sorted_window_plans(specs),
+                sp.sorted_window_plans_plain(specs),
+                sp.window_plans(sp.rulebook_specs(keys, shapes, maps[:3]))),
+        "K19": (sp.sorted_stride_plans_T(keys[:3], keys[1:], shapes),
+                sp.sorted_stride_plans_T_plain(keys[:3], keys[1:], shapes),
+                sp.stride_plans_T(keys[:3], maps[1:], shapes)),
+        "K20": ([sp.sorted_aux_plans(cell0, keys[1:], shapes[1:])],
+                [sp.sorted_aux_plans_plain(cell0, keys[1:], shapes[1:])],
+                [sp.aux_plans(cell0, maps[1:], shapes[1:])])}
+    torch.cuda.synchronize()
+    for kid, (got, plain, dense) in runs.items():
+        for i, (g, p, d) in enumerate(zip(got, plain, dense)):
+            assert torch.equal(g, p), (kid, i)
+            assert torch.equal(g, d), (kid, i)
+        assert all((g >= 0).any() for g in got), kid
 
 
 def test_k20_padded_rows_and_empty_sample(dev):

@@ -31,7 +31,8 @@ from sassd_tpu_torch.ops import sparse as sp  # noqa: E402
 from sassd_tpu_torch.ops.voxelize import voxelize_plain  # noqa: E402
 from sassd_tpu_torch.parallel import sparse_spatial as ss  # noqa: E402
 from test_torch_banded import band_rows  # noqa: E402
-from test_torch_cases import K13_CASES, k13_case  # noqa: E402
+from test_torch_cases import (FULL_GRIDS, K13_CASES,  # noqa: E402
+                              full_grid_levels, k13_case)
 from test_torch_device_plans import (SCAN_PLAN_CASES, SHAPE,  # noqa: E402
                                      batch_keys)
 from test_torch_serve import padded, scene_points, uniform_points  # noqa: E402
@@ -161,15 +162,17 @@ def test_sorted_scan_plans_match_jax_and_dense(case):
     assert (got["subm0"] >= 0).sum() > 100 and (got["stride3"] >= 0).any()
 
 
-@pytest.mark.parametrize("case", K13_CASES)
+@pytest.mark.parametrize("case", K13_CASES + list(FULL_GRIDS))
 def test_sorted_stride_plans_T_match_jax_and_dense(case):
     """sorted_stride_plans_T on K13's cases (rows on every grid face with W
     odd and even, levels cut by their caps, band rows with a y limit,
-    padding between valid rows, an all-padded sample) == stride_plans_T
+    padding between valid rows, an all-padded sample) and on every cell of
+    an odd and an even grid (every z, y and x parity) == stride_plans_T
     through the output levels' maps == JAX build_stride_plan_T with
     out_sorted_keys, bitwise. Only the output levels are searched, so
     padding between level-0 rows is allowed."""
-    keys, shapes, _ = k13_case(case)
+    keys, shapes = (full_grid_levels(case) if case in FULL_GRIDS
+                    else k13_case(case)[:2])
     got = sp.sorted_stride_plans_T(keys[:3], keys[1:], shapes)
     dense = sp.stride_plans_T(keys[:3], level_maps(keys, shapes), shapes)
     refs = jax_plans("strideT", shapes, keys)
