@@ -270,6 +270,25 @@ Phases, each of which fails the run (nonzero exit, no result line):
    and K6, K13 and K14 never. 15b-d print the peak device memory of the
    dense and the sorted run. The kernel rows gain K18's, K19's and
    K20's.
+16. the last entry points (tools.visualize, tools.sweep_guided), the car
+   config at full width with seeded weights scaled by RELU_GAIN, saved as
+   a .pt and read back through the tools' own loaders. 16a: the
+   visualizer's scene (the synthetic scene of seed 0, its detections) on
+   the card and on the CPU, launch counters reset just before and read
+   just after the card's: K1-K5 must launch, the points and GT boxes
+   bitwise, the detections the same sets (boxes DET_BOX_ATOL, scores
+   DET_SCORE_ATOL), the GT rings bitwise and the matched detections' rings
+   within DET_BOX_ATOL. 16b: the probe over the train scans of a corpus
+   written by tools.make_synth_corpus at CLI_CORPUS (its GT database
+   pasting, as in training), caps P16_CAPS, on the card and on the CPU:
+   K1 must launch, the anchor scores agree within DET_SCORE_ATOL, G
+   equal, and n_pass, n_pos, kept_pos_* and trunc_* equal except where
+   counted near-ties explain the difference (a score within
+   P16_SCORE_TIE of train.anchor_thr, a best IoU within P16_IOU_TIE of
+   train.extra_pos_iou, or a positive's score within twice the scores'
+   largest card-vs-CPU difference of a cap's cut). The phase prints its
+   wall time and each gate's largest difference beside the card. No
+   kernel row is new; the launches of 16a and 16b join every row's.
 
 Phase 3 holds K1 (rotated overlap) in all four criteria within K1_ATOL
 of its plain version and at exactly +0.0 on every pair that its
@@ -390,6 +409,11 @@ phase14_only, with no result line.
 builds the kernels and runs phase 15 alone (its train batch and
 long-range split written as phases 7 and 9 write them), printing its
 kernel rows under the key phase15_only, with no result line.
+
+    python3 chip_smoke.py --phase16-only
+
+builds the kernels and runs phase 16 alone, printing its gates under the
+key phase16_only, with no result line.
 
     python3 chip_smoke.py --gloo-probe
 
@@ -2304,25 +2328,31 @@ def check_once(sp, launches: dict, what: str, kid: str, want: int):
         fail(f"{what}: {kid} launched {n} times in one step, not {want}")
 
 
+def det_pairs(a, b, what: str) -> list:
+    """Index pairs of two detection sets (dicts of numpy boxes and scores)
+    matched within DET_BOX_ATOL / DET_SCORE_ATOL, every detection once;
+    fails otherwise."""
+    import numpy as np
+    if len(a["boxes"]) != len(b["boxes"]):
+        fail(f"{what}: {len(a['boxes'])} vs {len(b['boxes'])} detections")
+    used = np.zeros(len(b["boxes"]), bool)
+    pairs = []
+    for i, (bx, sc) in enumerate(zip(a["boxes"], a["scores"])):
+        ok = ((np.abs(b["boxes"] - bx).max(1) <= DET_BOX_ATOL)
+              & (np.abs(b["scores"] - sc) <= DET_SCORE_ATOL) & ~used)
+        if not ok.any():
+            fail(f"{what}: detection {i} {bx} score {sc:.5f} has no match")
+        used[np.argmax(ok)] = True
+        pairs.append((i, int(np.argmax(ok))))
+    return pairs
+
+
 def match_detections(a, b, what: str):
     """Match two detection sets (dicts of numpy, one sample) within the
     tolerances; returns the number of detections."""
-    import numpy as np
     va, vb = a["valid"], b["valid"]
-    if va.sum() != vb.sum():
-        fail(f"{what}: {va.sum()} vs {vb.sum()} detections")
-    ba, sa = a["boxes"][va], a["scores"][va]
-    bb, sb = b["boxes"][vb], b["scores"][vb]
-    used = np.zeros(len(bb), bool)
-    for i in range(len(ba)):
-        d = np.abs(bb - ba[i]).max(1)
-        ok = (d <= DET_BOX_ATOL) & (np.abs(sb - sa[i]) <= DET_SCORE_ATOL)
-        ok &= ~used
-        if not ok.any():
-            fail(f"{what}: detection {i} {ba[i]} score {sa[i]:.5f} "
-                 f"has no match")
-        used[np.argmax(ok)] = True
-    return int(va.sum())
+    return len(det_pairs({k: a[k][va] for k in ("boxes", "scores")},
+                         {k: b[k][vb] for k in ("boxes", "scores")}, what))
 
 
 def run_phase(torch, np, device, cfg, model_dev, anchors, samples,
@@ -6321,6 +6351,201 @@ def gloo_probe() -> dict:
     return found
 
 
+# ------------------------------------------------------------ phase 16
+P16_VIZ_IDS = "K1 K2 K3 K4 K5"
+P16_PROBE_IDS = "K1"
+P16_CAPS = (640, 1280, 2560)
+P16_SCORE_TIE = 1e-5    # a score this near train.anchor_thr is a near-tie
+P16_IOU_TIE = 1e-4      # a best IoU this near train.extra_pos_iou is one
+
+
+def ring_diff(np, a, b, pairs) -> float:
+    """Largest coordinate difference of the matched rings."""
+    return max((float(np.abs(a[i] - b[j]).max()) for i, j in pairs),
+               default=0.0)
+
+
+def visualizer_gates(torch, np, device, cfg, pt: str) -> dict:
+    """16a: the visualizer's scene and polylines on the card and the
+    CPU."""
+    from sassd_tpu_torch.tools import visualize
+    reset_launches()
+    pts, gt, dets = visualize.scene(cfg, None, pt, device)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    check_launched(launches, P16_VIZ_IDS, "16a visualizer")
+    pts_c, gt_c, dets_c = visualize.scene(cfg, None, pt, "cpu")
+    if not (np.array_equal(pts, pts_c) and np.array_equal(gt, gt_c)):
+        fail("16a visualizer: the scene's points or GT boxes differ")
+    if not len(dets["boxes"]) or not np.isfinite(dets["boxes"]).all():
+        fail(f"16a visualizer: {len(dets['boxes'])} detections, or "
+             f"non-finite ones")
+    pairs = det_pairs(dets, dets_c, "16a visualizer, card vs CPU")
+    lines = visualize.bev_polylines(cfg, gt, dets["boxes"])
+    lines_c = visualize.bev_polylines(cfg, gt_c, dets_c["boxes"])
+    if (len(lines["gt"]) != len(gt) or not all(
+            np.array_equal(a, b) for a, b in zip(lines["gt"],
+                                                 lines_c["gt"]))):
+        fail("16a visualizer: the GT rings differ")
+    ring = ring_diff(np, lines["dets"], lines_c["dets"], pairs)
+    if ring > DET_BOX_ATOL:
+        fail(f"16a visualizer: matched detection rings {ring:.3g} m apart")
+    box = max(float(np.abs(dets["boxes"][i] - dets_c["boxes"][j]).max())
+              for i, j in pairs)
+    score = max(float(abs(dets["scores"][i] - dets_c["scores"][j]))
+                for i, j in pairs)
+    return dict(launches=launches, n_dets=len(pairs), n_gt=len(gt),
+                box_diff=box, score_diff=score, ring_diff=ring)
+
+
+def probe_near_ties(np, cfg, card, cpu, sample) -> dict:
+    """The near-ties of one scene's card and CPU probes: scores near the
+    threshold, best IoUs near extra_pos_iou, and per cap positives whose
+    score lies within twice the scores' largest difference of the cut
+    (the k-th passing score), in either run."""
+    (_, ts, best), (_, ts_c, best_c) = card, cpu
+    mask = sample["anchors_mask"]
+    thr, pos_iou = cfg.train.anchor_thr, cfg.train.extra_pos_iou
+    err = float(np.abs(ts - ts_c).max())
+    out = dict(score_err=err, thr=int(max(
+        (np.abs(x[mask] - thr) <= P16_SCORE_TIE).sum() for x in (ts, ts_c))),
+        iou=int(max((np.abs(b - pos_iou) <= P16_IOU_TIE).sum()
+                    for b in (best, best_c))))
+    g = sample["gt_boxes"].shape[0]
+    for cap in P16_CAPS:
+        n = 0
+        for x, b in ((ts, best), (ts_c, best_c)):
+            sc = np.sort(x[(x > thr) & mask])[::-1]
+            k = cap - g
+            if 0 < k < len(sc):
+                cut = sc[k - 1]
+                idx = np.nonzero((x > thr) & mask)[0]
+                near = np.abs(x[idx] - cut) <= 2 * err
+                n = max(n, int((near & (b >= pos_iou)).sum()))
+        out[f"cut_{cap}"] = n
+    return out
+
+
+def probe_gates(torch, np, device, cfg, pt: str) -> dict:
+    """16b: the probe's rows on the card and the CPU."""
+    from sassd_tpu_torch.data.kitti import KittiDataset
+    from sassd_tpu_torch.models.detector import Detector
+    from sassd_tpu_torch.tools import sweep_guided
+    from sassd_tpu_torch.train import checkpoint as ckpt
+
+    def dataset():
+        # a fresh dataset draws the same augmented samples
+        return KittiDataset(cfg, os.path.join(cfg.data.root, "training"),
+                            os.path.join(cfg.data.root, "ImageSets",
+                                         "train.txt"), train=True)
+
+    def run(dev):
+        ds = dataset()
+        model = Detector(cfg)
+        ckpt.restore(pt, model)          # as the tool's main
+        model.to(dev)
+        return sweep_guided.probe(
+            cfg, model, ds, P16_CAPS, len(ds), dev,
+            report=lambda r: print(f"  16b {dev.type}: {r}"))
+
+    reset_launches()
+    t = time.perf_counter()
+    card = run(device)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t
+    launches = read_launches()
+    check_launched(launches, P16_PROBE_IDS, "16b probe")
+    t = time.perf_counter()
+    cpu = run(torch.device("cpu"))
+    cpu_s = time.perf_counter() - t
+    ds = dataset()
+    score_err, ties, diffs = 0.0, {}, 0
+    for i, (a, b) in enumerate(zip(card, cpu)):
+        sample = ds[i]
+        near = probe_near_ties(np, cfg, a, b, sample)
+        score_err = max(score_err, near.pop("score_err"))
+        for k, v in near.items():
+            ties[k] = ties.get(k, 0) + v
+        ra, rb = a[0], b[0]
+        if ra["G"] != rb["G"]:
+            fail(f"16b probe, scene {i}: G {ra['G']} vs {rb['G']}")
+        for key in ra:
+            d = abs(ra[key] - rb[key])
+            if not d:
+                continue
+            diffs = max(diffs, d)
+            if key == "n_pass" or key.startswith("trunc_"):
+                room = near["thr"]
+            elif key == "n_pos":
+                room = near["thr"] + near["iou"]
+            else:
+                room = near["thr"] + near["iou"] + near[
+                    f"cut_{key.rsplit('_', 1)[1]}"]
+            if d > room:
+                fail(f"16b probe, scene {i}: {key} {ra[key]} (card) vs "
+                     f"{rb[key]} (CPU), {room} near-tie(s) to explain it")
+    if score_err > DET_SCORE_ATOL:
+        fail(f"16b probe: anchor scores {score_err:.3g} apart")
+    rows = [r for r, _, _ in card]
+    if not sum(r["n_pass"] for r in rows):
+        fail("16b probe: no candidate passed the threshold")
+    spread = [float(np.ptp(ts)) for _, ts, _ in card]
+    return dict(launches=launches, rows=rows, score_err=score_err,
+                near_ties=ties, row_diff=diffs, card_s=card_s,
+                cpu_s=cpu_s, score_spread=spread,
+                summary=sweep_guided.summary(rows, P16_CAPS, card_s))
+
+
+def run_phase16(torch, np, device, cfg, root: str, card: str) -> dict:
+    """Phase 16 (see the module docstring). Returns its gates' numbers."""
+    import dataclasses
+    from sassd_tpu_torch.tools import make_synth_corpus
+    from sassd_tpu_torch.train import checkpoint as ckpt
+    from sassd_tpu_torch.weights import seeded_detector
+    t0 = time.perf_counter()
+    pt = os.path.join(root, "seeded.pt")
+    ckpt.write(pt, seeded_detector(cfg, SEED, "cpu"), None, 0, 0)
+    viz = visualizer_gates(torch, np, device, cfg, pt)
+    print(f"16a visualizer: {viz['n_dets']} detections, {viz['n_gt']} GT "
+          f"boxes; card vs CPU largest differences: boxes "
+          f"{viz['box_diff']:.3g}, scores {viz['score_diff']:.3g}, "
+          f"detection rings {viz['ring_diff']:.3g} m (GT rings bitwise)")
+    corpus = os.path.join(root, "corpus")
+    make_synth_corpus.main([corpus, "--n_train", str(CLI_CORPUS[0]),
+                            "--n_val", str(CLI_CORPUS[1]),
+                            "--seed", str(SEED)])
+    cfg_p = dataclasses.replace(cfg, data=dataclasses.replace(
+        cfg.data, root=corpus,
+        db_info_path=os.path.join(corpus, "kitti_dbinfos_train.pkl")))
+    probe = probe_gates(torch, np, device, cfg_p, pt)
+    for line in probe["summary"]:
+        print(f"  16b card: {line}")
+    wall = time.perf_counter() - t0
+    print(f"16b probe: {len(probe['rows'])} scenes; card vs CPU: anchor "
+          f"scores {probe['score_err']:.3g} apart (spread per scene "
+          f"{', '.join(f'{x:.3g}' for x in probe['score_spread'])}), "
+          f"largest row difference {probe['row_diff']}, near-ties "
+          f"{probe['near_ties']}; card {probe['card_s']:.1f} s, CPU "
+          f"{probe['cpu_s']:.1f} s")
+    symbols = kernel_symbols()
+    for what, launches, ids in (("16a visualizer", viz["launches"],
+                                 P16_VIZ_IDS),
+                                ("16b probe", probe["launches"],
+                                 P16_PROBE_IDS)):
+        print(f"{what}: launches " + ", ".join(
+            f"{k} {sum(launches[x] for x in symbols[k])}"
+            for k in ids.split()))
+    print(f"last entry points (phase 16), on {card}: {wall:.1f} s")
+    keep = ("n_dets", "box_diff", "score_diff", "ring_diff")
+    return dict(
+        launches={"16a visualizer": viz["launches"],
+                  "16b probe": probe["launches"]},
+        summary=dict(wall_s=wall, visualizer={k: viz[k] for k in keep},
+                     probe={k: probe[k] for k in (
+                         "rows", "score_err", "near_ties", "row_diff",
+                         "card_s", "cpu_s")}))
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "sassd_tpu_torch")):
         fail("sassd_tpu_torch is not next to chip_smoke.py; run it from a "
@@ -6400,6 +6625,12 @@ def main() -> int:
         p15 = run_phase15(torch, np, device, cfg,
                           seeded_detector(cfg, SEED, device))
         print(json.dumps({"phase15_only": p15["rows"]}))
+        print(card)
+        return 0
+    if "--phase16-only" in sys.argv[1:]:
+        with tempfile.TemporaryDirectory() as root:
+            p16 = run_phase16(torch, np, device, cfg, root, card)
+        print(json.dumps({"phase16_only": p16["summary"]}))
         print(card)
         return 0
     cfg_dev = dataclasses.replace(cfg, model=dataclasses.replace(
@@ -6575,6 +6806,8 @@ def main() -> int:
     p15 = run_phase15(torch, np, device, cfg, model_dev, training[5],
                       lr_refs["inputs"])
     rows += p15["rows"]
+    with tempfile.TemporaryDirectory() as root:
+        p16 = run_phase16(torch, np, device, cfg, root, card)
 
     for what, (_, _, ms1, ms2, _) in (("host plans", host),
                                       ("device plans", dev)):
@@ -6676,7 +6909,8 @@ def main() -> int:
                    p14["similarity"]["distance_launches"]),
                   ("sorted serving", sv["launches"]),
                   ("sorted car training step",
-                   p15["train"]["launches"]["sorted"])
+                   p15["train"]["launches"]["sorted"]),
+                  *p16["launches"].items()
                   ) + banded_phases
     banded_step = (("long range banded training, batch 2", lr_step),
                    ("sorted long range banded training, batch 2 (two "

@@ -1,13 +1,17 @@
-"""Box geometry: the residual (SECOND-style) box coder, nearest-BEV IoU,
-and point-in-box targets (kernel K12).
+"""Box geometry: the residual (SECOND-style), BEV and corner box coders,
+nearest-BEV IoU, box corners, point-in-box tests and targets (kernel K12),
+and the camera <-> lidar transforms.
 
-Box layout: [x, y, z, w, l, h, yaw] in the lidar frame, z = bottom centre.
+Box layout: [x, y, z, w, l, h, yaw] in the lidar frame, z = bottom centre,
+w the extent along the box's local x at yaw 0, l along its local y. Yaw
+rotates clockwise (the KITTI lidar convention, yaw = -camera ry - pi/2).
 """
 from __future__ import annotations
 
 import math
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from sassd_tpu_torch.ops import cuda
@@ -63,6 +67,32 @@ def second_box_encode(boxes: torch.Tensor,
                        dim=-1)
 
 
+def bev_box_encode(boxes: torch.Tensor,
+                   anchors: torch.Tensor) -> torch.Tensor:
+    """BEV (5-dof) residuals of [..., 7] boxes against [..., 7] anchors ->
+    [..., 5] (x, y, w, l, yaw): xy scaled by the anchor's BEV diagonal,
+    log-ratio sizes, a plain yaw residual (z and h are left out)."""
+    xa, ya, _, wa, la, _, ra = torch.unbind(anchors, dim=-1)
+    xg, yg, _, wg, lg, _, rg = torch.unbind(boxes, dim=-1)
+    diagonal = torch.sqrt(la * la + wa * wa)
+    return torch.stack([(xg - xa) / diagonal, (yg - ya) / diagonal,
+                        torch.log(wg / wa), torch.log(lg / la), rg - ra],
+                       dim=-1)
+
+
+def bev_box_decode(encodings: torch.Tensor,
+                   anchors: torch.Tensor) -> torch.Tensor:
+    """Inverse of bev_box_encode: [..., 5] residuals + [..., 7] anchors ->
+    [..., 5] (x, y, w, l, yaw), sizes clamped as second_box_decode's."""
+    xa, ya, _, wa, la, _, ra = torch.unbind(anchors, dim=-1)
+    xt, yt, wt, lt, rt = torch.unbind(encodings, dim=-1)
+    diagonal = torch.sqrt(la * la + wa * wa)
+    return torch.stack([xt * diagonal + xa, yt * diagonal + ya,
+                        torch.exp(torch.clamp(wt, max=SIZE_DECODE_CLIP)) * wa,
+                        torch.exp(torch.clamp(lt, max=SIZE_DECODE_CLIP)) * la,
+                        rt + ra], dim=-1)
+
+
 def limit_period(val: torch.Tensor, offset: float = 0.5,
                  period: float = math.pi) -> torch.Tensor:
     """Wrap into [-offset*period, (1-offset)*period)."""
@@ -101,6 +131,74 @@ def nearest_iou_similarity(boxes1: torch.Tensor,
     [N,M]): NearestIouSimilarity."""
     return iou_aligned(boxes3d_to_near_bev(boxes1),
                        boxes3d_to_near_bev(boxes2))
+
+
+def corners_bev(boxes: torch.Tensor) -> torch.Tensor:
+    """[..., 5] (x, y, w, l, yaw) -> [..., 4, 2] BEV corners, wound
+    counter-clockwise at yaw 0: local (+,+), (-,+), (-,-), (+,-)."""
+    x, y, w, l, r = torch.unbind(boxes[..., :5], dim=-1)
+    sx = torch.stack([w, -w, -w, w], dim=-1) * 0.5
+    sy = torch.stack([l, l, -l, -l], dim=-1) * 0.5
+    c, s = torch.cos(r)[..., None], torch.sin(r)[..., None]
+    cx = sx * c + sy * s + x[..., None]
+    cy = -sx * s + sy * c + y[..., None]
+    return torch.stack([cx, cy], dim=-1)
+
+
+def corners_3d(boxes3d: torch.Tensor) -> torch.Tensor:
+    """[..., 7] boxes (z bottom) -> [..., 8, 3] corners, in (sign x, sign
+    y, z level) order 0 (-,-,bot) 1 (-,-,top) 2 (-,+,top) 3 (-,+,bot)
+    4 (+,-,bot) 5 (+,-,top) 6 (+,+,top) 7 (+,+,bot): the reference's
+    center_to_corner_box3d order with the lidar origin (0.5, 0.5, 0)."""
+    x, y, z, w, l, h, r = torch.unbind(boxes3d, dim=-1)
+    sx = torch.stack([-w, -w, -w, -w, w, w, w, w], dim=-1) * 0.5
+    sy = torch.stack([-l, -l, l, l, -l, -l, l, l], dim=-1) * 0.5
+    top = z + h
+    sz = torch.stack([z, top, top, z, z, top, top, z], dim=-1)
+    c, s = torch.cos(r)[..., None], torch.sin(r)[..., None]
+    cx = sx * c + sy * s + x[..., None]
+    cy = -sx * s + sy * c + y[..., None]
+    return torch.stack([cx, cy, sz], dim=-1)
+
+
+def corner_box_encode(boxes3d: torch.Tensor,
+                      anchors: torch.Tensor) -> torch.Tensor:
+    """[..., 7] boxes against [..., 7] anchors -> [..., 24]: the 8 corners'
+    offsets from the anchor's corners, flattened (BoxCornerCoder)."""
+    off = corners_3d(boxes3d) - corners_3d(anchors)
+    return off.reshape(off.shape[:-2] + (24,))
+
+
+def corner_box_decode(encodings: torch.Tensor,
+                      anchors: torch.Tensor) -> torch.Tensor:
+    """Inverse of corner_box_encode -> [..., 7]: centre from the corners'
+    mean, z and h from the bottom and top faces, w and l from the edges
+    0 -> 4 and 0 -> 3, yaw from edge 0 -> 4 (exact for a rotated cuboid,
+    a least-squares fit otherwise)."""
+    corners = corners_3d(anchors) + encodings.reshape(
+        encodings.shape[:-1] + (8, 3))
+    xy = torch.mean(corners[..., :2], dim=-2)
+    z = torch.mean(corners[..., [0, 3, 4, 7], 2], dim=-1)
+    h = torch.mean(corners[..., [1, 2, 5, 6], 2], dim=-1) - z
+    e_w = corners[..., 4, :2] - corners[..., 0, :2]
+    e_l = corners[..., 3, :2] - corners[..., 0, :2]
+    w = torch.linalg.norm(e_w, dim=-1)
+    l = torch.linalg.norm(e_l, dim=-1)
+    # clockwise yaw: edge 0 -> 4 is (w cos r, -w sin r)
+    yaw = torch.atan2(-e_w[..., 1], e_w[..., 0])
+    return torch.stack([xy[..., 0], xy[..., 1], z, w, l, h, yaw], dim=-1)
+
+
+def points_in_rbbox_bev(points_xy: torch.Tensor,
+                        boxes: torch.Tensor) -> torch.Tensor:
+    """[N, 2] points against [M, 5] (x, y, w, l, yaw) rotated BEV boxes ->
+    [N, M] bool, faces included."""
+    d = points_xy[:, None, :] - boxes[None, :, :2]
+    c, s = torch.cos(boxes[:, 4]), torch.sin(boxes[:, 4])
+    lx = d[..., 0] * c - d[..., 1] * s
+    ly = d[..., 0] * s + d[..., 1] * c
+    return ((torch.abs(lx) <= boxes[None, :, 2] * 0.5)
+            & (torch.abs(ly) <= boxes[None, :, 3] * 0.5))
 
 
 def points_in_boxes3d(points: torch.Tensor, boxes3d: torch.Tensor
@@ -176,3 +274,40 @@ def aux_targets(points: torch.Tensor, points_valid: torch.Tensor,
                    gt_boxes.data_ptr(), gt_valid.data_ptr(), b, n, g,
                    label.data_ptr(), offsets.data_ptr())
     return label, offsets
+
+
+def box_camera_to_lidar(boxes_cam, r_rect, velo2cam):
+    """[N, 7] rect-camera boxes (x, y, z bottom centre, w, l, h, ry) ->
+    lidar boxes [N, 7]: only the centre is transformed; sizes and yaw
+    carry over (with the clockwise yaw, lidar yaw == camera ry). numpy
+    arrays or tensors, with matrices of the same kind."""
+    xyz = camera_to_lidar_points(boxes_cam[:, :3], r_rect, velo2cam)
+    if torch.is_tensor(boxes_cam):
+        return torch.cat([xyz, boxes_cam[:, 3:]], dim=1)
+    return np.concatenate([xyz, boxes_cam[:, 3:]], axis=1)
+
+
+def _homogeneous(points):
+    if torch.is_tensor(points):
+        return torch.cat([points, points.new_ones((points.shape[0], 1))], 1)
+    return np.concatenate(
+        [points, np.ones((points.shape[0], 1), points.dtype)], axis=1)
+
+
+def camera_to_lidar_points(points, r_rect, velo2cam):
+    """[N, 3] rect-camera points -> lidar points, through the inverse of
+    r_rect @ velo2cam taken in float64 and cast to the points' dtype."""
+    mat = r_rect @ velo2cam
+    if torch.is_tensor(points):
+        inv = torch.linalg.inv(mat.to(torch.float64)).to(points.dtype)
+    else:
+        inv = np.linalg.inv(mat.astype(np.float64)).astype(points.dtype)
+    return (_homogeneous(points) @ inv.T)[:, :3]
+
+
+def lidar_to_camera_points(points, r_rect, velo2cam):
+    """[N, 3] lidar points -> rect-camera points."""
+    mat = r_rect @ velo2cam
+    mat = (mat.to(points.dtype) if torch.is_tensor(points)
+           else mat.astype(points.dtype))
+    return (_homogeneous(points) @ mat.T)[:, :3]

@@ -2,7 +2,7 @@
 copy of the JAX package's ``data/augment.py``.
 
 * BEV corners (result files, the GT range filter), nearest axis-aligned
-  BEV boxes (anchors mask), rotated point-in-box tests;
+  BEV boxes and the anchors mask, rotated point-in-box tests;
 * the GT-database sampler with BEV collision rejection
   (:meth:`PointAugmentor.sample_all`), per-object pose noise with
   collision-checked retries, and the global flip, rotation and scaling.
@@ -18,6 +18,8 @@ from pathlib import Path
 from typing import List, Optional, Sequence
 
 import numpy as np
+
+from sassd_tpu_torch.ops import native
 
 
 def rotate_points_z(points: np.ndarray, angle: float) -> np.ndarray:
@@ -124,6 +126,44 @@ def filter_gt_box_outside_range(gt_boxes: np.ndarray,
               & (corners[..., 1] >= bv_range[1])
               & (corners[..., 1] <= bv_range[3]))
     return np.any(inside, axis=1)
+
+
+def anchors_mask_from_coords(coords_zyx: np.ndarray, anchors_bv: np.ndarray,
+                             voxel_size, pc_range, grid_size,
+                             threshold: float) -> np.ndarray:
+    """[A] bool: anchors whose nearest-BEV footprint [A, 4] covers more
+    than `threshold` occupied BEV cells of the scan's voxels [V, 3] zyx
+    (rows < 0 are padding), by an integral image; the C++ host library's
+    routine. voxel_size / pc_range / grid_size are xyz."""
+    return native.anchors_mask_cpp(coords_zyx, anchors_bv, voxel_size,
+                                   np.asarray(pc_range), grid_size,
+                                   threshold)
+
+
+def anchors_mask_from_coords_plain(coords_zyx: np.ndarray,
+                                   anchors_bv: np.ndarray, voxel_size,
+                                   pc_range, grid_size,
+                                   threshold: float) -> np.ndarray:
+    """numpy version of anchors_mask_from_coords (for tests)."""
+    h, w = int(grid_size[1]), int(grid_size[0])
+    ok = coords_zyx[:, 0] >= 0
+    dense = np.zeros((h, w), np.float32)
+    np.add.at(dense, (coords_zyx[ok, 1], coords_zyx[ok, 2]), 1.0)
+    integral = dense.cumsum(0).cumsum(1)
+    # float32 like the C++ routine: anchor edges land exactly on grid
+    # lines, where a float64 floor can land one cell lower
+    bv = anchors_bv.astype(np.float32)
+    pcr = np.asarray(pc_range, np.float32)
+    vs = np.asarray(voxel_size, np.float32)
+
+    def cell(v, axis, n):
+        return np.clip(np.floor((v - pcr[axis]) / vs[axis]).astype(np.int64),
+                       0, n - 1)
+    x0, y0 = cell(bv[:, 0], 0, w), cell(bv[:, 1], 1, h)
+    x1, y1 = cell(bv[:, 2], 0, w), cell(bv[:, 3], 1, h)
+    area = (integral[y1, x1] - integral[y0, x1]
+            - integral[y1, x0] + integral[y0, x0])
+    return area > threshold
 
 
 class BatchSampler:

@@ -81,7 +81,7 @@ def prepare_scan(cfg: SASSDConfig, points: np.ndarray,
     the host plans (with the train plans if `train`), if the config asks
     for them."""
     voxels, coords, nums = voxelize_np(points, cfg.voxel, pad=True)
-    mask = native.anchors_mask_cpp(
+    mask = aug.anchors_mask_from_coords(
         coords, anchors_bv, cfg.voxel.voxel_size,
         np.asarray(cfg.voxel.point_cloud_range), cfg.voxel.grid_size,
         cfg.data.anchor_area_threshold)
@@ -240,6 +240,32 @@ class KittiDataset:
                       meta=dict(sample_idx=sid, calib=calib,
                                 img_shape=self._image_shape(sid)))
         return sample
+
+
+class ConcatDataset:
+    """Datasets end to end, indexed as one (the reference's multi-annfile
+    path): samples, raw points, and the first dataset's anchors."""
+
+    def __init__(self, datasets):
+        self.datasets = list(datasets)
+        self._offsets = np.cumsum([0] + [len(d) for d in self.datasets])
+        self.anchors = self.datasets[0].anchors
+        self.anchors_bv = self.datasets[0].anchors_bv
+
+    def __len__(self):
+        return int(self._offsets[-1])
+
+    def _locate(self, idx: int):
+        k = int(np.searchsorted(self._offsets[1:], idx, side="right"))
+        return self.datasets[k], idx - int(self._offsets[k])
+
+    def __getitem__(self, idx):
+        ds, i = self._locate(idx)
+        return ds[i]
+
+    def load_points(self, idx):
+        ds, i = self._locate(idx)
+        return ds.load_points(i)
 
 
 class RawScanDataset:

@@ -13,6 +13,9 @@ Exact: every active cell centre of the level is a candidate, by the
 expanded squared distance |u|^2 + |k|^2 - 2 u.k of the JAX package
 (``three_nn_interpolate``); padded cells get 1e10 added.
 
+``neighborhood_interpolate`` is the ring 3-NN over given candidate
+centres (the JAX package's form, plain PyTorch; no path calls it).
+
 In both the gradient goes to the features only (the queries are voxel
 centroids and the centres cell arithmetic, neither a parameter).
 ``neighborhood_interpolate_cells`` runs K11 (``csrc/interpolate.cu``)
@@ -215,6 +218,32 @@ def neighborhood_interpolate_cells(query_xyz: torch.Tensor,
     return _RingInterpFn.apply(feats, query_xyz.contiguous(),
                                query_cell0.contiguous(), plan, int(level),
                                tuple(voxel_size_xyz), pc)
+
+
+def neighborhood_interpolate(query_xyz: torch.Tensor,
+                             centers: torch.Tensor, feats: torch.Tensor,
+                             plan_idx: torch.Tensor) -> torch.Tensor:
+    """3-NN interpolation over a given candidate neighbourhood, the
+    candidates' centres given (K11 computes them from the cells instead).
+
+    query_xyz [N, 3]; centers [M, 3]; feats [M, C]; plan_idx [27, N] int
+    rows into centers / feats, -1 missing. Weights are 1 / (d^2 + 1e-8)
+    over the 3 nearest found candidates, normalised; a row with fewer
+    than 3 uses those it has, and one with none gives 0. Ties go to the
+    lower candidate (a stable sort). No path of the detector calls it.
+    """
+    found = plan_idx >= 0                                       # [27, N]
+    idx = torch.clamp(plan_idx.to(torch.int64), min=0)
+    d2 = torch.sum((centers[idx] - query_xyz[None]) ** 2, dim=-1)
+    d2 = torch.where(found, d2, _BIG)
+    sel = torch.sort(d2, dim=0, stable=True).indices[:3]        # [3, N]
+    d2_3 = torch.gather(d2, 0, sel)
+    ok = torch.gather(found, 0, sel)
+    rows = torch.gather(idx, 0, sel)
+    w = torch.where(ok, 1.0 / (d2_3 + 1e-8), 0.0)
+    denom = torch.sum(w, dim=0)
+    w = w / torch.where(denom > 0, denom, 1.0)
+    return torch.sum(feats[rows] * w[..., None], dim=0)
 
 
 def three_nn_select_plain(query_xyz: torch.Tensor, known_xyz: torch.Tensor,

@@ -41,6 +41,8 @@ def load() -> ctypes.CDLL:
     lib.anchors_mask.restype = None
     lib.anchors_mask.argtypes = [i32p, i64, f32p, i64, f32p, f32p, i64p,
                                  ctypes.c_float, u8p]
+    lib.points_in_rbbox.restype = None
+    lib.points_in_rbbox.argtypes = [f32p, i64, i64, f32p, i64, u8p]
     lib.rotated_overlap.restype = None
     lib.rotated_overlap.argtypes = [f64p, i64, f64p, i64, ctypes.c_int, f32p]
     _lib = lib
@@ -126,6 +128,23 @@ def anchors_mask_cpp(coords, anchors_bv, voxel_size, pc_range, grid,
                      np.ascontiguousarray(pc_range[:3], np.float32),
                      np.ascontiguousarray(grid, np.int64),
                      float(threshold), out)
+    return out.astype(bool)
+
+
+def points_in_rbbox_cpp(points: np.ndarray, boxes: np.ndarray) -> np.ndarray:
+    """[N, >=3] points against [M, 7] lidar boxes (z bottom, clockwise
+    yaw) -> [N, M] bool, faces included."""
+    lib = load()
+    points = np.ascontiguousarray(points, np.float32)
+    boxes = np.ascontiguousarray(boxes, np.float32)
+    if points.ndim != 2 or points.shape[1] < 3 or boxes.ndim != 2 \
+            or boxes.shape[1] != 7:
+        raise ValueError(f"points must be [N, F>=3] and boxes [M, 7], got "
+                         f"{points.shape} and {boxes.shape}")
+    out = np.zeros((points.shape[0], boxes.shape[0]), np.uint8)
+    if points.size and boxes.size:
+        lib.points_in_rbbox(points, points.shape[0], points.shape[1],
+                            boxes, boxes.shape[0], out)
     return out.astype(bool)
 
 

@@ -6,6 +6,10 @@ linear zyx key, padding last.
 
 - :func:`voxelize_np` (host, the loader's path): per-voxel contents and the
   max_voxels cut keep first-come semantics.
+- :func:`bound_points_np` crops points to a range box;
+  :func:`points_to_bev_np` (host) and :func:`points_to_bev` (a tensor
+  function on the caller's device) rasterise points into a handcrafted BEV
+  map. No path of the detector calls these three.
 - :func:`voxelize` (device serving, K8 ``csrc/voxelize.cu`` on the card,
   :func:`voxelize_plain` on the CPU): first-come slots inside a voxel (the
   plain version by a stable key sort, K8 without one), and the max_voxels
@@ -13,6 +17,8 @@ linear zyx key, padding last.
   the cap both give the same voxels.
 """
 from __future__ import annotations
+
+from typing import Sequence
 
 import numpy as np
 import torch
@@ -141,3 +147,56 @@ def voxelize(points: torch.Tensor, n_points: torch.Tensor, cfg: VoxelConfig):
                    voxels.data_ptr(), coords.data_ptr(),
                    num_points.data_ptr())
     return voxels, coords, num_points
+
+
+def bound_points_np(points: np.ndarray, pcr: Sequence[float]) -> np.ndarray:
+    """The [N, F] points inside the range box (xmin, ymin, zmin, xmax,
+    ymax, zmax), lower faces included."""
+    m = ((points[:, 0] >= pcr[0]) & (points[:, 0] < pcr[3])
+         & (points[:, 1] >= pcr[1]) & (points[:, 1] < pcr[4])
+         & (points[:, 2] >= pcr[2]) & (points[:, 2] < pcr[5]))
+    return points[m]
+
+
+def points_to_bev_np(points: np.ndarray, cfg: VoxelConfig) -> np.ndarray:
+    """[N, 4] points (xyz, reflectance) -> [Z + 2, H, W] float32 BEV map:
+    channels 0..Z-1 the occupancy of each z bin, Z the largest
+    reflectance in each BEV cell (0 where empty) and Z + 1 its point
+    count (the reference's points_to_bev_kernel)."""
+    gx, gy, gz = (int(g) for g in cfg.grid_size)
+    pcr = np.asarray(cfg.point_cloud_range, np.float32)
+    vs = np.asarray(cfg.voxel_size, np.float32)
+    c = np.floor((points[:, :3] - pcr[:3]) / vs).astype(np.int64)
+    ok = np.all((c >= 0) & (c < np.array([gx, gy, gz])), axis=1)
+    x, y, z = c[ok, 0], c[ok, 1], c[ok, 2]
+    bev = np.zeros((gz + 2, gy, gx), np.float32)
+    bev[z, y, x] = 1.0
+    np.maximum.at(bev[gz], (y, x), points[ok, 3])
+    np.add.at(bev[gz + 1], (y, x), 1.0)
+    return bev
+
+
+def points_to_bev(points: torch.Tensor, valid: torch.Tensor,
+                  cfg: VoxelConfig) -> torch.Tensor:
+    """points_to_bev_np on the points' device over fixed-shape input:
+    [N, 4] float32 points and an [N] bool mask of the rows to count."""
+    gx, gy, gz = (int(g) for g in cfg.grid_size)
+    dev = points.device
+    pcr = torch.tensor(cfg.point_cloud_range[:3], dtype=torch.float32,
+                       device=dev)
+    vs = torch.tensor(cfg.voxel_size, dtype=torch.float32, device=dev)
+    grid = torch.tensor([gx, gy, gz], device=dev)
+    c = torch.floor((points[:, :3] - pcr) / vs).to(torch.int64)
+    ok = valid & ((c >= 0) & (c < grid)).all(-1)
+    c = torch.where(ok[:, None], c, 0)
+    cell = c[:, 1] * gx + c[:, 0]                          # y * W + x
+    okf = ok.to(torch.float32)
+    occ = torch.zeros(gz * gy * gx, dtype=torch.float32, device=dev)
+    occ.scatter_reduce_(0, c[:, 2] * (gy * gx) + cell, okf, "amax")
+    inten = torch.zeros(gy * gx, dtype=torch.float32, device=dev)
+    inten.scatter_reduce_(0, cell, torch.where(ok, points[:, 3], 0.0),
+                          "amax")
+    dens = torch.zeros(gy * gx, dtype=torch.float32, device=dev)
+    dens.index_put_((cell,), okf, accumulate=True)
+    return torch.cat([occ.view(gz, gy, gx), inten.view(1, gy, gx),
+                      dens.view(1, gy, gx)])

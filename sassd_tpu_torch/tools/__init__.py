@@ -6,6 +6,8 @@ root (``python -m sassd_tpu_torch.tools.<name> ...``):
   create_data                  info files, reduced scans, GT database
   make_synth_corpus            a synthetic multi-class corpus + GT database
   import_reference_checkpoint  a reference SA-SSD .pth -> a port .pt
+  visualize                    a BEV picture of a scan, GT and detections
+  sweep_guided                 the PSWarp candidate cap's positive recall
 
 They take the flags of the JAX package's ``tools/`` scripts of the same
 names, and ``--device`` (default ``cuda``; ``cpu`` runs the plain
